@@ -1,0 +1,51 @@
+"""Declarative query-plan subsystem (port of ``repro.relational.planner``).
+
+* :mod:`.logical` — the relational operator DAG and its expression language;
+* :mod:`.physical` — the cost-based physical planner and ``explain()``;
+* :mod:`.executor` — runs a physical plan on the simulated fabric;
+* :mod:`.tpch` — the nine TPC-H queries as logical plans.
+"""
+
+from .logical import (
+    Aggregate,
+    Expr,
+    Filter,
+    GroupBy,
+    HashJoin,
+    Project,
+    Scan,
+    TopK,
+    col,
+    lit,
+    where,
+)
+from .physical import (
+    PhysicalPlan,
+    PlannerConfig,
+    choose_join_strategy,
+    exchange_bytes,
+    plan_physical,
+    use_preaggregation,
+)
+from .executor import compile_plan
+
+__all__ = [
+    "Aggregate",
+    "Expr",
+    "Filter",
+    "GroupBy",
+    "HashJoin",
+    "Project",
+    "Scan",
+    "TopK",
+    "col",
+    "lit",
+    "where",
+    "PhysicalPlan",
+    "PlannerConfig",
+    "choose_join_strategy",
+    "exchange_bytes",
+    "plan_physical",
+    "use_preaggregation",
+    "compile_plan",
+]
