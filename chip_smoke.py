@@ -8,14 +8,17 @@ Phases, in order; any failure raises and the process exits non-zero:
 
 1. device — the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions; a machine without CUDA exits 2 before printing any result;
-2. build — ``nvcc`` builds the pack kernels from ``csrc/hash_partition.cu``
-   for ``sm_90a`` (seconds and ``-Xptxas -v`` printed);
-3. kernels — ``hash_partition_pack`` (P=8, 10 % invalid rows) and
-   ``partition_pack`` (3 bins, with padding ids) at the main path's shapes
-   (S=8 shards x one shard's lineitem rows, padded to 256), held bit for bit
-   against their plain PyTorch versions on the card, and timed with CUDA
-   events (mean over 50 launches after warm-up) beside the plain versions
-   and the memory bound (bytes / 3.35 TB/s);
+2. build — ``nvcc`` builds ``csrc/hash_partition.cu`` and
+   ``csrc/moe_dispatch.cu`` for ``sm_90a``, both at once (seconds and
+   ``-Xptxas -v`` printed);
+3. kernels — every ported kernel at its main path's shapes, held bit for bit
+   against its plain PyTorch version on the card and timed with CUDA events
+   (mean over 50 launches after warm-up) beside the plain version and the
+   memory bound (bytes / 3.35 TB/s): ``hash_partition_pack`` (P=8, 10 %
+   invalid rows), ``partition_pack`` (3 bins, with padding ids) and
+   ``hash_partition`` (P=8) at S=8 shards x one shard's lineitem rows;
+   ``moe_dispatch`` at OLMoE's decode shape (S=8, T=64, E=64, C=4) and
+   prefill shape (S=8, T=16,384, C=320), on router-ordered expert ids;
 4. queries — TPC-H at ``--sf`` through the port's planner and executor:
    Q1, Q6, Q17, Q3 on 8 shards, Q3 and Q18 on 2 pods x 4, and Q3 again
    with an explicit ``impl="round_robin", num_chunks=2``.  Every answer is
@@ -24,13 +27,28 @@ Phases, in order; any failure raises and the process exits non-zero:
    show each shuffle edge's pack went through the kernels.  The Q3 rerun
    must give the same order keys and revenues within rtol 1e-6
    (``scatter_add_`` on the card sums floats in no fixed order);
-5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-6. the last line: ``{"ok": true, "device": {...}}``.
+5. serving — OLMoE-1B-7B at full width (random weights from ``--seed``, f32
+   master params, bf16 compute), expert-parallel over 8 simulated units
+   flat and over 2 pods x 4.  A uniform workload (64 requests x 256 prompt
+   tokens x 16 new, batch 64) through the static engine (no multiplexer:
+   plain pack, round-robin) and the continuous engine (tuned multiplexer:
+   the ``moe_dispatch`` kernel pack) must give identical greedy tokens; one
+   prefill's logits must be bit-identical between the two packs; the
+   continuous runs must launch ``moe_dispatch`` once per MoE layer of every
+   prefill and decode step, the static runs never.  A mixed workload
+   (``make_mixed_workload``: prompts 128/256/512, 1-32 new tokens, 4
+   arrivals a step; 128 requests flat, 64 on 2 x 4) must complete with ``alloc.check()`` holding and in
+   fewer slot-steps than static batching.  Prefill and decode tokens/s,
+   TTFT p50/p99 and peak memory are printed; one prefill and one decode
+   step are profiled;
+6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
-``torch.cuda.synchronize()``, taken on each query's second run.
-``--profile`` adds a third run under ``torch.profiler`` and prints device
-time by kernel and the device's busy share of the wall time.
+``torch.cuda.synchronize()``, taken on each query's second run and around
+every prefill and decode step.  ``--profile`` adds a third run of each query
+under ``torch.profiler`` and prints device time by kernel and the device's
+busy share of the wall time.
 """
 
 from __future__ import annotations
@@ -48,6 +66,13 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 N_SHARDS = 8
 ALL_RUNS = ("q1", "q6", "q17", "q3", "q3_pods", "q18_pods", "q3_rr")
+# serving: batch, prompt tokens, new tokens, cache positions (the uniform
+# workload); mixed requests on 8 units and on 2 x 4 (fewer, for time)
+SERVE_SHAPE = (64, 256, 16, 545)
+MIXED_REQUESTS = {1: 128, 2: 64}
+# Ported kernels no main path calls (the reference calls hash_partition
+# only from its tests): checked and timed, never required to launch.
+OFF_PATH = ("hash_partition",)
 
 
 def _nvidia_smi() -> str:
@@ -56,6 +81,23 @@ def _nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import moe_dispatch as md
+
+    hp.reset_launch_counts()
+    md.reset_launch_counts()
+
+
+def _counts() -> dict:
+    """Every kernel's launches since the last :func:`_reset_counts`."""
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import moe_dispatch as md
+
+    return {**hp.LAUNCHES, **md.LAUNCHES}
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -77,11 +119,51 @@ def _max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
 
 
+def _kernel_row(name, replaces, source, label, nbytes, kern, plain, note=""):
+    """Run a kernel and its plain version once, require bit-equality, time
+    both with CUDA events and compute the bytes bound."""
+    import torch
+
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} ({label}): kernel disagrees with its plain version "
+                             f"(max |err| {err})")
+    ms = _time_ms(kern)
+    plain_ms = _time_ms(plain)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(
+        f"[kernels] {name}: {label} bit-exact{note}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B), "
+        f"{100 * bound_ms / ms:.2f}% of bound"
+    )
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, match=True,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        library_ms=None,
+    )
+
+
+def _topk_expert_ids(S: int, tokens: int, E: int, k: int, gen):
+    """Expert ids ``[S, tokens * k]`` as the router gives them: each token's
+    k distinct experts in descending-score order, tokens in arrival order."""
+    import torch
+
+    scores = torch.rand((S, tokens, E), generator=gen, device="cuda")
+    return torch.topk(scores, k, dim=-1).indices.to(torch.int32).reshape(S, tokens * k).contiguous()
+
+
 def phase_kernels(sf: float, seed: int) -> list[dict]:
+    """Every ported kernel at the shapes its main path gives it, against its
+    plain version.  Returns one row per kernel for the JSON line (the MoE
+    dispatch at the prefill shape; its decode shape is printed too)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ref
     from repro_torch.relational.datagen import table_capacity
 
@@ -93,41 +175,46 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
     valid = torch.from_numpy((rng.random((S, T)) >= 0.1).astype(np.int32)).to(dev)
     # the pod hop: bins 0..2 (2 pods + overflow), 3 is the padding id
     dest = torch.from_numpy(rng.integers(0, 4, (S, T), dtype=np.int32)).to(dev)
-    out = []
-    for name, replaces, bins, read_b, write_b, kern, plain in (
-        (
-            "hash_partition_pack", "src/repro/kernels/hash_partition.py:161", 9, 8, 8,
+    hp_src = "src/repro_torch/kernels/csrc/hash_partition.cu"
+    rows = [
+        _kernel_row(
+            "hash_partition_pack", "src/repro/kernels/hash_partition.py:161", hp_src,
+            f"S={S} T={T} P=8", S * T * 16 + S * (T // 256) * 9 * 4,
             lambda: hp.hash_partition_pack(keys, valid, 8),
             lambda: ref.hash_partition_pack_ref(keys, valid, 8),
         ),
-        (
-            "partition_pack", "src/repro/kernels/hash_partition.py:111", 3, 4, 4,
+        _kernel_row(
+            "partition_pack", "src/repro/kernels/hash_partition.py:111", hp_src,
+            f"S={S} T={T} bins=3", S * T * 8 + S * (T // 256) * 3 * 4,
             lambda: hp.partition_pack(dest, 3),
             lambda: ref.partition_pack_ref(dest, 3),
         ),
-    ):
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
-        match = all(torch.equal(g, w) for g, w in zip(got, want))
-        if not match:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version (max |err| {err})")
-        ms = _time_ms(kern)
-        plain_ms = _time_ms(plain)
-        nbytes = S * T * (read_b + write_b) + S * (T // 256) * bins * 4
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(
-            f"[kernels] {name}: S={S} T={T} bins={bins} bit-exact; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B), "
-            f"{100 * bound_ms / ms:.1f}% of bound"
-        )
-        out.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/hash_partition.cu",
-            replaces=replaces, launches=0, match=True, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+        _kernel_row(
+            "hash_partition", "src/repro/kernels/hash_partition.py:81", hp_src,
+            f"S={S} T={T} P=8", S * T * 8 + S * (T // 256) * 8 * 4,
+            lambda: hp.hash_partition(keys, 8),
+            lambda: ref.hash_partition_ref(keys, 8),
+        ),
+    ]
+    # OLMoE-1B-7B: 64 experts, top-8, on 8 units.  Decode: 64 slots -> 8
+    # tokens a unit, C = 4.  Prefill: 64 x 256 prompt tokens -> 2048 a unit,
+    # C = 320.  Both with capacity factor 1.25, so some rows drop.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, k = 64, 8
+    moe_rows = []
+    for phase, tokens, C in (("decode", 8, 4), ("prefill", 2048, 320)):
+        ids = _topk_expert_ids(S, tokens, E, k, gen)
+        T_m = tokens * k
+        dropped = int((md.moe_dispatch(ids, E, C)[0] == E * C).sum())
+        moe_rows.append(_kernel_row(
+            "moe_dispatch", "src/repro/kernels/moe_dispatch.py:68",
+            "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+            f"{phase} S={S} T={T_m} E={E} C={C}", S * T_m * 8 + S * E * 4,
+            lambda ids=ids, C=C: md.moe_dispatch(ids, E, C),
+            lambda ids=ids, C=C: ref.moe_dispatch_ref(ids, E, C),
+            note=f", {dropped} of {S * T_m} rows to the drop bin",
         ))
-    return out
+    return rows + [moe_rows[1]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -215,7 +302,7 @@ def phase_queries(sf: float, seed: int, runs: list[str], profile: bool = False) 
     wants: dict = {}
     results: dict = {}
     torch.cuda.reset_peak_memory_stats()
-    hp.reset_launch_counts()  # the main path starts here
+    _reset_counts()  # the main path starts here
     for run in runs:
         q, knobs = specs[run]
         ctx = ExecutionContext(num_shards=N_SHARDS, device="cuda", **knobs)
@@ -227,7 +314,7 @@ def phase_queries(sf: float, seed: int, runs: list[str], profile: bool = False) 
         dropped = int(out[1])
         got = runner.finalize(out)
         got = pq.finalize(got) if pq.finalize else got
-        delta = {k: hp.LAUNCHES[k] - before[k] for k in before}
+        delta = {k: hp.LAUNCHES[k] - before[k] for k in ("hash_partition_pack", "partition_pack")}
         mux = runner.mux
         edges = len(plan.shuffle_stats)
         # every shuffle packs through the kernels: one hash_partition_pack
@@ -270,10 +357,229 @@ def phase_queries(sf: float, seed: int, runs: list[str], profile: bool = False) 
             raise AssertionError("q3 round_robin x2 chunks disagrees with the tuned run")
         print("[queries] q3_rr: same order keys as the tuned q3, revenues within rtol 1e-6 "
               "(scatter_add_ on the card sums floats in no fixed order)")
-    launches = dict(hp.LAUNCHES)
+    launches = _counts()
     print(f"[queries] launches over the main path: {launches}")
     print(f"[queries] torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     return launches
+
+
+class _Timed:
+    """Wall seconds of every call of a model-API function, each ended by
+    ``torch.cuda.synchronize()`` (the engines wait for every step's tokens
+    anyway, so the syncs cost nothing extra)."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls, self.tokens = fn, 0.0, 0, 0
+
+    def __call__(self, params, batch, *rest):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(params, batch, *rest)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        # prefill: every row of the batch, padding rows included
+        self.tokens += batch["tokens"].numel() if isinstance(batch, dict) else batch.shape[0]
+        return out
+
+
+def _timed_api(api):
+    import dataclasses
+
+    return dataclasses.replace(
+        api, prefill=_Timed(api.prefill), decode_step=_Timed(api.decode_step),
+        decode_step_slots=_Timed(api.decode_step_slots),
+    )
+
+
+def _serving_line(tag: str, api, reqs, stats: dict) -> None:
+    import numpy as np
+
+    pre, dec = api.prefill, api.decode_step_slots if api.decode_step_slots.calls else api.decode_step
+    padded_prefill_tokens = pre.tokens
+    decode_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+    ttft = [r.ttft_s for r in reqs if r.ttft_s is not None]
+    line = (
+        f"[serving] {tag}: {len(reqs)} requests; prefill {pre.calls} calls, "
+        f"{stats['prefill_tokens']} prompt tokens ({padded_prefill_tokens} with padding rows) "
+        f"in {pre.seconds:.3f} s = {stats['prefill_tokens'] / pre.seconds:.1f} prompt tok/s "
+        f"({padded_prefill_tokens / pre.seconds:.1f} tok/s processed); decode {dec.calls} steps, "
+        f"{decode_tokens} tokens in {dec.seconds:.3f} s = {decode_tokens / dec.seconds:.1f} tok/s "
+        f"({1e3 * dec.seconds / max(dec.calls, 1):.2f} ms/step); slot_steps={stats['slot_steps']}"
+    )
+    if ttft:
+        line += (f"; TTFT p50 {1e3 * float(np.quantile(ttft, 0.5)):.1f} ms, "
+                 f"p99 {1e3 * float(np.quantile(ttft, 0.99)):.1f} ms")
+    print(line)
+
+
+def _profile_serving(tag: str, fn) -> None:
+    """One call under ``torch.profiler``: device busy share of its wall time
+    and the top device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    print(f"[profile] {tag}: wall {wall * 1e3:.2f} ms under the profiler; device busy "
+          f"{busy_us / 1e3:.2f} ms = {100 * busy_us / 1e6 / wall:.1f}% of wall")
+    for e in rows[:8]:
+        print(f"[profile] {tag}:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    for e in rows:
+        if "dispatch_kernel" in e.key:
+            print(f"[profile] {tag}: moe_dispatch device time {e.self_device_time_total / 1e3:.4f} ms "
+                  f"over {e.count} launches = {e.self_device_time_total / 1e3 / e.count:.4f} ms each")
+
+
+def phase_serving(seed: int) -> dict:
+    """OLMoE-1B-7B at full width in bf16, expert-parallel over 8 simulated
+    units, flat and 2 pods x 4, through both engines.  Returns every
+    kernel's launches over the continuous runs (the main path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import make_mesh
+    from repro_torch.core.multiplexer import use_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import registry
+    from repro_torch.serve import (ContinuousEngine, Request, ServeEngine, generate_bucketed,
+                                   make_mixed_workload)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("olmoe-1b-7b")
+    base_api = registry.build(cfg)
+    t0 = time.perf_counter()
+    params = base_api.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serving] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, vocab {cfg.vocab_size}, {cfg.dtype} compute; "
+          f"{n_params} f32 params ({4 * n_params} B) from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    L = cfg.num_layers
+    B, plen, new, cap = SERVE_SHAPE
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, plen, dtype=np.int32) for _ in range(B)]
+    main_path = dict.fromkeys(_counts(), 0)
+
+    def continuous(api, reqs, tag):
+        """One continuous run on the main path: counts set to 0 just before
+        it and read just after; ``moe_dispatch`` once per MoE layer of
+        every prefill and decode step."""
+        _reset_counts()
+        ce = ContinuousEngine(api, batch_size=B, capacity=cap)
+        ce.serve(params, reqs)
+        counts = _counts()
+        want = L * (ce.stats["prefill_calls"] + ce.stats["decode_steps"])
+        if counts["moe_dispatch"] != want or ce.mux.pack_impl != "cuda":
+            raise AssertionError(f"{tag}: moe_dispatch launched {counts['moe_dispatch']} times, "
+                                 f"expected {want} ({ce.mux.describe()})")
+        for k, v in counts.items():
+            main_path[k] += v
+        return ce, counts["moe_dispatch"]
+
+    def static(api, reqs, tag, bucketed):
+        _reset_counts()
+        se = ServeEngine(api, batch_size=B, capacity=cap)
+        generate_bucketed(se, params, reqs) if bucketed else se.generate(params, reqs)
+        if _counts()["moe_dispatch"] != 0:
+            raise AssertionError(f"{tag}: the static engine launched moe_dispatch")
+        return se
+
+    for pods in (1, 2):
+        tag = "8 units" if pods == 1 else "2 pods x 4"
+        with mesh_context(MeshContext(make_mesh(N_SHARDS, pods))):
+            # -- uniform: static (plain pack) vs continuous (kernel pack) --
+            s_api = _timed_api(base_api)
+            reqs_s = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+            se = static(s_api, reqs_s, f"{tag} uniform", bucketed=False)
+            _serving_line(f"{tag} uniform static", s_api, reqs_s, se.stats)
+
+            c_api = _timed_api(base_api)
+            reqs_c = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+            ce, launched = continuous(c_api, reqs_c, f"{tag} uniform")
+            _serving_line(f"{tag} uniform continuous", c_api, reqs_c, ce.stats)
+            if [r.out_tokens for r in reqs_c] != [r.out_tokens for r in reqs_s]:
+                raise AssertionError(f"{tag}: continuous and static greedy tokens differ")
+            print(f"[serving] {tag}: static and continuous greedy tokens identical "
+                  f"({B} x {new}); moe_dispatch launched {launched} = {L} layers x "
+                  f"({ce.stats['prefill_calls']} prefills + {ce.stats['decode_steps']} decode steps), "
+                  f"0 in the static run; knobs {ce.mux.describe()}")
+
+            # -- one prefill: kernel pack vs plain pack, bit for bit --------
+            batch = {"tokens": torch.from_numpy(np.stack(prompts)).cuda()}
+            with use_multiplexer(ce.mux):
+                k_logits, _ = base_api.prefill(params, batch)
+            with use_multiplexer(dataclasses.replace(ce.mux, pack_impl="torch")):
+                p_logits, _ = base_api.prefill(params, batch)
+            if not torch.equal(k_logits, p_logits):
+                raise AssertionError(f"{tag}: prefill logits differ between the packs")
+            if not torch.isfinite(k_logits).all():
+                raise AssertionError(f"{tag}: non-finite logits")
+            print(f"[serving] {tag}: prefill logits [{B}, {cfg.vocab_size}] bit-identical, "
+                  f"kernel pack vs plain pack; all finite")
+            del k_logits, p_logits
+            if pods == 1:
+                with use_multiplexer(ce.mux):
+                    _profile_serving(f"{tag} prefill [{B}, {plen}]",
+                                     lambda: base_api.prefill(params, batch))
+                    cache = base_api.init_cache(B, cap)
+                    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+                    pos = torch.full((B,), plen, dtype=torch.int32, device="cuda")
+                    _profile_serving(f"{tag} decode step B={B}",
+                                     lambda: base_api.decode_step_slots(params, toks, cache, pos))
+                    del cache
+            del batch
+
+            # -- mixed: lengths 128/256/512, 1-32 new, 4 arrivals a step ----
+            mixed = make_mixed_workload(cfg.vocab_size, MIXED_REQUESTS[pods],
+                                        (plen // 2, plen, 2 * plen), 2 * new, rng, arrival_rate=4)
+            mixed_s = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in mixed]
+            m_api = _timed_api(base_api)
+            ce2, launched = continuous(m_api, mixed, f"{tag} mixed")
+            ce2.alloc.check()
+            if not all(r.done and 1 <= len(r.out_tokens) <= r.max_new_tokens for r in mixed):
+                raise AssertionError(f"{tag} mixed: a request did not complete")
+            _serving_line(f"{tag} mixed continuous", m_api, mixed, ce2.stats)
+            sm_api = _timed_api(base_api)
+            st = static(sm_api, mixed_s, f"{tag} mixed", bucketed=True)
+            _serving_line(f"{tag} mixed static", sm_api, mixed_s, st.stats)
+            c, s_ = ce2.stats["slot_steps"], st.stats["slot_steps"]
+            if c >= s_:
+                raise AssertionError(f"{tag} mixed: continuous {c} slot-steps, static {s_}")
+            print(f"[serving] {tag} mixed: alloc.check() holds; slot_steps continuous={c} "
+                  f"static={s_} ({s_ / c:.2f}x fewer); moe_dispatch launched {launched} = {L} x "
+                  f"({ce2.stats['prefill_calls']} prefills + {ce2.stats['decode_steps']} decode steps)")
+    print(f"[serving] launches over the main path: {main_path}")
+    print(f"[serving] torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    del params
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -305,27 +611,34 @@ def main() -> int:
     print(f"[device] {kind}; python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
+    from repro_torch.kernels import build
     from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import moe_dispatch as md
 
     t0 = time.perf_counter()
-    hp.build()
-    print(f"[build] {hp.BUILD_INFO['path']}: nvcc {hp.BUILD_INFO['seconds']:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s")
-    for line in hp.BUILD_INFO["log"].splitlines():
-        print(f"[build] {line}")
+    build.build_all([hp.LIBRARY, md.LIBRARY])
+    print(f"[build] both libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    for lib in (hp.LIBRARY, md.LIBRARY):
+        print(f"[build] {lib.info['path']}: nvcc {lib.info['seconds']:.2f} s")
+        for line in lib.info["log"].splitlines():
+            print(f"[build] {line}")
 
     # 3. kernels against their plain versions
     kernels = phase_kernels(args.sf, args.seed)
 
-    # 4. queries
-    launches = phase_queries(args.sf, args.seed, runs, args.profile)
+    # 4. queries (the relational main path)
+    q_launches = phase_queries(args.sf, args.seed, runs, args.profile)
+
+    # 5. serving (the MoE main path)
+    s_launches = phase_serving(args.seed)
+    launches = {k: q_launches[k] + s_launches[k] for k in q_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        if k["launches"] <= 0:
+        if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 
-    # 5-6. results
+    # 6-7. results
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

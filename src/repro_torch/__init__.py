@@ -5,7 +5,12 @@ The JAX package ``repro`` is the reference; this package mirrors it module
 for module and imports nothing of it.  Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.
 
-- ``core``       — schedules, cost model, tuner, exchange fabric, multiplexer
-- ``kernels``    — hand-written Hopper kernels and their plain versions
-- ``relational`` — tables, datagen, stats, operators, planner, TPC-H
+- ``core``        — schedules, cost model, tuner, exchange fabric, multiplexer
+- ``kernels``     — hand-written Hopper kernels and their plain versions
+- ``relational``  — tables, datagen, stats, operators, planner, TPC-H
+- ``configs``     — model configs (OLMoE-1B-7B)
+- ``distributed`` — the mesh context the model code reads
+- ``models``      — GQA MoE transformer, expert parallelism over the fabric
+- ``serve``       — static and continuous-batching engines
+- ``launch``      — command-line serving entry point
 """

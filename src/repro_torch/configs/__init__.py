@@ -1,0 +1,50 @@
+"""Architecture configs of the port (counterpart of ``repro.configs``).
+
+``get_config(name)`` returns the full-size :class:`~.base.ModelConfig`;
+``get_smoke_config(name)`` the reduced same-family config the CPU tests
+use.  Only the architectures whose model family the port builds are here;
+any other known name raises and names the slice that brings it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig
+
+_MODULES = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+}
+
+# Known architectures the port does not build yet, and the slice that will.
+_LATER_SLICES = {
+    "minicpm-2b": "the dense-model slice (ROADMAP A.12)",
+    "qwen2.5-3b": "the dense-model slice (ROADMAP A.12)",
+    "deepseek-67b": "the dense-model slice (ROADMAP A.12)",
+    "qwen1.5-32b": "the dense-model slice (ROADMAP A.12)",
+    "qwen2-vl-2b": "the dense-model slice (ROADMAP A.12: M-RoPE, patch prefix)",
+    "deepseek-v2-lite-16b": "the dense-model slice (ROADMAP A.12: MLA, shared experts)",
+    "mamba2-1.3b": "the SSM slice (ROADMAP A.14)",
+    "zamba2-7b": "the SSM slice (ROADMAP A.14)",
+    "whisper-medium": "the Whisper slice (ROADMAP A.15)",
+    "train100m": "the training slice (ROADMAP A.16)",
+}
+
+
+def _module(name: str):
+    if name in _LATER_SLICES:
+        raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with {_LATER_SLICES[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(set(_MODULES) | set(_LATER_SLICES))}")
+    return importlib.import_module(f"{__name__}.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE
+
+
+__all__ = ["ModelConfig", "get_config", "get_smoke_config"]

@@ -24,9 +24,12 @@ over a shuffle axis of ``n`` units:
 
 The constants are the reference's TPU (``topology.V5E``): the port uses
 them so that it plans exactly as the reference does, and its ``modeled_s``
-is a TPU figure, not an H100 prediction.  Left for later slices: the live
-mesh probing (``tune_multiplexer``, ``measure_shuffle_config``,
-``calibrate_chip``) and the EP/MoE dispatch pricing.
+is a TPU figure, not an H100 prediction.  :func:`tune_multiplexer` takes
+its shuffle axis and pod count from a simulated mesh; :func:`ep_capacity`
+and :func:`decode_table_stats` size and describe the MoE layer's per-step
+dispatch.  Left for later slices: the live mesh probing (``refine=True``,
+``measure_shuffle_config``, ``calibrate_chip``) and the EP layer pricing
+(``tune_ep_dispatch``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import dataclasses
 import math
 from typing import Sequence
 
+from .hybrid import plan_for_mesh
 from .topology import ChipSpec, PACK_IMPLS, V5E, pack_time, pod_broadcast_time, shuffle_time
 
 PIPELINE_CANDIDATES = (1, 2, 4, 8)
@@ -75,6 +79,39 @@ class TunedConfig:
     candidates: tuple = ()
     cross_pod: str | None = None
     cross_pod_modeled_s: dict | None = None
+
+
+def ep_capacity(
+    tokens_per_shard: int, top_k: int, num_experts: int, capacity_factor: float
+) -> int:
+    """Per-expert message-buffer capacity (the paper's fixed-size reusable
+    pool): ``ceil(capacity_factor * fair_share)`` with a floor of 4.
+
+    The one definition: the MoE layer sizes its dispatch buffers with it and
+    :func:`decode_table_stats` prices them with it.
+    """
+    fair = tokens_per_shard * top_k / num_experts
+    return max(int(math.ceil(capacity_factor * fair)), 4)
+
+
+def decode_table_stats(cfg, batch_size: int, num_shards: int) -> TableStats:
+    """Shape of the EP token dispatch for ONE decode step, per parallel unit.
+
+    Each unit packs ``batch_size / num_shards`` tokens x ``top_k`` choices
+    into its ``E x C`` per-expert capacity buffers (``C`` from
+    :func:`ep_capacity`) and ships those: ``rows = E * C`` rows of
+    ``d_model`` activations in the compute dtype.  ``cfg`` is duck-typed
+    (``num_experts``/``top_k``/``capacity_factor``/``d_model``/``dtype``).
+    """
+    E = int(getattr(cfg, "num_experts", 0) or 1)
+    k = int(getattr(cfg, "top_k", 0) or 1)
+    t_loc = max(1, batch_size // max(num_shards, 1))
+    C = ep_capacity(t_loc, k, E, float(getattr(cfg, "capacity_factor", 1.0)))
+    itemsize = _DTYPE_BYTES[str(getattr(cfg, "dtype", "float32"))]
+    return TableStats(rows=E * C, row_bytes=int(cfg.d_model) * itemsize)
+
+
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
 
 
 def exchange_makespan(
@@ -242,9 +279,42 @@ def tune_config(
     )
 
 
+def _shuffle_axis(mesh) -> tuple[str | None, int, int]:
+    """The mesh's shuffle axis (largest small-network axis) and pod count."""
+    plan = plan_for_mesh(mesh.axis_names, mesh.shape)
+    best, size, pods = None, 1, 1
+    for ax, s in zip(mesh.axis_names, mesh.shape):
+        if ax in plan.large_axes:
+            pods *= int(s)
+        elif s > size:
+            best, size = ax, s
+    return best, size, pods
+
+
+def tune_multiplexer(
+    mesh, table_stats: TableStats | Sequence[TableStats], refine: bool = False
+) -> TunedConfig:
+    """The knobs that minimise the modeled makespan of these exchanges on
+    a simulated :class:`~repro_torch.core.exchange.Mesh`: its largest
+    small-network axis is the shuffle axis, and a two-level mesh prices the
+    two-level exchange.  ``refine=True`` (timing the best candidates on a
+    live mesh) raises: mesh probing comes with a later slice.
+    """
+    if refine:
+        raise NotImplementedError(
+            "tune_multiplexer(refine=True) probes a live mesh; it comes with the "
+            "multi-process fabric slice (ROADMAP A.10)"
+        )
+    axis, n, num_pods = _shuffle_axis(mesh)
+    return tune_config(n if axis is not None else 1, table_stats, num_pods=num_pods)
+
+
 __all__ = [
     "TableStats",
     "TunedConfig",
+    "ep_capacity",
+    "decode_table_stats",
+    "tune_multiplexer",
     "exchange_makespan",
     "pod_strategy_times",
     "candidate_configs",

@@ -35,13 +35,14 @@ relational layer raises on any nonzero count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Literal
 
 import torch
 
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import fibonacci_hash, partition_pack_ref
-from .schedule import Schedule, make_schedule
+from .schedule import make_schedule
 
 AllToAllImpl = Literal["xla", "round_robin", "one_factorization"]
 PackImpl = Literal["torch", "cuda"]
@@ -115,15 +116,18 @@ def xla_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _ungroup(_group(x, mesh, axis).transpose(1, 2), mesh, axis)
 
 
-def _source_tables(schedule: Schedule) -> list[list[int]]:
-    """Per phase: the unit each unit receives from."""
-    out = []
-    for phase in schedule.phases:
-        src = [0] * schedule.n
+@functools.lru_cache(maxsize=64)
+def _source_index(n: int, schedule: str, device: torch.device) -> torch.Tensor:
+    """``[phases, n]``: per phase, the unit each unit receives from, built
+    once per (axis size, schedule, device): a copy from host memory in
+    every phase would make the host wait for the card each time."""
+    table = []
+    for phase in make_schedule(n, schedule).phases:
+        src = [0] * n
         for a, b in phase:
             src[b] = a
-        out.append(src)
-    return out
+        table.append(src)
+    return torch.tensor(table, device=device)
 
 
 def scheduled_all_to_all(
@@ -154,8 +158,7 @@ def scheduled_all_to_all(
     dev = torch.arange(A, device=x.device)
     y[:, dev, dev] = g[:, dev, dev]  # own chunk stays put
     sub = x.shape[2] // num_chunks if num_chunks > 1 else 0
-    for src in _source_tables(make_schedule(A, schedule)):
-        src = torch.tensor(src, device=x.device)
+    for src in _source_index(A, schedule, x.device):
         if num_chunks == 1:
             y[:, dev, src] = g[:, src, dev]
         else:
@@ -454,6 +457,80 @@ def hash_shuffle_two_level(
     return out_rows, out_valid, dropped
 
 
+# ----------------------------------------------------------------------------
+# Generic two-level dispatch/combine: the token-routing fabric (paper §3.1).
+# ----------------------------------------------------------------------------
+
+def _hop1_impl(impl: AllToAllImpl) -> AllToAllImpl:
+    """Coarse-hop transport: shift phases are valid for every pod count
+    (one_factorization needs even n), xla keeps the monolithic baseline."""
+    return "xla" if impl == "xla" else "round_robin"
+
+
+def dispatch_two_level(
+    x: torch.Tensor,
+    mesh: Mesh,
+    inner_axis: str,
+    outer_axis: str,
+    impl: AllToAllImpl = "round_robin",
+    num_chunks: int = 1,
+) -> torch.Tensor:
+    """All-to-all over the JOINT ``(outer, inner)`` axis, as two hops.
+
+    ``x [S, N, ...]`` with ``N = P * n``: ``x[s, q * n + j]`` is unit
+    ``s``'s chunk for pod ``q``'s unit ``j``; the result's ``[s, q * n + j]``
+    is the chunk ``s`` received from that unit, the contract of a flat
+    all-to-all over the joint axis.  Hop 1 ships ONE coarse message per peer
+    pod over ``outer_axis``; hop 2 delivers each sub-chunk to its in-pod
+    owner over ``inner_axis`` (``num_chunks`` splits hop 2's flattened
+    messages).  Both hops are pure permutations, so the result is
+    bit-identical to the flat route for every dtype.
+    """
+    P = mesh.size(outer_axis)
+    n = mesh.size(inner_axis)
+    if P == 1:
+        return all_to_all(x, mesh, inner_axis, impl=impl, num_chunks=num_chunks)
+    S, N = x.shape[:2]
+    assert N == P * n, f"message dim {N} != joint axis size {P} * {n}"
+    rest = tuple(x.shape[2:])
+    # Hop 1 (coarse): everything destined for pod q, contiguous.
+    h = all_to_all(x.reshape((S, P, n) + rest), mesh, outer_axis, impl=_hop1_impl(impl))
+    # h[s, q, j] = chunk from pod q (same inner index) for (my pod, j).
+    h2 = h.transpose(1, 2).reshape(S, n, -1)
+    # Hop 2 (fine): deliver to the in-pod owner j.
+    g = all_to_all(h2, mesh, inner_axis, impl=impl, num_chunks=num_chunks)
+    # g[s, j, q] = chunk from (q, j) for me; restore the flat (q, j) order.
+    return g.reshape((S, n, P) + rest).transpose(1, 2).reshape((S, N) + rest)
+
+
+def combine_two_level(
+    x: torch.Tensor,
+    mesh: Mesh,
+    inner_axis: str,
+    outer_axis: str,
+    impl: AllToAllImpl = "round_robin",
+    num_chunks: int = 1,
+) -> torch.Tensor:
+    """The return trip of :func:`dispatch_two_level` (same flat all-to-all
+    contract) with the hops mirrored: fine in-pod first, then ONE coarse
+    message per peer pod.  Also a pure permutation."""
+    P = mesh.size(outer_axis)
+    n = mesh.size(inner_axis)
+    if P == 1:
+        return all_to_all(x, mesh, inner_axis, impl=impl, num_chunks=num_chunks)
+    S, N = x.shape[:2]
+    assert N == P * n, f"message dim {N} != joint axis size {P} * {n}"
+    rest = tuple(x.shape[2:])
+    # Hop 1 (fine): group by destination inner index, shuffle in-pod.
+    x3 = x.reshape((S, P, n) + rest).transpose(1, 2).reshape(S, n, -1)
+    g = all_to_all(x3, mesh, inner_axis, impl=impl, num_chunks=num_chunks)
+    # g[s, j, q] -> h[s, q, j]: everything destined for pod q, contiguous.
+    h = g.reshape((S, n, P) + rest).transpose(1, 2)
+    # Hop 2 (coarse): one message per peer pod.
+    out = all_to_all(h, mesh, outer_axis, impl=_hop1_impl(impl))
+    return out.reshape((S, N) + rest)
+
+
 __all__ = [
     "AllToAllImpl",
     "PackImpl",
@@ -471,4 +548,6 @@ __all__ = [
     "pack_by_destination",
     "hash_shuffle",
     "hash_shuffle_two_level",
+    "dispatch_two_level",
+    "combine_two_level",
 ]

@@ -16,15 +16,21 @@ only this interface).  Knob values come from the plan-time tuner
   unchunked, with a warning.
 
 None of the knobs changes what is delivered, only how it is packed and
-phased.  Left for later slices: spill, MoE dispatch/combine, the streaming
-consume and gradient sync.
+phased.  :meth:`CommMultiplexer.dispatch` / :meth:`~CommMultiplexer.combine`
+carry the MoE layer's token routing over the same fabric, and
+:func:`use_multiplexer` makes a multiplexer ambient for code that cannot
+take one as an argument (the MoE layer inside a model step).  Left for
+later slices: spill, the streaming consume and gradient sync.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import math
 import warnings
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 
@@ -59,6 +65,49 @@ class CommMultiplexer:
             large_axes=list(self.plan.large_axes),
             num_pods=int(self.plan.num_pods),
         )
+
+    # -- token routing: the one exchange fabric -----------------------------
+
+    def all_to_all(self, x: torch.Tensor, axis_name: str) -> torch.Tensor:
+        """Flat all-to-all of ``x [S, A, m, ...]`` over ``axis_name`` under
+        this policy's transport; ``transport_chunks`` splits dim 2."""
+        self.plan.validate_axis_for_alltoall(axis_name)
+        transport = self._resolve_transport(x.shape[2] if x.ndim >= 3 else 1)
+        return exchange.all_to_all(x, self.mesh, axis_name, impl=self.impl, num_chunks=transport)
+
+    def _resolve_transport(self, message_dim: int) -> int:
+        """Transport sub-chunking that divides ``message_dim`` (else 1)."""
+        transport = self.transport_chunks
+        if transport > 1 and message_dim % transport:
+            warnings.warn(
+                f"transport_chunks={transport} does not divide message dim "
+                f"{message_dim}; shipping whole messages",
+                stacklevel=4,
+            )
+            transport = 1
+        return transport
+
+    def _route(self, two_level, x: torch.Tensor, axis_name: str) -> torch.Tensor:
+        pod = self.plan.pod_axis
+        if pod is None:
+            return self.all_to_all(x, axis_name)
+        self.plan.validate_axis_for_alltoall(axis_name)
+        transport = self._resolve_transport(self.plan.num_pods * math.prod(x.shape[2:]))
+        return two_level(x, self.mesh, axis_name, pod, impl=self.impl, num_chunks=transport)
+
+    def dispatch(self, x: torch.Tensor, axis_name: str) -> torch.Tensor:
+        """All-to-all token dispatch over the WHOLE mesh, pod axis included:
+        :meth:`all_to_all` on a single-level mesh; on a two-level mesh
+        ``x [S, N, ...]`` spans the joint ``(pod, axis_name)`` axis and takes
+        :func:`~repro_torch.core.exchange.dispatch_two_level` (one coarse
+        message per peer pod, then the fine in-pod all-to-all), bit-identical
+        to the flat route."""
+        return self._route(exchange.dispatch_two_level, x, axis_name)
+
+    def combine(self, x: torch.Tensor, axis_name: str) -> torch.Tensor:
+        """The return trip of :meth:`dispatch` (fine in-pod hop first, then
+        one coarse message per peer pod); same contract."""
+        return self._route(exchange.combine_two_level, x, axis_name)
 
     def _resolve_chunks(self, rows: int, capacity: int) -> tuple[int, int]:
         """Chunk knobs that actually divide this shuffle's shapes, warning
@@ -173,9 +222,30 @@ def make_multiplexer(
     pipeline_chunks: int = 1,
     transport_chunks: int = 1,
     cross_pod: str = "broadcast",
+    auto: bool = False,
+    table_stats=None,
 ) -> CommMultiplexer:
     """Build the multiplexer for a mesh; verifies every shuffle-axis
-    schedule once (the paper's connection setup before query processing)."""
+    schedule once (the paper's connection setup before query processing).
+
+    With ``auto=True`` every knob comes from
+    :func:`repro_torch.core.autotune.tune_multiplexer` for ``table_stats``
+    (one :class:`~repro_torch.core.autotune.TableStats` per exchange the
+    multiplexer will carry) instead of from the arguments.
+    """
+    if auto:
+        from .autotune import tune_multiplexer
+
+        if table_stats is None:
+            raise ValueError(
+                "make_multiplexer(auto=True) needs table_stats: the "
+                "rows/row_bytes of the exchanges this multiplexer will carry"
+            )
+        tuned = tune_multiplexer(mesh, table_stats)
+        impl = tuned.impl
+        pack_impl = tuned.pack_impl
+        pipeline_chunks = tuned.pipeline_chunks
+        transport_chunks = tuned.transport_chunks
     plan = plan_for_mesh(
         mesh.axis_names, mesh.shape,
         exchange="xla" if impl == "xla" else "round_robin",
@@ -205,8 +275,36 @@ def make_multiplexer(
     )
 
 
+# ----------------------------------------------------------------------------
+# Ambient multiplexer: code that cannot take a mux argument (the MoE layer
+# inside a model step) routes its exchanges through the session's policy.
+# ----------------------------------------------------------------------------
+
+_ACTIVE_MUX: contextvars.ContextVar[CommMultiplexer | None] = contextvars.ContextVar(
+    "repro_torch_multiplexer", default=None
+)
+
+
+@contextlib.contextmanager
+def use_multiplexer(mux: CommMultiplexer) -> Iterator[CommMultiplexer]:
+    """Make ``mux`` the ambient multiplexer inside the with-block; the
+    serving engine wraps admission and decode in it."""
+    token = _ACTIVE_MUX.set(mux)
+    try:
+        yield mux
+    finally:
+        _ACTIVE_MUX.reset(token)
+
+
+def current_multiplexer() -> CommMultiplexer | None:
+    """The innermost :func:`use_multiplexer` mux, or None."""
+    return _ACTIVE_MUX.get()
+
+
 __all__ = [
     "CommMultiplexer",
     "make_multiplexer",
     "resolve_schedule_impl",
+    "use_multiplexer",
+    "current_multiplexer",
 ]

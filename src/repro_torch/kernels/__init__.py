@@ -2,14 +2,17 @@
 
 * ``ref``            — plain versions (the CPU path, and the yardstick the
   card's kernels are held to);
-* ``hash_partition`` — the CUDA pack kernels (``csrc/hash_partition.cu``):
-  build, wrappers, launch counts;
-* ``ops``            — global within-bin ranks over the kernels' block
-  outputs (the shuffle's entry points).
+* ``build``          — ``nvcc`` builds of ``csrc/*.cu`` and their loading;
+* ``hash_partition`` — the CUDA hash and pack kernels
+  (``csrc/hash_partition.cu``): wrappers, launch counts;
+* ``moe_dispatch``   — the CUDA MoE dispatch kernel
+  (``csrc/moe_dispatch.cu``): wrapper, launch count;
+* ``ops``            — the entry points callers use (global within-bin
+  ranks over the pack kernels' block outputs, hash partition, MoE slots).
 
-Of the reference's six Pallas kernels, ``hash_partition_pack`` and
-``partition_pack`` are ported; ``hash_partition``, ``moe_dispatch``,
+Of the reference's six Pallas kernels, ``hash_partition_pack``,
+``partition_pack``, ``hash_partition`` and ``moe_dispatch`` are ported;
 ``flash_attention`` and ``ssd_scan`` are still to be ported.
 """
 
-__all__ = ["ops", "ref", "hash_partition"]
+__all__ = ["build", "ops", "ref", "hash_partition", "moe_dispatch"]

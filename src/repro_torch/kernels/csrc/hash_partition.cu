@@ -1,4 +1,4 @@
-// Exchange-operator pack metadata for Hopper (sm_90a): two kernels with a
+// Exchange-operator pack metadata for Hopper (sm_90a): three kernels with a
 // plain C interface, built with nvcc into a shared library and loaded with
 // ctypes by ../hash_partition.py.
 //
@@ -7,6 +7,8 @@
 //                           hash_partition_pack / _hash_partition_pack_kernel
 //   partition_pack       <- src/repro/kernels/hash_partition.py,
 //                           partition_pack / _partition_pack_kernel
+//   hash_partition       <- src/repro/kernels/hash_partition.py,
+//                           hash_partition / _hash_kernel
 //
 // What each computes, per block of `block` (<= 256) consecutive rows of one
 // shard: the destination of every row (hash_partition_pack only: multiply-xor
@@ -26,6 +28,11 @@
 // popcount; an exclusive scan over the 8 warps' counters gives each warp's
 // base and the block histogram.  A grid of (T / block, S) launches every shard
 // at once.  Not yet done: several rows per thread and vectorised 16-byte loads.
+//
+// hash_partition is the hash alone: pid = h % P for every row and the block's
+// histogram over P bins, no rank and no mask.  It reads 4 B a row and writes
+// 4 B; one thread per row, the peer group's leader adds the group's size to
+// a shared counter (integer adds, so the order does not matter).
 //
 // Every entry point returns cudaGetLastError() after the launch; it launches
 // on the given stream, allocates nothing and does not synchronise.
@@ -104,6 +111,31 @@ pack_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ valid,
   if (active) rank[row] = counted ? counts[warp * num_bins + d] + warp_rank : 0;
 }
 
+__global__ void __launch_bounds__(kThreads)
+hash_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ pid_out,
+            int32_t* __restrict__ hist, int T, int block, int num_partitions) {
+  extern __shared__ int32_t counts[];  // [num_partitions]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * T +
+                      static_cast<int64_t>(blockIdx.x) * block + tid;
+  const bool active = tid < block;
+
+  for (int i = tid; i < num_partitions; i += kThreads) counts[i] = 0;
+  int p = -1;  // -1 is never a partition
+  if (active) {
+    const uint32_t h = fibonacci_hash(static_cast<uint32_t>(keys[row]));
+    p = static_cast<int>(h % static_cast<uint32_t>(num_partitions));
+    pid_out[row] = p;
+  }
+  const unsigned peers = __match_any_sync(0xffffffffu, p);
+  __syncthreads();  // counters zeroed
+  if (active && lane == __ffs(peers) - 1) atomicAdd(&counts[p], __popc(peers));
+  __syncthreads();
+  const int64_t out = (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * num_partitions;
+  for (int b = tid; b < num_partitions; b += kThreads) hist[out + b] = counts[b];
+}
+
 inline size_t smem_bytes(int num_bins) {
   return static_cast<size_t>(kWarps) * num_bins * sizeof(int32_t);
 }
@@ -138,6 +170,19 @@ int partition_pack_launch(const void* dest, void* hist, void* rank, int S,
         static_cast<const int32_t*>(dest), nullptr, nullptr,
         static_cast<int32_t*>(hist), static_cast<int32_t*>(rank), T, block,
         num_bins, 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys, pid: int32 [S, T]; hist: int32 [S, T / block, P].
+int hash_partition_launch(const void* keys, void* pid, void* hist, int S, int T,
+                          int block, int num_partitions, void* stream) {
+  const dim3 grid(T / block, S);
+  if (grid.x > 0 && grid.y > 0) {
+    hash_kernel<<<grid, kThreads, num_partitions * sizeof(int32_t),
+                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(keys), static_cast<int32_t*>(pid),
+        static_cast<int32_t*>(hist), T, block, num_partitions);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,10 @@
-"""Pack-rank entry points over the kernels (counterpart of ``repro.kernels.ops``).
+"""Entry points over the kernels (counterpart of ``repro.kernels.ops``).
 
-The kernels give per-block histograms and block-local ranks; turning them
-into global within-bin ranks is an ``[S, nblocks, bins]`` exclusive scan and
-a flat gather, left to plain PyTorch as the reference leaves it to XLA.
-Every function takes a leading shard dim ``S`` and launches one kernel over
-all shards.
+The pack kernels give per-block histograms and block-local ranks; turning
+them into global within-bin ranks is an ``[S, nblocks, bins]`` exclusive
+scan and a flat gather, left to plain PyTorch as the reference leaves it to
+XLA.  Every function takes a leading shard dim ``S`` and launches one kernel
+over all shards.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import hash_partition as kern
+from . import moe_dispatch as moe_kern
 
 
 def _combine_block_ranks(
@@ -71,4 +72,25 @@ def hash_partition_ranks(
     return dest[:, :T], rank[:, :T], hist.sum(1, dtype=torch.int32)
 
 
-__all__ = ["partition_ranks", "hash_partition_ranks"]
+def hash_partition(
+    keys: torch.Tensor, num_partitions: int, block: int = 256
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(partition ids ``[S, T]``, per-block histograms ``[S, T/blk, P]``)
+    with ``blk = min(block, T)``, which must divide ``T``."""
+    T = keys.shape[1]
+    blk = min(block, T)
+    if T % blk:
+        raise ValueError(f"hash_partition: block {blk} does not divide T={T}")
+    return kern.hash_partition(keys.to(torch.int32).contiguous(), num_partitions, block=blk)
+
+
+def moe_dispatch(
+    dest: torch.Tensor, num_dest: int, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot ``[S, T]``, counts ``[S, num_dest]``); overflow -> the drop bin
+    ``num_dest * capacity``.  Any ``T``: the kernel masks the ragged tile
+    itself, so no padding id is appended."""
+    return moe_kern.moe_dispatch(dest.to(torch.int32).contiguous(), num_dest, capacity)
+
+
+__all__ = ["partition_ranks", "hash_partition_ranks", "hash_partition", "moe_dispatch"]

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the pack kernels (counterpart of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (counterpart of ``repro.kernels.ref``).
 
 Every function works on a leading shard dim ``S``: shard ``s`` of each
 output equals the reference's per-device output for shard ``s`` of the
-input.  The kernel wrappers in :mod:`.hash_partition` run these for tensors
-that lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels to them on the
-card.
+input.  The kernel wrappers in :mod:`.hash_partition` and
+:mod:`.moe_dispatch` run these for tensors that lie on the CPU;
+``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 
 from __future__ import annotations
@@ -62,4 +62,39 @@ def hash_partition_pack_ref(
     return dest, hist, local
 
 
-__all__ = ["fibonacci_hash", "partition_pack_ref", "hash_partition_pack_ref"]
+def hash_partition_ref(
+    keys: torch.Tensor, num_partitions: int, block: int = 256
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(partition ids ``[S, T]``, per-block histograms ``[S, T/block, P]``)."""
+    pid = (fibonacci_hash(keys) % num_partitions).to(torch.int32)
+    hist, _ = partition_pack_ref(pid, num_partitions, block)
+    return pid, hist
+
+
+def moe_dispatch_ref(
+    dest: torch.Tensor, num_dest: int, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot ``[S, T]``, counts ``[S, num_dest]``) for expert ids ``[S, T]``.
+
+    ``slot = dest * capacity + rank`` (``rank`` = earlier rows of the shard
+    with the same expert) if the row fits its expert's buffer, else the drop
+    bin ``num_dest * capacity``; ids outside ``[0, num_dest)`` always land
+    in the drop bin.  Counts are clamped to ``capacity``.  The reference's
+    one-hot + cumsum: it materialises ``[S, T, num_dest]``.
+    """
+    experts = torch.arange(num_dest, device=dest.device, dtype=dest.dtype)
+    onehot = (dest[..., None] == experts).to(torch.int32)
+    rank = ((onehot.cumsum(1, dtype=torch.int32) - onehot) * onehot).sum(-1, dtype=torch.int32)
+    kept = (dest >= 0) & (dest < num_dest) & (rank < capacity)
+    slot = torch.where(kept, dest * capacity + rank, num_dest * capacity).to(torch.int32)
+    counts = onehot.sum(1, dtype=torch.int32).clamp(max=capacity)
+    return slot, counts
+
+
+__all__ = [
+    "fibonacci_hash",
+    "partition_pack_ref",
+    "hash_partition_pack_ref",
+    "hash_partition_ref",
+    "moe_dispatch_ref",
+]

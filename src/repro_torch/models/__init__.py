@@ -1,0 +1,13 @@
+"""Models of the port (counterpart of ``repro.models``).
+
+- ``layers``      — norms, RoPE, GQA attention, embeddings
+- ``moe``         — MoE layer: dense oracle and expert parallelism over the
+                    simulated fabric (``moe_dispatch`` kernel pack)
+- ``transformer`` — the decoder stack: prefill, decode, per-slot decode
+- ``registry``    — the uniform ``ModelApi``
+- ``convert``     — the reference's params into the port's layout
+"""
+
+from . import convert, layers, moe, registry, transformer
+
+__all__ = ["convert", "layers", "moe", "registry", "transformer"]

@@ -1,0 +1,261 @@
+"""Mixture-of-Experts layer routed through the exchange fabric (port of
+``repro.models.moe``).
+
+The paper's mapping: a token is a tuple, the router's expert id is the join
+key, the per-expert capacity buffers are the multiplexer's message pool, and
+the expert-parallel dispatch/combine is the decoupled exchange operator's
+all-to-all, over the simulated fabric of :mod:`repro_torch.core.exchange`.
+
+Two execution paths (``cfg.moe_impl``):
+
+* ``"dense"`` (and its alias ``"gspmd"``) — every expert for every token,
+  weighted combine; exact, no capacity drops.
+* ``"ep_shardmap"`` — expert parallelism over the units of the active
+  :class:`~repro_torch.distributed.sharding.MeshContext`.  The reference's
+  ``shard_map`` becomes a leading unit dim: tokens ``[T, d]`` are viewed as
+  ``[N, T/N, d]`` in unit order (pod-major on a two-level mesh), and expert
+  ``e`` lives on unit ``e // E_loc``.  Every unit's body runs at once.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..core import exchange
+from ..core.autotune import ep_capacity
+from ..core.exchange import Mesh
+from ..core.multiplexer import current_multiplexer
+from ..distributed.sharding import current_mesh_context
+from ..kernels import ops, ref
+from . import layers as L
+
+
+def init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
+    if cfg.num_shared_experts:
+        raise NotImplementedError(
+            "shared experts are not ported yet; they come with the dense-model "
+            "slice (ROADMAP A.12)"
+        )
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    dt = L.pdtype(cfg)
+    return {
+        "router": L._normal(gen, (d, E), 0.02, torch.float32),  # router in f32
+        "w_gate": L.he_init(gen, (E, d, f), d, dt),
+        "w_up": L.he_init(gen, (E, d, f), d, dt),
+        "w_down": L.he_init(gen, (E, f, d), f, dt),
+    }
+
+
+def route(params, cfg: ModelConfig, x: torch.Tensor):
+    """Top-k routing -> (weights ``[..., k]`` f32, expert ids ``[..., k]``
+    int32), the ids in descending probability order as ``lax.top_k`` gives
+    them.  The router product stays in full f32."""
+    logits = x.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    if cfg.router_norm_topk:
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return w, idx.to(torch.int32)
+
+
+def _expert_ffn(w_gate, w_up, w_down, x):
+    """Batched per-expert SwiGLU: x ``[E, C, d]`` -> ``[E, C, d]``."""
+    g = torch.bmm(x, w_gate)
+    u = torch.bmm(x, w_up)
+    return torch.bmm(F.silu(g) * u, w_down)
+
+
+# ----------------------------------------------------------------------------
+# Dense path (exact; the oracle of the tests).
+# ----------------------------------------------------------------------------
+
+def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate all experts for all tokens, combine by router weight."""
+    T, _ = x.shape
+    dt = x.dtype
+    w, idx = route(params, cfg, x)
+    full_w = torch.zeros((T, cfg.num_experts), dtype=torch.float32, device=x.device)
+    full_w.scatter_add_(1, idx.long(), w)
+    g = torch.einsum("td,edf->tef", x, params["w_gate"].to(dt))
+    u = torch.einsum("td,edf->tef", x, params["w_up"].to(dt))
+    y = torch.einsum("tef,efd->ted", F.silu(g) * u, params["w_down"].to(dt))
+    return torch.einsum("ted,te->td", y, full_w.to(dt))
+
+
+# ----------------------------------------------------------------------------
+# Expert-parallel path (the paper's exchange pipeline).
+# ----------------------------------------------------------------------------
+
+def _resolve_exchange(cfg: ModelConfig, mux) -> tuple[str, str]:
+    """The EP exchange policy ``(impl, pack_impl)``: both from the ambient
+    multiplexer when there is one; else ``cfg.exchange_impl`` with the
+    plain pack."""
+    if mux is not None:
+        return mux.impl, mux.pack_impl
+    return cfg.exchange_impl, "torch"
+
+
+def _dispatch_slots(flat_dest: torch.Tensor, E: int, C: int, pack_impl: str):
+    """``slot = expert * C + arrival rank``, overflow -> the ``E * C`` drop
+    bin, for expert ids ``[N, T]``: ``(slot [N, T], kept [N, T])``.
+
+    ``"cuda"`` launches the ``moe_dispatch`` kernel once over all units;
+    ``"torch"`` is the plain one-hot + cumsum.  Both give the same slots.
+    """
+    if pack_impl == "cuda":
+        slot, _ = ops.moe_dispatch(flat_dest, E, C)
+    elif pack_impl == "torch":
+        slot, _ = ref.moe_dispatch_ref(flat_dest, E, C)
+    else:
+        raise ValueError(f"unknown pack impl {pack_impl!r}")
+    return slot, slot < E * C
+
+
+def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
+                  axis_name: str, pod_axis: str | None = None):
+    """Every unit's body at once: ``x [N, T_loc, d]`` -> ``(y [N, T_loc, d],
+    dropped [N])``.
+
+    The ambient multiplexer (the continuous engine's tuned policy), when
+    there is one, carries the dispatch and return trips and names the pack;
+    else ``cfg.exchange_impl`` with the plain pack.  On a pod mesh a unit is
+    one member of the joint ``(pod, axis_name)`` axis and both trips take
+    the two-level fabric, a pure permutation like the flat route.  A chunk
+    count (the mux's ``pipeline_chunks``, else ``cfg.moe_async_chunks``)
+    that divides ``C`` ships the capacity buffers in that many chunks; the
+    output does not depend on it.
+    """
+    mux = current_multiplexer()
+    N, T_loc, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    E_loc = E // N
+    C = ep_capacity(T_loc, k, E, cfg.capacity_factor)
+    dt = x.dtype
+    impl, pack_impl = _resolve_exchange(cfg, mux)
+
+    w, idx = route(params, cfg, x)  # [N, T_loc, k]
+
+    # -- step 2: partition tuples into per-expert messages (the message pool).
+    flat_dest = idx.reshape(N, T_loc * k)
+    flat_rows = x.repeat_interleave(k, dim=1)  # token copy per choice, in order
+    slot, kept = _dispatch_slots(flat_dest, E, C, pack_impl)
+    # Dropped rows all write zeros to each unit's drop row E * C, so the
+    # collision there is deterministic; the drop row is then cut off.
+    unit = torch.arange(N, device=x.device)[:, None]
+    buffers = x.new_zeros((N * (E * C + 1), d))
+    buffers[(unit * (E * C + 1) + slot).reshape(-1)] = torch.where(
+        kept[..., None], flat_rows, 0
+    ).reshape(-1, d)
+    buffers = buffers.view(N, E * C + 1, d)[:, :-1]
+    dropped = (~kept).sum(1, dtype=torch.int32)
+
+    # -- step 3: the multiplexer shuffle to the experts' owner units.
+    if pod_axis is None and mux is not None and mux.plan.pod_axis is not None \
+            and mux.plan.num_pods > 1:
+        raise ValueError(
+            "flat EP dispatch with a two-level multiplexer: the mesh has a pod "
+            f"axis ({mux.plan.pod_axis!r}) but the MoE layer was not given it; "
+            "pass the pod axis through MeshContext.pod_axis"
+        )
+
+    # The mux's dispatch/combine take the flat route on a single-level mesh.
+    if mux is not None:
+        ship_out = functools.partial(mux.dispatch, axis_name=axis_name)
+        ship_back = functools.partial(mux.combine, axis_name=axis_name)
+    elif pod_axis is not None:
+        ship_out, ship_back = (
+            functools.partial(fn, mesh=mesh, inner_axis=axis_name, outer_axis=pod_axis, impl=impl)
+            for fn in (exchange.dispatch_two_level, exchange.combine_two_level)
+        )
+    else:
+        ship_out = ship_back = functools.partial(
+            exchange.all_to_all, mesh=mesh, axis=axis_name, impl=impl
+        )
+
+    # Unit n owns experts [n * E_loc, (n + 1) * E_loc): expert order is
+    # already owner-major, so the weights need no layout change.
+    wg, wu, wd = (params[name].to(dt) for name in ("w_gate", "w_up", "w_down"))
+
+    chunks = mux.pipeline_chunks if mux is not None else cfg.moe_async_chunks
+    if chunks < 1 or C % chunks:
+        chunks = 1
+    cc = C // chunks
+    send = buffers.reshape(N, N, E_loc, C, d)  # [sender, owner, ...]
+
+    rets = []
+    for c in range(chunks):
+        got = ship_out(send[:, :, :, c * cc:(c + 1) * cc].reshape(N, N, E_loc * cc, d))
+        # got[n, j] = unit j's slice for n's local experts.
+        recv = got.reshape(N, N, E_loc, cc, d).transpose(1, 2).reshape(E, N * cc, d)
+        # -- steps 5-6: the batched expert FFN, each expert on its owner.
+        out = _expert_ffn(wg, wu, wd, recv)  # [E, N * cc, d]
+        # -- step 7: the return trip through the same schedule.
+        back = out.reshape(N, E_loc, N, cc, d).transpose(1, 2).reshape(N, N, E_loc * cc, d)
+        rets.append(ship_back(back).reshape(N, N, E_loc, cc, d))
+
+    ret = rets[0] if chunks == 1 else torch.cat(rets, dim=3)
+    ret = torch.cat([ret.reshape(N, E * C, d), x.new_zeros((N, 1, d))], dim=1)  # drop bin reads 0
+
+    # combine: y[t] = sum_k w[t, k] * ret[slot(t, k)]
+    gathered = torch.gather(ret, 1, slot.long()[..., None].expand(N, T_loc * k, d))
+    y = torch.einsum("ntkd,ntk->ntd", gathered.reshape(N, T_loc, k, d), w.to(dt))
+    return y, dropped
+
+
+def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Expert-parallel MoE over the active mesh context's units.
+
+    On a pod mesh a unit is one member of the joint ``(pod, exchange)``
+    axis and dispatch/combine take the two-level fabric; a single-level
+    multiplexer on a pod mesh is an error.  Shapes the units do not divide
+    (``T % N`` or ``E % N``) fall back to :func:`moe_dense`, as in the
+    reference.
+    """
+    ctx = current_mesh_context()
+    if ctx is None:
+        raise ValueError("moe_impl='ep_shardmap' needs an active mesh context")
+    axis = ctx.exchange_axis
+    pod = ctx.pod_axis
+    pods = ctx.mesh.size(pod) if pod is not None else 1
+    if pods <= 1:
+        pod = None
+    N = pods * ctx.exchange_size
+
+    mux = current_multiplexer()
+    if mux is not None and pod is not None and mux.plan.pod_axis is None:
+        raise ValueError(
+            f"EP dispatch on a pod mesh ({pods} pods) with a single-level "
+            "multiplexer: its flat all-to-all would cross the slow network; "
+            "build the multiplexer for the same two-level mesh"
+        )
+
+    T, d = x.shape
+    if N == 1 or T == 0 or T % N != 0 or cfg.num_experts % N != 0:
+        return moe_dense(params, cfg, x)
+    y, _ = _ep_moe_local(params, cfg, x.reshape(N, T // N, d), ctx.mesh, axis, pod_axis=pod)
+    return y.reshape(T, d)
+
+
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN slot of a MoE transformer layer (routed experts)."""
+    B, S, d = x.shape
+    tokens = x.reshape(B * S, d)
+    if cfg.moe_impl == "ep_shardmap":
+        y = moe_ep(params, cfg, tokens)
+    else:  # "dense" and "gspmd"
+        y = moe_dense(params, cfg, tokens)
+    return y.reshape(B, S, d)
+
+
+__all__ = [
+    "init_moe_layer",
+    "route",
+    "moe_dense",
+    "moe_ep",
+    "moe_ffn",
+]

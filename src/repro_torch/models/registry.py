@@ -1,0 +1,59 @@
+"""Uniform functional API over the port's models (port of ``repro.models.registry``).
+
+``build(cfg)`` returns a :class:`ModelApi` whose members close over ``cfg``.
+The port builds the GQA MoE transformer family; other families raise and
+name the slice that brings them.  The reference's input and shape specs for
+the dry-run have no counterpart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..configs.base import ModelConfig
+
+_LATER_SLICES = {
+    "dense": "the dense-model slice (ROADMAP A.12)",
+    "vlm": "the dense-model slice (ROADMAP A.12)",
+    "ssm": "the SSM slice (ROADMAP A.14)",
+    "hybrid": "the SSM slice (ROADMAP A.14)",
+    "encdec": "the Whisper slice (ROADMAP A.15)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    init: Callable[..., Any]  # (seed, device="cuda") -> params
+    prefill: Callable[[Any, dict], tuple[torch.Tensor, Any]]
+    decode_step: Callable[[Any, torch.Tensor, Any, int], tuple[torch.Tensor, Any]]
+    init_cache: Callable[..., Any]  # (batch_size, capacity, device="cuda") -> cache
+    # Per-slot decode (continuous batching): (params, tokens [B, 1], cache,
+    # positions [B]) -> (logits, cache).
+    decode_step_slots: Callable[[Any, torch.Tensor, Any, torch.Tensor], tuple[torch.Tensor, Any]] | None = None
+
+
+def build(cfg: ModelConfig) -> ModelApi:
+    if cfg.family in _LATER_SLICES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; it comes with {_LATER_SLICES[cfg.family]}"
+        )
+    from . import transformer as m
+
+    m.check_supported(cfg)
+    return ModelApi(
+        cfg=cfg,
+        init=lambda seed, device="cuda": m.init(seed, cfg, device=device),
+        prefill=lambda params, batch: m.prefill(params, cfg, batch),
+        decode_step=lambda params, tokens, cache, pos: m.decode_step(params, cfg, tokens, cache, pos),
+        init_cache=lambda bs, cap, device="cuda": m.init_cache(cfg, bs, cap, device=device),
+        decode_step_slots=lambda params, tokens, cache, positions: m.decode_step_slots(
+            params, cfg, tokens, cache, positions
+        ),
+    )
+
+
+__all__ = ["ModelApi", "build"]

@@ -1,4 +1,4 @@
-"""The port's pack kernels' plain versions against the JAX package.
+"""The port's hash and pack kernels' plain versions against the JAX package.
 
 Every comparison is bit-exact (integer outputs): the port's batched plain
 versions (``repro_torch.kernels.ref`` / ``ops``), which the CUDA wrappers
@@ -95,6 +95,36 @@ def test_partition_pack_matches_pallas_interpret(T, bins, jax_ref):
     assert int(hist.sum()) == int((dest < bins).sum())  # padding ids uncounted
 
 
+@pytest.mark.parametrize("T,P", [(256, 8), (512, 3), (1024, 64), (768, 1)])
+def test_hash_partition_matches_pallas_interpret(T, P, jax_ref):
+    rng = np.random.default_rng(T * P)
+    keys, _ = _keys_valid(rng, T)
+    pid, hist = hp.hash_partition(torch.from_numpy(keys), P)
+    assert hist.shape == (S, T // 256, P)
+    # block-local outputs: the shards laid end to end are one flat input
+    k = jax_ref.jnp.asarray(keys.reshape(-1))
+    for want in (
+        jax_ref.kernels.hash_partition(k, P, interpret=True),
+        jax_ref.ref.hash_partition_ref(k, P),
+    ):
+        wp, wh = map(np.asarray, want)
+        np.testing.assert_array_equal(pid.numpy().reshape(-1), wp)
+        np.testing.assert_array_equal(hist.numpy().reshape(-1, P), wh)
+
+
+@pytest.mark.parametrize("T", [100, 256, 512])
+def test_ops_hash_partition_matches_reference(T, jax_ref):
+    rng = np.random.default_rng(T)
+    keys, _ = _keys_valid(rng, T)
+    pid, hist = ops.hash_partition(torch.from_numpy(keys), 5)
+    for s in range(S):
+        wp, wh = map(np.asarray, jax_ref.ops.hash_partition(jax_ref.jnp.asarray(keys[s]), 5))
+        np.testing.assert_array_equal(pid[s].numpy(), wp)
+        np.testing.assert_array_equal(hist[s].numpy(), wh)
+    with pytest.raises(ValueError, match="divide"):
+        ops.hash_partition(torch.zeros((1, 300), dtype=torch.int32), 5)
+
+
 @pytest.mark.parametrize("T", [1, 100, 256, 300, 1000, 2049])
 def test_hash_partition_ranks_ragged_match_reference(T, jax_ref):
     rng = np.random.default_rng(T)
@@ -133,7 +163,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     hp.partition_pack(got[0], 5)
-    assert hp.LAUNCHES == {"hash_partition_pack": 0, "partition_pack": 0}
+    pid, hist = hp.hash_partition(keys, 4)
+    assert torch.equal(hist, ref.hash_partition_ref(keys, 4)[1])
+    assert hp.LAUNCHES == {"hash_partition_pack": 0, "partition_pack": 0, "hash_partition": 0}
 
 
 @pytest.mark.gpu
@@ -149,10 +181,12 @@ def test_cuda_kernels_match_plain_versions(cuda_device, T, P, block):
     dest = torch.from_numpy(rng.integers(0, P + 2, (S, T), dtype=np.int32)).to(cuda_device)
     got2 = hp.partition_pack(dest, P + 1, block=block)
     want2 = ref.partition_pack_ref(dest, P + 1, block=block)
+    got3 = hp.hash_partition(k, P, block=block)
+    want3 = ref.hash_partition_ref(k, P, block=block)
     torch.cuda.synchronize()
-    for g, w in zip(got + got2, want + want2):
+    for g, w in zip(got + got2 + got3, want + want2 + want3):
         assert torch.equal(g, w)
-    assert hp.LAUNCHES == {"hash_partition_pack": 1, "partition_pack": 1}
+    assert hp.LAUNCHES == {"hash_partition_pack": 1, "partition_pack": 1, "hash_partition": 1}
 
 
 @pytest.mark.gpu
