@@ -8,17 +8,23 @@ Phases, in order; any failure raises and the process exits non-zero:
 
 1. device — the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions; a machine without CUDA exits 2 before printing any result;
-2. build — ``nvcc`` builds ``csrc/hash_partition.cu`` and
-   ``csrc/moe_dispatch.cu`` for ``sm_90a``, both at once (seconds and
-   ``-Xptxas -v`` printed);
-3. kernels — every ported kernel at its main path's shapes, held bit for bit
-   against its plain PyTorch version on the card and timed with CUDA events
-   (mean over 50 launches after warm-up) beside the plain version and the
-   memory bound (bytes / 3.35 TB/s): ``hash_partition_pack`` (P=8, 10 %
-   invalid rows), ``partition_pack`` (3 bins, with padding ids) and
-   ``hash_partition`` (P=8) at S=8 shards x one shard's lineitem rows;
-   ``moe_dispatch`` at OLMoE's decode shape (S=8, T=64, E=64, C=4) and
-   prefill shape (S=8, T=16,384, C=320), on router-ordered expert ids;
+2. build — ``nvcc`` builds ``csrc/hash_partition.cu``,
+   ``csrc/moe_dispatch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a``,
+   all at once (seconds and ``-Xptxas -v`` printed);
+3. kernels — every ported kernel at its main path's shapes, held against
+   its plain PyTorch version on the card and timed with CUDA events (mean
+   over 50 launches after warm-up, 20 for attention) beside the plain
+   version and the bound: ``hash_partition_pack`` (P=8, 10 % invalid rows),
+   ``partition_pack`` (3 bins, with padding ids) and ``hash_partition``
+   (P=8) at S=8 shards x one shard's lineitem rows; ``moe_dispatch`` at
+   OLMoE's decode shape (S=8, T=64, E=64, C=4) and prefill shape (S=8,
+   T=16,384, C=320), on router-ordered expert ids, all bit for bit and
+   bound by bytes over 3.35 TB/s; ``flash_attention`` at train100m's shape
+   (B=8, H=12, KH=4, S=2,048, D=64, causal) in f32 and bf16 and one
+   non-causal ``Sq != Sk`` case, within the reference's tolerances (2e-5
+   f32, 2e-2 bf16), beside ``scaled_dot_product_attention`` (timed only)
+   and bound by the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s
+   (f32, CUDA cores) or 989 TFLOP/s (bf16);
 4. queries — TPC-H at ``--sf`` through the port's planner and executor:
    Q1, Q6, Q17, Q3 on 8 shards, Q3 and Q18 on 2 pods x 4, and Q3 again
    with an explicit ``impl="round_robin", num_chunks=2``.  Every answer is
@@ -41,8 +47,22 @@ Phases, in order; any failure raises and the process exits non-zero:
    fewer slot-steps than static batching.  Prefill and decode tokens/s,
    TTFT p50/p99 and peak memory are printed; one prefill and one decode
    step are profiled;
-6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. training — train100m at full width and depth (random weights from
+   ``--seed``, f32, ``remat="block"``) with ``attn_impl="flash"``, batch 8 x
+   2,048 tokens, 20 AdamW steps (lr 3e-4, 5 warm-up steps), through the
+   calls ``launch/train.py`` makes.  Every loss must be finite and the mean
+   of the last 5 below the first; ``flash_attention`` must launch 2 x 12
+   times a step (each layer's forward and its remat recompute; the
+   backward recomputes through the chunked plain attention).  One step
+   from the same state and batch under ``attn_impl="chunked"`` must give
+   the same loss (rtol 1e-5) and grad norm (rtol 1e-4).  The CLI
+   (``launch.train.main``, seq 512) runs 4 steps with a checkpoint every 2,
+   then resumes to step 6 in the same directory; its last loss must equal
+   an uninterrupted 6-step run's within rtol 1e-5 (the embedding
+   gradient's ``index_put`` sums in no fixed order on the card).  ms a
+   step, tokens/s and peak memory are printed; one step is profiled;
+7. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
 ``torch.cuda.synchronize()``, taken on each query's second run and around
@@ -64,12 +84,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA cores f32; dense bf16 tensor cores
 N_SHARDS = 8
 ALL_RUNS = ("q1", "q6", "q17", "q3", "q3_pods", "q18_pods", "q3_rr")
 # serving: batch, prompt tokens, new tokens, cache positions (the uniform
 # workload); mixed requests on 8 units and on 2 x 4 (fewer, for time)
 SERVE_SHAPE = (64, 256, 16, 545)
 MIXED_REQUESTS = {1: 128, 2: 64}
+# training: batch, seq, steps; the CLI resume check's seq
+TRAIN_SHAPE = (8, 2048, 20)
+CLI_SEQ = 512
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
@@ -85,19 +109,22 @@ def _nvidia_smi() -> str:
 
 def _reset_counts() -> None:
     """Every kernel's launch count to 0."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
 
     hp.reset_launch_counts()
     md.reset_launch_counts()
+    fa.reset_launch_counts()
 
 
 def _counts() -> dict:
     """Every kernel's launches since the last :func:`_reset_counts`."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
 
-    return {**hp.LAUNCHES, **md.LAUNCHES}
+    return {**hp.LAUNCHES, **md.LAUNCHES, **fa.LAUNCHES}
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -143,6 +170,58 @@ def _kernel_row(name, replaces, source, label, nbytes, kern, plain, note=""):
         name=name, route="cuda", source=source, replaces=replaces, match=True,
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
         library_ms=None,
+    )
+
+
+def _attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, causal: bool) -> int:
+    """``4 * B * H * D`` (two products of ``D`` multiply-adds) for every
+    (query, key) pair the kernel computes; causal from the top-left corner."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    return 4 * B * H * D * pairs
+
+
+def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed) -> dict:
+    """The attention kernel against its plain version within the reference's
+    tolerance, timed beside the plain version and SDPA (never used by the
+    port); bound by the larger of bytes and flops."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, KH, Sk, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, KH, Sk, D), generator=gen, device="cuda").to(dt)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"flash_attention {dtype} {(B, H, KH, Sq, Sk, D, causal)}: "
+                             f"disagrees with its plain version (max |err| {err})")
+    ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=20)
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), iters=20)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), iters=20)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = _attention_flops(B, H, Sq, Sk, D, causal)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    label = f"B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} D={D} {'causal' if causal else 'full'} {dtype}"
+    print(
+        f"[kernels] flash_attention: {label} within {tol} (max |err| {err:.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({flops} flop, {nbytes} B), {100 * bound_ms / ms:.2f}% of bound"
+    )
+    return dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:100", match=True, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
     )
 
 
@@ -214,7 +293,13 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
             lambda ids=ids, C=C: ref.moe_dispatch_ref(ids, E, C),
             note=f", {dropped} of {S * T_m} rows to the drop bin",
         ))
-    return rows + [moe_rows[1]]
+    # train100m's attention: the training shape in f32 (the row) and bf16,
+    # and the reference test's non-causal Sq != Sk case
+    B, S_t = TRAIN_SHAPE[:2]
+    flash = [_flash_row(B, 12, 4, S_t, S_t, 64, True, "float32", seed),
+             _flash_row(B, 12, 4, S_t, S_t, 64, True, "bfloat16", seed),
+             _flash_row(2, 4, 1, 128, 256, 64, False, "float32", seed)]
+    return rows + [moe_rows[1], flash[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -415,9 +500,11 @@ def _serving_line(tag: str, api, reqs, stats: dict) -> None:
     print(line)
 
 
-def _profile_serving(tag: str, fn) -> None:
-    """One call under ``torch.profiler``: device busy share of its wall time
-    and the top device kernels."""
+def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "moe_dispatch"),
+                     top: int = 8) -> None:
+    """One call under ``torch.profiler``: device busy share of its wall time,
+    the top device kernels, and the device time of ``kernel`` (the key
+    substring and the name to print)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -432,13 +519,15 @@ def _profile_serving(tag: str, fn) -> None:
     busy_us = sum(e.self_device_time_total for e in rows)
     print(f"[profile] {tag}: wall {wall * 1e3:.2f} ms under the profiler; device busy "
           f"{busy_us / 1e3:.2f} ms = {100 * busy_us / 1e6 / wall:.1f}% of wall")
-    for e in rows[:8]:
+    for e in rows[:top]:
         print(f"[profile] {tag}:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
+    key, name = kernel
     for e in rows:
-        if "dispatch_kernel" in e.key:
-            print(f"[profile] {tag}: moe_dispatch device time {e.self_device_time_total / 1e3:.4f} ms "
-                  f"over {e.count} launches = {e.self_device_time_total / 1e3 / e.count:.4f} ms each")
+        if key in e.key:
+            print(f"[profile] {tag}: {name} device time {e.self_device_time_total / 1e3:.4f} ms "
+                  f"over {e.count} launches = {e.self_device_time_total / 1e3 / e.count:.4f} ms "
+                  f"each, {100 * e.self_device_time_total / busy_us:.1f}% of device time")
 
 
 def phase_serving(seed: int) -> dict:
@@ -457,6 +546,7 @@ def phase_serving(seed: int) -> dict:
     from repro_torch.models import registry
     from repro_torch.serve import (ContinuousEngine, Request, ServeEngine, generate_bucketed,
                                    make_mixed_workload)
+    from repro_torch.tree import leaves
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -465,7 +555,7 @@ def phase_serving(seed: int) -> dict:
     t0 = time.perf_counter()
     params = base_api.init(seed)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
     print(f"[serving] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_experts} experts top-{cfg.top_k}, vocab {cfg.vocab_size}, {cfg.dtype} compute; "
           f"{n_params} f32 params ({4 * n_params} B) from seed {seed} in "
@@ -535,12 +625,12 @@ def phase_serving(seed: int) -> dict:
             del k_logits, p_logits
             if pods == 1:
                 with use_multiplexer(ce.mux):
-                    _profile_serving(f"{tag} prefill [{B}, {plen}]",
+                    _profile_call(f"{tag} prefill [{B}, {plen}]",
                                      lambda: base_api.prefill(params, batch))
                     cache = base_api.init_cache(B, cap)
                     toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
                     pos = torch.full((B,), plen, dtype=torch.int32, device="cuda")
-                    _profile_serving(f"{tag} decode step B={B}",
+                    _profile_call(f"{tag} decode step B={B}",
                                      lambda: base_api.decode_step_slots(params, toks, cache, pos))
                     del cache
             del batch
@@ -571,15 +661,119 @@ def phase_serving(seed: int) -> dict:
     return main_path
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def phase_training(seed: int) -> dict:
+    """train100m at full width with the flash kernel: 20 steps, the chunked
+    cross-check, the CLI's checkpoint resume, one profiled step.  Returns
+    every kernel's launches over the 20 steps (the main path)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import Prefetcher, make_batch_iterator
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.tree import leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the f32 checks below assume full f32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, steps = TRAIN_SHAPE
+    cfg = get_config("train100m").scaled(attn_impl="flash")
+    api = registry.build(cfg)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=steps, schedule=cfg.lr_schedule)
+    step_fn = make_train_step(api, opt)
+    state = TrainState.create(api, seed)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    per_step = cfg.num_layers * (1 if cfg.remat == "none" else 2)
+    print(f"[training] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"tied, {cfg.dtype}, remat={cfg.remat}, attn_impl={cfg.attn_impl}; {n_params} params "
+          f"from seed {seed}; batch {B} x {S}; TF32 off")
+    it = Prefetcher(make_batch_iterator(cfg, ShapeSpec("chip", S, B, "train"), seed=seed), depth=2)
+
+    def next_batch():
+        return {k: torch.from_numpy(v).to("cuda") for k, v in next(it).items()}
+
+    losses, walls = [], []
+    _reset_counts()  # the main path starts here
+    for i in range(steps):
+        batch = next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = _counts()["flash_attention"]
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launched = _counts()["flash_attention"] - before
+        if launched != per_step:
+            raise AssertionError(f"step {i}: flash_attention launched {launched} times, "
+                                 f"expected {per_step}")
+    launches = _counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    tail = float(np.mean(losses[-5:]))
+    if not tail < losses[0]:
+        raise AssertionError(f"the loss did not fall: first {losses[0]}, last 5 mean {tail}")
+    steady = float(np.mean(walls[1:]))
+    print(f"[training] losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[training] loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; all finite")
+    print(f"[training] flash_attention launched {launches['flash_attention']} = {steps} steps x "
+          f"{per_step} (2 x {cfg.num_layers} layers: forward + remat recompute)")
+    print(f"[training] step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{steps} mean "
+          f"{steady * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}) "
+          f"= {B * S / steady:.1f} tokens/s; peak memory {torch.cuda.max_memory_allocated()} B")
+
+    # the same state and batch under the reference's chunked attention
+    batch = next_batch()
+    _, m_flash = step_fn(state, batch)
+    chunked = registry.build(cfg.scaled(attn_impl="chunked"))
+    _, m_chunk = make_train_step(chunked, opt)(state, batch)
+    d_loss = abs(float(m_flash["loss"]) - float(m_chunk["loss"])) / abs(float(m_chunk["loss"]))
+    d_norm = abs(float(m_flash["grad_norm"]) - float(m_chunk["grad_norm"])) / float(m_chunk["grad_norm"])
+    print(f"[training] flash vs chunked, one step from one state and batch: loss "
+          f"{float(m_flash['loss']):.6f} vs {float(m_chunk['loss']):.6f} (rel {d_loss:.3g}), "
+          f"grad norm {float(m_flash['grad_norm']):.6f} vs {float(m_chunk['grad_norm']):.6f} "
+          f"(rel {d_norm:.3g})")
+    if d_loss > 1e-5 or d_norm > 1e-4:
+        raise AssertionError("flash and chunked attention disagree beyond rtol 1e-5 / 1e-4")
+    _profile_call(f"train step [{B}, {S}]", lambda: step_fn(state, batch),
+                     kernel=("flash_fwd_kernel", "flash_attention"), top=10)
+    del state, batch, m_flash, m_chunk
+    torch.cuda.empty_cache()
+
+    # the CLI: 4 steps with a checkpoint every 2, resume to 6, against 6 straight
+    common = ["--arch", "train100m", "--seq-len", str(CLI_SEQ), "--batch", str(B),
+              "--seed", str(seed), "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as d2:
+        runs = {}
+        for tag, argv in (("4 steps", ["--steps", "4", "--ckpt-dir", d, "--ckpt-every", "2"]),
+                          ("resumed to 6", ["--steps", "6", "--ckpt-dir", d, "--ckpt-every", "2"]),
+                          ("6 straight", ["--steps", "6", "--ckpt-dir", d2])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                st, last = train_cli.main(common + argv)
+            runs[tag] = (st, last, out.getvalue(), time.perf_counter() - t0)
+    st, last, log, _ = runs["resumed to 6"]
+    if "resumed from checkpoint at step 4" not in log or int(st.step) != 6:
+        raise AssertionError(f"the CLI did not resume at step 4:\n{log}")
+    want = runs["6 straight"][1]["loss"]
+    if not math.isfinite(want) or abs(last["loss"] - want) > 1e-5 * abs(want):
+        raise AssertionError(f"resumed last loss {last['loss']} vs uninterrupted {want}")
+    print(f"[training] CLI seq {CLI_SEQ}: " + "; ".join(
+        f"{tag} {r[3]:.2f} s, last loss {r[1]['loss']:.6f}" for tag, r in runs.items())
+        + f"; resumed at step 4, |diff| {abs(last['loss'] - want):.3g} (rtol 1e-5)")
+    del runs, st
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -613,13 +807,15 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all at once
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
 
+    libs = (hp.LIBRARY, md.LIBRARY, fa.LIBRARY)
     t0 = time.perf_counter()
-    build.build_all([hp.LIBRARY, md.LIBRARY])
-    print(f"[build] both libraries built and loaded in {time.perf_counter() - t0:.2f} s")
-    for lib in (hp.LIBRARY, md.LIBRARY):
+    build.build_all(libs)
+    print(f"[build] {len(libs)} libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
         print(f"[build] {lib.info['path']}: nvcc {lib.info['seconds']:.2f} s")
         for line in lib.info["log"].splitlines():
             print(f"[build] {line}")
@@ -632,13 +828,16 @@ def main() -> int:
 
     # 5. serving (the MoE main path)
     s_launches = phase_serving(args.seed)
-    launches = {k: q_launches[k] + s_launches[k] for k in q_launches}
+
+    # 6. training (the training main path)
+    t_launches = phase_training(args.seed)
+    launches = {k: q_launches[k] + s_launches[k] + t_launches[k] for k in q_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 
-    # 6-7. results
+    # 7-8. results
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

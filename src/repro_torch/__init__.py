@@ -8,9 +8,14 @@ for module and imports nothing of it.  Entry points run on the card
 - ``core``        — schedules, cost model, tuner, exchange fabric, multiplexer
 - ``kernels``     — hand-written Hopper kernels and their plain versions
 - ``relational``  — tables, datagen, stats, operators, planner, TPC-H
-- ``configs``     — model configs (OLMoE-1B-7B)
+- ``configs``     — model configs (OLMoE-1B-7B, train100m)
 - ``distributed`` — the mesh context the model code reads
-- ``models``      — GQA MoE transformer, expert parallelism over the fabric
+- ``models``      — GQA dense and MoE transformers, expert parallelism over
+                    the fabric
 - ``serve``       — static and continuous-batching engines
-- ``launch``      — command-line serving entry point
+- ``train``       — AdamW, schedules, the microbatched train step
+- ``data``        — deterministic token streams and prefetch
+- ``checkpoint``  — crash-consistent checkpoints
+- ``tree``        — nested containers of tensors (params, optimizer state)
+- ``launch``      — command-line serving and training entry points
 """

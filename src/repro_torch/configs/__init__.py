@@ -14,6 +14,7 @@ from .base import ModelConfig
 
 _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "train100m": "train100m",
 }
 
 # Known architectures the port does not build yet, and the slice that will.
@@ -27,7 +28,6 @@ _LATER_SLICES = {
     "mamba2-1.3b": "the SSM slice (ROADMAP A.14)",
     "zamba2-7b": "the SSM slice (ROADMAP A.14)",
     "whisper-medium": "the Whisper slice (ROADMAP A.15)",
-    "train100m": "the training slice (ROADMAP A.16)",
 }
 
 

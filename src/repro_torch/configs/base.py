@@ -1,8 +1,8 @@
 """Model/shape config dataclasses (port of ``repro.configs.base``).
 
 A copy of the reference's dataclasses: the port keeps its own, so it
-imports nothing of the JAX package.  Left out: ``param_count`` and the dry-run's shape
-specs (``ShapeSpec``, ``SHAPES``), which nothing in the port reads.
+imports nothing of the JAX package.  Left out: ``param_count`` and the dry-run's
+assigned shape cells (``SHAPES``), which nothing in the port reads.
 """
 
 from __future__ import annotations
@@ -118,4 +118,15 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
-__all__ = ["ModelConfig", "Family"]
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell (the training data pipeline reads ``seq_len``
+    and ``global_batch``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+__all__ = ["ModelConfig", "Family", "ShapeSpec"]

@@ -7,12 +7,15 @@
   (``csrc/hash_partition.cu``): wrappers, launch counts;
 * ``moe_dispatch``   — the CUDA MoE dispatch kernel
   (``csrc/moe_dispatch.cu``): wrapper, launch count;
+* ``flash_attention`` — the CUDA attention forward kernel
+  (``csrc/flash_attention.cu``): wrapper, launch count;
 * ``ops``            — the entry points callers use (global within-bin
-  ranks over the pack kernels' block outputs, hash partition, MoE slots).
+  ranks over the pack kernels' block outputs, hash partition, MoE slots,
+  attention in the model layout and its autograd function).
 
 Of the reference's six Pallas kernels, ``hash_partition_pack``,
-``partition_pack``, ``hash_partition`` and ``moe_dispatch`` are ported;
-``flash_attention`` and ``ssd_scan`` are still to be ported.
+``partition_pack``, ``hash_partition``, ``moe_dispatch`` and
+``flash_attention`` are ported; ``ssd_scan`` is still to be ported.
 """
 
-__all__ = ["build", "ops", "ref", "hash_partition", "moe_dispatch"]
+__all__ = ["build", "ops", "ref", "hash_partition", "moe_dispatch", "flash_attention"]

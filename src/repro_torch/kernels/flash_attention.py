@@ -1,0 +1,98 @@
+"""The flash-attention forward kernel for Hopper: wrapper and launch count.
+
+Counterpart of ``repro.kernels.flash_attention``.  The kernel is CUDA C++ in
+``csrc/flash_attention.cu`` (the source notes which TPU kernel it replaces,
+its bound and what the design does about it), built at first use by
+:mod:`.build` and loaded with ``ctypes``.
+
+It takes the kernel layout, ``q [B, H, Sq, D]`` and ``k``/``v [B, KH, Sk,
+D]``, in float32 or bfloat16.  A tensor on the CPU goes to the plain version
+in :mod:`.ref`; a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
+counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import ref
+from .build import CudaLibrary, raise_on
+
+HEAD_DIMS = (32, 64, 128, 256)
+BLOCK_Q = BLOCK_K = 64  # the kernel's q tile and KV tile rows
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr,
+    ]
+    lib.flash_attention_launch.restype = i32
+
+
+LIBRARY = CudaLibrary("flash_attention.cu", _bind)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q, k, v must lie on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: need float32 or bfloat16 q, k, v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: need q [B, H, Sq, D] and k, v [B, KH, Sk, D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, D) or KH == 0 or H % KH:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+                         f"(batch, head dim, or H not a multiple of KH)")
+    if D not in HEAD_DIMS or Sq % BLOCK_Q or Sk % BLOCK_K or Sk == 0:
+        raise ValueError(f"flash_attention: the kernel takes D in {HEAD_DIMS} and sequence "
+                         f"lengths that are multiples of {BLOCK_Q}, got D={D}, Sq={Sq}, Sk={Sk}")
+    if max(B, H) > 65535:
+        raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid's limit of 65535")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, KH, Sk, D]
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention forward ``[B, H, Sq, D]`` in q's dtype; ``scale`` defaults
+    to ``1 / sqrt(D)`` and the causal mask runs from the top-left corner."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    _check(q, k, v)
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    lib = LIBRARY.load()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+        B, H, KH, Sq, Sk, D, scale, int(causal), stream,
+    )
+    raise_on("flash_attention", err)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+__all__ = ["LIBRARY", "LAUNCHES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "reset_launch_counts",
+           "flash_attention"]

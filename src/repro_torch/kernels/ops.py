@@ -3,14 +3,22 @@
 The pack kernels give per-block histograms and block-local ranks; turning
 them into global within-bin ranks is an ``[S, nblocks, bins]`` exclusive
 scan and a flat gather, left to plain PyTorch as the reference leaves it to
-XLA.  Every function takes a leading shard dim ``S`` and launches one kernel
-over all shards.
+XLA.  Every pack and dispatch function takes a leading shard dim ``S`` and
+launches one kernel over all shards.
+
+Attention takes the model layout ``[B, S, H, D]``: :func:`flash_attention`
+is the forward kernel; its differentiable form, whose backward recomputes
+through the query-chunked plain attention, is
+``repro_torch.models.layers.flash_attention_vjp``.  The reference's
+``use_kernels`` switch and its attention shape gate have no counterpart:
+the plain versions run only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import flash_attention as fa_kern
 from . import hash_partition as kern
 from . import moe_dispatch as moe_kern
 
@@ -93,4 +101,17 @@ def moe_dispatch(
     return moe_kern.moe_dispatch(dest.to(torch.int32).contiguous(), num_dest, capacity)
 
 
-__all__ = ["partition_ranks", "hash_partition_ranks", "hash_partition", "moe_dispatch"]
+def flash_attention(q, k, v, causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """``q [B, Sq, H, D]``, ``k``/``v [B, Sk, KH, D]`` (the model layout) ->
+    ``[B, Sq, H, D]``, through the kernel layout ``[B, H, S, D]``.
+
+    A CUDA tensor launches the kernel, which raises for a shape it cannot
+    take (its limits are ``D`` in {32, 64, 128, 256} and sequence lengths
+    that are multiples of 64); it never gives way to the plain version.  A
+    CPU tensor takes the plain version at any shape."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return fa_kern.flash_attention(qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
+
+
+__all__ = ["partition_ranks", "hash_partition_ranks", "hash_partition", "moe_dispatch",
+           "flash_attention"]

@@ -1,15 +1,42 @@
 """Plain PyTorch versions of the kernels (counterpart of ``repro.kernels.ref``).
 
-Every function works on a leading shard dim ``S``: shard ``s`` of each
-output equals the reference's per-device output for shard ``s`` of the
-input.  The kernel wrappers in :mod:`.hash_partition` and
-:mod:`.moe_dispatch` run these for tensors that lie on the CPU;
-``chip_smoke.py`` holds the CUDA kernels to them on the card.
+The hash, pack and dispatch functions work on a leading shard dim ``S``:
+shard ``s`` of each output equals the reference's per-device output for
+shard ``s`` of the input.  The kernel wrappers in :mod:`.hash_partition`,
+:mod:`.moe_dispatch` and :mod:`.flash_attention` run these for tensors that
+lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels to them on the card.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, KH, Sk, D]
+    v: torch.Tensor,  # [B, KH, Sk, D]
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """GQA attention in the kernel layout: query head ``h`` reads KV head
+    ``h // (H / KH)``; the logits in the input dtype, then f32 and scaled; a
+    causal mask from the top-left corner (``qpos >= kpos``, both from 0,
+    also when ``Sq != Sk``); an f32 softmax, cast back for the product."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KH, G, Sq, D)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k).float() * scale
+    if causal:
+        mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bksd->bkgqd", w, v)
+    return out.reshape(B, H, Sq, v.shape[-1])
 
 _M32 = 0xFFFFFFFF
 
@@ -92,6 +119,7 @@ def moe_dispatch_ref(
 
 
 __all__ = [
+    "flash_attention_ref",
     "fibonacci_hash",
     "partition_pack_ref",
     "hash_partition_pack_ref",

@@ -1,0 +1,96 @@
+"""End-to-end training entry point of the port (counterpart of
+``repro.launch.train``).
+
+A real training loop on one device: the deterministic data pipeline with
+background prefetch, the microbatched AdamW train step, periodic
+crash-consistent checkpoints, and resume from the newest checkpoint — kill
+it at any step and rerun the same command to continue (the pipeline
+regenerates exactly the batches that would have followed).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch train100m \\
+      --steps 100 --seq-len 512 --ckpt-dir ckpt --ckpt-every 20
+
+The flags are the reference's.  It runs on the card; :func:`main` takes
+``device="cpu"`` from Python.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..configs import get_config, get_smoke_config
+from ..configs.base import ShapeSpec
+from ..data import Prefetcher, make_batch_iterator
+from ..models import registry as R
+from ..train import AdamWConfig, TrainState, make_train_step
+
+
+def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
+    """Run the CLI; returns the final state and the last step's metrics
+    (as floats; empty when resuming at or past ``--steps``)."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", required=True)
+    p.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--warmup", type=int, default=20)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-every", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    args = p.parse_args(argv)
+
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cfg.scaled(num_microbatches=args.microbatches)
+    api = R.build(cfg)
+    shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
+
+    opt = AdamWConfig(
+        lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps,
+        schedule=cfg.lr_schedule,
+    )
+    step_fn = make_train_step(api, opt)
+
+    state = TrainState.create(api, args.seed, device=device)
+    start = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every or 0)
+        restored = mgr.restore_latest(state)
+        if restored is not None:
+            start, state = restored
+            print(f"resumed from checkpoint at step {start}")
+
+    it = Prefetcher(
+        make_batch_iterator(cfg, shape, seed=args.seed, start_step=start), depth=2
+    )
+    t0 = time.perf_counter()
+    tokens_done = 0
+    last: dict = {}
+    for step in range(start, args.steps):
+        batch = {k: torch.from_numpy(v).to(state.step.device) for k, v in next(it).items()}
+        state, metrics = step_fn(state, batch)
+        tokens_done += args.batch * args.seq_len
+        if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            mgr.maybe_save(step + 1, state)
+        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+            last = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            print(
+                f"step {step + 1:5d}  loss {last['loss']:.4f}  "
+                f"lr {last['lr']:.2e}  gnorm {last['grad_norm']:.3f}  "
+                f"tok/s {tokens_done / dt:,.0f}"
+            )
+    print("done")
+    return state, last
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,9 @@ The reference initialises with ``jax.random``, which the port cannot
 reproduce, so tests that hold the port to the reference hand the
 reference's params over through numpy.  Its pytree stacks every segment's
 layers on a leading dim (``seg{i}`` leaves are ``[L, ...]``); the port keeps
-a list of per-layer dicts.  Every other leaf keeps its shape and layout.
+a list of per-layer dicts.  Every other leaf keeps its shape and layout:
+attention, dense-MLP and MoE ``ffn`` leaves alike, and the embedding
+``table`` (with no ``unembed`` leaf when the embeddings are tied).
 """
 
 from __future__ import annotations
@@ -14,15 +16,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..tree import tree_map
+
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
-
-
-def _tree(tree, fn):
-    if isinstance(tree, Mapping):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _num_layers(tree) -> int:
@@ -37,11 +35,11 @@ def from_reference(params: Mapping[str, Any], device="cpu") -> dict:
     for name, sub in params.items():
         if name.startswith("seg"):
             out[name] = [
-                _tree(sub, lambda a, l=l: _tensor(np.asarray(a)[l], device))
+                tree_map(lambda a, l=l: _tensor(np.asarray(a)[l], device), sub)
                 for l in range(_num_layers(sub))
             ]
         else:
-            out[name] = _tree(sub, lambda a: _tensor(a, device))
+            out[name] = tree_map(lambda a: _tensor(a, device), sub)
     return out
 
 

@@ -10,10 +10,10 @@ Conventions, as in the reference:
 * master params keep ``cfg.param_dtype`` and are cast to the compute dtype
   where they are used, as the reference casts them.
 
-What the port leaves to later slices: MLA, M-RoPE, layernorm, q/k/v
-biases, tied embeddings, the MLPs of dense layers, the query-chunked and
-flash attention paths (``attention_core``; serving calls :func:`sdpa`
-directly) and the loss.
+What the port leaves to later slices: MLA, M-RoPE, layernorm and q/k/v
+biases.  Serving calls :func:`sdpa` directly; the full-sequence
+:func:`attention_block` (training) picks its core with ``cfg.attn_impl``
+(:func:`attention_core`), whose ``flash`` branch runs the CUDA kernel.
 
 The port's own init draws the reference's distributions (truncated normal at
 ±2σ, He scale) from an explicit ``torch.Generator``; it cannot reproduce
@@ -26,8 +26,10 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels import ops
 
 Params = Any  # nested dict[str, torch.Tensor]
 
@@ -158,6 +160,81 @@ def sdpa(
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def _sdpa_block(qi, k, v, causal, q_offset, scale):
+    return sdpa(qi, k, v, causal=causal, q_offset=q_offset, scale=scale)
+
+
+def chunked_sdpa(
+    q: torch.Tensor,  # [B, S, H, Dh]
+    k: torch.Tensor,  # [B, S, KH, Dh]
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_block: int = 512,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Query-block-chunked attention: ``[bq, S]`` live logits a block.
+
+    Each block is one :func:`sdpa` at its ``q_offset``, under
+    ``torch.utils.checkpoint``, so the backward pass recomputes each block's
+    logits instead of storing all ``S^2`` (the reference checkpoints its scan
+    body).  A ``q_block`` that does not divide ``S`` gives plain :func:`sdpa`.
+    """
+    S = q.shape[1]
+    bq = min(q_block, S)
+    if S % bq != 0:
+        return sdpa(q, k, v, causal=causal, scale=scale)
+    outs = [
+        checkpoint(_sdpa_block, q[:, i : i + bq], k, v, causal, i, scale, use_reentrant=False)
+        for i in range(0, S, bq)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; backward recomputes attention with
+    :func:`chunked_sdpa` and differentiates that (no backward kernel, as in
+    the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = chunked_sdpa(q, k, v, causal=ctx.causal, q_block=min(512, q.shape[1]))
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None
+
+
+def flash_attention_vjp(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Differentiable ``ops.flash_attention`` (model layout ``[B, S, H, D]``)."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+def attention_core(
+    cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
+) -> torch.Tensor:
+    """The attention implementation ``cfg.attn_impl`` names.
+
+    ``auto``: plain :func:`sdpa` up to 1,024 tokens, query-chunked beyond.
+    ``flash``: the CUDA kernel forward (its plain version on the CPU), the
+    backward a recompute through :func:`chunked_sdpa`.
+    """
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "sdpa" if q.shape[1] <= 1024 else "chunked"
+    if impl == "flash":
+        return flash_attention_vjp(q, k, v, causal)
+    if impl == "chunked":
+        return chunked_sdpa(q, k, v, causal=causal, q_block=cfg.attn_q_block)
+    return sdpa(q, k, v, causal=causal)
+
+
 # ----------------------------------------------------------------------------
 # GQA attention block.
 # ----------------------------------------------------------------------------
@@ -187,6 +264,22 @@ def attention_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
 def attention_out(params: Params, x: torch.Tensor) -> torch.Tensor:
     B, S, H, Dh = x.shape
     return x.reshape(B, S, H * Dh) @ params["wo"].to(x.dtype).reshape(H * Dh, -1)
+
+
+def attention_block(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence (training) GQA attention."""
+    q, k, v = attention_qkv(params, cfg, x)
+    if cfg.rope_kind == "rope":
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    return attention_out(params, attention_core(cfg, q, k, v, causal=causal))
 
 
 def attention_decode(
@@ -234,15 +327,49 @@ def attention_decode_slots(
 
 
 # ----------------------------------------------------------------------------
-# Embedding / unembedding.
+# MLPs.
+# ----------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = pdtype(cfg)
+    if cfg.act == "gelu":
+        return {
+            "w_in": he_init(gen, (d, f), d, dt),
+            "b_in": torch.zeros((f,), dtype=dt, device=gen.device),
+            "w_out": he_init(gen, (f, d), f, dt),
+            "b_out": torch.zeros((d,), dtype=dt, device=gen.device),
+        }
+    return {
+        "w_gate": he_init(gen, (d, f), d, dt),
+        "w_up": he_init(gen, (d, f), d, dt),
+        "w_down": he_init(gen, (f, d), f, dt),
+    }
+
+
+def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form)."""
+    dt = x.dtype
+    if cfg.act == "gelu":
+        h = x @ params["w_in"].to(dt) + params["b_in"].to(dt)
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt)
+
+
+# ----------------------------------------------------------------------------
+# Embedding / unembedding / loss.
 # ----------------------------------------------------------------------------
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The table; an ``unembed`` matrix too unless the embeddings are tied."""
     dt = pdtype(cfg)
-    return {
-        "table": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt),
-        "unembed": he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dt),
-    }
+    p = {"table": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dt)
+    return p
 
 
 def scale_as(x: torch.Tensor, scale: float) -> float:
@@ -260,8 +387,24 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ unembed``, or ``x @ table.T`` with tied embeddings."""
     x = x * scale_as(x, cfg.logits_scale)
+    if cfg.tie_embeddings:
+        return x @ params["table"].to(x.dtype).T
     return x @ params["unembed"].to(x.dtype)
+
+
+def xent_loss(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 (log-sum-exp); with ``mask``,
+    the mean over the masked-in positions."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 __all__ = [
@@ -274,13 +417,19 @@ __all__ = [
     "apply_rope",
     "rope_tables",
     "sdpa",
+    "chunked_sdpa",
+    "attention_core",
     "scale_as",
     "init_attention",
     "attention_qkv",
     "attention_out",
+    "attention_block",
     "attention_decode",
     "attention_decode_slots",
+    "init_mlp",
+    "mlp_block",
     "init_embedding",
     "embed",
     "unembed",
+    "xent_loss",
 ]

@@ -1,9 +1,10 @@
 """Uniform functional API over the port's models (port of ``repro.models.registry``).
 
 ``build(cfg)`` returns a :class:`ModelApi` whose members close over ``cfg``.
-The port builds the GQA MoE transformer family; other families raise and
-name the slice that brings them.  The reference's input and shape specs for
-the dry-run have no counterpart.
+The port builds the GQA transformer families, dense and MoE; other families
+raise and name the slice that brings them.  ``forward`` (the final-normed
+hidden states) is the port's addition.  The reference's param specs and its
+input and shape specs for the dry-run have no counterpart.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ import torch
 from ..configs.base import ModelConfig
 
 _LATER_SLICES = {
-    "dense": "the dense-model slice (ROADMAP A.12)",
     "vlm": "the dense-model slice (ROADMAP A.12)",
     "ssm": "the SSM slice (ROADMAP A.14)",
     "hybrid": "the SSM slice (ROADMAP A.14)",
@@ -28,6 +28,8 @@ _LATER_SLICES = {
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]  # (seed, device="cuda") -> params
+    forward: Callable[[Any, dict], torch.Tensor]  # -> hidden states [B, S, d]
+    train_loss: Callable[[Any, dict], torch.Tensor]
     prefill: Callable[[Any, dict], tuple[torch.Tensor, Any]]
     decode_step: Callable[[Any, torch.Tensor, Any, int], tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]  # (batch_size, capacity, device="cuda") -> cache
@@ -47,6 +49,8 @@ def build(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=lambda seed, device="cuda": m.init(seed, cfg, device=device),
+        forward=lambda params, batch: m.forward(params, cfg, batch),
+        train_loss=lambda params, batch: m.train_loss(params, cfg, batch),
         prefill=lambda params, batch: m.prefill(params, cfg, batch),
         decode_step=lambda params, tokens, cache, pos: m.decode_step(params, cfg, tokens, cache, pos),
         init_cache=lambda bs, cap, device="cuda": m.init_cache(cfg, bs, cap, device=device),

@@ -1,0 +1,14 @@
+"""Training (counterpart of ``repro.train``): optimizer, schedules, the
+microbatched train step."""
+
+from .optim import AdamWConfig, adamw_init, adamw_update, lr_at
+from .step import TrainState, make_train_step
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "lr_at",
+    "TrainState",
+    "make_train_step",
+]

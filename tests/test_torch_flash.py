@@ -1,0 +1,187 @@
+"""The port's flash attention against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both sides.  On the
+CPU the port's wrapper runs its plain version; it must match the
+reference's Pallas kernel (interpret mode) at the reference's own
+tolerances, 2e-5 in f32 and 2e-2 in bf16, and the gradients of
+``layers.flash_attention_vjp`` must match the reference's ``custom_vjp``
+(Pallas forward, chunked backward) at 1e-4, as the reference holds its own
+to ``sdpa``.  The CUDA kernel is held to the plain version on the card by
+the ``gpu``-marked tests.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import layers
+
+# (B, H, KH, Sq, Sk, D, causal, bq, bk): the reference's FLASH_CASES
+# (tests/test_kernels.py); bq and bk are the Pallas kernel's block sizes.
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, 128, 128),
+    (1, 8, 8, 128, 128, 32, True, 64, 64),
+    (2, 4, 1, 128, 256, 64, False, 64, 128),
+    (1, 2, 2, 512, 512, 128, True, 128, 128),
+    (1, 12, 4, 128, 128, 64, True, 128, 128),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ops as ref_ops
+    from repro.kernels import ref as ref_ref
+    from repro.kernels.flash_attention import flash_attention as ref_kernel
+
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, ops=ref_ops, ref=ref_ref,
+                                 kernel=ref_kernel)
+
+
+def _qkv(seed, B, H, KH, Sq, Sk, D):
+    """Model-layout inputs ``[B, S, heads, D]`` as f32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, KH, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, KH, D), dtype=np.float32))
+
+
+def _count_kernel_calls(monkeypatch):
+    """Record the wrapper calls ``ops`` makes (shapes of q), passing through."""
+    calls = []
+    real = fa.flash_attention
+
+    def spy(q, k, v, causal=True, scale=None):
+        calls.append(tuple(q.shape))
+        return real(q, k, v, causal=causal, scale=scale)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    return calls
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_the_pallas_kernel(jref, monkeypatch, case, dtype):
+    B, H, KH, Sq, Sk, D, causal, bq, bk = case
+    jnp = jref.jnp
+    q, k, v = _qkv(sum(case[:6]), B, H, KH, Sq, Sk, D)
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype)).transpose(0, 2, 1, 3)
+                  for x in (q, k, v))
+    want = jref.kernel(jq, jk, jv, causal=causal, block_q=bq, block_k=bk)  # interpret mode
+    calls = _count_kernel_calls(monkeypatch)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert calls == [(B, H, Sq, D)], "inside the gate the wrapper must be called once"
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3),
+        rtol=TOL[dtype], atol=TOL[dtype],
+    )
+    # the kernel-layout wrapper on a CPU tensor is the plain version
+    kl = fa.flash_attention(*(x.transpose(1, 2).contiguous() for x in (tq, tk, tv)), causal=causal)
+    assert torch.equal(kl.transpose(1, 2), got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_vjp_grads_match_reference(jref, causal):
+    B, S, H, KH, D = 2, 256, 4, 2, 64
+    jax, jnp = jref.jax, jref.jnp
+    q, k, v = _qkv(3, B, H, KH, S, S, D)
+    w = np.random.default_rng(4).standard_normal((B, S, H, D), dtype=np.float32)
+    want = jax.grad(lambda q, k, v: (jref.ops.flash_attention_vjp(q, k, v, causal)
+                                     * jnp.asarray(w)).sum(), argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = layers.flash_attention_vjp(tq, tk, tv, causal)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for g, wg in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), rtol=1e-4, atol=1e-4)
+
+
+OUTSIDE_THE_GATE = [
+    # (B, H, KH, Sq, Sk, D): the reference's gate sends these to its oracle
+    # (Sq, Sk not multiples of 128; D not a kernel size)
+    (1, 4, 2, 96, 96, 64),
+    (2, 4, 2, 128, 192, 32),
+    (1, 4, 4, 128, 128, 48),
+]
+
+
+@pytest.mark.parametrize("shape", OUTSIDE_THE_GATE)
+def test_shapes_outside_the_gate_take_the_plain_version(jref, monkeypatch, shape):
+    """The reference's gate sends these shapes to its oracle; on a CPU tensor
+    the port's wrapper runs its plain version at any shape and launches
+    nothing (on the card it launches the kernel or raises: see
+    ``test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take``)."""
+    B, H, KH, Sq, Sk, D = shape
+    jnp = jref.jnp
+    q, k, v = _qkv(5, *shape)
+    calls = _count_kernel_calls(monkeypatch)
+    fa.reset_launch_counts()
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    assert calls == [(B, H, Sq, D)] and fa.LAUNCHES["flash_attention"] == 0
+    want = jref.ops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_wrapper_on_the_cpu_counts_no_launch():
+    fa.reset_launch_counts()
+    q = torch.zeros((1, 2, 128, 32))
+    fa.flash_attention(q, q[:, :1], q[:, :1])
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,dtype", [
+    (8, 12, 4, 2048, 2048, 64, True, torch.float32),
+    (8, 12, 4, 2048, 2048, 64, True, torch.bfloat16),
+    (2, 4, 1, 128, 256, 64, False, torch.float32),
+    (2, 4, 2, 256, 128, 32, True, torch.float32),
+    (1, 2, 2, 512, 512, 128, True, torch.bfloat16),
+    (1, 4, 2, 256, 256, 256, True, torch.float32),
+    (1, 4, 2, 256, 256, 256, False, torch.bfloat16),
+])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, B, H, KH, Sq, Sk, D, causal,
+                                                     dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + D)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(dtype)
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = kref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.flash_attention(q[:, :, :32].contiguous(), k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [OUTSIDE_THE_GATE[0], OUTSIDE_THE_GATE[2]])
+def test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take(cuda_device, shape):
+    """On the card the model-layout wrapper never gives way to the plain
+    version: a shape outside the kernel's limits raises, with no launch."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device) for x in _qkv(6, *shape))
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="the kernel takes D in"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == 0

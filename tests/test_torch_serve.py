@@ -202,7 +202,7 @@ def test_unported_archs_name_their_slice():
     with pytest.raises(NotImplementedError, match="SSM slice"):
         get_config("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="dense-model slice"):
-        registry.build(get_config("olmoe-1b-7b").scaled(family="dense"))
+        registry.build(get_config("olmoe-1b-7b").scaled(family="vlm"))
     with pytest.raises(NotImplementedError, match="telemetry"):
         ContinuousEngine(registry.build(get_smoke_config("olmoe-1b-7b")), 2, 8,
                          tracer=object(), device="cpu")
