@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the process exits non-zero:
 1. device — the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions; a machine without CUDA exits 2 before printing any result;
 2. build — ``nvcc`` builds ``csrc/hash_partition.cu``,
-   ``csrc/moe_dispatch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a``,
-   all at once (seconds and ``-Xptxas -v`` printed);
+   ``csrc/moe_dispatch.cu``, ``csrc/flash_attention.cu`` and
+   ``csrc/ssd_scan.cu`` for ``sm_90a``, all at once (seconds and ``-Xptxas
+   -v`` printed);
 3. kernels — every ported kernel at its main path's shapes, held against
    its plain PyTorch version on the card and timed with CUDA events (mean
    over 50 launches after warm-up, 20 for attention) beside the plain
@@ -24,7 +25,12 @@ Phases, in order; any failure raises and the process exits non-zero:
    non-causal ``Sq != Sk`` case, within the reference's tolerances (2e-5
    f32, 2e-2 bf16), beside ``scaled_dot_product_attention`` (timed only)
    and bound by the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s
-   (f32, CUDA cores) or 989 TFLOP/s (bf16);
+   (f32, CUDA cores) or 989 TFLOP/s (bf16); ``ssd_scan`` at Mamba2-1.3B's
+   prefill shape (B=8, L=2,048, H=64, P=64, N=128, chunk 256) in bf16 (y
+   within 2e-2, one bf16 rounding; the state within 2e-4) and f32 (2e-4),
+   at Zamba2-7B's (B=4, H=112, N=64), chained from a nonzero initial state
+   and with two groups, against its plain version, bound by the larger of
+   bytes and f32 flops;
 4. queries — TPC-H at ``--sf`` through the port's planner and executor:
    Q1, Q6, Q17, Q3 on 8 shards, Q3 and Q18 on 2 pods x 4, and Q3 again
    with an explicit ``impl="round_robin", num_chunks=2``.  Every answer is
@@ -61,8 +67,21 @@ Phases, in order; any failure raises and the process exits non-zero:
    an uninterrupted 6-step run's within rtol 1e-5 (the embedding
    gradient's ``index_put`` sums in no fixed order on the card).  ms a
    step, tokens/s and peak memory are printed; one step is profiled;
-7. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. SSM serving — Mamba2-1.3B (48 layers, d_model 2,048) and Zamba2-7B (81
+   layers, d_model 3,584) at full width and depth (random weights from
+   ``--seed``, f32 master params, bf16 compute) through the static engine:
+   Mamba2 16 requests x 2,048 prompt tokens x 32 new at batch 8, then one
+   request of 32,768 tokens x 8 new; Zamba2 8 x 2,048 x 16 new at batch 4.
+   ``ssd_scan`` must launch once per Mamba2 layer of every prefill (48, 81).
+   In f32 compute, a prefill must agree with a shorter prefill followed by
+   decode steps (the plain token-by-token recurrence ``ssd_step``): Mamba2
+   2 x 2,048 against 1,792 + 256 steps, Zamba2 1 x 512 against 256 + 256;
+   the last logits and every layer's SSM state within 1e-3 of the largest
+   magnitude.  Prefill and decode tokens/s, ms a decode step and peak
+   memory are printed; one prefill and one decode step of each model are
+   profiled;
+8. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
 ``torch.cuda.synchronize()``, taken on each query's second run and around
@@ -94,6 +113,13 @@ MIXED_REQUESTS = {1: 128, 2: 64}
 # training: batch, seq, steps; the CLI resume check's seq
 TRAIN_SHAPE = (8, 2048, 20)
 CLI_SEQ = 512
+# SSM serving: requests, prompt tokens, new tokens, batch; each f32 check's
+# batch, full length and split point
+SSM_SERVE = {"mamba2-1.3b": (16, 2048, 32, 8), "zamba2-7b": (8, 2048, 16, 4)}
+SSM_LONG = (32768, 8)  # Mamba2: one request of the reference's prefill_32k length
+SSM_CHECK = {"mamba2-1.3b": [(2, 2048, 1792), (1, SSM_LONG[0], SSM_LONG[0] - 256)],
+             "zamba2-7b": [(1, 512, 256)]}
+SSM_CHECK_TOL = 1e-3
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
@@ -112,10 +138,12 @@ def _reset_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_scan as sk
 
     hp.reset_launch_counts()
     md.reset_launch_counts()
     fa.reset_launch_counts()
+    sk.reset_launch_counts()
 
 
 def _counts() -> dict:
@@ -123,8 +151,9 @@ def _counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_scan as sk
 
-    return {**hp.LAUNCHES, **md.LAUNCHES, **fa.LAUNCHES}
+    return {**hp.LAUNCHES, **md.LAUNCHES, **fa.LAUNCHES, **sk.LAUNCHES}
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -225,6 +254,72 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed) -> dict:
     )
 
 
+def _ssd_flops(B: int, L: int, H: int, P: int, N: int, Q: int, G: int) -> int:
+    """The least work of the chunk scan: the ``C_i . B_j`` scores once per
+    (b, group, chunk) for the ``Q (Q + 1) / 2`` pairs ``j <= i``; per (b,
+    head, chunk) the intra term over the same pairs, the state read and the
+    state update (``Q N P`` multiply-adds each)."""
+    nc, pairs = L // Q, Q * (Q + 1) // 2
+    return 2 * pairs * N * B * G * nc + (2 * pairs * P + 4 * Q * N * P) * B * H * nc
+
+
+def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
+    """The chunk-scan kernel against its plain version (y within 2e-4 in
+    f32 and 2e-2 in bf16, the f32 state within 2e-4), timed beside the plain
+    version; bound by the larger of bytes and f32 flops.  The inputs follow
+    the model's distributions: dt log-uniform in [1e-3, 1e-1], A uniform in
+    [-16, -1]."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    x = torch.randn((B, L, H, P), generator=gen, device="cuda").to(dt_)
+    dt = torch.exp(uniform((B, L, H), math.log(1e-3), math.log(1e-1)))
+    A = -uniform((H,), 1.0, 16.0)
+    Bm = torch.randn((B, L, G, N), generator=gen, device="cuda").to(dt_)
+    Cm = torch.randn((B, L, G, N), generator=gen, device="cuda").to(dt_)
+    s0 = torch.randn((B, H, P, N), generator=gen, device="cuda") if initial_state else None
+    y, fin = sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0)
+    want_y, want_fin = ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q, s0)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    err = float((y.float() - want_y.float()).abs().max())
+    err_s = float((fin - want_fin).abs().max())
+    if not (torch.allclose(y.float(), want_y.float(), rtol=tol, atol=tol)
+            and torch.allclose(fin, want_fin, rtol=2e-4, atol=2e-4)):
+        raise AssertionError(f"ssd_scan {dtype} {(B, L, H, P, N, Q, G)}: disagrees with its "
+                             f"plain version (max |err| y {err}, state {err_s})")
+    del want_y, want_fin
+    ms = _time_ms(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0), iters=10, warmup=2)
+    plain_ms = _time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q, s0), iters=3, warmup=1)
+    nbytes = (2 * x.numel() + 2 * Bm.numel()) * x.element_size() + 4 * (
+        dt.numel() + A.numel() + fin.numel() + (s0.numel() if initial_state else 0))
+    flops = _ssd_flops(B, L, H, P, N, Q, G)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    label = (f"B={B} L={L} H={H} P={P} N={N} Q={Q} G={G} {dtype}"
+             + (" from an initial state" if initial_state else ""))
+    print(
+        f"[kernels] ssd_scan: {label}: y within {tol} (max |err| {err:.3g}), state within "
+        f"2e-4 ({err_s:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops} flop, {nbytes} B), "
+        f"{100 * bound_ms / ms:.2f}% of bound"
+    )
+    return dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:135", match=True, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+
+
 def _topk_expert_ids(S: int, tokens: int, E: int, k: int, gen):
     """Expert ids ``[S, tokens * k]`` as the router gives them: each token's
     k distinct experts in descending-score order, tokens in arrival order."""
@@ -299,7 +394,18 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
     flash = [_flash_row(B, 12, 4, S_t, S_t, 64, True, "float32", seed),
              _flash_row(B, 12, 4, S_t, S_t, 64, True, "bfloat16", seed),
              _flash_row(2, 4, 1, 128, 256, 64, False, "float32", seed)]
-    return rows + [moe_rows[1], flash[0]]
+    # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row) and its
+    # long prompt at batch 1 (64 blocks, the state carried over 128 chunks);
+    # Zamba2-7B
+    L_long = SSM_LONG[0]
+    ssd = [_ssd_row(8, 2048, 64, 64, 128, 256, 1, "bfloat16", seed),
+           _ssd_row(8, 2048, 64, 64, 128, 256, 1, "float32", seed),
+           _ssd_row(1, L_long, 64, 64, 128, 256, 1, "bfloat16", seed),
+           _ssd_row(1, L_long, 64, 64, 128, 256, 1, "float32", seed),
+           _ssd_row(4, 2048, 112, 64, 64, 256, 1, "bfloat16", seed),
+           _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
+           _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
+    return rows + [moe_rows[1], flash[0], ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -475,14 +581,15 @@ def _timed_api(api):
 
     return dataclasses.replace(
         api, prefill=_Timed(api.prefill), decode_step=_Timed(api.decode_step),
-        decode_step_slots=_Timed(api.decode_step_slots),
+        decode_step_slots=api.decode_step_slots and _Timed(api.decode_step_slots),
     )
 
 
 def _serving_line(tag: str, api, reqs, stats: dict) -> None:
     import numpy as np
 
-    pre, dec = api.prefill, api.decode_step_slots if api.decode_step_slots.calls else api.decode_step
+    slots = api.decode_step_slots
+    pre, dec = api.prefill, slots if slots is not None and slots.calls else api.decode_step
     padded_prefill_tokens = pre.tokens
     decode_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
     ttft = [r.ttft_s for r in reqs if r.ttft_s is not None]
@@ -776,6 +883,130 @@ def phase_training(seed: int) -> dict:
     return launches
 
 
+def _rel_err(got, want) -> float:
+    """``max |got - want|`` over the largest ``|want|``."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _ssm_check(api32, params, seed: int, arch: str, nb: int, full: int, split: int) -> None:
+    """In f32 compute: one prefill of ``nb`` prompts of ``full`` tokens
+    against a prefill of their first ``split`` followed by one decode step a
+    token (the plain recurrence ``ssd_step``).  The last logits and every
+    layer's SSM state must agree within ``SSM_CHECK_TOL`` of the largest
+    magnitude: the two sides differ only in f32 rounding, compounded through
+    the layers (and, at batch 1, through the chunks of a long prompt)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import grow_cache
+    from repro_torch.tree import leaves_with_paths
+
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(rng.integers(0, api32.cfg.vocab_size, (nb, full), dtype=np.int32)).cuda()
+    t0 = time.perf_counter()
+    want_logits, want_cache = api32.prefill(params, {"tokens": tokens})
+    _, cache = api32.prefill(params, {"tokens": tokens[:, :split]})
+    cache = grow_cache(api32, cache, nb, full)
+    for pos in range(split, full):
+        logits, cache = api32.decode_step(params, tokens[:, pos : pos + 1], cache, pos)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(logits).all() and torch.isfinite(want_logits).all()):
+        raise AssertionError(f"{arch} f32 check: non-finite logits")
+    err_logits = _rel_err(logits, want_logits)
+    want_states = {p: w for p, w in leaves_with_paths(want_cache) if "ssm" in p}
+    err_state = 0.0
+    for path, got in leaves_with_paths(cache):
+        if "ssm" in path:
+            flat_got = got.reshape(-1, *got.shape[-4:])
+            flat_want = want_states[path].reshape(flat_got.shape)
+            err_state = max(err_state, *(_rel_err(g, w) for g, w in zip(flat_got, flat_want)))
+    n_states = sum(w.reshape(-1, *w.shape[-4:]).shape[0] for w in want_states.values())
+    print(f"[ssm] {arch} f32 check: prefill of {nb} x {full} against a prefill of {split} "
+          f"and {full - split} decode steps: last logits rel err {err_logits:.3g}, the worst "
+          f"of {n_states} layers' SSM states {err_state:.3g} (limit {SSM_CHECK_TOL}); "
+          f"{wall:.2f} s")
+    if err_logits > SSM_CHECK_TOL or err_state > SSM_CHECK_TOL:
+        raise AssertionError(f"{arch}: prefill and prefill + decode disagree beyond "
+                             f"{SSM_CHECK_TOL}")
+
+
+def _ssm_model(arch: str, seed: int) -> dict:
+    """One SSM model at full width through the static engine.  Returns
+    every kernel's launches over its serving runs (the main path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    api = registry.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    L = cfg.num_layers  # every layer of both models is a Mamba2 layer
+    print(f"[ssm] {arch}: {L} Mamba2 layers, d_model {cfg.d_model}, "
+          f"H={cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
+          f"P={cfg.ssm_head_dim} N={cfg.ssm_state} chunk {cfg.ssm_chunk}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} compute; {n_params} f32 params ({4 * n_params} B) "
+          f"from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    n_req, plen, new, batch = SSM_SERVE[arch]
+    rng = np.random.default_rng(seed)
+    runs = [(f"{n_req} x {plen} + {new} new, batch {batch}", n_req, plen, new, batch)]
+    if arch == "mamba2-1.3b":
+        runs.append((f"1 x {SSM_LONG[0]} + {SSM_LONG[1]} new", 1, *SSM_LONG, 1))
+    main_path = dict.fromkeys(_counts(), 0)
+    for tag, n, plen_r, new_r, b in runs:
+        t_api = _timed_api(api)
+        engine = ServeEngine(t_api, batch_size=b, capacity=plen_r + new_r)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, plen_r, dtype=np.int32),
+                        max_new_tokens=new_r) for _ in range(n)]
+        _reset_counts()
+        for i in range(0, n, b):
+            engine.generate(params, reqs[i : i + b])
+        counts = _counts()
+        for k, v in counts.items():
+            main_path[k] += v
+        if counts["ssd_scan"] != L * t_api.prefill.calls:
+            raise AssertionError(f"{arch} {tag}: ssd_scan launched {counts['ssd_scan']} times, "
+                                 f"expected {L} x {t_api.prefill.calls} prefills")
+        if not all(len(r.out_tokens) == new_r and all(0 <= t < cfg.vocab_size
+                                                       for t in r.out_tokens) for r in reqs):
+            raise AssertionError(f"{arch} {tag}: a request did not get {new_r} tokens")
+        _serving_line(f"{arch} {tag}", t_api, reqs, engine.stats)
+        print(f"[ssm] {arch} {tag}: ssd_scan launched {counts['ssd_scan']} = {L} layers x "
+              f"{t_api.prefill.calls} prefills; prefill {1e3 * t_api.prefill.seconds / t_api.prefill.calls:.1f} "
+              f"ms a call")
+    print(f"[ssm] {arch}: torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, plen), dtype=np.int32)).cuda()
+    _profile_call(f"{arch} prefill [{batch}, {plen}]",
+                  lambda: api.prefill(params, {"tokens": tokens}),
+                  kernel=("ssd_scan_kernel", "ssd_scan"), top=10)
+    cache = api.init_cache(batch, plen + 1)
+    _profile_call(f"{arch} decode step B={batch}",
+                  lambda: api.decode_step(params, tokens[:, :1], cache, plen),
+                  kernel=("ssd_scan_kernel", "ssd_scan"), top=5)
+    del cache
+    api32 = registry.build(cfg.scaled(dtype="float32"))
+    for nb, full, split in SSM_CHECK[arch]:
+        _ssm_check(api32, params, seed, arch, nb, full, split)
+    del params
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def phase_ssm(seed: int) -> dict:
+    """Mamba2-1.3B, then Zamba2-7B; every kernel's launches over both."""
+    runs = [_ssm_model(arch, seed) for arch in SSM_SERVE]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -810,8 +1041,9 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_partition as hp
     from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_scan as sk
 
-    libs = (hp.LIBRARY, md.LIBRARY, fa.LIBRARY)
+    libs = (hp.LIBRARY, md.LIBRARY, fa.LIBRARY, sk.LIBRARY)
     t0 = time.perf_counter()
     build.build_all(libs)
     print(f"[build] {len(libs)} libraries built and loaded in {time.perf_counter() - t0:.2f} s")
@@ -831,13 +1063,17 @@ def main() -> int:
 
     # 6. training (the training main path)
     t_launches = phase_training(args.seed)
-    launches = {k: q_launches[k] + s_launches[k] + t_launches[k] for k in q_launches}
+
+    # 7. SSM serving (the SSM main path)
+    m_launches = phase_ssm(args.seed)
+    launches = {k: q_launches[k] + s_launches[k] + t_launches[k] + m_launches[k]
+                for k in q_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 
-    # 7-8. results
+    # 8-9. results
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

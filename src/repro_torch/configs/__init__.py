@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the full-size :class:`~.base.ModelConfig`;
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
-use.  Only the architectures whose model family the port builds are here;
-any other known name raises and names the slice that brings it.
+use.  Only the architectures the port builds are here: OLMoE-1B-7B,
+train100m, Mamba2-1.3B and Zamba2-7B; any other known name raises and names
+the slice that brings it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from .base import ModelConfig
 _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "train100m": "train100m",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 # Known architectures the port does not build yet, and the slice that will.
@@ -25,8 +28,6 @@ _LATER_SLICES = {
     "qwen1.5-32b": "the dense-model slice (ROADMAP A.12)",
     "qwen2-vl-2b": "the dense-model slice (ROADMAP A.12: M-RoPE, patch prefix)",
     "deepseek-v2-lite-16b": "the dense-model slice (ROADMAP A.12: MLA, shared experts)",
-    "mamba2-1.3b": "the SSM slice (ROADMAP A.14)",
-    "zamba2-7b": "the SSM slice (ROADMAP A.14)",
     "whisper-medium": "the Whisper slice (ROADMAP A.15)",
 }
 

@@ -9,13 +9,16 @@
   (``csrc/moe_dispatch.cu``): wrapper, launch count;
 * ``flash_attention`` — the CUDA attention forward kernel
   (``csrc/flash_attention.cu``): wrapper, launch count;
+* ``ssd_scan``       — the CUDA Mamba2 SSD chunk-scan kernel
+  (``csrc/ssd_scan.cu``): wrapper, launch count;
 * ``ops``            — the entry points callers use (global within-bin
   ranks over the pack kernels' block outputs, hash partition, MoE slots,
-  attention in the model layout and its autograd function).
+  attention in the model layout, the SSD chunk scan).
 
-Of the reference's six Pallas kernels, ``hash_partition_pack``,
-``partition_pack``, ``hash_partition``, ``moe_dispatch`` and
-``flash_attention`` are ported; ``ssd_scan`` is still to be ported.
+All six of the reference's Pallas kernels are ported: ``hash_partition_pack``,
+``partition_pack``, ``hash_partition``, ``moe_dispatch``, ``flash_attention``
+and ``ssd_scan``.
 """
 
-__all__ = ["build", "ops", "ref", "hash_partition", "moe_dispatch", "flash_attention"]
+__all__ = ["build", "ops", "ref", "hash_partition", "moe_dispatch", "flash_attention",
+           "ssd_scan"]

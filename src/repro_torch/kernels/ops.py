@@ -9,9 +9,11 @@ launches one kernel over all shards.
 Attention takes the model layout ``[B, S, H, D]``: :func:`flash_attention`
 is the forward kernel; its differentiable form, whose backward recomputes
 through the query-chunked plain attention, is
-``repro_torch.models.layers.flash_attention_vjp``.  The reference's
-``use_kernels`` switch and its attention shape gate have no counterpart:
-the plain versions run only for tensors on the CPU.
+``repro_torch.models.layers.flash_attention_vjp``.  The Mamba2 chunk scan
+:func:`ssd_scan` takes the reference's layout.  The reference's
+``use_kernels`` switch, its ``use_kernel`` flag on ``ssd_chunked`` and its
+attention and scan shape gates have no counterpart: the plain versions run
+only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from . import flash_attention as fa_kern
 from . import hash_partition as kern
 from . import moe_dispatch as moe_kern
+from . import ssd_scan as ssd_kern
 
 
 def _combine_block_ranks(
@@ -113,5 +116,21 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None) ->
     return fa_kern.flash_attention(qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
 
 
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
+    """The Mamba2 SSD chunk scan: ``x [B, L, H, P]``, ``dt [B, L, H]`` f32,
+    ``A [H]`` f32, ``Bm``/``Cm [B, L, G, N]``, optional ``initial_state [B, H,
+    P, N]`` f32 -> ``(y [B, L, H, P] in x's dtype, final state [B, H, P, N]
+    f32)``.
+
+    A CUDA tensor launches the kernel, which raises for a shape outside its
+    limits (``P`` in {8, 16, 32, 64}, ``N`` in {16, 32, 64, 128}, a chunk of
+    at most 256 that divides ``L``) and under autograd; it never gives way to
+    the plain version.  A CPU tensor takes the plain version."""
+    def c(t):
+        return None if t is None else t.contiguous()
+
+    return ssd_kern.ssd_scan(c(x), c(dt), c(A), c(Bm), c(Cm), chunk, c(initial_state))
+
+
 __all__ = ["partition_ranks", "hash_partition_ranks", "hash_partition", "moe_dispatch",
-           "flash_attention"]
+           "flash_attention", "ssd_scan"]

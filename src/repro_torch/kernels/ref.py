@@ -3,8 +3,9 @@
 The hash, pack and dispatch functions work on a leading shard dim ``S``:
 shard ``s`` of each output equals the reference's per-device output for
 shard ``s`` of the input.  The kernel wrappers in :mod:`.hash_partition`,
-:mod:`.moe_dispatch` and :mod:`.flash_attention` run these for tensors that
-lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels to them on the card.
+:mod:`.moe_dispatch`, :mod:`.flash_attention` and :mod:`.ssd_scan` run these
+for tensors that lie on the CPU; ``chip_smoke.py`` holds the CUDA kernels to
+them on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +38,61 @@ def flash_attention_ref(
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v)
     return out.reshape(B, H, Sq, v.shape[-1])
+
+def ssd_scan_ref(
+    x: torch.Tensor,   # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H] (already softplus'd)
+    A: torch.Tensor,   # [H] negative
+    Bm: torch.Tensor,  # [B, L, G, N]
+    Cm: torch.Tensor,  # [B, L, G, N]
+    chunk: int,
+    initial_state: torch.Tensor | None = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 SSD chunk scan: ``(y [B, L, H, P] in x's dtype, final
+    state [B, H, P, N] f32)``, the body of the reference's ``ssd_chunked``.
+
+    Chunk by chunk, all in f32: ``a_cs`` is the inclusive cumsum of ``dt *
+    A`` in the chunk; the intra-chunk quadratic weighs ``C_i . B_j`` by
+    ``exp(a_cs_i - a_cs_j) * dt_j`` for ``j <= i``; the entering state is read
+    with ``exp(a_cs_i)``; then the state decays by ``exp(a_cs_last)`` and takes
+    ``sum_j exp(a_cs_last - a_cs_j) dt_j x_j B_j^T``.  Head ``h`` reads group
+    ``h // (H / G)`` of B and C.
+    """
+    B_, Lq, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    if Lq % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} does not divide the sequence length {Lq}")
+    nc = Lq // chunk
+    xc = x.reshape(B_, nc, chunk, G, R, P).float()
+    dtc = dt.reshape(B_, nc, chunk, G, R).float()
+    Bc = Bm.reshape(B_, nc, chunk, G, N).float()
+    Cc = Cm.reshape(B_, nc, chunk, G, N).float()
+    if initial_state is None:
+        s = torch.zeros((B_, G, R, P, N), dtype=torch.float32, device=x.device)
+    else:
+        s = initial_state.reshape(B_, G, R, P, N).float()
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None, None]  # [1, Q, Q, 1, 1]
+    A_gr = A.float().reshape(G, R)
+    ys = []
+    for c in range(nc):
+        xq, dtq, Bq, Cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        a_cs = (dtq * A_gr).cumsum(1)  # [B, Q, G, R]
+        scores = torch.einsum("bign,bjgn->bijg", Cq, Bq)
+        seg = a_cs[:, :, None] - a_cs[:, None]  # [B, Q, Q, G, R]
+        decay = torch.exp(torch.where(causal, seg, float("-inf")))
+        m = scores[..., None] * decay * dtq[:, None]
+        y = torch.einsum("bijgr,bjgrp->bigrp", m, xq)
+        y = y + torch.einsum("bign,bgrpn->bigrp", Cq, s) * torch.exp(a_cs)[..., None]
+        a_last = a_cs[:, -1]  # [B, G, R]
+        w = torch.exp(a_last[:, None] - a_cs) * dtq  # [B, Q, G, R]
+        upd = torch.einsum("bjgn,bjgrp->bgrpn", Bq, xq * w[..., None])
+        s = s * torch.exp(a_last)[..., None, None] + upd
+        ys.append(y)
+    y = torch.stack(ys, 1).reshape(B_, Lq, H, P)
+    return y.to(x.dtype), s.reshape(B_, H, P, N)
+
 
 _M32 = 0xFFFFFFFF
 
@@ -120,6 +176,7 @@ def moe_dispatch_ref(
 
 __all__ = [
     "flash_attention_ref",
+    "ssd_scan_ref",
     "fibonacci_hash",
     "partition_pack_ref",
     "hash_partition_pack_ref",

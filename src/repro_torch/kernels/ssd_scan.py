@@ -1,0 +1,118 @@
+"""The Mamba2 SSD chunk-scan kernel for Hopper: wrapper and launch count.
+
+Counterpart of ``repro.kernels.ssd_scan``.  The kernel is CUDA C++ in
+``csrc/ssd_scan.cu`` (the source notes which TPU kernel it replaces, its
+bound and what the design does about it), built at first use by
+:mod:`.build` and loaded with ``ctypes``.
+
+It takes the reference's layout: ``x [B, L, H, P]``, ``dt [B, L, H]`` f32,
+``A [H]`` f32, ``Bm``/``Cm [B, L, G, N]`` and an optional initial state
+``[B, H, P, N]`` f32; x, B and C in float32 or bfloat16 (one dtype).  A
+tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA tensor
+launches the kernel or raises.  The kernel has no backward: under autograd
+with an input that requires a gradient it raises rather than return an
+output with no ``grad_fn``.  ``LAUNCHES`` counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from .build import CudaLibrary, raise_on
+
+HEAD_DIMS = (8, 16, 32, 64)       # P
+STATE_DIMS = (16, 32, 64, 128)    # N
+MAX_CHUNK = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"ssd_scan": 0}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_launch.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.ssd_scan_launch.restype = i32
+
+
+LIBRARY = CudaLibrary("ssd_scan.cu", _bind)
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["ssd_scan"] = 0
+
+
+def _check(x, dt, A, Bm, Cm, chunk, initial_state) -> None:
+    ins = (x, dt, A, Bm, Cm) + ((initial_state,) if initial_state is not None else ())
+    if x.device.type != "cuda" or any(t.device != x.device for t in ins):
+        raise ValueError(f"ssd_scan: every input must lie on one CUDA device, got "
+                         f"{[str(t.device) for t in ins]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel has no backward; SSM training on the card comes "
+            "with the SSM training slice (ROADMAP A.14)")
+    if x.dtype not in _DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"ssd_scan: need x, Bm, Cm of one dtype, float32 or bfloat16, got "
+                         f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    f32 = (dt, A) + ((initial_state,) if initial_state is not None else ())
+    if any(t.dtype != torch.float32 for t in f32):
+        raise ValueError("ssd_scan: dt, A and the initial state must be float32")
+    if x.ndim != 4 or Bm.ndim != 4:
+        raise ValueError(f"ssd_scan: need x [B, L, H, P] and Bm, Cm [B, L, G, N], got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}")
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    want = {"dt": (dt, (B, L, H)), "A": (A, (H,)), "Bm": (Bm, (B, L, G, N)),
+            "Cm": (Cm, (B, L, G, N))}
+    if initial_state is not None:
+        want["initial_state"] = (initial_state, (B, H, P, N))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssd_scan: {name} has shape {tuple(t.shape)}, need {shape}")
+    if G == 0 or H % G:
+        raise ValueError(f"ssd_scan: the group count G={G} must divide H={H}")
+    if not 1 <= chunk <= MAX_CHUNK or L % chunk:
+        raise ValueError(f"ssd_scan: the kernel takes a chunk in [1, {MAX_CHUNK}] that "
+                         f"divides L, got chunk={chunk}, L={L}")
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"ssd_scan: the kernel takes P in {HEAD_DIMS} and N in "
+                         f"{STATE_DIMS}, got P={P}, N={N}")
+    if B > 65535:
+        raise ValueError(f"ssd_scan: B={B} exceeds the grid's limit of 65535")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("ssd_scan: every input must be contiguous")
+
+
+def ssd_scan(
+    x: torch.Tensor,   # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H] f32
+    A: torch.Tensor,   # [H] f32
+    Bm: torch.Tensor,  # [B, L, G, N]
+    Cm: torch.Tensor,  # [B, L, G, N]
+    chunk: int,
+    initial_state: torch.Tensor | None = None,  # [B, H, P, N] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y [B, L, H, P] in x's dtype, final state [B, H, P, N] f32)``."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    _check(x, dt, A, Bm, Cm, chunk, initial_state)
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    lib = LIBRARY.load()
+    y = torch.empty_like(x)
+    fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
+        fin.data_ptr(), _DTYPE_CODES[x.dtype], B, L, H, P, G, N, chunk, stream,
+    )
+    raise_on("ssd_scan", err)
+    LAUNCHES["ssd_scan"] += 1
+    return y, fin
+
+
+__all__ = ["LIBRARY", "LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "MAX_CHUNK",
+           "reset_launch_counts", "ssd_scan"]

@@ -11,6 +11,12 @@ workload, with the static engine run on the same workload for comparison:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --continuous --units 8 --batch 64 --requests 128 --arrival-rate 4
 
+The SSM models serve through the static path only (their caches are not
+per-position KV maps, so ``--continuous`` raises, as in the reference):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --batch 8 --requests 16 --prompt-len 2048 --max-new 32
+
 The flags are the reference's (``repro.launch.serve``), less the trace
 directory (telemetry comes with a later slice), plus ``--units`` and
 ``--pods``: the simulated mesh takes the place of the devices a JAX process

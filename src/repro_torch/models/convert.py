@@ -2,11 +2,15 @@
 
 The reference initialises with ``jax.random``, which the port cannot
 reproduce, so tests that hold the port to the reference hand the
-reference's params over through numpy.  Its pytree stacks every segment's
-layers on a leading dim (``seg{i}`` leaves are ``[L, ...]``); the port keeps
-a list of per-layer dicts.  Every other leaf keeps its shape and layout:
-attention, dense-MLP and MoE ``ffn`` leaves alike, and the embedding
-``table`` (with no ``unembed`` leaf when the embeddings are tied).
+reference's params over through numpy.  Its pytree stacks layers on
+leading dims: a transformer's ``seg{i}``, Mamba2's ``layers`` and Zamba2's
+``tail`` leaves are ``[L, ...]``, Zamba2's ``groups`` leaves ``[ng, gs,
+...]``.  The port keeps a list of per-layer dicts (a list of such lists for
+``groups``).
+Every other leaf keeps its shape and layout: attention, dense-MLP, MoE
+``ffn`` and Mamba2 leaves alike, Zamba2's unstacked ``shared`` block, and
+the embedding ``table`` (with no ``unembed`` leaf when the embeddings are
+tied).
 """
 
 from __future__ import annotations
@@ -29,18 +33,23 @@ def _num_layers(tree) -> int:
     return int(np.shape(tree)[0])
 
 
+def _stack_depth(name: str) -> int:
+    """How many leading dims of a top-level entry stack layers."""
+    if name == "groups":
+        return 2
+    return 1 if name.startswith("seg") or name in ("layers", "tail") else 0
+
+
+def _unstack(tree, depth: int, device):
+    if depth == 0:
+        return tree_map(lambda a: _tensor(a, device), tree)
+    return [_unstack(tree_map(lambda a, l=l: np.asarray(a)[l], tree), depth - 1, device)
+            for l in range(_num_layers(tree))]
+
+
 def from_reference(params: Mapping[str, Any], device="cpu") -> dict:
     """Reference param pytree (nested dicts of arrays) -> port params."""
-    out = {}
-    for name, sub in params.items():
-        if name.startswith("seg"):
-            out[name] = [
-                tree_map(lambda a, l=l: _tensor(np.asarray(a)[l], device), sub)
-                for l in range(_num_layers(sub))
-            ]
-        else:
-            out[name] = tree_map(lambda a: _tensor(a, device), sub)
-    return out
+    return {name: _unstack(sub, _stack_depth(name), device) for name, sub in params.items()}
 
 
 __all__ = ["from_reference"]

@@ -1,0 +1,315 @@
+"""Mamba2 (SSD, state-space duality) blocks and the pure-SSM LM (port of
+``repro.models.mamba2``).
+
+The SSD chunked algorithm ("Transformers are SSMs", arXiv:2405.21060): the
+sequence is cut into chunks of ``Q``; within a chunk the recurrence is a
+masked attention-like quadratic form, across chunks a linear recurrence
+carries the ``[H, P, N]`` state.  :func:`ssd_chunked` always goes through
+``kernels.ops.ssd_scan``: on the card the CUDA kernel, on the CPU its plain
+version.  The reference's ``use_kernel`` flag has no counterpart.  Decode
+is the single-token recurrence :func:`ssd_step`, plain PyTorch as in the
+reference.
+
+Tensor names follow the paper: x ``[B, L, H, P]`` values, dt ``[B, L, H]``
+step sizes, A ``[H]`` (negative) decay rates, B/C ``[B, L, G, N]``
+input/output projections (G groups broadcast over H heads).
+
+Layers are a list of per-layer dicts (the reference stacks them and scans);
+the cache keeps the reference's stacked layout, ``{"ssm": [L, B, H, P, N]
+f32, "conv": [L, B, K-1, ch]}``, and :func:`decode_step` writes layer ``l``'s
+slice in place.  The reference's param and cache specs have no counterpart.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from . import layers as L
+
+
+def dims(cfg: ModelConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    conv_ch = d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return d_inner, nheads, conv_ch
+
+
+# ----------------------------------------------------------------------------
+# Params.
+# ----------------------------------------------------------------------------
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return u * (hi - lo) + lo
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> Any:
+    """The reference's distributions: ``dt_bias`` the inverse softplus of a
+    log-uniform draw in [1e-3, 1e-1], ``A_log`` the log of a uniform draw in
+    [1, 16], ``D`` ones, ``conv_b`` zeros."""
+    d = cfg.d_model
+    d_inner, H, conv_ch = dims(cfg)
+    N, G, K = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_conv
+    dt = L.pdtype(cfg)
+    dev = gen.device
+    proj_out = 2 * d_inner + 2 * G * N + H  # z, x, B, C, dt
+    u = _uniform(gen, (H,), math.log(1e-3), math.log(1e-1))
+    return {
+        "in_proj": L.he_init(gen, (d, proj_out), d, dt),
+        "conv_w": L._normal(gen, (K, conv_ch), 1.0 / math.sqrt(K), dt),
+        "conv_b": torch.zeros((conv_ch,), dtype=dt, device=dev),
+        "dt_bias": torch.log(torch.expm1(torch.exp(u))),
+        "A_log": torch.log(_uniform(gen, (H,), 1.0, 16.0)),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "gate_norm": L.init_rmsnorm(d_inner, dt, dev),
+        "out_proj": L.he_init(gen, (d_inner, d), d_inner, dt),
+    }
+
+
+# ----------------------------------------------------------------------------
+# The SSD scan (prefill/training) and its single-token step (decode).
+# ----------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
+    """``(y [B, L, H, P], final_state [B, H, P, N] f32)``, through
+    ``ops.ssd_scan``: one kernel launch on the card."""
+    return ops.ssd_scan(x, dt, A, Bm, Cm, chunk, initial_state)
+
+
+def ssd_step(
+    x: torch.Tensor,   # [B, H, P]
+    dt: torch.Tensor,  # [B, H]
+    A: torch.Tensor,   # [H]
+    Bm: torch.Tensor,  # [B, G, N]
+    Cm: torch.Tensor,  # [B, G, N]
+    state: torch.Tensor,  # [B, H, P, N] f32
+):
+    """Single-token recurrence (decode): O(1) in context length."""
+    B_, H, P = x.shape
+    G = Bm.shape[1]
+    R = H // G
+    N = state.shape[-1]
+    xg = x.reshape(B_, G, R, P).float()
+    dtg = dt.reshape(B_, G, R).float()
+    dec = torch.exp(dtg * A.reshape(G, R))
+    sg = state.reshape(B_, G, R, P, N)
+    upd = (dtg[..., None] * xg)[..., None] * Bm.float()[:, :, None, None, :]
+    sg = sg * dec[..., None, None] + upd
+    y = torch.einsum("bgn,bgrpn->bgrp", Cm.float(), sg)
+    return y.reshape(B_, H, P).to(x.dtype), sg.reshape(B_, H, P, N)
+
+
+# ----------------------------------------------------------------------------
+# Conv + block plumbing.
+# ----------------------------------------------------------------------------
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    d_inner, H, _ = dims(cfg)
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    return torch.split(zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
+
+
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, xBC: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over ``[B, Lq, ch]`` with kernel ``[K, ch]``,
+    summed over the taps in the reference's order."""
+    K, Lq = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    out = pad[:, 0:Lq] * w[0]
+    for k in range(1, K):
+        out = out + pad[:, k : k + Lq] * w[k]
+    return F.silu(out + b)
+
+
+def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=None,
+                return_state: bool = False):
+    """Full-sequence Mamba2 block (train/prefill): ``x [B, Lq, d_model]``;
+    with ``return_state``, also ``{"ssm": final state, "conv": the last K-1
+    pre-conv inputs}``."""
+    d_inner, H, _ = dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
+    dtype = x.dtype
+    B_, Lq, _ = x.shape
+
+    zxbcdt = x @ params["in_proj"].to(dtype)
+    z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
+    xBC = _causal_conv(params["conv_w"].to(dtype), params["conv_b"].to(dtype), xBC)
+    xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B_, Lq, H, P)
+    Bm = Bm.reshape(B_, Lq, G, N)
+    Cm = Cm.reshape(B_, Lq, G, N)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+
+    y, final = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, initial_state)
+    y = y + params["D"].to(dtype)[None, None, :, None] * xs
+    y = y.reshape(B_, Lq, d_inner)
+    y = L.rmsnorm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ params["out_proj"].to(dtype)
+    if return_state:
+        conv_state = None
+        if cfg.ssm_conv > 1:
+            # a copy: a view would keep the whole [B, Lq, proj] projection alive
+            _, conv_state, _ = _split_proj(cfg, zxbcdt[:, -(cfg.ssm_conv - 1):])
+            conv_state = conv_state.clone()
+        return out, {"ssm": final, "conv": conv_state}
+    return out
+
+
+def mamba_block_step(params: Any, cfg: ModelConfig, x: torch.Tensor, state: Any):
+    """Single-token step: ``x [B, 1, d_model]``, state ``{"ssm", "conv"}`` ->
+    ``(out [B, 1, d_model], new state)``."""
+    d_inner, H, _ = dims(cfg)
+    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
+    dtype = x.dtype
+    B_ = x.shape[0]
+
+    zxbcdt = (x @ params["in_proj"].to(dtype))[:, 0]
+    z, xBC_new, dt_raw = _split_proj(cfg, zxbcdt)
+    # the conv over the rolling window [B, K-1, ch] and the new input
+    window = torch.cat([state["conv"], xBC_new[:, None, :]], dim=1)  # [B, K, ch]
+    w = params["conv_w"].to(dtype)
+    xBC = F.silu((window * w).sum(1) + params["conv_b"].to(dtype))
+    new_conv = window[:, 1:, :]
+
+    xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y, new_ssm = ssd_step(xs.reshape(B_, H, P), dt, A, Bm.reshape(B_, G, N),
+                          Cm.reshape(B_, G, N), state["ssm"])
+    y = y + params["D"].to(dtype)[None, :, None] * xs.reshape(B_, H, P)
+    y = y.reshape(B_, d_inner)
+    y = L.rmsnorm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    out = (y @ params["out_proj"].to(dtype))[:, None, :]
+    return out, {"ssm": new_ssm, "conv": new_conv}
+
+
+# ----------------------------------------------------------------------------
+# The pure-SSM LM (mamba2-1.3b): embed -> [norm -> mamba] x L -> norm -> logits.
+# ----------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
+    return {"norm": L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device),
+            "mamba": init_mamba_block(gen, cfg)}
+
+
+def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
+    """Random params from ``seed`` on ``device``, with the reference's
+    distributions (its numbers come only through
+    :mod:`repro_torch.models.convert`)."""
+    from ..relational.table import resolve_device
+
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return {
+        "embedding": L.init_embedding(gen, cfg),
+        "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "final_norm": L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device),
+    }
+
+
+def layer_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """One residual Mamba2 layer (forward only)."""
+    return x + mamba_block(p["mamba"], cfg, L.rmsnorm(p["norm"], x, cfg.norm_eps))
+
+
+def layer_prefill(p, cfg: ModelConfig, x: torch.Tensor):
+    """One residual Mamba2 layer and its final ``{"ssm", "conv"}`` state."""
+    o, st = mamba_block(p["mamba"], cfg, L.rmsnorm(p["norm"], x, cfg.norm_eps),
+                        return_state=True)
+    return x + o, st
+
+
+def layer_step(p, cfg: ModelConfig, x: torch.Tensor, ssm: torch.Tensor, conv: torch.Tensor):
+    """One residual Mamba2 layer for one token; writes the layer's new state
+    into ``ssm`` and ``conv`` (cache slices) in place."""
+    o, st = mamba_block_step(p["mamba"], cfg, L.rmsnorm(p["norm"], x, cfg.norm_eps),
+                             {"ssm": ssm, "conv": conv})
+    ssm.copy_(st["ssm"])
+    conv.copy_(st["conv"])
+    return x + o
+
+
+def forward(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Full-sequence forward -> final-normed hidden states ``[B, S, d]``."""
+    from .transformer import _maybe_remat
+
+    x = L.embed(params["embedding"], cfg, batch["tokens"])
+    body = _maybe_remat(lambda h, p: layer_fwd(p, cfg, h), cfg)
+    for p in params["layers"]:
+        x = body(x, p)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    logits = L.unembed(params["embedding"], cfg, forward(params, cfg, batch))
+    return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+
+
+def mamba_state(cfg: ModelConfig, n: int, batch_size: int, dtype, device) -> dict:
+    """Zero ``{"ssm": [n, B, H, P, N] f32, "conv": [n, B, K-1, ch]}``."""
+    _, H, conv_ch = dims(cfg)
+    return {
+        "ssm": torch.zeros((n, batch_size, H, cfg.ssm_head_dim, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((n, batch_size, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
+               device="cuda") -> Any:
+    """The SSM cache is O(1) in context length: ``capacity`` is unused."""
+    del capacity
+    return mamba_state(cfg, cfg.num_layers, batch_size, dtype or L.cdtype(cfg), device)
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
+    """One token for every stream: tokens ``[B, 1]`` -> ``(logits [B,
+    vocab], cache)``; the cache is updated in place.  ``pos`` is unused: the
+    state carries the context."""
+    del pos
+    x = L.embed(params["embedding"], cfg, tokens)
+    for l, p in enumerate(params["layers"]):
+        x = layer_step(p, cfg, x, cache["ssm"][l], cache["conv"][l])
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embedding"], cfg, x)[:, 0], cache
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Run the prompts through the chunked scan, keeping every layer's final
+    state: ``(last-token logits [B, vocab], cache)``."""
+    x = L.embed(params["embedding"], cfg, batch["tokens"])
+    states = []
+    for p in params["layers"]:
+        x, st = layer_prefill(p, cfg, x)
+        states.append(st)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embedding"], cfg, x[:, -1:])
+    cache = {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
+    return logits[:, 0], cache
+
+
+__all__ = [
+    "dims",
+    "init_mamba_block",
+    "ssd_chunked",
+    "ssd_step",
+    "mamba_block",
+    "mamba_block_step",
+    "init_layer",
+    "layer_fwd",
+    "layer_prefill",
+    "layer_step",
+    "mamba_state",
+    "init",
+    "forward",
+    "train_loss",
+    "init_cache",
+    "decode_step",
+    "prefill",
+]

@@ -9,6 +9,7 @@ from .engine import (
     SlotAllocator,
     engine_record,
     generate_bucketed,
+    grow_cache,
     make_mixed_workload,
     sample_token,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "Request",
     "sample_token",
     "generate_bucketed",
+    "grow_cache",
     "make_mixed_workload",
     "engine_record",
 ]

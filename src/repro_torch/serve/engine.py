@@ -19,6 +19,11 @@ transport.  The static engine has no multiplexer: the plain pack and
 ``cfg.exchange_impl``.  Both give the same tokens, because the pack and the
 transport do not change what is delivered.
 
+The static engine serves every ported family: a KV cache grows to
+``capacity`` positions after prefill, an SSM state is O(1) and stays as it
+is (:func:`grow_cache`).  The continuous engine needs a per-position KV
+cache (``decode_step_slots``) and raises for the SSM and hybrid families.
+
 Both engines run where the params live: ``device`` defaults to the card and
 raises without one; pass ``device="cpu"`` for the CPU.  Greedy sampling is
 the reference's; sampling with a temperature draws from a ``torch.Generator``
@@ -141,8 +146,8 @@ class ServeEngine:
 
         logits, cache = self.api.prefill(params, {"tokens": torch.from_numpy(prompts).to(self.device)})
         self.stats["prefill_tokens"] += int(prompts.size)
-        ctx_len = int(cache["seg0"]["k"].shape[2])
-        cache = self._grow_cache(cache)
+        ctx_len = plen
+        cache = grow_cache(self.api, cache, B, self.capacity)
 
         max_new = max(r.max_new_tokens for r in requests)
         tokens = sample_token(self.gen, logits, self.temperature)
@@ -175,17 +180,28 @@ class ServeEngine:
         self.stats["wall"] += time.perf_counter() - t0
         return requests
 
-    def _grow_cache(self, cache: Any) -> Any:
-        """Pad prefill-length cache leaves ``[L, B, plen, ...]`` out to
-        ``self.capacity`` positions with zeros."""
-        out = {}
-        for seg, leaves in cache.items():
-            out[seg] = {}
-            for name, leaf in leaves.items():
-                grown = leaf.new_zeros((leaf.shape[0], leaf.shape[1], self.capacity) + tuple(leaf.shape[3:]))
-                grown[:, :, : leaf.shape[2]] = leaf
-                out[seg][name] = grown
-        return out
+
+def grow_cache(api: registry.ModelApi, cache: Any, batch_size: int, capacity: int) -> Any:
+    """Pad prefill-sized cache leaves with zeros to the shape of
+    ``api.init_cache(batch_size, capacity)``'s, as the reference does: a
+    leaf whose shape already matches (an SSM state, a conv window) is kept
+    as it is, a KV leaf grows along its positions.  The template is built on
+    the ``meta`` device, so it allocates nothing."""
+    from ..tree import tree_map
+
+    template = api.init_cache(batch_size, capacity, device="meta")
+
+    def grow(leaf, ref):
+        if leaf.shape == ref.shape:
+            return leaf
+        if any(have > want for have, want in zip(leaf.shape, ref.shape)):
+            raise ValueError(f"a cache leaf {tuple(leaf.shape)} exceeds the capacity-"
+                             f"{capacity} shape {tuple(ref.shape)}")
+        grown = leaf.new_zeros(ref.shape)
+        grown[tuple(slice(0, n) for n in leaf.shape)] = leaf
+        return grown
+
+    return tree_map(grow, cache, template)
 
 
 def generate_bucketed(engine: ServeEngine, params, requests: list[Request]) -> list[Request]:
@@ -466,6 +482,7 @@ __all__ = [
     "Request",
     "sample_token",
     "generate_bucketed",
+    "grow_cache",
     "make_mixed_workload",
     "engine_record",
 ]

@@ -199,8 +199,8 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_archs_name_their_slice():
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        get_config("mamba2-1.3b")
+    with pytest.raises(NotImplementedError, match="Whisper slice"):
+        get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="dense-model slice"):
         registry.build(get_config("olmoe-1b-7b").scaled(family="vlm"))
     with pytest.raises(NotImplementedError, match="telemetry"):
