@@ -28,9 +28,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    (f32, CUDA cores) or 989 TFLOP/s (bf16); ``ssd_scan`` at Mamba2-1.3B's
    prefill shape (B=8, L=2,048, H=64, P=64, N=128, chunk 256) in bf16 (y
    within 2e-2, one bf16 rounding; the state within 2e-4) and f32 (2e-4),
-   at Zamba2-7B's (B=4, H=112, N=64), chained from a nonzero initial state
-   and with two groups, against its plain version, bound by the larger of
-   bytes and f32 flops;
+   and at batch 1 over a 32,768-token prompt, at Zamba2-7B's (B=4, H=112,
+   N=64), chained from a nonzero initial state and with two groups, against
+   its plain version, bound by the larger of bytes and f32 flops, with one
+   call profiled for the device time of each of its three kernels;
 4. queries — TPC-H at ``--sf`` through the port's planner and executor:
    Q1, Q6, Q17, Q3 on 8 shards, Q3 and Q18 on 2 pods x 4, and Q3 again
    with an explicit ``impl="round_robin", num_chunks=2``.  Every answer is
@@ -65,8 +66,14 @@ Phases, in order; any failure raises and the process exits non-zero:
    (``launch.train.main``, seq 512) runs 4 steps with a checkpoint every 2,
    then resumes to step 6 in the same directory; its last loss must equal
    an uninterrupted 6-step run's within rtol 1e-5 (the embedding
-   gradient's ``index_put`` sums in no fixed order on the card).  ms a
-   step, tokens/s and peak memory are printed; one step is profiled;
+   gradient's ``index_put`` sums in no fixed order on the card).  Then the
+   same model with bf16 compute over f32 master params (the reference's
+   default dtypes), 5 steps of the same schedule: the loss must fall, 24
+   ``flash_attention`` launches a step (the bf16 kernel: 120, counted apart
+   from the f32 run's 480), and one step must equal the chunked path's
+   within rtol 2**-7 (loss) and 2**-5 (grad norm), 4 and 16 units of bf16
+   roundoff.  ms a step, tokens/s and peak memory are printed; one step of
+   each run is profiled;
 7. SSM serving — Mamba2-1.3B (48 layers, d_model 2,048) and Zamba2-7B (81
    layers, d_model 3,584) at full width and depth (random weights from
    ``--seed``, f32 master params, bf16 compute) through the static engine:
@@ -113,6 +120,11 @@ MIXED_REQUESTS = {1: 128, 2: 64}
 # training: batch, seq, steps; the CLI resume check's seq
 TRAIN_SHAPE = (8, 2048, 20)
 CLI_SEQ = 512
+# the bf16-compute run: steps, and flash against chunked within (loss, grad
+# norm) rtols of 4 and 16 units of bf16 roundoff (u = 2**-9): the two paths
+# round the probabilities at different points, about u in each layer's output
+TRAIN_BF16_STEPS = 5
+TRAIN_BF16_RTOL = (2.0**-7, 2.0**-5)
 # SSM serving: requests, prompt tokens, new tokens, batch; each f32 check's
 # batch, full length and split point
 SSM_SERVE = {"mamba2-1.3b": (16, 2048, 32, 8), "zamba2-7b": (8, 2048, 16, 4)}
@@ -313,6 +325,8 @@ def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
         f"{bound_ms:.4f} ms by {bound_by} ({flops} flop, {nbytes} B), "
         f"{100 * bound_ms / ms:.2f}% of bound"
     )
+    _profile_call(f"ssd_scan {label}", lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0),
+                  kernel=("ssd_", "ssd_scan"), top=3)  # its three kernels apart
     return dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:135", match=True, max_abs_err=err, ms=ms,
@@ -405,7 +419,8 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
            _ssd_row(4, 2048, 112, 64, 64, 256, 1, "bfloat16", seed),
            _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
-    return rows + [moe_rows[1], flash[0], ssd[0]]
+    flash[1]["launch_key"] = "flash_attention[bfloat16]"  # the bf16 training run's
+    return rows + [moe_rows[1], flash[0], flash[1], ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -611,7 +626,8 @@ def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "m
                      top: int = 8) -> None:
     """One call under ``torch.profiler``: device busy share of its wall time,
     the top device kernels, and the device time of ``kernel`` (the key
-    substring and the name to print)."""
+    substring, summed over every device kernel it matches, and the name to
+    print; ``ssd_scan`` is three kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -630,11 +646,14 @@ def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "m
         print(f"[profile] {tag}:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
     key, name = kernel
-    for e in rows:
-        if key in e.key:
-            print(f"[profile] {tag}: {name} device time {e.self_device_time_total / 1e3:.4f} ms "
-                  f"over {e.count} launches = {e.self_device_time_total / 1e3 / e.count:.4f} ms "
-                  f"each, {100 * e.self_device_time_total / busy_us:.1f}% of device time")
+    matched = [e for e in rows if key in e.key]
+    if matched:
+        us = sum(e.self_device_time_total for e in matched)
+        calls = max(e.count for e in matched)
+        print(f"[profile] {tag}: {name} device time {us / 1e3:.4f} ms over {calls} calls = "
+              f"{us / 1e3 / calls:.4f} ms each, {100 * us / busy_us:.1f}% of device time ("
+              + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms" for e in matched)
+              + ")")
 
 
 def phase_serving(seed: int) -> dict:
@@ -768,41 +787,36 @@ def phase_serving(seed: int) -> dict:
     return main_path
 
 
-def phase_training(seed: int) -> dict:
-    """train100m at full width with the flash kernel: 20 steps, the chunked
-    cross-check, the CLI's checkpoint resume, one profiled step.  Returns
-    every kernel's launches over the 20 steps (the main path)."""
-    import contextlib
-    import io
-    import tempfile
-
+def _train_run(cfg, seed: int, steps: int, tag: str):
+    """``steps`` AdamW steps (lr 3e-4, 5 warm-up steps over a 20-step
+    schedule) of ``cfg`` at ``TRAIN_SHAPE``'s batch from ``seed``, through
+    the calls ``launch/train.py`` makes; every step must launch
+    ``flash_attention`` 2 x layers times and the loss must fall.  Returns the
+    state, the step function, the optimizer, the batch source and every
+    kernel's launches over the steps (a main path)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import Prefetcher, make_batch_iterator
-    from repro_torch.launch import train as train_cli
     from repro_torch.models import registry
     from repro_torch.train import AdamWConfig, TrainState, make_train_step
     from repro_torch.tree import leaves
 
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 matmuls are on; the f32 checks below assume full f32")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    B, S, steps = TRAIN_SHAPE
-    cfg = get_config("train100m").scaled(attn_impl="flash")
+    B, S, total = TRAIN_SHAPE
     api = registry.build(cfg)
-    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=steps, schedule=cfg.lr_schedule)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=total, schedule=cfg.lr_schedule)
     step_fn = make_train_step(api, opt)
     state = TrainState.create(api, seed)
     n_params = sum(t.numel() for t in leaves(state.params))
     per_step = cfg.num_layers * (1 if cfg.remat == "none" else 2)
-    print(f"[training] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    print(f"[training] {tag}: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"tied, {cfg.dtype}, remat={cfg.remat}, attn_impl={cfg.attn_impl}; {n_params} params "
-          f"from seed {seed}; batch {B} x {S}; TF32 off")
+          f"tied, {cfg.dtype} compute over {cfg.param_dtype} params, remat={cfg.remat}, "
+          f"attn_impl={cfg.attn_impl}; {n_params} params from seed {seed}; batch {B} x {S}; "
+          f"TF32 off")
     it = Prefetcher(make_batch_iterator(cfg, ShapeSpec("chip", S, B, "train"), seed=seed), depth=2)
 
     def next_batch():
@@ -821,39 +835,72 @@ def phase_training(seed: int) -> dict:
         walls.append(time.perf_counter() - t0)
         launched = _counts()["flash_attention"] - before
         if launched != per_step:
-            raise AssertionError(f"step {i}: flash_attention launched {launched} times, "
+            raise AssertionError(f"{tag} step {i}: flash_attention launched {launched} times, "
                                  f"expected {per_step}")
     launches = _counts()
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{tag}: non-finite loss: {losses}")
     tail = float(np.mean(losses[-5:]))
     if not tail < losses[0]:
-        raise AssertionError(f"the loss did not fall: first {losses[0]}, last 5 mean {tail}")
+        raise AssertionError(f"{tag}: the loss did not fall: first {losses[0]}, last 5 mean {tail}")
     steady = float(np.mean(walls[1:]))
-    print(f"[training] losses: {' '.join(f'{x:.4f}' for x in losses)}")
-    print(f"[training] loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; all finite")
-    print(f"[training] flash_attention launched {launches['flash_attention']} = {steps} steps x "
-          f"{per_step} (2 x {cfg.num_layers} layers: forward + remat recompute)")
-    print(f"[training] step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{steps} mean "
+    print(f"[training] {tag} losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[training] {tag} loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; all finite")
+    print(f"[training] {tag} flash_attention launched {launches['flash_attention']} = {steps} "
+          f"steps x {per_step} (2 x {cfg.num_layers} layers: forward + remat recompute)")
+    print(f"[training] {tag} step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{steps} mean "
           f"{steady * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}) "
           f"= {B * S / steady:.1f} tokens/s; peak memory {torch.cuda.max_memory_allocated()} B")
+    return state, step_fn, opt, next_batch, launches
 
-    # the same state and batch under the reference's chunked attention
-    batch = next_batch()
+
+def _flash_vs_chunked(cfg, opt, step_fn, state, batch, tag: str, rtol_loss: float,
+                      rtol_norm: float) -> None:
+    """One step from one state and batch under ``attn_impl="flash"`` and
+    ``"chunked"``: the loss and the grad norm within the given rtols."""
+    from repro_torch.models import registry
+    from repro_torch.train import make_train_step
+
     _, m_flash = step_fn(state, batch)
     chunked = registry.build(cfg.scaled(attn_impl="chunked"))
     _, m_chunk = make_train_step(chunked, opt)(state, batch)
     d_loss = abs(float(m_flash["loss"]) - float(m_chunk["loss"])) / abs(float(m_chunk["loss"]))
     d_norm = abs(float(m_flash["grad_norm"]) - float(m_chunk["grad_norm"])) / float(m_chunk["grad_norm"])
-    print(f"[training] flash vs chunked, one step from one state and batch: loss "
-          f"{float(m_flash['loss']):.6f} vs {float(m_chunk['loss']):.6f} (rel {d_loss:.3g}), "
-          f"grad norm {float(m_flash['grad_norm']):.6f} vs {float(m_chunk['grad_norm']):.6f} "
-          f"(rel {d_norm:.3g})")
-    if d_loss > 1e-5 or d_norm > 1e-4:
-        raise AssertionError("flash and chunked attention disagree beyond rtol 1e-5 / 1e-4")
-    _profile_call(f"train step [{B}, {S}]", lambda: step_fn(state, batch),
-                     kernel=("flash_fwd_kernel", "flash_attention"), top=10)
-    del state, batch, m_flash, m_chunk
+    print(f"[training] {tag} flash vs chunked, one step from one state and batch: loss "
+          f"{float(m_flash['loss']):.6f} vs {float(m_chunk['loss']):.6f} (rel {d_loss:.3g}, "
+          f"rtol {rtol_loss:.3g}), grad norm {float(m_flash['grad_norm']):.6f} vs "
+          f"{float(m_chunk['grad_norm']):.6f} (rel {d_norm:.3g}, rtol {rtol_norm:.3g})")
+    if d_loss > rtol_loss or d_norm > rtol_norm:
+        raise AssertionError(f"{tag}: flash and chunked attention disagree beyond rtol "
+                             f"{rtol_loss:.3g} / {rtol_norm:.3g}")
+
+
+def phase_training(seed: int) -> dict:
+    """train100m at full width with the flash kernel: 20 steps in f32, the
+    chunked cross-check, the CLI's checkpoint resume, one profiled step;
+    then 5 steps with bf16 compute over f32 master params, its own chunked
+    cross-check and profiled step.  Returns every kernel's launches over the
+    two runs (the main path), the bf16 run's ``flash_attention`` launches
+    under ``flash_attention[bfloat16]``."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the f32 checks below assume full f32")
+    B, S, steps = TRAIN_SHAPE
+    cfg = get_config("train100m").scaled(attn_impl="flash")
+    state, step_fn, opt, next_batch, launches = _train_run(cfg, seed, steps, "f32")
+    batch = next_batch()
+    _flash_vs_chunked(cfg, opt, step_fn, state, batch, "f32", 1e-5, 1e-4)
+    _profile_call(f"f32 train step [{B}, {S}]", lambda: step_fn(state, batch),
+                  kernel=("flash_fwd_f32", "flash_attention"), top=10)
+    del state, batch
     torch.cuda.empty_cache()
 
     # the CLI: 4 steps with a checkpoint every 2, resume to 6, against 6 straight
@@ -880,7 +927,22 @@ def phase_training(seed: int) -> dict:
         + f"; resumed at step 4, |diff| {abs(last['loss'] - want):.3g} (rtol 1e-5)")
     del runs, st
     torch.cuda.empty_cache()
-    return launches
+
+    # bf16 compute over f32 master params (the reference's default dtypes);
+    # the tolerances are TRAIN_BF16_RTOL's, from bf16 rounding
+    cfg16 = get_config("train100m").scaled(dtype="bfloat16", attn_impl="flash")
+    state, step_fn, opt, next_batch, launches16 = _train_run(cfg16, seed, TRAIN_BF16_STEPS,
+                                                             "bf16")
+    batch = next_batch()
+    _flash_vs_chunked(cfg16, opt, step_fn, state, batch, "bf16", *TRAIN_BF16_RTOL)
+    _profile_call(f"bf16 train step [{B}, {S}]", lambda: step_fn(state, batch),
+                  kernel=("flash_fwd_bf16", "flash_attention"), top=10)
+    print(f"[training] flash_attention launches: f32 {launches['flash_attention']}, bf16 "
+          f"{launches16['flash_attention']}")
+    del state, batch
+    torch.cuda.empty_cache()
+    launches16["flash_attention[bfloat16]"] = launches16.pop("flash_attention")
+    return {k: launches.get(k, 0) + launches16.get(k, 0) for k in {*launches, *launches16}}
 
 
 def _rel_err(got, want) -> float:
@@ -987,11 +1049,11 @@ def _ssm_model(arch: str, seed: int) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, plen), dtype=np.int32)).cuda()
     _profile_call(f"{arch} prefill [{batch}, {plen}]",
                   lambda: api.prefill(params, {"tokens": tokens}),
-                  kernel=("ssd_scan_kernel", "ssd_scan"), top=10)
+                  kernel=("ssd_", "ssd_scan"), top=10)
     cache = api.init_cache(batch, plen + 1)
     _profile_call(f"{arch} decode step B={batch}",
                   lambda: api.decode_step(params, tokens[:, :1], cache, plen),
-                  kernel=("ssd_scan_kernel", "ssd_scan"), top=5)
+                  kernel=("ssd_", "ssd_scan"), top=5)
     del cache
     api32 = registry.build(cfg.scaled(dtype="float32"))
     for nb, full, split in SSM_CHECK[arch]:
@@ -1066,10 +1128,10 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
-    launches = {k: q_launches[k] + s_launches[k] + t_launches[k] + m_launches[k]
-                for k in q_launches}
+    paths = (q_launches, s_launches, t_launches, m_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k.pop("launch_key", k["name"])]
         if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 

@@ -6,9 +6,10 @@ its bound and what the design does about it), built at first use by
 :mod:`.build` and loaded with ``ctypes``.
 
 It takes the kernel layout, ``q [B, H, Sq, D]`` and ``k``/``v [B, KH, Sk,
-D]``, in float32 or bfloat16.  A tensor on the CPU goes to the plain version
-in :mod:`.ref`; a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
-counts kernel launches only.
+D]``, in float32 (FMA on the CUDA cores) or bfloat16 (the tensor cores,
+``mma.sync``).  A tensor on the CPU goes to the plain version in :mod:`.ref`;
+a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
+launches only.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from . import ref
 from .build import CudaLibrary, raise_on
 
 HEAD_DIMS = (32, 64, 128, 256)
-BLOCK_Q = BLOCK_K = 64  # the kernel's q tile and KV tile rows
+BLOCK_Q = BLOCK_K = 64  # sequence lengths must be multiples of these
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0}

@@ -94,6 +94,63 @@ def ssd_scan_ref(
     return y.to(x.dtype), s.reshape(B_, H, P, N)
 
 
+def ssd_scan_staged_ref(
+    x: torch.Tensor,   # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H]
+    A: torch.Tensor,   # [H]
+    Bm: torch.Tensor,  # [B, L, G, N]
+    Cm: torch.Tensor,  # [B, L, G, N]
+    chunk: int,
+    initial_state: torch.Tensor | None = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_ref` cut into the three stages the CUDA kernels run
+    (``csrc/ssd_scan.cu``), all chunks at once where the kernels run them in
+    parallel; used by the tests only.
+
+    1. Per chunk: ``a_cs``, the chunk's own state ``sum_j exp(a_last -
+       a_cs_j) dt_j x_j B_j^T`` and the scores ``C_i . B_j`` once per group;
+    2. in chunk order, the state entering each chunk: ``S = exp(a_last) S +
+       local``, from the initial state;
+    3. per chunk: the weighted scores times x, plus ``exp(a_cs_i) (C_i . S)``
+       with the entering state.
+    """
+    B_, Lq, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    if Lq % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} does not divide the sequence length {Lq}")
+    nc = Lq // chunk
+    xc = x.reshape(B_, nc, chunk, G, R, P).float()
+    dtc = dt.reshape(B_, nc, chunk, G, R).float()
+    Bc = Bm.reshape(B_, nc, chunk, G, N).float()
+    Cc = Cm.reshape(B_, nc, chunk, G, N).float()
+    # 1. chunk states and scores
+    a_cs = (dtc * A.float().reshape(G, R)).cumsum(2)  # [B, nc, Q, G, R]
+    a_last = a_cs[:, :, -1]  # [B, nc, G, R]
+    w = torch.exp(a_last[:, :, None] - a_cs) * dtc
+    local = torch.einsum("bcjgn,bcjgrp->bcgrpn", Bc, xc * w[..., None])
+    scores = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)
+    # 2. state passing
+    if initial_state is None:
+        s = torch.zeros((B_, G, R, P, N), dtype=torch.float32, device=x.device)
+    else:
+        s = initial_state.reshape(B_, G, R, P, N).float()
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = s * torch.exp(a_last[:, c])[..., None, None] + local[:, c]
+    S = torch.stack(entering, 1)  # [B, nc, G, R, P, N]
+    # 3. chunk outputs
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[:, :, None, None]  # [Q, Q, 1, 1]
+    seg = a_cs[:, :, :, None] - a_cs[:, :, None]  # [B, nc, Q, Q, G, R]
+    decay = torch.exp(torch.where(causal, seg, float("-inf")))
+    m = scores[..., None] * decay * dtc[:, :, None]
+    y = torch.einsum("bcijgr,bcjgrp->bcigrp", m, xc)
+    y = y + torch.einsum("bcign,bcgrpn->bcigrp", Cc, S) * torch.exp(a_cs)[..., None]
+    return y.reshape(B_, Lq, H, P).to(x.dtype), s.reshape(B_, H, P, N)
+
+
 _M32 = 0xFFFFFFFF
 
 
@@ -177,6 +234,7 @@ def moe_dispatch_ref(
 __all__ = [
     "flash_attention_ref",
     "ssd_scan_ref",
+    "ssd_scan_staged_ref",
     "fibonacci_hash",
     "partition_pack_ref",
     "hash_partition_pack_ref",

@@ -9,9 +9,14 @@ It takes the reference's layout: ``x [B, L, H, P]``, ``dt [B, L, H]`` f32,
 ``A [H]`` f32, ``Bm``/``Cm [B, L, G, N]`` and an optional initial state
 ``[B, H, P, N]`` f32; x, B and C in float32 or bfloat16 (one dtype).  A
 tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA tensor
-launches the kernel or raises.  The kernel has no backward: under autograd
-with an input that requires a gradient it raises rather than return an
-output with no ``grad_fn``.  ``LAUNCHES`` counts kernel launches only.
+launches the kernel or raises.  One launch enqueues the source's three
+kernels (chunk states and shared scores, state passing, chunk outputs); the
+wrapper allocates their f32 scratch with ``torch.empty``: the chunk states
+``[B, L / chunk, H, N, P]`` (134 MB at Mamba2-1.3B's 8 x 2,048 prefill), the
+scores ``[B, L / chunk, G, chunk, chunk]`` and the cumsums ``[B, H, L]``.
+The kernels have no backward: under autograd with an input that requires a
+gradient the wrapper raises rather than return an output with no
+``grad_fn``.  ``LAUNCHES`` counts wrapper launches (one a call) only.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ LAUNCHES = {"ssd_scan": 0}
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.ssd_scan_launch.argtypes = [ptr] * 11 + [i32] * 8 + [ptr]
     lib.ssd_scan_launch.restype = i32
 
 
@@ -102,12 +107,18 @@ def ssd_scan(
     G, N = Bm.shape[2], Bm.shape[3]
     lib = LIBRARY.load()
     y = torch.empty_like(x)
-    fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    fin = torch.empty((B, H, P, N), **f32)
+    nc = L // chunk
+    states = torch.empty((B, nc, H, N, P), **f32)
+    scores = torch.empty((B, nc, G, chunk, chunk), **f32)
+    acs = torch.empty((B, H, L), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
-        fin.data_ptr(), _DTYPE_CODES[x.dtype], B, L, H, P, G, N, chunk, stream,
+        fin.data_ptr(), states.data_ptr(), scores.data_ptr(), acs.data_ptr(),
+        _DTYPE_CODES[x.dtype], B, L, H, P, G, N, chunk, stream,
     )
     raise_on("ssd_scan", err)
     LAUNCHES["ssd_scan"] += 1

@@ -175,6 +175,36 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, B, H, KH, Sq, S
         fa.flash_attention(q[:, :, :32].contiguous(), k, v)
 
 
+# (B, H, KH, Sq, Sk, D, causal): bf16 on the tensor cores at every head dim,
+# causal and not, GQA ratios 1, 3 and 4, Sq < Sk and Sq > Sk, and query
+# lengths that are not multiples of the kernel's 128-row blocks.
+BF16_CASES = [
+    (2, 4, 4, 128, 128, 32, True),
+    (1, 6, 2, 192, 320, 32, False),
+    (2, 12, 4, 256, 256, 64, True),
+    (1, 8, 2, 320, 128, 64, True),
+    (1, 4, 1, 128, 384, 128, False),
+    (1, 4, 4, 192, 448, 128, True),
+    (1, 3, 1, 256, 128, 256, True),
+    (1, 4, 4, 128, 256, 256, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", BF16_CASES)
+def test_cuda_bf16_flash_attention_matches_plain_version(cuda_device, B, H, KH, Sq, Sk, D,
+                                                          causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * Sq + Sk + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).bfloat16()
+               for shape in ((B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, D)))
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = kref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [OUTSIDE_THE_GATE[0], OUTSIDE_THE_GATE[2]])
 def test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take(cuda_device, shape):

@@ -180,6 +180,39 @@ def test_a_chunk_that_does_not_divide_the_length_raises():
         ops.ssd_scan(x, dt, A, Bm, Cm, 16)
 
 
+# (B, L, H, P, N, chunk, G, initial state): the three-stage decomposition of
+# the CUDA kernels, with one and two groups, with and without an entering
+# state, and chunks that are not multiples of the kernels' 64-row tiles.
+STAGED_CASES = [
+    (2, 64, 8, 16, 32, 16, 1, False),
+    (1, 192, 4, 8, 16, 96, 1, True),
+    (2, 96, 8, 8, 16, 32, 2, False),
+    (2, 192, 4, 16, 32, 96, 2, True),
+]
+
+
+@pytest.mark.parametrize("case", STAGED_CASES)
+def test_staged_scan_matches_the_plain_version_and_the_reference(jref, case):
+    """``ref.ssd_scan_staged_ref`` (chunk states, state passing, chunk outputs:
+    the kernels' decomposition) equals the chunk-by-chunk plain version and
+    the reference: its Pallas ``ssd_scan`` (interpret mode) for one group and
+    ``ssd_chunked`` always, within 2e-4."""
+    B, L, H, P, N, chunk, G, init = case
+    arrays = _inputs(sum(case[:7]), B, L, H, P, N, G, init)
+    t = _torch(arrays)
+    y, s = kref.ssd_scan_staged_ref(*t[:5], chunk, t[5])
+    want_y, want_s = kref.ssd_scan_ref(*t[:5], chunk, t[5])
+    _close(y.numpy(), want_y.numpy())
+    _close(s.numpy(), want_s.numpy())
+    jx = [None if a is None else jref.jnp.asarray(a) for a in arrays]
+    refs = [jref.mamba2.ssd_chunked(*jx[:5], chunk, jx[5])]
+    if G == 1:
+        refs.append(jref.kernel(*jx[:5], chunk=chunk, initial_state=jx[5], head_block=4))
+    for wy, ws in refs:
+        _close(y.numpy(), wy)
+        _close(s.numpy(), ws)
+
+
 # ---------------------------------------------------------------------------
 # On the card.
 # ---------------------------------------------------------------------------
@@ -200,6 +233,9 @@ GPU_CASES = [
     (8, 2048, 64, 64, 128, 256, 1, torch.float32, False),
     (4, 2048, 112, 64, 64, 256, 1, torch.bfloat16, False),  # Zamba2-7B prefill
     (1, 32768, 64, 64, 128, 256, 1, torch.bfloat16, False),  # Mamba2-1.3B, one long prompt
+    (1, 8192, 8, 64, 128, 256, 2, torch.float32, True),    # many chunks at batch 1, groups
+    (1, 8192, 8, 64, 128, 256, 2, torch.bfloat16, True),
+    (1, 8256, 8, 32, 64, 96, 2, torch.float32, True),      # 86 chunks of 96 rows
 ]
 
 

@@ -144,6 +144,36 @@ def test_train_loss_and_grads_match_reference(jref, monkeypatch):
     _assert_trees_close(grads, jref.grads, rtol=1e-4, atol=1e-4)
 
 
+def test_bf16_train_loss_matches_reference(jref, monkeypatch):
+    """bf16 compute over f32 master params, the reference's default dtypes,
+    with ``attn_impl="flash"`` (the reference's Pallas kernel in interpret
+    mode, the port's wrapper in bf16): the loss within rtol 2**-7, four units
+    of bf16 roundoff (u = 2**-9), since the two frameworks round the bf16
+    activations at other places; the gradient norms within 2**-5 (16 u)."""
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import registry as ref_registry
+
+    jax, jnp = jref.jax, jref.jnp
+    ref_api = ref_registry.build(ref_smoke("train100m").scaled(**OVER, dtype="bfloat16"))
+    jparams = jax.tree.map(jnp.asarray, jref.params)
+    jbatch = {k: jnp.asarray(v) for k, v in jref.batch.items()}
+    want, want_g = jax.value_and_grad(ref_api.train_loss)(jparams, jbatch)
+    api, state, batch = _port(jref, dtype="bfloat16")
+    dtypes = []
+    real = fa.flash_attention
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda q, *a, **k: dtypes.append(q.dtype) or real(q, *a, **k))
+    live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+    loss = api.train_loss(live, batch)
+    grads = torch.autograd.grad(loss, leaves(live))
+    assert dtypes == [torch.bfloat16] * jref.cfg.num_layers
+    np.testing.assert_allclose(loss.item(), float(want), rtol=2.0**-7)
+    norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    want_norm = float(jnp.sqrt(sum((g.astype(jnp.float32) ** 2).sum()
+                                   for g in jax.tree.leaves(want_g))))
+    np.testing.assert_allclose(norm, want_norm, rtol=2.0**-5)
+
+
 def test_three_train_steps_match_reference(jref):
     api, state, batch = _port(jref)
     step = make_train_step(api, AdamWConfig())
