@@ -19,13 +19,16 @@ Phases, in order; any failure raises and the process exits non-zero:
    ``partition_pack`` (3 bins, with padding ids) and ``hash_partition``
    (P=8) at S=8 shards x one shard's lineitem rows; ``moe_dispatch`` at
    OLMoE's decode shape (S=8, T=64, E=64, C=4) and prefill shape (S=8,
-   T=16,384, C=320), on router-ordered expert ids, all bit for bit and
-   bound by bytes over 3.35 TB/s; ``flash_attention`` at train100m's shape
-   (B=8, H=12, KH=4, S=2,048, D=64, causal) in f32 and bf16 and one
-   non-causal ``Sq != Sk`` case, within the reference's tolerances (2e-5
-   f32, 2e-2 bf16), beside ``scaled_dot_product_attention`` (timed only)
-   and bound by the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s
-   (f32, CUDA cores) or 989 TFLOP/s (bf16); ``ssd_scan`` at Mamba2-1.3B's
+   T=16,384, C=320), on the router's int64 expert ids, all bit for bit
+   and bound by bytes over 3.35 TB/s, ``moe_dispatch`` also with one call's
+   wall (host clock over 1,000 calls) beside its device time (profiler);
+   ``flash_attention`` at train100m's shape (B=8, H=12, KH=4, S=2,048,
+   D=64, causal) in f32 and bf16 and one non-causal ``Sq != Sk`` case,
+   within the reference's tolerances (2e-5 f32, 2e-2 bf16), beside
+   ``scaled_dot_product_attention`` (timed only) and bound by the larger of
+   bytes over 3.35 TB/s and flops over 989 TFLOP/s (bf16) or three times
+   the flops over 494.7 TFLOP/s (f32 in 3xTF32; one f32 FMA pass over 67
+   TFLOP/s is printed beside it); ``ssd_scan`` at Mamba2-1.3B's
    prefill shape (B=8, L=2,048, H=64, P=64, N=128, chunk 256) in bf16 (y
    within 2e-2, one bf16 rounding; the state within 2e-4) and f32 (2e-4),
    and at batch 1 over a 32,768-token prompt, at Zamba2-7B's (B=4, H=112,
@@ -110,7 +113,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA cores f32; dense bf16 tensor cores
+# CUDA cores f32; dense tensor cores, tf32 and bf16
+PEAK_FLOPS = {"float32": 67e12, "tf32": 494.7e12, "bfloat16": 989e12}
 N_SHARDS = 8
 ALL_RUNS = ("q1", "q6", "q17", "q3", "q3_pods", "q18_pods", "q3_rr")
 # serving: batch, prompt tokens, new tokens, cache positions (the uniform
@@ -251,18 +255,28 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed) -> dict:
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = _attention_flops(B, H, Sq, Sk, D, causal)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    # f32 runs three tf32 products (3xTF32) on the tensor cores; one f32 FMA
+    # pass on the CUDA cores is the other bound printed
+    ops_ms = (3 * flops / PEAK_FLOPS["tf32"] if dtype == "float32"
+              else flops / PEAK_FLOPS[dtype]) * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     label = f"B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} D={D} {'causal' if causal else 'full'} {dtype}"
+    extra = {}
+    fma = ""
+    if dtype == "float32":
+        extra["bound_f32_fma_ms"] = max(bytes_ms, flops / PEAK_FLOPS["float32"] * 1e3)
+        fma = (f"; f32 FMA bound {extra['bound_f32_fma_ms']:.4f} ms, "
+               f"{100 * extra['bound_f32_fma_ms'] / ms:.2f}% of it")
     print(
         f"[kernels] flash_attention: {label} within {tol} (max |err| {err:.3g}); kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({flops} flop, {nbytes} B), {100 * bound_ms / ms:.2f}% of bound"
+        f"by {bound_by}{' (3xTF32)' if dtype == 'float32' else ''} ({flops} flop, {nbytes} B), "
+        f"{100 * bound_ms / ms:.2f}% of bound{fma}"
     )
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:100", match=True, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, **extra,
     )
 
 
@@ -336,17 +350,43 @@ def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
 
 def _topk_expert_ids(S: int, tokens: int, E: int, k: int, gen):
     """Expert ids ``[S, tokens * k]`` as the router gives them: each token's
-    k distinct experts in descending-score order, tokens in arrival order."""
+    k distinct experts in descending-score order, tokens in arrival order,
+    int64 (``torch.topk``'s index dtype, which the kernel reads)."""
     import torch
 
     scores = torch.rand((S, tokens, E), generator=gen, device="cuda")
-    return torch.topk(scores, k, dim=-1).indices.to(torch.int32).reshape(S, tokens * k).contiguous()
+    return torch.topk(scores, k, dim=-1).indices.reshape(S, tokens * k).contiguous()
+
+
+def _wall_and_device_ms(fn, kernel: str, calls: int = 1000) -> tuple[float, float]:
+    """One call's wall (host clock over ``calls`` back-to-back calls, then a
+    synchronise) and its device time (``torch.profiler`` over 50 calls, the
+    device kernels whose name holds ``kernel``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and kernel in e.key)
+    return wall_ms, us / 50 / 1e3
 
 
 def phase_kernels(sf: float, seed: int) -> list[dict]:
     """Every ported kernel at the shapes its main path gives it, against its
-    plain version.  Returns one row per kernel for the JSON line (the MoE
-    dispatch at the prefill shape; its decode shape is printed too)."""
+    plain version.  Returns the rows of the JSON line: one per kernel, the
+    MoE dispatch at its decode and prefill shapes, attention in f32 and
+    bf16."""
     import numpy as np
     import torch
 
@@ -394,14 +434,20 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
         ids = _topk_expert_ids(S, tokens, E, k, gen)
         T_m = tokens * k
         dropped = int((md.moe_dispatch(ids, E, C)[0] == E * C).sum())
-        moe_rows.append(_kernel_row(
+        row = _kernel_row(
             "moe_dispatch", "src/repro/kernels/moe_dispatch.py:68",
             "src/repro_torch/kernels/csrc/moe_dispatch.cu",
-            f"{phase} S={S} T={T_m} E={E} C={C}", S * T_m * 8 + S * E * 4,
+            f"{phase} S={S} T={T_m} E={E} C={C} int64 ids", S * T_m * 12 + S * E * 4,
             lambda ids=ids, C=C: md.moe_dispatch(ids, E, C),
             lambda ids=ids, C=C: ref.moe_dispatch_ref(ids, E, C),
             note=f", {dropped} of {S * T_m} rows to the drop bin",
-        ))
+        )
+        row["wall_ms"], row["device_ms"] = _wall_and_device_ms(
+            lambda ids=ids, C=C: md.moe_dispatch(ids, E, C), "dispatch_kernel")
+        print(f"[kernels] moe_dispatch: {phase} one call "
+              f"{row['wall_ms']:.4f} ms of wall (1000 calls, host clock), "
+              f"{row['device_ms']:.4f} ms of device time (profiler)")
+        moe_rows.append(row)
     # train100m's attention: the training shape in f32 (the row) and bf16,
     # and the reference test's non-causal Sq != Sk case
     B, S_t = TRAIN_SHAPE[:2]
@@ -420,7 +466,7 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
            _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
     flash[1]["launch_key"] = "flash_attention[bfloat16]"  # the bf16 training run's
-    return rows + [moe_rows[1], flash[0], flash[1], ssd[0]]
+    return rows + moe_rows + [flash[0], flash[1], ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:

@@ -21,17 +21,41 @@
 // the last, so the longest causal rows start first.  One entry point,
 // flash_attention_launch, dispatches on the dtype to one of two kernels.
 //
-// float32 (flash_fwd_f32_kernel): every product and sum in f32 FMA on the
-// CUDA cores (no TF32), so it matches the plain version to rounding.  One
-// block of 256 threads owns 64 query rows.  Thread (ty, tx) = (tid / 16,
-// tid % 16) owns rows ty + 16 i (i < 4): score columns tx + 16 j (j < 4),
-// output head dims tx + 16 j (j < D / 16).  A row's 64 scores sit in the 16
-// lanes of a half-warp (max and sum: four xor-shuffles).  Q, K and V are
-// f32 in shared memory (rows padded to D + 1), the probabilities go through
-// shared memory to the P.V product.  Shared memory (3 * 64 * (D + 1) + 64 *
-// 65) floats: 66 KB at D = 64, 209 KB at D = 256.  Bound: operations (0.77
-// ms at 67 TFLOP/s for train100m's B=8, H=12, S=2048, D=64 causal); scalar
-// shared-memory loads, one per two FMAs, cap it near a third of that.
+// float32 (flash_fwd_f32_kernel): the tensor cores in 3xTF32, through
+// mma.sync.m16n8k8 (tf32 inputs, f32 accumulators), on the skeleton of the
+// bf16 kernel below (16 query rows a warp, 64-key tiles in a two-stage
+// cp.async ring, the online softmax in the log2 domain on the accumulator's
+// fragment layout, the diagonal tile alone masked, q tiles from the last).
+// Each f32 operand x is split in two tf32 values, hi = x rounded to nearest
+// (ties away) at 10 mantissa bits and lo = x - hi rounded the same way,
+// both by bit arithmetic with the low 13 bits cleared; a product is hi.hi +
+// hi.lo + lo.hi, accumulated in f32 (small terms first).  The dropped lo.lo
+// term and lo's rounding are each near 2^-22 relative, so the kernel keeps
+// f32 accuracy (2e-5 against the plain version), where one tf32 pass would
+// be near 1e-3.  The k index of a k8 step is permuted so that no fragment
+// needs a shuffle: in Q K^T a lane's A columns {t, t + 4} are head dims
+// {4t, 4t + 1} (the next step's {4t + 2, 4t + 3}), so A (Q) and B (K)
+// fragments come as one float4 a row; in P V the A columns {t, t + 4} are
+// keys {2t, 2t + 1}, which are the columns the score accumulator already
+// holds, so P passes from C to A in registers, and B (V) is two scalars
+// down a column.  ldmatrix moves 16-bit units and cannot transpose f32, so
+// every shared load is a plain one: K rows are padded to D + 16 floats
+// (the float4 reads of 8 lanes on two rows hit 32 banks), V rows to D + 4
+// (the scalar reads of 4 rows x 8 columns hit 32 banks).  At D <= 64 Q's
+// hi and lo fragments live in registers (64 at D = 64) and each landed K/V
+// tile is split once per block, every thread splitting the 16-byte pieces
+// it copied, into hi (in place) and lo planes; a block has 8 warps (128
+// rows) and 151.6 KB of shared memory at D = 64.  Splitting per warp
+// instead repeats the work in each of the 8 warps: on an H100 80GB HBM3 at
+// 700 W it was 2-6 % slower at train100m's shape (PERF.md).  At D = 128
+// and 256 the planes and Q's fragments do not fit: Q stays in shared
+// memory, every fragment is split as it is read, a block has 4 warps, and
+// D = 256 takes 32-key tiles (205.8 KB).  Bound: operations, 3 passes of
+// tf32 products, 0.3126 ms at 494.7 TFLOP/s (dense TF32) for train100m's
+// B=8, H=12, S=2048, D=64 causal; one f32 FMA pass on the CUDA cores would
+// take 0.7696 ms at 67 TFLOP/s.  mma.sync does not reach the dense TF32
+// rate (wgmma alone does), and at D <= 64 each warp reads 64 KB of split K
+// and V a tile.
 //
 // bfloat16 (flash_fwd_bf16_kernel): the tensor cores through
 // mma.sync.m16n8k16 (bf16 inputs, f32 accumulators in registers), the
@@ -69,185 +93,9 @@
 
 namespace {
 
-constexpr int kBK = 64;  // key rows of a tile (both kernels)
+constexpr int kBK = 64;       // key rows of a bf16 tile
+constexpr int kSeqStep = 64;  // Sq and Sk must be multiples of this
 constexpr float kMasked = -1e30f;
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores.
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;  // query rows of a block
-constexpr int kThreads = 256;
-
-template <int D>
-constexpr size_t smem_bytes_f32() {
-  return sizeof(float) * (2 * kBQ * (D + 1) + kBK * D + kBQ * (kBK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H,
-                     int KH, int Sq, int Sk, float scale, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kCols = D / 16;  // output head dims a thread owns
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [kBQ][D + 1]
-  float* Ks = Qs + kBQ * (D + 1);   // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);   // [kBK][D]
-  float* Ps = Vs + kBK * D;         // [kBQ][kBK + 1]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const float* qb = q + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
-  const float* kb = k + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
-  const float* vb = v + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
-  float* ob = o + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    Qs[(e / D) * (D + 1) + e % D] = qb[e];
-  }
-
-  float acc[4][kCols];
-  float m[4];
-  float l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  }
-
-  // Causal: only tiles with a key at or before the tile's last query row.
-  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // Qs stored (first tile); Ks, Vs, Ps free (later tiles)
-    const float* kt = kb + static_cast<int64_t>(k0) * D;
-    const float* vt = vb + static_cast<int64_t>(k0) * D;
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      Ks[(e / D) * (D + 1) + e % D] = kt[e];
-      Vs[e] = vt[e];
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4];
-      float kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
-    const bool crosses_diagonal = causal && k0 + kBK - 1 > q0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      float mx = kMasked;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (crosses_diagonal && q0 + row < k0 + tx + 16 * j) x = kMasked;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[row * (kBK + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      }
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // every row's probabilities stored
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv_den = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      ob[(ty + 16 * i) * D + tx + 16 * j] = acc[i][j] * inv_den;
-    }
-  }
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KH, int Sq, int Sk, float scale, int causal,
-               cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes_f32<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / kBQ, H, B);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KH, Sq, Sk,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync.m16n8k16, ldmatrix, cp.async).
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-template <int D>
-struct Bf16Tile {
-  static constexpr int kWarps = D == 256 ? 4 : 8;  // 16 query rows a warp
-  static constexpr int kBQ = 16 * kWarps;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kLd = D + 8;                 // padded smem row, bf16
-  static constexpr size_t kSmem = sizeof(bf16) * static_cast<size_t>(kBQ + 4 * kBK) * kLd;
-};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -265,6 +113,358 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+__device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
+
+// ---------------------------------------------------------------------------
+// float32: tensor cores in 3xTF32 (mma.sync.m16n8k8, cp.async).
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct F32Tile {
+  static constexpr int kWarps = D <= 64 ? 8 : 4;      // 16 query rows a warp
+  static constexpr int kBQ = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBKt = D == 256 ? 32 : 64;     // key rows of a tile
+  static constexpr bool kQRegs = D <= 64;             // Q's hi/lo fragments in registers
+  static constexpr bool kPlanes = D <= 64;           // K/V split once a block
+  static constexpr int kLdK = D + 16;                 // padded K (and Q) row, floats
+  static constexpr int kLdV = D + 4;                  // padded V row, floats
+  // one ring stage: K (hi in place), V (hi in place), then the lo planes
+  static constexpr int kStage = kBKt * (kLdK + kLdV) * (kPlanes ? 2 : 1);
+  static constexpr size_t kSmem = sizeof(float) * ((kQRegs ? 0 : kBQ * kLdK) + 2 * kStage);
+};
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// the 13 low bits cleared: the exact value the tensor core multiplies.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, both exact tf32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(x.x, hi[0], lo[0]);
+  split_tf32(x.y, hi[1], lo[1]);
+  split_tf32(x.z, hi[2], lo[2]);
+  split_tf32(x.w, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void load_u4(uint32_t (&r)[4], const float* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  r[0] = v.x;
+  r[1] = v.y;
+  r[2] = v.z;
+  r[3] = v.w;
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32: the small products first, then hi . hi.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H, int KH,
+                     int Sq, int Sk, float scale_log2, int causal) {
+  using Cfg = F32Tile<D>;
+  constexpr int kBQb = Cfg::kBQ;
+  constexpr int kThr = Cfg::kThreads;
+  constexpr int kBKt = Cfg::kBKt;
+  constexpr int kLdK = Cfg::kLdK;
+  constexpr int kLdV = Cfg::kLdV;
+  constexpr int kChunks = D / 4;   // 16-byte pieces of a row
+  constexpr int kKP = D / 16;      // pairs of k8 steps of Q K^T (one float4 a row)
+  constexpr int kST = kBKt / 8;    // n8 tiles of a warp's scores = k8 steps of P V
+  constexpr int kOT = D / 8;       // n8 tiles of a warp's output
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;                                           // [kBQb][kLdK], D >= 128
+  float* ring = smem_f + (Cfg::kQRegs ? 0 : kBQb * kLdK);       // [2][kStage]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQb;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const float* qb = q + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
+  const float* vb = v + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
+  float* ob = o + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
+  const int q_rows = min(kBQb, Sq - q0);  // a multiple of 64, so of 16
+
+  if constexpr (!Cfg::kQRegs) {
+    for (int c = tid; c < q_rows * kChunks; c += kThr) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      cp_async16(Qs + r * kLdK + col, qb + static_cast<int64_t>(r) * D + col);
+    }
+  }
+  auto load_kv = [&](int stage, int k0) {
+    float* kd = ring + stage * Cfg::kStage;
+    float* vd = kd + kBKt * kLdK;
+    const float* ks = kb + static_cast<int64_t>(k0) * D;
+    const float* vs = vb + static_cast<int64_t>(k0) * D;
+    for (int c = tid; c < kBKt * kChunks; c += kThr) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      cp_async16(kd + r * kLdK + col, ks + r * D + col);
+      cp_async16(vd + r * kLdV + col, vs + r * D + col);
+    }
+  };
+  // The pieces this thread copied, visible to it after the wait: hi over
+  // the raw values, lo into the stage's lo planes.
+  auto split_kv = [&](int stage) {
+    float* kd = ring + stage * Cfg::kStage;
+    float* vd = kd + kBKt * kLdK;
+    float* kl = vd + kBKt * kLdV;
+    float* vl = kl + kBKt * kLdK;
+    for (int c = tid; c < kBKt * kChunks; c += kThr) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      uint32_t hi[4], lo[4];
+      split_tf32(*reinterpret_cast<const float4*>(kd + r * kLdK + col), hi, lo);
+      *reinterpret_cast<uint4*>(kd + r * kLdK + col) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(kl + r * kLdK + col) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      split_tf32(*reinterpret_cast<const float4*>(vd + r * kLdV + col), hi, lo);
+      *reinterpret_cast<uint4*>(vd + r * kLdV + col) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(vl + r * kLdV + col) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+
+  // Causal: only tiles with a key at or before the block's last query row.
+  const int k_end = causal ? min(Sk, q0 + q_rows) : Sk;
+  const int n_tiles = k_end / kBKt;
+  load_kv(0, 0);
+  cp_async_commit();  // group 0: (Q and) the first KV tile
+
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const bool active = warp * 16 < q_rows;
+  float acc[kOT][4];
+#pragma unroll
+  for (int i = 0; i < kOT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+  float m[2] = {kMasked, kMasked};  // rows g and g + 8, log2 domain
+  float l[2] = {0.f, 0.f};          // this lane's part of the row sums
+
+  // A fragments of Q, k8 step 2 kp + u: a0 / a1 = rows g / g + 8 at head dim
+  // 16 kp + 4 t + 2 u, a2 / a3 the same rows at the next dim.
+  constexpr int kQF = Cfg::kQRegs ? 2 * kKP : 1;
+  uint32_t qh[kQF][4], ql[kQF][4];
+  const float* q_frag = Qs + (warp * 16 + g) * kLdK + 4 * t;
+  auto q_pair = [&](const float4& r0, const float4& r1, uint32_t (&h0)[4], uint32_t (&l0)[4],
+                    uint32_t (&h1)[4], uint32_t (&l1)[4]) {
+    split_tf32(r0.x, h0[0], l0[0]);
+    split_tf32(r1.x, h0[1], l0[1]);
+    split_tf32(r0.y, h0[2], l0[2]);
+    split_tf32(r1.y, h0[3], l0[3]);
+    split_tf32(r0.z, h1[0], l1[0]);
+    split_tf32(r1.z, h1[1], l1[1]);
+    split_tf32(r0.w, h1[2], l1[2]);
+    split_tf32(r1.w, h1[3], l1[3]);
+  };
+  if constexpr (Cfg::kQRegs) {
+    if (active) {
+      const float* r0 = qb + static_cast<int64_t>(warp * 16 + g) * D + 4 * t;
+#pragma unroll
+      for (int kp = 0; kp < kKP; ++kp) {
+        const float4 x0 = *reinterpret_cast<const float4*>(r0 + 16 * kp);
+        const float4 x1 = *reinterpret_cast<const float4*>(r0 + 8 * D + 16 * kp);
+        q_pair(x0, x1, qh[2 * kp], ql[2 * kp], qh[2 * kp + 1], ql[2 * kp + 1]);
+      }
+    }
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_tiles) load_kv(stage ^ 1, (j + 1) * kBKt);
+    cp_async_commit();   // possibly empty: keeps one group per tile
+    cp_async_wait<1>();  // tile j (and Q) landed
+    if constexpr (Cfg::kPlanes) split_kv(stage);
+    __syncthreads();
+    const int k0 = j * kBKt;
+    if (active && !(causal && k0 > row0 + 15)) {
+      const float* Kt = ring + stage * Cfg::kStage;
+      const float* Vt = Kt + kBKt * kLdK;
+      const float* Ktl = Vt + kBKt * kLdV;
+      const float* Vtl = Ktl + kBKt * kLdK;
+      float s[kST][4];
+#pragma unroll
+      for (int i = 0; i < kST; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+      }
+      // S = Q K^T: per pair of k8 steps, one float4 of K a lane and n8 tile
+      // (b0 / b1 = key 8 nt + g at head dims 16 kp + 4 t + 2 u and + 1)
+#pragma unroll
+      for (int kp = 0; kp < kKP; ++kp) {
+        uint32_t ah[2][4], al[2][4];
+        if constexpr (Cfg::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[0][e] = qh[2 * kp][e];
+            al[0][e] = ql[2 * kp][e];
+            ah[1][e] = qh[2 * kp + 1][e];
+            al[1][e] = ql[2 * kp + 1][e];
+          }
+        } else {
+          const float4 x0 = *reinterpret_cast<const float4*>(q_frag + 16 * kp);
+          const float4 x1 = *reinterpret_cast<const float4*>(q_frag + 8 * kLdK + 16 * kp);
+          q_pair(x0, x1, ah[0], al[0], ah[1], al[1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kST; ++nt) {
+          const int off = (nt * 8 + g) * kLdK + 16 * kp + 4 * t;
+          uint32_t bh[4], bl[4];
+          if constexpr (Cfg::kPlanes) {
+            load_u4(bh, Kt + off);
+            load_u4(bl, Ktl + off);
+          } else {
+            split_tf32(*reinterpret_cast<const float4*>(Kt + off), bh, bl);
+          }
+          mma_3xtf32(s[nt], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(s[nt], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+      // the online softmax on the fragment layout: s[i][e] is row g + 8 (e / 2),
+      // key k0 + 8 i + 2 t + e % 2
+      const bool crosses = causal && k0 + kBKt - 1 > row0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        float mx = kMasked;
+#pragma unroll
+        for (int i = 0; i < kST; ++i) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            float x = s[i][e] * scale_log2;
+            if (crosses && k0 + 8 * i + 2 * t + (e & 1) > row) x = minus_inf();
+            s[i][e] = x;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int i = 0; i < kST; ++i) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float p = exp2f(s[i][e] - m_new);
+            s[i][e] = p;
+            rs += p;
+          }
+        }
+        l[r] = l[r] * alpha + rs;
+#pragma unroll
+        for (int i = 0; i < kOT; ++i) {
+          acc[i][2 * r] *= alpha;
+          acc[i][2 * r + 1] *= alpha;
+        }
+      }
+      // O += P V, k8 step nt over keys 8 nt + {2 t, 2 t + 1}: A is score tile
+      // nt's C fragment (c0, c2, c1, c3); b0 / b1 = V rows 8 nt + 2 t and + 1
+      // at head dim 8 dt + g
+#pragma unroll
+      for (int nt = 0; nt < kST; ++nt) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[nt][0], ph[0], pl[0]);
+        split_tf32(s[nt][2], ph[1], pl[1]);
+        split_tf32(s[nt][1], ph[2], pl[2]);
+        split_tf32(s[nt][3], ph[3], pl[3]);
+        const int off = (8 * nt + 2 * t) * kLdV + g;
+#pragma unroll
+        for (int dt = 0; dt < kOT; ++dt) {
+          uint32_t bh0, bh1, bl0, bl1;
+          if constexpr (Cfg::kPlanes) {
+            bh0 = __float_as_uint(Vt[off + 8 * dt]);
+            bh1 = __float_as_uint(Vt[off + kLdV + 8 * dt]);
+            bl0 = __float_as_uint(Vtl[off + 8 * dt]);
+            bl1 = __float_as_uint(Vtl[off + kLdV + 8 * dt]);
+          } else {
+            split_tf32(Vt[off + 8 * dt], bh0, bl0);
+            split_tf32(Vt[off + kLdV + 8 * dt], bh1, bl1);
+          }
+          mma_3xtf32(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read; the next iteration refills it
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    float* orow = ob + static_cast<int64_t>(warp * 16 + g + 8 * r) * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < kOT; ++i) {
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int KH, int Sq, int Sk, float scale, int causal,
+               cudaStream_t stream) {
+  using Cfg = F32Tile<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Cfg::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + Cfg::kBQ - 1) / Cfg::kBQ, H, B);
+  flash_fwd_f32_kernel<D><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, KH, Sq, Sk,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync.m16n8k16, ldmatrix, cp.async).
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Bf16Tile {
+  static constexpr int kWarps = D == 256 ? 4 : 8;  // 16 query rows a warp
+  static constexpr int kBQ = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kLd = D + 8;                 // padded smem row, bf16
+  static constexpr size_t kSmem = sizeof(bf16) * static_cast<size_t>(kBQ + 4 * kBK) * kLd;
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -287,8 +487,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-__device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
 
 // Two f32 rounded to one bf16x2 register, `lo` in the low half (the lower
 // column of an mma fragment).
@@ -533,8 +731,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KH, int Sq,
                            int Sk, int D, float scale, int causal,
                            void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq % kBQ != 0 ||
-      Sk % kBK != 0 || Sk <= 0 || H > 65535 || B > 65535 ||
+  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq % kSeqStep != 0 ||
+      Sk % kSeqStep != 0 || Sk <= 0 || H > 65535 || B > 65535 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,8 @@ its bound and what the design does about it), built at first use by
 :mod:`.build` and loaded with ``ctypes``.
 
 It takes the kernel layout, ``q [B, H, Sq, D]`` and ``k``/``v [B, KH, Sk,
-D]``, in float32 (FMA on the CUDA cores) or bfloat16 (the tensor cores,
-``mma.sync``).  A tensor on the CPU goes to the plain version in :mod:`.ref`;
+D]``, in float32 (the tensor cores in 3xTF32, at f32 accuracy) or bfloat16
+(the tensor cores, ``mma.sync``).  A tensor on the CPU goes to the plain version in :mod:`.ref`;
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches only.
 """

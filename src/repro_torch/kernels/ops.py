@@ -100,8 +100,11 @@ def moe_dispatch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(slot ``[S, T]``, counts ``[S, num_dest]``); overflow -> the drop bin
     ``num_dest * capacity``.  Any ``T``: the kernel masks the ragged tile
-    itself, so no padding id is appended."""
-    return moe_kern.moe_dispatch(dest.to(torch.int32).contiguous(), num_dest, capacity)
+    itself, so no padding id is appended.  int32 ids, and the router's
+    int64 ones, reach the kernel without a cast."""
+    if dest.dtype not in (torch.int32, torch.int64):
+        dest = dest.to(torch.int32)
+    return moe_kern.moe_dispatch(dest.contiguous(), num_dest, capacity)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: float | None = None) -> torch.Tensor:

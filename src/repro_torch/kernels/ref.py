@@ -39,6 +39,56 @@ def flash_attention_ref(
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v)
     return out.reshape(B, H, Sq, v.shape[-1])
 
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits, to nearest, ties away
+    from zero) with the 13 low bits cleared, by the bit arithmetic the f32
+    attention kernel runs: ``(bits + 0x1000) & ~0x1fff``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` to within ``2^-22 |x|``, both exact tf32 values."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as three products of tf32 halves, each exact in f32 and
+    summed in f32: ``lo.hi + hi.lo + hi.hi`` (the dropped ``lo.lo`` is near
+    ``2^-22`` relative)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def flash_attention_3xtf32_ref(
+    q: torch.Tensor,  # [B, H, Sq, D] f32
+    k: torch.Tensor,  # [B, KH, Sk, D] f32
+    v: torch.Tensor,  # [B, KH, Sk, D] f32
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The f32 attention kernel's arithmetic on the CPU (used by the tests
+    only): ``q k^T`` in 3xTF32, the scaled logits' softmax numerator
+    ``exp(s - max)`` in f32, its product with ``v`` in 3xTF32, then the
+    division by the row sum.  It must agree with :func:`flash_attention_ref`
+    to f32 accuracy, where one tf32 pass would not."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, KH, G * Sq, D)
+    logits = _matmul_3xtf32(qg, k.float().transpose(-1, -2)).reshape(B, KH, G, Sq, Sk) * scale
+    if causal:
+        mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = _matmul_3xtf32(p.reshape(B, KH, G * Sq, Sk), v.float()).reshape(B, KH, G, Sq, D)
+    return (out / p.sum(-1, keepdim=True)).reshape(B, H, Sq, D)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,   # [B, L, H, P]
     dt: torch.Tensor,  # [B, L, H] (already softplus'd)
@@ -233,6 +283,9 @@ def moe_dispatch_ref(
 
 __all__ = [
     "flash_attention_ref",
+    "tf32_round",
+    "split_tf32",
+    "flash_attention_3xtf32_ref",
     "ssd_scan_ref",
     "ssd_scan_staged_ref",
     "fibonacci_hash",

@@ -53,14 +53,15 @@ def init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
 
 def route(params, cfg: ModelConfig, x: torch.Tensor):
     """Top-k routing -> (weights ``[..., k]`` f32, expert ids ``[..., k]``
-    int32), the ids in descending probability order as ``lax.top_k`` gives
+    int64 as ``torch.topk`` gives them, which both packs take without a
+    cast), the ids in descending probability order as ``lax.top_k`` gives
     them.  The router product stays in full f32."""
     logits = x.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
     if cfg.router_norm_topk:
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-    return w, idx.to(torch.int32)
+    return w, idx
 
 
 def _expert_ffn(w_gate, w_up, w_down, x):
@@ -80,7 +81,7 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     w, idx = route(params, cfg, x)
     full_w = torch.zeros((T, cfg.num_experts), dtype=torch.float32, device=x.device)
-    full_w.scatter_add_(1, idx.long(), w)
+    full_w.scatter_add_(1, idx, w)
     g = torch.einsum("td,edf->tef", x, params["w_gate"].to(dt))
     u = torch.einsum("td,edf->tef", x, params["w_up"].to(dt))
     y = torch.einsum("tef,efd->ted", F.silu(g) * u, params["w_down"].to(dt))

@@ -104,6 +104,40 @@ def test_flash_vjp_grads_match_reference(jref, causal):
         np.testing.assert_allclose(g.numpy(), np.asarray(wg), rtol=1e-4, atol=1e-4)
 
 
+# (B, H, KH, Sq, Sk, D, causal): every head dim the f32 kernel takes, causal
+# and not, Sq < Sk and Sq > Sk, GQA ratios 1, 3 and 4.
+TF32_CASES = [
+    (1, 4, 4, 128, 128, 32, True),
+    (1, 3, 1, 64, 192, 32, False),
+    (2, 4, 1, 128, 128, 64, True),
+    (1, 6, 2, 192, 128, 64, True),
+    (1, 2, 2, 128, 256, 128, False),
+    (1, 4, 1, 128, 64, 128, True),
+    (1, 3, 1, 128, 128, 256, True),
+    (1, 4, 4, 64, 128, 256, False),
+]
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", TF32_CASES)
+def test_3xtf32_emulation_holds_f32_accuracy(jref, B, H, KH, Sq, Sk, D, causal):
+    """The f32 kernel's arithmetic (``ref.flash_attention_3xtf32_ref``: tf32
+    halves by bit arithmetic, three products a matmul) against the plain
+    version and the reference's Pallas kernel (interpret mode) at the f32
+    tolerance, 2e-5; one tf32 pass misses it."""
+    jnp = jref.jnp
+    q, k, v = _qkv(B * Sq + Sk + D, B, H, KH, Sq, Sk, D)
+    tq, tk, tv = (torch.from_numpy(x).transpose(1, 2).contiguous() for x in (q, k, v))
+    got = kref.flash_attention_3xtf32_ref(tq, tk, tv, causal=causal)
+    plain = kref.flash_attention_ref(tq, tk, tv, causal=causal)
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+    want = jref.kernel(*(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+                       causal=causal, block_q=64, block_k=64)  # interpret mode
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    # the hi halves alone (one tf32 pass) are a different result
+    hi = kref.flash_attention_ref(*(kref.tf32_round(x) for x in (tq, tk, tv)), causal=causal)
+    assert float((hi - plain).abs().max()) > 2e-5
+
+
 OUTSIDE_THE_GATE = [
     # (B, H, KH, Sq, Sk, D): the reference's gate sends these to its oracle
     # (Sq, Sk not multiples of 128; D not a kernel size)
@@ -153,6 +187,17 @@ def cuda_device():
     (1, 2, 2, 512, 512, 128, True, torch.bfloat16),
     (1, 4, 2, 256, 256, 256, True, torch.float32),
     (1, 4, 2, 256, 256, 256, False, torch.bfloat16),
+    # f32 (3xTF32) at every head dim, causal and not, GQA ratios 1, 3 and 4,
+    # Sq < Sk and Sq > Sk, q lengths that are not multiples of 128 rows
+    (2, 4, 4, 192, 320, 32, False, torch.float32),
+    (1, 6, 2, 320, 128, 32, True, torch.float32),
+    (2, 12, 4, 256, 256, 64, True, torch.float32),
+    (1, 3, 1, 192, 448, 64, True, torch.float32),
+    (1, 8, 2, 320, 192, 64, False, torch.float32),
+    (1, 4, 1, 128, 384, 128, False, torch.float32),
+    (1, 6, 2, 192, 128, 128, True, torch.float32),
+    (1, 3, 1, 256, 128, 256, True, torch.float32),
+    (1, 4, 4, 128, 320, 256, False, torch.float32),
 ])
 def test_cuda_flash_attention_matches_plain_version(cuda_device, B, H, KH, Sq, Sk, D, causal,
                                                      dtype):

@@ -81,6 +81,82 @@ def test_moe_dispatch_out_of_range_ids_land_in_the_drop_bin():
     assert counts.tolist() == [[2, 0, 0, 0]]
 
 
+def _staged_dispatch(dest: torch.Tensor, E: int, C: int, tile: int = md.TILE_ROWS):
+    """``moe_dispatch`` in the kernel's stages: a shard of more than ``tile``
+    rows is cut into tiles of ``tile`` rows (else one tile); in each tile,
+    in-warp ranks (32 lanes), per-warp counts and their exclusive prefix
+    over the warps give the in-tile rank and the tile's per-expert total;
+    the exclusive prefix of the totals over the tiles (what the look-back
+    sums) is added to it."""
+    S, T = dest.shape
+    tile = tile if T > tile else -(-max(T, 1) // 32) * 32
+    tiles = -(-max(T, 1) // tile)
+    d = dest.long()
+    key = torch.where((d >= 0) & (d < E), d, E)  # E: no expert
+    key = torch.cat([key, key.new_full((S, tiles * tile - T), E)], 1)
+    onehot = (key.reshape(S, tiles, tile // 32, 32)[..., None]
+              == torch.arange(E + 1)).long()                     # [S, tiles, warps, 32, E+1]
+    in_warp = onehot.cumsum(3) - onehot                           # earlier lanes
+    warp_counts = onehot.sum(3)                                   # [S, tiles, warps, E+1]
+    warp_prefix = warp_counts.cumsum(2) - warp_counts
+    totals = warp_counts.sum(2)                                   # [S, tiles, E+1]
+    tile_base = totals.cumsum(1) - totals
+    rank_all = in_warp + warp_prefix[:, :, :, None] + tile_base[:, :, None, None]
+    rank = (rank_all * onehot).sum(-1).reshape(S, -1)[:, :T]
+    key = key[:, :T]
+    kept = (key < E) & (rank < C)
+    slot = torch.where(kept, key * C + rank, E * C).to(torch.int32)
+    counts = totals.sum(1)[:, :E].clamp(max=C).to(torch.int32)
+    return slot, counts
+
+
+# (S, T, E, C, tile): several tiles with a ragged tail, small tiles (many of
+# them), one shard longer than a tile of 1024, a one-tile shard, 300 experts
+DISPATCH_STAGED_CASES = [
+    (2, 3000, 64, 40, md.TILE_ROWS),
+    (3, 700, 8, 60, 64),
+    (1, 5000, 300, 7, md.TILE_ROWS),
+    (4, 96, 64, 1, md.TILE_ROWS),
+    (2, 1000, 16, 0, 128),
+]
+
+
+@pytest.mark.parametrize("S,T,E,C,tile", DISPATCH_STAGED_CASES)
+def test_staged_dispatch_matches_plain_version_and_reference(jref, S, T, E, C, tile):
+    """The kernel's decomposition holds bit for bit: int64 ids as the router
+    gives them, with ids out of range (negative, ``E``, beyond int32) and
+    drops, against the plain version and the reference's oracle."""
+    rng = np.random.default_rng(S * T + E)
+    dest = rng.integers(-1, E + 2, (S, T)).astype(np.int64)
+    dest[rng.random((S, T)) < 0.01] = 2**40
+    got = _staged_dispatch(torch.from_numpy(dest), E, C, tile)
+    want = kref.moe_dispatch_ref(torch.from_numpy(dest), E, C)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (got[0] == E * C).any() and got[0].dtype == torch.int32
+    via_ops = ops.moe_dispatch(torch.from_numpy(dest), E, C)
+    assert all(torch.equal(g, w) for g, w in zip(via_ops, want))
+    # the reference takes ids in range only: its slots for the others are
+    # not drops, so they are compared where the ids are experts
+    d32 = np.where(dest > E, E + 1, dest).astype(np.int32)
+    for s in range(S):
+        slot, counts = jref.ref.moe_dispatch_ref(jref.jnp.asarray(d32[s]), E, C)
+        expert = (dest[s] >= 0) & (dest[s] < E)
+        np.testing.assert_array_equal(got[0][s].numpy()[expert], np.asarray(slot)[expert])
+        np.testing.assert_array_equal(got[1][s].numpy(), np.asarray(counts))
+
+
+def test_dispatch_shared_memory_and_scratch_sizes():
+    """``MAX_EXPERTS`` (no fewer than the 372 of the one-block-a-shard kernel)
+    fits the 227 KB a block may opt into at 1024 threads, above 48 KB from
+    333 experts on; a shard of one tile needs no scratch."""
+    assert md.MAX_EXPERTS == md.TILE_ROWS >= 372
+    assert md._smem_ints(md.MAX_EXPERTS) <= 227 * 1024 // 4
+    assert md._smem_ints(332) <= 12288 < md._smem_ints(333)
+    assert md.scratch_ints(8, 1024, 64) == (0, 0)
+    assert md.scratch_ints(8, 16_384, 64) == (1 + 8 + 8 * 16, 2 * 8 * 16 * 64)
+    assert md.scratch_ints(1, 1025, 4) == (1 + 1 + 2, 2 * 2 * 4)
+
+
 def test_cuda_pack_on_a_cpu_tensor_never_counts_a_launch():
     md.reset_launch_counts()
     M._dispatch_slots(torch.zeros((2, 16), dtype=torch.int32), 4, 4, "cuda")
@@ -97,21 +173,71 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,T,E,C", [(8, 64, 64, 4), (8, 16_384, 64, 320), (3, 300, 8, 5),
-                                     (2, 1000, 64, 1), (1, 5000, 300, 7), (4, 2048, 64, 0)])
-def test_cuda_moe_dispatch_matches_plain_version(cuda_device, S, T, E, C):
+@pytest.mark.parametrize("S,T,E,C,dtype", [
+    (8, 64, 64, 4, torch.int32), (8, 64, 64, 4, torch.int64),
+    (8, 16_384, 64, 320, torch.int32), (8, 16_384, 64, 320, torch.int64),
+    (3, 300, 8, 5, torch.int32), (2, 1000, 64, 1, torch.int32), (1, 5000, 300, 7, torch.int32),
+    (4, 2048, 64, 0, torch.int32),
+    # one long shard (128 tiles), a ragged tail of one row, the most experts,
+    # a case where most rows drop
+    (1, 131_072, 64, 2560, torch.int32), (8, 16_385, 64, 320, torch.int64),
+    (2, 4096, md.MAX_EXPERTS, 12, torch.int32), (2, 4096, 372, 12, torch.int64),
+    (8, 64, md.MAX_EXPERTS, 4, torch.int64), (4, 8192, 16, 100, torch.int32),
+])
+def test_cuda_moe_dispatch_matches_plain_version(cuda_device, S, T, E, C, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(T)
-    dest = torch.randint(-1, E + 2, (S, T), generator=gen, device=cuda_device, dtype=torch.int32)
+    dest = torch.randint(-1, E + 2, (S, T), generator=gen, device=cuda_device, dtype=dtype)
     md.reset_launch_counts()
     got = md.moe_dispatch(dest, E, C)
     want = kref.moe_dispatch_ref(dest, E, C)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert md.LAUNCHES["moe_dispatch"] == 1
-    with pytest.raises(ValueError, match="contiguous int32"):
-        md.moe_dispatch(dest.to(torch.int64), E, C)
+    with pytest.raises(ValueError, match="contiguous int32 or int64"):
+        md.moe_dispatch(dest.to(torch.int16), E, C)
+    with pytest.raises(ValueError, match="contiguous int32 or int64"):
+        md.moe_dispatch(dest[:, ::2], E, C)
     with pytest.raises(ValueError, match="shared memory"):
         md.moe_dispatch(dest, md.MAX_EXPERTS + 1, C)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_dispatch_is_deterministic_across_launches(cuda_device):
+    """The look-back's ordering: the prefill shape and one long shard give
+    identical outputs over 20 launches (the scratch left clean each time)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for S, T, C in ((8, 16_384, 320), (1, 131_072, 2560)):
+        dest = torch.randint(0, 64, (S, T), generator=gen, device=cuda_device)
+        first = md.moe_dispatch(dest, 64, C)
+        for _ in range(20):
+            got = md.moe_dispatch(dest, 64, C)
+            assert all(torch.equal(g, w) for g, w in zip(got, first))
+        assert all(torch.equal(g, w) for g, w in zip(first, kref.moe_dispatch_ref(dest, 64, C)))
+
+
+@pytest.mark.gpu
+def test_cuda_moe_dispatch_on_two_streams_at_once(cuda_device):
+    """Multi-tile launches on two streams may overlap: each stream has its
+    own look-back scratch, so 20 rounds of launches on both, never
+    synchronised between them, equal the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    shapes = ((8, 16_384, 320), (2, 40_000, 900))
+    dests = [torch.randint(-1, 66, (S, T), generator=gen, device=cuda_device) for S, T, _ in shapes]
+    wants = [kref.moe_dispatch_ref(d, 64, C) for d, (_, _, C) in zip(dests, shapes)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in shapes]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, d, (_, _, C)) in enumerate(zip(streams, dests, shapes)):
+            with torch.cuda.stream(s):
+                outs[i].append(md.moe_dispatch(d, 64, C))
+    torch.cuda.synchronize()
+    handles = {s.cuda_stream for s in streams}
+    assert {k[1] for k in md._SCRATCH if k[0] == dests[0].device.index} >= handles
+    for got_all, want in zip(outs, wants):
+        for got in got_all:
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 # ----------------------------------------------------------------------------
@@ -207,6 +333,21 @@ def test_moe_ep_matches_reference_dense(jref, pods, impl, chunks, via_mux):
         else:
             got = M.moe_ep(tp, cfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_ep_layer_hands_the_routers_int64_ids_to_the_kernel_pack(jref, monkeypatch):
+    """The kernel pack gets ``torch.topk``'s int64 ids as they are: no cast
+    runs between the router and the dispatch kernel."""
+    _, cfg, params, x = _ep_case(jref, capacity_factor=1.0)
+    seen = []
+    real = md.moe_dispatch
+    monkeypatch.setattr(md, "moe_dispatch",
+                        lambda d, E, C: seen.append(d.dtype) or real(d, E, C))
+    mesh = exchange.make_mesh(8, 1)
+    mux = make_multiplexer(mesh, impl="xla", pack_impl="cuda")
+    with mesh_context(MeshContext(mesh)), use_multiplexer(mux):
+        M.moe_ep({k: torch.from_numpy(v) for k, v in params.items()}, cfg, torch.from_numpy(x))
+    assert seen == [torch.int64]
 
 
 def test_moe_ep_with_drops_matches_reference_shard_map(jref, tmp_path):

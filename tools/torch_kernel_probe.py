@@ -1,0 +1,242 @@
+#!/usr/bin/env python3
+"""Measurements of the port's kernels that ``chip_smoke.py`` does not make.
+
+    python3 tools/torch_kernel_probe.py moe-time [--src DIR]
+    python3 tools/torch_kernel_probe.py moe-host [--calls 1000]
+    python3 tools/torch_kernel_probe.py mma-rate
+
+``moe-time`` times ``moe_dispatch`` at OLMoE's decode (S=8, T=64, E=64,
+C=4) and prefill (S=8, T=16,384, C=320) shapes on router-ordered int32 ids
+(which every version of the wrapper takes), two ways: CUDA events over 50
+back-to-back calls after 5 (as ``chip_smoke.py``'s rows), and the kernel's
+device time from ``torch.profiler`` over 50 calls.  ``--src`` points it at
+another checkout's ``src`` (an older commit unpacked with ``git archive``),
+so two versions are compared in one run on one card.
+
+``mma-rate`` times the tensor cores' ``mma.sync`` issue rate with nothing
+else in the way: every warp of 4 blocks an SM runs 8 independent
+accumulator chains of ``m16n8k8`` tf32 (the f32 attention kernel's
+instruction) or ``m16n8k16`` bf16 (the bf16 kernel's), and the rate is
+printed in instructions and TFLOP/s for the card.
+
+``moe-host`` splits the host time of one ``moe_dispatch`` call at the
+decode shape into its parts, each timed with ``time.perf_counter`` over
+``--calls`` calls (a synchronise after the loop): the checks, one
+``torch.empty``, the stream handle, the ``ctypes`` launch and the whole
+call, on int64 (the router's) and int32 ids.
+
+Each needs a CUDA card and prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _events_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+_MMA_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+template <bool kBf16>
+__global__ void __launch_bounds__(256) mma_loop(float* out, int iters) {
+  uint32_t a[4], b0 = threadIdx.x * 0x01010101u, b1 = b0 ^ 0x00ff00ffu;
+  for (int i = 0; i < 4; ++i) a[i] = (threadIdx.x + i) * 0x00010001u;
+  float c[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (kBf16) {
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                     "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                     : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      } else {
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                     "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                     : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      }
+    }
+  }
+  float sum = 0.f;
+  for (int j = 0; j < 8; ++j) sum += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+extern "C" int mma_rate_launch(int bf16, void* out, int blocks, int iters, void* stream) {
+  if (bf16) mma_loop<true><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  else mma_loop<false><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def mma_rate() -> None:
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    with tempfile.TemporaryDirectory() as d:
+        src, lib_path = Path(d) / "mma_rate.cu", Path(d) / "mma_rate.so"
+        src.write_text(_MMA_SRC)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                       check=True, capture_output=True, text=True, timeout=300)
+        lib = ctypes.CDLL(str(lib_path))
+    lib.mma_rate_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    out = torch.empty(4 * sms * 256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, bf16, flop in (("tf32 m16n8k8", 0, 2 * 16 * 8 * 8),
+                             ("bf16 m16n8k16", 1, 2 * 16 * 8 * 16)):
+        for per_sm in (4, 1):  # 32 and 8 warps an SM
+            blocks = per_sm * sms
+
+            def run():
+                if lib.mma_rate_launch(bf16, out.data_ptr(), blocks, iters, stream):
+                    raise RuntimeError("mma_rate launch failed")
+
+            ms = _events_ms(run, 5)
+            n = blocks * 8 * iters * 8  # warps x iterations x chains
+            print(f"[mma-rate] {name}, {8 * per_sm} warps an SM: {n} mma.sync in {ms:.4f} ms = "
+                  f"{n * flop / ms / 1e9:.1f} TFLOP/s, "
+                  f"{n / sms / (ms * 1e-3) / 1e9:.4f} G mma/s an SM")
+
+
+def _router_ids(S: int, T: int, E: int, dtype):
+    """Expert ids ``[S, T]`` as the router gives them (8 choices a token)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scores = torch.rand((S, T // 8, E), generator=gen, device="cuda")
+    return torch.topk(scores, 8, dim=-1).indices.reshape(S, T).to(dtype).contiguous()
+
+
+def moe_time() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+
+    print(f"[moe-time] package: {Path(md.__file__).resolve().parents[2]}")
+    E = 64
+    for phase, T, C in (("decode", 64, 4), ("prefill", 16_384, 320)):
+        ids = _router_ids(8, T, E, torch.int32)
+        got = md.moe_dispatch(ids, E, C)
+        want = ref.moe_dispatch_ref(ids, E, C)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"moe_dispatch {phase}: differs from the plain version")
+        ms = _events_ms(lambda: md.moe_dispatch(ids, E, C), 50, warmup=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                md.moe_dispatch(ids, E, C)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and "dispatch_kernel" in e.key)
+        print(f"[moe-time] {phase} S=8 T={T} E={E} C={C} int32 ids: events {ms:.4f} ms a call "
+              f"(50 back to back), device {us / 50 / 1e3:.4f} ms a call (profiler, 50 calls)")
+
+
+def moe_host(calls: int) -> None:
+    import torch
+
+    from repro_torch.kernels import moe_dispatch as md
+
+    S, T, E, C = 8, 64, 64, 4
+    ids64 = _router_ids(S, T, E, torch.int64)
+    ids = ids64.to(torch.int32)
+    dev = ids.device
+    lib = md.LIBRARY.load()
+    slot = torch.empty((S, T), dtype=torch.int32, device=dev)
+    counts = torch.empty((S, E), dtype=torch.int32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def checks():
+        md._ID_BYTES.get(ids.dtype)
+        ids.dim()
+        ids.is_contiguous()
+        S_, T_ = ids.shape
+        return 0 < E <= md.MAX_EXPERTS and (E + 1) * C < 2**31 and S_ * T_ < 2**31
+
+    def launch():
+        lib.moe_dispatch_launch(ids.data_ptr(), 4, slot.data_ptr(), counts.data_ptr(), None, 0,
+                                None, 0, S, T, E, C, stream)
+
+    parts = {
+        "checks (dtype, dim, contiguity, limits)": checks,
+        "one torch.empty": lambda: torch.empty((S, T), dtype=torch.int32, device=dev),
+        "raw stream (torch._C._cuda_getCurrentRawStream)":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes launch": launch,
+        "moe_dispatch, int64 ids (the MoE layer's call)": lambda: md.moe_dispatch(ids64, E, C),
+        "moe_dispatch, int32 ids": lambda: md.moe_dispatch(ids, E, C),
+    }
+    for name, fn in parts.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        print(f"[moe-host] {name}: {us:.2f} us a call ({calls} calls)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", choices=("moe-time", "moe-host", "mma-rate"))
+    ap.add_argument("--calls", type=int, default=1000)
+    ap.add_argument("--src", type=Path, help="moe-time: another checkout's src directory")
+    args = ap.parse_args()
+    if args.src is not None:
+        sys.path.insert(0, str(args.src.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_probe: no CUDA device", file=sys.stderr)
+        return 2
+    print(f"[device] nvidia-smi: {_smi()}")
+    if args.what == "moe-time":
+        moe_time()
+    elif args.what == "mma-rate":
+        mma_rate()
+    else:
+        moe_host(args.calls)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
