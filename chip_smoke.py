@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    (P=8) at S=8 shards x one shard's lineitem rows; ``moe_dispatch`` at
    OLMoE's decode shape (S=8, T=64, E=64, C=4) and prefill shape (S=8,
    T=16,384, C=320), on the router's int64 expert ids, all bit for bit
-   and bound by bytes over 3.35 TB/s, ``moe_dispatch`` also with one call's
-   wall (host clock over 1,000 calls) beside its device time (profiler);
+   and bound by bytes over 3.35 TB/s, the three packs and ``moe_dispatch``
+   also with one call's wall (host clock over 1,000 calls) beside its
+   device time (profiler) and the bound's share of that;
    ``flash_attention`` at train100m's shape (B=8, H=12, KH=4, S=2,048,
    D=64, causal) in f32 and bf16 and one non-causal ``Sq != Sk`` case,
    within the reference's tolerances (2e-5 f32, 2e-2 bf16), beside
@@ -404,26 +405,29 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
     # the pod hop: bins 0..2 (2 pods + overflow), 3 is the padding id
     dest = torch.from_numpy(rng.integers(0, 4, (S, T), dtype=np.int32)).to(dev)
     hp_src = "src/repro_torch/kernels/csrc/hash_partition.cu"
-    rows = [
-        _kernel_row(
-            "hash_partition_pack", "src/repro/kernels/hash_partition.py:161", hp_src,
-            f"S={S} T={T} P=8", S * T * 16 + S * (T // 256) * 9 * 4,
-            lambda: hp.hash_partition_pack(keys, valid, 8),
-            lambda: ref.hash_partition_pack_ref(keys, valid, 8),
-        ),
-        _kernel_row(
-            "partition_pack", "src/repro/kernels/hash_partition.py:111", hp_src,
-            f"S={S} T={T} bins=3", S * T * 8 + S * (T // 256) * 3 * 4,
-            lambda: hp.partition_pack(dest, 3),
-            lambda: ref.partition_pack_ref(dest, 3),
-        ),
-        _kernel_row(
-            "hash_partition", "src/repro/kernels/hash_partition.py:81", hp_src,
-            f"S={S} T={T} P=8", S * T * 8 + S * (T // 256) * 8 * 4,
-            lambda: hp.hash_partition(keys, 8),
-            lambda: ref.hash_partition_ref(keys, 8),
-        ),
+    packs = [
+        ("hash_partition_pack", "src/repro/kernels/hash_partition.py:161",
+         f"S={S} T={T} P=8", S * T * 16 + S * (T // 256) * 9 * 4,
+         lambda: hp.hash_partition_pack(keys, valid, 8),
+         lambda: ref.hash_partition_pack_ref(keys, valid, 8)),
+        ("partition_pack", "src/repro/kernels/hash_partition.py:111",
+         f"S={S} T={T} bins=3", S * T * 8 + S * (T // 256) * 3 * 4,
+         lambda: hp.partition_pack(dest, 3),
+         lambda: ref.partition_pack_ref(dest, 3)),
+        ("hash_partition", "src/repro/kernels/hash_partition.py:81",
+         f"S={S} T={T} P=8", S * T * 8 + S * (T // 256) * 8 * 4,
+         lambda: hp.hash_partition(keys, 8),
+         lambda: ref.hash_partition_ref(keys, 8)),
     ]
+    rows = []
+    for name, replaces, label, nbytes, kern, plain in packs:
+        row = _kernel_row(name, replaces, hp_src, label, nbytes, kern, plain)
+        # the host's part and the device's part of a call, apart
+        row["wall_ms"], row["device_ms"] = _wall_and_device_ms(kern, "_kernel<")
+        print(f"[kernels] {name}: one call {row['wall_ms']:.4f} ms of wall (1000 calls, "
+              f"host clock), {row['device_ms']:.4f} ms of device time (profiler), "
+              f"{100 * row['bound_ms'] / row['device_ms']:.2f}% of bound by device time")
+        rows.append(row)
     # OLMoE-1B-7B: 64 experts, top-8, on 8 units.  Decode: 64 slots -> 8
     # tokens a unit, C = 4.  Prefill: 64 x 256 prompt tokens -> 2048 a unit,
     # C = 320.  Both with capacity factor 1.25, so some rows drop.

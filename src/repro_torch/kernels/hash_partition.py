@@ -8,7 +8,9 @@ first use by :mod:`.build` and loaded with ``ctypes``.
 Every wrapper takes a leading shard dim ``S`` and launches ONE kernel over
 all shards.  A tensor on the CPU goes to the plain version in :mod:`.ref`; a
 CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches only (plain-version calls never count).
+launches only (plain-version calls never count).  The stream handle is the
+raw current stream (``torch.cuda.current_stream`` costs microseconds a
+call), and the checks are the ones the kernel needs.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from . import ref
 from .build import CudaLibrary, check_int32 as _check, raise_on as _raise_on
 
 MAX_BLOCK = 256
-# Shared memory holds 8 warps x bins int32 counters within the 48 KB a
-# block gets without opting in.
+# Past 32 bins the kernel keeps 8 warps x bins int32 counters in shared
+# memory, within the 48 KB a block gets without opting in.
 MAX_BINS = 48 * 1024 // (8 * 4)
 
 LAUNCHES = {"hash_partition_pack": 0, "partition_pack": 0, "hash_partition": 0}
@@ -46,7 +48,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_launch(name: str, S: int, T: int, block: int, num_bins: int, dev) -> None:
+def _check_launch(name: str, S: int, T: int, block: int, num_bins: int, dev) -> int:
+    """Raise on what the kernel cannot take; return the raw current stream."""
     if not 0 < block <= MAX_BLOCK or T % block:
         raise ValueError(f"{name}: block={block} must be in (0, {MAX_BLOCK}] and divide T={T}")
     if num_bins > MAX_BINS:
@@ -54,7 +57,8 @@ def _check_launch(name: str, S: int, T: int, block: int, num_bins: int, dev) -> 
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev} are neither CPU nor CUDA")
     if S * T >= 2**31:
-        raise ValueError(f"{name}: S*T={S * T} rows exceed int32 indexing")
+        raise ValueError(f"{name}: S*T={S * T} rows exceed the kernel's int arguments")
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def hash_partition_pack(
@@ -70,13 +74,12 @@ def hash_partition_pack(
     S, T = keys.shape
     _check("keys", keys, (S, T))
     _check("valid", valid, (S, T))
-    _check_launch("hash_partition_pack", S, T, block, num_partitions + 1, keys.device)
+    stream = _check_launch("hash_partition_pack", S, T, block, num_partitions + 1, keys.device)
     lib = LIBRARY.load()
     dest = torch.empty_like(keys)
     rank = torch.empty_like(keys)
     hist = torch.empty((S, T // block, num_partitions + 1), dtype=torch.int32,
                        device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.hash_partition_pack_launch(
         keys.data_ptr(), valid.data_ptr(), dest.data_ptr(), hist.data_ptr(),
         rank.data_ptr(), S, T, block, num_partitions, stream,
@@ -98,11 +101,10 @@ def partition_pack(
         return ref.partition_pack_ref(dest, num_bins, block)
     S, T = dest.shape
     _check("dest", dest, (S, T))
-    _check_launch("partition_pack", S, T, block, num_bins, dest.device)
+    stream = _check_launch("partition_pack", S, T, block, num_bins, dest.device)
     lib = LIBRARY.load()
     rank = torch.empty_like(dest)
     hist = torch.empty((S, T // block, num_bins), dtype=torch.int32, device=dest.device)
-    stream = torch.cuda.current_stream(dest.device).cuda_stream
     err = lib.partition_pack_launch(
         dest.data_ptr(), hist.data_ptr(), rank.data_ptr(), S, T, block,
         num_bins, stream,
@@ -121,11 +123,10 @@ def hash_partition(
         return ref.hash_partition_ref(keys, num_partitions, block)
     S, T = keys.shape
     _check("keys", keys, (S, T))
-    _check_launch("hash_partition", S, T, block, num_partitions, keys.device)
+    stream = _check_launch("hash_partition", S, T, block, num_partitions, keys.device)
     lib = LIBRARY.load()
     pid = torch.empty_like(keys)
     hist = torch.empty((S, T // block, num_partitions), dtype=torch.int32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
     err = lib.hash_partition_launch(
         keys.data_ptr(), pid.data_ptr(), hist.data_ptr(), S, T, block, num_partitions, stream,
     )

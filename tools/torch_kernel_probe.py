@@ -1,9 +1,23 @@
 #!/usr/bin/env python3
 """Measurements of the port's kernels that ``chip_smoke.py`` does not make.
 
+    python3 tools/torch_kernel_probe.py pack-time [--src DIR]
     python3 tools/torch_kernel_probe.py moe-time [--src DIR]
     python3 tools/torch_kernel_probe.py moe-host [--calls 1000]
     python3 tools/torch_kernel_probe.py mma-rate
+
+``pack-time`` holds the three pack kernels bit for bit against their plain
+versions at ``chip_smoke.py`` phase 3's shapes (S=8 shards x T=750,080
+rows, one shard's lineitem rows at SF 1; P=8, 3 bins, seed 0) and gives
+each three times: CUDA events over 50 back-to-back calls after 5 (as
+``chip_smoke.py``'s rows), one call's wall (host clock over 1,000 calls,
+then a synchronise) and the device time of its kernel (``torch.profiler``
+over 50 calls), beside the bytes bound.  ``partition_pack`` is also run at
+9, 16, 17, 32, 33 and 65 bins.  As a yardstick, ``Tensor.copy_`` moves the
+same bytes (the card's practical rate).  Last, one whole ``ops.partition_ranks``
+and ``ops.hash_partition_ranks`` call is profiled: the device time of each
+kernel it launches (the pack kernel, then the combine's cumsum, arange,
+gather, add and sum).  ``--src`` as for ``moe-time``.
 
 ``moe-time`` times ``moe_dispatch`` at OLMoE's decode (S=8, T=64, E=64,
 C=4) and prefill (S=8, T=16,384, C=320) shapes on router-ordered int32 ids
@@ -169,6 +183,101 @@ def moe_time() -> None:
               f"(50 back to back), device {us / 50 / 1e3:.4f} ms a call (profiler, 50 calls)")
 
 
+def _device_ms(fn, calls: int = 50) -> tuple[float, list[str]]:
+    """Device time a call of ``fn`` and the names of its device kernels
+    (``torch.profiler`` over ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    us = sum(e.self_device_time_total for e in rows)
+    return us / calls / 1e3, sorted({e.key[:60] for e in rows})
+
+
+def _wall_ms(fn, calls: int = 1000) -> float:
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def pack_time() -> None:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import ops, ref
+
+    print(f"[pack-time] package: {Path(hp.__file__).resolve().parents[2]}")
+    S, T, P, hbm = 8, 750_080, 8, 3.35e12
+    nblk = T // 256
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.integers(0, 2**31 - 1, (S, T), dtype=np.int32)).cuda()
+    valid = torch.from_numpy((rng.random((S, T)) >= 0.1).astype(np.int32)).cuda()
+    # ids in [0, bins]: ``bins`` is the padding id, which matches no bin
+    dests = {b: torch.from_numpy(rng.integers(0, b + 1, (S, T), dtype=np.int32)).cuda()
+             for b in (3, 9, 16, 17, 32, 33, 65)}
+    cases = [("hash_partition_pack", f"P={P}", S * T * 16 + S * nblk * (P + 1) * 4,
+              lambda: hp.hash_partition_pack(keys, valid, P),
+              lambda: ref.hash_partition_pack_ref(keys, valid, P))]
+    cases += [("partition_pack", f"bins={b}", S * T * 8 + S * nblk * b * 4,
+               lambda d=d, b=b: hp.partition_pack(d, b),
+               lambda d=d, b=b: ref.partition_pack_ref(d, b)) for b, d in dests.items()]
+    cases += [("hash_partition", f"P={P}", S * T * 8 + S * nblk * P * 4,
+               lambda: hp.hash_partition(keys, P), lambda: ref.hash_partition_ref(keys, P))]
+    for name, label, nbytes, kern, plain in cases:
+        got, want = kern(), plain()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {label}: differs from the plain version")
+        ms = _events_ms(kern, 50, warmup=5)
+        wall = _wall_ms(kern)
+        dev_ms, names = _device_ms(kern)
+        bound = nbytes / hbm * 1e3
+        print(f"[pack-time] {name} S={S} T={T} {label}: bit-exact; events {ms:.4f} ms a call "
+              f"(50 back to back), wall {wall:.4f} ms (1000 calls), device {dev_ms:.4f} ms "
+              f"(profiler, 50 calls; {names}); bound {bound:.4f} ms ({nbytes} B): "
+              f"{100 * bound / dev_ms:.1f}% by device time, {100 * bound / ms:.1f}% by events")
+    # the yardstick: what the card takes to copy the same bytes (one [S, T]
+    # and one [S, 2 T] int32 tensor: partition_pack's and hash_partition_pack's
+    # reads and writes without their histograms)
+    for rows in (T, 2 * T):
+        a = torch.zeros((S, rows), dtype=torch.int32, device="cuda")
+        b = torch.empty_like(a)
+        dev_ms, _ = _device_ms(lambda: b.copy_(a))
+        nbytes = 2 * a.numel() * 4
+        print(f"[pack-time] copy_ of [{S}, {rows}] int32 ({nbytes} B moved): device "
+              f"{dev_ms:.4f} ms (profiler, 50 calls) = {nbytes / dev_ms / 1e9:.3f} TB/s, "
+              f"{100 * nbytes / hbm * 1e3 / dev_ms:.1f}% of {hbm / 1e12} TB/s")
+    for tag, fn in (("ops.partition_ranks bins=3", lambda: ops.partition_ranks(dests[3], 3)),
+                    ("ops.hash_partition_ranks P=8",
+                     lambda: ops.hash_partition_ranks(keys, valid, P))):
+        wall = _wall_ms(fn, 200)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                      key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in rows) / 20 / 1e3
+        print(f"[pack-time] {tag} S={S} T={T}: wall {wall:.4f} ms (200 calls), device "
+              f"{total:.4f} ms a call (profiler, 20 calls) in {sum(e.count for e in rows) // 20} "
+              f"kernels:")
+        for e in rows:
+            print(f"[pack-time]   {e.self_device_time_total / 20 / 1e3:.4f} ms x{e.count // 20} "
+                  f"{e.key[:100]}")
+
+
 def moe_host(calls: int) -> None:
     import torch
 
@@ -217,9 +326,10 @@ def moe_host(calls: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("moe-time", "moe-host", "mma-rate"))
+    ap.add_argument("what", choices=("pack-time", "moe-time", "moe-host", "mma-rate"))
     ap.add_argument("--calls", type=int, default=1000)
-    ap.add_argument("--src", type=Path, help="moe-time: another checkout's src directory")
+    ap.add_argument("--src", type=Path,
+                    help="pack-time, moe-time: another checkout's src directory")
     args = ap.parse_args()
     if args.src is not None:
         sys.path.insert(0, str(args.src.resolve()))
@@ -229,7 +339,9 @@ def main() -> int:
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     print(f"[device] nvidia-smi: {_smi()}")
-    if args.what == "moe-time":
+    if args.what == "pack-time":
+        pack_time()
+    elif args.what == "moe-time":
         moe_time()
     elif args.what == "mma-rate":
         mma_rate()
