@@ -44,6 +44,29 @@ Phases, in order; any failure raises and the process exits non-zero:
    show each shuffle edge's pack went through the kernels.  The Q3 rerun
    must give the same order keys and revenues within rtol 1e-6
    (``scatter_add_`` on the card sums floats in no fixed order);
+4b. out-of-core — host copies of phase 4's tables, lineitem streamed as a
+   ``MorselView`` of 2**20-row morsels (6 a pass, the last padded), each
+   pinned and copied on a side stream: the two pack kernels first checked
+   bit for bit at a morsel's shard shape; Q1, Q17 and Q18 on 8 shards
+   under a ``device_row_budget`` of half lineitem's shard slice, which
+   ``compile_plan`` must refuse, one pipeline chunk a shuffle (so one
+   pack a shuffle), equal to the oracle at phase 4's
+   tolerances (Q17: 2 passes, 12 morsel steps); Q17 on 2 x 4, where every
+   step launches ``partition_pack`` and ``spill=True`` must raise; Q18 with
+   8,192-row messages, which must raise without spill and, with it, spill
+   rows over at least 3 drain rounds to an answer bit-identical to the
+   unpressured run, the same under the plain pack; every run's
+   ``hash_partition_pack`` and ``partition_pack`` launches equal to what
+   its plan and counters imply.  Then Q18 at TPC-H SF 30: lineitem from
+   ``gen_lineitem_chunked(30, 43)`` (180 M rows, 8.64 GB of int32 columns,
+   each chunk generated on the host as the stream reaches it), orders and
+   customer resident, a budget and group state of 2**23 rows a shard; the
+   two packs first checked again at its morsel's and its resident orders'
+   shard shapes; the peak allocated over the run must stay below
+   lineitem's bytes, the
+   overlap fraction in [0, 1], and the answer equal to the oracle over
+   ``src.materialize()`` on the host, where ``compile_plan`` must refuse
+   the materialized table;
 5. serving — OLMoE-1B-7B at full width (random weights from ``--seed``, f32
    master params, bf16 compute), expert-parallel over 8 simulated units
    flat and over 2 pods x 4.  A uniform workload (64 requests x 256 prompt
@@ -140,6 +163,15 @@ SSM_CHECK_TOL = 1e-3
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
+# out-of-core: global morsel rows at SF 1, the message bound that forces
+# spill there, and Q18 at TPC-H SF 30 (lineitem in 43 chunks of ~4.19 M
+# rows, 524,288 a shard; 2**23 rows a device for the budget and the group
+# state, against 22.5 M of lineitem a shard)
+OOC_MORSEL = 2**20
+OOC_SPILL_ROWS = 8192
+OOC_SF = 30
+OOC_CHUNKS = 43
+OOC_BUDGET = 2**23
 
 
 def _nvidia_smi() -> str:
@@ -616,7 +648,251 @@ def phase_queries(sf: float, seed: int, runs: list[str], profile: bool = False) 
     launches = _counts()
     print(f"[queries] launches over the main path: {launches}")
     print(f"[queries] torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
-    return launches
+    return launches, tabs, wants
+
+
+def _stream_pack_launches(run, steps: int) -> tuple[int, int]:
+    """The (``hash_partition_pack``, ``partition_pack``) launches that a
+    streamed run's plan and counters imply, with one pipeline chunk a
+    shuffle: the runner's ``shuffles_per_step`` names the shuffles of each
+    pass's morsel step (``steps`` a pass), resident step and drain round
+    (phase 4b's plans drain in one pass at most); each packs once through
+    ``hash_partition_pack`` and, on a pod mesh, once more through
+    ``partition_pack`` for the coarse hop.  The plain pack launches
+    neither."""
+    if run.mux.pack_impl != "cuda":
+        return 0, 0
+    if run.mux.pipeline_chunks != 1:
+        raise AssertionError(f"streamed run with {run.mux.describe()}: expected one chunk")
+    sched = run.shuffles_per_step
+    packs = sum(steps * s["streamed"] + s["resident"] for s in sched)
+    drains = run.stats["drain_rounds"] * max(s["drain"] for s in sched)
+    return packs + drains, packs if run.plan.num_pods > 1 else 0
+
+
+def _pack_check(T: int, seed: int, what: str) -> None:
+    """The two pack kernels at a shape the streamed path gives them (``T``
+    rows a shard, padded to the 256-row block as the ranks wrapper pads
+    them), bit for bit against their plain versions; not counted on the
+    main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(seed)
+    Tp = math.ceil(T / 256) * 256
+    keys = torch.from_numpy(rng.integers(0, 2**31 - 1, (N_SHARDS, Tp), dtype=np.int32)).cuda()
+    valid = torch.from_numpy((rng.random((N_SHARDS, Tp)) >= 0.1).astype(np.int32)).cuda()
+    dest = torch.from_numpy(rng.integers(0, 4, (N_SHARDS, Tp), dtype=np.int32)).cuda()
+    for name, got, want in (
+        ("hash_partition_pack", hp.hash_partition_pack(keys, valid, 8),
+         ref.hash_partition_pack_ref(keys, valid, 8)),
+        ("partition_pack", hp.partition_pack(dest, 3), ref.partition_pack_ref(dest, 3)),
+    ):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} at S={N_SHARDS} T={Tp}: kernel disagrees with plain")
+        print(f"[oocore] {name}: S={N_SHARDS} T={Tp} ({what}) bit-exact against its "
+              "plain version")
+
+
+def phase_oocore(tabs: dict, wants: dict, seed: int) -> dict:
+    """Out-of-core TPC-H: chunked lineitem streamed through the card morsel
+    by morsel (pinned host memory, a side stream), spill and drain, and Q18
+    at TPC-H SF ``OOC_SF``.  Returns every kernel's launches over the
+    streamed runs (the main path: counts set to 0 just before each run and
+    read just after)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.relational import datagen, oracle
+    from repro_torch.relational.context import ExecutionContext
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.executor import compile_plan
+    from repro_torch.relational.planner.stream import compile_plan_streamed
+    from repro_torch.relational.source import MorselView, as_source
+
+    main_path = dict.fromkeys(_counts(), 0)
+    host = {name: t.to("cpu") for name, t in tabs.items()}  # chunks stay on the host
+    li = host["lineitem"]
+    budget = math.ceil(li.capacity / N_SHARDS) // 2  # half lineitem's per-shard slice
+    oracles = {"q1": lambda: oracle.q1_oracle(li),
+               "q17": lambda: oracle.q17_oracle(li, host["part"]),
+               "q18": lambda: oracle.q18_oracle(li, host["orders"], host["customer"])}
+    for q in oracles:
+        if q not in wants:
+            wants[q] = oracles[q]()
+    _pack_check(math.ceil(OOC_MORSEL / N_SHARDS), seed, "an SF 1 morsel's shard slice")
+
+    def streamed(q, pods=1, tag=None, **knobs):
+        """One streamed run on the main path; returns (answer, runner,
+        launches, wall s)."""
+        pq = tpch.ALL_QUERIES[q]()
+        sources = {t: as_source(host[t]) for t in pq.tables}
+        sources["lineitem"] = MorselView(li, OOC_MORSEL)
+        catalog = {t: sources[t].capacity for t in pq.tables}
+        plan = pq.plan(catalog, N_SHARDS, num_pods=pods, morsel_rows=OOC_MORSEL)
+        ctx = ExecutionContext(num_shards=N_SHARDS, num_pods=pods, device="cuda",
+                               device_row_budget=budget, num_chunks=1, **knobs)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        run = compile_plan_streamed(plan, sources, ctx)
+        got = pq.finalize(run())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        for k, v in launches.items():
+            main_path[k] += v
+        want_hpp, want_pp = _stream_pack_launches(run, sources["lineitem"].num_chunks)
+        got_hpp, got_pp = launches["hash_partition_pack"], launches["partition_pack"]
+        if (got_hpp, got_pp) != (want_hpp, want_pp):
+            raise AssertionError(
+                f"{tag or q}: hash_partition_pack {got_hpp}, partition_pack {got_pp}; the "
+                f"plan and stats imply {want_hpp}, {want_pp} ({run.stats}, {run.mux.describe()})")
+        st = run.stats
+        print(f"[oocore] {tag or q}: SF 1 on {N_SHARDS if pods == 1 else f'{pods} x {N_SHARDS // pods}'}"
+              f", morsels of {OOC_MORSEL} rows ({sources['lineitem'].num_chunks} a pass), budget "
+              f"{budget} rows/device: {st['passes']} passes, {st['morsels']} morsel steps, "
+              f"spilled {st['spilled_rows']} rows over {st['drain_rounds']} drain rounds, "
+              f"overlap {st['prefetch_overlap_fraction']:.4f}; hash_partition_pack {got_hpp} "
+              f"(the plan and stats imply {want_hpp}), partition_pack {got_pp}; knobs "
+              f"{run.mux.describe()}; wall {wall * 1e3:.2f} ms")
+        return got, run, launches, wall, plan, sources, ctx
+
+    # 1. SF 1 on 8 shards, lineitem streamed; the in-memory path refused
+    answers = {}
+    for q in ("q1", "q17", "q18"):
+        got, run, _l, _w, plan, sources, ctx = streamed(q)
+        in_memory = {t: host[t] for t in plan.scans}
+        try:
+            compile_plan(plan, in_memory, ctx)
+        except ValueError as e:
+            if "device_row_budget" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{q}: in-memory compile_plan ran over device_row_budget")
+        check_answer(q, got, wants[q])
+        steps = 2 * sources["lineitem"].num_chunks  # SF 1: 2 passes x 6 morsels
+        if q == "q17" and (run.stats["passes"], run.stats["morsels"]) != (2, steps):
+            raise AssertionError(f"q17: {run.stats}, expected 2 passes and {steps} morsel steps")
+        answers[q] = got
+    print("[oocore] q1, q17, q18 streamed: ok vs oracle; in-memory compile_plan refused "
+          f"under device_row_budget={budget}")
+
+    # 2. Q17 streamed on 2 x 4: every step launches partition_pack
+    got, run, launches, _w, plan, sources, ctx = streamed("q17", pods=2, tag="q17_pods")
+    check_answer("q17", got, wants["q17"])
+    if launches["partition_pack"] < run.stats["morsels"]:
+        raise AssertionError(f"q17_pods: partition_pack {launches['partition_pack']} "
+                             f"< {run.stats['morsels']} steps")
+    try:
+        compile_plan_streamed(plan, sources, ctx.with_(spill=True))
+    except NotImplementedError:
+        print("[oocore] q17_pods: ok vs oracle; spill on the pod mesh refused")
+    else:
+        raise AssertionError("q17_pods: spill on a pod mesh did not raise")
+
+    # 3. spill at SF 1: Q18 with 8,192-row messages
+    try:
+        streamed("q18", tag="q18_no_spill", exchange_rows=OOC_SPILL_ROWS)
+    except RuntimeError as e:
+        if "dropped" not in str(e):
+            raise
+        print(f"[oocore] q18 with exchange_rows={OOC_SPILL_ROWS}, no spill: raised ({e})")
+    else:
+        raise AssertionError("q18: exchange overflow without spill did not raise")
+    spill = {}
+    for pack in ("cuda", "torch"):
+        got, run, _l, wall, *_ = streamed("q18", tag=f"q18_spill[{pack}]", pack_impl=pack,
+                                          exchange_rows=OOC_SPILL_ROWS, spill=True)
+        st = run.stats
+        if st["spilled_rows"] <= 0 or st["drain_rounds"] < 3:
+            raise AssertionError(f"q18_spill[{pack}]: {st}: expected spill over >= 3 rounds")
+        for k in answers["q18"]:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(answers["q18"][k])):
+                raise AssertionError(f"q18_spill[{pack}]: {k} differs from the unpressured run")
+        spill[pack] = (st["spilled_rows"], st["drain_rounds"])
+        print(f"[oocore] q18_spill[{pack}]: {st['spilled_rows']} rows spilled, "
+              f"{st['drain_rounds']} drain rounds, answer bit-identical to the unpressured "
+              f"run; wall {wall * 1e3:.2f} ms")
+    if spill["cuda"] != spill["torch"]:
+        raise AssertionError(f"q18_spill: the packs disagree on (rows, rounds): {spill}")
+
+    # 4. Q18 at TPC-H SF OOC_SF: lineitem never on the card whole
+    del tabs, host, li
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    orders = datagen.gen_orders(OOC_SF, seed + 3, device="cpu")
+    customer = datagen.gen_customer(OOC_SF, seed + 2, device="cpu")
+    src = datagen.gen_lineitem_chunked(OOC_SF, num_chunks=OOC_CHUNKS, seed=seed + 4)
+    li_bytes = src.capacity * len(datagen.lineitem_columns(0.0001)) * 4
+    print(f"[oocore] SF {OOC_SF}: lineitem {src.capacity} rows in {src.num_chunks} chunks of "
+          f"{src.chunk_rows} ({li_bytes} B of int32 columns), orders {orders.capacity}, customer "
+          f"{customer.capacity} rows; orders and customer generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pq = tpch.q18()
+    sources = {"lineitem": src, "orders": orders, "customer": customer}
+    plan = pq.plan({t: sources[t].capacity for t in pq.tables}, N_SHARDS,
+                   morsel_rows=src.chunk_rows)
+    ctx = ExecutionContext(num_shards=N_SHARDS, device="cuda", device_row_budget=OOC_BUDGET,
+                           group_state_rows=OOC_BUDGET, num_chunks=1)
+    # the packs at this run's shapes: a morsel's shard slice, and the
+    # resident orders' slice that pass 2 shuffles
+    _pack_check(math.ceil(src.chunk_rows / N_SHARDS), seed, f"an SF {OOC_SF} morsel's shard slice")
+    _pack_check(math.ceil(orders.capacity / N_SHARDS), seed, f"SF {OOC_SF} orders' shard slice")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    run = compile_plan_streamed(plan, sources, ctx)
+    got = pq.finalize(run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    for k, v in launches.items():
+        main_path[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    stream_peak = run.pass_peak_bytes[0]
+    st = run.stats
+    want_hpp, _ = _stream_pack_launches(run, src.num_chunks)
+    if launches["hash_partition_pack"] != want_hpp:
+        raise AssertionError(f"q18 SF {OOC_SF}: hash_partition_pack "
+                             f"{launches['hash_partition_pack']}, expected {want_hpp}")
+    if not 0.0 <= st["prefetch_overlap_fraction"] <= 1.0:
+        raise AssertionError(f"q18 SF {OOC_SF}: overlap {st['prefetch_overlap_fraction']}")
+    if peak >= li_bytes:
+        raise AssertionError(f"q18 SF {OOC_SF}: {peak} B allocated over the run, not below "
+                             f"lineitem's {li_bytes} B")
+    print(f"[oocore] q18 SF {OOC_SF}: wall {wall:.3f} s; {st['morsels']} morsels of "
+          f"{src.chunk_rows} rows; prefetch wait {st['prefetch_wait_s']:.3f} of "
+          f"{st['prefetch_total_s']:.3f} s, overlap {st['prefetch_overlap_fraction']:.4f}; "
+          f"peak allocated {peak} B over the run, {stream_peak} B of it by the end of the "
+          f"stream (pass 1; lineitem {li_bytes} B); hash_partition_pack "
+          f"{launches['hash_partition_pack']} (the plan and stats imply {want_hpp}); knobs "
+          f"{run.mux.describe()}")
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole = src.materialize()  # the streaming oracle, on the host
+    try:
+        compile_plan(plan, {"lineitem": whole, "orders": orders, "customer": customer}, ctx)
+    except ValueError as e:
+        if "device_row_budget" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"q18 SF {OOC_SF}: in-memory compile_plan ran over the budget")
+    want = oracle.q18_oracle(whole, orders, customer)
+    check_answer("q18", got, want)
+    print(f"[oocore] q18 SF {OOC_SF}: ok vs the oracle over src.materialize() "
+          f"({len(want['o_orderkey'])} orders; materialized and checked in "
+          f"{time.perf_counter() - t0:.2f} s); in-memory compile_plan refused under "
+          f"device_row_budget={OOC_BUDGET}")
+    del whole
+    print(f"[oocore] launches over the main path: {main_path}")
+    return main_path
 
 
 class _Timed:
@@ -1168,7 +1444,11 @@ def main() -> int:
     kernels = phase_kernels(args.sf, args.seed)
 
     # 4. queries (the relational main path)
-    q_launches = phase_queries(args.sf, args.seed, runs, args.profile)
+    q_launches, tabs, wants = phase_queries(args.sf, args.seed, runs, args.profile)
+
+    # 4b. out-of-core (the streamed relational main path)
+    o_launches = phase_oocore(tabs, wants, args.seed)
+    del tabs
 
     # 5. serving (the MoE main path)
     s_launches = phase_serving(args.seed)
@@ -1178,7 +1458,7 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
-    paths = (q_launches, s_launches, t_launches, m_launches)
+    paths = (q_launches, o_launches, s_launches, t_launches, m_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

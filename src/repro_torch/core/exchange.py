@@ -366,6 +366,53 @@ def hash_shuffle(
     return rows_out, valid_out, psum(dropped, mesh, axis)
 
 
+def hash_shuffle_spill(
+    keys: torch.Tensor,
+    rows: torch.Tensor,
+    mesh: Mesh,
+    axis: str,
+    capacity: int,
+    impl: AllToAllImpl = "round_robin",
+    valid: torch.Tensor | None = None,
+    pack_impl: PackImpl = "torch",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exchange that reports overflow instead of dropping it.
+
+    Same wire layout as single-chunk :func:`hash_shuffle`, but a row whose
+    within-destination arrival rank reaches ``capacity`` is withheld on the
+    sender: the third return value is a sender-local ``spilled [S, T]``
+    mask.  The caller parks those rows in a host-memory overflow partition
+    and re-offers them later, so every valid row is either delivered or
+    flagged, never neither.  The rank pass runs on the sender before any
+    data moves (paper §3.2 step 2), so ``rank >= capacity`` is exactly the
+    overflow the fixed-size message pool would hit.  With
+    ``pack_impl="cuda"`` the ranks come from one ``hash_partition_pack``
+    launch over all shards.  Returns ``(rows_out [S, n * capacity, ...],
+    valid_out [S, n * capacity], spilled [S, T])``.
+    """
+    n = mesh.size(axis)
+    S, T = keys.shape
+    if valid is None:
+        valid = torch.ones((S, T), dtype=torch.bool, device=keys.device)
+    if pack_impl == "cuda":
+        dest, my_rank, counts_all = kernel_ops.hash_partition_ranks(
+            keys, valid.to(torch.int32), n
+        )
+    else:
+        dest = (fibonacci_hash(keys) % n).to(torch.int32)
+        dest = torch.where(valid, dest, n).to(torch.int32)
+        my_rank, counts_all = _rank_by_destination(dest, n, pack_impl)
+    spilled = valid & (my_rank >= capacity)
+    deliver = valid & ~spilled
+    bufs, counts, _ = _scatter_pack(dest, my_rank, counts_all, rows, n, capacity, deliver)
+    shuffled = all_to_all(bufs, mesh, axis, impl=impl)
+    counts_in = all_to_all(counts.reshape(S, n, 1), mesh, axis, impl=impl).reshape(S, n)
+    rows_out = shuffled.reshape((S, n * capacity) + tuple(rows.shape[2:]))
+    slots = torch.arange(capacity, device=keys.device)
+    valid_out = (slots < counts_in[:, :, None]).reshape(S, n * capacity)
+    return rows_out, valid_out, spilled
+
+
 # ----------------------------------------------------------------------------
 # Two-level exchange: coarse cross-pod hop + fine in-pod shuffle (paper §3.1).
 # ----------------------------------------------------------------------------
@@ -547,6 +594,7 @@ __all__ = [
     "fibonacci_hash",
     "pack_by_destination",
     "hash_shuffle",
+    "hash_shuffle_spill",
     "hash_shuffle_two_level",
     "dispatch_two_level",
     "combine_two_level",

@@ -17,10 +17,12 @@ only this interface).  Knob values come from the plan-time tuner
 
 None of the knobs changes what is delivered, only how it is packed and
 phased.  :meth:`CommMultiplexer.dispatch` / :meth:`~CommMultiplexer.combine`
-carry the MoE layer's token routing over the same fabric, and
-:func:`use_multiplexer` makes a multiplexer ambient for code that cannot
-take one as an argument (the MoE layer inside a model step).  Left for
-later slices: spill, the streaming consume and gradient sync.
+carry the MoE layer's token routing over the same fabric,
+:meth:`CommMultiplexer.hash_shuffle_spill` is the capacity-bounded exchange
+of out-of-core streaming, and :func:`use_multiplexer` makes a multiplexer
+ambient for code that cannot take one as an argument (the MoE layer inside
+a model step).  Left for later slices: the streaming consume and gradient
+sync.
 """
 
 from __future__ import annotations
@@ -144,6 +146,35 @@ class CommMultiplexer:
             keys, rows, self.mesh, axis_name, capacity, impl=self.impl,
             valid=valid, pack_impl=self.pack_impl, num_chunks=chunks,
             transport_chunks=transport,
+        )
+
+    def hash_shuffle_spill(
+        self,
+        keys: torch.Tensor,
+        rows: torch.Tensor,
+        axis_name: str,
+        capacity: int,
+        valid: torch.Tensor | None = None,
+    ):
+        """Capacity-bounded exchange that flags overflow instead of dropping.
+
+        Returns ``(rows_out, valid_out, spilled)`` with ``spilled`` a
+        sender-local ``[S, T]`` mask; the caller parks those rows in a
+        host-memory overflow partition and drains them later
+        (``relational.planner.stream``).  Single-level meshes only: on a pod
+        mesh the streamed executor sizes messages for zero drop instead,
+        because the two-level hop re-packs rows mid-flight and the sender
+        can no longer name its spilled rows.
+        """
+        if self.plan.pod_axis is not None:
+            raise NotImplementedError(
+                "spill-capable exchange is single-level only; pod meshes "
+                "must size streamed exchanges for zero drop"
+            )
+        self.plan.validate_axis_for_alltoall(axis_name)
+        return exchange.hash_shuffle_spill(
+            keys, rows, self.mesh, axis_name, capacity, impl=self.impl,
+            valid=valid, pack_impl=self.pack_impl,
         )
 
     def broadcast(self, x: torch.Tensor, axis_name: str) -> torch.Tensor:

@@ -19,7 +19,8 @@ trick for relations).
 
 :class:`Prefetcher` overlaps host-side batch assembly with device compute
 on a background thread (the data-pipeline analogue of the paper's
-dedicated network thread).
+dedicated network thread); given a CUDA device, the thread also copies each
+item to the card from pinned memory on a stream of its own.
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ import threading
 from typing import Any, Iterator
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
+from ..tree import leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -139,17 +142,50 @@ def make_batch_iterator(
 
 
 class Prefetcher:
-    """Background-thread prefetch of an iterator (depth-bounded queue)."""
+    """Background-thread prefetch of an iterator (depth-bounded queue).
+
+    With ``device`` a CUDA device, the thread also moves every item to the
+    card: each CPU tensor in it (in nested dicts, lists and dataclasses such
+    as a ``Table``) is pinned (``pin_memory()``) and copied with
+    ``non_blocking=True`` on the thread's own CUDA stream, and an event
+    recorded after the copies travels with the item.  ``__next__`` makes
+    the consumer's current stream wait on that event and marks every device
+    tensor of the item as used by that stream (``record_stream``), so the
+    caching allocator does not hand its memory out while the consumer still
+    reads it.  Without ``device`` (or with a CPU one) items pass through as
+    the iterator yields them.  An error in the iterator, or in pinning and
+    copying, is raised by the ``__next__`` that would have returned the item.
+    """
 
     _DONE = object()
 
-    def __init__(self, it: Iterator[Any], depth: int = 2):
+    def __init__(self, it: Iterator[Any], depth: int = 2, device=None):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: BaseException | None = None
+        dev = None if device is None else torch.device(device)
+        if dev is not None and dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = None
+        self._device = dev
+
+        def produce():
+            if dev is None:
+                yield from it
+                return
+            torch.cuda.set_device(dev)  # a new thread starts on device 0
+            stream = torch.cuda.Stream(dev)
+            for item in it:
+                with torch.cuda.stream(stream):
+                    moved = tree_map(lambda x: _to_card(x, dev), item)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                yield moved, done
 
         def run():
             try:
-                for item in it:
+                for item in produce():
                     self._q.put(item)
             except BaseException as e:  # surfaced on next()
                 self._err = e
@@ -168,7 +204,23 @@ class Prefetcher:
             if self._err is not None:
                 raise self._err
             raise StopIteration
-        return item
+        if self._device is None:
+            return item
+        moved, done = item
+        stream = torch.cuda.current_stream(self._device)
+        stream.wait_event(done)
+        for x in leaves(moved):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                x.record_stream(stream)
+        return moved
+
+
+def _to_card(x, device: torch.device):
+    """A CPU tensor pinned and copied to ``device`` without blocking the
+    host (on the caller's current stream); anything else unchanged."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x
 
 
 __all__ = [

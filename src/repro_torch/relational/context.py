@@ -1,13 +1,13 @@
 """One execution-configuration object for the query surface (port of
 ``repro.relational.context``).
 
-Mesh shape, multiplexer knobs, planner config, stats mode and the device
-live in one frozen, hashable dataclass that every entry point accepts.  The
-device defaults to the card (``"cuda"``); ``device="cpu"`` runs the plain
-versions on the CPU.  The fields that later slices of the port fill
-(``trace`` for telemetry, ``morsel_rows`` and ``spill`` for out-of-core
-streaming) exist so code written against the reference's context reads the
-same, and setting any of them raises ``NotImplementedError``.
+Mesh shape, multiplexer knobs, planner config, stats mode, the out-of-core
+morsel and spill knobs and the device live in one frozen, hashable
+dataclass that every entry point accepts.  The device defaults to the card
+(``"cuda"``); ``device="cpu"`` runs the plain versions on the CPU.  The
+``trace`` field, which the telemetry slice of the port fills, exists so
+code written against the reference's context reads the same; setting it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,8 +39,6 @@ class StatsMode(enum.Enum):
 # field -> the slice of the port that brings it
 _LATER_SLICES = {
     "trace": "the telemetry slice (obs/)",
-    "morsel_rows": "the streaming and spill slice",
-    "spill": "the streaming and spill slice",
 }
 
 
@@ -66,12 +64,31 @@ class ExecutionContext:
     stats_profile: Mapping[str, Any] | None = dataclasses.field(
         default=None, compare=False
     )
+    # --- out-of-core morsel streaming ------------------------------------
+    #: Global rows per morsel.  On plain in-memory tables this wraps any
+    #: table larger than ``morsel_rows`` in a chunked MorselView; chunked
+    #: DataSources stream regardless.  None = fully in-memory execution.
+    morsel_rows: int | None = None
+    #: Hard per-device row budget.  In-memory execution refuses tables whose
+    #: per-shard slice exceeds it; streamed execution bounds morsels and
+    #: resident state by it.  None = unbounded.
+    device_row_budget: int | None = None
+    #: Per-(src,dst) message capacity for streamed exchanges.  None sizes
+    #: messages for structural zero drop; smaller values force overflow
+    #: (spill when ``spill=True``, error otherwise).
+    exchange_rows: int | None = None
+    #: Route exchange overflow to a host-memory overflow partition and
+    #: re-shuffle it in drain passes instead of raising.
+    spill: bool = False
+    #: Per-shard capacity of streamed group-by state (distinct groups per
+    #: shard).  None = min(plan capacity, device_row_budget).
+    group_state_rows: int | None = None
+    #: Depth of the host-to-device prefetch queue for morsel streaming.
+    prefetch_depth: int = 2
     # --- where the tensors live ------------------------------------------
     device: str = "cuda"
     # --- later slices -----------------------------------------------------
     trace: Any = dataclasses.field(default=None, compare=False, repr=False)
-    morsel_rows: int | None = None
-    spill: bool = False
 
     def __post_init__(self) -> None:
         for name, slice_ in _LATER_SLICES.items():
@@ -101,6 +118,9 @@ class ExecutionContext:
             return dict(self.stats_profile)
         return None
 
+    def with_(self, **changes) -> "ExecutionContext":
+        """`dataclasses.replace` spelled as a method."""
+        return dataclasses.replace(self, **changes)
 
 
 def require_context(ctx: Any, *, where: str) -> ExecutionContext:

@@ -7,8 +7,8 @@ unless ``device="cpu"``).  TPC-H cardinality ratios per scale factor
 (SF 1 = 6M lineitem rows); strings are dictionary-encoded, money is int32
 cents, dates are int32 days since 1992-01-01.  ``zipf_partkey`` /
 ``zipf_orderkey`` switch those keys from uniform to Zipf(z), the skew
-experiment of paper §3.1.  The chunked lineitem generator waits for the
-streaming slice.
+experiment of paper §3.1.  :func:`gen_lineitem_chunked` generates lineitem
+chunk by chunk on the host, for out-of-core streaming.
 """
 
 from __future__ import annotations
@@ -122,16 +122,14 @@ def orders_columns(sf: float, seed: int = 3) -> dict[str, np.ndarray]:
     }
 
 
-def lineitem_columns(
-    sf: float,
-    seed: int = 4,
-    zipf_partkey: float | None = None,
-    zipf_orderkey: float | None = None,
+def _lineitem_columns(
+    rng,
+    n: int,
+    npart: int,
+    norder: int,
+    zipf_partkey: float | None,
+    zipf_orderkey: float | None,
 ) -> dict[str, np.ndarray]:
-    rng = np.random.default_rng(seed)
-    n = table_capacity("lineitem", sf)
-    npart = table_capacity("part", sf)
-    norder = table_capacity("orders", sf)
     if zipf_partkey:
         partkey = _zipf_ranks(rng, n, npart, zipf_partkey).astype(np.int32)
     else:
@@ -166,6 +164,22 @@ def lineitem_columns(
         "l_receiptdate": receiptdate,
         "l_shipmode": shipmode,
     }
+
+
+def lineitem_columns(
+    sf: float,
+    seed: int = 4,
+    zipf_partkey: float | None = None,
+    zipf_orderkey: float | None = None,
+) -> dict[str, np.ndarray]:
+    return _lineitem_columns(
+        np.random.default_rng(seed),
+        table_capacity("lineitem", sf),
+        table_capacity("part", sf),
+        table_capacity("orders", sf),
+        zipf_partkey,
+        zipf_orderkey,
+    )
 
 
 LINEITEM_DICTIONARIES = {
@@ -203,6 +217,40 @@ def gen_lineitem(
     )
 
 
+def gen_lineitem_chunked(
+    sf: float,
+    num_chunks: int,
+    seed: int = 4,
+    zipf_partkey: float | None = None,
+    zipf_orderkey: float | None = None,
+):
+    """Lineitem as a chunked :class:`~repro_torch.relational.source.GeneratorSource`.
+
+    Each chunk is generated lazily, on the host (CPU tensors), from its own
+    seed ``(seed, chunk_index)``, so only one chunk of rows is resident at a
+    time; its columns equal the reference's chunk byte for byte.  Key
+    domains (part and order capacities) are those of the full scale factor,
+    so joins against ``gen_part`` / ``gen_orders`` at the same ``sf`` behave
+    like one big table.  The stream is its own dataset, not a re-chunking of
+    ``gen_lineitem(sf, seed)``; its oracle is ``source.materialize()``.
+    """
+    from .source import GeneratorSource
+
+    if num_chunks < 1:
+        raise ValueError("num_chunks must be >= 1")
+    total = table_capacity("lineitem", sf)
+    chunk_rows = -(-total // num_chunks)  # ceil: capacity rounds up to fit
+    npart = table_capacity("part", sf)
+    norder = table_capacity("orders", sf)
+
+    def make_chunk(i: int) -> Table:
+        rng = np.random.default_rng((seed, i))
+        cols = _lineitem_columns(rng, chunk_rows, npart, norder, zipf_partkey, zipf_orderkey)
+        return _table(cols, "cpu", LINEITEM_DICTIONARIES)
+
+    return GeneratorSource(make_chunk, num_chunks, chunk_rows)
+
+
 def gen_all(
     sf: float,
     seed: int = 0,
@@ -238,5 +286,6 @@ __all__ = [
     "gen_customer",
     "gen_orders",
     "gen_lineitem",
+    "gen_lineitem_chunked",
     "gen_all",
 ]

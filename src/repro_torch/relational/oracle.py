@@ -1,8 +1,9 @@
 """Pure-numpy float64 reference implementations of the TPC-H queries.
 
-A copy of ``repro.relational.oracle`` (only :func:`_np` changed: it fetches
-torch columns to the host), so ``chip_smoke.py`` can check answers without
-the JAX package.  The engine must agree with these to ~1e-4 relative (f32
+A copy of ``repro.relational.oracle`` (:func:`_np` fetches torch columns
+to the host, and :func:`q18_oracle` works on whole arrays so it can check
+TPC-H SF 30), so ``chip_smoke.py`` can check answers without the JAX
+package.  The engine must agree with these to ~1e-4 relative (f32
 accumulation vs f64).  Deliberately written in the dumbest possible style —
 dictionaries and boolean masks — so bugs here are unlikely to correlate with
 bugs in the engine.
@@ -215,44 +216,36 @@ def q18_oracle(
     threshold: int = 300, k: int = 100,
 ) -> dict:
     """Large-volume customers: orders whose lineitems sum past ``threshold``
-    quantity, top-``k`` by o_totalprice descending."""
+    quantity, top-``k`` by o_totalprice descending (ties by order key).
+
+    Written with whole-array numpy (a per-order ``bincount`` and a sort)
+    rather than the reference's row loop, so it checks the out-of-core runs
+    at TPC-H SF 30 (180 M lineitem rows) in seconds; the sums are of integer
+    quantities in float64, so exact.  A test holds it to the reference's
+    loop.
+    """
     lt, ot, ct = _np(lineitem), _np(orders), _np(customer)
-    sums: dict[int, float] = {}
-    for i in range(lt["l_orderkey"].shape[0]):
-        if lt["_valid"][i]:
-            ok = int(lt["l_orderkey"][i])
-            sums[ok] = sums.get(ok, 0.0) + float(lt["l_quantity"][i])
-    seg_of = {
-        int(c): int(s)
-        for c, s, v in zip(ct["c_custkey"], ct["c_mktsegment"], ct["_valid"])
-        if v
-    }
-    rows = []
-    for i in range(ot["o_orderkey"].shape[0]):
-        if not ot["_valid"][i]:
-            continue
-        ok = int(ot["o_orderkey"][i])
-        if sums.get(ok, 0.0) <= threshold:
-            continue
-        ck = int(ot["o_custkey"][i])
-        if ck not in seg_of:
-            continue
-        rows.append(
-            (
-                ok,
-                ck,
-                seg_of[ck],
-                int(ot["o_orderdate"][i]),
-                int(ot["o_totalprice"][i]),
-                sums[ok],
-            )
-        )
-    rows.sort(key=lambda r: (-r[4], r[0]))
-    rows = rows[:k]
-    names = ("o_orderkey", "o_custkey", "c_mktsegment", "o_orderdate",
-             "o_totalprice", "sum_qty")
+    lv = lt["_valid"]
+    sums = np.bincount(
+        lt["l_orderkey"][lv].astype(np.int64),
+        weights=lt["l_quantity"][lv].astype(np.float64),
+    )
+    seg = np.full(int(ct["c_custkey"].max(initial=0)) + 1, -1, np.int64)
+    seg[ct["c_custkey"][ct["_valid"]]] = ct["c_mktsegment"][ct["_valid"]]
+    ok = ot["o_orderkey"].astype(np.int64)
+    ck = ot["o_custkey"].astype(np.int64)
+    osum = np.where((ok >= 0) & (ok < len(sums)), sums[np.clip(ok, 0, len(sums) - 1)], 0.0)
+    oseg = np.where((ck >= 0) & (ck < len(seg)), seg[np.clip(ck, 0, len(seg) - 1)], -1)
+    keep = np.flatnonzero(ot["_valid"] & (osum > threshold) & (oseg >= 0))
+    price = ot["o_totalprice"][keep].astype(np.int64)
+    top = keep[np.lexsort((ok[keep], -price))[:k]]
     return {
-        n: np.array([r[j] for r in rows]) for j, n in enumerate(names)
+        "o_orderkey": ok[top],
+        "o_custkey": ck[top],
+        "c_mktsegment": oseg[top],
+        "o_orderdate": ot["o_orderdate"][top].astype(np.int64),
+        "o_totalprice": ot["o_totalprice"][top].astype(np.int64),
+        "sum_qty": osum[top],
     }
 
 

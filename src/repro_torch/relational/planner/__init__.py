@@ -3,6 +3,8 @@
 * :mod:`.logical` — the relational operator DAG and its expression language;
 * :mod:`.physical` — the cost-based physical planner and ``explain()``;
 * :mod:`.executor` — runs a physical plan on the simulated fabric;
+* :mod:`.stream` — runs the same plan out of core, one morsel of a chunked
+  source at a time;
 * :mod:`.tpch` — the nine TPC-H queries as logical plans.
 """
 
@@ -27,7 +29,8 @@ from .physical import (
     plan_physical,
     use_preaggregation,
 )
-from .executor import compile_plan
+from .executor import compile_plan, execute_plan
+from .stream import compile_plan_streamed
 
 __all__ = [
     "Aggregate",
@@ -47,5 +50,7 @@ __all__ = [
     "exchange_bytes",
     "plan_physical",
     "use_preaggregation",
+    "execute_plan",
     "compile_plan",
+    "compile_plan_streamed",
 ]

@@ -27,6 +27,7 @@ from ...core.multiplexer import CommMultiplexer, make_multiplexer
 from ...kernels.ref import fibonacci_hash
 from .. import operators as ops
 from ..context import ExecutionContext, require_context
+from ..source import DataSource
 from ..table import Table, pad_to, resolve_device, shard_rows
 from .physical import PhysicalPlan, PNode
 
@@ -94,16 +95,24 @@ def _exchange_by_key(
     return Table(cols, out_valid), dropped
 
 
+def _pair_counts(
+    keys: torch.Tensor, valid: torch.Tensor, num_shards: int
+) -> torch.Tensor:
+    """Rows each shard sends each destination, ``[S, N]`` int32, under the
+    exchange's routing rule (``hash % N`` over the global shard count)."""
+    dest = fibonacci_hash(keys.to(torch.int32)) % num_shards
+    local = torch.zeros((keys.shape[0], num_shards), dtype=torch.int32, device=keys.device)
+    local.scatter_add_(1, dest, valid.to(torch.int32))
+    return local
+
+
 def _shuffle_histogram(
     keys: torch.Tensor, valid: torch.Tensor, num_shards: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Global per-destination row histogram ``[N]`` of a (routing-key,
-    valid) pair under the exchange's routing rule (``hash % N`` over the
-    global shard count), plus ``max_load / fair_share``."""
-    dest = fibonacci_hash(keys.to(torch.int32)) % num_shards
-    local = torch.zeros((keys.shape[0], num_shards), dtype=torch.int32, device=keys.device)
-    local.scatter_add_(1, dest, valid.to(torch.int32))
-    hist = local.sum(0, dtype=torch.int32)
+    valid) pair under the exchange's routing rule, plus
+    ``max_load / fair_share``."""
+    hist = _pair_counts(keys, valid, num_shards).sum(0, dtype=torch.int32)
     total = hist.sum().clamp(min=1).to(torch.float32)
     overload = hist.max().to(torch.float32) * num_shards / total
     return hist, overload
@@ -207,6 +216,70 @@ def _fetch(result: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in result.items()}
 
 
+def _resolve_exec_ctx(plan: PhysicalPlan, ctx, where: str) -> ExecutionContext:
+    """The context for this plan: the plan's own mesh on the card when
+    omitted, else an :class:`ExecutionContext` whose mesh shape matches the
+    plan's."""
+    if ctx is None:
+        ctx = ExecutionContext(plan.num_shards, num_pods=plan.num_pods)
+    ctx = require_context(ctx, where=where)
+    if (ctx.num_shards, ctx.num_pods) != (plan.num_shards, plan.num_pods):
+        raise ValueError(
+            f"{where}: context mesh {ctx.num_shards}x{ctx.num_pods} does "
+            f"not match the plan's {plan.num_shards}x{plan.num_pods}"
+        )
+    return ctx
+
+
+def _resident_table(name: str, obj) -> Table:
+    """Coerce a Table-or-DataSource to an in-memory Table (the executor's
+    unit of work); chunked sources belong to the streamed path."""
+    if isinstance(obj, Table):
+        return obj
+    if isinstance(obj, DataSource):
+        if obj.is_chunked:
+            raise ValueError(
+                f"table {name!r} is a chunked DataSource; in-memory "
+                "execution cannot hold it — run through run_query (or "
+                "stream.compile_plan_streamed) for out-of-core execution"
+            )
+        return obj.materialize()
+    raise TypeError(f"table {name!r}: expected Table or DataSource, got {type(obj)!r}")
+
+
+def _check_row_budget(plan: PhysicalPlan, tables: dict[str, Table], ctx) -> None:
+    """``device_row_budget`` is a hard promise: in-memory execution refuses
+    base tables whose per-shard slice exceeds it (chunk them instead)."""
+    if ctx.device_row_budget is None:
+        return
+    for name in plan.scans:
+        per_shard = math.ceil(tables[name].capacity / plan.num_shards)
+        if per_shard > ctx.device_row_budget:
+            raise ValueError(
+                f"table {name!r} needs {per_shard} rows/device, over "
+                f"device_row_budget={ctx.device_row_budget}; stream it as a "
+                "chunked DataSource (run_query with morsel_rows) instead"
+            )
+
+
+def execute_plan(plan: PhysicalPlan, tables: dict, ctx: ExecutionContext | None = None) -> dict:
+    """Run a physical plan over real data; returns the fetched result dict.
+
+    ``tables`` maps base-table names to :class:`Table`\\ s or
+    :class:`~repro_torch.relational.source.DataSource`\\ s whose capacities
+    match the catalog the plan was built from.  A chunked source switches
+    to morsel-streamed out-of-core execution
+    (:func:`~repro_torch.relational.planner.stream.compile_plan_streamed`);
+    everything resident runs the in-memory path.
+    """
+    ctx = _resolve_exec_ctx(plan, ctx, where="execute_plan")
+    if any(isinstance(t, DataSource) and t.is_chunked for t in tables.values()):
+        from .stream import compile_plan_streamed
+
+        return compile_plan_streamed(plan, tables, ctx)()
+    return compile_plan(plan, tables, ctx)()
+
+
 def compile_plan(
     plan: PhysicalPlan,
     tables: dict,
@@ -214,21 +287,20 @@ def compile_plan(
     mux: CommMultiplexer | None = None,
 ):
     """Prepare a plan for execution: check the tables against the plan's
-    catalog, move them to ``ctx.device``, pad and shard them, build the
-    multiplexer.  Returns a :class:`CompiledRunner`.
+    catalog and ``ctx.device_row_budget``, move them to ``ctx.device``, pad
+    and shard them, build the multiplexer.  Returns a
+    :class:`CompiledRunner`.
 
-    ``ctx`` carries the device and the multiplexer knobs (its mesh shape
-    must match the plan's); omitted, the plan's own mesh on the card with
-    the tuned knobs applies.  ``mux`` injects a shared multiplexer.
+    ``tables`` maps base-table names to :class:`Table`\\ s or single-chunk
+    DataSources; a chunked source is refused (it streams through
+    :func:`execute_plan` or ``stream.compile_plan_streamed``).  ``ctx``
+    carries the device and the multiplexer knobs (its mesh shape must match
+    the plan's); omitted, the plan's own mesh on the card with the tuned
+    knobs applies.  ``mux`` injects a shared multiplexer.
     """
-    if ctx is None:
-        ctx = ExecutionContext(plan.num_shards, num_pods=plan.num_pods)
-    ctx = require_context(ctx, where="compile_plan")
-    if (ctx.num_shards, ctx.num_pods) != (plan.num_shards, plan.num_pods):
-        raise ValueError(
-            f"compile_plan: context mesh {ctx.num_shards}x{ctx.num_pods} does "
-            f"not match the plan's {plan.num_shards}x{plan.num_pods}"
-        )
+    ctx = _resolve_exec_ctx(plan, ctx, where="compile_plan")
+    tables = {name: _resident_table(name, tables[name]) for name in plan.scans}
+    _check_row_budget(plan, tables, ctx)
     device = resolve_device(ctx.device)
     for name in plan.scans:
         if tables[name].capacity != plan.catalog[name]:
@@ -246,6 +318,155 @@ def compile_plan(
     return CompiledRunner(plan, mux, prepped)
 
 
+class _NodeEval:
+    """Memoized evaluator of a physical plan's nodes over sharded tables
+    (called as ``ev(node)``).
+
+    It evaluates the node kinds every executor shares (scan, filter,
+    project, join) and hands exchanges to :meth:`exchange` and every other
+    kind to :meth:`other`, which the in-memory and the streamed executors
+    define.  An object rather than closures that call each other: such a
+    pair is a reference cycle, which would keep a run's intermediates alive
+    until the cycle collector ran.
+    """
+
+    def __init__(self, tabs: dict):
+        self.tabs = tabs
+        self.memo: dict[int, object] = {}
+
+    def __call__(self, n: PNode):
+        if id(n) not in self.memo:
+            self.memo[id(n)] = self._eval(n)
+        return self.memo[id(n)]
+
+    def agg_dict(self, t: Table, aggs) -> dict:
+        return {name: (_column(e.eval(t), t.valid), kind) for name, e, kind in aggs}
+
+    def scan(self, n: PNode) -> Table:
+        src = self.tabs[n.info["table"]]
+        return Table({c: src[c] for c in n.schema}, src.valid)
+
+    def exchange(self, n: PNode) -> Table:
+        raise NotImplementedError
+
+    def other(self, n: PNode):
+        raise NotImplementedError
+
+    def _eval(self, n: PNode):
+        if n.kind == "scan":
+            return self.scan(n)
+        if n.kind == "filter":
+            t = self(n.children[0])
+            return t.with_mask(n.info["pred"].eval(t))
+        if n.kind == "project":
+            t = self(n.children[0])
+            cols = {c: t[c] for c in n.info["keep"]}
+            for name, e in n.info["derived"]:
+                cols[name] = _column(e.eval(t), t.valid)
+            return Table(cols, t.valid)
+        if n.kind == "join":
+            b, p = self(n.children[0]), self(n.children[1])
+            bidx, match = ops.join_pk(
+                b[n.info["build_key"]], b.valid,
+                p[n.info["probe_key"]], p.valid,
+            )
+            cols = dict(p.columns)
+            cols.update(ops.gather_payload(b, bidx, match, list(n.info["payload"])))
+            return Table(cols, match)
+        if n.kind == "exchange":
+            return self.exchange(n)
+        return self.other(n)
+
+
+class _InMemoryEval(_NodeEval):
+    """The in-memory executor's evaluator: whole tables, every exchange at
+    its zero-drop bound, breakers combined over the shard dim."""
+
+    def __init__(self, tabs: dict, mux: CommMultiplexer, num_shards: int, report_keys: dict):
+        super().__init__(tabs)
+        self.mux, self.num_shards, self.report_keys = mux, num_shards, report_keys
+        self.drops: list[torch.Tensor] = []
+        self.reports: dict[str, dict] = {}
+
+    def exchange(self, n: PNode) -> Table:
+        t = self(n.children[0])
+        if self.num_shards == 1:  # hash % 1 == 0: the exchange is the identity
+            return t
+        if n.info["exkind"] == "shuffle":
+            route, rep = _route_and_report(t, n, self.num_shards)
+            out, d = _exchange_by_key(
+                self.mux, t, n.info["key"], list(n.schema), route_keys=route,
+            )
+            self.reports[self.report_keys[id(n)]] = rep
+        else:
+            out, d = _broadcast_table(self.mux, t, list(n.schema))
+        self.drops.append(d[0])
+        return out
+
+    def other(self, n: PNode):
+        if n.kind == "groupby_sorted":
+            t = self(n.children[0])
+            gkeys, gvalid, out = ops.groupby_sorted(
+                t[n.info["key"]], t.valid, self.agg_dict(t, n.info["aggs"])
+            )
+            return Table({n.info["key"]: gkeys, **out}, gvalid)
+        if n.kind == "groupby_combine":
+            # merge salted partials: every shard holds ALL partial groups
+            # (they arrive by broadcast); re-grouping by the true key and
+            # re-summing partial sums and counts gives the exact global
+            # aggregate, replicated.
+            t = self(n.children[0])
+            aggs = {name: (t[name], "sum") for name, _e, _k in n.info["aggs"]}
+            gkeys, gvalid, out = ops.groupby_sorted(t[n.info["key"]], t.valid, aggs)
+            return Table({n.info["key"]: gkeys, **out}, gvalid)
+        if n.kind == "groupby_dense":
+            t = self(n.children[0])
+            res = ops.groupby_dense(
+                n.info["key_expr"].eval(t),
+                n.info["num_groups"],
+                self.agg_dict(t, n.info["aggs"]),
+                t.valid,
+            )
+            return {k: v.sum(0, dtype=v.dtype) for k, v in res.items()}
+        if n.kind == "aggregate":
+            t = self(n.children[0])
+            out = {}
+            for name, e, kind in n.info["aggs"]:
+                local = (
+                    ops.sum_where(_column(e.eval(t), t.valid), t.valid)
+                    if kind == "sum"
+                    else ops.count_where(t.valid)
+                )
+                out[name] = local.sum(0, dtype=local.dtype)
+            return out
+        if n.kind == "topk":
+            t = self(n.children[0])
+            k = n.info["k"]
+            vals, payload = ops.topk_rows(
+                t[n.info["key"]], t.valid, k,
+                {c: t[c] for c in n.info["payload"]},
+            )
+            if self.num_shards == 1:
+                return {
+                    **{c: col[0] for c, col in payload.items()},
+                    "_valid": ~torch.isneginf(vals[0]),
+                }
+            S = vals.shape[0]
+            # every shard gathers every candidate; shard 0's copy is the
+            # replicated result
+            mux = self.mux
+            all_vals = mux.broadcast_global(vals, SHUFFLE_AXIS).reshape(S, -1)[0]
+            gathered = {
+                c: mux.broadcast_global(col, SHUFFLE_AXIS).reshape(S, -1)[0]
+                for c, col in payload.items()
+            }
+            top_vals, idx = ops.topk_order(all_vals, k)
+            out = {c: col[idx] for c, col in gathered.items()}
+            out["_valid"] = ~torch.isneginf(top_vals)
+            return out
+        raise TypeError(f"unknown physical node kind {n.kind!r}")
+
+
 class CompiledRunner:
     """Zero-arg runner: ``dispatch()`` runs the plan and returns ``(result,
     dropped, reports)`` on the device; ``finalize`` raises on any dropped
@@ -258,133 +479,14 @@ class CompiledRunner:
         self._report_keys = _report_keys(plan.root)
 
     def dispatch(self):
-        plan, mux = self.plan, self.mux
-        num_shards = plan.num_shards
-        single = num_shards == 1
-        tabs = self._tables
-        drops: list[torch.Tensor] = []
-        reports: dict[str, dict] = {}
-        memo: dict[int, object] = {}
-
-        def ev(n: PNode):
-            if id(n) not in memo:
-                memo[id(n)] = _eval(n)
-            return memo[id(n)]
-
-        def _agg_dict(t: Table, aggs):
-            return {
-                name: (_column(e.eval(t), t.valid), kind) for name, e, kind in aggs
-            }
-
-        def _eval(n: PNode):
-            if n.kind == "scan":
-                src = tabs[n.info["table"]]
-                return Table({c: src[c] for c in n.schema}, src.valid)
-            if n.kind == "filter":
-                t = ev(n.children[0])
-                return t.with_mask(n.info["pred"].eval(t))
-            if n.kind == "project":
-                t = ev(n.children[0])
-                cols = {c: t[c] for c in n.info["keep"]}
-                for name, e in n.info["derived"]:
-                    cols[name] = _column(e.eval(t), t.valid)
-                return Table(cols, t.valid)
-            if n.kind == "exchange":
-                t = ev(n.children[0])
-                if single:  # hash % 1 == 0: the exchange is the identity
-                    return t
-                if n.info["exkind"] == "shuffle":
-                    route, rep = _route_and_report(t, n, num_shards)
-                    out, d = _exchange_by_key(
-                        mux, t, n.info["key"], list(n.schema), route_keys=route,
-                    )
-                    reports[self._report_keys[id(n)]] = rep
-                else:
-                    out, d = _broadcast_table(mux, t, list(n.schema))
-                drops.append(d[0])
-                return out
-            if n.kind == "join":
-                b, p = ev(n.children[0]), ev(n.children[1])
-                bidx, match = ops.join_pk(
-                    b[n.info["build_key"]], b.valid,
-                    p[n.info["probe_key"]], p.valid,
-                )
-                cols = dict(p.columns)
-                cols.update(
-                    ops.gather_payload(b, bidx, match, list(n.info["payload"]))
-                )
-                return Table(cols, match)
-            if n.kind == "groupby_sorted":
-                t = ev(n.children[0])
-                gkeys, gvalid, out = ops.groupby_sorted(
-                    t[n.info["key"]], t.valid, _agg_dict(t, n.info["aggs"])
-                )
-                return Table({n.info["key"]: gkeys, **out}, gvalid)
-            if n.kind == "groupby_combine":
-                # merge salted partials: every shard holds ALL partial groups
-                # (they arrive by broadcast); re-grouping by the true key and
-                # re-summing partial sums and counts gives the exact global
-                # aggregate, replicated.
-                t = ev(n.children[0])
-                aggs = {
-                    name: (t[name], "sum") for name, _e, _k in n.info["aggs"]
-                }
-                gkeys, gvalid, out = ops.groupby_sorted(
-                    t[n.info["key"]], t.valid, aggs
-                )
-                return Table({n.info["key"]: gkeys, **out}, gvalid)
-            if n.kind == "groupby_dense":
-                t = ev(n.children[0])
-                res = ops.groupby_dense(
-                    n.info["key_expr"].eval(t),
-                    n.info["num_groups"],
-                    _agg_dict(t, n.info["aggs"]),
-                    t.valid,
-                )
-                return {k: v.sum(0, dtype=v.dtype) for k, v in res.items()}
-            if n.kind == "aggregate":
-                t = ev(n.children[0])
-                out = {}
-                for name, e, kind in n.info["aggs"]:
-                    local = (
-                        ops.sum_where(_column(e.eval(t), t.valid), t.valid)
-                        if kind == "sum"
-                        else ops.count_where(t.valid)
-                    )
-                    out[name] = local.sum(0, dtype=local.dtype)
-                return out
-            if n.kind == "topk":
-                t = ev(n.children[0])
-                k = n.info["k"]
-                vals, payload = ops.topk_rows(
-                    t[n.info["key"]], t.valid, k,
-                    {c: t[c] for c in n.info["payload"]},
-                )
-                if single:
-                    return {
-                        **{c: col[0] for c, col in payload.items()},
-                        "_valid": ~torch.isneginf(vals[0]),
-                    }
-                S = vals.shape[0]
-                # every shard gathers every candidate; shard 0's copy is the
-                # replicated result
-                all_vals = mux.broadcast_global(vals, SHUFFLE_AXIS).reshape(S, -1)[0]
-                gathered = {
-                    c: mux.broadcast_global(col, SHUFFLE_AXIS).reshape(S, -1)[0]
-                    for c, col in payload.items()
-                }
-                top_vals, idx = ops.topk_order(all_vals, k)
-                out = {c: col[idx] for c, col in gathered.items()}
-                out["_valid"] = ~torch.isneginf(top_vals)
-                return out
-            raise TypeError(f"unknown physical node kind {n.kind!r}")
-
+        plan = self.plan
+        ev = _InMemoryEval(self._tables, self.mux, plan.num_shards, self._report_keys)
         result = ev(plan.root)
-        device = next(iter(tabs.values())).device
-        dropped = torch.stack(drops).sum() if drops else torch.zeros(
+        device = next(iter(self._tables.values())).device
+        dropped = torch.stack(ev.drops).sum() if ev.drops else torch.zeros(
             (), dtype=torch.int32, device=device
         )
-        return result, dropped, reports
+        return result, dropped, ev.reports
 
     def finalize(self, out) -> dict:
         result, dropped, _reports = out
@@ -396,6 +498,7 @@ class CompiledRunner:
 
 
 __all__ = [
+    "execute_plan",
     "compile_plan",
     "CompiledRunner",
 ]

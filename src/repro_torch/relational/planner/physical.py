@@ -222,8 +222,15 @@ def plan_physical(
     cross_pod: str | None = None,
     stats: dict[str, S.TableProfile] | None = None,
     salt_threshold: float = DEFAULT_SALT_THRESHOLD,
+    morsel_rows: int | None = None,
 ) -> PhysicalPlan:
     """Place exchanges, infer partitionings/capacities, tune the multiplexer.
+
+    ``morsel_rows`` (out-of-core streaming) caps the rows the tuner prices
+    per shuffle at one morsel's per-shard slice — streamed exchanges move one
+    morsel at a time, so tuning them for the full-capacity message would
+    mis-size the pipeline knobs.  Plan shape and node capacities are
+    unaffected.
 
     Pure function of the logical DAG + catalog + mesh shape — no devices
     touched, so it runs at test/CI time and its ``explain()`` rendering is
@@ -255,6 +262,7 @@ def plan_physical(
             root, catalog, num_shards, cfg, reshard=reshard,
             num_pods=num_pods, chip=chip, topology=topology,
             stats=stats, salt_threshold=salt_threshold,
+            morsel_rows=morsel_rows,
         )
 
     built = build(reshard=False)
@@ -307,6 +315,7 @@ def _plan_once(
     topology: str = "ring",
     stats: dict[str, S.TableProfile] | None = None,
     salt_threshold: float = DEFAULT_SALT_THRESHOLD,
+    morsel_rows: int | None = None,
 ) -> dict:
     """One planning pass; ``reshard=True`` turns broadcast-threshold joins
     into co-partitioned ones (the two-level reshard strategy)."""
@@ -397,7 +406,11 @@ def _plan_once(
                 "row image — aggregate after the exchange, or project the "
                 "float columns away first"
             )
-        stats_t = TableStats(rows=child.cap, row_bytes=4 * len(child.schema))
+        priced_rows = child.cap
+        if morsel_rows is not None and exkind == "shuffle":
+            # streamed exchanges move one morsel per step, not the full table
+            priced_rows = min(priced_rows, math.ceil(morsel_rows / num_shards))
+        stats_t = TableStats(rows=priced_rows, row_bytes=4 * len(child.schema))
         info = {"exkind": exkind, "key": key, "stats": stats_t}
         if exkind == "shuffle":
             shuffle_stats.append(stats_t)

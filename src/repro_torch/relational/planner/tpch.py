@@ -23,11 +23,13 @@ from ..datagen import (
     date_to_days,
     table_capacity,
 )
+from ..source import MorselView, as_source
 from . import logical as L
 from .executor import compile_plan
 from .logical import Aggregate, Filter, GroupBy, HashJoin, Project, Scan, TopK
 from .logical import col, lit, where
 from .physical import PhysicalPlan, PlannerConfig, plan_physical
+from .stream import compile_plan_streamed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,33 +50,62 @@ class PlannedQuery:
         cfg: PlannerConfig | None = None,
         cross_pod: str | None = None,
         stats: dict | None = None,
+        morsel_rows: int | None = None,
     ) -> PhysicalPlan:
         return plan_physical(
             self.logical, catalog, num_shards, num_pods=num_pods, cfg=cfg,
             name=self.name, cross_pod=cross_pod, stats=stats,
+            morsel_rows=morsel_rows,
         )
 
 
-def plan_query(pq: PlannedQuery, tables: dict, ctx: ExecutionContext) -> PhysicalPlan:
-    """Plan ``pq`` against the actual table capacities under ``ctx``."""
+def plan_query(
+    pq: PlannedQuery, tables: dict, ctx: ExecutionContext, morsel_rows: int | None = None,
+) -> PhysicalPlan:
+    """Plan ``pq`` against the actual table (or source) capacities under
+    ``ctx``; ``morsel_rows`` prices streamed shuffles at one morsel."""
     catalog = {t: tables[t].capacity for t in pq.tables}
     return pq.plan(
         catalog, ctx.num_shards, num_pods=ctx.num_pods, cfg=ctx.cfg,
-        cross_pod=ctx.cross_pod, stats=ctx.planner_stats(),
+        cross_pod=ctx.cross_pod, stats=ctx.planner_stats(), morsel_rows=morsel_rows,
     )
 
 
 def run_query(pq: PlannedQuery, tables: dict, ctx: ExecutionContext | None = None):
-    """Plan against the actual table capacities, execute, finalize.
+    """Plan against the actual source capacities, execute, finalize.
 
-    ``tables`` maps base-table names to in-memory
-    :class:`~repro_torch.relational.table.Table`\\ s.  ``ctx`` (None: one
-    shard on the card) sets the mesh, the knobs and the device; without a
-    CUDA device, anything but ``device="cpu"`` raises.
+    ``tables`` maps base-table names to
+    :class:`~repro_torch.relational.table.Table`\\ s or
+    :class:`~repro_torch.relational.source.DataSource`\\ s.  ``ctx`` (None:
+    one shard on the card) sets the mesh, the knobs and the device; without
+    a CUDA device, anything but ``device="cpu"`` raises.
+
+    Out-of-core: a chunked DataSource streams morsel by morsel through
+    :func:`~repro_torch.relational.planner.stream.compile_plan_streamed`.
+    With ``ctx.morsel_rows`` set and plain in-memory tables, the one table
+    larger than ``morsel_rows`` is wrapped in a chunked
+    :class:`~repro_torch.relational.source.MorselView`.  The planner prices
+    streamed shuffles at one morsel (``morsel_rows`` reaches
+    :func:`plan_physical`).
     """
     ctx = require_context(ctx or ExecutionContext(), where="run_query")
-    runner = compile_plan(plan_query(pq, tables, ctx), tables, ctx)
-    raw = runner()
+    srcs = {t: as_source(tables[t]) for t in pq.tables}
+    if ctx.morsel_rows is not None and not any(s.is_chunked for s in srcs.values()):
+        big = [t for t in pq.tables if srcs[t].capacity > ctx.morsel_rows]
+        if len(big) > 1:
+            raise ValueError(
+                f"morsel_rows={ctx.morsel_rows} would stream {big}, but "
+                "streamed execution supports one chunked relation; chunk "
+                "exactly one source (or raise morsel_rows)"
+            )
+        if big:
+            srcs[big[0]] = MorselView(srcs[big[0]].materialize(), ctx.morsel_rows)
+    chunked = [t for t in pq.tables if srcs[t].is_chunked]
+    phys = plan_query(pq, srcs, ctx, srcs[chunked[0]].chunk_rows if chunked else None)
+    if chunked:
+        raw = compile_plan_streamed(phys, srcs, ctx)()
+    else:
+        raw = compile_plan(phys, srcs, ctx)()
     return pq.finalize(raw) if pq.finalize else raw
 
 

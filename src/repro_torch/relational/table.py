@@ -13,7 +13,7 @@ placement.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Iterator, Mapping
 
 import numpy as np
 import torch
@@ -123,4 +123,17 @@ def shard_rows(table: Table, num_shards: int) -> Table:
     return Table(cols, arrange(table.valid), table.dictionaries)
 
 
-__all__ = ["Table", "table_from_numpy", "pad_to", "shard_rows"]
+def morsels(table: Table, morsel_size: int) -> Iterator[Table]:
+    """Iterate fixed-size morsels (paper [22]) of a flat table, the last one
+    shorter when ``morsel_size`` does not divide the capacity."""
+    cap = table.capacity
+    for start in range(0, cap, morsel_size):
+        end = min(start + morsel_size, cap)
+        yield Table(
+            {k: v[start:end] for k, v in table.columns.items()},
+            table.valid[start:end],
+            table.dictionaries,
+        )
+
+
+__all__ = ["Table", "table_from_numpy", "pad_to", "shard_rows", "morsels"]
