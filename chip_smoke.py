@@ -67,6 +67,34 @@ Phases, in order; any failure raises and the process exits non-zero:
    overlap fraction in [0, 1], and the answer equal to the oracle over
    ``src.materialize()`` on the host, where ``compile_plan`` must refuse
    the materialized table;
+4c. query serving — on phase 4's SF 1 tables, ``QueryServeEngine`` under
+   ``StatsMode.COLLECT`` with 4 slots, a ``Tracer`` and a ``PlanCache`` in
+   a temporary directory.  The nine templates, prewarmed, served twice:
+   the second pass must make 0 ``plan_physical`` calls and 0 executor
+   misses, integers bit-identical and floats within rtol 1e-6 between the
+   passes, every answer equal to the oracle.  The reference CLI's default
+   mix (Q1, Q3, Q6, Q14, Q17), 64 requests from 4 tenants arriving over
+   rounds 0-4, on 8 shards; Q3, Q17 and Q18, 16 requests, on 2 x 4: the
+   slot invariant every round, no request queued over ``ceil(N / 4) + 4``
+   rounds, every answer (integers exactly, floats within 1e-6) and every
+   trace (keys, histograms, measured and modeled bytes, salting) equal to
+   the template's solo traced ``run_query``, one ``request:`` span a
+   request, one ``admission-round:`` span a round, one ``mux:shared``
+   span, one ``exchange:`` span an edge, ``hash_partition_pack`` launches
+   equal to the shuffle edges served times the shared knobs' pipeline
+   chunks and ``partition_pack`` once a shuffle on 2 x 4.  The model check
+   (``repro_torch.obs.model_check``) at TPC-H SF 0.1 on 8 shards, where the
+   reference's CLI runs it, must give the reference's per-edge byte-model
+   errors and hold the 2x bound for Q1, Q6, Q14 and Q17 (Q3's reference
+   reads 2.61x; at SF 1 the reference's model misses Q3 and Q17 too, so
+   the SF 1 errors are printed, not gated).  QPS,
+   TTFR p50/p99 by tenant, the cache record, cold and warm TTFR of Q3 and
+   Q17, the 8-shard stream one query at a time through ``run_query`` and
+   the phase's peak allocated are printed.  Then ``python -m
+   repro_torch.launch.qserve`` twice on one ``--cache-dir`` (SF 1, 8
+   shards, 16 requests): the second process must read at least 5 plans
+   from disk, plan 0 times and write a trace that loads as JSON with the
+   serving spans;
 5. serving — OLMoE-1B-7B at full width (random weights from ``--seed``, f32
    master params, bf16 compute), expert-parallel over 8 simulated units
    flat and over 2 pods x 4.  A uniform workload (64 requests x 256 prompt
@@ -127,10 +155,14 @@ busy share of the wall time.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -172,6 +204,24 @@ OOC_SPILL_ROWS = 8192
 OOC_SF = 30
 OOC_CHUNKS = 43
 OOC_BUDGET = 2**23
+# query serving: slots, tenants; the reference CLI's default mix and its
+# requests on 8 shards; the pod mix and its requests; the templates whose
+# reference CLI holds the 2x byte-model bound at TPC-H SF 0.1 on 8 shards
+# (q3's orders shuffle reads 2.61x there; q1, q6 and q14 ship no shuffle)
+QS_SLOTS = 4
+QS_TENANTS = ("tenant0", "tenant1", "tenant2", "tenant3")
+QS_MIX = ("q1", "q3", "q6", "q14", "q17")
+QS_REQUESTS = 64
+QS_POD_MIX = ("q3", "q17", "q18")
+QS_POD_REQUESTS = 16
+QS_BYTE_BOUND = ("q1", "q6", "q14", "q17")
+# the reference CLI's per-edge byte-model errors there (its plans ship no
+# shuffle for q1, q6 and q14)
+QS_REF_BYTE_ERR = {
+    "q3": {"shuffle[l_orderkey]#1": 1.0124212938249406,
+           "shuffle[o_orderkey]#0": 2.6084076777507432},
+    "q17": {"shuffle[l_partkey]#0": 1.7615384615384615},
+}
 
 
 def _nvidia_smi() -> str:
@@ -527,6 +577,15 @@ def check_answer(q: str, got, want) -> None:
             return {int(k): (int(tp), float(sq)) for k, tp, sq in
                     zip(r["o_orderkey"], r["o_totalprice"], r["sum_qty"])}
         ok = len(want["o_orderkey"]) > 0 and as_map(got) == as_map(want)
+    elif q == "q14":
+        ok = _close(float(got), want, 1e-3)
+    elif q == "q19":
+        ok = _close(float(got), want, 1e-4)
+    elif q == "q4":
+        ok = int(want.sum()) > 0 and [int(x) for x in got["order_count"]] == \
+            [int(x) for x in want]
+    elif q == "q12":
+        ok = all([int(x) for x in got[k]] == [int(x) for x in want[k]] for k in want)
     else:
         raise ValueError(q)
     if not ok:
@@ -892,6 +951,274 @@ def phase_oocore(tabs: dict, wants: dict, seed: int) -> dict:
           f"device_row_budget={OOC_BUDGET}")
     del whole
     print(f"[oocore] launches over the main path: {main_path}")
+    return main_path
+
+
+def _same_answer(got, want, rtol: float) -> bool:
+    """Integers bit-identical, floats within ``rtol`` (``scatter_add_`` on
+    the card sums floats in no fixed order)."""
+    import numpy as np
+
+    got = got if isinstance(got, dict) else {"result": got}
+    want = want if isinstance(want, dict) else {"result": want}
+    if sorted(got) != sorted(want):
+        return False
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.shape != w.shape:
+            return False
+        if w.dtype.kind in "iub":
+            if not np.array_equal(g, w):
+                return False
+        elif not np.allclose(g, w, rtol=rtol, atol=0.0):
+            return False
+    return True
+
+
+def _qserve_plan(engine, pq):
+    """The plan the engine serves ``pq`` with, read from its cache (a lookup
+    counts nothing)."""
+    from repro_torch.relational.planner.plan_cache import plan_key
+
+    catalog = {t: engine.tables[t].capacity for t in pq.tables}
+    stats = {t: engine.stats[t] for t in pq.tables} if engine.stats else None
+    return engine.cache.lookup(plan_key(pq.logical, catalog, engine.num_shards,
+                                        num_pods=engine.num_pods, stats=stats))
+
+
+def _qserve_pack_launches(engine, done) -> tuple[int, int]:
+    """(``hash_partition_pack``, ``partition_pack``) launches that the
+    served requests' plans and the shared knobs imply: each shuffle edge
+    packs once a pipeline chunk (a chunk count that does not divide the
+    edge's rows runs it unchunked) and, on a pod mesh, once more for the
+    coarse hop."""
+    mux = engine._mux
+    C, pods = mux.pipeline_chunks, engine.num_pods
+    hpp = pp = 0
+    for r in done:
+        stats = _qserve_plan(engine, r.query).shuffle_stats
+        hpp += sum(C if (st.rows * pods) % C == 0 else 1 for st in stats)
+        pp += len(stats) if pods > 1 else 0
+    return (hpp, pp) if mux.pack_impl == "cuda" else (0, 0)
+
+
+def _ttfr_line(rec: dict) -> str:
+    per = "; ".join(f"{t} p50 {v['ttfr_p50_s'] * 1e3:.2f} p99 {v['ttfr_p99_s'] * 1e3:.2f}"
+                    for t, v in rec["tenants"].items())
+    return (f"TTFR ms overall p50 {rec['ttfr_p50_s'] * 1e3:.2f} p99 "
+            f"{rec['ttfr_p99_s'] * 1e3:.2f}; {per}")
+
+
+def phase_qserve(tabs: dict, wants: dict, seed: int, smi: str) -> dict:
+    """Multi-tenant query serving on phase 4's SF 1 tables: the nine
+    templates warm through the plan cache, a 64-request mix on 8 shards and
+    a 16-request mix on 2 x 4, each against solo runs, then the launcher
+    twice on one cache directory.  Returns every kernel's launches over the
+    engines' serves (counts set to 0 just before each and read just
+    after)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import model_check
+    from repro_torch.obs.model_check import BYTE_MODEL_BOUND, model_report
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.relational import oracle
+    from repro_torch.relational.context import ExecutionContext, StatsMode
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.physical import plan_physical
+    from repro_torch.relational.planner.plan_cache import PlanCache
+    from repro_torch.serve import QueryRequest, QueryServeEngine, make_query_mix
+
+    main_path = dict.fromkeys(_counts(), 0)
+    li, pt, od, cu = tabs["lineitem"], tabs["part"], tabs["orders"], tabs["customer"]
+    oracles = {
+        "q1": lambda: oracle.q1_oracle(li), "q3": lambda: oracle.q3_oracle(cu, od, li),
+        "q4": lambda: oracle.q4_oracle(li, od), "q6": lambda: oracle.q6_oracle(li),
+        "q12": lambda: oracle.q12_oracle(li, od), "q14": lambda: oracle.q14_oracle(li, pt),
+        "q17": lambda: oracle.q17_oracle(li, pt), "q18": lambda: oracle.q18_oracle(li, od, cu),
+        "q19": lambda: oracle.q19_oracle(li, pt),
+    }
+    for q, fn in oracles.items():
+        if q not in wants:
+            wants[q] = fn()
+    templates = [tpch.ALL_QUERIES[q]() for q in sorted(tpch.ALL_QUERIES)]
+    cache_dir = tempfile.TemporaryDirectory(prefix="qserve-")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def engine_for(pods, tracer, names):
+        ctx = ExecutionContext(num_shards=N_SHARDS, num_pods=pods, device="cuda",
+                               stats_mode=StatsMode.COLLECT, trace=tracer)
+        return QueryServeEngine(tabs, ctx, num_slots=QS_SLOTS, cache=PlanCache(cache_dir.name),
+                                templates=[tpch.ALL_QUERIES[q]() for q in names])
+
+    def serve(engine, reqs):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        done = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        for k, v in launches.items():
+            main_path[k] += v
+        engine.alloc.check()
+        return done, wall, launches
+
+    # 1. the nine templates, twice: the second pass plans and builds nothing
+    engine = engine_for(1, Tracer(), sorted(tpch.ALL_QUERIES))
+    cold, _w, _l = serve(engine, [QueryRequest("t", pq) for pq in templates])
+    calls, misses = plan_physical.calls, engine.cache.executor_misses
+    warm, _w, _l = serve(engine, [QueryRequest("t", pq) for pq in templates])
+    if (plan_physical.calls, engine.cache.executor_misses) != (calls, misses):
+        raise AssertionError(f"warm pass: {plan_physical.calls - calls} plan_physical calls, "
+                             f"{engine.cache.executor_misses - misses} executor misses")
+    if not all(r.plan_cache_hit and r.executor_cache_hit for r in warm):
+        raise AssertionError("warm pass: a request missed the plan or executor cache")
+    first = {r.query.name: r for r in cold}
+    for r in warm:
+        if not _same_answer(r.result, first[r.query.name].result, 1e-6):
+            raise AssertionError(f"{r.query.name}: the warm answer differs from the cold one")
+        check_answer(r.query.name, r.result, wants[r.query.name])
+    later = {r.query.name: r for r in warm}
+    print(f"[qserve] nine templates on {N_SHARDS} shards (StatsMode.COLLECT, {QS_SLOTS} slots), "
+          "served twice: ok vs oracle, warm pass 0 plan_physical calls and 0 executor misses, "
+          f"integers bit-identical and floats within rtol 1e-6; cache {engine.cache.record()}; "
+          f"cold/warm TTFR q3 {first['q3'].ttfr_s * 1e3:.2f}/{later['q3'].ttfr_s * 1e3:.2f} ms, "
+          f"q17 {first['q17'].ttfr_s * 1e3:.2f}/{later['q17'].ttfr_s * 1e3:.2f} ms ({smi})")
+    del engine, cold, warm, first, later
+
+    def stream(pods, names, n_req, tag):
+        """A seeded mix through a fresh engine (the cache's plans are warm,
+        its runners are the engine's own), against solo traced runs."""
+        tracer = Tracer()
+        engine = engine_for(pods, tracer, names)
+        mix = [tpch.ALL_QUERIES[q]() for q in names]
+        reqs = make_query_mix(mix, QS_TENANTS, n_req, seed=seed, max_arrival_round=4)
+        done, wall, launches = serve(engine, reqs)
+        rec = engine.record()
+        bound = math.ceil(n_req / QS_SLOTS) + len(QS_TENANTS)
+        if len(done) != n_req or max(r.queue_rounds for r in done) > bound:
+            raise AssertionError(f"{tag}: {len(done)} served, worst queue "
+                                 f"{max(r.queue_rounds for r in done)} rounds > {bound}")
+        want_hpp, want_pp = _qserve_pack_launches(engine, done)
+        got = (launches["hash_partition_pack"], launches["partition_pack"])
+        if engine._mux.pack_impl != "cuda" or got != (want_hpp, want_pp) or (pods > 1) != (
+                want_pp > 0):
+            raise AssertionError(f"{tag}: pack launches {got}, the plans and the shared knobs "
+                                 f"imply {(want_hpp, want_pp)} ({engine._mux.describe()})")
+        solo = {}
+        for pq in mix:
+            tr = Tracer()
+            ctx = engine.ctx.with_(stats_mode=StatsMode.PROFILE, trace=tr,
+                                   stats_profile={t: engine.stats[t] for t in pq.tables})
+            solo[pq.name] = (tpch.run_query(pq, tabs, ctx), tr.query_traces[-1])
+        for r in done:
+            want, qt = solo[r.query.name]
+            if not _same_answer(r.result, want, 1e-6):
+                raise AssertionError(f"{tag}: {r.query.name} differs from its solo run")
+            fields = [(e.key, e.hist, e.measured_bytes, e.modeled_wire_bytes, e.salted)
+                      for e in r.trace.edges]
+            if fields != [(e.key, e.hist, e.measured_bytes, e.modeled_wire_bytes, e.salted)
+                          for e in qt.edges]:
+                raise AssertionError(f"{tag}: {r.query.name}'s trace differs from its solo run")
+        span_names = [s.name for root in tracer.spans for s in root.walk()]
+        spans = [n.split(":")[0] for n in span_names] + [
+            n for n in span_names if n == "mux:shared"]
+        n_edges = sum(len(r.trace.edges) for r in done)
+        counts = {k: spans.count(k)
+                  for k in ("request", "admission-round", "mux:shared", "exchange")}
+        if counts != {"request": n_req, "admission-round": engine.rounds, "mux:shared": 1,
+                      "exchange": n_edges}:
+            raise AssertionError(f"{tag}: spans {counts}; expected {n_req} requests, "
+                                 f"{engine.rounds} rounds, 1 shared mux, {n_edges} edges")
+        print(f"[qserve] {tag}: {n_req} requests of {names} from {len(QS_TENANTS)} tenants over "
+              f"{engine.rounds} rounds, {QS_SLOTS} slots: slot invariant held, worst queue "
+              f"{max(r.queue_rounds for r in done)} rounds (bound {bound}); every answer and "
+              f"trace equal to its solo run; hash_partition_pack {got[0]}, partition_pack "
+              f"{got[1]} (the plans and shared knobs {engine._mux.describe()} imply "
+              f"{(want_hpp, want_pp)}); spans {counts}")
+        print(f"[qserve] {tag}: {n_req / wall:.2f} QPS ({wall:.3f} s); {_ttfr_line(rec)}; cache "
+              f"{rec['cache']} ({smi})")
+        return engine, done, solo, wall
+
+    # 2. the reference CLI's default mix on 8 shards
+    engine, done, solo, wall = stream(1, QS_MIX, QS_REQUESTS, f"stream {N_SHARDS}")
+    for q, (_want, qt) in solo.items():
+        rep = model_report(qt)
+        errs = {k: v["byte_model_err"] for k, v in rep["edges"].items()}
+        print(f"[qserve] {q} (phase 4's tables): byte errors {errs}; not gated: at SF 1 "
+              "the reference's model misses Q3 and Q17 too")
+    # the byte model's 2x bound where the reference's CLI holds it: the
+    # model check at TPC-H SF 0.1 on 8 shards, its ratios the reference's
+    for q in QS_MIX:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            model_check.main(["--query", q, "--sf", "0.1", "--shards", str(N_SHARDS),
+                              "--bound", str(BYTE_MODEL_BOUND if q in QS_BYTE_BOUND else 0)],
+                             device="cuda")
+        rep = json.loads(buf.getvalue())
+        errs = {k: v["byte_model_err"] for k, v in rep["edges"].items()}
+        if errs != QS_REF_BYTE_ERR.get(q, {}):
+            raise AssertionError(f"model check {q} SF 0.1: byte errors {errs}, the "
+                                 f"reference's {QS_REF_BYTE_ERR.get(q, {})}")
+        print(f"[qserve] model check {q} SF 0.1: byte errors {errs} (the reference's)"
+              + (f", within {BYTE_MODEL_BOUND}x" if q in QS_BYTE_BOUND else ", not held"))
+    # the same stream, one query at a time through run_query (no cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in sorted(done, key=lambda r: r.arrival_round):
+        ctx = engine.ctx.with_(stats_mode=StatsMode.PROFILE, trace=None,
+                               stats_profile={t: engine.stats[t] for t in r.query.tables})
+        tpch.run_query(r.query, tabs, ctx)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    print(f"[qserve] stream {N_SHARDS}, one query at a time through run_query: "
+          f"{len(done) / one:.2f} QPS ({one:.3f} s), against {len(done) / wall:.2f} through the "
+          f"engine ({smi})")
+    del engine, done, solo
+
+    # 3. a pod mesh: partition_pack on every hop-1 shuffle
+    engine, done, solo, wall = stream(2, QS_POD_MIX, QS_POD_REQUESTS, "stream 2 x 4")
+    del engine, done, solo
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[qserve] peak torch.cuda.max_memory_allocated over the phase: {peak} B ({smi})")
+    torch.cuda.empty_cache()
+
+    # 4. the launcher twice on one cache directory: the second plans nothing
+    with tempfile.TemporaryDirectory(prefix="qserve-cli-") as tmp:
+        recs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.qserve", "--sf", "1",
+                 "--num-shards", str(N_SHARDS), "--requests", "16", "--stats",
+                 "--trace-dir", f"{tmp}/trace{i}", "--cache-dir", f"{tmp}/cache"],
+                capture_output=True, text=True, timeout=600, cwd=ROOT,
+                env={**os.environ, "PYTHONPATH": str(SRC)},
+            )
+            if out.returncode != 0:
+                raise AssertionError(f"qserve CLI run {i}: exit {out.returncode}\n{out.stderr}")
+            rec = json.loads(out.stdout)
+            recs.append(rec)
+            print(f"[qserve] CLI run {i} ({time.perf_counter() - t0:.1f} s with start-up): "
+                  f"{rec['qps']:.2f} QPS, plan_physical_calls {rec['plan_physical_calls']}, "
+                  f"cache {rec['cache']} ({smi})")
+        second = recs[1]
+        if second["cache"]["plan_disk_hits"] < 5 or second["plan_physical_calls"] != 0:
+            raise AssertionError(f"qserve CLI: the second process planned ({second['cache']}, "
+                                 f"plan_physical_calls {second['plan_physical_calls']})")
+        with open(second["trace_path"]) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["name"].split(":")[0] for e in events if e["ph"] == "B"}
+        if not {"mux", "admission-round", "request", "exchange"} <= names:
+            raise AssertionError(f"qserve CLI: trace span names {sorted(names)}")
+        print(f"[qserve] CLI: the second process reads {second['cache']['plan_disk_hits']} plans "
+              f"from disk and plans 0 times; its trace loads with spans {sorted(names)}")
+    cache_dir.cleanup()
+    print(f"[qserve] launches over the main path: {main_path}")
     return main_path
 
 
@@ -1448,6 +1775,9 @@ def main() -> int:
 
     # 4b. out-of-core (the streamed relational main path)
     o_launches = phase_oocore(tabs, wants, args.seed)
+
+    # 4c. query serving (the multi-tenant relational main path)
+    c_launches = phase_qserve(tabs, wants, args.seed, smi)
     del tabs
 
     # 5. serving (the MoE main path)
@@ -1458,7 +1788,7 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
-    paths = (q_launches, o_launches, s_launches, t_launches, m_launches)
+    paths = (q_launches, o_launches, c_launches, s_launches, t_launches, m_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

@@ -25,7 +25,9 @@ over a shuffle axis of ``n`` units:
 The constants are the reference's TPU (``topology.V5E``): the port uses
 them so that it plans exactly as the reference does, and its ``modeled_s``
 is a TPU figure, not an H100 prediction.  :func:`tune_multiplexer` takes
-its shuffle axis and pod count from a simulated mesh; :func:`ep_capacity`
+its shuffle axis and pod count from a simulated mesh;
+:func:`tune_shared_config` tunes one knob set over several plans'
+exchanges (the query-serving engine's shared multiplexer); :func:`ep_capacity`
 and :func:`decode_table_stats` size and describe the MoE layer's per-step
 dispatch.  Left for later slices: the live mesh probing (``refine=True``,
 ``measure_shuffle_config``, ``calibrate_chip``) and the EP layer pricing
@@ -279,6 +281,63 @@ def tune_config(
     )
 
 
+def tune_shared_config(
+    n: int,
+    stats_groups: Sequence[TableStats | Sequence[TableStats]],
+    num_pods: int = 1,
+    chip: ChipSpec = V5E,
+    topology: str = "ring",
+    weights: Sequence[float] | None = None,
+) -> TunedConfig:
+    """One knob set for SEVERAL queries' exchanges sharing one multiplexer.
+
+    The query-serving engine runs compatible plans on one mesh, and they
+    all ride the same multiplexer — so the knobs are tuned over the UNION
+    of every query's exchange shapes: the legal candidate set is the
+    intersection (``pipeline_chunks`` must divide every exchange's rows
+    across all queries) and the objective is the weighted total makespan.
+    ``stats_groups`` holds one group of :class:`TableStats` per query (a
+    plan's ``shuffle_stats``); ``weights`` scales each query's share
+    (default: uniform).  Degenerate inputs (one unit, no exchanges)
+    collapse to :func:`tune_config`'s default exactly.
+    """
+    groups = tuple(
+        (g,) if isinstance(g, TableStats) else tuple(g) for g in stats_groups
+    )
+    flat = tuple(s for g in groups for s in g)
+    if n <= 1 or not flat or all(s.rows == 0 for s in flat):
+        return tune_config(n, flat, num_pods, chip, topology)
+    if weights is None:
+        weights = (1.0,) * len(groups)
+    if len(weights) != len(groups):
+        raise ValueError(f"{len(weights)} weights for {len(groups)} stats groups")
+    scored = []
+    for impl, pack_impl, C, t in candidate_configs(n, flat):
+        total = sum(
+            w * sum(
+                exchange_makespan(
+                    s, n, impl, pack_impl, C, t, chip, topology, num_pods
+                )
+                for s in g
+            )
+            for w, g in zip(weights, groups)
+        )
+        scored.append((total, C, t, impl, pack_impl))
+    scored.sort(key=lambda r: (r[0], r[1], r[2], r[3], r[4]))
+    candidates = tuple(
+        (impl, pack_impl, C, t, total) for total, C, t, impl, pack_impl in scored
+    )
+    total, C, t, impl, pack_impl = scored[0]
+    return TunedConfig(
+        impl=impl,
+        pack_impl=pack_impl,
+        pipeline_chunks=C,
+        transport_chunks=t,
+        modeled_s=total,
+        candidates=candidates,
+    )
+
+
 def _shuffle_axis(mesh) -> tuple[str | None, int, int]:
     """The mesh's shuffle axis (largest small-network axis) and pod count."""
     plan = plan_for_mesh(mesh.axis_names, mesh.shape)
@@ -319,4 +378,5 @@ __all__ = [
     "pod_strategy_times",
     "candidate_configs",
     "tune_config",
+    "tune_shared_config",
 ]

@@ -17,12 +17,13 @@ per-position KV maps, so ``--continuous`` raises, as in the reference):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --batch 8 --requests 16 --prompt-len 2048 --max-new 32
 
-The flags are the reference's (``repro.launch.serve``), less the trace
-directory (telemetry comes with a later slice), plus ``--units`` and
-``--pods``: the simulated mesh takes the place of the devices a JAX process
-sees.  With more than one unit, an expert-parallel model (``moe_impl=
-"ep_shardmap"``) dispatches its tokens over ``--units`` units in ``--pods``
-pods.  It runs on the card; :func:`main` takes ``device="cpu"`` from Python.
+The flags are the reference's (``repro.launch.serve``), plus ``--units``
+and ``--pods``: the simulated mesh takes the place of the devices a JAX
+process sees.  ``--trace-dir`` writes the continuous run's admission-round,
+prefill and decode-step spans there as a Perfetto-loadable JSON file.  With
+more than one unit, an expert-parallel model (``moe_impl="ep_shardmap"``)
+dispatches its tokens over ``--units`` units in ``--pods`` pods.  It runs
+on the card; :func:`main` takes ``device="cpu"`` from Python.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from ..configs import get_config, get_smoke_config
 from ..core.exchange import make_mesh
 from ..distributed.sharding import MeshContext, mesh_context
 from ..models import registry as R
+from ..obs.export import write_trace_dir
+from ..obs.trace import Tracer
 from ..serve import (
     ContinuousEngine,
     Request,
@@ -79,6 +82,10 @@ def main(argv=None, device: str = "cuda"):
                    help="simulated parallel units the expert-parallel dispatch spans")
     p.add_argument("--pods", type=int, default=1,
                    help="pods the units split into (two-level dispatch when > 1)")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a Perfetto-loadable trace JSON per process "
+                        "(admission/prefill/decode-step spans; continuous "
+                        "mode)")
     args = p.parse_args(argv)
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
@@ -100,12 +107,15 @@ def main(argv=None, device: str = "cuda"):
             )
             clone = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
                              eos_id=r.eos_id) for r in reqs]
+            tracer = Tracer() if args.trace_dir else None
             cont = ContinuousEngine(api, batch_size=args.batch, capacity=capacity,
                                     temperature=args.temperature, seed=args.seed,
-                                    device=device)
+                                    tracer=tracer, device=device)
             t0 = time.perf_counter()
             cont.serve(params, reqs)
             _summarize("continuous", reqs, cont.stats, time.perf_counter() - t0)
+            if tracer is not None:
+                print("trace:", write_trace_dir(tracer, args.trace_dir, basename="serve"))
 
             static = ServeEngine(api, batch_size=args.batch, capacity=capacity,
                                  temperature=args.temperature, seed=args.seed,

@@ -2,12 +2,10 @@
 ``repro.relational.context``).
 
 Mesh shape, multiplexer knobs, planner config, stats mode, the out-of-core
-morsel and spill knobs and the device live in one frozen, hashable
-dataclass that every entry point accepts.  The device defaults to the card
-(``"cuda"``); ``device="cpu"`` runs the plain versions on the CPU.  The
-``trace`` field, which the telemetry slice of the port fills, exists so
-code written against the reference's context reads the same; setting it
-raises ``NotImplementedError``.
+morsel and spill knobs, the device and the observability hook live in one
+frozen, hashable dataclass that every entry point accepts.  The device
+defaults to the card (``"cuda"``); ``device="cpu"`` runs the plain versions
+on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ import enum
 from typing import TYPE_CHECKING, Any, Mapping
 
 if TYPE_CHECKING:  # annotation-only: keeps this module import-cycle-free
+    from ..obs.trace import Tracer
     from .planner.physical import PlannerConfig
 
 __all__ = [
@@ -31,23 +30,23 @@ class StatsMode(enum.Enum):
 
     #: Plan from catalog capacities only (no sampling).
     STATIC = "static"
+    #: Sample the input tables at plan time
+    #: (:func:`repro_torch.relational.stats.collect_stats`).
+    COLLECT = "collect"
     #: Use the pre-collected profile in ``ExecutionContext.stats_profile``
     #: (from :func:`repro_torch.relational.stats.collect_stats`).
     PROFILE = "profile"
-
-
-# field -> the slice of the port that brings it
-_LATER_SLICES = {
-    "trace": "the telemetry slice (obs/)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionContext:
     """Frozen bundle of everything that parameterizes query execution.
 
-    ``stats_profile`` is payload, not configuration: it is excluded from
-    equality and hash.
+    ``stats_profile`` and ``trace`` are payload, not configuration: they
+    are excluded from equality and hash.  In particular a traced and an
+    untraced context compare (and hash) EQUAL, so attaching a tracer can
+    never invalidate a plan-cache entry or an executor memo: tracing
+    changes what gets written down, never what runs.
     """
 
     # --- mesh shape -------------------------------------------------------
@@ -87,16 +86,13 @@ class ExecutionContext:
     prefetch_depth: int = 2
     # --- where the tensors live ------------------------------------------
     device: str = "cuda"
-    # --- later slices -----------------------------------------------------
-    trace: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # --- observability ----------------------------------------------------
+    #: A :class:`repro_torch.obs.trace.Tracer` to record spans, counters and
+    #: per-run query traces into.  Excluded from equality and hash (see the
+    #: class docstring).
+    trace: "Tracer | None" = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self) -> None:
-        for name, slice_ in _LATER_SLICES.items():
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(
-                    f"ExecutionContext.{name} is not ported yet; it comes "
-                    f"with {slice_}"
-                )
         if self.num_shards < 1 or self.num_pods < 1:
             raise ValueError("num_shards and num_pods must be >= 1")
         if self.num_shards % self.num_pods:
@@ -112,11 +108,21 @@ class ExecutionContext:
         if self.pack_impl not in (None, "torch", "cuda"):
             raise ValueError(f"pack_impl must be 'torch', 'cuda' or None, got {self.pack_impl!r}")
 
-    def planner_stats(self):
-        """The ``stats`` argument for ``plan_physical``."""
+    def planner_stats(self, tables: Mapping[str, Any] | None = None):
+        """The ``stats`` argument for ``plan_physical``.
+
+        ``tables`` (name -> Table) is required for COLLECT mode; pass the
+        query's input tables.
+        """
+        if self.stats_mode is StatsMode.STATIC:
+            return None
         if self.stats_mode is StatsMode.PROFILE:
             return dict(self.stats_profile)
-        return None
+        if tables is None:
+            raise ValueError("StatsMode.COLLECT needs the input tables to sample")
+        from . import stats as rstats
+
+        return rstats.collect_stats(dict(tables))
 
     def with_(self, **changes) -> "ExecutionContext":
         """`dataclasses.replace` spelled as a method."""

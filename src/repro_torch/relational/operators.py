@@ -61,15 +61,23 @@ def groupby_dense(
     ``aggregates``: name -> (column, 'sum'|'count'); sums in f32, counts in
     int32.  The cross-shard combine (a sum over the shard dim) is the
     caller's.
+
+    On the card ``scatter_add_`` adds with atomics in no fixed order, and
+    with millions of rows a group an f32 sum would differ from run to run;
+    there the sums accumulate in f64 and round to f32 once, so the result
+    does not depend on the order.  On the CPU the scatter is sequential and
+    sums in f32, as the reference does.
     """
     gid = torch.where(valid, group_ids.to(torch.int64), num_groups)  # invalid -> overflow
+    acc = torch.float64 if valid.is_cuda else torch.float32
     out = {}
     for name, (col, kind) in aggregates.items():
         if kind == "sum":
-            vals = torch.where(valid, col.to(torch.float32), 0.0)
+            vals = torch.where(valid, col.to(acc), 0.0)
         else:  # count
             vals = valid.to(torch.int32)
-        out[name] = _segment_sum(vals, gid, num_groups + 1)[:, :num_groups]
+        sums = _segment_sum(vals, gid, num_groups + 1)[:, :num_groups]
+        out[name] = sums.to(torch.float32) if kind == "sum" else sums
     return out
 
 

@@ -5,7 +5,9 @@
 * :mod:`.executor` — runs a physical plan on the simulated fabric;
 * :mod:`.stream` — runs the same plan out of core, one morsel of a chunked
   source at a time;
-* :mod:`.tpch` — the nine TPC-H queries as logical plans.
+* :mod:`.tpch` — the nine TPC-H queries as logical plans;
+* :mod:`.plan_cache` — the persistent plan + compile cache the
+  query-serving engine plans through.
 """
 
 from .logical import (
@@ -30,6 +32,13 @@ from .physical import (
     use_preaggregation,
 )
 from .executor import compile_plan, execute_plan
+from .plan_cache import (
+    PlanCache,
+    PlanKey,
+    canonical_render,
+    plan_key,
+    stats_bucket,
+)
 from .stream import compile_plan_streamed
 
 __all__ = [
@@ -53,4 +62,9 @@ __all__ = [
     "execute_plan",
     "compile_plan",
     "compile_plan_streamed",
+    "PlanCache",
+    "PlanKey",
+    "canonical_render",
+    "plan_key",
+    "stats_bucket",
 ]

@@ -14,17 +14,26 @@ Capacities are the static zero-drop bound; the drop count of every exchange
 is summed and any overflow raises instead of silently losing rows.  Two-level
 meshes (``num_pods > 1``) route shuffles through the coarse cross-pod + fine
 in-pod exchange and obey the plan's ``cross_pod`` strategy.
+
+Every shuffle measures its global destination histogram on the device;
+``runner.collect(out)`` returns the result together with the run's
+:class:`~repro_torch.obs.trace.QueryTrace` (per-edge measured against
+modeled bytes), and mutates nothing on the runner.
 """
 
 from __future__ import annotations
 
 import math
+import time
+import warnings
 
 import torch
 
 from ...core.exchange import SHUFFLE_AXIS, make_mesh
 from ...core.multiplexer import CommMultiplexer, make_multiplexer
 from ...kernels.ref import fibonacci_hash
+from ...obs.model_check import build_query_trace, edge_models
+from ...obs.trace import QueryTrace
 from .. import operators as ops
 from ..context import ExecutionContext, require_context
 from ..source import DataSource
@@ -296,7 +305,16 @@ def compile_plan(
     :func:`execute_plan` or ``stream.compile_plan_streamed``).  ``ctx``
     carries the device and the multiplexer knobs (its mesh shape must match
     the plan's); omitted, the plan's own mesh on the card with the tuned
-    knobs applies.  ``mux`` injects a shared multiplexer.
+    knobs applies.  ``mux`` injects a shared multiplexer (the query-serving
+    engine tunes one knob set over every plan it serves and passes it here).
+
+    The runner is callable (run to completion) or split-phase:
+    ``dispatch()`` enqueues the plan's work on the device, ``collect(out)``
+    fetches and checks it and returns ``(result, QueryTrace)`` without
+    touching the runner, ``finalize(out)`` also records ``last_trace``.
+    With ``ctx.trace`` set, the multiplexer's knobs are recorded as a
+    ``mux:<query>`` span; the runner itself holds no tracer, since it may
+    be memoized and shared with untraced contexts.
     """
     ctx = _resolve_exec_ctx(plan, ctx, where="compile_plan")
     tables = {name: _resident_table(name, tables[name]) for name in plan.scans}
@@ -312,10 +330,12 @@ def compile_plan(
     mesh = make_mesh(plan.num_shards, plan.num_pods)
     if mux is None:
         mux = _make_mux(mesh, plan, ctx.impl, ctx.pack_impl, ctx.num_chunks)
+    if ctx.trace is not None:
+        ctx.trace.add_span(f"mux:{plan.name}", cat="compile", **mux.describe())
     prepped = {
         name: _prep(tables[name], plan.num_shards, device) for name in plan.scans
     }
-    return CompiledRunner(plan, mux, prepped)
+    return CompiledRunner(plan, mux, prepped, edge_models(plan))
 
 
 class _NodeEval:
@@ -467,15 +487,67 @@ class _InMemoryEval(_NodeEval):
         raise TypeError(f"unknown physical node kind {n.kind!r}")
 
 
-class CompiledRunner:
-    """Zero-arg runner: ``dispatch()`` runs the plan and returns ``(result,
-    dropped, reports)`` on the device; ``finalize`` raises on any dropped
-    row and fetches the result to numpy; calling the runner does both."""
+class RunnerBase:
+    """Shared surface of the in-memory and streamed runners.
 
-    def __init__(self, plan: PhysicalPlan, mux: CommMultiplexer, tables: dict):
+    Per-run telemetry travels through ``collect``'s return value, not the
+    runner: compiled runners are memoized and shared across concurrent
+    callers, so a mutable report attribute would race.  ``last_trace`` and
+    the deprecated ``exchange_report`` view show the LAST finalized run,
+    for single-caller code.
+    """
+
+    _last_trace: QueryTrace | None = None
+
+    @property
+    def last_trace(self) -> QueryTrace | None:
+        """The :class:`QueryTrace` of the most recent finalized run (None
+        before the first)."""
+        return self._last_trace
+
+    @property
+    def exchange_report(self) -> dict:
+        """Deprecated last-run report view; racy under concurrency."""
+        warnings.warn(
+            "run.exchange_report is deprecated: it reflects only the LAST "
+            "finalized run, which races under concurrent serving. Use "
+            "result, trace = run.collect(run.dispatch()) and "
+            "trace.exchange_report() (or trace.edges) instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        qt = self._last_trace
+        return qt.exchange_report() if qt is not None else {}
+
+
+def _fetch_reports(reports: dict) -> dict:
+    """Per-edge reports on the host, in key order (the order the reference
+    fetches them in: a JAX pytree sorts dict keys): the histogram as int64
+    numpy, the overloads as floats, the salting decision as a bool."""
+    return {
+        key: {
+            "hist": rep["hist"].cpu().numpy().astype("int64"),
+            "overload": float(rep["overload"]),
+            "plain_overload": float(rep["plain_overload"]),
+            "salted": bool(rep["salted"]),
+        }
+        for key, rep in sorted(reports.items())
+    }
+
+
+class CompiledRunner(RunnerBase):
+    """Zero-arg in-memory runner with split-phase dispatch/collect.
+
+    ``dispatch()`` runs the plan and returns ``(result, dropped, reports)``
+    on the device; ``collect`` raises on any dropped row, fetches the
+    result to numpy and builds the run's trace; calling the runner does
+    both and records ``last_trace``."""
+
+    def __init__(self, plan: PhysicalPlan, mux: CommMultiplexer, tables: dict, models: dict):
         self.plan = plan
         self.mux = mux
         self._tables = tables
+        self._models = models
         self._report_keys = _report_keys(plan.root)
 
     def dispatch(self):
@@ -488,17 +560,36 @@ class CompiledRunner:
         )
         return result, dropped, ev.reports
 
-    def finalize(self, out) -> dict:
-        result, dropped, _reports = out
+    def collect(self, out, t_dispatch: float | None = None):
+        """Fetch and check a ``dispatch()`` result; returns ``(result,
+        QueryTrace)`` without touching runner state (safe when one runner
+        serves several requests).  ``t_dispatch`` (a ``time.perf_counter()``
+        reading taken just before ``dispatch``) prices the trace's measured
+        wall, which ends when the result has reached the host: the fetch
+        waits for the device."""
+        result, dropped, reports = out
         _raise_on_dropped(self.plan.name, dropped)
-        return _fetch(result)
+        fetched = _fetch(result)
+        measured = time.perf_counter() - t_dispatch if t_dispatch is not None else None
+        qt = build_query_trace(
+            self.plan, _fetch_reports(reports), self._models, measured_s=measured
+        )
+        return fetched, qt
+
+    def finalize(self, out, t_dispatch: float | None = None) -> dict:
+        """``collect`` plus last-trace bookkeeping; returns the result."""
+        result, qt = self.collect(out, t_dispatch)
+        self._last_trace = qt
+        return result
 
     def __call__(self) -> dict:
-        return self.finalize(self.dispatch())
+        t0 = time.perf_counter()
+        return self.finalize(self.dispatch(), t_dispatch=t0)
 
 
 __all__ = [
     "execute_plan",
     "compile_plan",
+    "RunnerBase",
     "CompiledRunner",
 ]

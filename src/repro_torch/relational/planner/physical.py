@@ -255,6 +255,9 @@ def plan_physical(
     strand it away from an un-partitioned probe, so the reshard strategy
     must pull the probe onto the same hash partitioning.
     """
+    # Counter hook: the plan cache's tests assert the warm path plans ZERO
+    # times.
+    plan_physical.calls += 1
     cfg = cfg or PlannerConfig(num_units=num_shards, hybrid=True)
 
     def build(reshard: bool) -> dict:
@@ -302,6 +305,11 @@ def plan_physical(
         cfg=cfg,
         catalog=dict(catalog),
     )
+
+
+# How many times the planner has run in this process — the plan cache's
+# zero-replan-on-warm-path checks read this.
+plan_physical.calls = 0
 
 
 def _plan_once(

@@ -52,6 +52,8 @@ import torch
 
 from ...core.exchange import SHUFFLE_AXIS, make_mesh
 from ...data.pipeline import Prefetcher
+from ...obs.model_check import build_query_trace, edge_models
+from ...obs.trace import deposit, maybe_span
 from ...tree import tree_map
 from .. import operators as ops
 from ..source import DataSource, as_source
@@ -66,6 +68,7 @@ from .executor import (
     _raise_on_dropped,
     _report_keys,
     _resolve_exec_ctx,
+    RunnerBase,
 )
 from .physical import PhysicalPlan, PNode
 
@@ -213,10 +216,14 @@ def compile_plan_streamed(
     spill knobs plus the usual multiplexer knobs).  The runner returns the
     same result as the in-memory executor (integer outputs bit-identical;
     float aggregates differ only by f32 summation order) and exposes
-    ``.stats`` (morsel, pass, spill and prefetch-overlap counters) and
-    ``.reports`` (per-edge arrival histograms) of its last run.
+    ``.stats`` (morsel, pass, spill and prefetch-overlap counters),
+    ``.reports`` (per-edge arrival histograms) and ``.last_trace`` (the
+    :class:`~repro_torch.obs.trace.QueryTrace` built from both) of its last
+    run.  With ``ctx.trace`` set, every pass, morsel step and drain round
+    is a span and each run's trace is deposited into that tracer.
     """
     ctx = _resolve_exec_ctx(plan, ctx, where="compile_plan_streamed")
+    tracer = ctx.trace
     device = resolve_device(ctx.device)
     num_shards, num_pods = plan.num_shards, plan.num_pods
     srcs = {name: as_source(sources[name]) for name in plan.scans}
@@ -607,9 +614,11 @@ def compile_plan_streamed(
             dt = _prep(pad_to(dt, morsel_cap), num_shards, device)
             # drain-step reports are re-offers of already-counted rows, so
             # they stay out of the per-edge arrival histograms
-            st, spill_out, dropped, _reports = _step(
-                st, downstream, None, [], drain_for=(id(node), dt)
-            )
+            with maybe_span(tracer, f"drain-round:{rounds}", "stream",
+                            pending_rows=int(len(take))):
+                st, spill_out, dropped, _reports = _step(
+                    st, downstream, None, [], drain_for=(id(node), dt)
+                )
             drops_h.append(dropped)
             fresh = _collect_spill(spill_out, len(schema))
             if len(fresh):
@@ -706,13 +715,16 @@ def compile_plan_streamed(
             "prefetch_total_s": 0.0,
         }
         for p, streamed_bs, resident_bs, spill_nodes, drain_bs in pass_plan:
-            if resident_bs:
-                st, _, dropped, reports = _step(st, resident_bs, None, [])
-                _accumulate_reports(edge_hists, reports, p)
-                drops_h.append(dropped)
-            if streamed_bs:
-                st = _stream_pass(p, streamed_bs, spill_nodes, drain_bs, st, drops_h,
-                                  edge_hists, stats)
+            with maybe_span(tracer, f"pass:{p}", "stream",
+                            streamed_breakers=len(streamed_bs),
+                            resident_breakers=len(resident_bs)):
+                if resident_bs:
+                    st, _, dropped, reports = _step(st, resident_bs, None, [])
+                    _accumulate_reports(edge_hists, reports, p)
+                    drops_h.append(dropped)
+                if streamed_bs:
+                    st = _stream_pass(p, streamed_bs, spill_nodes, drain_bs, st, drops_h,
+                                      edge_hists, stats)
             if device.type == "cuda":
                 peaks.append(torch.cuda.max_memory_allocated(device))
         if drops_h:
@@ -742,7 +754,8 @@ def compile_plan_streamed(
                 break
             wait += time.perf_counter() - w0
             stats["morsels"] += 1
-            st, spill_out, dropped, reports = _step(st, streamed_bs, m, spill_nodes)
+            with maybe_span(tracer, f"morsel:{stats['morsels']}", "stream", pass_idx=p):
+                st, spill_out, dropped, reports = _step(st, streamed_bs, m, spill_nodes)
             _accumulate_reports(edge_hists, reports, p)
             drops_h.append(dropped)
             if spill_nodes:
@@ -755,37 +768,52 @@ def compile_plan_streamed(
             st = _drain(spill_nodes[0], drain_bs, pending, st, drops_h, stats)
         return st
 
-    return _StreamedRunner(plan, mux, run, shuffles_per_step)
+    return _StreamedRunner(plan, mux, run, shuffles_per_step, edge_models(plan), tracer)
 
 
-class _StreamedRunner:
+class _StreamedRunner(RunnerBase):
     """Zero-arg streamed runner.
 
     Unlike the in-memory :class:`~.executor.CompiledRunner`, a streamed
     runner has no split-phase dispatch: a run ends with its answer on the
-    host.  ``.stats`` holds the last run's morsel, pass, spill and prefetch
-    counters (the reference's keys) and ``.reports`` its per-edge arrival
-    reports (``hist``, ``traversals``, ``overload``, ...), from which the
-    telemetry slice builds a query trace.  On the card, ``.pass_peak_bytes``
-    holds ``torch.cuda.max_memory_allocated()`` read at the end of each pass
-    (the running peak since the caller last reset it), so a caller can tell
-    the streamed pass's peak from a later resident pass's.
-    ``.shuffles_per_step`` says, for each pass, how many shuffle exchanges
-    one of its morsel steps, its resident step and one of its drain rounds
-    run (each packs its rows once a pipeline chunk).
+    host.  It is built per call chain (never memoized), so it may hold the
+    compile-time tracer and deposit each run's trace into it.  ``.stats``
+    holds the last run's morsel, pass, spill and prefetch counters (the
+    reference's keys), ``.reports`` its per-edge arrival reports (``hist``,
+    ``traversals``, ``overload``, ...; multi-pass edges keyed
+    ``<edge>@p<pass>``) and ``.last_trace`` the
+    :class:`~repro_torch.obs.trace.QueryTrace` built from both.  On the
+    card, ``.pass_peak_bytes`` holds ``torch.cuda.max_memory_allocated()``
+    read at the end of each pass (the running peak since the caller last
+    reset it), so a caller can tell the streamed pass's peak from a later
+    resident pass's.  ``.shuffles_per_step`` says, for each pass, how many
+    shuffle exchanges one of its morsel steps, its resident step and one
+    of its drain rounds run (each packs its rows once a pipeline chunk).
     """
 
-    def __init__(self, plan: PhysicalPlan, mux, run_fn, shuffles_per_step: list[dict]):
+    def __init__(self, plan: PhysicalPlan, mux, run_fn, shuffles_per_step: list[dict],
+                 models: dict, tracer):
         self.plan = plan
         self.mux = mux
         self._run_fn = run_fn
         self.shuffles_per_step = shuffles_per_step
+        self._models = models
+        self._tracer = tracer
         self.stats: dict = {}
         self.reports: dict = {}
         self.pass_peak_bytes: list[int] = []
 
     def __call__(self):
+        t0 = time.perf_counter()
         result, self.stats, self.reports, self.pass_peak_bytes = self._run_fn()
+        measured = time.perf_counter() - t0
+        qt = build_query_trace(
+            self.plan, self.reports, self._models,
+            counters={k: float(v) for k, v in self.stats.items()},
+            measured_s=measured,
+        )
+        self._last_trace = qt
+        deposit(self._tracer, qt)
         return result
 
 

@@ -9,12 +9,14 @@ The plans are the reference's, node for node, so ``explain()`` matches it.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
 
+from ...obs.trace import deposit, maybe_span
 from .. import queries as Q
-from ..context import ExecutionContext, require_context
+from ..context import ExecutionContext, StatsMode, require_context
 from ..datagen import (
     LINESTATUS,
     ORDERPRIORITIES,
@@ -63,11 +65,23 @@ def plan_query(
     pq: PlannedQuery, tables: dict, ctx: ExecutionContext, morsel_rows: int | None = None,
 ) -> PhysicalPlan:
     """Plan ``pq`` against the actual table (or source) capacities under
-    ``ctx``; ``morsel_rows`` prices streamed shuffles at one morsel."""
-    catalog = {t: tables[t].capacity for t in pq.tables}
+    ``ctx``; ``morsel_rows`` prices streamed shuffles at one morsel.
+    ``StatsMode.COLLECT`` samples the query's tables (in memory only: a
+    chunked source is refused)."""
+    srcs = {t: as_source(tables[t]) for t in pq.tables}
+    if ctx.stats_mode is StatsMode.COLLECT:
+        if any(s.is_chunked for s in srcs.values()):
+            raise ValueError(
+                "StatsMode.COLLECT samples in-memory tables; streamed "
+                "sources plan with STATIC stats or a pre-collected PROFILE"
+            )
+        stats = ctx.planner_stats({t: s.materialize() for t, s in srcs.items()})
+    else:
+        stats = ctx.planner_stats()
+    catalog = {t: srcs[t].capacity for t in pq.tables}
     return pq.plan(
         catalog, ctx.num_shards, num_pods=ctx.num_pods, cfg=ctx.cfg,
-        cross_pod=ctx.cross_pod, stats=ctx.planner_stats(), morsel_rows=morsel_rows,
+        cross_pod=ctx.cross_pod, stats=stats, morsel_rows=morsel_rows,
     )
 
 
@@ -78,7 +92,11 @@ def run_query(pq: PlannedQuery, tables: dict, ctx: ExecutionContext | None = Non
     :class:`~repro_torch.relational.table.Table`\\ s or
     :class:`~repro_torch.relational.source.DataSource`\\ s.  ``ctx`` (None:
     one shard on the card) sets the mesh, the knobs and the device; without
-    a CUDA device, anything but ``device="cpu"`` raises.
+    a CUDA device, anything but ``device="cpu"`` raises.  With
+    ``ctx.trace`` set, the run records ``plan:``, ``compile:`` and
+    ``execute:`` spans and deposits its
+    :class:`~repro_torch.obs.trace.QueryTrace` (per-edge measured against
+    modeled exchange bytes) into the tracer.
 
     Out-of-core: a chunked DataSource streams morsel by morsel through
     :func:`~repro_torch.relational.planner.stream.compile_plan_streamed`.
@@ -86,7 +104,8 @@ def run_query(pq: PlannedQuery, tables: dict, ctx: ExecutionContext | None = Non
     larger than ``morsel_rows`` is wrapped in a chunked
     :class:`~repro_torch.relational.source.MorselView`.  The planner prices
     streamed shuffles at one morsel (``morsel_rows`` reaches
-    :func:`plan_physical`).
+    :func:`plan_physical`, and so the plan-cache key, which covers every
+    argument of the planner).
     """
     ctx = require_context(ctx or ExecutionContext(), where="run_query")
     srcs = {t: as_source(tables[t]) for t in pq.tables}
@@ -101,17 +120,31 @@ def run_query(pq: PlannedQuery, tables: dict, ctx: ExecutionContext | None = Non
         if big:
             srcs[big[0]] = MorselView(srcs[big[0]].materialize(), ctx.morsel_rows)
     chunked = [t for t in pq.tables if srcs[t].is_chunked]
-    phys = plan_query(pq, srcs, ctx, srcs[chunked[0]].chunk_rows if chunked else None)
+    tracer = ctx.trace
+    with maybe_span(tracer, f"plan:{pq.name}", "plan",
+                    num_shards=ctx.num_shards, num_pods=ctx.num_pods,
+                    streamed=bool(chunked)):
+        phys = plan_query(pq, srcs, ctx, srcs[chunked[0]].chunk_rows if chunked else None)
     if chunked:
-        raw = compile_plan_streamed(phys, srcs, ctx)()
+        with maybe_span(tracer, f"compile:{pq.name}", "compile", streamed=True):
+            runner = compile_plan_streamed(phys, srcs, ctx)
+        with maybe_span(tracer, f"execute:{pq.name}", "execute"):
+            raw = runner()  # deposits its own QueryTrace + pass/morsel spans
     else:
-        raw = compile_plan(phys, srcs, ctx)()
+        with maybe_span(tracer, f"compile:{pq.name}", "compile", streamed=False):
+            runner = compile_plan(phys, srcs, ctx)
+        t0 = time.perf_counter()
+        with maybe_span(tracer, f"execute:{pq.name}", "execute"):
+            raw, qt = runner.collect(runner.dispatch(), t_dispatch=t0)
+        deposit(tracer, qt)
     return pq.finalize(raw) if pq.finalize else raw
 
 
 def explain_query(pq: PlannedQuery, catalog: L.Catalog, ctx=None) -> str:
     """Render the physical plan the context would execute (planning only;
-    no device is touched)."""
+    no device is touched).  ``StatsMode.COLLECT`` is not explainable
+    without the tables — collect a profile and pass it via
+    ``StatsMode.PROFILE``."""
     ctx = require_context(ctx or ExecutionContext(), where="explain_query")
     return pq.plan(
         catalog, ctx.num_shards, num_pods=ctx.num_pods, cfg=ctx.cfg,

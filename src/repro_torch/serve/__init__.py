@@ -1,6 +1,6 @@
 """Serving of the port (counterpart of ``repro.serve``): static and
-continuous batching over the model API.  The query-serving engine comes
-with a later slice (ROADMAP A.9)."""
+continuous batching over the model API, plus the multi-tenant
+query-serving engine over the relational planner."""
 
 from .engine import (
     ContinuousEngine,
@@ -13,6 +13,11 @@ from .engine import (
     make_mixed_workload,
     sample_token,
 )
+from .query_engine import (
+    QueryRequest,
+    QueryServeEngine,
+    make_query_mix,
+)
 
 __all__ = [
     "ServeEngine",
@@ -24,4 +29,7 @@ __all__ = [
     "grow_cache",
     "make_mixed_workload",
     "engine_record",
+    "QueryRequest",
+    "QueryServeEngine",
+    "make_query_mix",
 ]

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models import registry
+from ..obs.trace import maybe_span
 from ..relational.table import resolve_device
 
 
@@ -282,8 +283,9 @@ class ContinuousEngine:
 
     def __init__(self, api: registry.ModelApi, batch_size: int, capacity: int,
                  temperature: float = 0.0, seed: int = 0, tracer=None, device="cuda"):
-        if tracer is not None:
-            raise NotImplementedError("tracing comes with the telemetry slice (ROADMAP A.9)")
+        #: Optional :class:`repro_torch.obs.trace.Tracer` — admission rounds,
+        #: prefill groups and decode steps become spans on it.
+        self.tracer = tracer
         if api.decode_step_slots is None:
             raise NotImplementedError(
                 f"continuous batching needs a per-position KV cache; family "
@@ -354,7 +356,12 @@ class ContinuousEngine:
         prompts = np.zeros((B, plen), np.int32)
         for j, r in enumerate(requests):
             prompts[j] = r.prompt
-        logits, pref_cache = self.api.prefill(params, {"tokens": torch.from_numpy(prompts).to(self.device)})
+        with maybe_span(self.tracer, f"prefill:len{plen}", "serve",
+                        requests=len(requests), step=step):
+            logits, pref_cache = self.api.prefill(
+                params, {"tokens": torch.from_numpy(prompts).to(self.device)})
+            if self.tracer is not None and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()  # the span ends with the work
         self.stats["prefill_tokens"] += len(requests) * plen
         self.stats["prefill_calls"] += 1
         ctx_len = int(pref_cache["seg0"]["k"].shape[2])
@@ -437,8 +444,11 @@ class ContinuousEngine:
                 by_len: dict[int, list[Request]] = {}
                 for r in admittable:
                     by_len.setdefault(r.prompt.shape[0], []).append(r)
-                for plen in sorted(by_len):
-                    self._admit_group(params, cache, by_len[plen], step, t0)
+                if by_len:
+                    with maybe_span(self.tracer, f"admission-round:{step}", "serve",
+                                    admitted=len(admittable), groups=len(by_len)):
+                        for plen in sorted(by_len):
+                            self._admit_group(params, cache, by_len[plen], step, t0)
                 self.alloc.check()
 
                 if not self.alloc.live:
@@ -448,13 +458,15 @@ class ContinuousEngine:
                     continue
 
                 # -- one fixed-shape decode step over every slot -----------
-                logits, cache = self.api.decode_step_slots(
-                    params,
-                    torch.from_numpy(self._tokens[:, None].copy()).to(self.device),
-                    cache,
-                    torch.from_numpy(self._positions.copy()).to(self.device),
-                )
-                sampled = sample_token(self.gen, logits, self.temperature).cpu().numpy()
+                with maybe_span(self.tracer, f"decode-step:{step}", "serve",
+                                live=len(self.alloc.live)):
+                    logits, cache = self.api.decode_step_slots(
+                        params,
+                        torch.from_numpy(self._tokens[:, None].copy()).to(self.device),
+                        cache,
+                        torch.from_numpy(self._positions.copy()).to(self.device),
+                    )
+                    sampled = sample_token(self.gen, logits, self.temperature).cpu().numpy()
                 self.stats["decode_steps"] += 1
                 self.stats["slot_steps"] += B
                 self.stats["live_slot_steps"] += len(self.alloc.live)

@@ -548,8 +548,9 @@ def test_streaming_fields_are_accepted_and_trace_still_raises():
         morsel_rows=64, exchange_rows=8, device_row_budget=100, group_state_rows=10,
         prefetch_depth=3)
     assert ExecutionContext().prefetch_depth == RefContext().prefetch_depth == 2
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ExecutionContext(trace=object())
+    # the telemetry slice has landed: a tracer is accepted, and is payload
+    traced = ctx.with_(trace=object())
+    assert traced == ctx and hash(traced) == hash(ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.exchange import make_mesh
 from repro_torch.distributed.sharding import MeshContext, mesh_context
 from repro_torch.models import convert, registry
+from repro_torch.obs.trace import Tracer
 from repro_torch.serve import (
     ContinuousEngine,
     Request,
@@ -203,21 +204,57 @@ def test_unported_archs_name_their_slice():
         get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="dense-model slice"):
         registry.build(get_config("olmoe-1b-7b").scaled(family="vlm"))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ContinuousEngine(registry.build(get_smoke_config("olmoe-1b-7b")), 2, 8,
-                         tracer=object(), device="cpu")
+    # the telemetry slice has landed: the continuous engine takes a tracer
+    tracer = Tracer()
+    ce = ContinuousEngine(registry.build(get_smoke_config("olmoe-1b-7b")), 2, 8,
+                          tracer=tracer, device="cpu")
+    assert ce.tracer is tracer
 
 
-def test_launcher_runs_both_modes_on_the_cpu(capsys):
+def test_continuous_engine_spans_equal_reference(jref, port):
+    """Under a tracer, the continuous engine records the reference's spans
+    (``admission-round:``, ``prefill:len``, ``decode-step:``), in the same
+    nesting and order, with the same arguments, on the same mixed workload
+    (no early stop: the schedule does not depend on the tokens)."""
+    from repro.obs.trace import Tracer as RefTracer
+    from repro.serve import ContinuousEngine as RefContinuousEngine
+    from repro.serve import make_mixed_workload as ref_make_mixed_workload
+
+    vocab = port.api.cfg.vocab_size
+    want_tr, got_tr = RefTracer(pid=0), Tracer(pid=0)
+    want = ref_make_mixed_workload(vocab, 10, (8, 16), 6, np.random.default_rng(4),
+                                   arrival_rate=2)
+    got = make_mixed_workload(vocab, 10, (8, 16), 6, np.random.default_rng(4), arrival_rate=2)
+    RefContinuousEngine(jref.api, batch_size=4, capacity=24, tracer=want_tr).serve(
+        jref.params, want)
+    ContinuousEngine(port.api, batch_size=4, capacity=24, tracer=got_tr, device="cpu").serve(
+        port.params, got)
+
+    def spans(tr):
+        return [(s.name, s.cat, s.args, [c.name for c in s.children])
+                for root in tr.spans for s in root.walk()]
+
+    assert spans(got_tr) == spans(want_tr)
+    families = {name.split(":")[0] for name, *_ in spans(got_tr)}
+    assert families == {"admission-round", "prefill", "decode-step"}
+    assert all(s.dur is not None and s.dur >= 0 for root in got_tr.spans for s in root.walk())
+
+
+def test_launcher_runs_both_modes_on_the_cpu(capsys, tmp_path):
+    import json
+
     from repro_torch.launch.serve import main
 
     main(["--arch", "olmoe-1b-7b", "--smoke", "--requests", "8", "--batch", "8",
           "--prompt-len", "8", "--max-new", "4", "--units", "8", "--pods", "2"], device="cpu")
     main(["--arch", "olmoe-1b-7b", "--smoke", "--continuous", "--requests", "24",
           "--batch", "8", "--prompt-len", "16", "--max-new", "9", "--arrival-rate", "2",
-          "--units", "8"], device="cpu")
+          "--units", "8", "--trace-dir", str(tmp_path)], device="cpu")
     out = capsys.readouterr().out
     assert "static: 8 requests" in out and "slot_steps: continuous=" in out
+    with open(tmp_path / "serve-p0.json") as f:
+        names = {e["name"].split(":")[0] for e in json.load(f)["traceEvents"] if e["ph"] == "B"}
+    assert names == {"admission-round", "prefill", "decode-step"}
 
 
 @pytest.mark.parametrize("arrival_rate", [0.0, 4.0])
