@@ -95,6 +95,30 @@ Phases, in order; any failure raises and the process exits non-zero:
    shards, 16 requests): the second process must read at least 5 plans
    from disk, plan 0 times and write a trace that loads as JSON with the
    serving spans;
+4d. calibration — on phase 4's SF 1 tables, the autotuner's measured side.
+   A base ``ChipSpec`` (``V5E``'s fields with the card's name, its bf16
+   peak of 989 TFLOP/s and its memory) is fitted by ``calibrate_chip`` on
+   the simulated 8-unit fabric at ``CAL_MESSAGE_ROWS`` (1,024 and 2**21
+   rows of 16 B: the large point bound by the card's bandwidth, not by the
+   host's launches): the four raw walls and the four fitted constants are
+   printed; every constant must be finite and positive and neither slope
+   at its floor.  ``tune_multiplexer(refine=True, refine_top_k=3)`` under
+   the calibrated spec for 16-byte rows at 1,024-65,536 rows a unit and for
+   Q3's and Q17's shuffle edges: the 3 best modeled candidates timed, the
+   returned ``measured_s`` the least wall, each ``cuda`` candidate
+   launching ``hash_partition_pack`` once a chunk in each of its 5 runs,
+   modeled against measured printed with the winner's gap beside the
+   reference's 2x bar (not gated), and one probe with the refined knobs
+   delivering the plain ``xla``/``torch`` shuffle's rows to every
+   destination with 0 drops; on 2 x 4 it must warn and return the
+   analytical knobs.  ``QueryServeEngine(chip=<calibrated>)`` serves the
+   nine templates and phase 4c's 64-request stream: every answer equal to
+   the oracle, pack launches as the plans imply; the plans that moved from
+   V5E's, QPS and TTFR beside phase 4c's, the V5E time-model errors of Q3
+   and Q17, and each of their shuffle edges timed alone by
+   ``measure_shuffle_config`` at its own stats and knobs beside its
+   ``exchange_makespan`` under both specs are printed; then ``tune_ep_dispatch`` for OLMoE-1B-7B at batch 64 on 8
+   units, flat and on 2 pods, under both specs;
 5. serving — OLMoE-1B-7B at full width (random weights from ``--seed``, f32
    master params, bf16 compute), expert-parallel over 8 simulated units
    flat and over 2 pods x 4.  A uniform workload (64 requests x 256 prompt
@@ -164,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -222,6 +247,22 @@ QS_REF_BYTE_ERR = {
            "shuffle[o_orderkey]#0": 2.6084076777507432},
     "q17": {"shuffle[l_partkey]#0": 1.7615384615384615},
 }
+# calibration: the message rows of calibrate_chip's two laws.  The large
+# point must be bound by the card's bandwidth, not by the host's launches:
+# at the reference's 65,536 rows one all-to-all of [8, 8, rows, 4] int32
+# moves 67 MB, tens of µs of copies on the card, about what its 7 phases'
+# launches cost, so the fitted slope could sit at its floor.  2**21 rows
+# move 2.1 GB (~1.3 ms of reads and writes at 3.35 TB/s), far above the
+# launches; 1,024 keeps the reference's sweep of 1,024-65,536 rows inside
+# the calibrated range.  The sweep, its row width, the candidates timed, the
+# reference's 2x model-accuracy bar (printed, not gated: the pack law is the
+# plain pack's) and the rows of each equality probe.
+CAL_MESSAGE_ROWS = (1024, 2**21)
+CAL_SWEEP_ROWS = (1024, 4096, 16384, 65536)
+CAL_ROW_BYTES = 16
+CAL_TOP_K = 3
+CAL_ACCURACY_BAR = 2.0
+CAL_PROBE_ROWS = 65536
 
 
 def _nvidia_smi() -> str:
@@ -983,7 +1024,8 @@ def _qserve_plan(engine, pq):
     catalog = {t: engine.tables[t].capacity for t in pq.tables}
     stats = {t: engine.stats[t] for t in pq.tables} if engine.stats else None
     return engine.cache.lookup(plan_key(pq.logical, catalog, engine.num_shards,
-                                        num_pods=engine.num_pods, stats=stats))
+                                        num_pods=engine.num_pods, chip=engine.chip,
+                                        topology=engine.topology, stats=stats))
 
 
 def _qserve_pack_launches(engine, done) -> tuple[int, int]:
@@ -1009,13 +1051,13 @@ def _ttfr_line(rec: dict) -> str:
             f"{rec['ttfr_p99_s'] * 1e3:.2f}; {per}")
 
 
-def phase_qserve(tabs: dict, wants: dict, seed: int, smi: str) -> dict:
+def phase_qserve(tabs: dict, wants: dict, seed: int, smi: str) -> tuple[dict, dict]:
     """Multi-tenant query serving on phase 4's SF 1 tables: the nine
     templates warm through the plan cache, a 64-request mix on 8 shards and
     a 16-request mix on 2 x 4, each against solo runs, then the launcher
     twice on one cache directory.  Returns every kernel's launches over the
-    engines' serves (counts set to 0 just before each and read just
-    after)."""
+    engines' serves (counts set to 0 just before each and read just after)
+    and the 8-shard stream's QPS, TTFR and shared knobs."""
     import numpy as np
     import torch
 
@@ -1145,6 +1187,9 @@ def phase_qserve(tabs: dict, wants: dict, seed: int, smi: str) -> dict:
 
     # 2. the reference CLI's default mix on 8 shards
     engine, done, solo, wall = stream(1, QS_MIX, QS_REQUESTS, f"stream {N_SHARDS}")
+    rec = engine.record()
+    v5e = dict(qps=QS_REQUESTS / wall, ttfr_p50_s=rec["ttfr_p50_s"],
+               ttfr_p99_s=rec["ttfr_p99_s"], knobs=engine._mux.describe())
     for q, (_want, qt) in solo.items():
         rep = model_report(qt)
         errs = {k: v["byte_model_err"] for k, v in rep["edges"].items()}
@@ -1219,6 +1264,333 @@ def phase_qserve(tabs: dict, wants: dict, seed: int, smi: str) -> dict:
               f"from disk and plans 0 times; its trace loads with spans {sorted(names)}")
     cache_dir.cleanup()
     print(f"[qserve] launches over the main path: {main_path}")
+    return main_path, v5e
+
+
+def _plan_shape(plan) -> dict:
+    """What a plan decides: each exchange's placement and key, the tuned
+    knobs and the cross-pod strategy."""
+    t = plan.tuned
+    return dict(exchanges=[(e["kind"], e["key"]) for e in plan.exchange_summary()],
+                knobs=(t.impl, t.pack_impl, t.pipeline_chunks, t.transport_chunks),
+                cross_pod=t.cross_pod)
+
+
+def _rows_by_destination(rows_out, valid_out) -> list:
+    """Each destination's delivered rows, sorted (a multiset)."""
+    import numpy as np
+
+    r, v = rows_out.cpu().numpy(), valid_out.cpu().numpy()
+    out = []
+    for s in range(r.shape[0]):
+        got = r[s][v[s]]
+        out.append(got[np.lexsort(got.T[::-1])])
+    return out
+
+
+def _probe_shuffle(mesh, tuned, rows: int, width: int, seed: int) -> None:
+    """The refined knobs' shuffle delivers the same multiset of rows to
+    every destination as the plain ``impl="xla", pack_impl="torch"``
+    shuffle, with 0 drops (seeded keys; each row image carries its key)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.multiplexer import make_multiplexer
+
+    step = tuned.pipeline_chunks * tuned.transport_chunks
+    rows = max(step, rows - rows % step)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    S = mesh.num_units
+    keys = torch.randint(0, 1 << 30, (S, rows), dtype=torch.int32, device="cuda", generator=gen)
+    data = torch.randint(0, 1 << 20, (S, rows, width), dtype=torch.int32, device="cuda",
+                         generator=gen)
+    data[..., 0] = keys
+    got = {}
+    for tag, knobs in (("refined", dict(impl=tuned.impl, pack_impl=tuned.pack_impl,
+                                        pipeline_chunks=tuned.pipeline_chunks,
+                                        transport_chunks=tuned.transport_chunks)),
+                       ("plain", dict(impl="xla", pack_impl="torch"))):
+        r, v, dropped = make_multiplexer(mesh, **knobs).hash_shuffle(keys, data, "q", rows)
+        if int(dropped.sum()) != 0:
+            raise AssertionError(f"probe {tag} {knobs}: {int(dropped.sum())} rows dropped")
+        got[tag] = _rows_by_destination(r, v)
+    if not all(np.array_equal(a, b) for a, b in zip(got["refined"], got["plain"])):
+        raise AssertionError(f"probe: the refined shuffle {tuned} delivers other rows than "
+                             "the plain one")
+    if sum(len(a) for a in got["plain"]) != S * rows:
+        raise AssertionError("probe: rows lost")
+
+
+def phase_calibration(tabs: dict, wants: dict, seed: int, smi: str, v5e: dict) -> dict:
+    """The autotuner's measured side on the card, on phase 4's SF 1 tables:
+    calibrate the cost model on the simulated 8-unit fabric, refine the
+    multiplexer's knobs by measuring them, serve TPC-H under the calibrated
+    prices, and price OLMoE's EP dispatch with them.  Returns every
+    kernel's launches over the refinements and the serves (counts set to 0
+    just before each and read just after)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotune
+    from repro_torch.core.autotune import (
+        TableStats, calibrate_chip, exchange_makespan, tune_ep_dispatch, tune_multiplexer,
+    )
+    from repro_torch.core.exchange import make_mesh
+    from repro_torch.core.schedule import make_schedule, schedule_ring_loads
+    from repro_torch.core.topology import V5E
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.obs.model_check import model_report
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.relational.context import ExecutionContext, StatsMode
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.physical import plan_physical
+    from repro_torch.serve import QueryRequest, QueryServeEngine, make_query_mix
+
+    main_path = dict.fromkeys(_counts(), 0)
+
+    def drive(fn):
+        """Run ``fn`` with the counts set to 0 just before; add them to the
+        main path's just after.  Returns ``fn``'s result and the counts."""
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        for k, v in counts.items():
+            main_path[k] += v
+        return out, counts
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mesh8 = make_mesh(N_SHARDS)
+    n = mesh8.size("q")
+
+    # a. the base spec: the card's name, bf16 peak and memory on V5E's fields
+    base = dataclasses.replace(V5E, name=torch.cuda.get_device_name(0),
+                               peak_flops_bf16=PEAK_FLOPS["bfloat16"],
+                               hbm_bytes=torch.cuda.get_device_properties(0).total_memory)
+
+    # b. calibrate, with the raw walls recorded
+    walls = []
+    best_wall = autotune._best_wall
+
+    def recorded_wall(fn, *args, **kw):
+        walls.append(best_wall(fn, *args, **kw))
+        return walls[-1]
+
+    autotune._best_wall = recorded_wall
+    try:
+        t0 = time.perf_counter()
+        cal = calibrate_chip(mesh8, "q", chip=base, message_rows=CAL_MESSAGE_ROWS,
+                             row_bytes=CAL_ROW_BYTES)
+        cal_s = time.perf_counter() - t0
+    finally:
+        autotune._best_wall = best_wall
+    width = max(1, CAL_ROW_BYTES // 4)
+    lo, hi = CAL_MESSAGE_ROWS[0], CAL_MESSAGE_ROWS[-1]
+    slope = (walls[1] - walls[0]) / ((hi - lo) * width * 4)
+    pk_bytes = [r * 12 * (n + 1) + 8 * r + 2 * r * CAL_ROW_BYTES for r in (lo, hi)]
+    pk_slope = (walls[3] - walls[2]) / (pk_bytes[1] - pk_bytes[0])
+    fitted = {f: getattr(cal, f) for f in ("ici_link_bandwidth", "ici_launch_latency",
+                                          "hbm_bandwidth", "kernel_launch_latency")}
+    print(f"[calib] calibrate_chip(make_mesh(8), 'q', message_rows={CAL_MESSAGE_ROWS}, "
+          f"row_bytes={CAL_ROW_BYTES}) in {cal_s:.2f} s: walls (min of 5 after 2 warm-up) "
+          f"all_to_all {walls[0] * 1e3:.4f} / {walls[1] * 1e3:.4f} ms, pack "
+          f"{walls[2] * 1e3:.4f} / {walls[3] * 1e3:.4f} ms; slopes {slope:.6e} s/B (link), "
+          f"{pk_slope:.6e} s/B (pack); fitted {cal.name}: link {cal.ici_link_bandwidth:.6e} B/s, "
+          f"launch {cal.ici_launch_latency * 1e6:.3f} us a phase, HBM "
+          f"{cal.hbm_bandwidth:.6e} B/s, pack dispatch {cal.kernel_launch_latency * 1e6:.3f} "
+          f"us (V5E: {V5E.ici_link_bandwidth:.3e}, {V5E.ici_launch_latency * 1e6:.1f}, "
+          f"{V5E.hbm_bandwidth:.3e}, {V5E.kernel_launch_latency * 1e6:.1f}) ({smi})")
+    if not all(math.isfinite(v) and v > 0 for v in fitted.values()):
+        raise AssertionError(f"calibration: a fitted constant is not finite and positive: {fitted}")
+    if not (slope > 1e-15 and pk_slope > 1e-15):
+        raise AssertionError(f"calibration: a slope sits at its 1e-15 floor (link {slope}, "
+                             f"pack {pk_slope}): the large point is bound by the host")
+    load_sum = sum(schedule_ring_loads(make_schedule(n, "shift")))
+    if abs(cal.ici_link_bandwidth - load_sum / slope) > 1e-9 * cal.ici_link_bandwidth:
+        raise AssertionError("calibration: the recorded walls do not give the fitted link law")
+
+    # c. refine: time the best modeled candidates; every cuda candidate packs
+    # through hash_partition_pack, warm-up 2 + 3 timed runs, once a chunk
+    timed = []
+    measure = autotune.measure_shuffle_config
+
+    def recorded_measure(mesh, axis, stats, **kw):
+        before = hp.LAUNCHES["hash_partition_pack"]
+        wall = measure(mesh, axis, stats, **kw)
+        timed.append((kw["impl"], kw["pack_impl"], kw["pipeline_chunks"],
+                      kw["transport_chunks"], wall, hp.LAUNCHES["hash_partition_pack"] - before))
+        return wall
+
+    cases = [(f"sweep {r} rows", [TableStats(r, CAL_ROW_BYTES)]) for r in CAL_SWEEP_ROWS]
+    for q in ("q3", "q17"):
+        pq = tpch.ALL_QUERIES[q]()
+        plan = plan_physical(pq.logical, {t: tabs[t].capacity for t in pq.tables}, N_SHARDS,
+                             chip=cal, name=q)
+        cases.append((f"{q}'s shuffle edges", list(plan.shuffle_stats)))
+    autotune.measure_shuffle_config = recorded_measure
+    try:
+        for tag, stats in cases:
+            analytical = tune_multiplexer(mesh8, stats, chip=cal)
+            timed.clear()
+            refined, _ = drive(lambda: tune_multiplexer(mesh8, stats, chip=cal, refine=True,
+                                                        refine_top_k=CAL_TOP_K))
+            modeled = {c[:4]: c[4] for c in analytical.candidates}
+            want_n = min(CAL_TOP_K, len(analytical.candidates))
+            if [t[:4] for t in timed] != [c[:4] for c in analytical.candidates[:want_n]]:
+                raise AssertionError(f"refine {tag}: timed {[t[:4] for t in timed]}, not the "
+                                     f"{want_n} best modeled")
+            best = min(timed, key=lambda t: t[4])
+            if refined.measured_s != best[4] or (refined.impl, refined.pack_impl,
+                                                 refined.pipeline_chunks,
+                                                 refined.transport_chunks) != best[:4]:
+                raise AssertionError(f"refine {tag}: returned {refined}, the least measured "
+                                     f"wall is {best}")
+            for impl, pack, C, t, wall, launched in timed:
+                want_l = 5 * C if pack == "cuda" else 0
+                if launched != want_l:
+                    raise AssertionError(f"refine {tag}: {impl}/{pack}/C{C}/t{t} launched "
+                                         f"hash_partition_pack {launched} times, not {want_l}")
+            gap = max(refined.modeled_s / refined.measured_s,
+                      refined.measured_s / refined.modeled_s)
+            probe = max(stats, key=lambda s: s.rows * s.row_bytes)
+            print(f"[calib] refine {tag} (probe {probe.rows} rows x {probe.row_bytes} B): "
+                  f"analytical {analytical.impl}/{analytical.pack_impl}/"
+                  f"C{analytical.pipeline_chunks}/t{analytical.transport_chunks}, refined "
+                  f"{refined.impl}/{refined.pack_impl}/C{refined.pipeline_chunks}/"
+                  f"t{refined.transport_chunks}; winner modeled {refined.modeled_s * 1e3:.4f} ms "
+                  f"vs measured {refined.measured_s * 1e3:.4f} ms, gap {gap:.3f}x (the "
+                  f"reference's bar {CAL_ACCURACY_BAR}x: "
+                  f"{'within' if gap <= CAL_ACCURACY_BAR else 'outside'}; not gated) ({smi})")
+            for impl, pack, C, t, wall, launched in timed:
+                m = modeled[(impl, pack, C, t)]
+                print(f"[calib]   {impl}/{pack}/C{C}/t{t}: modeled {m * 1e3:.4f} ms, measured "
+                      f"{wall * 1e3:.4f} ms (modeled/measured {m / wall:.3f}), "
+                      f"hash_partition_pack {launched}")
+            _probe_shuffle(mesh8, refined, min(probe.rows, CAL_PROBE_ROWS),
+                           max(2, probe.row_bytes // 4), seed)
+    finally:
+        autotune.measure_shuffle_config = measure
+    print(f"[calib] every refined shuffle delivers the plain xla/torch shuffle's rows to every "
+          f"destination, 0 drops (probes of up to {CAL_PROBE_ROWS} rows a unit)")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pod = tune_multiplexer(make_mesh(N_SHARDS, 2), cases[-1][1], chip=cal, refine=True)
+    pod_want = tune_multiplexer(make_mesh(N_SHARDS, 2), cases[-1][1], chip=cal)
+    said = [str(w.message) for w in caught if "two-level" in str(w.message)]
+    if pod != pod_want or not said:
+        raise AssertionError(f"refine on 2 x 4: {pod} (warnings {caught}); want the analytical "
+                             f"{pod_want} and a warning")
+    print(f"[calib] refine on 2 x 4 warns ({said[0]}) and returns the analytical "
+          f"knobs {pod.impl}/{pod.pack_impl}/C{pod.pipeline_chunks}/t{pod.transport_chunks}")
+
+    # d. serve the nine templates and the 8-shard stream under the calibrated prices
+    def engine_for(names, tracer=None):
+        ctx = ExecutionContext(num_shards=N_SHARDS, device="cuda",
+                               stats_mode=StatsMode.COLLECT, trace=tracer)
+        return QueryServeEngine(tabs, ctx, num_slots=QS_SLOTS, chip=cal,
+                                templates=[tpch.ALL_QUERIES[q]() for q in names])
+
+    names = sorted(tpch.ALL_QUERIES)
+    engine = engine_for(names)
+    done, counts = drive(
+        lambda: engine.serve([QueryRequest("t", tpch.ALL_QUERIES[q]()) for q in names]))
+    for r in done:
+        check_answer(r.query.name, r.result, wants[r.query.name])
+    if (counts["hash_partition_pack"], counts["partition_pack"]) != _qserve_pack_launches(
+            engine, done):
+        raise AssertionError(f"nine templates under {cal.name}: pack launches {counts}, the "
+                             f"plans imply {_qserve_pack_launches(engine, done)}")
+    moved = []
+    for q in names:
+        pq = tpch.ALL_QUERIES[q]()
+        stats = {t: engine.stats[t] for t in pq.tables}
+        v5e_plan = plan_physical(pq.logical, {t: tabs[t].capacity for t in pq.tables},
+                                 N_SHARDS, stats=stats, name=q)
+        a, b = _plan_shape(v5e_plan), _plan_shape(_qserve_plan(engine, pq))
+        diff = {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+        if diff:
+            moved.append(q)
+            print(f"[calib] {q}: the calibrated plan moved from V5E's: "
+                  + "; ".join(f"{k} {x} -> {y}" for k, (x, y) in diff.items()))
+    print(f"[calib] nine templates on {N_SHARDS} shards under {cal.name}: every answer equal to "
+          f"the oracle, no row dropped (the runners raise on any); hash_partition_pack "
+          f"{counts['hash_partition_pack']} as the plans imply; plans moved: {moved or 'none'}; "
+          f"shared knobs {engine._mux.describe()} (V5E: {v5e['knobs']})")
+    del engine, done
+
+    tracer = Tracer()
+    engine = engine_for(QS_MIX, tracer)
+    mix = [tpch.ALL_QUERIES[q]() for q in QS_MIX]
+    reqs = make_query_mix(mix, QS_TENANTS, QS_REQUESTS, seed=seed, max_arrival_round=4)
+
+    def serve_stream():
+        t0 = time.perf_counter()
+        out = engine.serve(reqs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (done, wall), counts = drive(serve_stream)
+    for r in done:
+        check_answer(r.query.name, r.result, wants[r.query.name])
+    want_hpp, want_pp = _qserve_pack_launches(engine, done)
+    if (counts["hash_partition_pack"], counts["partition_pack"]) != (want_hpp, want_pp):
+        raise AssertionError(f"stream under {cal.name}: pack launches {counts}, the plans and "
+                             f"shared knobs imply {(want_hpp, want_pp)}")
+    rec = engine.record()
+    print(f"[calib] stream {N_SHARDS} under {cal.name}: {QS_REQUESTS} requests of {QS_MIX}, every "
+          f"answer equal to the oracle, 0 drops; {QS_REQUESTS / wall:.2f} QPS ({wall:.3f} s), "
+          f"TTFR p50 {rec['ttfr_p50_s'] * 1e3:.2f} p99 {rec['ttfr_p99_s'] * 1e3:.2f} ms; V5E's "
+          f"plans in phase 4c: {v5e['qps']:.2f} QPS, TTFR p50 {v5e['ttfr_p50_s'] * 1e3:.2f} p99 "
+          f"{v5e['ttfr_p99_s'] * 1e3:.2f} ms; hash_partition_pack {want_hpp}, partition_pack "
+          f"{want_pp}, as the plans and shared knobs imply ({smi})")
+    reported = set()
+    for r in done:
+        q = r.query.name
+        if q not in ("q3", "q17") or q in reported:
+            continue
+        reported.add(q)
+        errs = {k: v["time_model_err"] for k, v in model_report(r.trace)["edges"].items()}
+        print(f"[calib] {q}: model_report time_model_err under V5E {errs} (its measured side is "
+              f"the query's wall by V5E's predicted share, not a per-edge time)")
+        t = engine.shared_tuned  # the knobs that carried the served shuffles
+        knobs = dict(impl=t.impl, pack_impl=t.pack_impl, pipeline_chunks=t.pipeline_chunks,
+                     transport_chunks=t.transport_chunks)
+        for i, st in enumerate(_qserve_plan(engine, r.query).shuffle_stats):
+            wall, counts = drive(lambda: autotune.measure_shuffle_config(mesh8, "q", st, **knobs))
+            want_l = 5 * t.pipeline_chunks if t.pack_impl == "cuda" else 0
+            if counts["hash_partition_pack"] != want_l:
+                raise AssertionError(f"{q} edge {i}: hash_partition_pack "
+                                     f"{counts['hash_partition_pack']}, not {want_l}")
+            preds = {c.name: exchange_makespan(st, n, t.impl, t.pack_impl, t.pipeline_chunks,
+                                               t.transport_chunks, chip=c) for c in (cal, V5E)}
+            print(f"[calib] {q} shuffle edge {i} ({st.rows} rows x {st.row_bytes} B, "
+                  f"{t.impl}/{t.pack_impl}/C{t.pipeline_chunks}/t{t.transport_chunks}): "
+                  f"measure_shuffle_config {wall * 1e3:.4f} ms; exchange_makespan "
+                  + ", ".join(f"{k} {v * 1e3:.4f} ms ({max(v / wall, wall / v):.3f}x)"
+                              for k, v in preds.items())
+                  + f"; hash_partition_pack {counts['hash_partition_pack']} ({smi})")
+    del engine, done
+
+    # e. EP dispatch priced with the calibrated spec
+    olmoe = get_config("olmoe-1b-7b")
+    for pods in (1, 2):
+        for chip in (cal, V5E):
+            ep = tune_ep_dispatch(olmoe, 64, N_SHARDS, num_pods=pods, chip=chip)
+            print(f"[calib] tune_ep_dispatch(olmoe-1b-7b, batch 64, {N_SHARDS} units, "
+                  f"num_pods={pods}, {chip.name}): chunks {ep['chunks']}, serial "
+                  f"{ep['serial_s'] * 1e6:.3f} us, async {ep['async_s'] * 1e6:.3f} us, overlap "
+                  f"fraction {ep['overlap_fraction']:.4f}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[calib] phase 4d in {time.perf_counter() - t_phase:.1f} s; peak "
+          f"torch.cuda.max_memory_allocated {peak} B ({smi})")
+    print(f"[calib] launches over the main path: {main_path}")
     return main_path
 
 
@@ -1777,7 +2149,10 @@ def main() -> int:
     o_launches = phase_oocore(tabs, wants, args.seed)
 
     # 4c. query serving (the multi-tenant relational main path)
-    c_launches = phase_qserve(tabs, wants, args.seed, smi)
+    c_launches, v5e_stream = phase_qserve(tabs, wants, args.seed, smi)
+
+    # 4d. calibration (the measured tuner and serving at the card's prices)
+    d_launches = phase_calibration(tabs, wants, args.seed, smi, v5e_stream)
     del tabs
 
     # 5. serving (the MoE main path)
@@ -1788,7 +2163,8 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
-    paths = (q_launches, o_launches, c_launches, s_launches, t_launches, m_launches)
+    paths = (q_launches, o_launches, c_launches, d_launches, s_launches, t_launches,
+             m_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

@@ -7,8 +7,11 @@
 - ``autotune``    — plan-time knob tuner for the multiplexer
 - ``exchange``    — decoupled exchange operators on the simulated fabric
 - ``multiplexer`` — per-mesh communication policy (the RDMA multiplexer)
+- ``skew``        — the §3.1 partition-skew analysis and key salting
 """
 
-from . import autotune, exchange, hybrid, multiplexer, schedule, topology
+from . import autotune, exchange, hybrid, multiplexer, schedule, skew, topology
 
-__all__ = ["autotune", "exchange", "hybrid", "multiplexer", "schedule", "topology"]
+__all__ = [
+    "autotune", "exchange", "hybrid", "multiplexer", "schedule", "skew", "topology",
+]

@@ -1,10 +1,9 @@
 """Topology-driven knob planner for the communication multiplexer.
 
-Port of the mesh-free half of ``repro.core.autotune``: every legal
+Port of ``repro.core.autotune``: every legal
 :class:`~repro_torch.core.multiplexer.CommMultiplexer` configuration is
 priced with the :mod:`~repro_torch.core.topology` cost model and the knob
-setting with the least modeled shuffle makespan wins.  It needs no device,
-so the planner's ``explain()`` stays deterministic.
+setting with the least modeled shuffle makespan wins.
 
 The knobs, for one exchange of ``rows`` packed rows of ``row_bytes`` each
 over a shuffle axis of ``n`` units:
@@ -22,25 +21,37 @@ over a shuffle axis of ``n`` units:
     makespan(C) = C * (pack_c + ship_c)
                   - (C - 1) * (1 - 1 / n_dma) * min(pack_c, ship_c)
 
-The constants are the reference's TPU (``topology.V5E``): the port uses
-them so that it plans exactly as the reference does, and its ``modeled_s``
-is a TPU figure, not an H100 prediction.  :func:`tune_multiplexer` takes
-its shuffle axis and pod count from a simulated mesh;
-:func:`tune_shared_config` tunes one knob set over several plans'
-exchanges (the query-serving engine's shared multiplexer); :func:`ep_capacity`
-and :func:`decode_table_stats` size and describe the MoE layer's per-step
-dispatch.  Left for later slices: the live mesh probing (``refine=True``,
-``measure_shuffle_config``, ``calibrate_chip``) and the EP layer pricing
-(``tune_ep_dispatch``).
+Two modes:
+
+* **analytical** (default): the cost-model argmin, no device work, so the
+  planner's ``explain()`` stays deterministic.  The default constants are
+  the reference's TPU (``topology.V5E``): with them the port plans exactly
+  as the reference does, and ``modeled_s`` is a TPU figure.
+* **measured** (``refine=True``): :func:`measure_shuffle_config` times the
+  best modeled candidates on the simulated fabric and the measured winner
+  is kept.  :func:`calibrate_chip` fits the model's link and pack laws to
+  the same fabric, which gives a ``ChipSpec`` whose prices are comparable
+  to wall-clock on the device that runs it.
+
+:func:`tune_multiplexer` takes its shuffle axis and pod count from a
+simulated mesh; :func:`tune_shared_config` tunes one knob set over several
+plans' exchanges (the query-serving engine's shared multiplexer);
+:func:`ep_capacity`, :func:`decode_table_stats`, :func:`moe_expert_time`,
+:func:`ep_dispatch_makespan` and :func:`tune_ep_dispatch` size and price
+the MoE layer's per-step dispatch.  The mesh carries no device, so the
+functions that measure take ``device`` (default: the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+import warnings
 from typing import Sequence
 
 from .hybrid import plan_for_mesh
+from .schedule import make_schedule, schedule_ring_loads
 from .topology import ChipSpec, PACK_IMPLS, V5E, pack_time, pod_broadcast_time, shuffle_time
 
 PIPELINE_CANDIDATES = (1, 2, 4, 8)
@@ -65,10 +76,11 @@ class TableStats:
 
 @dataclasses.dataclass(frozen=True)
 class TunedConfig:
-    """A multiplexer knob setting plus the model's view of it.
+    """A multiplexer knob setting plus the model's (and measurement's) view.
 
     ``candidates`` holds every evaluated ``(impl, pack_impl, pipeline_chunks,
-    transport_chunks, modeled_s)`` tuple, best first.  ``cross_pod`` (pod
+    transport_chunks, modeled_s)`` tuple, best first; ``measured_s`` is the
+    winner's measured wall under ``refine=True``.  ``cross_pod`` (pod
     meshes only) says how a broadcast-style join's build side crosses the
     pod axis: ``"broadcast"`` or ``"reshard"``.
     """
@@ -78,6 +90,7 @@ class TunedConfig:
     pipeline_chunks: int
     transport_chunks: int
     modeled_s: float
+    measured_s: float | None = None
     candidates: tuple = ()
     cross_pod: str | None = None
     cross_pod_modeled_s: dict | None = None
@@ -114,6 +127,126 @@ def decode_table_stats(cfg, batch_size: int, num_shards: int) -> TableStats:
 
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
+
+
+def moe_expert_time(
+    cfg, batch_size: int, num_shards: int, chip: ChipSpec = V5E
+) -> float:
+    """Modeled expert-FFN seconds for ONE decode step on one parallel unit.
+
+    Each unit owns ``E / num_shards`` experts and receives ``num_shards``
+    capacity buffers per local expert, so it batch-matmuls
+    ``E_loc * num_shards * C`` slot rows through the SwiGLU (``6 * d * f``
+    FLOPs a row): the compute the async dispatch pipeline hides exchange
+    behind.  Same duck-typed ``cfg`` as :func:`decode_table_stats`.
+    """
+    E = int(getattr(cfg, "num_experts", 0) or 1)
+    k = int(getattr(cfg, "top_k", 0) or 1)
+    d = int(cfg.d_model)
+    f = int(getattr(cfg, "moe_d_ff", 0) or getattr(cfg, "d_ff", d))
+    n = max(num_shards, 1)
+    t_loc = max(1, batch_size // n)
+    C = ep_capacity(t_loc, k, E, float(getattr(cfg, "capacity_factor", 1.0)))
+    E_loc = max(E // n, 1)
+    slot_rows = E_loc * n * C
+    return slot_rows * 6.0 * d * f / chip.peak_flops_bf16
+
+
+def ep_dispatch_makespan(
+    stats: TableStats,
+    n: int,
+    compute_s: float,
+    impl: str = "round_robin",
+    pack_impl: str = "torch",
+    num_chunks: int = 1,
+    transport_chunks: int = 1,
+    chip: ChipSpec = V5E,
+    topology: str = "ring",
+    num_pods: int = 1,
+    overlap: bool = True,
+) -> float:
+    """Modeled makespan of one EP layer: dispatch + expert FFN + combine.
+
+    ``stats`` is the per-unit dispatch shape (:func:`decode_table_stats`),
+    ``compute_s`` the expert compute it feeds (:func:`moe_expert_time`).
+    ``num_chunks`` splits the capacity buffers into chunks pipelined like
+    the MoE layer's double-buffered path: chunk ``c + 1``'s dispatch runs
+    while chunk ``c``'s experts compute.  ``overlap=False`` prices the
+    serialized schedule, ``chunks * (dispatch + compute + combine)``; with
+    overlap every chunk boundary (the ``chunks - 1`` internal ones plus the
+    cross-layer one) hides ``min(compute, exchange)`` scaled by the
+    DMA-independence factor ``1 - 1/n_dma``, as in :func:`exchange_makespan`.
+    """
+    if stats.rows % num_chunks:
+        num_chunks = 1
+    chunk = TableStats(rows=stats.rows // num_chunks, row_bytes=stats.row_bytes)
+    disp_c = exchange_makespan(
+        chunk, n, impl, pack_impl, 1, transport_chunks, chip, topology,
+        num_pods,
+    )
+    comb_c = disp_c  # the return trip runs the same schedule mirrored
+    comp_c = compute_s / num_chunks
+    serial = num_chunks * (disp_c + comp_c + comb_c)
+    if not overlap:
+        return serial
+    n_dma = 1 if impl == "xla" else max(n - 1, 1) * transport_chunks
+    if num_pods > 1 and impl != "xla":
+        n_dma += num_pods - 1  # the coarse-hop phases are independent sends
+    overlap_frac = 0.0 if n_dma <= 1 else 1.0 - 1.0 / n_dma
+    boundaries = num_chunks  # chunks-1 internal + 1 cross-layer
+    hidden = boundaries * overlap_frac * min(comp_c, disp_c + comb_c)
+    return max(serial - hidden, serial - num_chunks * (disp_c + comb_c))
+
+
+def tune_ep_dispatch(
+    cfg,
+    batch_size: int,
+    num_shards: int,
+    num_pods: int = 1,
+    impl: str = "round_robin",
+    pack_impl: str = "torch",
+    chip: ChipSpec = V5E,
+    topology: str = "ring",
+) -> dict:
+    """Pick the async chunk count for the EP dispatch pipeline.
+
+    ``num_shards`` is the TOTAL unit count (pods x in-pod shards).  Sweeps
+    the pipeline chunk candidates that divide the per-expert capacity and
+    returns ``{"chunks", "serial_s", "async_s", "overlap_fraction",
+    "candidates"}``: the unoverlapped and overlapped makespans at the chosen
+    chunking, and the share of exchange time hidden behind expert compute.
+    """
+    E = int(getattr(cfg, "num_experts", 0) or 1)
+    k = int(getattr(cfg, "top_k", 0) or 1)
+    n_inner = max(num_shards // max(num_pods, 1), 1)
+    t_loc = max(1, batch_size // max(num_shards, 1))
+    C = ep_capacity(t_loc, k, E, float(getattr(cfg, "capacity_factor", 1.0)))
+    stats = decode_table_stats(cfg, batch_size, num_shards)
+    compute_s = moe_expert_time(cfg, batch_size, num_shards, chip)
+    scored = []
+    for ch in PIPELINE_CANDIDATES:
+        if C % ch:
+            continue
+        async_s = ep_dispatch_makespan(
+            stats, n_inner, compute_s, impl, pack_impl, ch, 1, chip,
+            topology, num_pods, overlap=True,
+        )
+        serial_s = ep_dispatch_makespan(
+            stats, n_inner, compute_s, impl, pack_impl, ch, 1, chip,
+            topology, num_pods, overlap=False,
+        )
+        scored.append((async_s, ch, serial_s))
+    scored.sort()
+    async_s, chunks, serial_s = scored[0]
+    exchange_s = serial_s - compute_s
+    frac = (serial_s - async_s) / exchange_s if exchange_s > 0 else 0.0
+    return {
+        "chunks": chunks,
+        "serial_s": serial_s,
+        "async_s": async_s,
+        "overlap_fraction": frac,
+        "candidates": tuple((ch, a, s) for a, ch, s in scored),
+    }
 
 
 def exchange_makespan(
@@ -351,32 +484,257 @@ def _shuffle_axis(mesh) -> tuple[str | None, int, int]:
 
 
 def tune_multiplexer(
-    mesh, table_stats: TableStats | Sequence[TableStats], refine: bool = False
+    mesh,
+    table_stats: TableStats | Sequence[TableStats],
+    chip: ChipSpec = V5E,
+    topology: str = "ring",
+    axis: str | None = None,
+    refine: bool = False,
+    refine_top_k: int = 3,
+    broadcast_stats: TableStats | None = None,
+    device="cuda",
 ) -> TunedConfig:
     """The knobs that minimise the modeled makespan of these exchanges on
-    a simulated :class:`~repro_torch.core.exchange.Mesh`: its largest
-    small-network axis is the shuffle axis, and a two-level mesh prices the
-    two-level exchange.  ``refine=True`` (timing the best candidates on a
-    live mesh) raises: mesh probing comes with a later slice.
+    a simulated :class:`~repro_torch.core.exchange.Mesh`.
+
+    ``axis`` defaults to the mesh's largest small-network axis; a two-level
+    mesh prices the two-level exchange and, when ``broadcast_stats``
+    describes a broadcast-style join's build side, records the cheaper of
+    cross-pod ``"broadcast"`` and ``"reshard"`` in
+    :attr:`TunedConfig.cross_pod`.  With ``refine=True`` the
+    ``refine_top_k`` best modeled candidates are timed on ``device`` by
+    :func:`measure_shuffle_config`, at the largest exchange by bytes, and
+    the measured winner is returned with ``measured_s`` filled in.
     """
-    if refine:
-        raise NotImplementedError(
-            "tune_multiplexer(refine=True) probes a live mesh; it comes with the "
-            "multi-process fabric slice (ROADMAP A.10)"
+    stats = (
+        (table_stats,)
+        if isinstance(table_stats, TableStats)
+        else tuple(table_stats)
+    )
+    if axis is None:
+        axis, n, num_pods = _shuffle_axis(mesh)
+    else:
+        n = mesh.size(axis)
+        num_pods = _shuffle_axis(mesh)[2]
+    tuned = tune_config(
+        n if axis is not None else 1, stats, num_pods=num_pods, chip=chip,
+        topology=topology, broadcast_stats=broadcast_stats,
+    )
+    if refine and num_pods > 1:
+        # measure_shuffle_config runs the single-level in-pod shuffle; on a
+        # two-level mesh that measures neither the DCI hop nor the P-fold
+        # hop-2 shapes the model prices, so a "measured winner" would be
+        # ranked on the wrong experiment.
+        warnings.warn(
+            "tune_multiplexer(refine=True) is not supported on two-level "
+            "meshes yet; returning the analytical winner",
+            stacklevel=2,
         )
-    axis, n, num_pods = _shuffle_axis(mesh)
-    return tune_config(n if axis is not None else 1, table_stats, num_pods=num_pods)
+        refine = False
+    if not refine or len(tuned.candidates) <= 1:
+        return tuned
+    probe = max(stats, key=lambda s: s.rows * s.row_bytes)
+    timed = []
+    for impl, pack_impl, C, t, total in tuned.candidates[:refine_top_k]:
+        wall = measure_shuffle_config(
+            mesh, axis, probe, impl=impl, pack_impl=pack_impl,
+            pipeline_chunks=C, transport_chunks=t, device=device,
+        )
+        timed.append((wall, (total, C, t, impl, pack_impl)))
+    timed.sort(key=lambda r: r[0])
+    measured, (total, C, t, impl, pack_impl) = timed[0]
+    return dataclasses.replace(
+        tuned,
+        impl=impl,
+        pack_impl=pack_impl,
+        pipeline_chunks=C,
+        transport_chunks=t,
+        modeled_s=total,
+        measured_s=measured,
+    )
+
+
+# ----------------------------------------------------------------------------
+# Measurement on the simulated fabric.
+# ----------------------------------------------------------------------------
+
+def _best_wall(fn, *args, iters: int = 5, warmup: int = 2) -> float:
+    """Min wall seconds over ``iters`` runs of ``fn(*args)`` after
+    ``warmup`` runs: the run least disturbed by scheduler noise.  Each run
+    ends in ``torch.cuda.synchronize()`` when an argument lies on the card
+    (the host returns before the card finishes)."""
+    import torch
+
+    on_card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+    def run():
+        fn(*args)
+        if on_card:
+            torch.cuda.synchronize()
+
+    for _ in range(warmup):
+        run()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    return min(walls)
+
+
+def measure_shuffle_config(
+    mesh,
+    axis: str,
+    stats: TableStats,
+    impl: str = "round_robin",
+    pack_impl: str = "torch",
+    pipeline_chunks: int = 1,
+    transport_chunks: int = 1,
+    iters: int = 3,
+    max_rows: int | None = None,
+    device="cuda",
+) -> float:
+    """Min wall seconds (over ``iters`` runs) of one ``hash_shuffle``.
+
+    A synthetic exchange (uniform int32 keys in ``[0, 2**30)``, rows of
+    ``stats.row_bytes // 4`` int32 columns in ``[0, 2**20)``, zero-drop
+    capacity) through a real multiplexer on ``mesh``, every shard on
+    ``device``, at the actual ``stats.rows`` a unit by default: measuring
+    in a smaller regime would undo the tuner's size-driven decisions.
+    ``max_rows`` caps the probe; rows are aligned down to a multiple of
+    ``pipeline_chunks * transport_chunks``.  With ``pack_impl="cuda"`` on
+    the card every chunk's pack launches ``hash_partition_pack``.
+    """
+    import torch
+
+    from ..relational.table import resolve_device
+    from .multiplexer import make_multiplexer
+
+    dev = resolve_device(device)
+    rows = stats.rows if max_rows is None else min(stats.rows, max_rows)
+    step = pipeline_chunks * transport_chunks  # C | rows and t | rows/C
+    rows = max(step, rows - rows % step)
+    width = max(1, stats.row_bytes // 4)
+    mux = make_multiplexer(
+        mesh, impl=impl, pack_impl=pack_impl,
+        pipeline_chunks=pipeline_chunks, transport_chunks=transport_chunks,
+    )
+    S = mesh.num_units
+    keys = torch.randint(
+        0, 1 << 30, (S, rows), dtype=torch.int32, device=dev,
+        generator=torch.Generator(dev).manual_seed(0),
+    )
+    data = torch.randint(
+        0, 1 << 20, (S, rows, width), dtype=torch.int32, device=dev,
+        generator=torch.Generator(dev).manual_seed(1),
+    )
+
+    def body(k, r):
+        out_rows, out_valid, dropped = mux.hash_shuffle(k, r, axis, capacity=rows)
+        return out_rows.sum() + out_valid.sum() + dropped.sum()
+
+    return _best_wall(body, keys, data, iters=iters)
+
+
+def calibrate_chip(
+    mesh,
+    axis: str,
+    chip: ChipSpec = V5E,
+    message_rows: Sequence[int] = (1024, 65536),
+    row_bytes: int = 16,
+    device="cuda",
+) -> ChipSpec:
+    """Fit the cost model's constants to the fabric actually running.
+
+    The model is two affine laws: shuffle wall = launches + bytes/link_bw,
+    pack wall = dispatch + touched/hbm_bw.  Each is timed at the smallest
+    and the largest of ``message_rows`` and the 2x2 system solved, which
+    gives the effective link bandwidth and launch latency of the scheduled
+    all-to-all on ``mesh``'s ``axis`` and the HBM bandwidth and dispatch
+    cost of the plain pack, on ``device``.  Returns ``chip`` with those
+    four fields replaced and ``-calibrated`` appended to its name (``chip``
+    itself when the axis has one unit).  The plan-cache key holds the
+    chip's name only, so every fitting of one card shares a key: give each
+    fitting its own cache directory or name.
+    """
+    import torch
+
+    from ..relational.table import resolve_device
+    from . import exchange
+
+    n = mesh.size(axis)
+    if n <= 1:
+        return chip
+    dev = resolve_device(device)
+    load_sum = sum(schedule_ring_loads(make_schedule(n, "shift")))
+    width = max(1, row_bytes // 4)
+    S = mesh.num_units
+
+    # -- link law: scheduled all_to_all wall at two message sizes ----------
+    walls, sizes = [], []
+    for rows in message_rows:
+        x = torch.randint(
+            0, 1 << 20, (S, n, rows, width), dtype=torch.int32, device=dev,
+            generator=torch.Generator(dev).manual_seed(rows),
+        )
+        walls.append(_best_wall(
+            lambda v: exchange.all_to_all(v, mesh, axis, impl="round_robin"), x
+        ))
+        sizes.append(rows * width * 4)
+        del x  # before the next size's tensor is made
+    slope = (walls[-1] - walls[0]) / max(sizes[-1] - sizes[0], 1)
+    slope = max(slope, 1e-15)
+    intercept = max(walls[0] - slope * sizes[0], 1e-9)
+    link_bw = load_sum / slope
+    launch = intercept / (n - 1)
+
+    # -- pack law: pack_by_destination wall at two row counts --------------
+    pk_walls, pk_bytes = [], []
+    for rows in message_rows:
+        dest = torch.randint(
+            0, n, (1, rows), dtype=torch.int32, device=dev,
+            generator=torch.Generator(dev).manual_seed(rows + 1),
+        )
+        data = torch.randint(
+            0, 1 << 20, (1, rows, width), dtype=torch.int32, device=dev,
+            generator=torch.Generator(dev).manual_seed(rows + 2),
+        )
+        pk_walls.append(_best_wall(
+            lambda d, r, rows=rows: exchange.pack_by_destination(
+                d, r, n, rows, impl="torch"
+            ),
+            dest, data,
+        ))
+        # the bytes-touched expression of pack_time(impl="torch")
+        pk_bytes.append(rows * 12 * (n + 1) + 8 * rows + 2 * rows * row_bytes)
+    pk_slope = (pk_walls[-1] - pk_walls[0]) / max(pk_bytes[-1] - pk_bytes[0], 1)
+    pk_slope = max(pk_slope, 1e-15)
+    pk_intercept = max(pk_walls[0] - pk_slope * pk_bytes[0], 1e-9)
+
+    return dataclasses.replace(
+        chip,
+        name=chip.name + "-calibrated",
+        ici_link_bandwidth=link_bw,
+        ici_launch_latency=launch,
+        hbm_bandwidth=1.0 / pk_slope,
+        kernel_launch_latency=pk_intercept,
+    )
 
 
 __all__ = [
     "TableStats",
     "TunedConfig",
-    "ep_capacity",
     "decode_table_stats",
-    "tune_multiplexer",
+    "ep_capacity",
+    "moe_expert_time",
+    "ep_dispatch_makespan",
+    "tune_ep_dispatch",
     "exchange_makespan",
     "pod_strategy_times",
     "candidate_configs",
     "tune_config",
     "tune_shared_config",
+    "tune_multiplexer",
+    "measure_shuffle_config",
+    "calibrate_chip",
 ]

@@ -40,6 +40,7 @@ from . import exchange
 from .exchange import Mesh
 from .hybrid import HybridPlan, plan_for_mesh
 from .schedule import make_schedule, verify_schedule
+from .topology import ChipSpec, V5E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,14 +256,23 @@ def make_multiplexer(
     cross_pod: str = "broadcast",
     auto: bool = False,
     table_stats=None,
+    chip: ChipSpec = V5E,
+    topology: str = "ring",
+    refine: bool = False,
+    broadcast_stats=None,
 ) -> CommMultiplexer:
     """Build the multiplexer for a mesh; verifies every shuffle-axis
     schedule once (the paper's connection setup before query processing).
 
-    With ``auto=True`` every knob comes from
+    With ``auto=True`` every knob, and on a two-level mesh the
+    ``cross_pod`` build-side strategy, comes from
     :func:`repro_torch.core.autotune.tune_multiplexer` for ``table_stats``
     (one :class:`~repro_torch.core.autotune.TableStats` per exchange the
     multiplexer will carry) instead of from the arguments.
+    ``broadcast_stats`` describes a broadcast-style join's build side, so
+    the tuner can price cross-pod broadcast against reshard; ``chip`` and
+    ``topology`` select the hardware model, and ``refine=True`` also times
+    the best modeled candidates on the card.
     """
     if auto:
         from .autotune import tune_multiplexer
@@ -272,11 +282,16 @@ def make_multiplexer(
                 "make_multiplexer(auto=True) needs table_stats: the "
                 "rows/row_bytes of the exchanges this multiplexer will carry"
             )
-        tuned = tune_multiplexer(mesh, table_stats)
+        tuned = tune_multiplexer(
+            mesh, table_stats, chip=chip, topology=topology, refine=refine,
+            broadcast_stats=broadcast_stats,
+        )
         impl = tuned.impl
         pack_impl = tuned.pack_impl
         pipeline_chunks = tuned.pipeline_chunks
         transport_chunks = tuned.transport_chunks
+        if tuned.cross_pod is not None:
+            cross_pod = tuned.cross_pod
     plan = plan_for_mesh(
         mesh.axis_names, mesh.shape,
         exchange="xla" if impl == "xla" else "round_robin",

@@ -229,15 +229,18 @@ def partition_pack_ref(
     ``[S, T]``) for int32 destination ids ``[S, T]``.
 
     Out-of-range ids (the padding value) match no bin: rank 0, uncounted.
+    The one-hot is laid out ``[S, T/block, num_bins, block]`` so the rank
+    scan runs along the last axis: a scan over an outer axis is hundreds of
+    times slower on the card (one lane a bin, walked nearly serially).
     """
     S, T = dest.shape
     assert T % block == 0, (T, block)
-    d = dest.reshape(S, T // block, block)
+    d = dest.reshape(S, T // block, 1, block)
     bins = torch.arange(num_bins, device=dest.device, dtype=dest.dtype)
-    onehot = (d[..., None] == bins).to(torch.int32)
-    csum = onehot.cumsum(2, dtype=torch.int32)
-    local = ((csum - onehot) * onehot).sum(-1, dtype=torch.int32).reshape(S, T)
-    hist = onehot.sum(2, dtype=torch.int32)
+    onehot = (d == bins[:, None]).to(torch.int32)
+    csum = onehot.cumsum(-1, dtype=torch.int32)
+    local = ((csum - onehot) * onehot).sum(2, dtype=torch.int32).reshape(S, T)
+    hist = onehot.sum(-1, dtype=torch.int32)
     return hist, local
 
 

@@ -7,7 +7,8 @@ vector).  Strings are dictionary-encoded to int32, money is int32 cents.
 The executor works on tables with a leading shard dim: every column is
 ``[S, T]`` (shard ``s`` holds ``T`` rows).  :func:`shard_rows` deals a flat
 table's rows round-robin onto shards, the reference's interleaved morsel
-placement.
+placement, or in contiguous chunks (``interleave=False``, the chunked
+placement as dbgen writes it).
 """
 
 from __future__ import annotations
@@ -53,6 +54,38 @@ class Table:
     def with_mask(self, mask: torch.Tensor) -> "Table":
         """Filter: AND the validity mask (no data movement)."""
         return Table(self.columns, self.valid & mask, self.dictionaries)
+
+    def select(self, names: list[str]) -> "Table":
+        """Project: prune columns early (paper §3.2.1, cuts shuffle bytes)."""
+        return Table(
+            {n: self.columns[n] for n in names},
+            self.valid,
+            {n: d for n, d in self.dictionaries.items() if n in names},
+        )
+
+    def encode(self, name: str, value: str) -> int:
+        """Dictionary-encode a string literal for predicates."""
+        return self.dictionaries[name].index(value)
+
+    def rows_as_matrix(self, names: list[str], dtype=torch.float32) -> torch.Tensor:
+        """Pack columns into a ``[..., len(names)]`` matrix for shuffling:
+        the paper's dense tuple serialization (§3.2.1, Fig 8), a
+        schema-ordered fixed-width row image."""
+        return torch.stack([self.columns[n].to(dtype) for n in names], dim=-1)
+
+    @staticmethod
+    def from_matrix(
+        mat: torch.Tensor, names: list[str], valid: torch.Tensor, dtypes=None
+    ) -> "Table":
+        """Deserialize a shuffled row matrix back into columns; ``dtypes``
+        maps a column name to the dtype it is cast back to."""
+        cols = {}
+        for i, n in enumerate(names):
+            c = mat[..., i]
+            if dtypes and n in dtypes:
+                c = c.to(dtypes[n])
+            cols[n] = c
+        return Table(cols, valid)
 
     def to(self, device) -> "Table":
         return Table(
@@ -108,15 +141,22 @@ def pad_to(table: Table, capacity: int) -> Table:
     return Table(cols, valid, table.dictionaries)
 
 
-def shard_rows(table: Table, num_shards: int) -> Table:
-    """Deal a flat table's rows round-robin (row ``i`` -> shard ``i % S``)
-    into ``[S, capacity / S]`` columns — the reference's interleaved
-    placement followed by its contiguous per-device split."""
+def shard_rows(table: Table, num_shards: int, interleave: bool = True) -> Table:
+    """Split a flat table's rows into ``[S, capacity / S]`` columns.
+
+    ``interleave=True`` deals rows round-robin (row ``i`` -> shard
+    ``i % S``), the skew-decorrelating morsel assignment; ``False`` gives
+    contiguous chunks (the paper's "chunked placement as generated by
+    dbgen").  Either way shard ``s`` holds the reference's ``s``-th
+    contiguous slice of its rearranged flat table.
+    """
     cap = table.capacity
     assert cap % num_shards == 0, f"capacity {cap} % shards {num_shards} != 0"
     per = cap // num_shards
 
     def arrange(c: torch.Tensor) -> torch.Tensor:
+        if not interleave:
+            return c.reshape((num_shards, per) + tuple(c.shape[1:]))
         return c.reshape((per, num_shards) + tuple(c.shape[1:])).transpose(0, 1).contiguous()
 
     cols = {k: arrange(v) for k, v in table.columns.items()}

@@ -285,8 +285,19 @@ def test_tune_multiplexer_matches_reference(jref, pods, batch):
     assert got.modeled_s == pytest.approx(want.modeled_s, rel=1e-12)
     mux = make_multiplexer(exchange.make_mesh(8, pods), auto=True, table_stats=[got_stats])
     assert mux.pack_impl == "cuda" and mux.plan.num_pods == pods
-    with pytest.raises(NotImplementedError, match="refine"):
-        autotune.tune_multiplexer(exchange.make_mesh(8, pods), [got_stats], refine=True)
+    # refine=True times the best modeled candidates on the simulated fabric
+    # (here the CPU); on 2 x 4 it warns and keeps the analytical winner, as
+    # the reference does
+    if pods == 1:
+        refined = autotune.tune_multiplexer(exchange.make_mesh(8), [got_stats], refine=True,
+                                            refine_top_k=2, device="cpu")
+        assert refined.measured_s is not None and refined.measured_s > 0
+        assert refined.modeled_s in [c[4] for c in got.candidates[:2]]
+    else:
+        with pytest.warns(UserWarning, match="two-level"):
+            refined = autotune.tune_multiplexer(exchange.make_mesh(8, 2), [got_stats],
+                                                refine=True, device="cpu")
+        assert refined == got
 
 
 def test_ep_capacity_matches_reference(jref):

@@ -5,6 +5,7 @@
     python3 tools/torch_kernel_probe.py moe-time [--src DIR]
     python3 tools/torch_kernel_probe.py moe-host [--calls 1000]
     python3 tools/torch_kernel_probe.py mma-rate
+    python3 tools/torch_kernel_probe.py pack-law
 
 ``pack-time`` holds the three pack kernels bit for bit against their plain
 versions at ``chip_smoke.py`` phase 3's shapes (S=8 shards x T=750,080
@@ -12,7 +13,8 @@ rows, one shard's lineitem rows at SF 1; P=8, 3 bins, seed 0) and gives
 each three times: CUDA events over 50 back-to-back calls after 5 (as
 ``chip_smoke.py``'s rows), one call's wall (host clock over 1,000 calls,
 then a synchronise) and the device time of its kernel (``torch.profiler``
-over 50 calls), beside the bytes bound.  ``partition_pack`` is also run at
+over 50 calls), beside the bytes bound and the plain version's events
+time.  ``partition_pack`` is also run at
 9, 16, 17, 32, 33 and 65 bins.  As a yardstick, ``Tensor.copy_`` moves the
 same bytes (the card's practical rate).  Last, one whole ``ops.partition_ranks``
 and ``ops.hash_partition_ranks`` call is profiled: the device time of each
@@ -38,6 +40,16 @@ decode shape into its parts, each timed with ``time.perf_counter`` over
 ``--calls`` calls (a synchronise after the loop): the checks, one
 ``torch.empty``, the stream handle, the ``ctypes`` launch and the whole
 call, on int64 (the router's) and int32 ids.
+
+``pack-law`` takes apart the plain pack that ``calibrate_chip``'s pack law
+times: one ``pack_by_destination(impl="torch")`` call on one shard (8
+destinations, rows of 16 B, seeded) at ``chip_smoke.py`` phase 4d's 1,024
+and 2**21 rows and at 65,536 between, by CUDA events over 5 calls after 2
+and by device time a kernel (``torch.profiler``, one call); then the rank
+scan alone in two layouts: ``cumsum`` over the row axis of a
+``[1, 1, rows, 9]`` int32 one-hot, and the same one-hot scanned along its
+last axis (laid out ``[1, 1, 9, rows]``, as ``partition_pack_ref`` lays
+it).
 
 Each needs a CUDA card and prints the card's name and power limit first.
 """
@@ -243,11 +255,13 @@ def pack_time() -> None:
         ms = _events_ms(kern, 50, warmup=5)
         wall = _wall_ms(kern)
         dev_ms, names = _device_ms(kern)
+        plain_ms = _events_ms(plain, 50, warmup=5)
         bound = nbytes / hbm * 1e3
         print(f"[pack-time] {name} S={S} T={T} {label}: bit-exact; events {ms:.4f} ms a call "
               f"(50 back to back), wall {wall:.4f} ms (1000 calls), device {dev_ms:.4f} ms "
               f"(profiler, 50 calls; {names}); bound {bound:.4f} ms ({nbytes} B): "
-              f"{100 * bound / dev_ms:.1f}% by device time, {100 * bound / ms:.1f}% by events")
+              f"{100 * bound / dev_ms:.1f}% by device time, {100 * bound / ms:.1f}% by events; "
+              f"plain version {plain_ms:.4f} ms (events, 50 after 5)")
     # the yardstick: what the card takes to copy the same bytes (one [S, T]
     # and one [S, 2 T] int32 tensor: partition_pack's and hash_partition_pack's
     # reads and writes without their histograms)
@@ -276,6 +290,48 @@ def pack_time() -> None:
         for e in rows:
             print(f"[pack-time]   {e.self_device_time_total / 20 / 1e3:.4f} ms x{e.count // 20} "
                   f"{e.key[:100]}")
+
+
+def pack_law() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import exchange
+
+    n, width = 8, 4
+    for rows in (1024, 65536, 2**21):
+        gen = torch.Generator("cuda").manual_seed(rows)
+        dest = torch.randint(0, n, (1, rows), dtype=torch.int32, device="cuda", generator=gen)
+        data = torch.randint(0, 1 << 20, (1, rows, width), dtype=torch.int32, device="cuda",
+                             generator=gen)
+
+        def pack():
+            return exchange.pack_by_destination(dest, data, n, rows, impl="torch")
+
+        ms = _events_ms(pack, 5, warmup=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pack()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                      key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in kern) / 1e3
+        print(f"[pack-law] pack_by_destination(impl='torch') S=1 rows={rows} n={n} "
+              f"width={width}: events {ms:.4f} ms a call (5 after 2); device {total:.4f} ms "
+              f"in {sum(e.count for e in kern)} kernels (profiler, one call):")
+        for e in kern[:6]:
+            print(f"[pack-law]   {e.self_device_time_total / 1e3:.4f} ms x{e.count} "
+                  f"{e.key[:100]}")
+        onehot = (dest.reshape(1, 1, rows)[..., None] == torch.arange(
+            n + 1, device="cuda", dtype=torch.int32)).to(torch.int32)
+        lanes = onehot.transpose(2, 3).contiguous()
+        row_scan = _events_ms(lambda: onehot.cumsum(2, dtype=torch.int32), 5, warmup=2)
+        lane_scan = _events_ms(lambda: lanes.cumsum(3, dtype=torch.int32), 5, warmup=2)
+        if not torch.equal(onehot.cumsum(2, dtype=torch.int32).transpose(2, 3),
+                           lanes.cumsum(3, dtype=torch.int32)):
+            raise AssertionError("the two scans disagree")
+        print(f"[pack-law] rows={rows}: cumsum over the row axis of the [1, 1, {rows}, {n + 1}] "
+              f"one-hot {row_scan:.4f} ms; the same scan along the last axis of "
+              f"[1, 1, {n + 1}, {rows}] {lane_scan:.4f} ms (events, 5 after 2; equal)")
 
 
 def moe_host(calls: int) -> None:
@@ -326,7 +382,7 @@ def moe_host(calls: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("pack-time", "moe-time", "moe-host", "mma-rate"))
+    ap.add_argument("what", choices=("pack-time", "moe-time", "moe-host", "mma-rate", "pack-law"))
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--src", type=Path,
                     help="pack-time, moe-time: another checkout's src directory")
@@ -345,6 +401,8 @@ def main() -> int:
         moe_time()
     elif args.what == "mma-rate":
         mma_rate()
+    elif args.what == "pack-law":
+        pack_law()
     else:
         moe_host(args.calls)
     return 0
