@@ -119,6 +119,23 @@ Phases, in order; any failure raises and the process exits non-zero:
    ``measure_shuffle_config`` at its own stats and knobs beside its
    ``exchange_makespan`` under both specs are printed; then ``tune_ep_dispatch`` for OLMoE-1B-7B at batch 64 on 8
    units, flat and on 2 pods, under both specs;
+4e. the process fabric — on phase 4's SF 1 tables, Q3 and Q17 on 2 x 4 in
+   this process, then ``tests/_torch_multiproc_driver.py``'s ten scenarios
+   in 2 worker processes x 4 units (one pod each) on this one card, launched
+   by ``repro_torch.launch.cluster`` over Gloo (every pod-hop message staged
+   through pinned host memory): TPC-H Q3 and Q17, salted Q17 (zipf 1.2) and
+   Q17 streamed in morsels of 2**20 rows at ``--sf``, the other seven at the
+   reference's sizes.  Every scenario must pass in each process and the
+   processes agree bit for bit; Q3's order keys, every Q3 and Q17 edge's
+   histogram, the drops (0) and ``explain()`` must equal this process's 2 x
+   4 run, the answers the oracle's; salted overload below the unsalted; the
+   stream equal to the in-memory run, spill refused.  Each worker asserts
+   its pack launches against its plans and each must have launched
+   ``hash_partition_pack``, ``partition_pack`` and ``moe_dispatch``.  The
+   coarse hop alone of each Q3 and Q17 edge is timed in each process and
+   printed beside ``exchange_makespan``'s DCI term under ``V5E`` and the
+   fitted spec (whose DCI fields are ``V5E``'s) and the fitted in-card link
+   law on the same messages;
 5. serving — OLMoE-1B-7B at full width (random weights from ``--seed``, f32
    master params, bf16 compute), expert-parallel over 8 simulated units
    flat and over 2 pods x 4.  A uniform workload (64 requests x 256 prompt
@@ -263,6 +280,15 @@ CAL_ROW_BYTES = 16
 CAL_TOP_K = 3
 CAL_ACCURACY_BAR = 2.0
 CAL_PROBE_ROWS = 65536
+# the process fabric: two worker processes of 4 units on the one card, one
+# pod each; their scenarios and the launcher's deadline
+CLUSTER_PROCESSES, CLUSTER_UNITS = 2, 4
+CLUSTER_SCENARIOS = (
+    "hierarchical_psum", "exchange_over_dci_raises", "two_level_shuffle", "production_mesh",
+    "tuner_dci_aware", "tpch_pod_mesh", "ep_dispatch_two_level", "salted_pod_shuffle",
+    "oocore_pod_stream", "trace_merge",
+)
+CLUSTER_TIMEOUT_S = 400
 
 
 def _nvidia_smi() -> str:
@@ -1591,7 +1617,148 @@ def phase_calibration(tabs: dict, wants: dict, seed: int, smi: str, v5e: dict) -
     print(f"[calib] phase 4d in {time.perf_counter() - t_phase:.1f} s; peak "
           f"torch.cuda.max_memory_allocated {peak} B ({smi})")
     print(f"[calib] launches over the main path: {main_path}")
-    return main_path
+    return main_path, cal
+
+
+def _cluster_integers(r: dict) -> dict:
+    """What every process of a cluster run must agree on, bit for bit."""
+    tp = r["tpch_pod_mesh"]
+    return {
+        "two_level_shuffle": r["two_level_shuffle"],
+        "hierarchical_psum": r["hierarchical_psum"],
+        "q3_orderkeys": tp["q3"]["orderkeys"],
+        "edges": {q: tp[q]["edges"] for q in ("q3", "q17")},
+        "dropped": [tp[q]["dropped"] for q in ("q3", "q17")],
+        "salted": (r["salted_pod_shuffle"]["edges"], r["salted_pod_shuffle"]["edges_unsalted"]),
+        "oocore_reports": r["oocore_pod_stream"]["reports"],
+        "ep_tokens": r["ep_dispatch_two_level"]["tokens"],
+    }
+
+
+def _hop_ms(st, pods: int, transport: str, chip, network: str = "dci") -> float:
+    """``exchange_makespan``'s coarse hop for one shuffle edge, skew 1: the
+    pod message and the counts over ``pods - 1`` phases of ``network``."""
+    from repro_torch.core.topology import shuffle_time
+
+    pod_msg = -(-st["rows"] // pods) * st["row_bytes"]
+    return 1e3 * (shuffle_time(pods, pod_msg, chip, transport, 1, "switch", network=network)
+                  + shuffle_time(pods, 4, chip, transport, 1, "switch", network=network))
+
+
+def phase_cluster(tabs: dict, wants: dict, sf: float, smi: str, fitted) -> dict:
+    """The pod axis across real processes, on phase 4's SF 1 tables: Q3 and
+    Q17 on 2 x 4 in this process (the integers to hold the cluster to),
+    then ``tests/_torch_multiproc_driver.py``'s ten scenarios in 2 worker
+    processes x 4 units on this one card over Gloo (TPC-H, salting and the
+    stream at ``sf``, morsels of ``OOC_MORSEL``).  Returns every
+    kernel's launches: this process's and each worker's from its start."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.topology import V5E
+    from repro_torch.launch.cluster import run_local_cluster
+    from repro_torch.relational.context import ExecutionContext
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.executor import compile_plan
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t_phase = time.perf_counter()
+    # a. in this process: the integers (and explain) the cluster must give
+    ctx = ExecutionContext(num_shards=N_SHARDS, num_pods=CLUSTER_PROCESSES, device="cuda")
+    local = {}
+    for q in ("q17", "q3"):
+        pq = tpch.ALL_QUERIES[q]()
+        plan = tpch.plan_query(pq, tabs, ctx)
+        run = compile_plan(plan, tabs, ctx)
+        out = run.dispatch()
+        dropped = int(out[1])
+        raw, qt = run.collect(out)
+        got = pq.finalize(raw) if pq.finalize else raw
+        check_answer(q, got, wants[q])
+        local[q] = {"explain": plan.explain(), "dropped": dropped,
+                    "hists": {e.key: [int(h) for h in e.hist] for e in qt.edges},
+                    "orderkeys": [int(k) for k in got["o_orderkey"]] if q == "q3" else None}
+    torch.cuda.synchronize()
+    launches = _counts()
+
+    # b. the cluster: two processes on this card, Gloo over localhost
+    dump = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    t0 = time.perf_counter()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "all", "--sf", str(sf),
+             "--morsel-rows", str(OOC_MORSEL), "--time-hop", "--dump", dump],
+            num_processes=CLUSTER_PROCESSES, local_units=CLUSTER_UNITS,
+            timeout_s=CLUSTER_TIMEOUT_S, echo=False, backend="gloo", device="cuda",
+        )
+        dumps = [json.loads(Path(dump, f"p{p}.json").read_text())
+                 for p in range(CLUSTER_PROCESSES)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        missing = [s for s in CLUSTER_SCENARIOS if f"PASS {s}" not in out]
+        if missing:
+            raise AssertionError(f"cluster process {pid}: no PASS for {missing}\n{out[-4000:]}")
+    res = [d["results"] for d in dumps]
+    for pid, r in enumerate(res[1:], 1):
+        if _cluster_integers(r) != _cluster_integers(res[0]):
+            raise AssertionError(f"cluster: process {pid} disagrees with process 0")
+    tp = res[0]["tpch_pod_mesh"]
+    for q in ("q17", "q3"):
+        for pid, r in enumerate(res):
+            rec = r["tpch_pod_mesh"][q]
+            hists = {k: e["hist"] for k, e in rec["edges"].items()}
+            if (rec["explain"], rec["dropped"], hists) != (
+                    local[q]["explain"], local[q]["dropped"], local[q]["hists"]):
+                raise AssertionError(f"cluster {q} (process {pid}): explain, drops or edge "
+                                     "histograms differ from the in-process 2 x 4 run")
+            if q == "q3":
+                if rec["orderkeys"] != local[q]["orderkeys"]:
+                    raise AssertionError(f"cluster q3 (process {pid}): order keys differ from "
+                                         "the in-process 2 x 4 run")
+                check_answer("q3", {"o_orderkey": rec["orderkeys"], "revenue": rec["revenue"]},
+                             wants["q3"])
+            else:
+                check_answer("q17", rec["answer"], wants["q17"])
+    print(f"[cluster] {CLUSTER_PROCESSES} processes x {CLUSTER_UNITS} units on this card over "
+          f"Gloo: every scenario passed in each ({wall:.1f} s, launcher wall); q3 and q17 at SF "
+          f"{sf} equal the oracle, and their order keys, every edge's histogram "
+          f"({sum(len(v['hists']) for v in local.values())} edges) and drops (0) equal this "
+          f"process's 2 x 4 run; seconds a scenario on process 0: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in dumps[0]["seconds"].items()))
+    sp = res[0]["salted_pod_shuffle"]
+    print(f"[cluster] salted q17 (zipf 1.2): l_partkey edge's overload {sp['overload'][0]:.4f} "
+          f"salted against {sp['overload'][1]:.4f} unsalted; answer {sp['answer']} (oracle-checked in each "
+          f"process); streamed q17: {res[0]['oocore_pod_stream']['morsels']} morsel steps, "
+          f"answer {res[0]['oocore_pod_stream']['answer']} = in-memory "
+          f"{res[0]['oocore_pod_stream']['answer_in_memory']} within rtol 1e-3, spill refused")
+    for pid, d in enumerate(dumps):
+        w = d["launches"]
+        if min(w["hash_partition_pack"], w["partition_pack"], w["moe_dispatch"]) <= 0:
+            raise AssertionError(f"cluster process {pid}: a pack kernel never launched: {w}")
+        for k, v in w.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[cluster] process {pid} launches (each run asserted against its plan): {w}")
+    for q in ("q17", "q3"):
+        for e in tp[q]["coarse_hop"]:
+            walls = [r["tpch_pod_mesh"][q]["coarse_hop"][e["edge"]]["wall_s"] * 1e3 for r in res]
+            models = {f"{c.name} DCI": _hop_ms(e, CLUSTER_PROCESSES, e["transport"], c)
+                      for c in (V5E, fitted)}
+            # the fitted in-card link law (phase 4d) priced on the same messages
+            models[f"{fitted.name} ICI"] = _hop_ms(e, CLUSTER_PROCESSES, e["transport"], fitted,
+                                                   "ici")
+            print(f"[cluster] {q} edge {e['edge']} coarse hop ({e['rows']} rows x "
+                  f"{e['message_bytes'] // e['rows']} B a message, {e['transport']}, staged "
+                  f"through host memory): " + " / ".join(f"{w:.4f}" for w in walls)
+                  + " ms by process; exchange_makespan's hop "
+                  + ", ".join(f"{k} {v:.4f} ms ({max(walls) / v:.1f}x)" for k, v in models.items())
+                  + f" ({smi})")
+    print(f"[cluster] phase 4e in {time.perf_counter() - t_phase:.1f} s; launches over the main "
+          f"path: {launches}")
+    return launches
 
 
 class _Timed:
@@ -2152,7 +2319,10 @@ def main() -> int:
     c_launches, v5e_stream = phase_qserve(tabs, wants, args.seed, smi)
 
     # 4d. calibration (the measured tuner and serving at the card's prices)
-    d_launches = phase_calibration(tabs, wants, args.seed, smi, v5e_stream)
+    d_launches, fitted = phase_calibration(tabs, wants, args.seed, smi, v5e_stream)
+
+    # 4e. the pod axis across two processes (the relational main path's process fabric)
+    e_launches = phase_cluster(tabs, wants, args.sf, smi, fitted)
     del tabs
 
     # 5. serving (the MoE main path)
@@ -2163,8 +2333,8 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
-    paths = (q_launches, o_launches, c_launches, d_launches, s_launches, t_launches,
-             m_launches)
+    paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
+             t_launches, m_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

@@ -5,8 +5,19 @@ Port of ``repro.core.exchange``.  The reference runs a per-device body under
 explicit leading shard dim ``S`` and the collectives are tensor operations
 in one card's memory.  On a two-level mesh ``S = P * n`` in mesh device
 order (pod-major), so ``x.view(P, n, ...)`` gives back the pod and in-pod
-axes.  The fabric moves bytes through the card's memory, not over a
-network: it reproduces the reference's per-device results, not its network.
+axes.  Inside one process the fabric moves bytes through the card's
+memory, not over a network: it reproduces the reference's per-device
+results, not its network.
+
+In a launched cluster (:mod:`repro_torch.launch.cluster`) the pods split
+evenly over the processes and each process holds only its own pods' units
+(the leading-dim slice ``[unit_offset, unit_offset + local_units)`` of
+every sharded tensor, same pod-major order).  The in-pod axis never leaves
+a process; every operation over the pod axis crosses the process boundary
+through ``torch.distributed`` (the process fabric, below): ``psum`` is an
+``all_reduce``, the ``"xla"`` all-to-all an ``all_to_all_single``, each
+phase of a scheduled all-to-all one ``batch_isend_irecv``, the ring
+all-gather a ring of sends and the ``"xla"`` broadcast an ``all_gather``.
 
 =====================================  =======================================
 reference (per device)                 here (all shards at once)
@@ -20,8 +31,7 @@ scheduled transports                   ``n - 1`` phase gathers, following
 ``lax.axis_index``                     ``arange(S)``
 =====================================  =======================================
 
-The scheduled transports keep their phase structure, so a later
-``torch.distributed`` backend can fill each phase with real sends.
+The scheduled transports keep their phase structure in both fabrics.
 
 The partition hot path has two implementations, selected by ``pack_impl``:
 ``"torch"`` (a ``[rows, num_dest + 1]`` one-hot + cumsum, the reference's
@@ -36,12 +46,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Literal
+from typing import Any, Callable, Iterator, Literal
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import fibonacci_hash, partition_pack_ref
+from ..tree import tree_map
 from .schedule import make_schedule
 
 AllToAllImpl = Literal["xla", "round_robin", "one_factorization"]
@@ -53,14 +65,39 @@ POD_AXIS = "pod"  # the network in the large
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The simulated mesh: ``num_pods x n`` units, pod-major."""
+    """The mesh: ``num_pods x n`` units, pod-major.
+
+    ``num_processes > 1``: the pods split evenly over that many processes
+    of ``group``; this process (``process_index``) holds pods
+    ``[process_index * pods_per_process, ...)``, i.e. units
+    ``[unit_offset, unit_offset + local_units)``, and tensors on this mesh
+    have ``local_units`` rows in their leading dim.  ``shape`` and
+    ``size()`` stay global.
+    """
 
     num_pods: int
     n: int
+    num_processes: int = 1
+    process_index: int = 0
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def num_units(self) -> int:
         return self.num_pods * self.n
+
+    @property
+    def pods_per_process(self) -> int:
+        return self.num_pods // self.num_processes
+
+    @property
+    def local_units(self) -> int:
+        """Units (leading-dim rows) this process holds."""
+        return self.pods_per_process * self.n
+
+    @property
+    def unit_offset(self) -> int:
+        """Global index of this process's first unit."""
+        return self.process_index * self.local_units
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -78,28 +115,68 @@ class Mesh:
         raise ValueError(f"unknown mesh axis {axis!r}")
 
 
+def live_processes() -> tuple[int, int, Any]:
+    """``(process count, this process's rank, group)`` of the initialized
+    default ``torch.distributed`` process group, ``(1, 0, None)`` without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank(), dist.group.WORLD
+    return 1, 0, None
+
+
 def make_mesh(num_shards: int, num_pods: int = 1) -> Mesh:
+    """The ``num_pods x (num_shards / num_pods)`` mesh.
+
+    In one process it lives whole in this process.  Inside a launched
+    cluster (an initialized default process group of ``R > 1`` ranks) a
+    two-level mesh spans the processes, ``num_pods / R`` whole pods each;
+    a one-pod mesh has no pod axis to cross and every process holds its
+    own whole copy.
+    """
     if num_shards % num_pods:
         raise ValueError(
             f"num_shards={num_shards} does not split across num_pods={num_pods}"
         )
+    procs, rank, group = live_processes()
+    if procs > 1 and num_pods > 1:
+        if num_pods % procs:
+            raise ValueError(
+                f"num_pods={num_pods} do not split over {procs} processes: "
+                "each process owns whole pods; pick a pod count that the "
+                "process count divides"
+            )
+        return Mesh(num_pods, num_shards // num_pods, procs, rank, group)
     return Mesh(num_pods, num_shards // num_pods)
+
+
+def _spans(mesh: Mesh, axis: str) -> bool:
+    """Does ``axis`` cross the process boundary on this mesh?"""
+    return axis == POD_AXIS and mesh.num_processes > 1
 
 
 def _group(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``[S, ...]`` -> ``[G, A, ...]``: ``A`` units of each axis group."""
-    v = x.reshape((mesh.num_pods, mesh.n) + tuple(x.shape[1:]))
+    assert not _spans(mesh, axis), "the pod axis spans processes here"
+    v = x.reshape((mesh.pods_per_process, mesh.n) + tuple(x.shape[1:]))
     return v if axis == SHUFFLE_AXIS else v.transpose(0, 1)
 
 
 def _ungroup(y: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if axis == POD_AXIS:
         y = y.transpose(0, 1)
-    return y.reshape((mesh.num_units,) + tuple(y.shape[2:]))
+    return y.reshape((mesh.local_units,) + tuple(y.shape[2:]))
+
+
+def axis_index(mesh: Mesh, axis: str, device=None) -> torch.Tensor:
+    """``lax.axis_index``: each local unit's index along ``axis``, ``[S]``."""
+    unit = torch.arange(mesh.local_units, device=device) + mesh.unit_offset
+    return unit % mesh.n if axis == SHUFFLE_AXIS else unit // mesh.n
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Sum over the axis group; every member receives the total."""
+    if _spans(mesh, axis):
+        return _pod_psum(x, mesh)
     g = _group(x, mesh, axis)
     return _ungroup(g.sum(1, keepdim=True, dtype=x.dtype).expand_as(g), mesh, axis)
 
@@ -113,6 +190,8 @@ def xla_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     ``j`` of its axis group; ``y[s, j]`` is the chunk received from ``j``."""
     A = mesh.size(axis)
     assert x.shape[1] == A, f"message dim {x.shape[1]} != axis size {A}"
+    if _spans(mesh, axis):
+        return _pod_all_to_all(x, mesh)
     return _ungroup(_group(x, mesh, axis).transpose(1, 2), mesh, axis)
 
 
@@ -153,6 +232,8 @@ def scheduled_all_to_all(
             f"num_chunks={num_chunks} must divide message dim "
             f"{x.shape[2] if x.ndim >= 3 else None}"
         )
+    if _spans(mesh, axis):
+        return _pod_scheduled_all_to_all(x, mesh, schedule, num_chunks)
     g = _group(x, mesh, axis)  # [G, A (sender), A (receiver), ...]
     y = torch.empty(g.shape, dtype=g.dtype, device=g.device)
     dev = torch.arange(A, device=x.device)
@@ -186,6 +267,43 @@ def all_to_all(
     raise ValueError(f"unknown all_to_all impl {impl!r}")
 
 
+def scheduled_all_to_all_consume(
+    x: torch.Tensor,
+    mesh: Mesh,
+    axis: str,
+    consume: Callable[[Any, torch.Tensor, torch.Tensor], Any],
+    init: Any,
+    schedule: str = "shift",
+) -> Any:
+    """Streaming shuffle: fold each message as it arrives (paper §3.2 steps
+    5-7).
+
+    ``consume(acc, chunk, src) -> acc`` is applied to every unit's own
+    chunk first (``chunk [S, ...]`` = ``x[s, me]``, ``src [S]`` = each
+    unit's own axis index), then to the chunk each unit receives in each
+    phase of the schedule, with ``src`` the sender's axis index.  The
+    receive buffer is one chunk deep: the ``[S, A, ...]`` result of
+    :func:`scheduled_all_to_all` never materializes.
+    """
+    A = mesh.size(axis)
+    assert x.shape[1] == A, f"message dim {x.shape[1]} != axis size {A}"
+    me = axis_index(mesh, axis, x.device)
+    unit = torch.arange(x.shape[0], device=x.device)
+    acc = consume(init, x[unit, me], me)
+    if A == 1:
+        return acc
+    if _spans(mesh, axis):
+        for got, src in _pod_phases(x, mesh, schedule):
+            acc = consume(acc, got, src)
+        return acc
+    g = _group(x, mesh, axis)  # [G, A (sender), A (receiver), ...]
+    dev = torch.arange(A, device=x.device)
+    for src in _source_index(A, schedule, x.device):
+        got = _ungroup(g[:, src, dev], mesh, axis)
+        acc = consume(acc, got, _ungroup(src.expand(g.shape[0], A), mesh, axis))
+    return acc
+
+
 # ----------------------------------------------------------------------------
 # Broadcast exchange (paper §3.1: broadcast joins).
 # ----------------------------------------------------------------------------
@@ -194,6 +312,8 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Every unit ends with all ``A`` chunks of its axis group, over ``A - 1``
     single-shift ring phases: ``[S, ...]`` -> ``[S, A, ...]``, where
     ``y[s, j]`` is unit ``j``'s chunk."""
+    if _spans(mesh, axis):
+        return _pod_ring_all_gather(x, mesh)
     A = mesh.size(axis)
     g = _group(x, mesh, axis)  # [G, A, ...]
     y = g.new_zeros((g.shape[0], A, A) + tuple(g.shape[2:]))
@@ -212,10 +332,259 @@ def broadcast_exchange(
     if impl == "ring":
         return ring_all_gather(x, mesh, axis)
     if impl == "xla":
+        if _spans(mesh, axis):
+            return _pod_all_gather(x, mesh)
         g = _group(x, mesh, axis)
         A = mesh.size(axis)
         return _ungroup(g[:, None].expand((g.shape[0], A) + tuple(g.shape[1:])), mesh, axis)
     raise ValueError(f"unknown broadcast impl {impl!r}")
+
+
+# ----------------------------------------------------------------------------
+# Hierarchical collectives (hybrid parallelism for gradient sync).
+# ----------------------------------------------------------------------------
+
+def hierarchical_psum(
+    x: torch.Tensor, mesh: Mesh, inner_axis: str, outer_axis: str
+) -> torch.Tensor:
+    """Two-level all-reduce of ``x [S, L, ...]``: RS(inner) -> AR(outer) ->
+    AG(inner).
+
+    The bandwidth-hungry reduce-scatter and all-gather stay on the inner
+    (fast) network; only each unit's reduced ``1 / inner_size`` block
+    crosses the outer one.  ``L`` must be divisible by the inner axis size
+    (:func:`hierarchical_psum_tree` pads arbitrary tensors), and the inner
+    axis must not span processes: a pod lives in one process, so the
+    reduce-scatter is a sum in its memory and the pod hop carries the
+    reduced blocks.
+    """
+    A = mesh.size(inner_axis)
+    L = x.shape[1]
+    assert L % A == 0, f"dim 1 ({L}) must be divisible by the {inner_axis} size {A}"
+    g = _group(x, mesh, inner_axis)  # [G, A, L, ...]
+    blocks = g.reshape(g.shape[:2] + (A, L // A) + tuple(g.shape[3:]))
+    rs = _ungroup(blocks.sum(1, dtype=x.dtype), mesh, inner_axis)  # unit j: block j
+    shard = psum(rs, mesh, outer_axis)
+    return broadcast_exchange(shard, mesh, inner_axis, impl="xla").reshape(x.shape)
+
+
+def hierarchical_psum_tree(tree: Any, mesh: Mesh, inner_axis: str, outer_axis: str) -> Any:
+    """Hierarchical all-reduce of a tree of ``[S, ...]`` tensors
+    (flatten, pad to the inner axis size, reduce, cut, reshape)."""
+    A = mesh.size(inner_axis)
+
+    def one(leaf: torch.Tensor) -> torch.Tensor:
+        flat = leaf.reshape(leaf.shape[0], -1)
+        m = flat.shape[1]
+        pad = (-m) % A
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((flat.shape[0], pad))], dim=1)
+        return hierarchical_psum(flat, mesh, inner_axis, outer_axis)[:, :m].reshape(leaf.shape)
+
+    return tree_map(one, tree)
+
+
+def flat_psum_tree(tree: Any, mesh: Mesh, axis_names: tuple[str, ...]) -> Any:
+    """Baseline: one flat all-reduce over all of ``axis_names``."""
+    return tree_map(
+        lambda g: functools.reduce(lambda acc, ax: psum(acc, mesh, ax), axis_names, g),
+        tree,
+    )
+
+
+# ----------------------------------------------------------------------------
+# The process fabric: the pod axis across processes.
+# ----------------------------------------------------------------------------
+#
+# A process holds ``Lp = pods_per_process`` whole pods; ``v = x.view(Lp, n,
+# ...)``.  Messages go on the wire as raw bytes (any dtype, bool included),
+# sums in their own dtype.  Gloo carries host memory: under it a CUDA
+# tensor's message is staged through a pinned host buffer and copied back
+# to the card on arrival, which is what a TCP network costs.  NCCL sends
+# from and into the card's memory.
+
+def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(mesh.group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, flat and contiguous, where the backend reads them."""
+    b = t.contiguous().reshape(-1).view(torch.uint8)
+    return _host(b) if _staged(mesh, t) else b
+
+
+def _wire_empty(mesh: Mesh, like: torch.Tensor, copies: int = 1) -> torch.Tensor:
+    nbytes = like.numel() * like.element_size()
+    if _staged(mesh, like):
+        return torch.empty((copies, nbytes), dtype=torch.uint8, pin_memory=True)
+    return torch.empty((copies, nbytes), dtype=torch.uint8, device=like.device)
+
+
+def _unwire(b: torch.Tensor, like: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
+    """Bytes back into ``like``'s dtype, shape (after ``lead``) and device."""
+    return b.to(like.device).view(like.dtype).reshape(lead + tuple(like.shape))
+
+
+def _peer(mesh: Mesh, process: int) -> int:
+    return dist.get_global_rank(mesh.group, process)
+
+
+def _all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    w = _host(t) if _staged(mesh, t) else t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(w, op=op, group=mesh.group)
+    return w.to(t.device)
+
+
+def _all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``[R, *t.shape]``: every process's ``t``, in process order."""
+    out = _wire_empty(mesh, t, mesh.num_processes)
+    dist.all_gather(list(out), _wire(mesh, t), group=mesh.group)
+    return _unwire(out, t, (mesh.num_processes,))
+
+
+def _all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t [R, ...]``: row ``r`` goes to process ``r``; row ``r`` of the
+    result came from process ``r``."""
+    out = _wire_empty(mesh, t)[0]
+    dist.all_to_all_single(out, _wire(mesh, t), group=mesh.group)
+    return _unwire(out, t)
+
+
+def _p2p(mesh: Mesh, sends: list, recvs: list) -> None:
+    """One ``batch_isend_irecv``: ``sends`` are ``(process, tag, tensor)``,
+    ``recvs`` ``(process, tag, destination view)``; each received message
+    is copied into its view."""
+    ops, bufs = [], []
+    for proc, tag, t in sends:
+        ops.append(dist.P2POp(dist.isend, _wire(mesh, t), _peer(mesh, proc), mesh.group, tag))
+    for proc, tag, dst in recvs:
+        buf = _wire_empty(mesh, dst)[0]
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, _peer(mesh, proc), mesh.group, tag))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for (_proc, _tag, dst), buf in zip(recvs, bufs):
+        dst.copy_(_unwire(buf, dst))
+
+
+def _pod_view(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return x.reshape((mesh.pods_per_process, mesh.n) + tuple(x.shape[1:]))
+
+
+def _pod_psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    v = _pod_view(x, mesh)
+    total = _all_reduce(mesh, v.sum(0, dtype=x.dtype))  # [n, ...]
+    return total.unsqueeze(0).expand_as(v).reshape(x.shape)
+
+
+def _pod_all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The monolithic pod-axis all-to-all: one ``all_to_all_single``."""
+    R, Lp = mesh.num_processes, mesh.pods_per_process
+    rest = tuple(range(4, x.ndim + 2))
+    v = x.reshape((Lp, mesh.n, R, Lp) + tuple(x.shape[2:]))
+    got = _all_to_all(mesh, v.permute((2, 0, 1, 3) + rest))  # [R, Lp src, n, Lp dst]
+    return got.permute((3, 2, 0, 1) + rest).reshape(x.shape)
+
+
+def _pieces(t: torch.Tensor, num_chunks: int) -> list[torch.Tensor]:
+    """A pod message ``[n, m, ...]`` as ``num_chunks`` sub-messages along
+    ``m``."""
+    if num_chunks == 1:
+        return [t]
+    sub = t.shape[1] // num_chunks
+    return [t[:, c * sub:(c + 1) * sub] for c in range(num_chunks)]
+
+
+def _pod_phases(
+    x: torch.Tensor, mesh: Mesh, schedule: str, num_chunks: int = 1
+) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+    """Per phase of ``make_schedule(num_pods, schedule)``, one
+    ``batch_isend_irecv``: yields ``(got [S, ...], src [S])``, the chunk
+    each local unit received from its phase source and that source's pod.
+    A pair inside this process is a copy."""
+    R, Lp, n, P = mesh.num_processes, mesh.pods_per_process, mesh.n, mesh.num_pods
+    me, base = mesh.process_index, mesh.process_index * Lp
+    v = x.reshape((Lp, n, P) + tuple(x.shape[2:]))
+    for phase in make_schedule(P, schedule).phases:
+        target = dict(phase)
+        source = {b: a for a, b in phase}
+        got = v.new_empty((Lp, n) + tuple(x.shape[2:]))
+        sends, recvs = [], []
+        for p in range(Lp):
+            b = target[base + p]
+            if b // Lp != me:
+                sends += [(b // Lp, p * num_chunks + c, piece)
+                          for c, piece in enumerate(_pieces(v[p, :, b], num_chunks))]
+            a = source[base + p]
+            if a // Lp == me:
+                got[p] = v[a - base, :, base + p]
+            else:
+                recvs += [(a // Lp, (a % Lp) * num_chunks + c, piece)
+                          for c, piece in enumerate(_pieces(got[p], num_chunks))]
+        _p2p(mesh, sends, recvs)
+        src = torch.tensor([source[base + p] for p in range(Lp)], device=x.device)
+        yield got.reshape((Lp * n,) + tuple(x.shape[2:])), src.repeat_interleave(n)
+
+
+def _pod_scheduled_all_to_all(
+    x: torch.Tensor, mesh: Mesh, schedule: str, num_chunks: int
+) -> torch.Tensor:
+    y = torch.empty_like(x)
+    unit = torch.arange(x.shape[0], device=x.device)
+    own = axis_index(mesh, POD_AXIS, x.device)
+    y[unit, own] = x[unit, own]  # own chunk stays put
+    for got, src in _pod_phases(x, mesh, schedule, num_chunks):
+        y[unit, src] = got
+    return y
+
+
+def _pod_ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``num_pods - 1`` ring steps; in each, this process's last pod sends
+    its current chunk to the next process's first pod."""
+    R, Lp, P = mesh.num_processes, mesh.pods_per_process, mesh.num_pods
+    me, base = mesh.process_index, mesh.process_index * Lp
+    cur = _pod_view(x, mesh)
+    y = cur.new_empty((Lp, mesh.n, P) + tuple(x.shape[1:]))
+    for p in range(Lp):
+        y[p, :, base + p] = cur[p]
+    for k in range(1, P):
+        first = torch.empty_like(cur[0])
+        _p2p(mesh, [((me + 1) % R, 0, cur[Lp - 1])], [((me - 1) % R, 0, first)])
+        cur = torch.cat([first[None], cur[:-1]])
+        for p in range(Lp):
+            y[p, :, (base + p - k) % P] = cur[p]  # after k hops: pod p - k's chunk
+    return y.reshape((mesh.local_units, P) + tuple(x.shape[1:]))
+
+
+def _pod_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    g = _all_gather(mesh, _pod_view(x, mesh))  # [R, Lp, n, ...]
+    g = g.reshape((mesh.num_pods, mesh.n) + tuple(x.shape[1:])).transpose(0, 1)
+    lp = mesh.pods_per_process
+    return g.unsqueeze(0).expand((lp,) + tuple(g.shape)).reshape(
+        (mesh.local_units, mesh.num_pods) + tuple(x.shape[1:])
+    )
+
+
+def gather_units(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every unit's row of ``x [local_units, ...]``, ``[num_units, ...]`` in
+    global unit order, on every process."""
+    if mesh.num_processes == 1:
+        return x
+    return _all_gather(mesh, x).reshape((mesh.num_units,) + tuple(x.shape[1:]))
+
+
+def unit_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x [local_units, ...]`` over ALL units, on every
+    process: the same additions in the same order as one process holding
+    the whole mesh."""
+    return gather_units(x, mesh).sum(0, dtype=x.dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -584,13 +953,21 @@ __all__ = [
     "SHUFFLE_AXIS",
     "POD_AXIS",
     "Mesh",
+    "live_processes",
     "make_mesh",
+    "axis_index",
     "psum",
     "xla_all_to_all",
     "scheduled_all_to_all",
+    "scheduled_all_to_all_consume",
     "all_to_all",
     "ring_all_gather",
     "broadcast_exchange",
+    "hierarchical_psum",
+    "hierarchical_psum_tree",
+    "flat_psum_tree",
+    "gather_units",
+    "unit_sum",
     "fibonacci_hash",
     "pack_by_destination",
     "hash_shuffle",

@@ -21,8 +21,11 @@ carry the MoE layer's token routing over the same fabric,
 :meth:`CommMultiplexer.hash_shuffle_spill` is the capacity-bounded exchange
 of out-of-core streaming, and :func:`use_multiplexer` makes a multiplexer
 ambient for code that cannot take one as an argument (the MoE layer inside
-a model step).  Left for later slices: the streaming consume and gradient
-sync.
+a model step).  :meth:`CommMultiplexer.shuffle_consume` folds a shuffle's
+messages as they arrive and :meth:`CommMultiplexer.psum_tree` syncs
+gradients, hierarchically on a two-level mesh.  On a mesh that spans
+processes every pod-axis hop goes through ``torch.distributed`` (see
+:mod:`repro_torch.core.exchange`).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import contextvars
 import dataclasses
 import math
 import warnings
-from typing import Iterator, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
@@ -111,6 +114,30 @@ class CommMultiplexer:
         """The return trip of :meth:`dispatch` (fine in-pod hop first, then
         one coarse message per peer pod); same contract."""
         return self._route(exchange.combine_two_level, x, axis_name)
+
+    def shuffle_consume(
+        self,
+        x: torch.Tensor,
+        axis_name: str,
+        consume: Callable[[Any, torch.Tensor, torch.Tensor], Any],
+        init: Any,
+    ) -> Any:
+        """Streaming shuffle: fold each message into ``consume(acc, chunk
+        [S, ...], src [S])`` as its phase delivers it (see
+        :func:`~repro_torch.core.exchange.scheduled_all_to_all_consume`);
+        the ``"xla"`` transport has no phases, so it ships everything and
+        then folds the chunks of sources ``0 .. A - 1`` in order."""
+        self.plan.validate_axis_for_alltoall(axis_name)
+        if self.impl == "xla":
+            y = exchange.xla_all_to_all(x, self.mesh, axis_name)
+            acc = init
+            for j in range(x.shape[1]):
+                acc = consume(acc, y[:, j], torch.full((x.shape[0],), j, device=x.device))
+            return acc
+        sched = "shift" if self.impl == "round_robin" else self.impl
+        return exchange.scheduled_all_to_all_consume(
+            x, self.mesh, axis_name, consume, init, schedule=sched
+        )
 
     def _resolve_chunks(self, rows: int, capacity: int) -> tuple[int, int]:
         """Chunk knobs that actually divide this shuffle's shapes, warning
@@ -218,6 +245,20 @@ class CommMultiplexer:
             return y
         impl = "xla" if self.impl == "xla" else "ring"
         return exchange.broadcast_exchange(y, self.mesh, pod, impl=impl)
+
+    # -- gradient sync (hybrid two-level vs flat) ---------------------------
+
+    def psum_tree(self, tree: Any, data_axes: tuple[str, ...]) -> Any:
+        """All-reduce a tree of ``[S, ...]`` gradients over the
+        data-parallel axes: hierarchical (reduce-scatter in-pod, all-reduce
+        across pods, all-gather in-pod) when the plan has a large-network
+        axis among them, flat otherwise."""
+        if self.plan.grad_sync == "hierarchical" and len(data_axes) >= 2:
+            outer = [a for a in data_axes if a in self.plan.large_axes]
+            inner = [a for a in data_axes if a not in self.plan.large_axes]
+            if outer and inner:
+                return exchange.hierarchical_psum_tree(tree, self.mesh, inner[0], outer[0])
+        return exchange.flat_psum_tree(tree, self.mesh, data_axes)
 
 
 # one_factorization->shift downgrade warnings already issued, keyed by the
@@ -347,10 +388,47 @@ def current_multiplexer() -> CommMultiplexer | None:
     return _ACTIVE_MUX.get()
 
 
+def donate_buffers(fn: Callable, argnums: tuple[int, ...]) -> Callable:
+    """Message-pool discipline: reuse communication buffers across calls.
+
+    The paper registers RDMA memory regions once and recycles them through
+    a pool; the reference's analogue is XLA buffer donation.  PyTorch has
+    no donation (a tensor lives while anything refers to it), so here the
+    donation is explicit: each tensor result of ``fn`` is written into the
+    storage of the first donated argument (in ``argnums`` order) with the
+    same shape, dtype and device, and that argument is returned in its
+    place.  Steady-state calls thus carry their results in the caller's
+    buffers, and ``fn``'s transient outputs go back to the caching
+    allocator's pool, which plays the registered message pool.  As under
+    JAX, the caller must not read a donated argument after the call except
+    through the result.
+    """
+
+    def donated(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        free = [args[i] for i in argnums if isinstance(args[i], torch.Tensor)]
+
+        def land(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            for k, buf in enumerate(free):
+                if (buf.shape, buf.dtype, buf.device) == (t.shape, t.dtype, t.device):
+                    del free[k]
+                    return buf.copy_(t)
+            return t
+
+        if isinstance(out, (tuple, list)):
+            return type(out)(land(t) for t in out)
+        return land(out)
+
+    return donated
+
+
 __all__ = [
     "CommMultiplexer",
     "make_multiplexer",
     "resolve_schedule_impl",
     "use_multiplexer",
     "current_multiplexer",
+    "donate_buffers",
 ]

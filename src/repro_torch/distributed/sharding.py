@@ -2,11 +2,12 @@
 
 The reference's :class:`MeshContext` wraps a JAX device mesh with logical-
 axis sharding rules, and ``shard()`` tags activations for GSPMD.  The port
-runs every parallel unit as a slice of one card's memory, so its context
-wraps the simulated :class:`~repro_torch.core.exchange.Mesh` (``num_pods x
-n`` units, pod-major) and names the exchange axis and the pod axis; the
-sharding rules, ``shard()`` and the context's ``exchange_impl`` (which no
-model code reads) have no counterpart.  The expert-parallel MoE
+runs every parallel unit as a slice of a tensor's leading dim, so its
+context wraps the :class:`~repro_torch.core.exchange.Mesh` (``num_pods x
+n`` units, pod-major, possibly spanning processes) and names the exchange
+axis, the pod axis and the data-parallel axes; the sharding rules,
+``shard()`` and the context's ``exchange_impl`` (which no model code reads)
+have no counterpart.  The expert-parallel MoE
 layer reads the context to lay tokens and experts out over the units.
 """
 
@@ -40,6 +41,12 @@ class MeshContext:
     @property
     def exchange_size(self) -> int:
         return self.mesh.size(SHUFFLE_AXIS)
+
+    @property
+    def data_axes(self) -> tuple[str, ...]:
+        """The axes gradients sync over: the pod axis (when there is one)
+        and the in-pod axis, which stands for the reference's ``data``."""
+        return (POD_AXIS, SHUFFLE_AXIS) if self.pod_axis else (SHUFFLE_AXIS,)
 
 
 _CTX: contextvars.ContextVar[MeshContext | None] = contextvars.ContextVar(

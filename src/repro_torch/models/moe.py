@@ -14,7 +14,10 @@ Two execution paths (``cfg.moe_impl``):
   :class:`~repro_torch.distributed.sharding.MeshContext`.  The reference's
   ``shard_map`` becomes a leading unit dim: tokens ``[T, d]`` are viewed as
   ``[N, T/N, d]`` in unit order (pod-major on a two-level mesh), and expert
-  ``e`` lives on unit ``e // E_loc``.  Every unit's body runs at once.
+  ``e`` lives on unit ``e // E_loc``.  Every unit's body runs at once.  On
+  a mesh that spans processes each process runs its own units' bodies (and
+  experts) and the outputs are gathered, so every process returns all
+  ``T`` tokens.
 """
 
 from __future__ import annotations
@@ -119,8 +122,9 @@ def _dispatch_slots(flat_dest: torch.Tensor, E: int, C: int, pack_impl: str):
 
 def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
                   axis_name: str, pod_axis: str | None = None):
-    """Every unit's body at once: ``x [N, T_loc, d]`` -> ``(y [N, T_loc, d],
-    dropped [N])``.
+    """Every local unit's body at once: ``x [U, T_loc, d]`` -> ``(y [U,
+    T_loc, d], dropped [U])`` for this process's ``U = mesh.local_units``
+    of the ``N`` units.
 
     The ambient multiplexer (the continuous engine's tuned policy), when
     there is one, carries the dispatch and return trips and names the pack;
@@ -132,27 +136,28 @@ def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
     output does not depend on it.
     """
     mux = current_multiplexer()
-    N, T_loc, d = x.shape
+    U, T_loc, d = x.shape
+    N = mesh.num_units
     E, k = cfg.num_experts, cfg.top_k
     E_loc = E // N
     C = ep_capacity(T_loc, k, E, cfg.capacity_factor)
     dt = x.dtype
     impl, pack_impl = _resolve_exchange(cfg, mux)
 
-    w, idx = route(params, cfg, x)  # [N, T_loc, k]
+    w, idx = route(params, cfg, x)  # [U, T_loc, k]
 
     # -- step 2: partition tuples into per-expert messages (the message pool).
-    flat_dest = idx.reshape(N, T_loc * k)
+    flat_dest = idx.reshape(U, T_loc * k)
     flat_rows = x.repeat_interleave(k, dim=1)  # token copy per choice, in order
     slot, kept = _dispatch_slots(flat_dest, E, C, pack_impl)
     # Dropped rows all write zeros to each unit's drop row E * C, so the
     # collision there is deterministic; the drop row is then cut off.
-    unit = torch.arange(N, device=x.device)[:, None]
-    buffers = x.new_zeros((N * (E * C + 1), d))
+    unit = torch.arange(U, device=x.device)[:, None]
+    buffers = x.new_zeros((U * (E * C + 1), d))
     buffers[(unit * (E * C + 1) + slot).reshape(-1)] = torch.where(
         kept[..., None], flat_rows, 0
     ).reshape(-1, d)
-    buffers = buffers.view(N, E * C + 1, d)[:, :-1]
+    buffers = buffers.view(U, E * C + 1, d)[:, :-1]
     dropped = (~kept).sum(1, dtype=torch.int32)
 
     # -- step 3: the multiplexer shuffle to the experts' owner units.
@@ -179,32 +184,33 @@ def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
         )
 
     # Unit n owns experts [n * E_loc, (n + 1) * E_loc): expert order is
-    # already owner-major, so the weights need no layout change.
-    wg, wu, wd = (params[name].to(dt) for name in ("w_gate", "w_up", "w_down"))
+    # already owner-major, so the local units' experts are one slice.
+    mine = slice(mesh.unit_offset * E_loc, (mesh.unit_offset + U) * E_loc)
+    wg, wu, wd = (params[name][mine].to(dt) for name in ("w_gate", "w_up", "w_down"))
 
     chunks = mux.pipeline_chunks if mux is not None else cfg.moe_async_chunks
     if chunks < 1 or C % chunks:
         chunks = 1
     cc = C // chunks
-    send = buffers.reshape(N, N, E_loc, C, d)  # [sender, owner, ...]
+    send = buffers.reshape(U, N, E_loc, C, d)  # [sender, owner, ...]
 
     rets = []
     for c in range(chunks):
-        got = ship_out(send[:, :, :, c * cc:(c + 1) * cc].reshape(N, N, E_loc * cc, d))
+        got = ship_out(send[:, :, :, c * cc:(c + 1) * cc].reshape(U, N, E_loc * cc, d))
         # got[n, j] = unit j's slice for n's local experts.
-        recv = got.reshape(N, N, E_loc, cc, d).transpose(1, 2).reshape(E, N * cc, d)
+        recv = got.reshape(U, N, E_loc, cc, d).transpose(1, 2).reshape(U * E_loc, N * cc, d)
         # -- steps 5-6: the batched expert FFN, each expert on its owner.
-        out = _expert_ffn(wg, wu, wd, recv)  # [E, N * cc, d]
+        out = _expert_ffn(wg, wu, wd, recv)  # [U * E_loc, N * cc, d]
         # -- step 7: the return trip through the same schedule.
-        back = out.reshape(N, E_loc, N, cc, d).transpose(1, 2).reshape(N, N, E_loc * cc, d)
-        rets.append(ship_back(back).reshape(N, N, E_loc, cc, d))
+        back = out.reshape(U, E_loc, N, cc, d).transpose(1, 2).reshape(U, N, E_loc * cc, d)
+        rets.append(ship_back(back).reshape(U, N, E_loc, cc, d))
 
     ret = rets[0] if chunks == 1 else torch.cat(rets, dim=3)
-    ret = torch.cat([ret.reshape(N, E * C, d), x.new_zeros((N, 1, d))], dim=1)  # drop bin reads 0
+    ret = torch.cat([ret.reshape(U, E * C, d), x.new_zeros((U, 1, d))], dim=1)  # drop bin reads 0
 
     # combine: y[t] = sum_k w[t, k] * ret[slot(t, k)]
-    gathered = torch.gather(ret, 1, slot.long()[..., None].expand(N, T_loc * k, d))
-    y = torch.einsum("ntkd,ntk->ntd", gathered.reshape(N, T_loc, k, d), w.to(dt))
+    gathered = torch.gather(ret, 1, slot.long()[..., None].expand(U, T_loc * k, d))
+    y = torch.einsum("ntkd,ntk->ntd", gathered.reshape(U, T_loc, k, d), w.to(dt))
     return y, dropped
 
 
@@ -238,8 +244,10 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     T, d = x.shape
     if N == 1 or T == 0 or T % N != 0 or cfg.num_experts % N != 0:
         return moe_dense(params, cfg, x)
-    y, _ = _ep_moe_local(params, cfg, x.reshape(N, T // N, d), ctx.mesh, axis, pod_axis=pod)
-    return y.reshape(T, d)
+    mesh = ctx.mesh
+    mine = x.reshape(N, T // N, d)[mesh.unit_offset:mesh.unit_offset + mesh.local_units]
+    y, _ = _ep_moe_local(params, cfg, mine, mesh, axis, pod_axis=pod)
+    return exchange.gather_units(y, mesh).reshape(T, d)
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -150,7 +150,8 @@ def write_trace(tracer: Tracer, path: str, process_name: str | None = None) -> s
 
 def write_trace_dir(tracer: Tracer, trace_dir: str, basename: str = "trace") -> str:
     """Per-process trace file: ``<dir>/<basename>-p<pid>.json``.  Every
-    process of a cluster writes its own file (atomic rename), then any one
+    process of a cluster writes its own file (atomic rename), then, after a
+    barrier (:func:`repro_torch.launch.cluster.sync_processes`), any one
     process merges with :func:`merge_trace_dir`."""
     return write_trace(
         tracer, os.path.join(trace_dir, f"{basename}-p{tracer.pid}.json")

@@ -43,7 +43,10 @@ class ExecutionContext:
     """Frozen bundle of everything that parameterizes query execution.
 
     ``stats_profile`` and ``trace`` are payload, not configuration: they
-    are excluded from equality and hash.  In particular a traced and an
+    are excluded from equality and hash.  The process layout is not here
+    either: inside a launched cluster the mesh spans the processes
+    (:func:`repro_torch.core.exchange.make_mesh`), so it never enters a
+    plan-cache key or ``explain()``.  In particular a traced and an
     untraced context compare (and hash) EQUAL, so attaching a tracer can
     never invalidate a plan-cache entry or an executor memo: tracing
     changes what gets written down, never what runs.

@@ -9,6 +9,9 @@ the plan-time tuner unless the context pins them), local operators come from
 ``relational/operators.py``, and the final combine is a sum over the shard
 dim (dense group-bys, scalar aggregates) or a broadcast top-k merge;
 replicated results are read from shard 0, as ``out_specs=P()`` would.
+On a mesh that spans processes each process holds its own pods' shards
+and every combine (histograms, sums, top-k) gathers all units' partials,
+so every process computes the same global value in the same order.
 
 Capacities are the static zero-drop bound; the drop count of every exchange
 is summed and any overflow raises instead of silently losing rows.  Two-level
@@ -29,7 +32,7 @@ import warnings
 
 import torch
 
-from ...core.exchange import SHUFFLE_AXIS, make_mesh
+from ...core.exchange import SHUFFLE_AXIS, Mesh, make_mesh, unit_sum
 from ...core.multiplexer import CommMultiplexer, make_multiplexer
 from ...kernels.ref import fibonacci_hash
 from ...obs.model_check import build_query_trace, edge_models
@@ -41,9 +44,13 @@ from ..table import Table, pad_to, resolve_device, shard_rows
 from .physical import PhysicalPlan, PNode
 
 
-def _prep(table: Table, num_shards: int, device) -> Table:
-    cap = math.ceil(table.capacity / num_shards) * num_shards
-    return shard_rows(pad_to(table.to(device), cap), num_shards)
+def _prep(table: Table, mesh: Mesh, device) -> Table:
+    """Pad and deal a flat table onto the mesh's units: row ``i`` goes to
+    global shard ``i % S``; this process keeps its own units' shards."""
+    S = mesh.num_units
+    cap = math.ceil(table.capacity / S) * S
+    keep = range(mesh.unit_offset, mesh.unit_offset + mesh.local_units)
+    return shard_rows(pad_to(table.to(device), cap), S, keep=keep)
 
 
 def _make_mux(
@@ -116,19 +123,21 @@ def _pair_counts(
 
 
 def _shuffle_histogram(
-    keys: torch.Tensor, valid: torch.Tensor, num_shards: int
+    keys: torch.Tensor, valid: torch.Tensor, mesh: Mesh
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Global per-destination row histogram ``[N]`` of a (routing-key,
     valid) pair under the exchange's routing rule, plus
-    ``max_load / fair_share``."""
-    hist = _pair_counts(keys, valid, num_shards).sum(0, dtype=torch.int32)
+    ``max_load / fair_share``; the same on every process, so every process
+    takes the same salting decision."""
+    num_shards = mesh.num_units
+    hist = unit_sum(_pair_counts(keys, valid, num_shards), mesh)
     total = hist.sum().clamp(min=1).to(torch.float32)
     overload = hist.max().to(torch.float32) * num_shards / total
     return hist, overload
 
 
 def _route_and_report(
-    tbl: Table, node: PNode, num_shards: int
+    tbl: Table, node: PNode, mesh: Mesh
 ) -> tuple[torch.Tensor | None, dict]:
     """Runtime re-optimization of one shuffle edge (paper §3.1).
 
@@ -141,7 +150,7 @@ def _route_and_report(
     """
     info = node.info
     keys = tbl[info["key"]].to(torch.int32)
-    hist_plain, over_plain = _shuffle_histogram(keys, tbl.valid, num_shards)
+    hist_plain, over_plain = _shuffle_histogram(keys, tbl.valid, mesh)
     if not info.get("salted"):
         return None, {
             "hist": hist_plain,
@@ -154,14 +163,14 @@ def _route_and_report(
     heavy = torch.tensor(info["heavy_keys"], dtype=torch.int32, device=dev)
     do_salt = over_plain > info["runtime_threshold"]  # compared in f32
     # Per-row salt from the global row position (uint32 arithmetic).
-    gidx = torch.arange(keys.shape[0], device=dev, dtype=torch.int64)[:, None]
+    gidx = mesh.unit_offset + torch.arange(keys.shape[0], device=dev, dtype=torch.int64)[:, None]
     iota = torch.arange(keys.shape[1], device=dev, dtype=torch.int64)[None, :]
     rsalt = (fibonacci_hash((iota + gidx * 0x9E3779B9) & 0xFFFFFFFF) % s).to(torch.int32)
     salted_keys = keys * s + rsalt
     route = torch.where(
         do_salt & torch.isin(keys, heavy) & tbl.valid, salted_keys, keys
     )
-    hist, overload = _shuffle_histogram(route, tbl.valid, num_shards)
+    hist, overload = _shuffle_histogram(route, tbl.valid, mesh)
     return route, {
         "hist": hist,
         "overload": overload,
@@ -332,9 +341,7 @@ def compile_plan(
         mux = _make_mux(mesh, plan, ctx.impl, ctx.pack_impl, ctx.num_chunks)
     if ctx.trace is not None:
         ctx.trace.add_span(f"mux:{plan.name}", cat="compile", **mux.describe())
-    prepped = {
-        name: _prep(tables[name], plan.num_shards, device) for name in plan.scans
-    }
+    prepped = {name: _prep(tables[name], mesh, device) for name in plan.scans}
     return CompiledRunner(plan, mux, prepped, edge_models(plan))
 
 
@@ -402,9 +409,10 @@ class _InMemoryEval(_NodeEval):
     """The in-memory executor's evaluator: whole tables, every exchange at
     its zero-drop bound, breakers combined over the shard dim."""
 
-    def __init__(self, tabs: dict, mux: CommMultiplexer, num_shards: int, report_keys: dict):
+    def __init__(self, tabs: dict, mux: CommMultiplexer, report_keys: dict):
         super().__init__(tabs)
-        self.mux, self.num_shards, self.report_keys = mux, num_shards, report_keys
+        self.mux, self.mesh, self.report_keys = mux, mux.mesh, report_keys
+        self.num_shards = mux.mesh.num_units
         self.drops: list[torch.Tensor] = []
         self.reports: dict[str, dict] = {}
 
@@ -413,7 +421,7 @@ class _InMemoryEval(_NodeEval):
         if self.num_shards == 1:  # hash % 1 == 0: the exchange is the identity
             return t
         if n.info["exkind"] == "shuffle":
-            route, rep = _route_and_report(t, n, self.num_shards)
+            route, rep = _route_and_report(t, n, self.mesh)
             out, d = _exchange_by_key(
                 self.mux, t, n.info["key"], list(n.schema), route_keys=route,
             )
@@ -447,7 +455,7 @@ class _InMemoryEval(_NodeEval):
                 self.agg_dict(t, n.info["aggs"]),
                 t.valid,
             )
-            return {k: v.sum(0, dtype=v.dtype) for k, v in res.items()}
+            return {k: unit_sum(v, self.mesh) for k, v in res.items()}
         if n.kind == "aggregate":
             t = self(n.children[0])
             out = {}
@@ -457,7 +465,7 @@ class _InMemoryEval(_NodeEval):
                     if kind == "sum"
                     else ops.count_where(t.valid)
                 )
-                out[name] = local.sum(0, dtype=local.dtype)
+                out[name] = unit_sum(local, self.mesh)
             return out
         if n.kind == "topk":
             t = self(n.children[0])
@@ -552,7 +560,7 @@ class CompiledRunner(RunnerBase):
 
     def dispatch(self):
         plan = self.plan
-        ev = _InMemoryEval(self._tables, self.mux, plan.num_shards, self._report_keys)
+        ev = _InMemoryEval(self._tables, self.mux, self._report_keys)
         result = ev(plan.root)
         device = next(iter(self._tables.values())).device
         dropped = torch.stack(ev.drops).sum() if ev.drops else torch.zeros(

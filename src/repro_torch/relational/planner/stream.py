@@ -37,6 +37,11 @@ counts) rather than by the whole slice.  Drop counts and per-edge arrival
 histograms stay on the card and are read once, at the end of the run; the
 spilled rows and those per-pair maxima are the only other reads.
 
+On a mesh that spans processes each process streams every morsel and
+keeps its own units' slice; the arrival reports, the resident exchanges'
+message capacities and the final combine are global, so every process
+sizes its pod-hop messages alike and returns the same answer.
+
 Not supported streamed (raises ``NotImplementedError``): salted plans
 (``groupby_combine``), joins whose BUILD side streams, and non-group-by
 breaker outputs consumed by later passes.
@@ -50,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from ...core.exchange import SHUFFLE_AXIS, make_mesh
+from ...core.exchange import SHUFFLE_AXIS, gather_units, make_mesh, unit_sum
 from ...data.pipeline import Prefetcher
 from ...obs.model_check import build_query_trace, edge_models
 from ...obs.trace import deposit, maybe_span
@@ -319,7 +324,7 @@ def compile_plan_streamed(
         for _p, sbs, rbs, _x, dbs in pass_plan
     ]
 
-    # ---- breaker states ([num_shards, ...], on the card) -----------------
+    # ---- breaker states ([local units, ...], on the card) ----------------
     def _group_cap(n: PNode) -> int:
         if ctx.group_state_rows is not None:
             return int(ctx.group_state_rows)
@@ -340,7 +345,7 @@ def compile_plan_streamed(
         return torch.zeros(shape, dtype=dtype, device=device)
 
     def _init_state(n: PNode):
-        N = num_shards
+        N = mesh.local_units
         if n.kind == "aggregate":
             return {
                 name: _zeros((N,), torch.float32 if kind == "sum" else torch.int32)
@@ -380,7 +385,7 @@ def compile_plan_streamed(
 
     resident_names = [n for n in plan.scans if n != streamed_name]
     resident = {
-        name: _prep(srcs[name].materialize(), num_shards, device)
+        name: _prep(srcs[name].materialize(), mesh, device)
         for name in resident_names
     }
     states = {_bname(b): _init_state(b) for b in sp.breakers}
@@ -402,10 +407,13 @@ def compile_plan_streamed(
         rows = torch.stack([t[c].to(torch.int32) for c in columns], dim=2)
         keys = t[n.info["key"]].to(torch.int32)
         pairs = _pair_counts(keys, t.valid, num_shards)
-        reports[report_keys[id(n)]] = pairs.sum(0, dtype=torch.int32)
+        reports[report_keys[id(n)]] = unit_sum(pairs, mesh)
         if not bounded:
+            # the global maximum: every process must size its pod-hop
+            # messages alike
             q = mux.pipeline_chunks * mux.transport_chunks  # chunks divide it
-            msg_cap = -(-max(int(pairs.max()), 1) // q) * q
+            most = int(gather_units(pairs.amax(1), mesh).max())
+            msg_cap = -(-max(most, 1) // q) * q
         elif ctx.exchange_rows is not None:
             msg_cap = min(cap, int(ctx.exchange_rows))
         else:
@@ -611,7 +619,7 @@ def compile_plan_streamed(
                 {c: take[:, i].contiguous() for i, c in enumerate(schema)},
                 torch.ones(len(take), dtype=torch.bool),
             )
-            dt = _prep(pad_to(dt, morsel_cap), num_shards, device)
+            dt = _prep(pad_to(dt, morsel_cap), mesh, device)
             # drain-step reports are re-offers of already-counted rows, so
             # they stay out of the per-edge arrival histograms
             with maybe_span(tracer, f"drain-round:{rounds}", "stream",
@@ -629,7 +637,8 @@ def compile_plan_streamed(
     # ---- finalize ----------------------------------------------------------
     def _finalize_root(st):
         root = plan.root
-        s = tree_map(lambda x: x.cpu().numpy(), st[_bname(root)])
+        # every unit's state, in global unit order, on every process
+        s = tree_map(lambda x: gather_units(x, mesh).cpu().numpy(), st[_bname(root)])
         if root.kind in ("aggregate", "groupby_dense"):
             return {
                 name: s[name].sum(axis=0) for name, _e, _k in root.info["aggs"]
@@ -647,7 +656,7 @@ def compile_plan_streamed(
         for b in sp.breakers:
             if b.kind != "groupby_sorted":
                 continue
-            over = int(st[_bname(b)]["overflow"].sum())
+            over = int(unit_sum(st[_bname(b)]["overflow"], mesh))
             if over:
                 raise RuntimeError(
                     f"{plan.name}: group state overflowed by {over} groups on "
@@ -740,7 +749,7 @@ def compile_plan_streamed(
         """One pass's morsel loop, then its drain rounds."""
         pending = torch.zeros((0, 0), dtype=torch.int32)
         it = Prefetcher(
-            (_prep(chunk, num_shards, chunk.device) for chunk in src.chunks()),
+            (_prep(chunk, mesh, chunk.device) for chunk in src.chunks()),
             depth=ctx.prefetch_depth, device=device,
         )
         t0 = time.perf_counter()

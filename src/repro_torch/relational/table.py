@@ -141,23 +141,30 @@ def pad_to(table: Table, capacity: int) -> Table:
     return Table(cols, valid, table.dictionaries)
 
 
-def shard_rows(table: Table, num_shards: int, interleave: bool = True) -> Table:
+def shard_rows(
+    table: Table, num_shards: int, interleave: bool = True, keep: range | None = None
+) -> Table:
     """Split a flat table's rows into ``[S, capacity / S]`` columns.
 
     ``interleave=True`` deals rows round-robin (row ``i`` -> shard
     ``i % S``), the skew-decorrelating morsel assignment; ``False`` gives
     contiguous chunks (the paper's "chunked placement as generated by
     dbgen").  Either way shard ``s`` holds the reference's ``s``-th
-    contiguous slice of its rearranged flat table.
+    contiguous slice of its rearranged flat table.  ``keep`` returns only
+    those shards (a process of a multi-process mesh keeps its own units'),
+    with the placement unchanged.
     """
     cap = table.capacity
     assert cap % num_shards == 0, f"capacity {cap} % shards {num_shards} != 0"
     per = cap // num_shards
+    keep = range(num_shards) if keep is None else keep
+    sl = slice(keep.start, keep.stop)
 
     def arrange(c: torch.Tensor) -> torch.Tensor:
         if not interleave:
-            return c.reshape((num_shards, per) + tuple(c.shape[1:]))
-        return c.reshape((per, num_shards) + tuple(c.shape[1:])).transpose(0, 1).contiguous()
+            return c.reshape((num_shards, per) + tuple(c.shape[1:]))[sl]
+        v = c.reshape((per, num_shards) + tuple(c.shape[1:]))[:, sl]
+        return v.transpose(0, 1).contiguous()
 
     cols = {k: arrange(v) for k, v in table.columns.items()}
     return Table(cols, arrange(table.valid), table.dictionaries)

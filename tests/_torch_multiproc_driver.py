@@ -1,0 +1,594 @@
+"""Pod-axis scenarios of the PyTorch port run as a REAL multi-process
+cluster (2 processes x 4 units each, by default): the port's counterpart of
+``tests/_multiproc_driver.py``.
+
+Invoked via the port's launcher::
+
+    python -m repro_torch.launch.cluster --processes 2 --local-units 4 \\
+        --backend gloo --device cpu tests/_torch_multiproc_driver.py all
+
+Every process runs the same scenarios; every operation over the ``pod``
+axis crosses the process boundary through ``torch.distributed`` (Gloo on
+the CPU or on one shared card, NCCL with a card a rank).  Each scenario
+prints "PASS <name>" from every process; any exception fails the run.
+``--dump DIR`` writes each process's integers, answers, plans, pack-kernel
+launches and timings to ``DIR/p<pid>.json`` for the caller to hold against
+the in-process fabric; ``--sf`` and ``--morsel-rows`` size the TPC-H
+scenarios; ``--time-hop`` times the two-level shuffle's coarse hop alone
+for each Q3 and Q17 edge.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+from repro_torch.launch.cluster import init_cluster, sync_processes  # noqa: E402
+
+INFO = init_cluster()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import exchange  # noqa: E402
+from repro_torch.core.exchange import POD_AXIS, SHUFFLE_AXIS, gather_units  # noqa: E402
+from repro_torch.kernels import hash_partition as hp  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_context,
+    make_pod_mesh,
+    make_production_mesh,
+    make_test_mesh,
+)
+from repro_torch.relational.context import ExecutionContext  # noqa: E402
+
+DEV = "cpu" if INFO.device == "cpu" else "cuda"
+ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False)
+RESULTS: dict = {}
+PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
+
+
+def _counts() -> dict:
+    launched = {**hp.LAUNCHES, **md.LAUNCHES}
+    return {k: launched[k] for k in PACKS}
+
+
+def _ints(t: torch.Tensor) -> list:
+    return t.cpu().to(torch.int64).tolist()
+
+
+def _floats(t: torch.Tensor) -> list:
+    return t.cpu().to(torch.float64).tolist()
+
+
+def _pod_mesh(axes=(POD_AXIS, SHUFFLE_AXIS)):
+    mesh = make_pod_mesh(axes=axes)
+    assert mesh.axis_names == (POD_AXIS, SHUFFLE_AXIS), mesh.axis_names
+    assert mesh.num_processes == INFO.num_processes, mesh
+    return mesh
+
+
+def _mine(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This process's units' rows of a global ``[N, ...]`` tensor."""
+    return x[mesh.unit_offset:mesh.unit_offset + mesh.local_units]
+
+
+def _packs_per_dispatch(plan, mux) -> dict:
+    """Pack launches one in-memory run of ``plan`` implies on the card:
+    ``hash_partition_pack`` once a pipeline chunk of each shuffle edge (a
+    chunk count that does not divide the edge's rows runs it unchunked),
+    ``partition_pack`` once an edge for the pod hop; none off the card or
+    on the plain pack."""
+    if DEV != "cuda" or mux.pack_impl != "cuda":
+        return {"hash_partition_pack": 0, "partition_pack": 0}
+    C = mux.pipeline_chunks
+    P = plan.num_pods
+    return {
+        "hash_partition_pack": sum(C if (st.rows * P) % C == 0 else 1 for st in plan.shuffle_stats),
+        "partition_pack": len(plan.shuffle_stats) if P > 1 else 0,
+    }
+
+
+def _check_packs(tag: str, before: dict, want: dict) -> dict:
+    got = {k: _counts()[k] - before[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: pack launches {got}, the plan implies {want}")
+    return got
+
+
+def _edges(qt) -> dict:
+    return {e.key: {"hist": [int(h) for h in e.hist], "overload": float(e.overload),
+                    "plain_overload": float(e.plain_overload), "salted": bool(e.salted)}
+            for e in qt.edges}
+
+
+def scenario_hierarchical_psum():
+    """RS-in-pod -> AR-cross-pod -> AG-in-pod equals a flat psum bit-exactly
+    across the process boundary (int32 and exactly-representable float32),
+    as functions and through the multiplexer's ``psum_tree``."""
+    from repro_torch.core.multiplexer import make_multiplexer
+
+    mesh = make_pod_mesh(axes=(POD_AXIS, "data"))
+    n = mesh.num_units
+    mux = make_multiplexer(mesh)
+    data_axes = make_context(mesh=mesh).data_axes
+    assert data_axes == (POD_AXIS, SHUFFLE_AXIS), data_axes
+    out = {}
+    for name, dtype, hi in (("int32", torch.int32, 1 << 20), ("float32", torch.float32, 1 << 12)):
+        g = torch.from_numpy(np.random.default_rng(0).integers(0, hi, (n, 4, 3))).to(dtype)
+        x = _mine(g.to(DEV), mesh)
+        a = exchange.hierarchical_psum_tree({"g": x}, mesh, SHUFFLE_AXIS, POD_AXIS)["g"]
+        b = exchange.flat_psum_tree({"g": x}, mesh, (POD_AXIS, SHUFFLE_AXIS))["g"]
+        c = mux.psum_tree({"g": x}, data_axes)["g"]
+        assert torch.equal(a, b) and torch.equal(a, c), name
+        assert torch.equal(a[0].cpu(), g.sum(0, dtype=dtype)), name
+        out[name] = _ints(gather_units(a, mesh)) if name == "int32" else _floats(gather_units(a, mesh))
+    RESULTS["hierarchical_psum"] = out
+    print("PASS hierarchical_psum")
+
+
+def scenario_exchange_over_dci_raises():
+    """The hybrid plan rejects any fine-grained shuffle routed over the pod
+    axis, before a byte crosses the slow network."""
+    from repro_torch.core.multiplexer import make_multiplexer
+
+    mesh = _pod_mesh()
+    mux = make_multiplexer(mesh)
+    assert mux.plan.large_axes == (POD_AXIS,), mux.plan
+    x = torch.zeros((mesh.local_units, mesh.num_pods, 4), dtype=torch.int32, device=DEV)
+    for attempt in (
+        lambda: mux.all_to_all(x, POD_AXIS),
+        lambda: mux.hash_shuffle(x[:, :, 0], x, POD_AXIS, capacity=2),
+        lambda: mux.shuffle_consume(x, POD_AXIS, lambda acc, c, s: acc, 0),
+    ):
+        try:
+            attempt()
+        except ValueError as e:
+            assert "large-network axis" in str(e), e
+        else:
+            raise AssertionError("exchange over the DCI axis did not raise")
+    print("PASS exchange_over_dci_raises")
+
+
+def scenario_two_level_shuffle():
+    """The two-level exchange (coarse cross-process hop + fine in-pod
+    shuffle) loses no rows and lands every row on the unit owning its
+    global hash, for both transports and both packs."""
+    mesh = _pod_mesh()
+    P, n = mesh.num_pods, mesh.n
+    N, T = P * n, 64
+    keys = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 10_000, (N, T)).astype(np.int32))
+    rows = torch.stack([keys, keys * 2 + 1], dim=2)
+    k, r = _mine(keys.to(DEV), mesh), _mine(rows.to(DEV), mesh)
+    me = exchange.axis_index(mesh, POD_AXIS, DEV) * n + exchange.axis_index(mesh, SHUFFLE_AXIS, DEV)
+    out = {}
+    for impl in ("round_robin", "xla"):
+        for pack in ("torch", "cuda"):
+            before = _counts()
+            out_rows, out_valid, dropped = exchange.hash_shuffle_two_level(
+                k, r, mesh, SHUFFLE_AXIS, POD_AXIS, capacity=T, impl=impl, pack_impl=pack)
+            want = {"hash_partition_pack": 1, "partition_pack": 1} \
+                if (pack, DEV) == ("cuda", "cuda") else {"hash_partition_pack": 0, "partition_pack": 0}
+            _check_packs(f"two_level_shuffle {impl}/{pack}", before, want)
+            h = exchange.fibonacci_hash(out_rows[..., 0]) % N
+            assert bool(torch.where(out_valid, h == me[:, None], True).all())
+            assert int(dropped[0]) == 0 and bool((dropped == dropped[0]).all())
+            assert int(exchange.unit_sum(out_valid.sum(1), mesh)) == N * T
+            got = {"rows": _ints(gather_units(out_rows, mesh)),
+                   "valid": _ints(gather_units(out_valid, mesh)),
+                   "dropped": _ints(gather_units(dropped, mesh))}
+            if out:
+                assert got == next(iter(out.values())), f"{impl}/{pack} disagrees"
+            out[f"{impl}/{pack}"] = got
+    RESULTS["two_level_shuffle"] = out["round_robin/torch"]
+
+    # every pod-axis transport across the processes against the same mesh
+    # held whole by this process
+    whole = exchange.Mesh(P, n)
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 100, (N, P, 6, 2))).to(DEV)
+    for impl, chunks in (("round_robin", 1), ("round_robin", 3), ("xla", 1)):
+        assert torch.equal(exchange.all_to_all(_mine(x, mesh), mesh, POD_AXIS, impl, chunks),
+                           _mine(exchange.all_to_all(x, whole, POD_AXIS, impl, chunks), mesh))
+    for impl in ("ring", "xla"):
+        assert torch.equal(exchange.broadcast_exchange(_mine(x, mesh), mesh, POD_AXIS, impl),
+                           _mine(exchange.broadcast_exchange(x, whole, POD_AXIS, impl), mesh))
+    assert torch.equal(exchange.psum(_mine(x, mesh), mesh, POD_AXIS),
+                       _mine(exchange.psum(x, whole, POD_AXIS), mesh))
+
+    def fold(acc, c, src):
+        return acc * 3 + c * (src[:, None, None] + 1)
+
+    init = torch.zeros((N, 6, 2), dtype=x.dtype, device=DEV)
+    assert torch.equal(
+        exchange.scheduled_all_to_all_consume(_mine(x, mesh), mesh, POD_AXIS, fold,
+                                              _mine(init, mesh)),
+        _mine(exchange.scheduled_all_to_all_consume(x, whole, POD_AXIS, fold, init), mesh))
+    print("PASS two_level_shuffle")
+
+
+def scenario_production_mesh():
+    """make_production_mesh derives the pod axis from the live process
+    topology; the reference's in-pod names map onto the port's ``q``."""
+    mesh = make_production_mesh(multi_pod=True)
+    assert mesh.axis_names == (POD_AXIS, SHUFFLE_AXIS), mesh.axis_names
+    assert mesh.num_pods == INFO.num_processes, mesh
+    assert mesh.num_units == INFO.num_processes * INFO.local_units, mesh
+    assert mesh.num_processes == INFO.num_processes and mesh.local_units == INFO.local_units
+    ctx = make_context(multi_pod=True)
+    assert ctx.pod_axis == POD_AXIS and ctx.exchange_size == INFO.local_units, ctx
+    assert ctx.data_axes == (POD_AXIS, SHUFFLE_AXIS)
+    assert make_test_mesh() == mesh
+    flat = make_production_mesh()
+    assert flat.num_pods == 1 and flat.num_processes == 1 and flat.num_units == mesh.num_units
+    print("PASS production_mesh")
+
+
+def scenario_tuner_dci_aware():
+    """tune_multiplexer on the live two-level mesh prices the DCI hop and
+    picks a cross-pod strategy for the build side; refine=True there warns
+    and stays analytical."""
+    import warnings
+
+    from repro_torch.core.autotune import TableStats, exchange_makespan, tune_multiplexer
+
+    mesh = _pod_mesh()
+    pods, n = mesh.num_pods, mesh.n
+    stats = TableStats(rows=4096, row_bytes=16)
+    cfg = tune_multiplexer(mesh, stats, broadcast_stats=TableStats(rows=128, row_bytes=12))
+    assert cfg.impl in ("xla", "round_robin", "one_factorization")
+    assert cfg.cross_pod in ("broadcast", "reshard"), cfg
+    one = exchange_makespan(stats, n)
+    two = exchange_makespan(stats, n, num_pods=pods)
+    assert two > one, (one, two)
+    cfg_big = tune_multiplexer(mesh, stats, broadcast_stats=TableStats(rows=1 << 20, row_bytes=64))
+    assert cfg_big.cross_pod == "reshard", cfg_big
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        refined = tune_multiplexer(mesh, stats, refine=True, device=DEV)
+    assert any("two-level" in str(x.message) for x in w), [str(x.message) for x in w]
+    assert refined.measured_s is None
+    RESULTS["tuner_dci_aware"] = {"cross_pod": cfg.cross_pod, "cross_pod_big": cfg_big.cross_pod,
+                                  "impl": cfg.impl, "pack_impl": cfg.pack_impl}
+    print("PASS tuner_dci_aware")
+
+
+def _run(pq, plan, tabs, ctx):
+    from repro_torch.relational.planner.executor import compile_plan
+
+    run = compile_plan(plan, tabs, ctx)
+    before = _counts()
+    out = run.dispatch()
+    dropped = int(out[1])
+    raw, qt = run.collect(out)
+    launches = _check_packs(plan.name, before, _packs_per_dispatch(plan, run.mux))
+    got = pq.finalize(raw) if pq.finalize else raw
+    return got, qt, dropped, launches, run
+
+
+def _time_coarse_hop(plan, mesh, mux, tag: str, repeats: int = 5) -> list:
+    """The two-level shuffle's coarse hop alone for each shuffle edge of
+    ``plan``: the hop-1 message buffers (``[units, pods, rows, columns +
+    key]`` int32, capacity one shard's rows a peer pod) and their counts
+    through the pod-axis transport the run used; the least wall of
+    ``repeats`` runs, each started together by a barrier and ended by the
+    card's queue draining."""
+    from repro_torch.core.exchange import _hop1_impl
+
+    hop = _hop1_impl(mux.impl)
+    out = []
+    for i, st in enumerate(plan.shuffle_stats):
+        T, width = st.rows, st.row_bytes // 4 + 1
+        gen = torch.Generator(DEV).manual_seed(i)
+        bufs = torch.randint(0, 1 << 20, (mesh.local_units, mesh.num_pods, T, width),
+                             dtype=torch.int32, device=DEV, generator=gen)
+        counts = torch.full((mesh.local_units, mesh.num_pods, 1), T, dtype=torch.int32,
+                            device=DEV)
+        walls = []
+        for r in range(repeats + 2):  # two warm-up runs
+            sync_processes()
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exchange.all_to_all(bufs, mesh, POD_AXIS, impl=hop)
+            exchange.all_to_all(counts, mesh, POD_AXIS, impl=hop)
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            if r >= 2:
+                walls.append(time.perf_counter() - t0)
+        out.append({"edge": i, "rows": st.rows, "row_bytes": st.row_bytes, "transport": hop,
+                    "message_bytes": T * width * 4, "wall_s": min(walls), "walls_s": walls})
+        print(f"[hop] {tag} edge {i}: {T} rows x {width * 4} B a message, {hop}: coarse hop "
+              f"{min(walls) * 1e3:.4f} ms (least of {repeats})")
+    return out
+
+
+def scenario_tpch_pod_mesh():
+    """TPC-H Q3 and Q17 on the two-level mesh across processes match the
+    numpy oracle: the pod-aware planner, the two-level exchanges and the
+    cross-pod combines."""
+    from repro_torch.relational import datagen, oracle
+    from repro_torch.relational.planner import tpch
+
+    mesh = _pod_mesh()
+    pods, n = mesh.num_pods, mesh.n
+    tabs = datagen.gen_all(ARGS.sf, device=DEV)
+    ctx = ExecutionContext(num_shards=pods * n, num_pods=pods, device=DEV)
+    out = {}
+    for q in ("q17", "q3"):
+        pq = tpch.ALL_QUERIES[q]()
+        plan = tpch.plan_query(pq, tabs, ctx)
+        got, qt, dropped, launches, run = _run(pq, plan, tabs, ctx)
+        assert dropped == 0, dropped
+        rec = {"explain": plan.explain(), "edges": _edges(qt), "dropped": dropped,
+               "launches": launches}
+        if q == "q17":
+            want = oracle.q17_oracle(tabs["lineitem"], tabs["part"])
+            np.testing.assert_allclose(float(got), want, rtol=1e-3)
+            rec["answer"] = float(got)
+        else:
+            want = oracle.q3_oracle(tabs["customer"], tabs["orders"], tabs["lineitem"])
+            assert [int(k) for k in got["o_orderkey"]] == [int(k) for k in want["o_orderkey"]]
+            np.testing.assert_allclose(np.asarray(got["revenue"], np.float64),
+                                       np.asarray(want["revenue"], np.float64), rtol=1e-3)
+            rec["orderkeys"] = [int(k) for k in got["o_orderkey"]]
+            rec["revenue"] = [float(v) for v in got["revenue"]]
+        if ARGS.time_hop:
+            rec["coarse_hop"] = _time_coarse_hop(plan, mesh, run.mux, q)
+        out[q] = rec
+    RESULTS["tpch_pod_mesh"] = out
+    print("PASS tpch_pod_mesh")
+
+
+def scenario_ep_dispatch_two_level():
+    """MoE expert dispatch through the two-level fabric across the process
+    boundary is token-for-token identical to the flat route (each process
+    holding the whole one-pod mesh); a single-level multiplexer on the pod
+    mesh is rejected; under a two-level multiplexer with the kernel pack
+    the tokens are the same again."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.multiplexer import make_multiplexer, use_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import moe
+
+    cfg = ModelConfig(
+        name="t", family="moe", num_layers=1, d_model=16, num_heads=2,
+        num_kv_heads=2, d_ff=32, vocab_size=64, num_experts=8, top_k=2,
+        moe_d_ff=32, moe_impl="ep_shardmap", capacity_factor=8.0,
+        dtype="float32", param_dtype="float32",
+    )
+    # identical on every process (same seed): the cluster-wide replicas
+    params = {k: v.to(DEV) for k, v in
+              moe.init_moe_layer(torch.Generator().manual_seed(0), cfg).items()}
+    x = torch.randn((16, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(DEV)
+
+    pod_mesh = make_pod_mesh(axes=(POD_AXIS, "model"))
+    N = pod_mesh.num_units
+    assert cfg.num_experts % N == 0 and x.shape[0] % N == 0, (cfg, N)
+    flat_mesh = exchange.make_mesh(N)
+    assert flat_mesh.num_processes == 1
+    ctx_flat, ctx_pod = MeshContext(flat_mesh), MeshContext(pod_mesh)
+
+    with mesh_context(ctx_flat):
+        want = moe.moe_ep(params, cfg, x)
+    with mesh_context(ctx_pod):
+        got = moe.moe_ep(params, cfg, x)
+    assert torch.equal(want, got), (want - got).abs().max()
+
+    try:
+        with mesh_context(ctx_pod), use_multiplexer(make_multiplexer(flat_mesh)):
+            moe.moe_ep(params, cfg, x)
+    except ValueError as e:
+        assert "single-level multiplexer" in str(e), e
+    else:
+        raise AssertionError("flat mux on the pod mesh did not raise")
+
+    before = _counts()
+    with mesh_context(ctx_pod), use_multiplexer(make_multiplexer(pod_mesh, pack_impl="cuda")):
+        got_k = moe.moe_ep(params, cfg, x)
+    launches = _check_packs("ep_dispatch_two_level", before,
+                            {"moe_dispatch": 1 if DEV == "cuda" else 0})
+    assert torch.equal(want, got_k), (want - got_k).abs().max()
+    RESULTS["ep_dispatch_two_level"] = {"tokens": _floats(got), "launches": launches}
+    print("PASS ep_dispatch_two_level")
+
+
+def scenario_salted_pod_shuffle():
+    """Salting works ACROSS the pod axis: Zipf(1.2) ``l_partkey`` Q17 on
+    the two-level mesh (the heavy key's sub-keys spread over every global
+    shard, crossing the process boundary), measured max/fair-share below
+    the unsalted run's, result equal to the numpy oracle."""
+    from repro_torch.relational import datagen, oracle
+    from repro_torch.relational import stats as rstats
+    from repro_torch.relational.planner import tpch
+
+    mesh = _pod_mesh()
+    pods, n = mesh.num_pods, mesh.n
+    tabs = datagen.gen_all(ARGS.sf, zipf_partkey=1.2, device=DEV)
+    # select the heaviest part: its brand and container (11 and 25 at SF 0.01,
+    # the reference's literals)
+    li, pt = tabs["lineitem"], tabs["part"]
+    heavy = int(torch.bincount(li["l_partkey"][li.valid].long()).argmax())
+    row = int(torch.nonzero(pt["p_partkey"] == heavy)[0, 0])
+    brand, container = int(pt["p_brand"][row]), int(pt["p_container"][row])
+    pq = tpch.q17(brand=brand, container=container)
+    want = oracle.q17_oracle(li, pt, brand, container)
+    assert want > 0
+    catalog = {t: tabs[t].capacity for t in pq.tables}
+    stats = rstats.collect_stats({t: tabs[t] for t in pq.tables})
+    ctx = ExecutionContext(num_shards=pods * n, num_pods=pods, device=DEV)
+
+    plan = pq.plan(catalog, pods * n, num_pods=pods, stats=stats)
+    assert "salted x" in plan.explain()
+    got, qt, dropped, launches, _ = _run(pq, plan, tabs, ctx)
+    np.testing.assert_allclose(float(got), want, rtol=1e-3)
+    # the salted edge: lineitem's l_partkey shuffle (at larger scale factors
+    # part ships over a shuffle edge of its own too)
+    (edge,) = [e for e in qt.edges if e.salted]
+    assert edge.key.startswith("shuffle[l_partkey]"), edge.key
+    salted_over, plain_over = float(edge.overload), float(edge.plain_overload)
+    assert plain_over > 2.0, plain_over
+    assert salted_over < 1.3, salted_over
+
+    plan0 = pq.plan(catalog, pods * n, num_pods=pods)
+    got0, qt0, dropped0, launches0, _ = _run(pq, plan0, tabs, ctx)
+    np.testing.assert_allclose(float(got0), want, rtol=1e-3)
+    (edge0,) = [e for e in qt0.edges if e.key.startswith("shuffle[l_partkey]")]
+    assert not any(e.salted for e in qt0.edges)
+    if sum(edge0.hist) == sum(edge.hist):
+        # both plans shuffle the same rows (at SF 0.01 they do; at SF 1 the
+        # static plan joins part first and ships only the matches)
+        assert float(edge0.overload) == plain_over
+    assert salted_over < float(edge0.overload)
+    RESULTS["salted_pod_shuffle"] = {
+        "brand_container": [brand, container], "explain": plan.explain(), "edges": _edges(qt), "edges_unsalted": _edges(qt0),
+        "overload": [salted_over, float(edge0.overload)],
+        "answer": float(got), "answer_unsalted": float(got0), "dropped": [dropped, dropped0],
+        "launches": {k: launches[k] + launches0[k] for k in launches},
+    }
+    print("PASS salted_pod_shuffle")
+
+
+def scenario_oocore_pod_stream():
+    """Morsel-streamed Q17 ACROSS the process boundary: the chunked lineitem
+    stream feeds the two-level exchange one morsel at a time, result equal
+    to the in-memory pod-mesh run; spill is refused at compile time.  One
+    pipeline chunk a shuffle, so the pack launches follow from the
+    runner's counters."""
+    from repro_torch.relational import datagen
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.executor import execute_plan
+    from repro_torch.relational.planner.stream import compile_plan_streamed
+    from repro_torch.relational.source import MorselView, as_source
+
+    mesh = _pod_mesh()
+    pods, n = mesh.num_pods, mesh.n
+    tabs = datagen.gen_all(ARGS.sf, device=DEV)
+    pq = tpch.q17()
+    sources = {"lineitem": MorselView(tabs["lineitem"], morsel_rows=ARGS.morsel_rows),
+               "part": as_source(tabs["part"])}
+    mat = {t: sources[t].materialize() for t in pq.tables}
+    catalog = {t: sources[t].capacity for t in pq.tables}
+    plan = pq.plan(catalog, pods * n, num_pods=pods)
+    ctx = ExecutionContext(num_shards=pods * n, num_pods=pods, device=DEV, num_chunks=1)
+    want = float(pq.finalize(execute_plan(plan, mat, ctx)))
+
+    run = compile_plan_streamed(plan, sources, ctx)
+    before = _counts()
+    got = float(pq.finalize(run()))
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert run.stats["passes"] == 2, run.stats
+    steps = run.stats["morsels"] // run.stats["passes"]
+    packs = sum(steps * s["streamed"] + s["resident"] for s in run.shuffles_per_step)
+    on_card = DEV == "cuda" and run.mux.pack_impl == "cuda"
+    launches = _check_packs("oocore_pod_stream", before, {
+        "hash_partition_pack": packs if on_card else 0,
+        "partition_pack": packs if on_card else 0})
+
+    try:
+        compile_plan_streamed(plan, sources, ctx.with_(spill=True))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("spill on the pod mesh did not raise")
+    RESULTS["oocore_pod_stream"] = {
+        "answer": got, "answer_in_memory": want, "morsels": run.stats["morsels"],
+        "reports": {k: [int(h) for h in v["hist"]] for k, v in sorted(run.reports.items())},
+        "launches": launches,
+    }
+    print("PASS oocore_pod_stream")
+
+
+def scenario_trace_merge():
+    """One timeline for the whole cluster: each process traces its own Q17
+    run and writes ``<dir>/q17-p<pid>.json``; after a barrier, process 0
+    merges them into one Perfetto timeline whose events carry every
+    process's track."""
+    import shutil
+    import tempfile
+
+    from repro_torch.obs.export import merge_trace_dir, write_trace_dir
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.relational import datagen
+    from repro_torch.relational.planner import tpch
+
+    # the processes of a cluster share a host: key the directory on the
+    # rendezvous address so concurrent clusters never collide
+    tag = (INFO.coordinator or "solo").replace(":", "-").replace("/", "-")
+    trace_dir = os.path.join(tempfile.gettempdir(), f"repro-torch-trace-{tag}")
+    if INFO.process_id == 0:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        os.makedirs(trace_dir, exist_ok=True)
+    sync_processes()
+
+    mesh = _pod_mesh()
+    pods, n = mesh.num_pods, mesh.n
+    tabs = datagen.gen_all(0.01, device=DEV)
+    pq = tpch.q17()
+    tracer = Tracer()  # pid resolves to the torch.distributed rank
+    assert tracer.pid == INFO.process_id
+    tpch.run_query(
+        pq, {t: tabs[t] for t in pq.tables},
+        ExecutionContext(num_shards=pods * n, num_pods=pods, trace=tracer, device=DEV),
+    )
+    path = write_trace_dir(tracer, trace_dir, basename="q17")
+    assert path.endswith(f"q17-p{INFO.process_id}.json")
+    sync_processes()
+
+    if INFO.process_id == 0:
+        merged = merge_trace_dir(trace_dir, basename="q17",
+                                 out=os.path.join(trace_dir, "merged.json"))
+        pids = {e["pid"] for e in merged["traceEvents"]}
+        assert pids == set(range(INFO.num_processes)), pids
+        for pid in pids:
+            names = {e["name"] for e in merged["traceEvents"]
+                     if e["pid"] == pid and e["ph"] == "B"}
+            assert any(nm.startswith("exchange:") for nm in names), (pid, names)
+        assert merged["counters"]["exchange.measured_bytes"] > 0
+        with open(os.path.join(trace_dir, "merged.json")) as f:
+            json.load(f)  # Perfetto-loadable JSON on disk
+    sync_processes()
+    if INFO.process_id == 0:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    print("PASS trace_merge")
+
+
+SCENARIOS = {
+    name.removeprefix("scenario_"): fn
+    for name, fn in list(globals().items())
+    if name.startswith("scenario_")
+}
+
+
+def main(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("scenario", nargs="?", default="all")
+    ap.add_argument("--sf", type=float, default=0.01)
+    ap.add_argument("--morsel-rows", type=int, default=4096)
+    ap.add_argument("--time-hop", action="store_true")
+    ap.add_argument("--dump", default=None)
+    args = ap.parse_args(argv)
+    ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
+    names = list(SCENARIOS) if args.scenario == "all" else args.scenario.split(",")
+    start = _counts()
+    seconds = {}
+    for nm in names:
+        t0 = time.perf_counter()
+        SCENARIOS[nm]()
+        seconds[nm] = time.perf_counter() - t0
+    if args.dump:
+        os.makedirs(args.dump, exist_ok=True)
+        with open(os.path.join(args.dump, f"p{INFO.process_id}.json"), "w") as f:
+            json.dump({"results": RESULTS, "seconds": seconds, "device": INFO.device,
+                       "backend": INFO.backend,
+                       "launches": {k: v - start[k] for k, v in _counts().items()}}, f)
+    if torch.distributed.is_initialized():
+        sync_processes()
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

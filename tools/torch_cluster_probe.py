@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""The port's process fabric on the card, beyond what ``chip_smoke.py`` runs.
+
+    python3 tools/torch_cluster_probe.py gloo-cuda
+    python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
+                                                 [--sf 1] [--morsel-rows 1048576] [--out DIR]
+
+``gloo-cuda`` asks Gloo itself, in a 2-process cluster on one card, to
+carry CUDA tensors (no staging): ``all_reduce``, ``all_gather``,
+``all_to_all_single`` and a ``batch_isend_irecv`` pair, each printed as
+carried (and right) or refused with Gloo's message.  The port stages every
+Gloo message through host memory whatever the answer; this records what
+Gloo would do.
+
+``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
+-m``, builds the kernels, then runs every scenario of
+``tests/_torch_multiproc_driver.py`` in each layout (``backend:PxU``, P
+processes of U units, one pod a process; NCCL takes a card a rank) with the
+coarse hop timed per Q3 and Q17 edge.  Every 2 x 4 layout's integers (the
+two-level shuffle, the hierarchical psum, Q3's order keys, every edge's
+histogram, the drops, the streamed edges' reports) must equal the first
+2 x 4 layout's; each layout's per-process results are written under
+``<--out>/<layout>/`` (default ``artifacts/cluster_probe``, which git ignores).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+DRIVER = ROOT / "tests" / "_torch_multiproc_driver.py"
+
+GLOO_CUDA_WORKER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch.cluster import init_cluster
+info = init_cluster()
+import torch
+import torch.distributed as dist
+rank, R = info.process_id, info.num_processes
+t = torch.arange(8, dtype=torch.int32, device="cuda") + rank
+
+
+def all_reduce():
+    x = t.clone()
+    dist.all_reduce(x)
+    return torch.equal(x.cpu(), sum(torch.arange(8, dtype=torch.int32) + r for r in range(R)))
+
+
+def all_gather():
+    out = [torch.empty_like(t) for _ in range(R)]
+    dist.all_gather(out, t)
+    return all(torch.equal(o.cpu(), torch.arange(8, dtype=torch.int32) + r)
+               for r, o in enumerate(out))
+
+
+def all_to_all_single():
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t)
+    want = torch.cat([(torch.arange(8, dtype=torch.int32) + r).view(R, -1)[rank]
+                      for r in range(R)])
+    return torch.equal(out.cpu(), want)
+
+
+def send_recv():
+    peer = (rank + 1) % R
+    got = torch.empty_like(t)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, t, peer),
+                                   dist.P2POp(dist.irecv, got, (rank - 1) % R)])
+    for r in reqs:
+        r.wait()
+    return torch.equal(got.cpu(), torch.arange(8, dtype=torch.int32) + (rank - 1) % R)
+
+
+for fn in (all_reduce, all_gather, all_to_all_single, send_recv):
+    try:
+        ok = fn()
+        torch.cuda.synchronize()
+        print(f"GLOO_CUDA {fn.__name__}: carried, {'right' if ok else 'WRONG'}")
+    except Exception as e:  # noqa: BLE001 - the refusal is the finding
+        print(f"GLOO_CUDA {fn.__name__}: refused: {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _smi() -> None:
+    for args in (["--query-gpu=name,power.limit", "--format=csv,noheader"], ["topo", "-m"]):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        print(f"[smi] nvidia-smi {' '.join(args)}:\n{out.stdout.strip()}")
+
+
+def gloo_cuda() -> int:
+    from repro_torch.launch.cluster import run_local_cluster
+
+    _smi()
+    outs = run_local_cluster(["-c", GLOO_CUDA_WORKER, str(SRC)], num_processes=2, local_units=1,
+                             timeout_s=180, echo=False, backend="gloo", device="cuda")
+    for pid, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("GLOO_CUDA"):
+                print(f"[gloo-cuda] proc {pid}: {line}")
+    return 0
+
+
+def _integers(res: dict) -> dict:
+    """What two 2 x 4 layouts must agree on, bit for bit."""
+    tp = res["tpch_pod_mesh"]
+    return {
+        "two_level_shuffle": res["two_level_shuffle"],
+        "hierarchical_psum": res["hierarchical_psum"]["int32"],
+        "q3_orderkeys": tp["q3"]["orderkeys"],
+        "edges": {q: {k: e["hist"] for k, e in tp[q]["edges"].items()} for q in ("q3", "q17")},
+        "dropped": [tp[q]["dropped"] for q in ("q3", "q17")],
+        "salted_edges": {k: e["hist"] for k, e in res["salted_pod_shuffle"]["edges"].items()},
+        "oocore_reports": res["oocore_pod_stream"]["reports"],
+    }
+
+
+def layouts(specs: list[str], sf: float, morsel_rows: int, out: Path) -> int:
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.launch.cluster import run_local_cluster
+
+    _smi()
+    build.build_all((hp.LIBRARY, md.LIBRARY))
+    first = None
+    for spec in specs:
+        backend, shape = spec.split(":")
+        procs, units = (int(v) for v in shape.split("x"))
+        dump = out / spec.replace(":", "_")
+        t0 = time.perf_counter()
+        outs = run_local_cluster(
+            [str(DRIVER), "all", "--sf", str(sf), "--morsel-rows", str(morsel_rows),
+             "--time-hop", "--dump", str(dump)],
+            num_processes=procs, local_units=units, timeout_s=900, echo=False,
+            backend=backend, device="cuda",
+        )
+        wall = time.perf_counter() - t0
+        for pid, log in enumerate(outs):
+            for line in log.splitlines():
+                if line.startswith(("PASS", "[hop]")):
+                    print(f"[{spec}] proc {pid}: {line}")
+        dumps = [json.loads((dump / f"p{p}.json").read_text()) for p in range(procs)]
+        for d in dumps[1:]:
+            if _integers(d["results"]) != _integers(dumps[0]["results"]):
+                raise AssertionError(f"{spec}: the processes disagree")
+        print(f"[{spec}] all scenarios passed in {wall:.1f} s (launcher wall); seconds a "
+              f"scenario on proc 0: {json.dumps(dumps[0]['seconds'])}")
+        print(f"[{spec}] pack launches by process: {json.dumps([d['launches'] for d in dumps])}")
+        if (procs, units) == (2, 4):
+            if first is None:
+                first = (spec, _integers(dumps[0]["results"]))
+            elif _integers(dumps[0]["results"]) != first[1]:
+                raise AssertionError(f"{spec}: integers differ from {first[0]}'s")
+            else:
+                print(f"[{spec}] integers bit-identical to {first[0]}'s")
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", choices=("gloo-cuda", "layouts"))
+    ap.add_argument("--layouts", default="gloo:2x4,nccl:2x4,nccl:4x2")
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--morsel-rows", type=int, default=1 << 20)
+    ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_cluster_probe: no CUDA device", file=sys.stderr)
+        return 2
+    if args.mode == "gloo-cuda":
+        return gloo_cuda()
+    os.makedirs(args.out, exist_ok=True)
+    return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
