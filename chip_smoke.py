@@ -183,8 +183,24 @@ Phases, in order; any failure raises and the process exits non-zero:
    magnitude.  Prefill and decode tokens/s, ms a decode step and peak
    memory are printed; one prefill and one decode step of each model are
    profiled;
-8. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. SSM training — Mamba2-1.3B at full width and depth (48 layers, d_model
+   2,048; random weights from ``--seed``, bf16 compute over f32 master
+   params, ``remat="block"``), 20 AdamW steps at 8 x 2,048 tokens through
+   the calls ``launch/train.py`` makes: every loss finite, the mean of the
+   last 5 below the first, ``ssd_scan`` launched 2 x 48 times a step (each
+   layer's forward and its remat recompute; the backward recomputes through
+   the plain scan); one step profiled (the scan kernels' and the plain
+   backward's shares of device time); one step from the same state and
+   batch against the plain scan (``mamba2.ssd_chunked`` patched to
+   ``ref.ssd_scan_ref`` for that step) in bf16 (loss and grad norm within
+   ``TRAIN_BF16_RTOL``) and in f32 compute at 2 x 2,048 (loss rtol 1e-4,
+   grad norm 1e-3).  Zamba2-7B at full width, depth cut to 13 layers for
+   memory (two groups of 6 with the shared block, a tail of 1): 5 steps at 4
+   x 2,048, finite and falling losses, 2 x 13 launches a step.  Then
+   ``launch.train.main(["--arch", "mamba2-1.3b", "--steps", "2", ...])``
+   without a checkpoint.  Step walls, tokens/s and peak memory printed;
+9. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
 ``torch.cuda.synchronize()``, taken on each query's second run and around
@@ -234,6 +250,17 @@ SSM_LONG = (32768, 8)  # Mamba2: one request of the reference's prefill_32k leng
 SSM_CHECK = {"mamba2-1.3b": [(2, 2048, 1792), (1, SSM_LONG[0], SSM_LONG[0] - 256)],
              "zamba2-7b": [(1, 512, 256)]}
 SSM_CHECK_TOL = 1e-3
+# SSM training: Mamba2-1.3B at full width and depth (batch, seq, steps); its
+# f32 step against the plain scan (batch, loss rtol, grad norm rtol: the two
+# differ in f32 rounding through 48 layers); Zamba2-7B at full width with its
+# depth cut to 13 layers for memory (two groups of 6 with the shared block, a
+# tail of 1: 81 layers' ~6.7 B f32 params with their grads and AdamW moments
+# take ~108 GB, 13 layers' ~22 GB), batch and steps; the CLI's run
+SSM_TRAIN = (8, 2048, 20)
+SSM_TRAIN_F32 = (2, 1e-4, 1e-3)
+ZAMBA_TRAIN = (13, 4, 5)
+SSM_TRAIN_CLI = (2, 512, 2)  # steps, seq, batch
+SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
@@ -1815,11 +1842,12 @@ def _serving_line(tag: str, api, reqs, stats: dict) -> None:
 
 
 def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "moe_dispatch"),
-                     top: int = 8) -> None:
+                     top: int = 8, span: str | None = None) -> None:
     """One call under ``torch.profiler``: device busy share of its wall time,
     the top device kernels, and the device time of ``kernel`` (the key
     substring, summed over every device kernel it matches, and the name to
-    print; ``ssd_scan`` is three kernels)."""
+    print; ``ssd_scan`` is three kernels); with ``span``, also the device
+    time of every kernel launched inside ``record_function(span)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1829,7 +1857,7 @@ def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "m
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.key != span]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in rows)
     print(f"[profile] {tag}: wall {wall * 1e3:.2f} ms under the profiler; device busy "
@@ -1846,6 +1874,16 @@ def _profile_call(tag: str, fn, kernel: tuple[str, str] = ("dispatch_kernel", "m
               f"{us / 1e3 / calls:.4f} ms each, {100 * us / busy_us:.1f}% of device time ("
               + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.4f} ms" for e in matched)
               + ")")
+    if span:
+        ranges = [e for e in prof.key_averages() if e.key == span and e.device_type.name == "CPU"]
+        us = sum(e.device_time_total for e in ranges)
+        if us > 0:
+            calls = sum(e.count for e in ranges)
+            print(f"[profile] {tag}: {span} device time {us / 1e3:.4f} ms over {calls} calls = "
+                  f"{100 * us / busy_us:.1f}% of device time")
+        else:
+            print(f"[profile] {tag}: {span} device time not measured (the profiler attributed "
+                  f"no device time to the range)")
 
 
 def phase_serving(seed: int) -> dict:
@@ -1979,11 +2017,14 @@ def phase_serving(seed: int) -> dict:
     return main_path
 
 
-def _train_run(cfg, seed: int, steps: int, tag: str):
+def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
+               kernel: str = "flash_attention"):
     """``steps`` AdamW steps (lr 3e-4, 5 warm-up steps over a 20-step
-    schedule) of ``cfg`` at ``TRAIN_SHAPE``'s batch from ``seed``, through
-    the calls ``launch/train.py`` makes; every step must launch
-    ``flash_attention`` 2 x layers times and the loss must fall.  Returns the
+    schedule) of ``cfg`` at a batch of ``shape`` from ``seed``, through the
+    calls ``launch/train.py`` makes; every step must launch ``kernel`` once a
+    layer, twice under remat (every layer of train100m runs attention, every
+    layer of Mamba2 and Zamba2 the scan), every loss must be finite and the
+    mean of the last 5 below the first.  Returns the
     state, the step function, the optimizer, the batch source and every
     kernel's launches over the steps (a main path)."""
     import numpy as np
@@ -1997,7 +2038,7 @@ def _train_run(cfg, seed: int, steps: int, tag: str):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    B, S, total = TRAIN_SHAPE
+    (B, S), total = shape, TRAIN_SHAPE[2]
     api = registry.build(cfg)
     opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=total, schedule=cfg.lr_schedule)
     step_fn = make_train_step(api, opt)
@@ -2006,9 +2047,9 @@ def _train_run(cfg, seed: int, steps: int, tag: str):
     per_step = cfg.num_layers * (1 if cfg.remat == "none" else 2)
     print(f"[training] {tag}: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"tied, {cfg.dtype} compute over {cfg.param_dtype} params, remat={cfg.remat}, "
-          f"attn_impl={cfg.attn_impl}; {n_params} params from seed {seed}; batch {B} x {S}; "
-          f"TF32 off")
+          f"tied {cfg.tie_embeddings}, {cfg.dtype} compute over {cfg.param_dtype} params, "
+          f"remat={cfg.remat}, attn_impl={cfg.attn_impl}; {n_params} params from seed {seed}; "
+          f"batch {B} x {S}; TF32 off")
     it = Prefetcher(make_batch_iterator(cfg, ShapeSpec("chip", S, B, "train"), seed=seed), depth=2)
 
     def next_batch():
@@ -2020,14 +2061,14 @@ def _train_run(cfg, seed: int, steps: int, tag: str):
         batch = next_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        before = _counts()["flash_attention"]
+        before = _counts()[kernel]
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launched = _counts()["flash_attention"] - before
+        launched = _counts()[kernel] - before
         if launched != per_step:
-            raise AssertionError(f"{tag} step {i}: flash_attention launched {launched} times, "
+            raise AssertionError(f"{tag} step {i}: {kernel} launched {launched} times, "
                                  f"expected {per_step}")
     launches = _counts()
     if not all(math.isfinite(x) for x in losses):
@@ -2038,8 +2079,9 @@ def _train_run(cfg, seed: int, steps: int, tag: str):
     steady = float(np.mean(walls[1:]))
     print(f"[training] {tag} losses: {' '.join(f'{x:.4f}' for x in losses)}")
     print(f"[training] {tag} loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; all finite")
-    print(f"[training] {tag} flash_attention launched {launches['flash_attention']} = {steps} "
-          f"steps x {per_step} (2 x {cfg.num_layers} layers: forward + remat recompute)")
+    print(f"[training] {tag} {kernel} launched {launches[kernel]} = {steps} steps x {per_step} "
+          f"({per_step // cfg.num_layers} x {cfg.num_layers} layers: forward"
+          f"{' + remat recompute' if cfg.remat != 'none' else ''})")
     print(f"[training] {tag} step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{steps} mean "
           f"{steady * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}) "
           f"= {B * S / steady:.1f} tokens/s; peak memory {torch.cuda.max_memory_allocated()} B")
@@ -2261,6 +2303,130 @@ def phase_ssm(seed: int) -> dict:
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+@contextlib.contextmanager
+def _plain_scan():
+    """``mamba2.ssd_chunked`` as the plain scan, forward and backward through
+    ``ref.ssd_scan_ref``, while the block lasts: the check's other side."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import mamba2 as MB
+
+    real = MB.ssd_chunked
+    MB.ssd_chunked = ref.ssd_scan_ref
+    try:
+        yield
+    finally:
+        MB.ssd_chunked = real
+
+
+@contextlib.contextmanager
+def _ranged_scan_backward():
+    """``_SSDScan.backward`` (the recompute and autograd through the plain
+    scan) inside ``record_function(SSD_BACKWARD_SPAN)`` while the block
+    lasts, so a profile gives its device time."""
+    import torch
+    from repro_torch.models import mamba2 as MB
+
+    real = MB._SSDScan.backward
+
+    def backward(ctx, *grads):
+        with torch.profiler.record_function(SSD_BACKWARD_SPAN):
+            return real(ctx, *grads)
+
+    MB._SSDScan.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        MB._SSDScan.backward = staticmethod(real)
+
+
+def _scan_vs_plain(step_fn, state, batch, tag: str, rtol_loss: float, rtol_norm: float) -> None:
+    """One step from one state and batch through the kernel and through the
+    plain scan: the loss and the grad norm within the given rtols; the
+    kernel step launches ``ssd_scan`` twice a layer (forward and remat
+    recompute), the plain step never.  A check: its launches join no main
+    path."""
+    per_step = 2 * len(state.params["layers"])
+    _reset_counts()
+    m_kern = step_fn(state, batch)[1]
+    kern = _counts()["ssd_scan"]
+    with _plain_scan():
+        m_plain = step_fn(state, batch)[1]
+    plain = _counts()["ssd_scan"] - kern
+    if kern != per_step or plain:
+        raise AssertionError(f"{tag}: ssd_scan launched {kern} times in the kernel step and "
+                             f"{plain} in the plain one, expected {per_step} and 0")
+    got = [float(m_kern[k]) for k in ("loss", "grad_norm")]
+    want = [float(m_plain[k]) for k in ("loss", "grad_norm")]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"[ssm-train] {tag} kernel vs plain scan, one step from one state and batch of "
+          f"{tuple(batch['tokens'].shape)}: loss {got[0]:.6f} vs {want[0]:.6f} (rel {rel[0]:.3g}, "
+          f"rtol {rtol_loss:.3g}), grad norm {got[1]:.6f} vs {want[1]:.6f} (rel {rel[1]:.3g}, "
+          f"rtol {rtol_norm:.3g})")
+    if rel[0] > rtol_loss or rel[1] > rtol_norm:
+        raise AssertionError(f"{tag}: the kernel and the plain scan disagree beyond rtol "
+                             f"{rtol_loss:.3g} / {rtol_norm:.3g}")
+
+
+def phase_ssm_training(seed: int) -> dict:
+    """Mamba2-1.3B at full width and depth: 20 steps, one profiled step, one
+    step against the plain scan in bf16 and one in f32; Zamba2-7B at full
+    width and 13 layers: 5 steps; the CLI: 2 steps.  Returns every kernel's
+    launches over the three runs (the main path)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    B, S, steps = SSM_TRAIN
+    cfg = get_config("mamba2-1.3b")
+    state, step_fn, opt, next_batch, launches = _train_run(
+        cfg, seed, steps, "mamba2", shape=(B, S), kernel="ssd_scan")
+    batch = next_batch()
+    with _ranged_scan_backward():
+        _profile_call(f"mamba2 train step [{B}, {S}]", lambda: step_fn(state, batch),
+                      kernel=("ssd_", "ssd_scan"), top=10, span=SSD_BACKWARD_SPAN)
+    _scan_vs_plain(step_fn, state, batch, f"mamba2 {cfg.dtype}", *TRAIN_BF16_RTOL)
+    nb, rtol_loss, rtol_norm = SSM_TRAIN_F32
+    step32 = make_train_step(registry.build(cfg.scaled(dtype="float32")), opt)
+    _scan_vs_plain(step32, state, {k: v[:nb] for k, v in batch.items()}, "mamba2 float32",
+                   rtol_loss, rtol_norm)
+    del state, batch, step_fn, step32, next_batch
+    torch.cuda.empty_cache()
+
+    layers, zb, zsteps = ZAMBA_TRAIN
+    zcfg = get_config("zamba2-7b").scaled(num_layers=layers)
+    zstate, *_, z_launches = _train_run(zcfg, seed, zsteps, f"zamba2 ({layers} layers)",
+                                        shape=(zb, S), kernel="ssd_scan")
+    del zstate
+    torch.cuda.empty_cache()
+
+    cli_steps, cli_seq, cli_batch = SSM_TRAIN_CLI
+    argv = ["--arch", "mamba2-1.3b", "--steps", str(cli_steps), "--seq-len", str(cli_seq),
+            "--batch", str(cli_batch)]
+    _reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        st, last = train_cli.main(argv)
+    cli = _counts()
+    want = 2 * cfg.num_layers * cli_steps
+    if int(st.step) != cli_steps or not math.isfinite(last["loss"]) or cli["ssd_scan"] != want:
+        raise AssertionError(f"the CLI ({' '.join(argv)}): step {int(st.step)}, loss "
+                             f"{last.get('loss')}, ssd_scan launched {cli['ssd_scan']} times "
+                             f"(expected {want}):\n{out.getvalue()}")
+    print(f"[ssm-train] CLI {' '.join(argv)}: {time.perf_counter() - t0:.2f} s, last loss "
+          f"{last['loss']:.6f}, ssd_scan launched {cli['ssd_scan']}")
+    del st
+    torch.cuda.empty_cache()
+    runs = (launches, z_launches, cli)
+    print(f"[ssm-train] phase in {time.perf_counter() - t_phase:.1f} s; ssd_scan launches "
+          f"{' + '.join(str(r['ssd_scan']) for r in runs)}")
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2333,15 +2499,18 @@ def main() -> int:
 
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
+
+    # 8. SSM training (the SSM training main path)
+    r_launches = phase_ssm_training(args.seed)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, m_launches)
+             t_launches, m_launches, r_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]
         if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 
-    # 8-9. results
+    # 9-10. results
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ wrapper allocates their f32 scratch with ``torch.empty``: the chunk states
 scores ``[B, L / chunk, G, chunk, chunk]`` and the cumsums ``[B, H, L]``.
 The kernels have no backward: under autograd with an input that requires a
 gradient the wrapper raises rather than return an output with no
-``grad_fn``.  ``LAUNCHES`` counts wrapper launches (one a call) only.
+``grad_fn``; ``models.mamba2.ssd_chunked`` is the differentiable entry
+point.  ``LAUNCHES`` counts wrapper launches (one a call) only.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ def _check(x, dt, A, Bm, Cm, chunk, initial_state) -> None:
                          f"{[str(t.device) for t in ins]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward; SSM training on the card comes "
-            "with the SSM training slice (ROADMAP A.14)")
+            "ssd_scan: the CUDA kernel has no backward; differentiate through "
+            "models.mamba2.ssd_chunked, whose backward recomputes the plain scan")
     if x.dtype not in _DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"ssd_scan: need x, Bm, Cm of one dtype, float32 or bfloat16, got "
                          f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")

@@ -6,9 +6,10 @@ sequence is cut into chunks of ``Q``; within a chunk the recurrence is a
 masked attention-like quadratic form, across chunks a linear recurrence
 carries the ``[H, P, N]`` state.  :func:`ssd_chunked` always goes through
 ``kernels.ops.ssd_scan``: on the card the CUDA kernel, on the CPU its plain
-version.  The reference's ``use_kernel`` flag has no counterpart.  Decode
-is the single-token recurrence :func:`ssd_step`, plain PyTorch as in the
-reference.
+version; its backward differentiates the plain scan, which the reference
+trains through.  The reference's ``use_kernel`` flag has no counterpart.
+Decode is the single-token recurrence :func:`ssd_step`, plain PyTorch as in
+the reference.
 
 Tensor names follow the paper: x ``[B, L, H, P]`` values, dt ``[B, L, H]``
 step sizes, A ``[H]`` (negative) decay rates, B/C ``[B, L, G, N]``
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import ops, ref
 from . import layers as L
 
 
@@ -76,10 +77,37 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> Any:
 # The SSD scan (prefill/training) and its single-token step (decode).
 # ----------------------------------------------------------------------------
 
+class _SSDScan(torch.autograd.Function):
+    """Kernel forward; backward recomputes the scan with
+    ``ref.ssd_scan_ref`` (the body of the reference's ``ssd_chunked``) and
+    differentiates that, so the gradient is the reference's own (it trains
+    through its plain scan; there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, initial_state):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        return ops.ssd_scan(x, dt, A, Bm, Cm, chunk, initial_state)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = ref.ssd_scan_ref(*ins[:5], ctx.chunk, ins[5])
+            # training reads y only: the final state's gradient is None, and left out
+            outs, gs = zip(*((o, g) for o, g in zip(outs, (g_y, g_state)) if g is not None))
+            wrt = [t for t in ins if t is not None]
+            grads = iter(torch.autograd.grad(outs, wrt, gs, allow_unused=True))
+        dx, ddt, dA, dB, dC, ds0 = (None if t is None else next(grads) for t in ins)
+        return dx, ddt, dA, dB, dC, None, ds0
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     """``(y [B, L, H, P], final_state [B, H, P, N] f32)``, through
-    ``ops.ssd_scan``: one kernel launch on the card."""
-    return ops.ssd_scan(x, dt, A, Bm, Cm, chunk, initial_state)
+    ``ops.ssd_scan``: one kernel launch on the card.  Differentiable: the
+    backward recomputes the plain scan (:class:`_SSDScan`)."""
+    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk, initial_state)
 
 
 def ssd_step(

@@ -4,8 +4,8 @@
 The config (81 layers, d_model 3584, 32 heads, d_ff 14336, ssm_state 64) is
 13 groups of ``attn_every=6`` Mamba2 layers, each group followed by ONE
 shared transformer block (its weights reused by all 13 invocations), plus a
-3-layer Mamba2 tail (13 * 6 + 3 = 81).  Every Mamba2 layer of a prefill runs
-the ``ssd_scan`` kernel on the card.
+3-layer Mamba2 tail (13 * 6 + 3 = 81).  Every Mamba2 layer of a prefill or a
+training step runs the ``ssd_scan`` kernel on the card.
 
 As in the reference, the real Zamba2's concatenation of the original
 embedding at each shared-block invocation and its per-invocation LoRA

@@ -8,7 +8,8 @@ Pallas ``ssd_scan`` (interpret mode) and its ``ssd_chunked`` within 2e-4,
 the reference test's tolerance (f32 sums in another order).  In bf16, y is
 held within 2e-2 (one bf16 rounding of values that agree in f32) and the f32
 state within 2e-4.  The CUDA kernel is held to the plain version on the card
-by the ``gpu``-marked tests.
+by the ``gpu``-marked tests, and so are the gradients of ``mamba2.ssd_chunked``
+(the kernel forward, a backward through the plain scan).
 """
 
 import types
@@ -282,3 +283,47 @@ def test_cuda_ssd_scan_raises_outside_its_limits(cuda_device):
         ops.ssd_scan(x, dt, A, Bm, Cm, 16)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == 1
+
+
+# (B, L, H, P, N, chunk, dtype, initial state): Mamba2-1.3B's and Zamba2-7B's
+# scans at B=2 over 1,024 tokens
+GPU_GRAD_CASES = [
+    (2, 1024, 64, 64, 128, 256, torch.float32, False),
+    (2, 1024, 64, 64, 128, 256, torch.bfloat16, False),
+    (2, 1024, 112, 64, 64, 256, torch.float32, True),
+    (2, 1024, 112, 64, 64, 256, torch.bfloat16, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype,init", GPU_GRAD_CASES)
+def test_cuda_ssd_chunked_gradients_equal_autograd_through_the_plain_scan(
+        cuda_device, B, L, H, P, N, chunk, dtype, init):
+    """``mamba2.ssd_chunked`` on the card: one kernel launch a forward (and
+    none in the backward), y and the state as the plain version's, and the
+    gradients of every input equal to autograd through ``ref.ssd_scan_ref``
+    on the same inputs, with a loss on both outputs: f32 within 1e-5, bf16
+    within 2e-2."""
+    arrays = _torch(_inputs(L + H, B, L, H, P, N, 1, init), cuda_device)
+    arrays = [t if t is None or i not in (0, 3, 4) else t.to(dtype) for i, t in enumerate(arrays)]
+    gen = torch.Generator(device=cuda_device).manual_seed(H)
+    wy = torch.randn((B, L, H, P), generator=gen, device=cuda_device) / L
+    ws = torch.randn((B, H, P, N), generator=gen, device=cuda_device)
+
+    def grads(fn):
+        live = [None if t is None else t.clone().requires_grad_() for t in arrays]
+        y, s = fn(*live[:5], chunk, live[5])
+        ((y.float() * wy).sum() + (s * ws).sum()).backward()
+        return y, s, [t.grad for t in live if t is not None]
+
+    sk.reset_launch_counts()
+    y, s, got = grads(MB.ssd_chunked)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == 1
+    want_y, want_s, want = grads(kref.ssd_scan_ref)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=max(tol, TOL), atol=max(tol, TOL))
+    torch.testing.assert_close(s, want_s, rtol=TOL, atol=TOL)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
