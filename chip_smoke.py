@@ -199,8 +199,30 @@ Phases, in order; any failure raises and the process exits non-zero:
    x 2,048, finite and falling losses, 2 x 13 launches a step.  Then
    ``launch.train.main(["--arch", "mamba2-1.3b", "--steps", "2", ...])``
    without a checkpoint.  Step walls, tokens/s and peak memory printed;
-9. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. transformer configs — MiniCPM-2B, Qwen2.5-3B, Qwen2-VL-2B (f32 params),
+   DeepSeek-V2-Lite-16B (bf16 params) at full width and depth, Qwen1.5-32B
+   at 48 of 64 layers and DeepSeek-67B at 40 of 95 (bf16 params, for the
+   card's memory), random weights from ``--seed``, bf16 compute, one at a
+   time, each freed before the next loads.  A uniform workload (8 requests
+   x 256 prompt tokens x 16 new at batch 4; Qwen2-VL with 128 patch rows
+   before every prompt) through the static and the continuous engine must
+   give identical greedy tokens; a mixed workload (``make_mixed_workload``
+   with the reference launcher's prompt lengths: 128/256, the VLM's 256
+   alone; 4 requests a slot, 1-16 new, queued up front) must complete with
+   ``alloc.check()`` holding and in fewer slot-steps than static batching.
+   DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
+   (the units must divide a decode step's tokens): the continuous engine,
+   under its tuned multiplexer, must launch ``moe_dispatch`` once per MoE
+   layer (26) of every prefill group and decode step, the static engine
+   never, and one prefill's logits must be bit-identical between the kernel
+   pack and the plain pack.  In f32 compute (the exact dense MoE path) at
+   batch 1, a 256-token prefill (after the VLM's patch rows) must equal a
+   192-token prefill followed by 64 decode steps: the last logits and every
+   cache leaf (KV, or MLA's compressed ``c`` and ``kr``) within 1e-3 of the
+   largest magnitude.  Layers, param count and dtype, prefill tokens/s, ms a
+   decode step, TTFT p50/p99 and peak memory printed for each;
+10. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
 ``torch.cuda.synchronize()``, taken on each query's second run and around
@@ -261,6 +283,34 @@ SSM_TRAIN_F32 = (2, 1e-4, 1e-3)
 ZAMBA_TRAIN = (13, 4, 5)
 SSM_TRAIN_CLI = (2, 512, 2)  # steps, seq, batch
 SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
+# transformer configs (phase 9): each at full width with random weights from
+# --seed and bf16 compute: (layers run or None for all, param dtype).  f32
+# params where they fit; DeepSeek-V2-Lite's f32 params alone would take
+# 62.8 GB, so bf16.  Qwen1.5-32B and DeepSeek-67B cut in depth for the 80 GB
+# card, in bf16: 48 of 64 layers (26,787,107,840 params, 53.6 GB; all 64:
+# 35,197,096,960, 70.4 GB) and 40 of 95 layers (29,360,791,552, 58.7 GB; all
+# 95: 67,425,001,472, 134.9 GB), counts from the port's ``param_count``.
+TF_CONFIGS = {
+    "minicpm-2b": (None, "float32"),
+    "qwen2.5-3b": (None, "float32"),
+    "qwen2-vl-2b": (None, "float32"),
+    "deepseek-v2-lite-16b": (None, "bfloat16"),
+    "qwen1.5-32b": (48, "bfloat16"),
+    "deepseek-67b": (40, "bfloat16"),
+}
+# the uniform workload: requests, prompt tokens, new tokens, batch; a VLM adds
+# min(VLM_PATCHES, prompt // 2) patch rows.  The expert-parallel model runs at
+# batch 8: its 8 units must divide a decode step's tokens, or the MoE layer
+# takes the dense path (as the reference's does).
+TF_SERVE = (8, 256, 16, 4)
+TF_EP_UNITS = 8
+# the mixed workload: requests per batch slot, arrivals a decode step (0: all
+# queued up front, as the reference launcher's default)
+TF_MIXED = (4, 0.0)
+# the f32 check at batch 1: full prompt, split point (then one decode step a
+# token to the full prompt), and the limit of the largest magnitude
+TF_CHECK = (256, 192)
+TF_CHECK_TOL = 1e-3
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
@@ -2427,6 +2477,222 @@ def phase_ssm_training(seed: int) -> dict:
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+def _tf_config(arch: str):
+    """The config phase 9 runs: full width, ``TF_CONFIGS``' depth and
+    param dtype."""
+    from repro_torch.configs import get_config
+
+    layers, pdtype = TF_CONFIGS[arch]
+    cfg = get_config(arch).scaled(param_dtype=pdtype)
+    return cfg.scaled(num_layers=layers) if layers else cfg
+
+
+def _tf_check(api32, params, seed: int, arch: str, extra: dict) -> None:
+    """In f32 compute at batch 1: a prefill of ``TF_CHECK[0]`` tokens (after
+    the VLM's patch rows) against a prefill of the first ``TF_CHECK[1]`` and
+    one decode step a token.  The last logits and every cache leaf (KV, or
+    MLA's compressed ``c`` and ``kr``) within ``TF_CHECK_TOL`` of the largest
+    magnitude: the two differ only in f32 rounding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import grow_cache
+    from repro_torch.tree import leaves_with_paths
+
+    full, split = TF_CHECK
+    side = extra["patches"].shape[1] if extra else 0
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(rng.integers(0, api32.cfg.vocab_size, (1, full),
+                                           dtype=np.int32)).cuda()
+    t0 = time.perf_counter()
+    want_logits, want_cache = api32.prefill(params, {"tokens": tokens, **extra})
+    _, cache = api32.prefill(params, {"tokens": tokens[:, :split], **extra})
+    cache = grow_cache(api32, cache, 1, side + full)
+    for pos in range(split, full):
+        logits, cache = api32.decode_step(params, tokens[:, pos : pos + 1], cache, side + pos)
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(logits).all() and torch.isfinite(want_logits).all()):
+        raise AssertionError(f"{arch} f32 check: non-finite logits")
+    err_logits = _rel_err(logits, want_logits)
+    want = dict(leaves_with_paths(want_cache))
+    errs = {"/".join(map(str, p)): _rel_err(got, want[p]) for p, got in leaves_with_paths(cache)}
+    worst = max(errs, key=errs.get)
+    print(f"[tf] {arch} f32 check: prefill of 1 x {full}{f' after {side} patch rows' if side else ''} "
+          f"against {split} + {full - split} decode steps: last logits rel err {err_logits:.3g}, "
+          f"worst of {len(errs)} cache leaves {errs[worst]:.3g} ({worst}; limit {TF_CHECK_TOL}); "
+          f"{wall:.2f} s")
+    if err_logits > TF_CHECK_TOL or errs[worst] > TF_CHECK_TOL:
+        raise AssertionError(f"{arch}: prefill and prefill + decode disagree beyond "
+                             f"{TF_CHECK_TOL}")
+
+
+def _tf_model(arch: str, seed: int, smi: str) -> dict:
+    """One transformer config at full width through both engines (uniform
+    and mixed workloads), the expert-parallel model over ``TF_EP_UNITS``
+    simulated units, then the f32 check.  Returns every kernel's launches
+    over its continuous runs (the main path)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.exchange import make_mesh
+    from repro_torch.core.multiplexer import use_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import registry
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import VLM_PATCHES
+    from repro_torch.models.transformer import segments_for
+    from repro_torch.serve import (ContinuousEngine, Request, ServeEngine, generate_bucketed,
+                                   make_mixed_workload)
+    from repro_torch.tree import leaves
+
+    t_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tf_config(arch)
+    api = registry.build(cfg)
+    ep = cfg.moe_impl == "ep_shardmap"
+    n_req, plen, new, B = TF_SERVE
+    B = TF_EP_UNITS if ep else B
+    t0 = time.perf_counter()
+    params = api.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{arch}: {n_params} params, param_count says {cfg.param_count()}")
+    full_layers = get_config(arch).num_layers
+    print(f"[tf] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{'MLA' if cfg.attn_kind == 'mla' else f'{cfg.num_heads}/{cfg.num_kv_heads} heads'}"
+          f"{', M-RoPE' if cfg.rope_kind == 'mrope' else ''}{', q/k/v biases' if cfg.qkv_bias else ''}"
+          f"{f', {cfg.num_experts} experts top-{cfg.top_k} + {cfg.num_shared_experts} shared' if cfg.num_experts else ''}, "
+          f"vocab {cfg.vocab_size}; {n_params} {cfg.param_dtype} params "
+          f"({n_params * {'float32': 4, 'bfloat16': 2}[cfg.param_dtype]} B; "
+          f"{'all' if cfg.num_layers == full_layers else 'cut from'} {full_layers} layers), "
+          f"{cfg.dtype} compute, from seed {seed} in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    side = min(VLM_PATCHES, plen // 2) if cfg.family == "vlm" else 0
+    extra = ({"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
+             if side else None)
+    cap = plen + new + 1 + side
+    prompts = [rng.integers(0, cfg.vocab_size, plen, dtype=np.int32) for _ in range(n_req)]
+    main_path = dict.fromkeys(_counts(), 0)
+    L = sum(seg.count for seg in segments_for(cfg) if seg.kind == "moe")
+
+    def continuous(reqs, tag):
+        """A continuous run on the main path: counts set to 0 just before it
+        and read just after; under EP ``moe_dispatch`` once per MoE layer of
+        every prefill group and decode step."""
+        t_api = _timed_api(api)
+        _reset_counts()
+        ce = ContinuousEngine(t_api, batch_size=B, capacity=cap)
+        ce.serve(params, reqs, extra_inputs=extra)
+        counts = _counts()
+        want = L * (ce.stats["prefill_calls"] + ce.stats["decode_steps"]) if ep else 0
+        if counts["moe_dispatch"] != want or (ep and ce.mux.pack_impl != "cuda"):
+            raise AssertionError(f"{arch} {tag}: moe_dispatch launched {counts['moe_dispatch']} "
+                                 f"times, expected {want}")
+        for k, v in counts.items():
+            main_path[k] += v
+        return ce, t_api
+
+    def static(reqs, tag, bucketed):
+        t_api = _timed_api(api)
+        _reset_counts()
+        se = ServeEngine(t_api, batch_size=B, capacity=cap)
+        if bucketed:
+            generate_bucketed(se, params, reqs, extra_inputs=extra)
+        else:
+            for i in range(0, len(reqs), B):
+                se.generate(params, reqs[i : i + B], extra_inputs=extra)
+        if _counts()["moe_dispatch"] != 0:
+            raise AssertionError(f"{arch} {tag}: the static engine launched moe_dispatch")
+        return se, t_api
+
+    scope = (mesh_context(MeshContext(make_mesh(TF_EP_UNITS))) if ep
+             else contextlib.nullcontext())
+    with scope:
+        # -- uniform: static vs continuous, identical greedy tokens ----------
+        reqs_s = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+        se, s_api = static(reqs_s, "uniform", bucketed=False)
+        _serving_line(f"{arch} uniform static", s_api, reqs_s, se.stats)
+        reqs_c = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+        ce, c_api = continuous(reqs_c, "uniform")
+        _serving_line(f"{arch} uniform continuous", c_api, reqs_c, ce.stats)
+        if [r.out_tokens for r in reqs_c] != [r.out_tokens for r in reqs_s]:
+            raise AssertionError(f"{arch}: continuous and static greedy tokens differ")
+        if not all(len(r.out_tokens) == new for r in reqs_c):
+            raise AssertionError(f"{arch}: a uniform request did not get {new} tokens")
+        print(f"[tf] {arch} uniform: static and continuous greedy tokens identical ({n_req} x "
+              f"{new}, batch {B}{f', {side} patch rows' if side else ''}); prefill "
+              f"{1e3 * c_api.prefill.seconds / c_api.prefill.calls:.2f} ms a call, decode "
+              f"{1e3 * c_api.decode_step_slots.seconds / c_api.decode_step_slots.calls:.2f} ms a "
+              f"step (continuous), {1e3 * s_api.decode_step.seconds / s_api.decode_step.calls:.2f} "
+              f"(static)"
+              + (f"; moe_dispatch launched {L} MoE layers x ({ce.stats['prefill_calls']} prefills "
+                 f"+ {ce.stats['decode_steps']} decode steps), 0 in the static run; knobs "
+                 f"{ce.mux.describe()}" if ep else ""))
+
+        # -- EP: one prefill's logits, kernel pack vs plain pack, bit for bit
+        if ep:
+            batch = {"tokens": torch.from_numpy(np.stack(prompts[:B])).cuda()}
+            with use_multiplexer(ce.mux):
+                k_logits, _ = api.prefill(params, batch)
+            with use_multiplexer(dataclasses.replace(ce.mux, pack_impl="torch")):
+                p_logits, _ = api.prefill(params, batch)
+            if not torch.equal(k_logits, p_logits) or not torch.isfinite(k_logits).all():
+                raise AssertionError(f"{arch}: prefill logits differ between the packs")
+            print(f"[tf] {arch}: prefill logits [{B}, {cfg.vocab_size}] bit-identical, kernel "
+                  f"pack vs plain pack over {TF_EP_UNITS} units; all finite")
+            del k_logits, p_logits, batch
+
+        # -- mixed: the reference launcher's prompt lengths ------------------
+        lens = [plen] if side else [plen // 2, plen]
+        per_slot, rate = TF_MIXED
+        mixed = make_mixed_workload(cfg.vocab_size, per_slot * B, lens, new, rng,
+                                    arrival_rate=rate)
+        mixed_s = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens)
+                   for r in mixed]
+        ce2, m_api = continuous(mixed, "mixed")
+        ce2.alloc.check()
+        if not all(r.done and 1 <= len(r.out_tokens) <= r.max_new_tokens for r in mixed):
+            raise AssertionError(f"{arch} mixed: a request did not complete")
+        _serving_line(f"{arch} mixed continuous", m_api, mixed, ce2.stats)
+        st, sm_api = static(mixed_s, "mixed", bucketed=True)
+        _serving_line(f"{arch} mixed static", sm_api, mixed_s, st.stats)
+        c, s_ = ce2.stats["slot_steps"], st.stats["slot_steps"]
+        if c >= s_:
+            raise AssertionError(f"{arch} mixed: continuous {c} slot-steps, static {s_}")
+        print(f"[tf] {arch} mixed ({len(mixed)} requests, prompts {lens}, 1-{new} new, "
+              f"arrival rate {rate}): alloc.check() holds; slot_steps continuous={c} static={s_} "
+              f"({s_ / c:.2f}x fewer)")
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- f32: prefill against prefill + decode (the exact MoE path) ----------
+    api32 = registry.build(cfg.scaled(dtype="float32", moe_impl="dense"))
+    _tf_check(api32, params, seed, arch,
+              {"patches": torch.from_numpy(extra["patches"][:1]).cuda()} if side else {})
+    print(f"[tf] {arch}: peak torch.cuda.max_memory_allocated {peak} B over serving, "
+          f"{torch.cuda.max_memory_allocated()} B with the f32 check ({smi}); "
+          f"{time.perf_counter() - t_model:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def phase_transformers(seed: int, smi: str) -> dict:
+    """The six transformer configs of ROADMAP A.12, one at a time, each freed
+    before the next loads; every kernel's launches over their main paths."""
+    t_phase = time.perf_counter()
+    runs = [_tf_model(arch, seed, smi) for arch in TF_CONFIGS]
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"[tf] phase 9 in {time.perf_counter() - t_phase:.1f} s; launches over the main "
+          f"path: {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2502,15 +2768,18 @@ def main() -> int:
 
     # 8. SSM training (the SSM training main path)
     r_launches = phase_ssm_training(args.seed)
+
+    # 9. the six transformer configs (the dense, VLM and MLA serving main path)
+    f_launches = phase_transformers(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, m_launches, r_launches)
+             t_launches, m_launches, r_launches, f_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]
         if k["launches"] <= 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} was never launched on the main path")
 
-    # 9-10. results
+    # 10-11. results
     print(json.dumps({"kernels": kernels}))
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

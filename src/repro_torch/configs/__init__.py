@@ -2,9 +2,8 @@
 
 ``get_config(name)`` returns the full-size :class:`~.base.ModelConfig`;
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
-use.  Only the architectures the port builds are here: OLMoE-1B-7B,
-train100m, Mamba2-1.3B and Zamba2-7B; any other known name raises and names
-the slice that brings it.
+use.  Every architecture of the reference is here except Whisper, whose
+name raises and names the slice that brings it.
 """
 
 from __future__ import annotations
@@ -14,20 +13,20 @@ import importlib
 from .base import ModelConfig
 
 _MODULES = {
-    "olmoe-1b-7b": "olmoe_1b_7b",
-    "train100m": "train100m",
+    "minicpm-2b": "minicpm_2b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "deepseek-67b": "deepseek_67b",
+    "qwen1.5-32b": "qwen1_5_32b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "zamba2-7b": "zamba2_7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "train100m": "train100m",
 }
 
 # Known architectures the port does not build yet, and the slice that will.
 _LATER_SLICES = {
-    "minicpm-2b": "the dense-model slice (ROADMAP A.12)",
-    "qwen2.5-3b": "the dense-model slice (ROADMAP A.12)",
-    "deepseek-67b": "the dense-model slice (ROADMAP A.12)",
-    "qwen1.5-32b": "the dense-model slice (ROADMAP A.12)",
-    "qwen2-vl-2b": "the dense-model slice (ROADMAP A.12: M-RoPE, patch prefix)",
-    "deepseek-v2-lite-16b": "the dense-model slice (ROADMAP A.12: MLA, shared experts)",
     "whisper-medium": "the Whisper slice (ROADMAP A.15)",
 }
 

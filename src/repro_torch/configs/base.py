@@ -1,7 +1,9 @@
 """Model/shape config dataclasses (port of ``repro.configs.base``).
 
 A copy of the reference's dataclasses: the port keeps its own, so it
-imports nothing of the JAX package.  Left out: ``param_count`` and the dry-run's
+imports nothing of the JAX package.  ``param_count`` and
+``active_param_count`` count the leaves of the port's own params (built on
+the ``meta`` device, so nothing is allocated).  Left out: the dry-run's
 assigned shape cells (``SHAPES``), which nothing in the port reads.
 """
 
@@ -116,6 +118,19 @@ class ModelConfig:
 
     def scaled(self, **overrides) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
+
+    def param_count(self) -> int:
+        """Every parameter of the model (``registry.param_count``)."""
+        from ..models import registry  # local import to avoid a cycle
+
+        return registry.param_count(self)
+
+    def active_param_count(self) -> int:
+        """The parameters one token uses: expert leaves at ``top_k /
+        num_experts`` of their size."""
+        from ..models import registry
+
+        return registry.param_count(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

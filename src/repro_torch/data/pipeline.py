@@ -108,16 +108,22 @@ def write_token_file(path: str, tokens: np.ndarray) -> None:
     np.asarray(tokens, np.int32).tofile(path)
 
 
-def _augment_for_family(cfg: ModelConfig, batch: dict) -> dict:
-    """The reference adds stub modality inputs here (whisper frames, VLM
-    patches) from a per-step generator; those families are not ported yet,
-    so nothing here draws from one."""
+def _augment_for_family(cfg: ModelConfig, batch: dict, rng: np.random.Generator) -> dict:
+    """Add the stub modality inputs: a VLM batch gives up its last ``P =
+    min(VLM_PATCHES, S // 2)`` token positions to ``P`` patch embeddings
+    drawn from ``rng`` (the reference's per-step generator, so the batch
+    equals the reference's bit for bit)."""
     if cfg.family == "encdec":
         raise NotImplementedError("encoder-decoder batches (whisper frames) come with the "
                                   "Whisper slice (ROADMAP A.15)")
     if cfg.family == "vlm":
-        raise NotImplementedError("VLM batches (patch prefix) come with the dense-model slice "
-                                  "(ROADMAP A.12)")
+        from ..models.registry import VLM_PATCHES
+
+        B, S = batch["tokens"].shape
+        P = min(VLM_PATCHES, S // 2)
+        batch["tokens"] = batch["tokens"][:, : S - P]
+        batch["labels"] = batch["labels"][:, : S - P]
+        batch["patches"] = rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -137,7 +143,8 @@ def make_batch_iterator(
     )
     step = start_step
     while True:
-        yield _augment_for_family(cfg, src.batch(step))
+        rng = np.random.default_rng(seed * 7_919 + step)
+        yield _augment_for_family(cfg, src.batch(step), rng)
         step += 1
 
 

@@ -17,6 +17,9 @@ per-position KV maps, so ``--continuous`` raises, as in the reference):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --batch 8 --requests 16 --prompt-len 2048 --max-new 32
 
+A VLM (``qwen2-vl-2b``) gets ``min(VLM_PATCHES, prompt_len // 2)`` random
+patch rows before every prompt, one prompt length, and that much more cache.
+
 The flags are the reference's (``repro.launch.serve``), plus ``--units``
 and ``--pods``: the simulated mesh takes the place of the devices a JAX
 process sees.  ``--trace-dir`` writes the continuous run's admission-round,
@@ -38,6 +41,7 @@ from ..configs import get_config, get_smoke_config
 from ..core.exchange import make_mesh
 from ..distributed.sharding import MeshContext, mesh_context
 from ..models import registry as R
+from ..models.registry import VLM_PATCHES
 from ..obs.export import write_trace_dir
 from ..obs.trace import Tracer
 from ..serve import (
@@ -48,6 +52,25 @@ from ..serve import (
     generate_bucketed,
     make_mixed_workload,
 )
+
+
+def _extra_inputs(cfg, args, rng):
+    """A VLM's patch embeddings ``[batch, P, d_model]``, drawn first from the
+    run's generator, as the reference draws them."""
+    if cfg.family == "vlm":
+        P = min(VLM_PATCHES, args.prompt_len // 2)
+        return {"patches": rng.standard_normal(
+            (args.batch, P, cfg.d_model)).astype(np.float32)}
+    return None
+
+
+def _prompt_lens(cfg, args) -> list[int]:
+    """Two prefill buckets, except a family with fixed-shape side inputs
+    (VLM patches), which keeps one prompt length: its imbalance then comes
+    from the output lengths alone."""
+    if cfg.family == "vlm":
+        return [args.prompt_len]
+    return [max(args.prompt_len // 2, 4), args.prompt_len]
 
 
 def _summarize(tag: str, reqs: list[Request], stats: dict, wall: float) -> dict:
@@ -92,7 +115,11 @@ def main(argv=None, device: str = "cuda"):
     api = R.build(cfg)
     params = api.init(args.seed, device=device)
     capacity = args.prompt_len + args.max_new + 1
+    if cfg.family == "vlm":
+        # the VLM frontend prepends patch rows to the decode context
+        capacity += min(VLM_PATCHES, args.prompt_len // 2)
     rng = np.random.default_rng(args.seed)
+    extra = _extra_inputs(cfg, args, rng)
     scope = (
         mesh_context(MeshContext(make_mesh(args.units, args.pods)))
         if args.units > 1 else contextlib.nullcontext()
@@ -100,9 +127,8 @@ def main(argv=None, device: str = "cuda"):
 
     with scope:
         if args.continuous:
-            prompt_lens = [max(args.prompt_len // 2, 4), args.prompt_len]
             reqs = make_mixed_workload(
-                cfg.vocab_size, args.requests, prompt_lens, args.max_new, rng,
+                cfg.vocab_size, args.requests, _prompt_lens(cfg, args), args.max_new, rng,
                 arrival_rate=args.arrival_rate,
             )
             clone = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
@@ -112,7 +138,7 @@ def main(argv=None, device: str = "cuda"):
                                     temperature=args.temperature, seed=args.seed,
                                     tracer=tracer, device=device)
             t0 = time.perf_counter()
-            cont.serve(params, reqs)
+            cont.serve(params, reqs, extra_inputs=extra)
             _summarize("continuous", reqs, cont.stats, time.perf_counter() - t0)
             if tracer is not None:
                 print("trace:", write_trace_dir(tracer, args.trace_dir, basename="serve"))
@@ -121,7 +147,7 @@ def main(argv=None, device: str = "cuda"):
                                  temperature=args.temperature, seed=args.seed,
                                  device=device)
             t0 = time.perf_counter()
-            generate_bucketed(static, params, clone)
+            generate_bucketed(static, params, clone, extra_inputs=extra)
             _summarize("static    ", clone, static.stats, time.perf_counter() - t0)
 
             c, s = cont.stats["slot_steps"], static.stats["slot_steps"]
@@ -147,7 +173,7 @@ def main(argv=None, device: str = "cuda"):
         t0 = time.perf_counter()
         for i in range(0, len(reqs), args.batch):
             batch = reqs[i : i + args.batch]
-            engine.generate(params, batch)
+            engine.generate(params, batch, extra_inputs=extra)
             print(f"batch {i // args.batch}: "
                   + "; ".join(str(r.out_tokens[:8]) for r in batch))
         _summarize("static", reqs, engine.stats, time.perf_counter() - t0)

@@ -1,4 +1,5 @@
-"""Shared neural layers for GQA transformers (port of ``repro.models.layers``).
+"""Shared neural layers: norms, RoPE/M-RoPE, GQA and MLA attention, MLPs
+(port of ``repro.models.layers``).
 
 Conventions, as in the reference:
 
@@ -6,18 +7,21 @@ Conventions, as in the reference:
   ``[d, H, Dh]``, ``wo`` is ``[H, Dh, d]``), so that
   :mod:`repro_torch.models.convert` copies the reference's arrays as they are;
 * activations are ``[batch, seq, d_model]``; attention heads ``[B, S, H, Dh]``;
-* ``positions`` are int ``[B, S]``;
+* ``positions`` are int ``[B, S]`` (RoPE) or ``[3, B, S]`` (M-RoPE: one
+  stream each for time, height and width);
 * master params keep ``cfg.param_dtype`` and are cast to the compute dtype
   where they are used, as the reference casts them.
 
-What the port leaves to later slices: MLA, M-RoPE, layernorm and q/k/v
-biases.  Serving calls :func:`sdpa` directly; the full-sequence
-:func:`attention_block` (training) picks its core with ``cfg.attn_impl``
-(:func:`attention_core`), whose ``flash`` branch runs the CUDA kernel.
+Serving calls :func:`sdpa` (GQA) or :func:`_mla_attend` (MLA) directly; the
+full-sequence :func:`attention_block` (training) picks its core with
+``cfg.attn_impl`` (:func:`attention_core`), whose ``flash`` branch runs the
+CUDA kernel.  MLA is plain matrix products, as in the reference, which runs
+it outside any Pallas kernel.  What the port leaves to a later slice:
+layernorm (Whisper).
 
 The port's own init draws the reference's distributions (truncated normal at
-±2σ, He scale) from an explicit ``torch.Generator``; it cannot reproduce
-``jax.random``'s numbers.
+±2σ, He scale) from an explicit ``torch.Generator`` (:func:`make_generator`);
+it cannot reproduce ``jax.random``'s numbers.
 """
 
 from __future__ import annotations
@@ -57,10 +61,38 @@ _TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))
 _TRUNC_HI = math.erf(2.0 / math.sqrt(2.0))
 
 
+class _ShapesOnly:
+    """The generator of a ``meta`` init: it has a device and draws nothing
+    (``torch.Generator`` refuses the ``meta`` device)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """A generator seeded with ``seed`` on ``device`` (the card unless the
+    caller asks for the CPU); on ``"meta"`` one that only carries shapes,
+    which is how :func:`repro_torch.models.registry.param_count` builds a
+    model without allocating it."""
+    from ..relational.table import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _ShapesOnly(dev)
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def rand(gen: torch.Generator, shape) -> torch.Tensor:
+    """Uniform ``[0, 1)`` f32 draws from ``gen`` (none on ``meta``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     """``scale`` x a standard normal truncated to ``[-2, 2]``, by inverting
     the CDF of a uniform draw (as ``jax.random.truncated_normal`` does)."""
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    u = rand(gen, shape)
     u.mul_(_TRUNC_HI - _TRUNC_LO).add_(_TRUNC_LO)
     x = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
     return x.mul_(scale).to(dtype)
@@ -86,7 +118,7 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# RoPE.
+# RoPE / M-RoPE.
 # ----------------------------------------------------------------------------
 
 def rope_angles(
@@ -110,8 +142,51 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def mrope_angles(
+    positions: torch.Tensor, head_dim: int, theta: float, sections: tuple[int, int, int]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's multimodal RoPE: three position streams (t, h, w) feed
+    disjoint runs of the rotary half.  ``positions [3, B, S]`` -> cos/sin
+    ``[B, S, half]``, frequency ``i`` taken from the stream whose section
+    holds it."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to head_dim / 2 = {half}")
+    cos_t, sin_t = rope_angles(positions, head_dim, theta)  # [3, B, S, half]
+    bounds = [0, sections[0], sections[0] + sections[1], half]
+    cos = torch.cat([cos_t[j, ..., bounds[j]:bounds[j + 1]] for j in range(3)], dim=-1)
+    sin = torch.cat([sin_t[j, ..., bounds[j]:bounds[j + 1]] for j in range(3)], dim=-1)
+    return cos, sin
+
+
+def positions_for(cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The batch's ``positions``, else ``0 .. S-1`` for every row, ``S``
+    counting a VLM's patch rows before its tokens (the same for all three
+    streams under M-RoPE)."""
+    if "positions" in batch:
+        return batch["positions"]
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if "patches" in batch:
+        S += batch["patches"].shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :].repeat(B, 1)
+    if cfg.rope_kind == "mrope":
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor, head_dim: int):
+    if cfg.rope_kind == "mrope":
+        return mrope_angles(positions, head_dim, cfg.rope_theta, cfg.mrope_sections)
     return rope_angles(positions, head_dim, cfg.rope_theta)
+
+
+def rotate_qk(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, cos, sin):
+    """``q`` and ``k`` rotated when the config has rotary positions (RoPE or
+    M-RoPE); as they are otherwise."""
+    if cfg.rope_kind in ("rope", "mrope"):
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    return q, k
 
 
 # ----------------------------------------------------------------------------
@@ -242,12 +317,17 @@ def attention_core(
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
     d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = pdtype(cfg)
-    return {
+    p = {
         "wq": he_init(gen, (d, H, Dh), d, dt),
         "wk": he_init(gen, (d, KH, Dh), d, dt),
         "wv": he_init(gen, (d, KH, Dh), d, dt),
         "wo": he_init(gen, (H, Dh, d), H * Dh, dt),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, Dh), dtype=dt, device=gen.device)
+        p["bk"] = torch.zeros((KH, Dh), dtype=dt, device=gen.device)
+        p["bv"] = torch.zeros((KH, Dh), dtype=dt, device=gen.device)
+    return p
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -257,8 +337,14 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    """Project to q/k/v in the compute dtype."""
-    return _project(x, params["wq"]), _project(x, params["wk"]), _project(x, params["wv"])
+    """Project to q/k/v (+ bias) in the compute dtype."""
+    q, k, v = _project(x, params["wq"]), _project(x, params["wk"]), _project(x, params["wv"])
+    if cfg.qkv_bias:
+        dt = x.dtype
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    return q, k, v
 
 
 def attention_out(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -277,8 +363,7 @@ def attention_block(
 ) -> torch.Tensor:
     """Full-sequence (training) GQA attention."""
     q, k, v = attention_qkv(params, cfg, x)
-    if cfg.rope_kind == "rope":
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k = rotate_qk(cfg, q, k, cos, sin)
     return attention_out(params, attention_core(cfg, q, k, v, causal=causal))
 
 
@@ -296,7 +381,7 @@ def attention_decode(
     updated in place (the reference returns updated copies): the step
     writes one position of it and reads the rest."""
     q, k, v = attention_qkv(params, cfg, x)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k = rotate_qk(cfg, q, k, cos, sin)
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     o = sdpa(q, cache_k, cache_v, causal=False, kv_valid_len=pos + 1)
@@ -318,12 +403,132 @@ def attention_decode_slots(
     position it writes the same bytes and builds the same mask as
     :func:`attention_decode`."""
     q, k, v = attention_qkv(params, cfg, x)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k = rotate_qk(cfg, q, k, cos, sin)
     b = torch.arange(x.shape[0], device=x.device)
     cache_k[b, positions] = k[:, 0].to(cache_k.dtype)
     cache_v[b, positions] = v[:, 0].to(cache_v.dtype)
     o = sdpa(q, cache_k, cache_v, causal=False, kv_valid_len=positions + 1)
     return attention_out(params, o), cache_k, cache_v
+
+
+# ----------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2): a low-rank compressed KV cache.
+# ----------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, H = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = pdtype(cfg)
+    return {
+        # queries: full rank (V2-Lite has no query compression)
+        "wq": he_init(gen, (d, H, dn + dr), d, dt),
+        # keys and values: compressed to r (+ the shared rope dims), then per head
+        "wkv_a": he_init(gen, (d, r + dr), d, dt),
+        "kv_norm": init_rmsnorm(r, dt, gen.device),
+        "wk_b": he_init(gen, (r, H, dn), r, dt),
+        "wv_b": he_init(gen, (r, H, dv), r, dt),
+        "wo": he_init(gen, (H, dv, d), H * dv, dt),
+    }
+
+
+def _mla_qk(params: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+    """The query path and the compressed key/value path (training, prefill
+    and decode): ``(q_nope [B, S, H, dn], q_rope [B, S, H, dr], c [B, S, r],
+    k_rope [B, S, dr])``, the rope parts rotated."""
+    dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q = _project(x, params["wq"])
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+    ckv = x @ params["wkv_a"].to(x.dtype)
+    c = rmsnorm(params["kv_norm"], ckv[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, r:], cos, sin)[:, :, 0]  # one rope head, shared
+    return q_nope, q_rope, c, k_rope
+
+
+def _mla_attend_block(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rope, *,
+                      causal: bool, q_offset: int = 0, kv_valid_len=None) -> torch.Tensor:
+    """Attention in the compressed space, ``wk_b`` absorbed into the query:
+    ``scores = (q_nope @ wk_b^T) . c + q_rope . k_rope``, so the cache stays
+    ``[B, S, r]``.  The logits in f32, masked with ``-1e30``, scaled by
+    ``1 / sqrt(qk_nope + qk_rope)``; the values read ``c`` and expand
+    through ``wv_b`` after the softmax."""
+    dt = q_nope.dtype
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, params["wk_b"].to(dt))
+    logits = torch.einsum("bshr,btr->bhst", q_abs, c)
+    logits = logits + torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+    logits = logits.float() * scale
+    Sq, Sk = logits.shape[2], logits.shape[3]
+    kpos = torch.arange(Sk, device=logits.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=logits.device)
+    if causal:
+        mask = kpos[None, :] <= (torch.arange(Sq, device=logits.device)[:, None] + q_offset)
+    bmask = mask[None, None]  # broadcast over [B, H, ...]
+    if isinstance(kv_valid_len, torch.Tensor) and kv_valid_len.ndim == 1:
+        bmask = bmask & (kpos[None, :] < kv_valid_len[:, None])[:, None, None, :]
+    elif kv_valid_len is not None:
+        bmask = bmask & (kpos[None, :] < kv_valid_len)[None, None]
+    logits = torch.where(bmask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(dt)
+    o_c = torch.einsum("bhst,btr->bshr", w, c)  # attend over the compressed values
+    o = torch.einsum("bshr,rhv->bshv", o_c, params["wv_b"].to(dt))
+    B, S, H, dv = o.shape
+    return o.reshape(B, S, H * dv) @ params["wo"].to(dt).reshape(H * dv, -1)
+
+
+def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rope, *,
+                causal: bool, q_offset: int = 0, kv_valid_len=None) -> torch.Tensor:
+    """Query-block-chunked MLA attention, as the reference chunks it: one
+    block unless ``cfg.attn_impl`` asks for chunks or (``"auto"``) the
+    queries pass ``max(attn_q_block, 1024)``; each block of
+    ``attn_q_block`` queries under ``torch.utils.checkpoint``."""
+    Sq = q_nope.shape[1]
+    bq = cfg.attn_q_block
+    if (cfg.attn_impl == "sdpa" or Sq % bq != 0 or Sq == bq
+            or (cfg.attn_impl == "auto" and Sq <= max(bq, 1024))):
+        return _mla_attend_block(params, cfg, q_nope, q_rope, c, k_rope, causal=causal,
+                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
+    outs = [
+        checkpoint(
+            lambda qn, qr, i=i: _mla_attend_block(
+                params, cfg, qn, qr, c, k_rope, causal=causal, q_offset=i + q_offset,
+                kv_valid_len=kv_valid_len),
+            q_nope[:, i : i + bq], q_rope[:, i : i + bq], use_reentrant=False)
+        for i in range(0, Sq, bq)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def mla_block(params: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin, *,
+              causal: bool = True) -> torch.Tensor:
+    """Full-sequence (training) MLA attention."""
+    q_nope, q_rope, c, k_rope = _mla_qk(params, cfg, x, cos, sin)
+    return _mla_attend(params, cfg, q_nope, q_rope, c, k_rope, causal=causal)
+
+
+def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor, cache_c: torch.Tensor,
+               cache_kr: torch.Tensor, pos: int, cos, sin):
+    """One decode step against the compressed cache (``c [B, S, r]``,
+    ``k_rope [B, S, dr]``), updated in place; returns ``(out, cache_c,
+    cache_kr)``."""
+    q_nope, q_rope, c_new, kr_new = _mla_qk(params, cfg, x, cos, sin)
+    cache_c[:, pos] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[:, pos] = kr_new[:, 0].to(cache_kr.dtype)
+    out = _mla_attend(params, cfg, q_nope, q_rope, cache_c, cache_kr,
+                      causal=False, kv_valid_len=pos + 1)
+    return out, cache_c, cache_kr
+
+
+def mla_decode_slots(params: Params, cfg: ModelConfig, x: torch.Tensor, cache_c: torch.Tensor,
+                     cache_kr: torch.Tensor, positions: torch.Tensor, cos, sin):
+    """MLA decode at per-slot positions ``[B]`` (continuous batching), the
+    cache updated in place."""
+    q_nope, q_rope, c_new, kr_new = _mla_qk(params, cfg, x, cos, sin)
+    b = torch.arange(x.shape[0], device=x.device)
+    cache_c[b, positions] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[b, positions] = kr_new[:, 0].to(cache_kr.dtype)
+    out = _mla_attend(params, cfg, q_nope, q_rope, cache_c, cache_kr,
+                      causal=False, kv_valid_len=positions + 1)
+    return out, cache_c, cache_kr
 
 
 # ----------------------------------------------------------------------------
@@ -410,12 +615,17 @@ def xent_loss(
 __all__ = [
     "cdtype",
     "pdtype",
+    "make_generator",
+    "rand",
     "he_init",
     "init_rmsnorm",
     "rmsnorm",
     "rope_angles",
+    "mrope_angles",
+    "positions_for",
     "apply_rope",
     "rope_tables",
+    "rotate_qk",
     "sdpa",
     "chunked_sdpa",
     "attention_core",
@@ -426,6 +636,10 @@ __all__ = [
     "attention_block",
     "attention_decode",
     "attention_decode_slots",
+    "init_mla",
+    "mla_block",
+    "mla_decode",
+    "mla_decode_slots",
     "init_mlp",
     "mlp_block",
     "init_embedding",

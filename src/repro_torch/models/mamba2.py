@@ -46,8 +46,7 @@ def dims(cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return u * (hi - lo) + lo
+    return L.rand(gen, shape) * (hi - lo) + lo
 
 
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> Any:
@@ -229,10 +228,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
 def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`)."""
-    from ..relational.table import resolve_device
-
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only."""
+    gen = L.make_generator(seed, device)
     return {
         "embedding": L.init_embedding(gen, cfg),
         "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],

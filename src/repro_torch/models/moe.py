@@ -39,19 +39,21 @@ from . import layers as L
 
 
 def init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
-    if cfg.num_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not ported yet; they come with the dense-model "
-            "slice (ROADMAP A.12)"
-        )
+    """Router and routed experts; with ``num_shared_experts``, a ``shared``
+    SwiGLU MLP of width ``moe_d_ff x num_shared_experts`` that every token
+    goes through (DeepSeek-V2's shared experts, fused into one MLP as the
+    reference fuses them)."""
     d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
     dt = L.pdtype(cfg)
-    return {
+    p = {
         "router": L._normal(gen, (d, E), 0.02, torch.float32),  # router in f32
         "w_gate": L.he_init(gen, (E, d, f), d, dt),
         "w_up": L.he_init(gen, (E, d, f), d, dt),
         "w_down": L.he_init(gen, (E, f, d), f, dt),
     }
+    if cfg.num_shared_experts:
+        p["shared"] = L.init_mlp(gen, cfg, d_ff=f * cfg.num_shared_experts)
+    return p
 
 
 def route(params, cfg: ModelConfig, x: torch.Tensor):
@@ -251,14 +253,18 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The FFN slot of a MoE transformer layer (routed experts)."""
+    """The FFN slot of a MoE transformer layer: routed experts, plus the
+    shared experts' MLP on every token after either path."""
     B, S, d = x.shape
     tokens = x.reshape(B * S, d)
     if cfg.moe_impl == "ep_shardmap":
         y = moe_ep(params, cfg, tokens)
     else:  # "dense" and "gspmd"
         y = moe_dense(params, cfg, tokens)
-    return y.reshape(B, S, d)
+    y = y.reshape(B, S, d)
+    if cfg.num_shared_experts:
+        y = y + L.mlp_block(params["shared"], cfg, x)
+    return y
 
 
 __all__ = [

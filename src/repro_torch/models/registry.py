@@ -1,14 +1,15 @@
 """Uniform functional API over the port's models (port of ``repro.models.registry``).
 
 ``build(cfg)`` returns a :class:`ModelApi` whose members close over ``cfg``.
-The port builds the GQA transformer families, dense and MoE
-(:mod:`.transformer`), the pure-SSM family (:mod:`.mamba2`) and the hybrid
-family (:mod:`.zamba2`); the VLM and encoder-decoder families raise and name
-the slice that brings them.  ``decode_step_slots`` is ``None`` for the SSM
-and hybrid families, whose caches are not per-position KV maps, as in the
-reference.  ``forward`` (the final-normed hidden states) is the port's
-addition.  The reference's param specs and its input and shape specs for
-the dry-run have no counterpart.
+The port builds the transformer families, dense, MoE and VLM
+(:mod:`.transformer`: GQA or MLA attention, RoPE or M-RoPE), the pure-SSM
+family (:mod:`.mamba2`) and the hybrid family (:mod:`.zamba2`); the
+encoder-decoder family raises and names the slice that brings it.
+``decode_step_slots`` is ``None`` for the SSM and hybrid families, whose
+caches are not per-position KV maps, as in the reference.  ``forward`` (the
+final-normed hidden states) is the port's addition.  :func:`param_count`
+counts the leaves of ``init(..., device="meta")``.  The reference's param
+specs and its input and shape specs for the dry-run have no counterpart.
 """
 
 from __future__ import annotations
@@ -19,9 +20,13 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig
+from ..tree import leaves_with_paths
+
+# Image-patch positions the VLM stub prepends (Qwen2-VL's dynamic resolution
+# becomes a fixed budget; the vision frontend itself is out of scope).
+VLM_PATCHES = 1024
 
 _LATER_SLICES = {
-    "vlm": "the dense-model slice (ROADMAP A.12)",
     "encdec": "the Whisper slice (ROADMAP A.15)",
 }
 
@@ -49,10 +54,8 @@ def build(cfg: ModelConfig) -> ModelApi:
         from . import mamba2 as m
     elif cfg.family == "hybrid":
         from . import zamba2 as m
-    else:
+    else:  # dense / moe / vlm share the transformer stack
         from . import transformer as m
-
-        m.check_supported(cfg)
     slots = getattr(m, "decode_step_slots", None)
     return ModelApi(
         cfg=cfg,
@@ -68,4 +71,23 @@ def build(cfg: ModelConfig) -> ModelApi:
     )
 
 
-__all__ = ["ModelApi", "build"]
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The model's parameters, counted on ``init(..., device="meta")`` (no
+    memory).  With ``active_only`` an MoE layer's ``ffn`` matrices count
+    ``top_k / num_experts`` of their size, as the reference counts them:
+    per stacked leaf (every layer of a segment together, rounded down
+    once), the shared experts' and a dense first layer's ``ffn`` included."""
+    stacked: dict[tuple, int] = {}
+    for path, leaf in leaves_with_paths(build(cfg).init(0, device="meta")):
+        key = tuple(k for k in path if not isinstance(k, int))  # layers stack
+        stacked[key] = stacked.get(key, 0) + leaf.numel()
+    total = 0
+    for key, n in stacked.items():
+        if active_only and cfg.num_experts and "ffn" in key and \
+                any(k in ("w_gate", "w_up", "w_down") for k in key):
+            n = n * cfg.top_k // cfg.num_experts
+        total += n
+    return total
+
+
+__all__ = ["ModelApi", "VLM_PATCHES", "build", "param_count"]

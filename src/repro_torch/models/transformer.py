@@ -1,18 +1,24 @@
-"""Decoder-only transformer stack for GQA dense and MoE models (port of
-``repro.models.transformer``).
+"""Decoder-only transformer stack (port of ``repro.models.transformer``).
+
+One implementation serves the dense models (MiniCPM, Qwen2.5, Qwen1.5,
+DeepSeek-67B), the MoE models (OLMoE, all-MoE; DeepSeek-V2-Lite, MLA with a
+dense first layer) and the Qwen2-VL backbone (M-RoPE and a prefix of patch
+embeddings).
 
 The reference stacks each run of identical layers (a *segment*) and scans
 over it with ``lax.scan``; here a segment is a list of per-layer param dicts
 and the scan is a loop.  Caches keep the reference's stacked layout
-(``cache["seg0"]["k"]`` is ``[L, B, S, KH, Dh]``), so they compare with the
+(``cache["seg0"]["k"]`` is ``[L, B, S, KH, Dh]``; under MLA ``"c"`` is
+``[L, B, S, r]`` and ``"kr"`` ``[L, B, S, dr]``), so they compare with the
 reference's leaf for leaf; decode writes layer ``l``'s slice in place.
 
 Training runs :func:`forward` / :func:`train_loss`; with ``cfg.remat`` other
 than ``"none"`` each layer runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward pass.
 
-What the port leaves to later slices: MLA, M-RoPE, q/k/v biases and the VLM
-patch prefix.
+A VLM batch's ``patches [B, P, d]`` are prepended to the token embeddings:
+prefill's cache then holds ``P + S`` positions and decode continues after
+them; the loss reads the text positions only.
 """
 
 from __future__ import annotations
@@ -44,20 +50,6 @@ def segments_for(cfg: ModelConfig) -> list[Segment]:
     return segs
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise on what this slice does not build (``registry.build`` calls it)."""
-    unported = {
-        "MLA (attn_kind='mla')": cfg.attn_kind != "gqa",
-        f"rope_kind={cfg.rope_kind!r}": cfg.rope_kind != "rope",
-        "q/k/v biases": cfg.qkv_bias,
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet; it comes with the dense-model slice (ROADMAP A.12)"
-            )
-
-
 # ----------------------------------------------------------------------------
 # Params.
 # ----------------------------------------------------------------------------
@@ -66,7 +58,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Any:
     dt = L.pdtype(cfg)
     return {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, gen.device),
-        "attn": L.init_attention(gen, cfg),
+        "attn": (L.init_mla if cfg.attn_kind == "mla" else L.init_attention)(gen, cfg),
         "ln2": L.init_rmsnorm(cfg.d_model, dt, gen.device),
         "ffn": M.init_moe_layer(gen, cfg) if kind == "moe" else L.init_mlp(gen, cfg),
     }
@@ -75,10 +67,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Any:
 def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`)."""
-    from ..relational.table import resolve_device
-
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only."""
+    gen = L.make_generator(seed, device)
     params: dict[str, Any] = {"embedding": L.init_embedding(gen, cfg)}
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device)
     for i, seg in enumerate(segments_for(cfg)):
@@ -89,14 +79,16 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
                device="cuda") -> Any:
     dtype = dtype or L.cdtype(cfg)
-    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     cache: dict[str, Any] = {}
     for i, seg in enumerate(segments_for(cfg)):
-        shape = (seg.count, batch_size, capacity, kh, hd)
-        cache[f"seg{i}"] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
+        lead = (seg.count, batch_size, capacity)
+        if cfg.attn_kind == "mla":
+            shapes = {"c": lead + (cfg.kv_lora_rank,), "kr": lead + (cfg.qk_rope_head_dim,)}
+        else:
+            kv = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": kv, "v": kv}
+        cache[f"seg{i}"] = {name: torch.zeros(shape, dtype=dtype, device=device)
+                            for name, shape in shapes.items()}
     return cache
 
 
@@ -112,7 +104,10 @@ def _ffn_block(p, cfg: ModelConfig, kind: str, x: torch.Tensor) -> torch.Tensor:
 
 def _layer_fwd(p, cfg: ModelConfig, kind: str, x, cos, sin):
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a = L.attention_block(p["attn"], cfg, h, cos, sin, causal=True)
+    if cfg.attn_kind == "mla":
+        a = L.mla_block(p["attn"], cfg, h, cos, sin, causal=True)
+    else:
+        a = L.attention_block(p["attn"], cfg, h, cos, sin, causal=True)
     x = x + L.scale_as(x, cfg.residual_scale) * a
     return _ffn_block(p, cfg, kind, x)
 
@@ -139,41 +134,58 @@ def _run_segments(params, cfg: ModelConfig, x, cos, sin):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding and positions (given, or ``0 .. S-1`` for every row)."""
-    if "patches" in batch:
-        raise NotImplementedError("the VLM patch prefix comes with the dense-model slice "
-                                  "(ROADMAP A.12)")
+    """Token embedding, after the VLM patch prefix when the batch has one,
+    and positions (given, or ``0 .. P+S-1`` for every row, the same for the
+    three M-RoPE streams)."""
     x = L.embed(params["embedding"], cfg, batch["tokens"])
-    pos = batch.get("positions")
-    if pos is None:
-        B, S = x.shape[0], x.shape[1]
-        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].repeat(B, 1)
-    return x, pos
+    if "patches" in batch:  # Qwen2-VL's stub frontend: precomputed embeddings
+        x = torch.cat([batch["patches"].to(device=x.device, dtype=x.dtype), x], dim=1)
+    return x, L.positions_for(cfg, batch)
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The width the rotary tables cover: MLA rotates only its rope dims."""
+    if cfg.attn_kind == "mla":
+        return cfg.qk_rope_head_dim
+    return cfg.resolved_head_dim
+
+
+def _step_positions(cfg: ModelConfig, p: torch.Tensor) -> torch.Tensor:
+    """Decode positions ``[B, 1]``, as ``[3, B, 1]`` under M-RoPE (every
+    stream at the token's position)."""
+    if cfg.rope_kind == "mrope":
+        return p[None].expand(3, *p.shape)
+    return p
 
 
 def forward(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Full-sequence causal forward -> final-normed hidden states ``[B, S, d]``."""
+    """Full-sequence causal forward -> final-normed hidden states ``[B, S, d]``
+    (``S`` counts the patch prefix)."""
     x, pos = _embed_inputs(params, cfg, batch)
-    cos, sin = L.rope_tables(cfg, pos, cfg.resolved_head_dim)
+    cos, sin = L.rope_tables(cfg, pos, _rope_dim(cfg))
     x = _run_segments(params, cfg, x, cos, sin)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["labels"]`` (optionally
-    masked by ``batch["loss_mask"]``)."""
-    logits = L.unembed(params["embedding"], cfg, forward(params, cfg, batch))
+    masked by ``batch["loss_mask"]``) over the text positions: a VLM's
+    patch prefix is not scored."""
+    h = forward(params, cfg, batch)
+    h = h[:, h.shape[1] - batch["tokens"].shape[1]:]
+    logits = L.unembed(params["embedding"], cfg, h)
     return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
 
 
 def _decode_layers(params, cfg: ModelConfig, x, cache, attend):
     """Run every layer of every segment for one decode step; ``attend``
-    does one layer's attention against its cache slice, in place."""
+    does one layer's attention against its own cache leaves (``{"k", "v"}``
+    or, under MLA, ``{"c", "kr"}``, each layer ``l``'s slice), in place."""
     for i, seg in enumerate(segments_for(cfg)):
         c = cache[f"seg{i}"]
         for l, p in enumerate(params[f"seg{i}"]):
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            a, _, _ = attend(p["attn"], h, c["k"][l], c["v"][l])
+            a = attend(p["attn"], h, {name: leaf[l] for name, leaf in c.items()})
             x = x + L.scale_as(x, cfg.residual_scale) * a
             x = _ffn_block(p, cfg, seg.kind, x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -185,13 +197,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
     -> ``(logits [B, vocab], cache)``; the cache is updated in place."""
     x = L.embed(params["embedding"], cfg, tokens)
     B = x.shape[0]
-    p = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = L.rope_tables(cfg, p, cfg.resolved_head_dim)
-    logits = _decode_layers(
-        params, cfg, x, cache,
-        lambda pa, h, ck, cv: L.attention_decode(pa, cfg, h, ck, cv, pos, cos, sin),
-    )
-    return logits, cache
+    p = _step_positions(cfg, torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
+    cos, sin = L.rope_tables(cfg, p, _rope_dim(cfg))
+    if cfg.attn_kind == "mla":
+        def attend(pa, h, cl):
+            return L.mla_decode(pa, cfg, h, cl["c"], cl["kr"], pos, cos, sin)[0]
+    else:
+        def attend(pa, h, cl):
+            return L.attention_decode(pa, cfg, h, cl["k"], cl["v"], pos, cos, sin)[0]
+    return _decode_layers(params, cfg, x, cache, attend), cache
 
 
 def decode_step_slots(params, cfg: ModelConfig, tokens, cache, positions):
@@ -201,39 +215,43 @@ def decode_step_slots(params, cfg: ModelConfig, tokens, cache, positions):
     bits: the same embed, rope, cache write, mask and unembed."""
     x = L.embed(params["embedding"], cfg, tokens)
     positions = positions.to(device=x.device, dtype=torch.long)
-    cos, sin = L.rope_tables(cfg, positions[:, None], cfg.resolved_head_dim)
-    logits = _decode_layers(
-        params, cfg, x, cache,
-        lambda pa, h, ck, cv: L.attention_decode_slots(pa, cfg, h, ck, cv, positions, cos, sin),
-    )
-    return logits, cache
+    cos, sin = L.rope_tables(cfg, _step_positions(cfg, positions[:, None]), _rope_dim(cfg))
+    if cfg.attn_kind == "mla":
+        def attend(pa, h, cl):
+            return L.mla_decode_slots(pa, cfg, h, cl["c"], cl["kr"], positions, cos, sin)[0]
+    else:
+        def attend(pa, h, cl):
+            return L.attention_decode_slots(pa, cfg, h, cl["k"], cl["v"], positions, cos,
+                                            sin)[0]
+    return _decode_layers(params, cfg, x, cache, attend), cache
 
 
 def prefill(params, cfg: ModelConfig, batch):
-    """Process whole prompts: ``batch["tokens"] [B, S]`` -> ``(last-token
-    logits [B, vocab], cache)`` with a cache of exactly ``S`` positions."""
-    if "patches" in batch:
-        raise NotImplementedError("the VLM patch prefix comes with the dense-model slice")
-    x = L.embed(params["embedding"], cfg, batch["tokens"])
-    B, S = x.shape[0], x.shape[1]
-    pos = batch.get("positions")
-    if pos is None:
-        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].repeat(B, 1)
-    cos, sin = L.rope_tables(cfg, pos, cfg.resolved_head_dim)
+    """Process whole prompts: ``batch["tokens"] [B, S]`` (after
+    ``batch["patches"] [B, P, d]`` for a VLM) -> ``(last-token logits [B,
+    vocab], cache)`` with a cache of exactly ``P + S`` positions."""
+    x, pos = _embed_inputs(params, cfg, batch)
+    cos, sin = L.rope_tables(cfg, pos, _rope_dim(cfg))
 
     cache = {}
     for i, seg in enumerate(segments_for(cfg)):
-        ks, vs = [], []
+        rows: dict[str, list] = {}
         for p in params[f"seg{i}"]:
             hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            q, k, v = L.attention_qkv(p["attn"], cfg, hn)
-            q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-            a = L.attention_out(p["attn"], L.sdpa(q, k, v, causal=True))
+            if cfg.attn_kind == "mla":
+                q_nope, q_rope, c, kr = L._mla_qk(p["attn"], cfg, hn, cos, sin)
+                a = L._mla_attend(p["attn"], cfg, q_nope, q_rope, c, kr, causal=True)
+                kept = {"c": c, "kr": kr}
+            else:
+                q, k, v = L.attention_qkv(p["attn"], cfg, hn)
+                q, k = L.rotate_qk(cfg, q, k, cos, sin)
+                a = L.attention_out(p["attn"], L.sdpa(q, k, v, causal=True))
+                kept = {"k": k, "v": v}
             x = x + L.scale_as(x, cfg.residual_scale) * a
             x = _ffn_block(p, cfg, seg.kind, x)
-            ks.append(k)
-            vs.append(v)
-        cache[f"seg{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            for name, leaf in kept.items():
+                rows.setdefault(name, []).append(leaf)
+        cache[f"seg{i}"] = {name: torch.stack(leaves) for name, leaves in rows.items()}
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embedding"], cfg, x[:, -1:])
@@ -241,7 +259,6 @@ def prefill(params, cfg: ModelConfig, batch):
 
 
 __all__ = [
-    "check_supported",
     "Segment",
     "segments_for",
     "init",

@@ -38,11 +38,9 @@ def layout(cfg: ModelConfig) -> tuple[int, int, int]:
 
 def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
-    distributions."""
-    from ..relational.table import resolve_device
-
+    distributions; on ``"meta"``, shapes only."""
     ng, gs, tail = layout(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.make_generator(seed, device)
     dt = L.pdtype(cfg)
     p = {
         "embedding": L.init_embedding(gen, cfg),

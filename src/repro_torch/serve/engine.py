@@ -24,6 +24,10 @@ The static engine serves every ported family: a KV cache grows to
 is (:func:`grow_cache`).  The continuous engine needs a per-position KV
 cache (``decode_step_slots``) and raises for the SSM and hybrid families.
 
+Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``) join every
+prefill batch.  Decode continues after the whole prefill context, patches
+plus prompt: its length is read from the prefill cache's position axis.
+
 Both engines run where the params live: ``device`` defaults to the card and
 raises without one; pass ``device="cpu"`` for the CPU.  Greedy sampling is
 the reference's; sampling with a temperature draws from a ``torch.Generator``
@@ -43,6 +47,7 @@ import torch
 from ..models import registry
 from ..obs.trace import maybe_span
 from ..relational.table import resolve_device
+from ..tree import leaves, tree_map
 
 
 def sample_token(gen: torch.Generator | None, logits: torch.Tensor,
@@ -118,6 +123,16 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _on_device(extra: dict | None, device: torch.device) -> dict:
+    """Side inputs (numpy arrays or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in (extra or {}).items()}
+
+
+def _side_rows(extra: dict | None) -> int:
+    """The rows a VLM's patches put before every prompt (0 without them)."""
+    return int(extra["patches"].shape[1]) if extra and "patches" in extra else 0
+
+
 class ServeEngine:
     """Greedy/temperature STATIC batched generation over the model API."""
 
@@ -132,8 +147,10 @@ class ServeEngine:
         self.gen = _generator(self.device, seed)
         self.stats = {"prefill_tokens": 0, "decode_steps": 0, "slot_steps": 0, "wall": 0.0}
 
-    def generate(self, params, requests: list[Request]) -> list[Request]:
-        """Run one static batch of same-length prompts to completion."""
+    def generate(self, params, requests: list[Request],
+                 extra_inputs: dict | None = None) -> list[Request]:
+        """Run one static batch of same-length prompts to completion, with
+        ``extra_inputs`` (``[batch_size, ...]`` each) in its prefill."""
         t0 = time.perf_counter()
         if len(requests) > self.batch_size:
             raise ValueError(f"{len(requests)} requests exceed batch_size={self.batch_size}")
@@ -145,9 +162,13 @@ class ServeEngine:
         for i, r in enumerate(requests):
             prompts[i] = r.prompt
 
-        logits, cache = self.api.prefill(params, {"tokens": torch.from_numpy(prompts).to(self.device)})
+        batch = {"tokens": torch.from_numpy(prompts).to(self.device),
+                 **_on_device(extra_inputs, self.device)}
+        logits, cache = self.api.prefill(params, batch)
         self.stats["prefill_tokens"] += int(prompts.size)
-        ctx_len = plen
+        # decode continues after the WHOLE prefill context (a VLM's patch
+        # rows + the prompt), in a capacity-long cache
+        ctx_len = plen + _side_rows(extra_inputs)
         cache = grow_cache(self.api, cache, B, self.capacity)
 
         max_new = max(r.max_new_tokens for r in requests)
@@ -188,8 +209,6 @@ def grow_cache(api: registry.ModelApi, cache: Any, batch_size: int, capacity: in
     leaf whose shape already matches (an SSM state, a conv window) is kept
     as it is, a KV leaf grows along its positions.  The template is built on
     the ``meta`` device, so it allocates nothing."""
-    from ..tree import tree_map
-
     template = api.init_cache(batch_size, capacity, device="meta")
 
     def grow(leaf, ref):
@@ -205,7 +224,8 @@ def grow_cache(api: registry.ModelApi, cache: Any, batch_size: int, capacity: in
     return tree_map(grow, cache, template)
 
 
-def generate_bucketed(engine: ServeEngine, params, requests: list[Request]) -> list[Request]:
+def generate_bucketed(engine: ServeEngine, params, requests: list[Request],
+                      extra_inputs: dict | None = None) -> list[Request]:
     """Static-batch a MIXED-length workload: bucket by prompt length, then
     run fixed batches per bucket, in arrival order within each bucket."""
     buckets: dict[int, list[Request]] = {}
@@ -214,7 +234,7 @@ def generate_bucketed(engine: ServeEngine, params, requests: list[Request]) -> l
     for plen in sorted(buckets):
         group = buckets[plen]
         for i in range(0, len(group), engine.batch_size):
-            engine.generate(params, group[i : i + engine.batch_size])
+            engine.generate(params, group[i : i + engine.batch_size], extra_inputs)
     return requests
 
 
@@ -349,9 +369,11 @@ class ContinuousEngine:
                 p = pref[seg][name]
                 leaf[:, slots, : p.shape[2]] = p[:, :n].to(leaf.dtype)
 
-    def _admit_group(self, params, cache, requests: list[Request], step: int, t0: float):
-        """Prefill one same-prompt-length group (padded to the batch) and
-        write it into the admitted slots."""
+    def _admit_group(self, params, cache, requests: list[Request], step: int, t0: float,
+                     extra: dict):
+        """Prefill one same-prompt-length group (padded to the batch), with
+        the side inputs ``extra`` (on the device), and write it into the
+        admitted slots."""
         B, plen = self.batch_size, requests[0].prompt.shape[0]
         prompts = np.zeros((B, plen), np.int32)
         for j, r in enumerate(requests):
@@ -359,16 +381,19 @@ class ContinuousEngine:
         with maybe_span(self.tracer, f"prefill:len{plen}", "serve",
                         requests=len(requests), step=step):
             logits, pref_cache = self.api.prefill(
-                params, {"tokens": torch.from_numpy(prompts).to(self.device)})
+                params, {"tokens": torch.from_numpy(prompts).to(self.device), **extra})
             if self.tracer is not None and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()  # the span ends with the work
         self.stats["prefill_tokens"] += len(requests) * plen
         self.stats["prefill_calls"] += 1
-        ctx_len = int(pref_cache["seg0"]["k"].shape[2])
+        # a slot starts from the PREFILL CACHE's length, any leaf's axis 2
+        # (``k`` under GQA, ``c`` under MLA): a VLM's patch rows come before
+        # the prompt, and decode continues after both
+        ctx_len = int(leaves(pref_cache)[0].shape[2])
         if ctx_len >= self.capacity:
             raise ValueError(
-                f"admission rejected: prefill context of {ctx_len} rows cannot fit a "
-                f"capacity-{self.capacity} cache slot"
+                f"admission rejected: prefill context of {ctx_len} rows (prompt {plen} + "
+                f"side inputs) cannot fit a capacity-{self.capacity} cache slot"
             )
 
         slot_of = [self.alloc.admit(r) for r in requests]
@@ -402,21 +427,27 @@ class ContinuousEngine:
 
     # -- the serve loop -----------------------------------------------------
 
-    def serve(self, params, requests: list[Request]) -> list[Request]:
+    def serve(self, params, requests: list[Request],
+              extra_inputs: dict | None = None) -> list[Request]:
         """Run a mixed-length workload to completion with slot refill.
 
         Requests become admittable at ``arrival_step`` (a decode-step tick).
         Among the arrived, freed slots go to the LONGEST remaining budget
         first (ties keep arrival order, so uniform workloads admit FIFO).
-        Raises before any state changes on a request whose prompt cannot fit
-        a cache slot.
+        ``extra_inputs`` (``[batch_size, ...]`` each) join every prefill
+        group.  Raises before any state changes on a request whose prompt,
+        with the side-input rows a VLM's patches prepend, cannot fit a cache
+        slot.
         """
+        side = _side_rows(extra_inputs)
         for r in requests:
-            if r.prompt.shape[0] >= self.capacity:
+            if r.prompt.shape[0] + side >= self.capacity:
                 raise ValueError(
-                    f"admission rejected: prompt of {r.prompt.shape[0]} tokens cannot fit "
-                    f"a capacity-{self.capacity} cache slot"
+                    f"admission rejected: prompt of {r.prompt.shape[0]} tokens"
+                    + (f" + {side} side-input rows" if side else "")
+                    + f" cannot fit a capacity-{self.capacity} cache slot"
                 )
+        extra = _on_device(extra_inputs, self.device)
         t0 = time.perf_counter()
         B = self.batch_size
         pending = sorted(requests, key=lambda r: r.arrival_step)
@@ -448,7 +479,7 @@ class ContinuousEngine:
                     with maybe_span(self.tracer, f"admission-round:{step}", "serve",
                                     admitted=len(admittable), groups=len(by_len)):
                         for plen in sorted(by_len):
-                            self._admit_group(params, cache, by_len[plen], step, t0)
+                            self._admit_group(params, cache, by_len[plen], step, t0, extra)
                 self.alloc.check()
 
                 if not self.alloc.live:

@@ -5,10 +5,13 @@ port's tests.
 
 ``in.npz`` holds the MoE layer's params (``router``, ``w_gate``, ``w_up``,
 ``w_down``), the tokens ``x [T, d]`` and the config fields ``top_k``,
-``capacity_factor``.  For a flat 8-unit mesh and a 2 pods x 4 mesh it runs
-``repro.models.moe._ep_moe_local`` under ``shard_map`` over the joint unit
-axis and writes ``y_pods{P}`` ``[T, d]`` and ``dropped_pods{P}`` ``[8]``
-(per unit).  The fake-device flag must be set before JAX starts, so this
+``capacity_factor`` and, optionally, ``router_norm_topk``.  For a flat
+8-unit mesh and a 2 pods x 4 mesh it runs ``repro.models.moe._ep_moe_local``
+under ``shard_map`` over the joint unit axis and writes ``y_pods{P}`` ``[T,
+d]`` and ``dropped_pods{P}`` ``[8]`` (per unit).  With the shared experts'
+MLP in ``in.npz`` (``shared_w_gate``, ``shared_w_up``, ``shared_w_down``) it
+also writes ``y_shared_pods{P}``: the EP output plus the shared MLP on every
+token, as ``repro.models.moe.moe_ffn`` adds it after either path.  The fake-device flag must be set before JAX starts, so this
 runs as a subprocess.
 """
 
@@ -26,6 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 from repro.compat import shard_map  # noqa: E402
 from repro.configs.base import ModelConfig  # noqa: E402
 from repro.launch.mesh import make_test_mesh  # noqa: E402
+from repro.models import layers as L  # noqa: E402
 from repro.models import moe as M  # noqa: E402
 
 
@@ -39,7 +43,11 @@ def main(src: str, dst: str) -> None:
         d_ff=f, vocab_size=64, num_experts=E, top_k=int(data["top_k"]), moe_d_ff=f,
         capacity_factor=float(data["capacity_factor"]), dtype="float32",
         moe_impl="ep_shardmap",
+        router_norm_topk=bool(data["router_norm_topk"]) if "router_norm_topk" in data else False,
     )
+    shared = None
+    if "shared_w_gate" in data:
+        shared = {k: jax.numpy.asarray(data[f"shared_{k}"]) for k in ("w_gate", "w_up", "w_down")}
     out = {}
     for pods in (1, 2):
         if pods == 1:
@@ -62,6 +70,8 @@ def main(src: str, dst: str) -> None:
         y, dropped = jax.jit(fn)(params, x)
         out[f"y_pods{pods}"] = np.asarray(y)
         out[f"dropped_pods{pods}"] = np.asarray(dropped)
+        if shared is not None:
+            out[f"y_shared_pods{pods}"] = np.asarray(y + L.mlp_block(shared, cfg, x[None])[0])
     np.savez(dst, **out)
     print("PASS torch_moe_ref")
 

@@ -36,6 +36,7 @@ def jref():
     """The reference's MoE kernel, oracles, layer and tuner."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as ref_get_config
+    from repro.configs import get_smoke_config as ref_get_smoke_config
     from repro.core import autotune as ref_autotune
     from repro.kernels import ops as ref_ops
     from repro.kernels import ref as ref_ref
@@ -43,7 +44,7 @@ def jref():
 
     return types.SimpleNamespace(
         jax=jax, jnp=jax.numpy, ops=ref_ops, ref=ref_ref, moe=ref_moe,
-        autotune=ref_autotune, get_config=ref_get_config,
+        autotune=ref_autotune, get_config=ref_get_config, get_smoke_config=ref_get_smoke_config,
     )
 
 
@@ -384,6 +385,51 @@ def test_moe_ep_with_drops_matches_reference_shard_map(jref, tmp_path):
         assert dropped.sum() > 0, "the case must drop rows"
         np.testing.assert_array_equal(dropped.numpy(), want[f"dropped_pods{pods}"])
         np.testing.assert_allclose(y.reshape(-1, 32).numpy(), want[f"y_pods{pods}"],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_deepseek_v2_lite_ep_matches_reference_shard_map(jref, tmp_path):
+    """DeepSeek-V2-Lite's smoke MoE layer (top-2 of 8, ``router_norm_topk``,
+    one shared expert) with ``moe_impl="ep_shardmap"`` on 8 units and on
+    2 x 4: the reference's ``shard_map`` body's outputs and per-unit drops;
+    then ``moe_ffn`` (EP, then the shared experts' MLP on every token)
+    against the reference's EP output plus its shared MLP."""
+    ref_cfg = jref.moe.ModelConfig(**{
+        **{f: getattr(jref.get_smoke_config("deepseek-v2-lite-16b"), f)
+           for f in ModelConfig.__dataclass_fields__},
+        "moe_impl": "ep_shardmap"})
+    cfg = ModelConfig(**{f: getattr(ref_cfg, f) for f in ModelConfig.__dataclass_fields__})
+    assert cfg.router_norm_topk and cfg.num_shared_experts == 1 and cfg.top_k == 2
+    params = jref.jax.tree.map(np.array,
+                               jref.moe.init_moe_layer(jref.jax.random.PRNGKey(3), ref_cfg))
+    d = cfg.d_model
+    x = np.random.default_rng(4).standard_normal((128, d)).astype(np.float32)
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, x=x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+             router_norm_topk=cfg.router_norm_topk,
+             **{k: v for k, v in params.items() if k != "shared"},
+             **{f"shared_{k}": v for k, v in params["shared"].items()})
+    script = os.path.join(os.path.dirname(__file__), "_torch_moe_ref_run.py")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    proc = subprocess.run([sys.executable, script, str(src), str(dst)],
+                          capture_output=True, text=True, timeout=240, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    want = np.load(dst)
+    tp = {k: torch.from_numpy(v) for k, v in params.items() if k != "shared"}
+    tp["shared"] = {k: torch.from_numpy(v) for k, v in params["shared"].items()}
+    for pods in (1, 2):
+        mesh = exchange.make_mesh(8, pods)
+        y, dropped = M._ep_moe_local(
+            tp, cfg, torch.from_numpy(x).reshape(8, -1, d), mesh, "q",
+            pod_axis="pod" if pods > 1 else None,
+        )
+        assert dropped.sum() > 0, "the case must drop rows"
+        np.testing.assert_array_equal(dropped.numpy(), want[f"dropped_pods{pods}"])
+        np.testing.assert_allclose(y.reshape(-1, d).numpy(), want[f"y_pods{pods}"],
+                                   rtol=RTOL, atol=ATOL)
+        with mesh_context(MeshContext(mesh)):
+            got = M.moe_ffn(tp, cfg, torch.from_numpy(x)[None])[0]
+        np.testing.assert_allclose(got.numpy(), want[f"y_shared_pods{pods}"],
                                    rtol=RTOL, atol=ATOL)
 
 
