@@ -24,8 +24,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    also with one call's wall (host clock over 1,000 calls) beside its
    device time (profiler) and the bound's share of that;
    ``flash_attention`` at train100m's shape (B=8, H=12, KH=4, S=2,048,
-   D=64, causal) in f32 and bf16 and one non-causal ``Sq != Sk`` case,
-   within the reference's tolerances (2e-5 f32, 2e-2 bf16), beside
+   D=64, causal) in f32 and bf16, at Whisper-medium's encoder shape (B=8,
+   H=KH=16, S=2,048, D=64, non-causal, bf16) and one non-causal ``Sq !=
+   Sk`` case, within the reference's tolerances (2e-5 f32, 2e-2 bf16), beside
    ``scaled_dot_product_attention`` (timed only) and bound by the larger of
    bytes over 3.35 TB/s and flops over 989 TFLOP/s (bf16) or three times
    the flops over 494.7 TFLOP/s (f32 in 3xTF32; one f32 FMA pass over 67
@@ -221,8 +222,30 @@ Phases, in order; any failure raises and the process exits non-zero:
    cache leaf (KV, or MLA's compressed ``c`` and ``kr``) within 1e-3 of the
    largest magnitude.  Layers, param count and dtype, prefill tokens/s, ms a
    decode step, TTFT p50/p99 and peak memory printed for each;
-10. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
-11. the last line: ``{"ok": true, "device": {...}}``.
+10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
+   decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
+   from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
+   Serving through the static engine: 8 requests x 1,536 prompt tokens,
+   each with 1,536 frame rows (Whisper's 1,500-frame window rounded up to
+   the kernel's multiple of 64), 32 new at batch 4, batch by batch and
+   through ``generate_bucketed`` with identical greedy tokens;
+   ``flash_attention`` must launch non-causally 24 times a prefill (the
+   encoder) and never causally (the decoder's prefill runs ``sdpa``, as the
+   reference's); the continuous engine must refuse the family.  Prefill
+   tokens/s, ms a decode step, TTFT p50/p99 (all requests queued at once)
+   and peak memory printed; one prefill and one decode step profiled.  In
+   f32 at batch 1, calling the model directly: 1,536 frames, a prefill of
+   1,472 tokens and 64 decode steps over the unpadded cross cache against
+   ``decode_train`` at the last position, the logits within 1e-3 of the
+   largest magnitude.  Training: 10 AdamW steps at 8 x 2,048 (and 2,048
+   frames), ``remat="block"``, through the calls ``launch/train.py``
+   makes: losses finite, the mean of the last 3 below the first, 96
+   ``flash_attention`` launches a step (48 non-causal: each encoder layer's
+   forward and remat recompute; 48 causal: the decoder's); one step
+   against ``attn_impl="chunked"`` within ``TRAIN_BF16_RTOL``; one step
+   profiled; then ``launch.train.main`` for 2 steps at 2 x 512;
+11. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Wall times are host clock around work that ends in
 ``torch.cuda.synchronize()``, taken on each query's second run and around
@@ -311,6 +334,15 @@ TF_MIXED = (4, 0.0)
 # token to the full prompt), and the limit of the largest magnitude
 TF_CHECK = (256, 192)
 TF_CHECK_TOL = 1e-3
+# Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
+# new tokens, batch; the f32 check's frames and full length, and its split
+# point (then one decode step a token); training batch, seq (and frames),
+# steps; the CLI's steps, seq, batch.  Every length the flash kernel sees is a
+# multiple of 64: Whisper's own 1,500-frame window is not one, so 1,536.
+WHISPER_SERVE = (8, 1536, 32, 4)
+WHISPER_CHECK = (1536, 1472)
+WHISPER_TRAIN = (8, 2048, 10)
+WHISPER_TRAIN_CLI = (2, 512, 2)
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
 OFF_PATH = ("hash_partition",)
@@ -684,6 +716,10 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
     flash = [_flash_row(B, 12, 4, S_t, S_t, 64, True, "float32", seed),
              _flash_row(B, 12, 4, S_t, S_t, 64, True, "bfloat16", seed),
              _flash_row(2, 4, 1, 128, 256, 64, False, "float32", seed)]
+    # Whisper-medium's encoder self-attention at its training shape
+    wb, ws = WHISPER_TRAIN[:2]
+    encoder = _flash_row(wb, 16, 16, ws, ws, 64, False, "bfloat16", seed)
+    encoder["launch_key"] = "flash_attention[noncausal]"
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row) and its
     # long prompt at batch 1 (64 blocks, the state carried over 128 chunks);
     # Zamba2-7B
@@ -695,8 +731,9 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
            _ssd_row(4, 2048, 112, 64, 64, 256, 1, "bfloat16", seed),
            _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
-    flash[1]["launch_key"] = "flash_attention[bfloat16]"  # the bf16 training run's
-    return rows + moe_rows + [flash[0], flash[1], ssd[0]]
+    # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
+    flash[1]["launch_key"] = "flash_attention[bfloat16]"
+    return rows + moe_rows + [flash[0], flash[1], encoder, ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -1841,10 +1878,11 @@ def phase_cluster(tabs: dict, wants: dict, sf: float, smi: str, fitted) -> dict:
 class _Timed:
     """Wall seconds of every call of a model-API function, each ended by
     ``torch.cuda.synchronize()`` (the engines wait for every step's tokens
-    anyway, so the syncs cost nothing extra)."""
+    anyway, so the syncs cost nothing extra), and each call's end on the
+    host clock."""
 
     def __init__(self, fn):
-        self.fn, self.seconds, self.calls, self.tokens = fn, 0.0, 0, 0
+        self.fn, self.seconds, self.calls, self.tokens, self.ends = fn, 0.0, 0, 0, []
 
     def __call__(self, params, batch, *rest):
         import torch
@@ -1853,7 +1891,8 @@ class _Timed:
         t0 = time.perf_counter()
         out = self.fn(params, batch, *rest)
         torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
+        self.ends.append(time.perf_counter())
+        self.seconds += self.ends[-1] - t0
         self.calls += 1
         # prefill: every row of the batch, padding rows included
         self.tokens += batch["tokens"].numel() if isinstance(batch, dict) else batch.shape[0]
@@ -2068,13 +2107,14 @@ def phase_serving(seed: int) -> dict:
 
 
 def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
-               kernel: str = "flash_attention"):
+               kernel: str = "flash_attention", tail: int = 5):
     """``steps`` AdamW steps (lr 3e-4, 5 warm-up steps over a 20-step
     schedule) of ``cfg`` at a batch of ``shape`` from ``seed``, through the
     calls ``launch/train.py`` makes; every step must launch ``kernel`` once a
     layer, twice under remat (every layer of train100m runs attention, every
-    layer of Mamba2 and Zamba2 the scan), every loss must be finite and the
-    mean of the last 5 below the first.  Returns the
+    layer of Mamba2 and Zamba2 the scan, every encoder and decoder layer of
+    Whisper the attention kernel), every loss must be finite and the mean
+    of the last ``tail`` below the first.  Returns the
     state, the step function, the optimizer, the batch source and every
     kernel's launches over the steps (a main path)."""
     import numpy as np
@@ -2094,8 +2134,10 @@ def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
     step_fn = make_train_step(api, opt)
     state = TrainState.create(api, seed)
     n_params = sum(t.numel() for t in leaves(state.params))
-    per_step = cfg.num_layers * (1 if cfg.remat == "none" else 2)
-    print(f"[training] {tag}: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    layers = cfg.num_layers + cfg.encoder_layers
+    per_step = layers * (1 if cfg.remat == "none" else 2)
+    enc = f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else ""
+    print(f"[training] {tag}: {cfg.name}, {cfg.num_layers} layers{enc}, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"tied {cfg.tie_embeddings}, {cfg.dtype} compute over {cfg.param_dtype} params, "
           f"remat={cfg.remat}, attn_impl={cfg.attn_impl}; {n_params} params from seed {seed}; "
@@ -2123,14 +2165,16 @@ def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
     launches = _counts()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: non-finite loss: {losses}")
-    tail = float(np.mean(losses[-5:]))
-    if not tail < losses[0]:
-        raise AssertionError(f"{tag}: the loss did not fall: first {losses[0]}, last 5 mean {tail}")
+    last = float(np.mean(losses[-tail:]))
+    if not last < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall: first {losses[0]}, last {tail} "
+                             f"mean {last}")
     steady = float(np.mean(walls[1:]))
     print(f"[training] {tag} losses: {' '.join(f'{x:.4f}' for x in losses)}")
-    print(f"[training] {tag} loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; all finite")
+    print(f"[training] {tag} loss {losses[0]:.4f} -> mean of the last {tail} {last:.4f}; all "
+          f"finite")
     print(f"[training] {tag} {kernel} launched {launches[kernel]} = {steps} steps x {per_step} "
-          f"({per_step // cfg.num_layers} x {cfg.num_layers} layers: forward"
+          f"({per_step // layers} x {layers} layers: forward"
           f"{' + remat recompute' if cfg.remat != 'none' else ''})")
     print(f"[training] {tag} step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{steps} mean "
           f"{steady * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}) "
@@ -2693,6 +2737,207 @@ def phase_transformers(seed: int, smi: str) -> dict:
     return total
 
 
+def _whisper_check(cfg, params, seed: int) -> None:
+    """In f32 compute at batch 1, the model called directly: a prefill of
+    the first ``WHISPER_CHECK[1]`` tokens over ``WHISPER_CHECK[0]`` frames,
+    then one decode step a token to ``WHISPER_CHECK[0]`` over the unpadded
+    cross cache, against ``decode_train`` over the same memory at the last
+    position: the logits within ``TF_CHECK_TOL`` of the largest magnitude."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.models import whisper
+    from repro_torch.serve import grow_cache
+
+    full, split = WHISPER_CHECK
+    cfg32 = cfg.scaled(dtype="float32")
+    api32 = registry.build(cfg32)
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, full), dtype=np.int32)).cuda()
+    frames = torch.from_numpy(rng.standard_normal((1, full, cfg.d_model),
+                                                  dtype=np.float32)).cuda()
+    t0 = time.perf_counter()
+    memory = whisper.encode(params, cfg32, frames)
+    h = whisper.decode_train(params, cfg32, tokens, memory)
+    want = L.unembed(params["embedding"], cfg32, h[:, -1:])[:, 0]
+    _, cache = api32.prefill(params, {"tokens": tokens[:, :split], "frames": frames})
+    cache = grow_cache(api32, cache, 1, full)  # the self KV grows; the cross KV is full already
+    for pos in range(split, full):
+        logits, cache = api32.decode_step(params, tokens[:, pos : pos + 1], cache, pos)
+    wall = time.perf_counter() - t0
+    if not (torch.isfinite(logits).all() and torch.isfinite(want).all()):
+        raise AssertionError("whisper f32 check: non-finite logits")
+    err = _rel_err(logits, want)
+    print(f"[whisper] f32 check: {full} frames; prefill of 1 x {split} + {full - split} decode "
+          f"steps over the unpadded cross cache against decode_train at position {full - 1}: "
+          f"last logits rel err {err:.3g} (limit {TF_CHECK_TOL}); {wall:.2f} s")
+    if err > TF_CHECK_TOL:
+        raise AssertionError(f"whisper: decode and decode_train disagree beyond {TF_CHECK_TOL}")
+
+
+def _whisper_serving(cfg, params, seed: int, smi: str) -> dict:
+    """Whisper-medium at full width through the static engine, batch by
+    batch and through ``generate_bucketed`` (the same tokens); 24
+    non-causal ``flash_attention`` launches a prefill (the encoder), none
+    causal (the decoder's prefill runs ``sdpa``, as the reference's); the
+    continuous engine refused.  Returns every kernel's launches over both
+    runs (a main path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.serve import (ContinuousEngine, Request, ServeEngine, generate_bucketed,
+                                   grow_cache)
+
+    n_req, plen, new, B = WHISPER_SERVE
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, plen, dtype=np.int32) for _ in range(n_req)]
+    extra = {"frames": rng.standard_normal((B, plen, cfg.d_model)).astype(np.float32)}
+    cap = plen + new + 1
+    api = registry.build(cfg)
+    main_path = dict.fromkeys(_counts(), 0)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for tag in ("batches", "bucketed"):
+        t_api = _timed_api(api)
+        se = ServeEngine(t_api, batch_size=B, capacity=cap)
+        reqs = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+        _reset_counts()
+        t0 = time.perf_counter()
+        if tag == "bucketed":
+            generate_bucketed(se, params, reqs, extra_inputs=extra)
+        else:
+            for i in range(0, n_req, B):
+                se.generate(params, reqs[i : i + B], extra_inputs=extra)
+        counts = _counts()
+        for i, r in enumerate(reqs):  # all queued at t0: the batch's first token
+            r.ttft_s = t_api.prefill.ends[i // B] - t0
+        for k, v in counts.items():
+            main_path[k] += v
+        calls = t_api.prefill.calls
+        if counts["flash_attention[noncausal]"] != cfg.encoder_layers * calls or \
+                counts["flash_attention"] != counts["flash_attention[noncausal]"]:
+            raise AssertionError(f"whisper {tag}: flash_attention launched {counts} over {calls} "
+                                 f"prefills; expected {cfg.encoder_layers} non-causal a prefill")
+        if not all(len(r.out_tokens) == new and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+                   for r in reqs):
+            raise AssertionError(f"whisper {tag}: a request did not get {new} tokens")
+        _serving_line(f"whisper-medium {tag}, {n_req} x {plen} + {plen} frames + {new} new, "
+                      f"batch {B}", t_api, reqs, se.stats)
+        print(f"[whisper] {tag}: flash_attention launched {counts['flash_attention[noncausal]']} "
+              f"times non-causally = {cfg.encoder_layers} encoder layers x {calls} prefills, "
+              f"0 causally; prefill {1e3 * t_api.prefill.seconds / calls:.1f} ms a call, decode "
+              f"{1e3 * t_api.decode_step.seconds / t_api.decode_step.calls:.2f} ms a step")
+        runs[tag] = reqs
+    if [r.out_tokens for r in runs["batches"]] != [r.out_tokens for r in runs["bucketed"]]:
+        raise AssertionError("whisper: generate_bucketed's greedy tokens differ")
+    try:
+        ContinuousEngine(api, batch_size=B, capacity=cap)
+    except NotImplementedError as e:
+        print(f"[whisper] the continuous engine refuses encdec: {e}")
+    else:
+        raise AssertionError("whisper: the continuous engine took the encdec family")
+    print(f"[whisper] serving: identical greedy tokens batch by batch and through "
+          f"generate_bucketed ({n_req} x {new}); peak torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B ({smi})")
+    batch = {"tokens": torch.from_numpy(np.stack(prompts[:B])).cuda(),
+             "frames": torch.from_numpy(extra["frames"]).cuda()}
+    _profile_call(f"whisper prefill [{B}, {plen}]", lambda: api.prefill(params, batch),
+                  kernel=("flash_fwd_bf16", "flash_attention"), top=10)
+    _, cache = api.prefill(params, batch)
+    cache = grow_cache(api, cache, B, cap)
+    _profile_call(f"whisper decode step B={B}",
+                  lambda: api.decode_step(params, batch["tokens"][:, :1], cache, plen),
+                  kernel=("flash_fwd_bf16", "flash_attention"), top=5)
+    del cache, batch
+    return main_path
+
+
+def phase_whisper(seed: int, smi: str) -> dict:
+    """Whisper-medium at full width and depth (24 + 24 layers, random
+    weights from ``seed``, f32 master params, bf16 compute, flash
+    attention): static serving, the f32 decode check, 10 train steps with
+    96 ``flash_attention`` launches each (48 non-causal), one step against
+    chunked attention, one profiled step and the training CLI.  Returns
+    every kernel's launches over serving and training (the main path), the
+    non-causal ones under ``flash_attention[noncausal]`` and the causal bf16
+    ones under ``flash_attention[bfloat16]``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-medium").scaled(attn_impl="flash")
+    api = registry.build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"whisper: {n_params} params, param_count says {cfg.param_count()}")
+    print(f"[whisper] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params} {cfg.param_dtype} params ({4 * n_params} B) from seed "
+          f"{seed} in {time.perf_counter() - t0:.2f} s; {cfg.dtype} compute, "
+          f"attn_impl={cfg.attn_impl}")
+    serve = _whisper_serving(cfg, params, seed, smi)
+    _whisper_check(cfg, params, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S, steps = WHISPER_TRAIN
+    state, step_fn, opt, next_batch, train = _train_run(cfg, seed, steps, "whisper bf16",
+                                                        shape=(B, S), tail=3)
+    want = steps * 2 * cfg.encoder_layers
+    if train["flash_attention[noncausal]"] != want:
+        raise AssertionError(f"whisper training: {train['flash_attention[noncausal]']} non-causal "
+                             f"flash_attention launches, expected {want}")
+    print(f"[whisper] training: flash_attention launched {train['flash_attention']} = "
+          f"{train['flash_attention[noncausal]']} non-causal (2 x {cfg.encoder_layers} encoder "
+          f"layers a step) + {train['flash_attention'] - train['flash_attention[noncausal]']} "
+          f"causal (2 x {cfg.num_layers} decoder layers a step) over {steps} steps")
+    batch = next_batch()
+    _flash_vs_chunked(cfg, opt, step_fn, state, batch, "whisper bf16", *TRAIN_BF16_RTOL)
+    _profile_call(f"whisper train step [{B}, {S}]", lambda: step_fn(state, batch),
+                  kernel=("flash_fwd_bf16", "flash_attention"), top=10)
+    del state, batch, step_fn, next_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cli_steps, cli_seq, cli_batch = WHISPER_TRAIN_CLI
+    argv = ["--arch", "whisper-medium", "--steps", str(cli_steps), "--seq-len", str(cli_seq),
+            "--batch", str(cli_batch), "--seed", str(seed)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        st, last = train_cli.main(argv)
+    if int(st.step) != cli_steps or not math.isfinite(last["loss"]):
+        raise AssertionError(f"the CLI ({' '.join(argv)}): step {int(st.step)}, loss "
+                             f"{last.get('loss')}:\n{out.getvalue()}")
+    print(f"[whisper] CLI {' '.join(argv)}: {time.perf_counter() - t0:.2f} s, last loss "
+          f"{last['loss']:.6f}")
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: serve[k] + train[k] for k in serve}
+    noncausal = total.pop("flash_attention[noncausal]")
+    causal = total.pop("flash_attention") - noncausal
+    total.update({"flash_attention": 0, "flash_attention[noncausal]": noncausal,
+                  "flash_attention[bfloat16]": causal})
+    print(f"[whisper] phase 10 in {time.perf_counter() - t_phase:.1f} s; launches over the main "
+          f"path: {total}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -2771,8 +3016,11 @@ def main() -> int:
 
     # 9. the six transformer configs (the dense, VLM and MLA serving main path)
     f_launches = phase_transformers(args.seed, smi)
+
+    # 10. Whisper (the encoder-decoder serving and training main path)
+    w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, m_launches, r_launches, f_launches)
+             t_launches, m_launches, r_launches, f_launches, w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

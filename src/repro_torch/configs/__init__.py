@@ -2,8 +2,7 @@
 
 ``get_config(name)`` returns the full-size :class:`~.base.ModelConfig`;
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
-use.  Every architecture of the reference is here except Whisper, whose
-name raises and names the slice that brings it.
+use.  Every architecture of the reference is here.
 """
 
 from __future__ import annotations
@@ -22,20 +21,14 @@ _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "zamba2-7b": "zamba2_7b",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-medium": "whisper_medium",
     "train100m": "train100m",
-}
-
-# Known architectures the port does not build yet, and the slice that will.
-_LATER_SLICES = {
-    "whisper-medium": "the Whisper slice (ROADMAP A.15)",
 }
 
 
 def _module(name: str):
-    if name in _LATER_SLICES:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; it comes with {_LATER_SLICES[name]}")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(set(_MODULES) | set(_LATER_SLICES))}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"{__name__}.{_MODULES[name]}")
 
 

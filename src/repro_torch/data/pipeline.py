@@ -109,14 +109,15 @@ def write_token_file(path: str, tokens: np.ndarray) -> None:
 
 
 def _augment_for_family(cfg: ModelConfig, batch: dict, rng: np.random.Generator) -> dict:
-    """Add the stub modality inputs: a VLM batch gives up its last ``P =
-    min(VLM_PATCHES, S // 2)`` token positions to ``P`` patch embeddings
-    drawn from ``rng`` (the reference's per-step generator, so the batch
-    equals the reference's bit for bit)."""
+    """Add the stub modality inputs, drawn from ``rng`` (the reference's
+    per-step generator, so the batch equals the reference's bit for bit):
+    an encoder-decoder batch gets frame embeddings ``[B, S, d_model]``; a
+    VLM batch gives up its last ``P = min(VLM_PATCHES, S // 2)`` token
+    positions to ``P`` patch embeddings."""
     if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder batches (whisper frames) come with the "
-                                  "Whisper slice (ROADMAP A.15)")
-    if cfg.family == "vlm":
+        B, S = batch["tokens"].shape
+        batch["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    elif cfg.family == "vlm":
         from ..models.registry import VLM_PATCHES
 
         B, S = batch["tokens"].shape

@@ -9,7 +9,8 @@ It takes the kernel layout, ``q [B, H, Sq, D]`` and ``k``/``v [B, KH, Sk,
 D]``, in float32 (the tensor cores in 3xTF32, at f32 accuracy) or bfloat16
 (the tensor cores, ``mma.sync``).  A tensor on the CPU goes to the plain version in :mod:`.ref`;
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches only.
+launches only: ``"flash_attention"`` every launch, and
+``"flash_attention[noncausal]"`` those of them without the causal mask.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q = BLOCK_K = 64  # sequence lengths must be multiples of these
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention[noncausal]": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -41,7 +42,8 @@ LIBRARY = CudaLibrary("flash_attention.cu", _bind)
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,6 +94,8 @@ def flash_attention(
     )
     raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    if not causal:
+        LAUNCHES["flash_attention[noncausal]"] += 1
     return out
 
 

@@ -11,14 +11,17 @@ workload, with the static engine run on the same workload for comparison:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --continuous --units 8 --batch 64 --requests 128 --arrival-rate 4
 
-The SSM models serve through the static path only (their caches are not
-per-position KV maps, so ``--continuous`` raises, as in the reference):
+The SSM models and Whisper serve through the static path only (their
+caches are not per-position KV maps, so ``--continuous`` raises, as in the
+reference):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --batch 8 --requests 16 --prompt-len 2048 --max-new 32
 
 A VLM (``qwen2-vl-2b``) gets ``min(VLM_PATCHES, prompt_len // 2)`` random
 patch rows before every prompt, one prompt length, and that much more cache.
+Whisper (``whisper-medium``) gets ``prompt_len`` random frame rows a
+request, and one prompt length.
 
 The flags are the reference's (``repro.launch.serve``), plus ``--units``
 and ``--pods``: the simulated mesh takes the place of the devices a JAX
@@ -55,8 +58,12 @@ from ..serve import (
 
 
 def _extra_inputs(cfg, args, rng):
-    """A VLM's patch embeddings ``[batch, P, d_model]``, drawn first from the
+    """An encoder-decoder's frames ``[batch, prompt_len, d_model]`` or a
+    VLM's patch embeddings ``[batch, P, d_model]``, drawn first from the
     run's generator, as the reference draws them."""
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)}
     if cfg.family == "vlm":
         P = min(VLM_PATCHES, args.prompt_len // 2)
         return {"patches": rng.standard_normal(
@@ -66,9 +73,9 @@ def _extra_inputs(cfg, args, rng):
 
 def _prompt_lens(cfg, args) -> list[int]:
     """Two prefill buckets, except a family with fixed-shape side inputs
-    (VLM patches), which keeps one prompt length: its imbalance then comes
-    from the output lengths alone."""
-    if cfg.family == "vlm":
+    (encoder-decoder frames, VLM patches), which keeps one prompt length:
+    its imbalance then comes from the output lengths alone."""
+    if cfg.family in ("encdec", "vlm"):
         return [args.prompt_len]
     return [max(args.prompt_len // 2, 4), args.prompt_len]
 

@@ -3,10 +3,10 @@
 The reference initialises with ``jax.random``, which the port cannot
 reproduce, so tests that hold the port to the reference hand the
 reference's params over through numpy.  Its pytree stacks layers on
-leading dims: a transformer's ``seg{i}``, Mamba2's ``layers`` and Zamba2's
-``tail`` leaves are ``[L, ...]``, Zamba2's ``groups`` leaves ``[ng, gs,
-...]``.  The port keeps a list of per-layer dicts (a list of such lists for
-``groups``).
+leading dims: a transformer's ``seg{i}``, Mamba2's ``layers``, Zamba2's
+``tail`` and Whisper's ``encoder`` and ``decoder`` leaves are ``[L, ...]``,
+Zamba2's ``groups`` leaves ``[ng, gs, ...]``.  The port keeps a list of
+per-layer dicts (a list of such lists for ``groups``).
 Every other leaf keeps its shape and layout: attention, dense-MLP, MoE
 ``ffn`` and Mamba2 leaves alike, Zamba2's unstacked ``shared`` block, and
 the embedding ``table`` (with no ``unembed`` leaf when the embeddings are
@@ -37,7 +37,7 @@ def _stack_depth(name: str) -> int:
     """How many leading dims of a top-level entry stack layers."""
     if name == "groups":
         return 2
-    return 1 if name.startswith("seg") or name in ("layers", "tail") else 0
+    return 1 if name.startswith("seg") or name in ("layers", "tail", "encoder", "decoder") else 0
 
 
 def _unstack(tree, depth: int, device):

@@ -16,8 +16,7 @@ Serving calls :func:`sdpa` (GQA) or :func:`_mla_attend` (MLA) directly; the
 full-sequence :func:`attention_block` (training) picks its core with
 ``cfg.attn_impl`` (:func:`attention_core`), whose ``flash`` branch runs the
 CUDA kernel.  MLA is plain matrix products, as in the reference, which runs
-it outside any Pallas kernel.  What the port leaves to a later slice:
-layernorm (Whisper).
+it outside any Pallas kernel.
 
 The port's own init draws the reference's distributions (truncated normal at
 ±2σ, He scale) from an explicit ``torch.Generator`` (:func:`make_generator`);
@@ -115,6 +114,22 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
     return (x * params["scale"].float()).to(dt)
+
+
+def init_layernorm(d: int, dtype: torch.dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Mean and biased variance in f32, then scale and bias in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dt)
 
 
 # ----------------------------------------------------------------------------
@@ -620,6 +635,8 @@ __all__ = [
     "he_init",
     "init_rmsnorm",
     "rmsnorm",
+    "init_layernorm",
+    "layernorm",
     "rope_angles",
     "mrope_angles",
     "positions_for",

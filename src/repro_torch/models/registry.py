@@ -1,15 +1,16 @@
 """Uniform functional API over the port's models (port of ``repro.models.registry``).
 
 ``build(cfg)`` returns a :class:`ModelApi` whose members close over ``cfg``.
-The port builds the transformer families, dense, MoE and VLM
-(:mod:`.transformer`: GQA or MLA attention, RoPE or M-RoPE), the pure-SSM
-family (:mod:`.mamba2`) and the hybrid family (:mod:`.zamba2`); the
-encoder-decoder family raises and names the slice that brings it.
-``decode_step_slots`` is ``None`` for the SSM and hybrid families, whose
-caches are not per-position KV maps, as in the reference.  ``forward`` (the
-final-normed hidden states) is the port's addition.  :func:`param_count`
-counts the leaves of ``init(..., device="meta")``.  The reference's param
-specs and its input and shape specs for the dry-run have no counterpart.
+The port builds every family of the reference: the transformer families,
+dense, MoE and VLM (:mod:`.transformer`: GQA or MLA attention, RoPE or
+M-RoPE), the pure-SSM family (:mod:`.mamba2`), the hybrid family
+(:mod:`.zamba2`) and the encoder-decoder family (:mod:`.whisper`).
+``decode_step_slots`` is ``None`` for the SSM, hybrid and encoder-decoder
+families, whose caches are not per-position KV maps, as in the reference.
+``forward`` (the final-normed hidden states) is the port's addition.
+:func:`param_count` counts the leaves of ``init(..., device="meta")``.  The
+reference's param specs and its input and shape specs for the dry-run have
+no counterpart.
 """
 
 from __future__ import annotations
@@ -26,10 +27,6 @@ from ..tree import leaves_with_paths
 # becomes a fixed budget; the vision frontend itself is out of scope).
 VLM_PATCHES = 1024
 
-_LATER_SLICES = {
-    "encdec": "the Whisper slice (ROADMAP A.15)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
@@ -41,19 +38,18 @@ class ModelApi:
     decode_step: Callable[[Any, torch.Tensor, Any, int], tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]  # (batch_size, capacity, device="cuda") -> cache
     # Per-slot decode (continuous batching): (params, tokens [B, 1], cache,
-    # positions [B]) -> (logits, cache); None for the SSM and hybrid families.
+    # positions [B]) -> (logits, cache); None for the SSM, hybrid and
+    # encoder-decoder families.
     decode_step_slots: Callable[[Any, torch.Tensor, Any, torch.Tensor], tuple[torch.Tensor, Any]] | None = None
 
 
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _LATER_SLICES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with {_LATER_SLICES[cfg.family]}"
-        )
     if cfg.family == "ssm":
         from . import mamba2 as m
     elif cfg.family == "hybrid":
         from . import zamba2 as m
+    elif cfg.family == "encdec":
+        from . import whisper as m
     else:  # dense / moe / vlm share the transformer stack
         from . import transformer as m
     slots = getattr(m, "decode_step_slots", None)

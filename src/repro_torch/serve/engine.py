@@ -19,14 +19,20 @@ transport.  The static engine has no multiplexer: the plain pack and
 ``cfg.exchange_impl``.  Both give the same tokens, because the pack and the
 transport do not change what is delivered.
 
-The static engine serves every ported family: a KV cache grows to
-``capacity`` positions after prefill, an SSM state is O(1) and stays as it
-is (:func:`grow_cache`).  The continuous engine needs a per-position KV
-cache (``decode_step_slots``) and raises for the SSM and hybrid families.
+The static engine serves every family: a KV cache grows to ``capacity``
+positions after prefill, an SSM state is O(1) and stays as it is
+(:func:`grow_cache`).  The continuous engine needs a per-position KV cache
+(``decode_step_slots``) and raises for the SSM, hybrid and encoder-decoder
+families.
 
-Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``) join every
-prefill batch.  Decode continues after the whole prefill context, patches
-plus prompt: its length is read from the prefill cache's position axis.
+Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``, an
+encoder-decoder's ``frames [B, S_f, d]``) join every prefill batch.  Static
+decode continues where the reference reads it from its first cache leaf
+(:func:`_decode_start`): after the whole prefill context, patches plus
+prompt; for an encoder-decoder, at the frames' length.  Two parities with
+the reference follow for Whisper, kept on purpose: the cross cache grows
+with zero rows that decode attends over, and frames longer or shorter than
+the prompt move the first decode position.
 
 Both engines run where the params live: ``device`` defaults to the card and
 raises without one; pass ``device="cpu"`` for the CPU.  Greedy sampling is
@@ -133,6 +139,17 @@ def _side_rows(extra: dict | None) -> int:
     return int(extra["patches"].shape[1]) if extra and "patches" in extra else 0
 
 
+def _decode_start(cfg, plen: int, extra: dict | None) -> int:
+    """The static engine's first decode position, as the reference reads it
+    (the position axis of ``jax.tree.leaves(cache)[0]``, whose dict keys
+    JAX sorts): the prompt after a VLM's patch rows; for an encoder-decoder
+    the frames' length (its first sorted leaf is ``cross_k``), which is the
+    prompt's only when the two agree, as the launcher makes them."""
+    if cfg.family == "encdec":
+        return int(extra["frames"].shape[1])
+    return plen + _side_rows(extra)
+
+
 class ServeEngine:
     """Greedy/temperature STATIC batched generation over the model API."""
 
@@ -167,8 +184,9 @@ class ServeEngine:
         logits, cache = self.api.prefill(params, batch)
         self.stats["prefill_tokens"] += int(prompts.size)
         # decode continues after the WHOLE prefill context (a VLM's patch
-        # rows + the prompt), in a capacity-long cache
-        ctx_len = plen + _side_rows(extra_inputs)
+        # rows + the prompt; an encoder-decoder's frames), in a capacity-long
+        # cache
+        ctx_len = _decode_start(self.cfg, plen, extra_inputs)
         cache = grow_cache(self.api, cache, B, self.capacity)
 
         max_new = max(r.max_new_tokens for r in requests)

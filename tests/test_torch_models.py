@@ -14,7 +14,7 @@ rtol 1e-5 and every gradient leaf within rtol 1e-4 of ``jax.grad``'s (atol
 reference's own properties hold on the port's side, Qwen2-VL's patches go
 through both engines to the reference's greedy tokens, and
 ``param_count`` equals the reference's for every full-size config the port
-builds.
+builds, Whisper-medium's included.
 """
 
 import types
@@ -34,10 +34,11 @@ RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ["minicpm-2b", "qwen2.5-3b", "qwen1.5-32b", "deepseek-67b", "qwen2-vl-2b",
          "deepseek-v2-lite-16b"]
 B, PLEN, CAP, P = 2, 8, 20, 4  # P: VLM patch rows before every prompt
-# every full-size config the port builds: the reference's ARCH_IDS but
-# whisper-medium, and train100m
+# every full-size config the port builds: the reference's ARCH_IDS and
+# train100m
 BUILT = ["minicpm-2b", "qwen2.5-3b", "deepseek-67b", "qwen1.5-32b", "mamba2-1.3b",
-         "deepseek-v2-lite-16b", "olmoe-1b-7b", "zamba2-7b", "qwen2-vl-2b", "train100m"]
+         "deepseek-v2-lite-16b", "olmoe-1b-7b", "zamba2-7b", "qwen2-vl-2b", "whisper-medium",
+         "train100m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -200,12 +200,16 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_archs_name_their_slice():
-    """Only Whisper (the ``encdec`` family) is left to a later slice; every
-    other architecture of the reference builds."""
-    with pytest.raises(NotImplementedError, match="Whisper slice"):
-        get_config("whisper-medium")
-    with pytest.raises(NotImplementedError, match="Whisper slice"):
-        registry.build(get_config("olmoe-1b-7b").scaled(family="encdec"))
+    """No architecture is left to a later slice: Whisper (the ``encdec``
+    family) builds, serves through the static engine only (no per-slot
+    decode, as in the reference), and every other architecture of the
+    reference builds; an unknown name raises and lists the known ones."""
+    api = registry.build(get_config("whisper-medium"))
+    assert api.cfg.family == "encdec" and api.decode_step_slots is None
+    with pytest.raises(NotImplementedError, match="decode_step_slots"):
+        ContinuousEngine(registry.build(get_smoke_config("whisper-medium")), 2, 8, device="cpu")
+    with pytest.raises(KeyError, match="whisper-medium"):
+        get_config("whisper-large")
     for arch in ("minicpm-2b", "qwen2.5-3b", "qwen1.5-32b", "deepseek-67b", "qwen2-vl-2b",
                  "deepseek-v2-lite-16b"):
         registry.build(get_config(arch))

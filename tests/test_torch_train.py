@@ -276,12 +276,23 @@ def test_hierarchical_grad_sync_over_pods_raises(jref):
 
 
 def test_unported_model_features_still_raise():
-    """Only the encoder-decoder family (Whisper) is left to a later slice;
+    """No model feature is left to a later slice: the encoder-decoder family
+    (Whisper) builds and takes a train step at its smoke config with frames;
     MLA, M-RoPE, q/k/v biases and the patch prefix, refused before the
-    dense-model slice, now build and train at train100m's smoke config."""
+    dense-model slice, build and train at train100m's smoke config."""
+    wcfg = get_smoke_config("whisper-medium")
+    wapi = registry.build(wcfg)
+    assert wapi.cfg.family == "encdec" and wapi.decode_step_slots is None
+    rng = np.random.default_rng(0)
+    wtoks = torch.from_numpy(rng.integers(0, wcfg.vocab_size, (2, 9), dtype=np.int32))
+    wbatch = {"tokens": wtoks[:, :8], "labels": wtoks[:, 1:],
+              "frames": torch.from_numpy(rng.standard_normal((2, 8, wcfg.d_model),
+                                                             dtype=np.float32))}
+    state = TrainState.create(wapi, 0, device="cpu")
+    state, m = make_train_step(wapi, AdamWConfig(lr=1e-3, warmup_steps=0))(state, wbatch)
+    assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
+    assert float(m["grad_norm"]) > 0
     cfg = get_smoke_config("train100m")
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        registry.build(cfg.scaled(family="encdec"))
     toks = torch.zeros((1, 5), dtype=torch.int32)
     batch = {"tokens": toks[:, :4], "labels": toks[:, 1:]}
     for over in (dict(attn_kind="mla", kv_lora_rank=16, qk_nope_head_dim=8,
@@ -335,12 +346,16 @@ def test_token_file_dataset_equals_the_reference(jref, tmp_path):
 
 
 def test_unported_families_raise_in_the_pipeline():
-    """Whisper's frames still raise; a VLM batch gives its last P = S // 2
-    token positions to patch embeddings."""
+    """No family raises in the pipeline any more: an encoder-decoder batch
+    carries frame embeddings ``[B, S, d]`` beside its whole token rows; a
+    VLM batch gives its last P = S // 2 token positions to patch
+    embeddings."""
     shape = ShapeSpec("t", 8, 2, "train")
-    it = make_batch_iterator(get_smoke_config("train100m").scaled(family="encdec"), shape)
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        next(it)
+    ecfg = get_smoke_config("train100m").scaled(family="encdec")
+    batch = next(make_batch_iterator(ecfg, shape))
+    assert sorted(batch) == ["frames", "labels", "tokens"]
+    assert batch["tokens"].shape == batch["labels"].shape == (2, 8)
+    assert batch["frames"].shape == (2, 8, ecfg.d_model) and batch["frames"].dtype == np.float32
     cfg = get_smoke_config("train100m").scaled(family="vlm")
     batch = next(make_batch_iterator(cfg, shape))
     assert batch["tokens"].shape == batch["labels"].shape == (2, 4)
