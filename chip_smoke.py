@@ -24,9 +24,13 @@ Phases, in order; any failure raises and the process exits non-zero:
    also with one call's wall (host clock over 1,000 calls) beside its
    device time (profiler) and the bound's share of that;
    ``flash_attention`` at train100m's shape (B=8, H=12, KH=4, S=2,048,
-   D=64, causal) in f32 and bf16, at Whisper-medium's encoder shape (B=8,
-   H=KH=16, S=2,048, D=64, non-causal, bf16) and one non-causal ``Sq !=
-   Sk`` case, within the reference's tolerances (2e-5 f32, 2e-2 bf16), beside
+   D=64, causal) in f32 and bf16, at Whisper-medium's encoder shape in
+   training (B=8, H=KH=16, S=2,048, D=64, non-causal, bf16) and serving
+   (B=4, S=1,500: a partial last q and key tile), one non-causal ``Sq !=
+   Sk`` case, a ragged f32 causal case (B=1, H=4, KH=1, S=1,500) and a
+   padded head dim (D=48, f32, S=192), within the reference's tolerances
+   (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
+   limit and beside
    ``scaled_dot_product_attention`` (timed only) and bound by the larger of
    bytes over 3.35 TB/s and flops over 989 TFLOP/s (bf16) or three times
    the flops over 494.7 TFLOP/s (f32 in 3xTF32; one f32 FMA pass over 67
@@ -44,7 +48,12 @@ Phases, in order; any failure raises and the process exits non-zero:
    tolerances, every run must drop no row, and the launch counters must
    show each shuffle edge's pack went through the kernels.  The Q3 rerun
    must give the same order keys and revenues within rtol 1e-6
-   (``scatter_add_`` on the card sums floats in no fixed order);
+   (``scatter_add_`` on the card sums floats in no fixed order).  Then
+   the hand-written queries (``relational/queries.py``) on the same tables
+   as one-shard tables: ``q17_part_filter`` against the oracle's part rows,
+   Q1, Q6, Q17, Q3, Q14 and Q19 against the oracle (rtol 1e-4; Q17 1e-3;
+   Q3's revenues 1e-5; Q1's counts and Q3's order keys exactly), each
+   query's wall beside the planned query's on one shard;
 4b. out-of-core — host copies of phase 4's tables, lineitem streamed as a
    ``MorselView`` of 2**20-row morsels (6 a pass, the last padded), each
    pinned and copied on a side stream: the two pack kernels first checked
@@ -225,17 +234,18 @@ Phases, in order; any failure raises and the process exits non-zero:
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
-   Serving through the static engine: 8 requests x 1,536 prompt tokens,
-   each with 1,536 frame rows (Whisper's 1,500-frame window rounded up to
-   the kernel's multiple of 64), 32 new at batch 4, batch by batch and
-   through ``generate_bucketed`` with identical greedy tokens;
-   ``flash_attention`` must launch non-causally 24 times a prefill (the
-   encoder) and never causally (the decoder's prefill runs ``sdpa``, as the
-   reference's); the continuous engine must refuse the family.  Prefill
+   Serving through the static engine: 8 requests x 1,500 prompt tokens,
+   each with 1,500 frame rows (Whisper's 30 s window), 32 new at batch 4,
+   batch by batch and through ``generate_bucketed`` with identical greedy
+   tokens; ``flash_attention`` must launch non-causally 24 times a prefill
+   (the encoder), each with a partial last tile
+   (``LAUNCHES["flash_attention[ragged]"]``), and never causally (the
+   decoder's prefill runs ``sdpa``, as the reference's); the continuous
+   engine must refuse the family.  Prefill
    tokens/s, ms a decode step, TTFT p50/p99 (all requests queued at once)
    and peak memory printed; one prefill and one decode step profiled.  In
-   f32 at batch 1, calling the model directly: 1,536 frames, a prefill of
-   1,472 tokens and 64 decode steps over the unpadded cross cache against
+   f32 at batch 1, calling the model directly: 1,500 frames, a prefill of
+   1,436 tokens and 64 decode steps over the unpadded cross cache against
    ``decode_train`` at the last position, the logits within 1e-3 of the
    largest magnitude.  Training: 10 AdamW steps at 8 x 2,048 (and 2,048
    frames), ``remat="block"``, through the calls ``launch/train.py``
@@ -337,10 +347,10 @@ TF_CHECK_TOL = 1e-3
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
-# steps; the CLI's steps, seq, batch.  Every length the flash kernel sees is a
-# multiple of 64: Whisper's own 1,500-frame window is not one, so 1,536.
-WHISPER_SERVE = (8, 1536, 32, 4)
-WHISPER_CHECK = (1536, 1472)
+# steps; the CLI's steps, seq, batch.  Serving runs Whisper's own 1,500-frame
+# window, which the flash kernel takes with a partial last tile.
+WHISPER_SERVE = (8, 1500, 32, 4)
+WHISPER_CHECK = (1500, 1436)
 WHISPER_TRAIN = (8, 2048, 10)
 WHISPER_TRAIN_CLI = (2, 512, 2)
 # Ported kernels no main path calls (the reference calls hash_partition
@@ -484,10 +494,11 @@ def _attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, causal: bool) -> 
     return 4 * B * H * D * pairs
 
 
-def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed) -> dict:
+def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
     """The attention kernel against its plain version within the reference's
     tolerance, timed beside the plain version and SDPA (never used by the
-    port); bound by the larger of bytes and flops."""
+    port); bound by the larger of bytes and flops, both at the call's own
+    ``D`` (a padded head dim's zero columns are not the function's work)."""
     import torch
     import torch.nn.functional as F
 
@@ -530,7 +541,7 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed) -> dict:
         f"[kernels] flash_attention: {label} within {tol} (max |err| {err:.3g}); kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"by {bound_by}{' (3xTF32)' if dtype == 'float32' else ''} ({flops} flop, {nbytes} B), "
-        f"{100 * bound_ms / ms:.2f}% of bound{fma}"
+        f"{100 * bound_ms / ms:.2f}% of bound{fma} ({smi})"
     )
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -641,7 +652,7 @@ def _wall_and_device_ms(fn, kernel: str, calls: int = 1000) -> tuple[float, floa
     return wall_ms, us / 50 / 1e3
 
 
-def phase_kernels(sf: float, seed: int) -> list[dict]:
+def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     """Every ported kernel at the shapes its main path gives it, against its
     plain version.  Returns the rows of the JSON line: one per kernel, the
     MoE dispatch at its decode and prefill shapes, attention in f32 and
@@ -713,13 +724,20 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
     # train100m's attention: the training shape in f32 (the row) and bf16,
     # and the reference test's non-causal Sq != Sk case
     B, S_t = TRAIN_SHAPE[:2]
-    flash = [_flash_row(B, 12, 4, S_t, S_t, 64, True, "float32", seed),
-             _flash_row(B, 12, 4, S_t, S_t, 64, True, "bfloat16", seed),
-             _flash_row(2, 4, 1, 128, 256, 64, False, "float32", seed)]
-    # Whisper-medium's encoder self-attention at its training shape
+    flash = [_flash_row(B, 12, 4, S_t, S_t, 64, True, "float32", seed, smi),
+             _flash_row(B, 12, 4, S_t, S_t, 64, True, "bfloat16", seed, smi),
+             _flash_row(2, 4, 1, 128, 256, 64, False, "float32", seed, smi)]
+    # Whisper-medium's encoder self-attention at its training shape, and at
+    # serving (1,500 frames: a partial last tile, the main path's ragged
+    # launches); a ragged f32 causal case with GQA 4:1 and a padded head dim
     wb, ws = WHISPER_TRAIN[:2]
-    encoder = _flash_row(wb, 16, 16, ws, ws, 64, False, "bfloat16", seed)
+    encoder = _flash_row(wb, 16, 16, ws, ws, 64, False, "bfloat16", seed, smi)
     encoder["launch_key"] = "flash_attention[noncausal]"
+    frames, wbatch = WHISPER_SERVE[1], WHISPER_SERVE[3]
+    serving = _flash_row(wbatch, 16, 16, frames, frames, 64, False, "bfloat16", seed, smi)
+    serving["launch_key"] = "flash_attention[ragged]"
+    _flash_row(1, 4, 1, frames, frames, 64, True, "float32", seed, smi)
+    _flash_row(2, 8, 2, 192, 192, 48, True, "float32", seed, smi)
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row) and its
     # long prompt at batch 1 (64 blocks, the state carried over 128 chunks);
     # Zamba2-7B
@@ -733,7 +751,7 @@ def phase_kernels(sf: float, seed: int) -> list[dict]:
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
     # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
-    return rows + moe_rows + [flash[0], flash[1], encoder, ssd[0]]
+    return rows + moe_rows + [flash[0], flash[1], encoder, serving, ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -889,6 +907,95 @@ def phase_queries(sf: float, seed: int, runs: list[str], profile: bool = False) 
     print(f"[queries] launches over the main path: {launches}")
     print(f"[queries] torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
     return launches, tabs, wants
+
+
+# the hand-written queries' tolerances against the oracle (tests/test_relational.py)
+HANDWRITTEN_RTOL = {"q1": 1e-4, "q6": 1e-4, "q17": 1e-3, "q3": 1e-5, "q14": 1e-4, "q19": 1e-4}
+
+
+def phase_handwritten(tabs: dict, wants: dict, smi: str) -> None:
+    """The hand-written queries (``relational/queries.py``) on phase 4's
+    tables as one-shard tables on the card: ``q17_part_filter`` against the
+    oracle's part mask, then Q1, Q6, Q17, Q3, Q14 and Q19 against the
+    oracle at ``HANDWRITTEN_RTOL`` (Q1's counts and Q3's ten order keys
+    exactly), each query's wall (second run) beside the planned query's on
+    one shard (the compiled plan's second run).  The hand-written queries
+    launch no kernel (one shard has no exchange), and the script checks it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.relational import oracle
+    from repro_torch.relational import queries as Q
+    from repro_torch.relational.context import ExecutionContext
+    from repro_torch.relational.planner import tpch
+    from repro_torch.relational.planner.executor import compile_plan
+    from repro_torch.relational.table import shard_rows
+
+    t_phase = time.perf_counter()
+    one = {n: shard_rows(t, 1, interleave=False) for n, t in tabs.items()}
+    li, pt, od, cu = (one[n] for n in ("lineitem", "part", "orders", "customer"))
+    fl, fp, fo, fc = (tabs[n] for n in ("lineitem", "part", "orders", "customer"))
+    oracles = {"q1": lambda: oracle.q1_oracle(fl), "q6": lambda: oracle.q6_oracle(fl),
+               "q17": lambda: oracle.q17_oracle(fl, fp), "q3": lambda: oracle.q3_oracle(fc, fo, fl),
+               "q14": lambda: oracle.q14_oracle(fl, fp), "q19": lambda: oracle.q19_oracle(fl, fp)}
+    for q, fn in oracles.items():
+        if q not in wants:
+            wants[q] = fn()
+
+    p = {k: v.cpu().numpy() for k, v in tabs["part"].columns.items()}
+    want_mask = tabs["part"].valid.cpu().numpy() & (p["p_brand"] == 12) & (p["p_container"] == 2)
+    got_mask = Q.q17_part_filter(pt, 12, 2).valid[0].cpu().numpy()
+    if not (want_mask.any() and np.array_equal(got_mask, want_mask)):
+        raise AssertionError("q17_part_filter: its mask differs from the oracle's part rows")
+    print(f"[handwritten] q17_part_filter: {int(got_mask.sum())} part rows, the oracle's")
+
+    runs = {
+        "q1": lambda: Q.q1_finalize({k: v.sum(0).cpu().numpy() for k, v in Q.q1_local(li).items()}),
+        "q6": lambda: float(Q.q6_local(li).sum(0)),
+        "q17": lambda: float(Q.q17_local(li, pt).sum(0)),
+        "q3": lambda: {k: v[0].cpu().numpy() for k, v in Q.q3_local(cu, od, li).items()},
+        "q14": lambda: float(Q.q14_finalize(*(x.sum(0).cpu().numpy() for x in Q.q14_local(li, pt)))),
+        "q19": lambda: float(Q.q19_local(li, pt).sum(0)),
+    }
+    for q, run in runs.items():
+        before = _counts()
+        got = run()
+        want, rtol = wants[q], HANDWRITTEN_RTOL[q]
+        if q == "q1":
+            ok = np.array_equal(np.asarray(got["count_order"], np.int64),
+                                np.asarray(want["count_order"]).astype(np.int64)) and \
+                all(_close(got[k], want[k], rtol) for k in want)
+        elif q == "q3":
+            got_map = dict(zip(got["o_orderkey"].tolist(), got["revenue"].tolist()))
+            want_map = dict(zip(want["o_orderkey"].tolist(), want["revenue"].tolist()))
+            ok = len(got_map) == 10 and set(got_map) == set(want_map) and \
+                all(_close(got_map[k], v, rtol) for k, v in want_map.items())
+        else:
+            ok = want != 0.0 and _close(got, want, rtol)
+        if not ok:
+            raise AssertionError(f"hand-written {q}: disagrees with the oracle at rtol {rtol}:\n"
+                                 f"{got}\n{want}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if _counts() != before:
+            raise AssertionError(f"hand-written {q} launched kernels: {before} -> {_counts()}")
+        ctx = ExecutionContext(num_shards=1, device="cuda")
+        pq = tpch.ALL_QUERIES[q]()
+        runner = compile_plan(tpch.plan_query(pq, tabs, ctx), tabs, ctx)
+        runner()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner()
+        torch.cuda.synchronize()
+        planned = time.perf_counter() - t0
+        print(f"[handwritten] {q}: ok vs oracle at rtol {rtol}; wall (2nd run) {wall * 1e3:.2f} ms, "
+              f"the planned query on one shard {planned * 1e3:.2f} ms ({smi})")
+    del one, li, pt, od, cu
+    torch.cuda.empty_cache()
+    print(f"[handwritten] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 def _stream_pack_launches(run, steps: int) -> tuple[int, int]:
@@ -2817,17 +2924,21 @@ def _whisper_serving(cfg, params, seed: int, smi: str) -> dict:
         for k, v in counts.items():
             main_path[k] += v
         calls = t_api.prefill.calls
+        ragged = counts["flash_attention[noncausal]"] if plen % 64 else 0  # a partial tile
         if counts["flash_attention[noncausal]"] != cfg.encoder_layers * calls or \
-                counts["flash_attention"] != counts["flash_attention[noncausal]"]:
+                counts["flash_attention"] != counts["flash_attention[noncausal]"] or \
+                counts["flash_attention[ragged]"] != ragged:
             raise AssertionError(f"whisper {tag}: flash_attention launched {counts} over {calls} "
-                                 f"prefills; expected {cfg.encoder_layers} non-causal a prefill")
+                                 f"prefills; expected {cfg.encoder_layers} non-causal a prefill, "
+                                 f"{'all' if ragged else 'none'} of them ragged")
         if not all(len(r.out_tokens) == new and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
                    for r in reqs):
             raise AssertionError(f"whisper {tag}: a request did not get {new} tokens")
         _serving_line(f"whisper-medium {tag}, {n_req} x {plen} + {plen} frames + {new} new, "
                       f"batch {B}", t_api, reqs, se.stats)
         print(f"[whisper] {tag}: flash_attention launched {counts['flash_attention[noncausal]']} "
-              f"times non-causally = {cfg.encoder_layers} encoder layers x {calls} prefills, "
+              f"times non-causally = {cfg.encoder_layers} encoder layers x {calls} prefills "
+              f"({counts['flash_attention[ragged]']} over {plen} frames, a partial tile), "
               f"0 causally; prefill {1e3 * t_api.prefill.seconds / calls:.1f} ms a call, decode "
               f"{1e3 * t_api.decode_step.seconds / t_api.decode_step.calls:.2f} ms a step")
         runs[tag] = reqs
@@ -2984,10 +3095,11 @@ def main() -> int:
             print(f"[build] {line}")
 
     # 3. kernels against their plain versions
-    kernels = phase_kernels(args.sf, args.seed)
+    kernels = phase_kernels(args.sf, args.seed, smi)
 
     # 4. queries (the relational main path)
     q_launches, tabs, wants = phase_queries(args.sf, args.seed, runs, args.profile)
+    phase_handwritten(tabs, wants, smi)
 
     # 4b. out-of-core (the streamed relational main path)
     o_launches = phase_oocore(tabs, wants, args.seed)

@@ -17,15 +17,17 @@
 // VMEM scratch.  Here one block owns one (b, h, q tile) and a loop over
 // 64-row KV tiles takes the place of the sequential grid axis; the carried
 // state lives in registers.  KV tiles wholly above the diagonal are never
-// loaded; only a tile that crosses it is masked.  Blocks take q tiles from
-// the last, so the longest causal rows start first.  One entry point,
-// flash_attention_launch, dispatches on the dtype to one of two kernels.
+// loaded; only a tile that crosses it, or holds the last key, is masked.
+// Blocks take q tiles from the last, so the longest causal rows start
+// first.  One entry point, flash_attention_launch, dispatches on the dtype
+// to one of two kernels.
 //
 // float32 (flash_fwd_f32_kernel): the tensor cores in 3xTF32, through
 // mma.sync.m16n8k8 (tf32 inputs, f32 accumulators), on the skeleton of the
 // bf16 kernel below (16 query rows a warp, 64-key tiles in a two-stage
 // cp.async ring, the online softmax in the log2 domain on the accumulator's
-// fragment layout, the diagonal tile alone masked, q tiles from the last).
+// fragment layout, the diagonal and last tiles alone masked, q tiles from
+// the last).
 // Each f32 operand x is split in two tf32 values, hi = x rounded to nearest
 // (ties away) at 10 mantissa bits and lo = x - hi rounded the same way,
 // both by bit arithmetic with the low 13 bits cleared; a product is hi.hi +
@@ -81,9 +83,20 @@
 // Bound: operations, 0.052 ms at 989 TFLOP/s for train100m's shape; mma.sync
 // cannot reach that peak (the rate that wgmma alone gives).
 //
-// Both kernels need Sq % 64 == 0, Sk % 64 == 0, H % KH == 0 and D in {32,
-// 64, 128, 256}.  Shared memory above 48 KB is opted into with
-// cudaFuncSetAttribute.  The entry point returns the first CUDA error (the
+// Both kernels take any Sq >= 0 and Sk >= 1.  Each has two instances:
+// lengths that are multiples of 64 take the one without partial tiles;
+// any other length takes kRagged, which masks the last, partial q tile and
+// key tile.  There, rows past Sq or Sk land in shared memory as zeros
+// (cp.async with a source size of 0), so a masked P of 0 times V is 0,
+// never 0 times a stale NaN; in the online softmax the key columns at or
+// past Sk of the last tile are -inf, decided once a tile; rows past Sq are
+// computed and not stored.  Keeping the masks out of the other instance
+// keeps it at the unmasked kernel's registers and time: with them the
+// full-length shapes lost 2-12 % on H100 80GB HBM3 at 700 W, and the bf16
+// kernel at D = 64 spilled at its 128-register cap (PERF.md).  Both need
+// H % KH == 0 and D in {32, 64, 128, 256} (the wrapper pads other head
+// dims up to 256 with zeros).  Shared memory above 48 KB is opted into
+// with cudaFuncSetAttribute.  The entry point returns the first CUDA error (the
 // attribute call's, else cudaGetLastError() after the launch); it launches
 // on the given stream, allocates nothing and does not synchronise.
 
@@ -93,8 +106,8 @@
 
 namespace {
 
-constexpr int kBK = 64;       // key rows of a bf16 tile
-constexpr int kSeqStep = 64;  // Sq and Sk must be multiples of this
+constexpr int kBK = 64;        // key rows of a bf16 tile
+constexpr int kFullTile = 64;  // Sq and Sk multiples of this: no tile is partial
 constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -103,6 +116,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 16 bytes from src, or 16 zero bytes when !full (a source size of 0: src is
+// not read, but it must still be a valid, aligned address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -180,7 +200,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, ah, bh0, bh1);
 }
 
-template <int D>
+template <int D, bool kRagged>
 __global__ void __launch_bounds__(F32Tile<D>::kThreads, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int H, int KH,
@@ -212,15 +232,24 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
   const float* vb = v + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
   float* ob = o + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
-  const int q_rows = min(kBQb, Sq - q0);  // a multiple of 64, so of 16
+  const int q_rows = min(kBQb, Sq - q0);  // the last q tile may be partial
 
   if constexpr (!Cfg::kQRegs) {
-    for (int c = tid; c < q_rows * kChunks; c += kThr) {
+    // kRagged: rows past Sq land as zeros
+    for (int c = tid; c < (kRagged ? kBQb : q_rows) * kChunks; c += kThr) {
       const int r = c / kChunks;
       const int col = (c % kChunks) * 4;
-      cp_async16(Qs + r * kLdK + col, qb + static_cast<int64_t>(r) * D + col);
+      if constexpr (kRagged) {
+        const bool in = r < q_rows;
+        cp_async16_zfill(Qs + r * kLdK + col, qb + static_cast<int64_t>(in ? r : 0) * D + col,
+                         in);
+      } else {
+        cp_async16(Qs + r * kLdK + col, qb + static_cast<int64_t>(r) * D + col);
+      }
     }
   }
+  // kRagged: key rows past Sk land as zeros (K and V: a masked P of 0 times
+  // V is 0).
   auto load_kv = [&](int stage, int k0) {
     float* kd = ring + stage * Cfg::kStage;
     float* vd = kd + kBKt * kLdK;
@@ -229,8 +258,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = tid; c < kBKt * kChunks; c += kThr) {
       const int r = c / kChunks;
       const int col = (c % kChunks) * 4;
-      cp_async16(kd + r * kLdK + col, ks + r * D + col);
-      cp_async16(vd + r * kLdV + col, vs + r * D + col);
+      if constexpr (kRagged) {
+        const bool in = r < Sk - k0;
+        const int src = (in ? r : 0) * D + col;
+        cp_async16_zfill(kd + r * kLdK + col, ks + src, in);
+        cp_async16_zfill(vd + r * kLdV + col, vs + src, in);
+      } else {
+        cp_async16(kd + r * kLdK + col, ks + r * D + col);
+        cp_async16(vd + r * kLdV + col, vs + r * D + col);
+      }
     }
   };
   // The pieces this thread copied, visible to it after the wait: hi over
@@ -255,7 +291,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Causal: only tiles with a key at or before the block's last query row.
   const int k_end = causal ? min(Sk, q0 + q_rows) : Sk;
-  const int n_tiles = k_end / kBKt;
+  const int n_tiles = (k_end + kBKt - 1) / kBKt;
   load_kv(0, 0);
   cp_async_commit();  // group 0: (Q and) the first KV tile
 
@@ -288,11 +324,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   if constexpr (Cfg::kQRegs) {
     if (active) {
+      // rows g and g + 8 of the warp; a row past Sq reads as zeros
+      const bool in0 = !kRagged || warp * 16 + g < q_rows;
+      const bool in1 = !kRagged || warp * 16 + g + 8 < q_rows;
       const float* r0 = qb + static_cast<int64_t>(warp * 16 + g) * D + 4 * t;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int kp = 0; kp < kKP; ++kp) {
-        const float4 x0 = *reinterpret_cast<const float4*>(r0 + 16 * kp);
-        const float4 x1 = *reinterpret_cast<const float4*>(r0 + 8 * D + 16 * kp);
+        const float4 x0 = in0 ? *reinterpret_cast<const float4*>(r0 + 16 * kp) : zero;
+        const float4 x1 = in1 ? *reinterpret_cast<const float4*>(r0 + 8 * D + 16 * kp) : zero;
         q_pair(x0, x1, qh[2 * kp], ql[2 * kp], qh[2 * kp + 1], ql[2 * kp + 1]);
       }
     }
@@ -350,18 +390,21 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       // the online softmax on the fragment layout: s[i][e] is row g + 8 (e / 2),
-      // key k0 + 8 i + 2 t + e % 2
-      const bool crosses = causal && k0 + kBKt - 1 > row0;
+      // key k0 + 8 i + 2 t + e % 2.  A tile that crosses the diagonal masks
+      // the keys past the row; the last, partial tile also those at or past
+      // Sk.
+      const bool masked = (causal && k0 + kBKt - 1 > row0) || (kRagged && k0 + kBKt > Sk);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + g + 8 * r;
+        const int last = !kRagged ? row : causal ? min(row, Sk - 1) : Sk - 1;
         float mx = kMasked;
 #pragma unroll
         for (int i = 0; i < kST; ++i) {
 #pragma unroll
           for (int e = 2 * r; e < 2 * r + 2; ++e) {
             float x = s[i][e] * scale_log2;
-            if (crosses && k0 + 8 * i + 2 * t + (e & 1) > row) x = minus_inf();
+            if (masked && k0 + 8 * i + 2 * t + (e & 1) > last) x = minus_inf();
             s[i][e] = x;
             mx = fmaxf(mx, x);
           }
@@ -425,6 +468,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
     const float inv = 1.f / fmaxf(den, 1e-30f);
+    if (kRagged && row0 + g + 8 * r >= Sq) continue;  // past Sq: computed, not stored
     float* orow = ob + static_cast<int64_t>(warp * 16 + g + 8 * r) * D + 2 * t;
 #pragma unroll
     for (int i = 0; i < kOT; ++i) {
@@ -434,17 +478,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kRagged>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int H, int KH, int Sq, int Sk, float scale, int causal,
                cudaStream_t stream) {
   using Cfg = F32Tile<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_kernel<D, kRagged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Cfg::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + Cfg::kBQ - 1) / Cfg::kBQ, H, B);
-  flash_fwd_f32_kernel<D><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
+  flash_fwd_f32_kernel<D, kRagged><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, KH, Sq, Sk,
       scale * 1.4426950408889634f, causal);
@@ -495,7 +539,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, bool kRagged>
 __global__ void __launch_bounds__(Bf16Tile<D>::kThreads, D <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KH,
@@ -527,13 +571,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
   const bf16* vb = v + (static_cast<int64_t>(b) * KH + kh) * Sk * D;
   bf16* ob = o + ((static_cast<int64_t>(b) * H + h) * Sq + q0) * D;
-  const int q_rows = min(kBQb, Sq - q0);  // a multiple of 64, so of 16
+  const int q_rows = min(kBQb, Sq - q0);  // the last q tile may be partial
 
-  for (int c = tid; c < q_rows * kChunks; c += kThr) {
+  // kRagged: rows past Sq land as zeros
+  for (int c = tid; c < (kRagged ? kBQb : q_rows) * kChunks; c += kThr) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
-    cp_async16(Qs + r * kLd + col, qb + static_cast<int64_t>(r) * D + col);
+    if constexpr (kRagged) {
+      const bool in = r < q_rows;
+      cp_async16_zfill(Qs + r * kLd + col, qb + static_cast<int64_t>(in ? r : 0) * D + col, in);
+    } else {
+      cp_async16(Qs + r * kLd + col, qb + static_cast<int64_t>(r) * D + col);
+    }
   }
+  // kRagged: key rows past Sk land as zeros (K and V: a masked P of 0 times
+  // V is 0).
   auto load_kv = [&](int stage, int k0) {
     bf16* kd = Ks + stage * kBK * kLd;
     bf16* vd = Vs + stage * kBK * kLd;
@@ -542,14 +594,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = tid; c < kBK * kChunks; c += kThr) {
       const int r = c / kChunks;
       const int col = (c % kChunks) * 8;
-      cp_async16(kd + r * kLd + col, ks + r * D + col);
-      cp_async16(vd + r * kLd + col, vs + r * D + col);
+      if constexpr (kRagged) {
+        const bool in = r < Sk - k0;
+        const int src = (in ? r : 0) * D + col;
+        cp_async16_zfill(kd + r * kLd + col, ks + src, in);
+        cp_async16_zfill(vd + r * kLd + col, vs + src, in);
+      } else {
+        cp_async16(kd + r * kLd + col, ks + r * D + col);
+        cp_async16(vd + r * kLd + col, vs + r * D + col);
+      }
     }
   };
 
   // Causal: only tiles with a key at or before the block's last query row.
   const int k_end = causal ? min(Sk, q0 + q_rows) : Sk;
-  const int n_tiles = k_end / kBK;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
   load_kv(0, 0);
   cp_async_commit();  // group 0: Q and the first KV tile
 
@@ -608,18 +667,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
       // the online softmax on the fragment layout: s[i][e] is row g + 8 (e / 2),
-      // column k0 + 8 i + 2 t + e % 2
-      const bool crosses = causal && k0 + kBK - 1 > row0;
+      // column k0 + 8 i + 2 t + e % 2.  A tile that crosses the diagonal
+      // masks the keys past the row; the last, partial tile also those at or
+      // past Sk.
+      const bool masked = (causal && k0 + kBK - 1 > row0) || (kRagged && k0 + kBK > Sk);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + g + 8 * r;
+        const int last = !kRagged ? row : causal ? min(row, Sk - 1) : Sk - 1;
         float mx = kMasked;
 #pragma unroll
         for (int i = 0; i < kST; ++i) {
 #pragma unroll
           for (int e = 2 * r; e < 2 * r + 2; ++e) {
             float x = s[i][e] * scale_log2;
-            if (crosses && k0 + 8 * i + 2 * t + (e & 1) > row) x = minus_inf();
+            if (masked && k0 + 8 * i + 2 * t + (e & 1) > last) x = minus_inf();
             s[i][e] = x;
             mx = fmaxf(mx, x);
           }
@@ -675,6 +737,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
     const float inv = 1.f / fmaxf(den, 1e-30f);
+    if (kRagged && row0 + g + 8 * r >= Sq) continue;  // past Sq: computed, not stored
     bf16* orow = ob + static_cast<int64_t>(warp * 16 + g + 8 * r) * D + 2 * t;
 #pragma unroll
     for (int i = 0; i < kOT; ++i) {
@@ -684,31 +747,42 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kRagged>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int KH, int Sq, int Sk, float scale, int causal,
                 cudaStream_t stream) {
   using Cfg = Bf16Tile<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_bf16_kernel<D, kRagged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Cfg::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + Cfg::kBQ - 1) / Cfg::kBQ, H, B);
-  flash_fwd_bf16_kernel<D><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
+  flash_fwd_bf16_kernel<D, kRagged><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KH, Sq, Sk,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool kRagged>
+int launch(bool bf16_inputs, const void* q, const void* k, const void* v, void* o, int B,
+           int H, int KH, int Sq, int Sk, float scale, int causal, cudaStream_t s) {
+  return bf16_inputs ? launch_bf16<D, kRagged>(q, k, v, o, B, H, KH, Sq, Sk, scale, causal, s)
+                     : launch_f32<D, kRagged>(q, k, v, o, B, H, KH, Sq, Sk, scale, causal, s);
+}
+
+// Lengths that are multiples of kFullTile take the instance without masked
+// tiles; any other length the kRagged one.
 int launch_dim(bool bf16_inputs, const void* q, const void* k, const void* v, void* o,
                int B, int H, int KH, int Sq, int Sk, int D, float scale, int causal,
                cudaStream_t s) {
-#define FLASH_CASE(DIM)                                                        \
-  case DIM:                                                                    \
-    return bf16_inputs                                                         \
-               ? launch_bf16<DIM>(q, k, v, o, B, H, KH, Sq, Sk, scale, causal, s) \
-               : launch_f32<DIM>(q, k, v, o, B, H, KH, Sq, Sk, scale, causal, s);
+  const bool ragged = Sq % kFullTile != 0 || Sk % kFullTile != 0;
+#define FLASH_CASE(DIM)                                                              \
+  case DIM:                                                                          \
+    return ragged ? launch<DIM, true>(bf16_inputs, q, k, v, o, B, H, KH, Sq, Sk, scale, \
+                                      causal, s)                                     \
+                  : launch<DIM, false>(bf16_inputs, q, k, v, o, B, H, KH, Sq, Sk, scale, \
+                                       causal, s);
   switch (D) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -724,16 +798,15 @@ int launch_dim(bool bf16_inputs, const void* q, const void* k, const void* v, vo
 extern "C" {
 
 // q, o: [B, H, Sq, D]; k, v: [B, KH, Sk, D]; contiguous, of one dtype:
-// dtype 0 = float32, 1 = bfloat16.  Needs Sq % 64 == 0, Sk % 64 == 0,
+// dtype 0 = float32, 1 = bfloat16.  Takes any Sq >= 0 and Sk >= 1; needs
 // H % KH == 0 and D in {32, 64, 128, 256}; anything else returns
-// cudaErrorInvalidValue without launching.
+// cudaErrorInvalidValue without launching.  Sq == 0 launches nothing.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int B, int H, int KH, int Sq,
                            int Sk, int D, float scale, int causal,
                            void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq % kSeqStep != 0 ||
-      Sk % kSeqStep != 0 || Sk <= 0 || H > 65535 || B > 65535 ||
-      (dtype != 0 && dtype != 1)) {
+  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || Sq < 0 || Sk <= 0 || H > 65535 ||
+      B > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (Sq == 0) return 0;

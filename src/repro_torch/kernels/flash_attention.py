@@ -7,10 +7,16 @@ its bound and what the design does about it), built at first use by
 
 It takes the kernel layout, ``q [B, H, Sq, D]`` and ``k``/``v [B, KH, Sk,
 D]``, in float32 (the tensor cores in 3xTF32, at f32 accuracy) or bfloat16
-(the tensor cores, ``mma.sync``).  A tensor on the CPU goes to the plain version in :mod:`.ref`;
+(the tensor cores, ``mma.sync``), at every length (``Sk >= 1``; the kernel
+masks its last, partial q and key tiles) and every head dim ``0 < D <=
+256``: a ``D`` outside ``HEAD_DIMS`` is zero-padded to the next one, the
+kernel scales by ``1 / sqrt(D)`` of the unpadded ``D``, and the output is
+sliced back.  A tensor on the CPU goes to the plain version in :mod:`.ref`;
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches only: ``"flash_attention"`` every launch, and
-``"flash_attention[noncausal]"`` those of them without the causal mask.
+launches only: ``"flash_attention"`` every launch,
+``"flash_attention[noncausal]"`` those of them without the causal mask and
+``"flash_attention[ragged]"`` those with a partial tile (a length not a
+multiple of 64) or a padded head dim.
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ import torch
 from . import ref
 from .build import CudaLibrary, raise_on
 
-HEAD_DIMS = (32, 64, 128, 256)
-BLOCK_Q = BLOCK_K = 64  # sequence lengths must be multiples of these
+HEAD_DIMS = (32, 64, 128, 256)  # the kernel's; other D up to 256 are padded to these
+BLOCK_Q = BLOCK_K = 64  # tile rows; a length that is not a multiple is masked
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"flash_attention": 0, "flash_attention[noncausal]": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention[noncausal]": 0,
+            "flash_attention[ragged]": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -46,6 +53,11 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
 
 
+def kernel_head_dim(D: int) -> int:
+    """The kernel's head dim that a ``D`` in (0, 256] is zero-padded to."""
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q, k, v must lie on one CUDA device, got "
@@ -61,9 +73,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if (k.shape[0], k.shape[3]) != (B, D) or KH == 0 or H % KH:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
                          f"(batch, head dim, or H not a multiple of KH)")
-    if D not in HEAD_DIMS or Sq % BLOCK_Q or Sk % BLOCK_K or Sk == 0:
-        raise ValueError(f"flash_attention: the kernel takes D in {HEAD_DIMS} and sequence "
-                         f"lengths that are multiples of {BLOCK_Q}, got D={D}, Sq={Sq}, Sk={Sk}")
+    if not 0 < D <= HEAD_DIMS[-1] or Sk == 0:
+        raise ValueError(f"flash_attention: the kernel takes 0 < D <= {HEAD_DIMS[-1]} and at "
+                         f"least one key, got D={D}, Sq={Sq}, Sk={Sk}")
     if max(B, H) > 65535:
         raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid's limit of 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -85,19 +97,24 @@ def flash_attention(
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    Dk = kernel_head_dim(D)
+    if Dk != D:  # zero columns add nothing to q . k, and give zero output columns
+        q, k, v = (torch.nn.functional.pad(x, (0, Dk - D)) for x in (q, k, v))
     lib = LIBRARY.load()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-        B, H, KH, Sq, Sk, D, scale, int(causal), stream,
+        B, H, KH, Sq, Sk, Dk, scale, int(causal), stream,
     )
     raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     if not causal:
         LAUNCHES["flash_attention[noncausal]"] += 1
-    return out
+    if Dk != D or Sq % BLOCK_Q or Sk % BLOCK_K:
+        LAUNCHES["flash_attention[ragged]"] += 1
+    return out[..., :D].contiguous() if Dk != D else out
 
 
 __all__ = ["LIBRARY", "LAUNCHES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "reset_launch_counts",
-           "flash_attention"]
+           "kernel_head_dim", "flash_attention"]

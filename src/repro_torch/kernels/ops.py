@@ -111,10 +111,11 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None) ->
     """``q [B, Sq, H, D]``, ``k``/``v [B, Sk, KH, D]`` (the model layout) ->
     ``[B, Sq, H, D]``, through the kernel layout ``[B, H, S, D]``.
 
-    A CUDA tensor launches the kernel, which raises for a shape it cannot
-    take (its limits are ``D`` in {32, 64, 128, 256} and sequence lengths
-    that are multiples of 64); it never gives way to the plain version.  A
-    CPU tensor takes the plain version at any shape."""
+    A CUDA tensor launches the kernel at every length (it masks its last,
+    partial tiles) and every head dim ``0 < D <= 256`` (one outside {32, 64,
+    128, 256} is zero-padded to the next); it raises for anything else (``D
+    > 256``, no key, another dtype) and never gives way to the plain
+    version.  A CPU tensor takes the plain version at any shape."""
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     return fa_kern.flash_attention(qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
 

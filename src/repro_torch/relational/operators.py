@@ -155,6 +155,16 @@ def topk_rows(
     return vals, out
 
 
+# ----------------------------------------------------------------------------
+# Decimal helpers (money is int32 cents; percents are ints 0..100).
+# ----------------------------------------------------------------------------
+
+def money_times_pct(money: torch.Tensor, pct: torch.Tensor) -> torch.Tensor:
+    """``money * (pct / 100)`` in f32 (cents; see :func:`sum_where`), in the
+    reference's order of operations."""
+    return money.to(torch.float32) * (pct.to(torch.float32) / 100.0)
+
+
 __all__ = [
     "sum_where",
     "count_where",
@@ -164,4 +174,5 @@ __all__ = [
     "gather_payload",
     "topk_order",
     "topk_rows",
+    "money_times_pct",
 ]

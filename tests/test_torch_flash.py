@@ -151,8 +151,8 @@ OUTSIDE_THE_GATE = [
 def test_shapes_outside_the_gate_take_the_plain_version(jref, monkeypatch, shape):
     """The reference's gate sends these shapes to its oracle; on a CPU tensor
     the port's wrapper runs its plain version at any shape and launches
-    nothing (on the card it launches the kernel or raises: see
-    ``test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take``)."""
+    nothing (on the card it launches the kernel: see
+    ``test_cuda_shapes_outside_the_gate_launch_the_kernel``)."""
     B, H, KH, Sq, Sk, D = shape
     jnp = jref.jnp
     q, k, v = _qkv(5, *shape)
@@ -162,6 +162,23 @@ def test_shapes_outside_the_gate_take_the_plain_version(jref, monkeypatch, shape
     assert calls == [(B, H, Sq, D)] and fa.LAUNCHES["flash_attention"] == 0
     want = jref.ops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("D", [8, 16, 48, 96, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_padded_head_dims_give_the_same_attention(D, causal):
+    """What the wrapper does on the card for a head dim outside the
+    kernel's: q, k, v zero-padded to ``kernel_head_dim(D)``, scaled by ``1 /
+    sqrt(D)`` of the unpadded ``D``, the output sliced back, equals attention
+    at ``D`` (here through the plain version, at 2e-6)."""
+    Dk = fa.kernel_head_dim(D)
+    assert Dk in fa.HEAD_DIMS and Dk >= D and (Dk == 32 or Dk // 2 < D)
+    q, k, v = (torch.from_numpy(x).transpose(1, 2).contiguous()
+               for x in _qkv(D, 1, 4, 2, 70, 45, D))
+    padded = (torch.nn.functional.pad(x, (0, Dk - D)) for x in (q, k, v))
+    got = kref.flash_attention_ref(*padded, causal=causal, scale=D ** -0.5)[..., :D]
+    torch.testing.assert_close(got, kref.flash_attention_ref(q, k, v, causal=causal),
+                               rtol=2e-6, atol=2e-6)
 
 
 def test_wrapper_on_the_cpu_counts_no_launch():
@@ -216,8 +233,11 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, B, H, KH, Sq, S
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fa.flash_attention(q[:, :, :32].contiguous(), k, v)
+    wide = torch.zeros((B, H, Sq, 272), device=cuda_device, dtype=dtype)  # D > 256
+    kv_wide = torch.zeros((B, KH, Sk, 272), device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match="0 < D <= 256"):
+        fa.flash_attention(wide, kv_wide, kv_wide)
+    assert fa.LAUNCHES["flash_attention"] == 1
 
 
 # (B, H, KH, Sq, Sk, D, causal): bf16 on the tensor cores at every head dim,
@@ -251,12 +271,78 @@ def test_cuda_bf16_flash_attention_matches_plain_version(cuda_device, B, H, KH, 
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [OUTSIDE_THE_GATE[0], OUTSIDE_THE_GATE[2]])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 96, 96, 320), (1, 4, 4, 128, 0, 64)])
 def test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take(cuda_device, shape):
     """On the card the model-layout wrapper never gives way to the plain
-    version: a shape outside the kernel's limits raises, with no launch."""
+    version: a head dim above 256, or no key, raises with no launch."""
     q, k, v = (torch.from_numpy(x).to(cuda_device) for x in _qkv(6, *shape))
     fa.reset_launch_counts()
-    with pytest.raises(ValueError, match="the kernel takes D in"):
+    with pytest.raises(ValueError, match="the kernel takes 0 < D <= 256"):
         ops.flash_attention(q, k, v, causal=True)
     assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", OUTSIDE_THE_GATE)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_shapes_outside_the_gate_launch_the_kernel(cuda_device, shape, causal):
+    """The shapes the reference's gate sends to its oracle launch the kernel
+    once through the model-layout wrapper (masked tiles, a padded head
+    dim) and match the plain version at 2e-5."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device) for x in _qkv(7, *shape))
+    fa.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = kref.flash_attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                                    causal=causal).transpose(1, 2)
+    torch.cuda.synchronize()
+    B, H, KH, Sq, Sk, D = shape
+    ragged = bool(Sq % 64 or Sk % 64 or D not in fa.HEAD_DIMS)  # (not 128, the reference's)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.LAUNCHES["flash_attention[ragged]"] == int(ragged)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# (B, H, KH, Sq, Sk, D, causal, dtype): lengths that are not multiples of 64
+# (partial q and key tiles: Whisper's 1,500 frames, one query, 65 queries,
+# Sq > Sk causal, one key) and head dims the wrapper pads (48, 96, 16).
+RAGGED_CASES = [
+    (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    (1, 8, 2, 1, 1500, 64, True, torch.float32),
+    (1, 8, 2, 1, 1500, 64, False, torch.bfloat16),
+    (1, 8, 2, 65, 1500, 64, True, torch.bfloat16),
+    (1, 8, 2, 65, 1500, 64, False, torch.float32),
+    (1, 4, 1, 1500, 1500, 64, True, torch.float32),
+    (1, 4, 1, 1500, 448, 64, True, torch.float32),
+    (1, 4, 1, 1500, 448, 64, True, torch.bfloat16),
+    (1, 8, 2, 333, 517, 128, True, torch.float32),
+    (1, 8, 2, 333, 517, 128, False, torch.bfloat16),
+    (2, 3, 1, 70, 33, 32, True, torch.float32),
+    (1, 2, 1, 97, 130, 256, True, torch.float32),
+    (1, 2, 2, 97, 130, 256, False, torch.bfloat16),
+    (1, 2, 2, 17, 1, 64, True, torch.bfloat16),
+    (1, 4, 2, 192, 192, 48, True, torch.float32),
+    (1, 4, 4, 100, 77, 48, False, torch.bfloat16),
+    (2, 4, 2, 100, 77, 96, False, torch.float32),
+    (1, 4, 1, 130, 200, 96, True, torch.bfloat16),
+    (2, 4, 4, 1500, 1500, 16, False, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,dtype", RAGGED_CASES)
+def test_cuda_ragged_shapes_match_plain_version(cuda_device, B, H, KH, Sq, Sk, D, causal,
+                                                dtype):
+    """Partial tiles and padded head dims: one launch, within 2e-5 (f32)
+    and 2e-2 (bf16) of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * Sq + Sk + D)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((B, H, Sq, D), (B, KH, Sk, D), (B, KH, Sk, D)))
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = kref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == fa.LAUNCHES["flash_attention[ragged]"] == 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -310,6 +310,50 @@ def test_flash_attention_equals_sdpa(part, monkeypatch):
         _close(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
+def test_flash_at_a_ragged_length_matches_reference(pair, monkeypatch):
+    """``attn_impl="flash"`` on both sides at 100 frames: a length that is
+    not a multiple of 64 (or of the reference's 128) and the smoke config's
+    head dim of 16, so the reference's gate takes its plain path and the
+    port's wrapper (on the card: masked tiles, a padded head dim; here its
+    plain version) is called once an encoder layer.  Prefill logits and
+    every cache leaf, and the static engine's greedy tokens, equal the
+    reference's."""
+    from repro.models import registry as ref_registry
+
+    frames, new = 100, 6
+    calls = []
+    real = fa.flash_attention
+
+    def spy(q, k, v, causal=True, scale=None):
+        calls.append((tuple(q.shape), causal))
+        return real(q, k, v, causal=causal, scale=scale)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    cfg = pair.cfg.scaled(attn_impl="flash")
+    ref_api = ref_registry.build(pair.ref_api.cfg.scaled(attn_impl="flash"))
+    api = registry.build(cfg)
+    nb = _inputs(cfg, seed=13, frames=frames)
+    want_logits, want_cache = ref_api.prefill(pair.ref_params, _jax(pair, nb))
+    got_logits, got_cache = api.prefill(pair.params, _torch(nb))
+    hd = cfg.d_model // cfg.num_heads
+    assert calls == [((B, cfg.num_heads, frames, hd), False)] * cfg.encoder_layers
+    _close(got_logits.numpy(), want_logits)
+    _close_cache(pair, got_cache, want_cache)
+
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, PLEN, dtype=np.int32) for _ in range(B)]
+    extra = {"frames": nb["frames"]}
+    want = [pair.Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+    got = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
+    cap = frames + new + 1
+    pair.ServeEngine(ref_api, batch_size=B, capacity=cap).generate(
+        pair.ref_params, want, extra_inputs=extra)
+    ServeEngine(api, batch_size=B, capacity=cap, device="cpu").generate(
+        pair.params, got, extra_inputs=extra)
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(len(r.out_tokens) == new for r in got)
+
+
 # ----------------------------------------------------------------------------
 # The data pipeline, the engines and the launchers.
 # ----------------------------------------------------------------------------
@@ -458,5 +502,6 @@ def test_cuda_kernel_at_the_encoder_shape_matches_plain_version(cuda_device):
     got = fa.flash_attention(q, k, v, causal=False)
     want = kref.flash_attention_ref(q, k, v, causal=False)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention[noncausal]": 1}
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention[noncausal]": 1,
+                           "flash_attention[ragged]": 0}
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)

@@ -6,6 +6,7 @@
     python3 tools/torch_kernel_probe.py moe-host [--calls 1000]
     python3 tools/torch_kernel_probe.py mma-rate
     python3 tools/torch_kernel_probe.py pack-law
+    python3 tools/torch_kernel_probe.py flash-time [--src DIR]
 
 ``pack-time`` holds the three pack kernels bit for bit against their plain
 versions at ``chip_smoke.py`` phase 3's shapes (S=8 shards x T=750,080
@@ -50,6 +51,18 @@ scan alone in two layouts: ``cumsum`` over the row axis of a
 ``[1, 1, rows, 9]`` int32 one-hot, and the same one-hot scanned along its
 last axis (laid out ``[1, 1, 9, rows]``, as ``partition_pack_ref`` lays
 it).
+
+``flash-time`` times ``flash_attention`` at ``chip_smoke.py`` phase 3's
+shapes (``FLASH_TIME_ROWS``): the three whose lengths are multiples of 64
+(train100m's B=8, H=12, KH=4, S=2,048, D=64 causal in f32 and bf16, and
+Whisper-medium's encoder at training, B=8, H=KH=16, S=2,048, non-causal
+bf16) and the three with a partial tile or a padded head dim (Whisper's
+encoder at serving, 1,500 frames at batch 4; 1,500 causal f32 with GQA
+4:1; D=48 f32).  Each row is held to the plain version (2e-5 f32, 2e-2
+bf16) and timed by CUDA events over 20 calls after 5; a tree whose wrapper
+raises at a shape prints that.  ``--src`` as for ``moe-time``: parent,
+change, change, parent in one call compares two trees on one card.  The
+library's ``-Xptxas -v`` report (registers, spills) is printed first.
 
 Each needs a CUDA card and prints the card's name and power limit first.
 """
@@ -380,12 +393,60 @@ def moe_host(calls: int) -> None:
         print(f"[moe-host] {name}: {us:.2f} us a call ({calls} calls)")
 
 
+# (B, H, KH, Sq, Sk, D, causal, dtype)
+FLASH_TIME_ROWS = (
+    (8, 12, 4, 2048, 2048, 64, True, "float32"),
+    (8, 12, 4, 2048, 2048, 64, True, "bfloat16"),
+    (8, 16, 16, 2048, 2048, 64, False, "bfloat16"),
+    (4, 16, 16, 1500, 1500, 64, False, "bfloat16"),
+    (1, 4, 1, 1500, 1500, 64, True, "float32"),
+    (2, 8, 2, 192, 192, 48, True, "float32"),
+)
+
+
+def flash_time() -> None:
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    fa.LIBRARY.load()
+    print(f"[flash] {fa.__file__}: nvcc {fa.LIBRARY.info['seconds']:.2f} s")
+    for line in fa.LIBRARY.info["log"].splitlines():
+        if "Compiling entry" in line:
+            print(f"[flash] {line.split('entry function')[-1].strip()[:40]}")
+        elif "registers" in line or "spill" in line or "error" in line.lower():
+            print(f"[flash] {line.strip()}")
+    for B, H, KH, Sq, Sk, D, causal, dtype in FLASH_TIME_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, KH, Sk, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, KH, Sk, D), generator=gen, device="cuda").to(dt)
+        label = f"B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} D={D} {'causal' if causal else 'full'} {dtype}"
+        try:
+            got = fa.flash_attention(q, k, v, causal=causal)
+        except ValueError as e:
+            print(f"[flash] {label}: raises ({e})")
+            continue
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-5 if dtype == "float32" else 2e-2
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        del want
+        ms = _events_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=20, warmup=5)
+        print(f"[flash] {label}: kernel {ms:.4f} ms; max |err| {err:.3g} "
+              f"({'within' if ok else 'BEYOND'} {tol})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("pack-time", "moe-time", "moe-host", "mma-rate", "pack-law"))
+    ap.add_argument("what", choices=("pack-time", "moe-time", "moe-host", "mma-rate", "pack-law",
+                                     "flash-time"))
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--src", type=Path,
-                    help="pack-time, moe-time: another checkout's src directory")
+                    help="pack-time, moe-time, flash-time: another checkout's src directory")
     args = ap.parse_args()
     if args.src is not None:
         sys.path.insert(0, str(args.src.resolve()))
@@ -403,6 +464,8 @@ def main() -> int:
         mma_rate()
     elif args.what == "pack-law":
         pack_law()
+    elif args.what == "flash-time":
+        flash_time()
     else:
         moe_host(args.calls)
     return 0
