@@ -180,6 +180,21 @@ Phases, in order; any failure raises and the process exits non-zero:
    within rtol 2**-7 (loss) and 2**-5 (grad norm), 4 and 16 units of bf16
    roundoff.  ms a step, tokens/s and peak memory are printed; one step of
    each run is profiled;
+6b. data-parallel training (``[dp-train]``) — ``run_local_cluster`` runs
+   ``tests/_torch_multiproc_driver.py``'s ``dp_train`` in 2 worker
+   processes x 4 units on this one card over Gloo: train100m at full width
+   and depth (f32, TF32 off, ``remat="block"``, flash), one global batch of
+   8 x 2,048 tokens, 4 rows a process, 1 a unit.  Process 0 first runs the
+   one-process step on the whole batch; then 3 steps under
+   ``grad_sync="auto"`` and 3 under ``"hierarchical"`` from the same state,
+   each mode's first gradient and step held to it (loss rtol 1e-5, grad
+   norm 1e-4, every leaf within ``1e-4 * max |b|``), the params after 3
+   steps bit-identical on both processes, ``flash_attention`` 24 launches
+   a step a process (``"auto"``) or 24 x 4 (``"hierarchical"``), and the
+   pod hop carrying the leaves' f32 bytes once a step (padded to the unit
+   count under ``"hierarchical"``).  Each mode's step walls, the sync's wall
+   alone and the bytes a process puts on the pod hop are printed beside the
+   card's name and power limit;
 7. SSM serving — Mamba2-1.3B (48 layers, d_model 2,048) and Zamba2-7B (81
    layers, d_model 3,584) at full width and depth (random weights from
    ``--seed``, f32 master params, bf16 compute) through the static engine:
@@ -292,6 +307,11 @@ SERVE_SHAPE = (64, 256, 16, 545)
 MIXED_REQUESTS = {1: 128, 2: 64}
 # training: batch, seq, steps; the CLI resume check's seq
 TRAIN_SHAPE = (8, 2048, 20)
+# data-parallel training (6b): worker processes and units each on this card,
+# the global batch (rows, seq), the launcher's deadline
+DP_PROCESSES, DP_UNITS = 2, 4
+DP_SHAPE = (8, 2048)
+DP_TIMEOUT_S = 240
 CLI_SEQ = 512
 # the bf16-compute run: steps, and flash against chunked within (loss, grad
 # norm) rtols of 4 and 16 units of bf16 roundoff (u = 2**-9): the two paths
@@ -2380,6 +2400,61 @@ def phase_training(seed: int) -> dict:
     return {k: launches.get(k, 0) + launches16.get(k, 0) for k in {*launches, *launches16}}
 
 
+def phase_dp_train(smi: str) -> dict:
+    """train100m data-parallel over ``DP_PROCESSES`` worker processes of
+    ``DP_UNITS`` units on this card (Gloo): the ``dp_train`` scenario of
+    ``tests/_torch_multiproc_driver.py``, which asserts every gate in the
+    workers; printed here from their dumps.  Returns the workers' ``flash_attention`` launches over
+    the data-parallel gradients and steps (the main path)."""
+    import shutil
+
+    from repro_torch.launch.cluster import run_local_cluster
+
+    B, S = DP_SHAPE
+    dump = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "dp_train", "--dp-archs",
+             "train100m", "--dp-full", "--dp-shape", f"{B}x{S}", "--dump", dump],
+            num_processes=DP_PROCESSES, local_units=DP_UNITS, timeout_s=DP_TIMEOUT_S,
+            echo=False, backend="gloo", device="cuda",
+        )
+        recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["dp_train"]["train100m"]
+                for p in range(DP_PROCESSES)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        if "PASS dp_train" not in out:
+            raise AssertionError(f"dp-train process {pid}: no PASS\n{out[-4000:]}")
+    r0 = recs[0]
+    print(f"[dp-train] train100m f32, {r0['params']} params in {r0['leaves']} leaves, global "
+          f"batch {B} x {S} over {DP_PROCESSES} processes x {DP_UNITS} units on this card over "
+          f"Gloo; one-process gradient on process 0 {r0['one_process_grad_s'] * 1e3:.1f} ms "
+          f"({smi})")
+    launched = 0
+    for mode, m in r0["modes"].items():
+        print(f"[dp-train] {mode}: against the one-process step, loss rel {m['loss_rel']:.3g} "
+              f"(1e-5), worst leaf {m['leaf_rel']:.3g} of its max (1e-4), first step's loss "
+              f"{m['step_loss_rel'][0]:.3g}, grad norm {m['step_norm_rel'][0]:.3g} (1e-4); "
+              f"steps 2-3 loss {m['step_loss_rel'][1]:.3g}, {m['step_loss_rel'][2]:.3g}; params "
+              f"after 3 steps within {m['params_abs']:.3g}, bit-identical on both processes")
+        for pid, r in enumerate(recs):
+            mr = r["modes"][mode]
+            print(f"[dp-train] {mode} process {pid}: step walls "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in mr["step_s"])
+                  + f" ms; first gradient (warm-up included) {mr['grad_s'] * 1e3:.1f} ms; the "
+                  f"sync alone {mr['sync_s'] * 1e3:.1f} ms; {mr['step_hop_bytes'][0]} B a step "
+                  f"on the pod hop in {mr['sync_hop']['messages']} messages (the leaves' f32 bytes "
+                  f"{r['leaf_bytes']}); flash_attention {mr['launches']} a step "
+                  f"({mr['per_step']} implied) ({smi})")
+            launched += mr["grad_launches"] + sum(mr["launches"])
+    print(f"[dp-train] phase 6b in {wall:.1f} s (launcher wall); flash_attention launches over "
+          f"the data-parallel steps: {launched}")
+    return {"flash_attention": launched}
+
+
 def _rel_err(got, want) -> float:
     """``max |got - want|`` over the largest ``|want|``."""
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
@@ -3120,6 +3195,9 @@ def main() -> int:
     # 6. training (the training main path)
     t_launches = phase_training(args.seed)
 
+    # 6b. data-parallel training across two processes (the training main path's sync)
+    p_launches = phase_dp_train(smi)
+
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
 
@@ -3132,7 +3210,7 @@ def main() -> int:
     # 10. Whisper (the encoder-decoder serving and training main path)
     w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, m_launches, r_launches, f_launches, w_launches)
+             t_launches, p_launches, m_launches, r_launches, f_launches, w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

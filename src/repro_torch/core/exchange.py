@@ -403,6 +403,22 @@ def flat_psum_tree(tree: Any, mesh: Mesh, axis_names: tuple[str, ...]) -> Any:
 # to the card on arrival, which is what a TCP network costs.  NCCL sends
 # from and into the card's memory.
 
+#: What this process has handed to the process fabric since the last
+#: :func:`reset_pod_hop`: ``messages`` (each collective's buffer, each sent
+#: message) and their ``bytes``.
+POD_HOP = {"messages": 0, "bytes": 0}
+
+
+def reset_pod_hop() -> None:
+    POD_HOP.update(messages=0, bytes=0)
+
+
+def _hop(t: torch.Tensor) -> torch.Tensor:
+    POD_HOP["messages"] += 1
+    POD_HOP["bytes"] += t.numel() * t.element_size()
+    return t
+
+
 def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(mesh.group) == "gloo"
 
@@ -437,14 +453,14 @@ def _peer(mesh: Mesh, process: int) -> int:
 
 def _all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     w = _host(t) if _staged(mesh, t) else t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(w, op=op, group=mesh.group)
+    dist.all_reduce(_hop(w), op=op, group=mesh.group)
     return w.to(t.device)
 
 
 def _all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``[R, *t.shape]``: every process's ``t``, in process order."""
     out = _wire_empty(mesh, t, mesh.num_processes)
-    dist.all_gather(list(out), _wire(mesh, t), group=mesh.group)
+    dist.all_gather(list(out), _hop(_wire(mesh, t)), group=mesh.group)
     return _unwire(out, t, (mesh.num_processes,))
 
 
@@ -452,7 +468,7 @@ def _all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``t [R, ...]``: row ``r`` goes to process ``r``; row ``r`` of the
     result came from process ``r``."""
     out = _wire_empty(mesh, t)[0]
-    dist.all_to_all_single(out, _wire(mesh, t), group=mesh.group)
+    dist.all_to_all_single(out, _hop(_wire(mesh, t)), group=mesh.group)
     return _unwire(out, t)
 
 
@@ -462,7 +478,8 @@ def _p2p(mesh: Mesh, sends: list, recvs: list) -> None:
     is copied into its view."""
     ops, bufs = [], []
     for proc, tag, t in sends:
-        ops.append(dist.P2POp(dist.isend, _wire(mesh, t), _peer(mesh, proc), mesh.group, tag))
+        ops.append(dist.P2POp(dist.isend, _hop(_wire(mesh, t)), _peer(mesh, proc), mesh.group,
+                              tag))
     for proc, tag, dst in recvs:
         buf = _wire_empty(mesh, dst)[0]
         bufs.append(buf)
@@ -968,6 +985,8 @@ __all__ = [
     "flat_psum_tree",
     "gather_units",
     "unit_sum",
+    "POD_HOP",
+    "reset_pod_hop",
     "fibonacci_hash",
     "pack_by_destination",
     "hash_shuffle",

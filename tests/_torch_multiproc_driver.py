@@ -46,7 +46,8 @@ from repro_torch.launch.mesh import (  # noqa: E402
 from repro_torch.relational.context import ExecutionContext  # noqa: E402
 
 DEV = "cpu" if INFO.device == "cpu" else "cuda"
-ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False)
+ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
+                          dp_archs=["train100m", "mamba2-1.3b"], dp_full=False, dp_shape=(8, 32))
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -556,11 +557,203 @@ def scenario_trace_merge():
     print("PASS trace_merge")
 
 
+def _synced(fn):
+    """``(fn(), seconds)``, the card drained on both sides."""
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _digest(tree) -> str:
+    """sha256 of every leaf's bytes, in order."""
+    import hashlib
+
+    from repro_torch.tree import leaves
+
+    h = hashlib.sha256()
+    for t in leaves(tree):
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _worst_leaf(got, want) -> float:
+    """The largest ``max |a - b| / max |b|`` over the leaves."""
+    from repro_torch.tree import leaves
+
+    return max(float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+               for a, b in zip(leaves(got), leaves(want)))
+
+
+def _dp_kernel(cfg) -> tuple[dict, str, int]:
+    """The launch counter and name of the kernel each forward pass of
+    ``cfg`` launches once a layer (twice under remat: the recompute), and
+    that count a pass (none off the card)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    counter = sk.LAUNCHES if cfg.family == "ssm" else fa.LAUNCHES
+    key = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    per_pass = cfg.num_layers * (1 if cfg.remat == "none" else 2) if DEV == "cuda" else 0
+    return counter, key, per_pass
+
+
+def scenario_dp_train():
+    """Data-parallel training across the processes (``train/step.py``):
+    every process holds the same params from one seed and takes its
+    contiguous rows of one global batch (``local_rows``).  Process 0 first
+    runs the one-process step on the whole batch (no mesh: no
+    ``torch.distributed``).  Then, under ``grad_sync="auto"`` (each
+    process's gradient, one all-reduce a leaf over the processes) and
+    ``"hierarchical"`` (a gradient a unit, the two-level psum tree), the
+    gradient half and 3 steps from the same state: the first gradient's loss
+    (rel 1e-5) and every leaf (``1e-4 * max |b|``) and the first step's loss
+    and grad norm (rel 1e-5, 1e-4) equal process 0's one-process run, the
+    params after 3 steps are bit-identical on every process, the attention
+    (or scan) kernel launches once a layer a forward pass, twice under
+    remat, on one pass a step (``"auto"``) or one a unit, and the pod hop
+    carries each leaf's bytes once (``"auto"``) or its blocks padded to the
+    unit count (``"hierarchical"``), never a stack of the process's units.
+    A batch the processes, or a process's rows the units, do not split
+    raises.  ``--dp-archs``, ``--dp-full`` and ``--dp-shape`` set the
+    models and the global batch."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import registry
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import local_rows, make_grad_fn, process_mean, unit_mean
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = _pod_mesh()
+    ctx = MeshContext(mesh)
+    rank, R, units = INFO.process_id, mesh.num_processes, mesh.local_units
+    B, S = ARGS.dp_shape
+    opt = AdamWConfig()
+    out = RESULTS.setdefault("dp_train", {})
+    for arch in ARGS.dp_archs:
+        cfg = (get_config if ARGS.dp_full else get_smoke_config)(arch)
+        if cfg.family != "ssm":
+            cfg = cfg.scaled(attn_impl="flash")
+        api = registry.build(cfg)
+        state = TrainState.create(api, 0, device=DEV)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(DEV),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(DEV)}
+        sizes = [t.numel() for t in leaves(state.params)]
+        counter, kernel, per_pass = _dp_kernel(cfg)
+        rec = {"params": sum(sizes), "leaves": len(sizes),
+               "leaf_bytes": 4 * (sum(sizes) + 1),
+               "padded_bytes": 4 * sum(-(-m // mesh.n) * mesh.n for m in sizes + [1]),
+               "kernel": kernel, "modes": {}}
+        if rank == 0:  # the one-process step on the whole global batch
+            (ref_loss, ref_grads), rec["one_process_grad_s"] = _synced(
+                lambda: make_grad_fn(api)(state.params, batch))
+            one_step = make_train_step(api, opt)
+            ref, ref_m = state, []
+            for _ in range(3):
+                ref, m = one_step(ref, batch)
+                ref_m.append({k: float(v) for k, v in m.items()})
+            rec["one_process"] = ref_m
+        sync_processes()  # so no process's timings hold the wait for process 0
+        rows = local_rows(batch, mesh)
+        try:
+            local_rows({k: v[:B - 1] for k, v in batch.items()}, mesh)
+            raise AssertionError("a batch the processes do not split was taken")
+        except ValueError:
+            pass
+        for mode in ("auto", "hierarchical"):
+            mapi = registry.build(cfg.scaled(grad_sync=mode))
+            grad_fn, step = make_grad_fn(mapi), make_train_step(mapi, opt)
+            passes = 1 if mode == "auto" else units
+            m_rec = {}
+            with mesh_context(ctx):
+                if mode == "hierarchical":
+                    try:
+                        grad_fn(state.params, {k: v[:units // 2] for k, v in rows.items()})
+                        raise AssertionError("rows the units do not split were taken")
+                    except ValueError:
+                        pass
+                exchange.reset_pod_hop()
+                k0 = counter[kernel]
+                (loss, grads), m_rec["grad_s"] = _synced(lambda: grad_fn(state.params, rows))
+                m_rec["grad_hop"] = dict(exchange.POD_HOP)
+                m_rec["grad_launches"] = counter[kernel] - k0
+                s, metrics, walls, hops, launched = state, [], [], [], []
+                for _ in range(3):
+                    exchange.reset_pod_hop()
+                    k0 = counter[kernel]
+                    (s, m), wall = _synced(lambda: step(s, rows))
+                    hops.append(exchange.POD_HOP["bytes"])
+                    launched.append(counter[kernel] - k0)
+                    walls.append(wall)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                # the sync alone, on tensors of the gradient's shapes
+                if mode == "auto":
+                    tree = {"loss": loss, "grads": grads}
+                    sync = lambda: process_mean(tree, mesh)  # noqa: E731
+                else:
+                    tree = {"loss": loss.expand(units).contiguous(),
+                            "grads": tree_map(lambda g: g.expand((units,) + g.shape).contiguous(),
+                                              grads)}
+                    sync = lambda: unit_mean(tree, mesh)  # noqa: E731
+                exchange.reset_pod_hop()
+                _, m_rec["sync_s"] = _synced(sync)
+                m_rec["sync_hop"] = dict(exchange.POD_HOP)
+                del tree
+            m_rec.update(step_s=walls, step_hop_bytes=hops, launches=launched, metrics=metrics,
+                         per_step=passes * per_pass)
+            if any(n != passes * per_pass for n in launched + [m_rec["grad_launches"]]):
+                raise AssertionError(f"dp_train {arch} {mode}: {kernel} launched "
+                                     f"{[m_rec['grad_launches']] + launched} a call, the plan "
+                                     f"implies {passes} passes x {per_pass}")
+            want_bytes = rec["leaf_bytes"] if mode == "auto" else rec["padded_bytes"]
+            if set(hops + [m_rec["grad_hop"]["bytes"], m_rec["sync_hop"]["bytes"]]) != {want_bytes}:
+                raise AssertionError(f"dp_train {arch} {mode}: the pod hop carried {hops} B a "
+                                     f"step, {want_bytes} B expected")
+            digests = [None] * R
+            dist.all_gather_object(digests, _digest(s.params))
+            m_rec["ranks_identical"] = len(set(digests)) == 1
+            if not m_rec["ranks_identical"]:
+                raise AssertionError(f"dp_train {arch} {mode}: the params differ between ranks "
+                                     "after 3 steps")
+            if rank == 0:
+                m_rec["loss_rel"] = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+                m_rec["leaf_rel"] = _worst_leaf(grads, ref_grads)
+                m_rec["step_loss_rel"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                          for a, b in zip(metrics, ref_m)]
+                m_rec["step_norm_rel"] = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                          for a, b in zip(metrics, ref_m)]
+                m_rec["params_abs"] = max(float((a - b).abs().max())
+                                          for a, b in zip(leaves(s.params), leaves(ref.params)))
+                if (m_rec["loss_rel"] > 1e-5 or m_rec["leaf_rel"] > 1e-4
+                        or m_rec["step_loss_rel"][0] > 1e-5 or m_rec["step_norm_rel"][0] > 1e-4):
+                    raise AssertionError(f"dp_train {arch} {mode} against the one-process step: "
+                                         f"{m_rec}")
+            rec["modes"][mode] = m_rec
+            print(f"[dp] {arch} {mode}: steps {' '.join(f'{w * 1e3:.1f}' for w in walls)} ms; "
+                  f"sync alone {m_rec['sync_s'] * 1e3:.1f} ms, {m_rec['sync_hop']['bytes']} B in "
+                  f"{m_rec['sync_hop']['messages']} messages; {kernel} {launched} a step")
+            del grads, s
+        out[arch] = rec
+        del state, batch, rows
+        if rank == 0:
+            del ref, ref_grads
+    print("PASS dp_train")
+
+
 SCENARIOS = {
     name.removeprefix("scenario_"): fn
     for name, fn in list(globals().items())
     if name.startswith("scenario_")
 }
+#: Run only when named: not part of "all".
+ON_REQUEST = ("dp_train",)
 
 
 def main(argv: list[str]) -> None:
@@ -570,9 +763,15 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--morsel-rows", type=int, default=4096)
     ap.add_argument("--time-hop", action="store_true")
     ap.add_argument("--dump", default=None)
+    ap.add_argument("--dp-archs", default="train100m,mamba2-1.3b")
+    ap.add_argument("--dp-full", action="store_true", help="full configs, not smoke ones")
+    ap.add_argument("--dp-shape", default="8x32", help="dp_train's global batch, BxS")
     args = ap.parse_args(argv)
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
-    names = list(SCENARIOS) if args.scenario == "all" else args.scenario.split(",")
+    ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
+    ARGS.dp_shape = tuple(int(v) for v in args.dp_shape.split("x"))
+    names = ([n for n in SCENARIOS if n not in ON_REQUEST] if args.scenario == "all"
+             else args.scenario.split(","))
     start = _counts()
     seconds = {}
     for nm in names:

@@ -23,6 +23,7 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step, restore_chec
                                     save_checkpoint)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeSpec
+from repro_torch.core import exchange
 from repro_torch.core.exchange import make_mesh
 from repro_torch.data import (Prefetcher, SyntheticLM, TokenFileDataset, make_batch_iterator,
                               write_token_file)
@@ -31,6 +32,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import convert, registry, transformer
 from repro_torch.train import AdamWConfig, TrainState, adamw_init, adamw_update, lr_at
 from repro_torch.train import make_train_step
+from repro_torch.train.step import local_rows, make_grad_fn
 from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
 
 OVER = dict(d_model=128, num_heads=4, num_kv_heads=2, attn_impl="flash")
@@ -267,12 +269,65 @@ def test_adamw_update_matches_reference_on_given_grads(jref):
     _assert_trees_close(opt["v"], _np_tree(jax, ropt["v"]), rtol=1e-5, atol=1e-12)
 
 
-def test_hierarchical_grad_sync_over_pods_raises(jref):
-    api, state, batch = _port(jref, grad_sync="hierarchical")
-    step = make_train_step(api, AdamWConfig())
-    with mesh_context(MeshContext(make_mesh(8, 2))):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            step(state, batch)
+@pytest.mark.parametrize("grad_sync", ["hierarchical", "auto"])
+@pytest.mark.parametrize("shards,pods", [(8, 2), (8, 1)])
+def test_grad_sync_in_one_process_equals_the_no_mesh_step(shards, pods, grad_sync):
+    """A mesh that lives in one process: under ``"hierarchical"`` on the pod
+    mesh each of the 8 units takes one row and the per-unit gradients go
+    through the two-level psum tree; every other case runs the whole batch
+    once.  Each equals the no-mesh step: the loss within 1e-6, every
+    gradient leaf within 1e-5 of its largest magnitude, one AdamW step's
+    params likewise."""
+    cfg = get_smoke_config("train100m").scaled(**OVER)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 65), dtype=np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    plain = registry.build(cfg)
+    state = TrainState.create(plain, 0, device="cpu")
+    want_loss, want = make_grad_fn(plain)(state.params, batch)
+    want_state, want_m = make_train_step(plain, AdamWConfig())(state, batch)
+    api = registry.build(cfg.scaled(grad_sync=grad_sync))
+    with mesh_context(MeshContext(make_mesh(shards, pods))):
+        loss, grads = make_grad_fn(api)(state.params, batch)
+        got_state, got_m = make_train_step(api, AdamWConfig())(state, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]), rtol=1e-6)
+    np.testing.assert_allclose(float(got_m["grad_norm"]), float(want_m["grad_norm"]), rtol=1e-5)
+    for tree, ref in ((grads, want), (got_state.params, want_state.params)):
+        for (path, g), w in zip(leaves_with_paths(tree), leaves(ref)):
+            assert g.shape == w.shape, path
+            bound = 1e-5 * float(w.abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= bound, path
+
+
+def test_moe_over_a_mesh_across_processes_raises():
+    """The MoE layer's expert dispatch would cross the processes through
+    ``torch.distributed``, which autograd cannot differentiate: training it
+    data-parallel across processes is queue A item 3(b), and the step says
+    so before it computes anything (the mesh's process group is never
+    reached)."""
+    cfg = get_smoke_config("olmoe-1b-7b")
+    api = registry.build(cfg)
+    assert cfg.family == "moe"
+    state = TrainState.create(api, 0, device="cpu")
+    toks = torch.zeros((4, 9), dtype=torch.int32)
+    batch = {"tokens": toks[:, :8], "labels": toks[:, 1:]}
+    spanning = exchange.Mesh(2, 4, num_processes=2, process_index=0)
+    with mesh_context(MeshContext(spanning)):
+        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
+            make_train_step(api, AdamWConfig())(state, batch)
+
+
+def test_local_rows_is_this_process_slice_and_refuses_an_uneven_batch():
+    batch = {"tokens": torch.arange(24).reshape(8, 3), "labels": torch.arange(8)}
+    for rank in range(2):
+        mesh = exchange.Mesh(2, 4, num_processes=2, process_index=rank)
+        got = local_rows(batch, mesh)
+        assert torch.equal(got["tokens"], batch["tokens"][4 * rank:4 * rank + 4])
+        assert torch.equal(got["labels"], batch["labels"][4 * rank:4 * rank + 4])
+    assert torch.equal(local_rows(batch, make_mesh(8, 2))["tokens"], batch["tokens"])
+    with pytest.raises(ValueError, match="processes"):
+        local_rows({k: v[:7] for k, v in batch.items()}, exchange.Mesh(2, 4, 2, 1))
 
 
 def test_unported_model_features_still_raise():

@@ -2,6 +2,7 @@
 """The port's process fabric on the card, beyond what ``chip_smoke.py`` runs.
 
     python3 tools/torch_cluster_probe.py gloo-cuda
+    python3 tools/torch_cluster_probe.py train [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -11,6 +12,15 @@ carry CUDA tensors (no staging): ``all_reduce``, ``all_gather``,
 carried (and right) or refused with Gloo's message.  The port stages every
 Gloo message through host memory whatever the answer; this records what
 Gloo would do.
+
+``train`` runs the ``dp_train`` scenario of
+``tests/_torch_multiproc_driver.py`` (data-parallel training,
+``train/step.py``) at train100m's full width and depth (f32, flash) over 4
+NCCL ranks of 2 units, one pod and one card a rank, at a global batch of 8
+x 2,048: each worker asserts that both ``grad_sync`` modes equal process
+0's one-process step and that the params stay bit-identical; each mode's
+step walls, the sync's wall alone and the bytes a rank puts on the pod hop
+a step are printed beside the cards' names and power limits.
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -167,9 +177,49 @@ def layouts(specs: list[str], sf: float, morsel_rows: int, out: Path) -> int:
     return 0
 
 
+def train(out: Path) -> int:
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.cluster import run_local_cluster
+
+    backend, procs, units = "nccl", 4, 2
+    _smi()
+    build.build_all((fa.LIBRARY,))
+    dump = out / f"dp_{backend}_{procs}x{units}"
+    t0 = time.perf_counter()
+    outs = run_local_cluster(
+        [str(DRIVER), "dp_train", "--dp-archs", "train100m", "--dp-full", "--dp-shape", "8x2048",
+         "--dump", str(dump)],
+        num_processes=procs, local_units=units, timeout_s=600, echo=False,
+        backend=backend, device="cuda",
+    )
+    wall = time.perf_counter() - t0
+    for pid, log in enumerate(outs):
+        for line in log.splitlines():
+            if line.startswith(("PASS", "[dp]")):
+                print(f"[train {backend}:{procs}x{units}] proc {pid}: {line}")
+    recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["dp_train"]["train100m"]
+            for p in range(procs)]
+    for mode, m in recs[0]["modes"].items():
+        print(f"[train {backend}:{procs}x{units}] {mode} against the one-process step: loss rel "
+              f"{m['loss_rel']:.3g}, worst leaf {m['leaf_rel']:.3g}, first step's grad norm rel "
+              f"{m['step_norm_rel'][0]:.3g}, params after 3 steps within {m['params_abs']:.3g}; "
+              f"{m['step_hop_bytes'][0]} B a step on the pod hop (leaves {recs[0]['leaf_bytes']})")
+        for pid, r in enumerate(recs):
+            mr = r["modes"][mode]
+            print(f"[train {backend}:{procs}x{units}] {mode} proc {pid}: steps "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in mr["step_s"])
+                  + f" ms, first gradient (warm-up included) {mr['grad_s'] * 1e3:.1f} ms, sync "
+                  f"alone {mr['sync_s'] * 1e3:.1f} ms, flash_attention {mr['launches']} a step")
+    print(f"[train {backend}:{procs}x{units}] passed in {wall:.1f} s (launcher wall)")
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("gloo-cuda", "layouts"))
+    ap.add_argument("mode", choices=("gloo-cuda", "layouts", "train"))
     ap.add_argument("--layouts", default="gloo:2x4,nccl:2x4,nccl:4x2")
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
@@ -184,6 +234,8 @@ def main(argv: list[str]) -> int:
     if args.mode == "gloo-cuda":
         return gloo_cuda()
     os.makedirs(args.out, exist_ok=True)
+    if args.mode == "train":
+        return train(args.out)
     return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
 
 
