@@ -195,6 +195,24 @@ Phases, in order; any failure raises and the process exits non-zero:
    count under ``"hierarchical"``).  Each mode's step walls, the sync's wall
    alone and the bytes a process puts on the pod hop are printed beside the
    card's name and power limit;
+6c. MoE training across processes (``[moe-train]``) — ``run_local_cluster``
+   runs the driver's ``moe_train`` in 2 worker processes x 4 units on this
+   card over Gloo: OLMoE-1B-7B at full width, 2 of its 16 layers (f32, TF32
+   off, ``remat="block"``, flash), one global batch of 8 x 1,024 tokens (a
+   unit's capacity 160), under a two-level multiplexer with the
+   ``moe_dispatch`` kernel pack.  Process 0 first runs the one-process step
+   over the same 8 units (the whole state, 16.7 GB) and frees it; then each
+   process holds only its 32 experts a layer (params, m and v, drawn layer
+   by layer from the seed) and takes the gradient and 3 steps on its rows
+   under ``grad_sync="auto"``: the loss within rel 1e-5, every gradient
+   leaf within ``1e-4 * max |b|`` (each process's expert slice and the
+   replicated leaves), the first step's grad norm within rel 1e-4, the
+   per-unit drop counts bit-exact, the sharded init equal to the whole init
+   sliced, the replicated params after 3 steps bit-identical on both
+   processes, ``moe_dispatch`` and ``flash_attention`` 2 x 2 launches a
+   step a process.  Step walls, the bytes each process puts on the pod hop
+   (replicated gradient and expert-parallel trips) and the peak memory are
+   printed beside the card's name and power limit;
 7. SSM serving — Mamba2-1.3B (48 layers, d_model 2,048) and Zamba2-7B (81
    layers, d_model 3,584) at full width and depth (random weights from
    ``--seed``, f32 master params, bf16 compute) through the static engine:
@@ -210,7 +228,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    profiled;
 8. SSM training — Mamba2-1.3B at full width and depth (48 layers, d_model
    2,048; random weights from ``--seed``, bf16 compute over f32 master
-   params, ``remat="block"``), 20 AdamW steps at 8 x 2,048 tokens through
+   params, ``remat="block"``), 8 AdamW steps at 8 x 2,048 tokens through
    the calls ``launch/train.py`` makes: every loss finite, the mean of the
    last 5 below the first, ``ssd_scan`` launched 2 x 48 times a step (each
    layer's forward and its remat recompute; the backward recomputes through
@@ -312,6 +330,12 @@ TRAIN_SHAPE = (8, 2048, 20)
 DP_PROCESSES, DP_UNITS = 2, 4
 DP_SHAPE = (8, 2048)
 DP_TIMEOUT_S = 240
+# Phase 6c: OLMoE-1B-7B at full width, 2 of its 16 layers, its experts
+# sharded over 2 worker processes x 4 units on this card (Gloo), f32.
+MOE_PROCESSES, MOE_UNITS = 2, 4
+MOE_LAYERS = 2
+MOE_SHAPE = (8, 1024)
+MOE_TIMEOUT_S = 300
 CLI_SEQ = 512
 # the bf16-compute run: steps, and flash against chunked within (loss, grad
 # norm) rtols of 4 and 16 units of bf16 roundoff (u = 2**-9): the two paths
@@ -330,8 +354,9 @@ SSM_CHECK_TOL = 1e-3
 # differ in f32 rounding through 48 layers); Zamba2-7B at full width with its
 # depth cut to 13 layers for memory (two groups of 6 with the shared block, a
 # tail of 1: 81 layers' ~6.7 B f32 params with their grads and AdamW moments
-# take ~108 GB, 13 layers' ~22 GB), batch and steps; the CLI's run
-SSM_TRAIN = (8, 2048, 20)
+# take ~108 GB, 13 layers' ~22 GB), batch and steps; the CLI's run.  Mamba2
+# trains 8 steps, not 20, to keep the whole script near 900 s with phase 6c.
+SSM_TRAIN = (8, 2048, 8)
 SSM_TRAIN_F32 = (2, 1e-4, 1e-3)
 ZAMBA_TRAIN = (13, 4, 5)
 SSM_TRAIN_CLI = (2, 512, 2)  # steps, seq, batch
@@ -2455,6 +2480,78 @@ def phase_dp_train(smi: str) -> dict:
     return {"flash_attention": launched}
 
 
+def phase_moe_train(smi: str) -> dict:
+    """OLMoE-1B-7B training with its experts sharded over ``MOE_PROCESSES``
+    worker processes of ``MOE_UNITS`` units on this card (Gloo): the
+    ``moe_train`` scenario of ``tests/_torch_multiproc_driver.py``, which
+    asserts every gate in the workers; printed here from their dumps.
+    Returns the workers' ``moe_dispatch`` and ``flash_attention`` launches
+    over the sharded gradient and steps (the main path)."""
+    import shutil
+
+    from repro_torch.launch.cluster import run_local_cluster
+
+    B, S = MOE_SHAPE
+    dump = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    t0, launched_at = time.perf_counter(), time.time()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "moe_train", "--moe-full",
+             "--moe-layers", str(MOE_LAYERS), "--moe-shape", f"{B}x{S}", "--dump", dump],
+            num_processes=MOE_PROCESSES, local_units=MOE_UNITS, timeout_s=MOE_TIMEOUT_S,
+            echo=False, backend="gloo", device="cuda",
+        )
+        recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["moe_train"]["check"]
+                for p in range(MOE_PROCESSES)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        if "PASS moe_train" not in out:
+            raise AssertionError(f"moe-train process {pid}: no PASS\n{out[-4000:]}")
+    r0 = recs[0]
+    print(f"[moe-train] OLMoE-1B-7B full width, {r0['layers']} of 16 layers, f32 (TF32 off), "
+          f"remat block, flash; global batch {B} x {S} over {MOE_PROCESSES} processes x "
+          f"{MOE_UNITS} units on this card over Gloo, the moe_dispatch kernel pack; capacity "
+          f"{r0['capacity']} a unit ({smi})")
+    print(f"[moe-train] one-process step on process 0 (8 units, whole state): gradient "
+          f"{r0['one_process_grad_s'] * 1e3:.1f} ms (first call), steps "
+          + ", ".join(f"{w * 1e3:.1f}" for w in r0["one_process"]["step_s"])
+          + f" ms, peak {r0['one_process_peak']} B")
+    print(f"[moe-train] against it: loss rel {r0['loss_rel']:.3g} (1e-5), worst leaf "
+          f"{r0['leaf_rel']:.3g} of its max (1e-4; replicated {r0['replicated_rel']:.3g}, expert "
+          f"slices " + ", ".join(f"process {k} {v:.3g}" for k, v in
+                                 r0["expert_slice_rel"].items())
+          + f"), first step's grad norm {r0['step_norm_rel'][0]:.3g} (1e-4), steps 2-3 loss "
+          f"{r0['step_loss_rel'][1]:.3g}, {r0['step_loss_rel'][2]:.3g}; drops bit-exact "
+          f"{r0['drops_equal']} ({sum(r0['drops'])} over {len(r0['drops'])} calls); the "
+          f"sharded init equals the whole init sliced: {r0['init_equal']}; params after 3 "
+          f"steps within {r0['params_abs']:.3g}; replicated params bit-identical on every "
+          f"process")
+    launched = {"moe_dispatch": 0, "flash_attention": 0}
+    for pid, r in enumerate(recs):
+        hop = r["step_hop_bytes"][0]
+        ep = hop - r["replicated_bytes"]
+        print(f"[moe-train] process {pid}: state {r['state_bytes']} B ({r['expert_leaves']} "
+              f"expert leaves of its {r['experts'] // MOE_PROCESSES} experts "
+              f"a layer); step walls " + ", ".join(f"{w * 1e3:.1f}" for w in r["step_s"])
+              + f" ms; first gradient (warm-up included) {r['grad_s'] * 1e3:.1f} ms; pod hop "
+              f"{hop} B a step: replicated gradient {r['replicated_bytes']} B, expert-parallel "
+              f"trips {ep} B ({ep / r['trip_bytes']:.2f} trips of {r['trip_bytes']} B); peak "
+              f"{r['peak']} B; launches a step {r['launches'][0]} ({smi})")
+        for got in r["launches"] + [r["grad_launches"]]:
+            for k in launched:
+                launched[k] += got[k]
+    print(f"[moe-train] phase 6c in {wall:.1f} s (launcher wall); launches over the sharded "
+          f"gradient and steps: {launched}")
+    for pid, r in enumerate(recs):  # where the phase's wall goes, process by process
+        parts = {"start-up": r["started_at"] - launched_at, **r["parts_s"]}
+        print(f"[moe-train] process {pid}'s seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+              + f"; the rest (exit, the launcher) {wall - sum(parts.values()):.1f}")
+    return launched
+
+
 def _rel_err(got, want) -> float:
     """``max |got - want|`` over the largest ``|want|``."""
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
@@ -2644,7 +2741,7 @@ def _scan_vs_plain(step_fn, state, batch, tag: str, rtol_loss: float, rtol_norm:
 
 
 def phase_ssm_training(seed: int) -> dict:
-    """Mamba2-1.3B at full width and depth: 20 steps, one profiled step, one
+    """Mamba2-1.3B at full width and depth: 8 steps, one profiled step, one
     step against the plain scan in bf16 and one in f32; Zamba2-7B at full
     width and 13 layers: 5 steps; the CLI: 2 steps.  Returns every kernel's
     launches over the three runs (the main path)."""
@@ -3198,6 +3295,9 @@ def main() -> int:
     # 6b. data-parallel training across two processes (the training main path's sync)
     p_launches = phase_dp_train(smi)
 
+    # 6c. MoE training with its experts sharded across two processes
+    x_launches = phase_moe_train(smi)
+
     # 7. SSM serving (the SSM main path)
     m_launches = phase_ssm(args.seed)
 
@@ -3210,7 +3310,8 @@ def main() -> int:
     # 10. Whisper (the encoder-decoder serving and training main path)
     w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, p_launches, m_launches, r_launches, f_launches, w_launches)
+             t_launches, p_launches, x_launches, m_launches, r_launches, f_launches,
+             w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

@@ -1,28 +1,36 @@
-"""Crash-consistent checkpoints of the port's state (port of
-``repro.checkpoint.ckpt``).
+"""Sharded, crash-consistent checkpoints of the port's state, with elastic
+restore (port of ``repro.checkpoint.ckpt``).
 
 * **crash consistency** — a checkpoint is written to ``step_<n>.tmp`` and
   renamed to ``step_<n>`` once complete (manifest last, fsynced); readers
   only ever see complete checkpoints, and a crash mid-write leaves the
   previous one intact.
+* **sharded save** — the reference's manifest schema: every leaf names its
+  global ``shape``, its ``dtype`` and its ``shards``, each a ``.npy`` file
+  and the ``index`` it covers (``[start, stop]`` a split dim, ``None`` a
+  whole one; ``None`` for a whole leaf).  On a mesh that spans processes
+  every process writes its own shards of the leaves it holds in part (the
+  train state's expert leaves, :func:`repro_torch.train.step.
+  state_shardings`) and process 0 writes each replicated leaf once.
+  Process 0 alone clears ``step_<n>.tmp``, merges the processes' parts of
+  the manifest and renames, each step after a barrier.
+* **elastic restore** — :func:`restore_checkpoint` assembles each leaf, or
+  only the rows the restoring process holds, from whichever shards cover
+  them, so a state saved over 2 processes restores whole into 1, or over
+  4.  The port's earlier one-file-a-leaf checkpoints still restore.
 * **retention** — :class:`CheckpointManager` keeps the newest ``keep``
   checkpoints; directories without a manifest are skipped by
   :func:`latest_step`.
-* **layout** — one ``.npy`` file per leaf of a tree of nested dicts, lists
-  and dataclasses of tensors (``TrainState`` among them), saved from the
-  device through ``.cpu()``; a JSON manifest names each leaf by its path
-  (``params/seg0/3/attn/wq``) with its shape and dtype.  ``bfloat16``, which
-  numpy lacks, is stored as its 16-bit pattern.
 
-The reference writes one file per addressable shard and re-shards on
-restore (an elastic restart onto another mesh); one device has one shard,
-and :func:`restore_checkpoint` places every leaf on the device it is given.
-Only checkpoints that the port wrote are read.
+Leaves are saved from the device through ``.cpu()``; ``bfloat16``, which
+numpy lacks, is stored as its 16-bit pattern.  Only checkpoints that the
+port wrote are read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -31,8 +39,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..tree import leaves_with_paths, tree_map
+from ..tree import leaves, leaves_with_paths, tree_map
 
 MANIFEST = "MANIFEST.json"
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -54,40 +63,136 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
-def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Write ``tree`` as checkpoint ``step``; returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+def _spans(mesh) -> bool:
+    return mesh is not None and mesh.num_processes > 1
+
+
+def _barrier(mesh) -> None:
+    if _spans(mesh):
+        dist.barrier(group=mesh.group)
+
+
+def _split(leaf: torch.Tensor, held) -> bool:
+    """Does this process hold only its shard of ``leaf``?"""
+    return held is not None and leaf.shape[held.dim] != held.size
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, shardings: Any = None,
+                    mesh=None) -> str:
+    """Write ``tree`` as checkpoint ``step``; returns the final path.
+
+    ``shardings`` (a tree like ``tree`` of
+    :class:`~repro_torch.train.step.Shard` or ``None`` leaves) says which
+    rows of each leaf this process holds; on a ``mesh`` that spans
+    processes every process calls this with its own shards."""
+    rank = mesh.process_index if _spans(mesh) else 0
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    _barrier(mesh)
+    if rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    _barrier(mesh)
 
-    manifest: dict[str, Any] = {"step": step, "leaves": {}}
-    for path, leaf in leaves_with_paths(tree):
+    pairs = list(leaves_with_paths(tree))
+    held_leaves = leaves(shardings) if shardings is not None else [None] * len(pairs)
+    part: dict[str, Any] = {}
+    for (path, leaf), held in zip(pairs, held_leaves):
+        split = _split(leaf, held)
+        if not split and rank != 0:
+            continue  # a whole leaf: process 0 writes it
         name = _name(path)
-        fn = re.sub(r"[^A-Za-z0-9_.-]", "_", name) + ".npy"
+        safe = re.sub(r"[^A-Za-z0-9_.-]", "_", name)
+        fn = f"{safe}.shard{rank if split else 0}.npy"
         np.save(os.path.join(tmp, fn), _to_numpy(leaf))
-        manifest["leaves"][name] = {
-            "file": fn,
-            "shape": list(leaf.shape),
-            "dtype": str(leaf.dtype).removeprefix("torch."),
-        }
-
-    with open(os.path.join(tmp, MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
+        shape, index = list(leaf.shape), None
+        if split:
+            shape[held.dim] = held.size
+            index = [None] * leaf.ndim
+            index[held.dim] = [held.start, held.stop]
+        part[name] = {"file_prefix": safe, "shape": shape,
+                      "dtype": str(leaf.dtype).removeprefix("torch."),
+                      "shards": [{"file": fn, "index": index}]}
+    with open(os.path.join(tmp, f"part{rank}.json"), "w") as f:
+        json.dump(part, f)
         f.flush()
         os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic publish
+    _barrier(mesh)
+
+    if rank == 0:
+        manifest: dict[str, Any] = {"step": step, "leaves": {}}
+        for fn in sorted(glob.glob(os.path.join(tmp, "part*.json")),
+                         key=lambda p: int(re.search(r"part(\d+)", p).group(1))):
+            with open(fn) as f:
+                for name, entry in json.load(f).items():
+                    if name in manifest["leaves"]:
+                        manifest["leaves"][name]["shards"] += entry["shards"]
+                    else:
+                        manifest["leaves"][name] = entry
+            os.remove(fn)
+        # the tree's own leaf order
+        manifest["leaves"] = {n: manifest["leaves"][n]
+                              for n in (_name(p) for p, _ in pairs)}
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+    _barrier(mesh)
     return final
 
 
-def restore_checkpoint(directory: str, step: int | None, target: Any, device=None) -> Any:
+def _assemble(entry: dict, ckpt_dir: str, want=None) -> np.ndarray:
+    """A leaf from its shard files: whole, or only rows ``[want.start,
+    want.stop)`` of dim ``want.dim``, reading just the shards that cover
+    them."""
+    shape = list(entry["shape"])
+    if "shards" not in entry:  # the port's earlier layout: one whole file
+        a = np.load(os.path.join(ckpt_dir, entry["file"]))
+        if list(a.shape) != shape:
+            raise ValueError(f"checkpoint leaf file {entry['file']!r}: shape {list(a.shape)}, "
+                             f"manifest {shape}")
+        if want is not None:
+            a = np.take(a, range(want.start, want.stop), axis=want.dim)
+        return a
+    if want is not None:
+        shape[want.dim] = want.stop - want.start
+    out, filled = None, 0
+    for sh in entry["shards"]:
+        data = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
+        index = sh["index"] or [None] * len(shape)
+        src = [slice(None)] * len(shape)
+        dst = [slice(None) if s is None else slice(s[0], s[1]) for s in index]
+        if want is not None:
+            a, b = index[want.dim] or (0, entry["shape"][want.dim])
+            lo, hi = max(a, want.start), min(b, want.stop)
+            if lo >= hi:
+                continue
+            src[want.dim] = slice(lo - a, hi - a)
+            dst[want.dim] = slice(lo - want.start, hi - want.start)
+        if out is None:
+            out = np.empty(shape, dtype=data.dtype)
+        block = data[tuple(src)]
+        out[tuple(dst)] = block
+        filled += block.size
+    if out is None or filled != out.size:
+        raise ValueError(f"checkpoint leaf {entry['file_prefix']!r}: its shards cover "
+                         f"{filled} of {int(np.prod(shape))} values")
+    return out
+
+
+def restore_checkpoint(directory: str, step: int | None, target: Any, device=None,
+                       shardings: Any = None) -> Any:
     """Restore into the structure of ``target`` (a tree of tensors), each
     leaf with the target leaf's dtype, on ``device`` (default: the target
-    leaf's device).  ``step=None`` takes the newest checkpoint.  A leaf of
+    leaf's device).  ``step=None`` takes the newest checkpoint.  Where
+    ``shardings`` (as in :func:`save_checkpoint`) says this process holds a
+    shard of a leaf and the target leaf is that shard, only its rows are
+    read: the restoring mesh may differ from the saving one.  A leaf of
     ``target`` that the checkpoint lacks raises ``KeyError``."""
     if step is None:
         step = latest_step(directory)
@@ -97,18 +202,21 @@ def restore_checkpoint(directory: str, step: int | None, target: Any, device=Non
     with open(os.path.join(ckpt_dir, MANIFEST)) as f:
         manifest = json.load(f)
 
-    def load(path, leaf):
+    def load(path, leaf, held=None):
         name = _name(path)
         if name not in manifest["leaves"]:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         entry = manifest["leaves"][name]
-        t = _from_numpy(np.load(os.path.join(ckpt_dir, entry["file"])), entry["dtype"])
-        if list(t.shape) != entry["shape"]:
-            raise ValueError(f"checkpoint leaf {name!r}: file shape {list(t.shape)}, "
-                             f"manifest {entry['shape']}")
+        a = _assemble(entry, ckpt_dir, held if _split(leaf, held) else None)
+        t = _from_numpy(np.array(a, order="C"), entry["dtype"])
+        if t.shape != leaf.shape:
+            raise ValueError(f"checkpoint leaf {name!r}: {list(t.shape)} read, the target "
+                             f"holds {list(leaf.shape)}")
         return t.to(device=device if device is not None else leaf.device, dtype=leaf.dtype)
 
-    return tree_map(load, target, with_path=True)
+    if shardings is None:
+        return tree_map(load, target, with_path=True)
+    return tree_map(load, target, shardings, with_path=True)
 
 
 def latest_step(directory: str) -> int | None:
@@ -124,17 +232,20 @@ def latest_step(directory: str) -> int | None:
 
 @dataclasses.dataclass
 class CheckpointManager:
-    """Periodic save + retention + resume for the training loop."""
+    """Periodic save + retention + resume for the training loop; ``mesh``
+    and ``shardings`` as in :func:`save_checkpoint`."""
 
     directory: str
     every: int = 100
     keep: int = 3
 
-    def maybe_save(self, step: int, tree: Any) -> str | None:
+    def maybe_save(self, step: int, tree: Any, shardings: Any = None, mesh=None) -> str | None:
         if self.every <= 0 or step % self.every != 0:
             return None
-        path = save_checkpoint(self.directory, step, tree)
-        self._gc()
+        path = save_checkpoint(self.directory, step, tree, shardings, mesh)
+        if not _spans(mesh) or mesh.process_index == 0:
+            self._gc()
+        _barrier(mesh)
         return path
 
     def _gc(self) -> None:
@@ -144,11 +255,12 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
 
-    def restore_latest(self, target: Any, device=None) -> tuple[int, Any] | None:
+    def restore_latest(self, target: Any, device=None,
+                       shardings: Any = None) -> tuple[int, Any] | None:
         step = latest_step(self.directory)
         if step is None:
             return None
-        return step, restore_checkpoint(self.directory, step, target, device)
+        return step, restore_checkpoint(self.directory, step, target, device, shardings)
 
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]

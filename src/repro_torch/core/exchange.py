@@ -31,7 +31,11 @@ scheduled transports                   ``n - 1`` phase gathers, following
 ``lax.axis_index``                     ``arange(S)``
 =====================================  =======================================
 
-The scheduled transports keep their phase structure in both fabrics.
+The scheduled transports keep their phase structure in both fabrics.  The
+pod-axis all-to-all is differentiable: its backward is the same hop on the
+gradient (``_PodAllToAll``), so every route built on it (``all_to_all``,
+:func:`dispatch_two_level`, :func:`combine_two_level`, the multiplexer's
+``dispatch`` and ``combine``) trains across processes.
 
 The partition hot path has two implementations, selected by ``pack_impl``:
 ``"torch"`` (a ``[rows, num_dest + 1]`` one-hot + cumsum, the reference's
@@ -191,7 +195,7 @@ def xla_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     A = mesh.size(axis)
     assert x.shape[1] == A, f"message dim {x.shape[1]} != axis size {A}"
     if _spans(mesh, axis):
-        return _pod_all_to_all(x, mesh)
+        return _PodAllToAll.apply(x, mesh, "xla", 1)
     return _ungroup(_group(x, mesh, axis).transpose(1, 2), mesh, axis)
 
 
@@ -233,7 +237,7 @@ def scheduled_all_to_all(
             f"{x.shape[2] if x.ndim >= 3 else None}"
         )
     if _spans(mesh, axis):
-        return _pod_scheduled_all_to_all(x, mesh, schedule, num_chunks)
+        return _PodAllToAll.apply(x, mesh, schedule, num_chunks)
     g = _group(x, mesh, axis)  # [G, A (sender), A (receiver), ...]
     y = torch.empty(g.shape, dtype=g.dtype, device=g.device)
     dev = torch.arange(A, device=x.device)
@@ -560,6 +564,32 @@ def _pod_scheduled_all_to_all(
     for got, src in _pod_phases(x, mesh, schedule, num_chunks):
         y[unit, src] = got
     return y
+
+
+def _pod_hop(x: torch.Tensor, mesh: Mesh, schedule: str, num_chunks: int) -> torch.Tensor:
+    """The pod-axis all-to-all over the process fabric: one
+    ``all_to_all_single`` (``schedule="xla"``) or the schedule's phases."""
+    if schedule == "xla":
+        return _pod_all_to_all(x, mesh)
+    return _pod_scheduled_all_to_all(x, mesh, schedule, num_chunks)
+
+
+class _PodAllToAll(torch.autograd.Function):
+    """The pod-axis all-to-all as an autograd op.  An all-to-all is its own
+    adjoint (the message matrix transposes: ``y[s, j] = x_j[s]`` gives
+    ``dx_j[s] = dy[s, j]``), so the backward is the same hop, over the same
+    transport, on the gradient.  Every process runs the same graph, so the
+    backward's collectives come in the same order on every process; a
+    remat recompute issues the forward's again."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, schedule, num_chunks):
+        ctx.hop = (mesh, schedule, num_chunks)
+        return _pod_hop(x, mesh, schedule, num_chunks)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _pod_hop(dy.contiguous(), *ctx.hop), None, None, None
 
 
 def _pod_ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -1,14 +1,28 @@
-"""The mesh context the model code reads (port of ``repro.distributed.sharding``).
+"""Logical-axis sharding rules and the mesh context the model code reads
+(port of ``repro.distributed.sharding``).
 
-The reference's :class:`MeshContext` wraps a JAX device mesh with logical-
-axis sharding rules, and ``shard()`` tags activations for GSPMD.  The port
-runs every parallel unit as a slice of a tensor's leading dim, so its
-context wraps the :class:`~repro_torch.core.exchange.Mesh` (``num_pods x
-n`` units, pod-major, possibly spanning processes) and names the exchange
-axis, the pod axis and the data-parallel axes; the sharding rules,
-``shard()`` and the context's ``exchange_impl`` (which no model code reads)
-have no counterpart.  The expert-parallel MoE
-layer reads the context to lay tokens and experts out over the units.
+Model code never names mesh axes.  Parameter and cache leaves carry
+*logical* axis names (``"batch"``, ``"heads"``, ``"experts"``, ...), the
+models' ``specs`` and ``cache_specs``; an :class:`AxisRules` table maps
+logical names onto mesh axes, and :func:`logical_sharding` resolves a
+shape's names against a context's axis sizes with the reference's rules:
+the leftmost logical name wins a mesh axis, a dim that its mesh factor does
+not divide drops the axis (``allow_uneven`` keeps it while every shard gets
+a row, except under ``strict``), and off-mesh there is nothing to resolve.
+
+The reference resolves to a ``NamedSharding`` for GSPMD.  The port runs
+every parallel unit as a slice of a tensor's leading dim and a process is
+one device, so :func:`logical_sharding` returns the resolved per-dim tuple
+(the reference's ``NamedSharding.spec``), :func:`shard` is an identity that
+checks the names against the tensor's rank, and the one placement the port
+makes from the rules is the train state's (:func:`repro_torch.train.step.
+state_shardings`).  The context wraps the
+:class:`~repro_torch.core.exchange.Mesh` (``num_pods x n`` units,
+pod-major, possibly spanning processes); its rules default to
+:func:`unit_rules`, and ``axis_sizes`` lets a context resolve against
+another mesh's axes (the reference's ``data x model``, say) for
+comparison.  The expert-parallel MoE layer reads the context to lay tokens
+and experts out over the units.
 """
 
 from __future__ import annotations
@@ -16,19 +30,117 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Literal, Mapping, Sequence
+
+import torch
 
 from ..core.exchange import POD_AXIS, SHUFFLE_AXIS, Mesh
+from ..tree import tree_map
+
+# Logical dimension names used across the model zoo.
+LOGICAL_AXES = (
+    "batch",      # global batch                      -> (pod, data)
+    "seq",        # sequence (attention q/k/v)        -> None
+    "seq_sp",     # residual-stream seq (Megatron SP)  -> None | model
+    "kv_seq",     # KV-cache sequence at decode       -> model (flash-decode)
+    "d_model",    # residual stream                   -> None
+    "heads",      # attention query heads             -> model
+    "kv_heads",   # attention kv heads                -> model (if divisible)
+    "d_ff",       # MLP hidden                        -> model
+    "experts",    # MoE expert dim                    -> model (EP)
+    "vocab",      # embedding/logits vocab            -> model
+    "fsdp",       # parameter FSDP dim                -> data
+    "expert_fsdp",# expert-weight inner dims           -> data (or model)
+    "conv_dim",   # mamba conv channels               -> model
+    "ssm_heads",  # mamba value heads                 -> model
+)
+
+Axes = tuple[str, ...] | str | None
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """Mapping logical axis name -> mesh axis (or tuple of axes, or None).
+
+    ``allow_uneven``: keep an axis even when the dimension is not divisible
+    by the mesh factor, as long as every shard gets a row (the reference's
+    GSPMD pads); never for ``strict`` resolution.
+    """
+
+    table: Mapping[str, Axes]
+    allow_uneven: bool = False
+
+    def spec_for(self, *names: str | None) -> tuple[Axes, ...]:
+        return tuple(self.table.get(n) if n else None for n in names)
+
+    def replace(self, **kw) -> "AxisRules":
+        uneven = kw.pop("allow_uneven", self.allow_uneven)
+        t = dict(self.table)
+        t.update(kw)
+        return AxisRules(t, allow_uneven=uneven)
+
+
+def default_rules(multi_pod: bool) -> AxisRules:
+    """The reference's table for its ``(pod,) data x model`` meshes."""
+    batch = ("pod", "data") if multi_pod else ("data",)
+    return AxisRules(
+        {
+            "batch": batch,
+            "seq": None,
+            "seq_sp": None,
+            "kv_seq": "model",
+            "d_model": None,
+            "heads": "model",
+            "kv_heads": "model",
+            "d_ff": "model",
+            "experts": "model",
+            "vocab": "model",
+            "fsdp": "data",
+            "expert_fsdp": "data",
+            "conv_dim": "model",
+            "ssm_heads": "model",
+        }
+    )
+
+
+def unit_rules(multi_pod: bool) -> AxisRules:
+    """The port's table on its own ``(pod, q)`` mesh: the experts dim over
+    the joint unit axis, where the expert-parallel layer consumes the
+    expert weights (the reference's ``shard_map`` takes them as ``P(unit,
+    None, None)``); every other name replicated, as the port has no tensor
+    parallelism and no FSDP."""
+    unit = (POD_AXIS, SHUFFLE_AXIS) if multi_pod else (SHUFFLE_AXIS,)
+    return AxisRules({name: unit if name == "experts" else None for name in LOGICAL_AXES})
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
-    """What the model code needs to know about the simulated machine: the
-    mesh, the axis its exchanges run over (the in-pod axis) and, on a
-    two-level mesh, the pod axis.  Transports come from the model config or
-    from an ambient multiplexer, never from here."""
+    """What the model code needs to know about the machine: the mesh, the
+    axis its exchanges run over (the in-pod axis) and, on a two-level mesh,
+    the pod axis; the sharding ``rules`` (default :func:`unit_rules`) and
+    the ``axis_sizes`` they resolve against (default the mesh's own).
+    Transports come from the model config or from an ambient multiplexer,
+    never from here.
+
+    ``moe_tokens`` is the expert-parallel layer's token contract on a mesh
+    that spans processes: ``"global"`` (serving) has every process hold all
+    ``T`` tokens and gather every unit's output; ``"local"`` (training, set
+    by the train step) has each process feed its own rows and get back only
+    theirs."""
 
     mesh: Mesh
+    rules: AxisRules | None = None
+    axis_sizes: Mapping[str, int] | None = None
+    moe_tokens: Literal["global", "local"] = "global"
+
+    def __post_init__(self):
+        if self.rules is None:
+            object.__setattr__(self, "rules", unit_rules(self.mesh.num_pods > 1))
+        if self.axis_sizes is None:
+            object.__setattr__(self, "axis_sizes",
+                               dict(zip(self.mesh.axis_names, self.mesh.shape)))
+        if self.moe_tokens not in ("global", "local"):
+            raise ValueError(f"unknown moe_tokens {self.moe_tokens!r}")
 
     @property
     def exchange_axis(self) -> str:
@@ -67,4 +179,94 @@ def mesh_context(ctx: MeshContext | None) -> Iterator[MeshContext | None]:
         _CTX.reset(token)
 
 
-__all__ = ["MeshContext", "current_mesh_context", "mesh_context"]
+def _divisible(dim: int, sizes: Mapping[str, int], axes: tuple[str, ...],
+               allow_uneven: bool) -> bool:
+    k = 1
+    for a in axes:
+        k *= sizes[a]
+    if dim % k == 0:
+        return True
+    # uneven mode: keep the axis as long as every shard gets >= 1 row
+    return allow_uneven and dim >= k
+
+
+def logical_sharding(
+    shape: Sequence[int],
+    *names: str | None,
+    ctx: MeshContext | None = None,
+    strict: bool = False,
+) -> tuple[Axes, ...] | None:
+    """The resolved per-dim spec of a logical-tagged shape (the reference's
+    ``NamedSharding.spec``); ``None`` when no mesh context.
+
+    Drops any logical axis whose mesh factor does not divide the dimension
+    unless ``ctx.rules.allow_uneven``; ``strict=True`` always requires
+    exact divisibility.  A mesh axis shards at most one dim: the leftmost
+    logical name wins.
+    """
+    ctx = ctx or current_mesh_context()
+    if ctx is None:
+        return None
+    assert len(shape) == len(names), (shape, names)
+    uneven = ctx.rules.allow_uneven and not strict
+    resolved: list[Axes] = []
+    used: set[str] = set()
+    for dim, name in zip(shape, names):
+        axes = ctx.rules.table.get(name) if name else None
+        if isinstance(axes, str):
+            axes = (axes,)
+        if axes:
+            axes = tuple(a for a in axes if a not in used)
+        if not axes:
+            resolved.append(None)
+            continue
+        if _divisible(dim, ctx.axis_sizes, axes, uneven):
+            used.update(axes)
+            resolved.append(axes if len(axes) > 1 else axes[0])
+        else:
+            resolved.append(None)
+    return tuple(resolved)
+
+
+def is_spec_leaf(x) -> bool:
+    """Spec trees use tuples of logical-axis names as leaves."""
+    return isinstance(x, tuple) and (
+        len(x) == 0 or all(n is None or isinstance(n, str) for n in x)
+    )
+
+
+def build_shardings(spec_tree, shape_tree, ctx: MeshContext | None = None):
+    """The resolved spec of every leaf of ``shape_tree`` (tensors, ``meta``
+    ones included) from its logical spec in ``spec_tree``, with strict
+    divisibility; ``None`` off-mesh."""
+    ctx = ctx or current_mesh_context()
+    if ctx is None:
+        return None
+    return tree_map(
+        lambda spec, shp: logical_sharding(tuple(shp.shape), *spec, ctx=ctx, strict=True),
+        spec_tree, shape_tree,
+    )
+
+
+def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
+    """Tag an activation with logical axes: an identity here (a process is
+    one device, so there is no constraint to place), after checking that
+    the names match ``x``'s rank."""
+    if len(names) != x.ndim:
+        raise ValueError(f"{len(names)} logical names {names} for a rank-{x.ndim} tensor")
+    return x
+
+
+__all__ = [
+    "LOGICAL_AXES",
+    "AxisRules",
+    "default_rules",
+    "unit_rules",
+    "MeshContext",
+    "current_mesh_context",
+    "mesh_context",
+    "logical_sharding",
+    "is_spec_leaf",
+    "build_shardings",
+    "shard",
+]

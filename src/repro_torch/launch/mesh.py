@@ -131,8 +131,9 @@ def make_context(
     mesh: Mesh | None = None,
 ) -> MeshContext:
     """The model code's :class:`MeshContext` over the production mesh (or
-    ``mesh``).  The reference's ``exchange_impl`` and sharding ``rules``
-    have no counterpart here (see :mod:`repro_torch.distributed.sharding`)."""
+    ``mesh``), with the port's sharding rules
+    (:func:`~repro_torch.distributed.sharding.unit_rules`).  The reference's
+    ``exchange_impl`` has no counterpart here."""
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, num_pods=num_pods)
     return MeshContext(mesh)

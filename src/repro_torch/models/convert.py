@@ -47,8 +47,9 @@ def _unstack(tree, depth: int, device):
             for l in range(_num_layers(tree))]
 
 
-def from_reference(params: Mapping[str, Any], device="cpu") -> dict:
-    """Reference param pytree (nested dicts of arrays) -> port params."""
+def from_reference(params: Mapping[str, Any], device="cuda") -> dict:
+    """Reference param pytree (nested dicts of arrays) -> port params on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return {name: _unstack(sub, _stack_depth(name), device) for name, sub in params.items()}
 
 

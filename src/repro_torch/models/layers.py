@@ -21,6 +21,10 @@ it outside any Pallas kernel.
 The port's own init draws the reference's distributions (truncated normal at
 ±2σ, He scale) from an explicit ``torch.Generator`` (:func:`make_generator`);
 it cannot reproduce ``jax.random``'s numbers.
+
+Each ``init_*`` has a ``specs_*`` beside it: the logical axis names of every
+leaf (:mod:`repro_torch.distributed.sharding`), the reference's tree for
+tree.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 
 Params = Any  # nested dict[str, torch.Tensor]
+Specs = Any  # the params' structure with a tuple of logical axis names a leaf
 
 _DTYPES = {
     "float32": torch.float32,
@@ -109,6 +114,10 @@ def init_rmsnorm(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def specs_rmsnorm() -> Specs:
+    return {"scale": (None,)}
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -119,6 +128,10 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 def init_layernorm(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def specs_layernorm() -> Specs:
+    return {"scale": (None,), "bias": (None,)}
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -345,6 +358,20 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def specs_attention(cfg: ModelConfig) -> Specs:
+    s = {
+        "wq": ("fsdp", "heads", None),
+        "wk": ("fsdp", "kv_heads", None),
+        "wv": ("fsdp", "kv_heads", None),
+        "wo": ("heads", None, "fsdp"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ("heads", None)
+        s["bk"] = ("kv_heads", None)
+        s["bv"] = ("kv_heads", None)
+    return s
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     B, S, d = x.shape
@@ -443,6 +470,17 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wk_b": he_init(gen, (r, H, dn), r, dt),
         "wv_b": he_init(gen, (r, H, dv), r, dt),
         "wo": he_init(gen, (H, dv, d), H * dv, dt),
+    }
+
+
+def specs_mla(cfg: ModelConfig) -> Specs:
+    return {
+        "wq": ("fsdp", "heads", None),
+        "wkv_a": ("fsdp", None),
+        "kv_norm": specs_rmsnorm(),
+        "wk_b": ("fsdp", "heads", None),
+        "wv_b": ("fsdp", "heads", None),
+        "wo": ("heads", None, "fsdp"),
     }
 
 
@@ -567,6 +605,21 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) ->
     }
 
 
+def specs_mlp(cfg: ModelConfig) -> Specs:
+    if cfg.act == "gelu":
+        return {
+            "w_in": ("fsdp", "d_ff"),
+            "b_in": ("d_ff",),
+            "w_out": ("d_ff", "fsdp"),
+            "b_out": (None,),
+        }
+    return {
+        "w_gate": ("fsdp", "d_ff"),
+        "w_up": ("fsdp", "d_ff"),
+        "w_down": ("d_ff", "fsdp"),
+    }
+
+
 def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form)."""
     dt = x.dtype
@@ -590,6 +643,13 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dt)
     return p
+
+
+def specs_embedding(cfg: ModelConfig) -> Specs:
+    s = {"table": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = ("fsdp", "vocab")
+    return s
 
 
 def scale_as(x: torch.Tensor, scale: float) -> float:
@@ -634,8 +694,10 @@ __all__ = [
     "rand",
     "he_init",
     "init_rmsnorm",
+    "specs_rmsnorm",
     "rmsnorm",
     "init_layernorm",
+    "specs_layernorm",
     "layernorm",
     "rope_angles",
     "mrope_angles",
@@ -648,18 +710,22 @@ __all__ = [
     "attention_core",
     "scale_as",
     "init_attention",
+    "specs_attention",
     "attention_qkv",
     "attention_out",
     "attention_block",
     "attention_decode",
     "attention_decode_slots",
     "init_mla",
+    "specs_mla",
     "mla_block",
     "mla_decode",
     "mla_decode_slots",
     "init_mlp",
+    "specs_mlp",
     "mlp_block",
     "init_embedding",
+    "specs_embedding",
     "embed",
     "unembed",
     "xent_loss",

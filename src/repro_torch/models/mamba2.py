@@ -72,6 +72,20 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> Any:
     }
 
 
+def specs_mamba_block(cfg: ModelConfig) -> Any:
+    del cfg
+    return {
+        "in_proj": ("fsdp", "conv_dim"),
+        "conv_w": (None, "conv_dim"),
+        "conv_b": ("conv_dim",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "gate_norm": L.specs_rmsnorm(),
+        "out_proj": ("conv_dim", "fsdp"),
+    }
+
+
 # ----------------------------------------------------------------------------
 # The SSD scan (prefill/training) and its single-token step (decode).
 # ----------------------------------------------------------------------------
@@ -225,6 +239,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
             "mamba": init_mamba_block(gen, cfg)}
 
 
+def specs_layer(cfg: ModelConfig) -> Any:
+    return {"norm": L.specs_rmsnorm(), "mamba": specs_mamba_block(cfg)}
+
+
 def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
@@ -234,6 +252,14 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
         "embedding": L.init_embedding(gen, cfg),
         "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],
         "final_norm": L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device),
+    }
+
+
+def specs(cfg: ModelConfig) -> Any:
+    return {
+        "embedding": L.specs_embedding(cfg),
+        "layers": [specs_layer(cfg) for _ in range(cfg.num_layers)],
+        "final_norm": L.specs_rmsnorm(),
     }
 
 
@@ -293,6 +319,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
     return mamba_state(cfg, cfg.num_layers, batch_size, dtype or L.cdtype(cfg), device)
 
 
+def cache_specs(cfg: ModelConfig) -> Any:
+    del cfg
+    return {
+        "ssm": (None, "batch", "ssm_heads", None, None),
+        "conv": (None, "batch", None, "conv_dim"),
+    }
+
+
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
     """One token for every stream: tokens ``[B, 1]`` -> ``(logits [B,
     vocab], cache)``; the cache is updated in place.  ``pos`` is unused: the
@@ -322,19 +356,23 @@ def prefill(params, cfg: ModelConfig, batch):
 __all__ = [
     "dims",
     "init_mamba_block",
+    "specs_mamba_block",
     "ssd_chunked",
     "ssd_step",
     "mamba_block",
     "mamba_block_step",
     "init_layer",
+    "specs_layer",
     "layer_fwd",
     "layer_prefill",
     "layer_step",
     "mamba_state",
     "init",
+    "specs",
     "forward",
     "train_loss",
     "init_cache",
+    "cache_specs",
     "decode_step",
     "prefill",
 ]

@@ -16,14 +16,23 @@ Two execution paths (``cfg.moe_impl``):
   ``[N, T/N, d]`` in unit order (pod-major on a two-level mesh), and expert
   ``e`` lives on unit ``e // E_loc``.  Every unit's body runs at once.  On
   a mesh that spans processes each process runs its own units' bodies (and
-  experts) and the outputs are gathered, so every process returns all
-  ``T`` tokens.
+  experts).  Under the context's ``moe_tokens="global"`` (serving) every
+  process holds all ``T`` tokens and the outputs are gathered, so every
+  process returns all ``T``; under ``"local"`` (training, set by the train
+  step) each process feeds its own ``T / R`` rows and gets back only
+  theirs, and the pod hop's backward carries the gradient.
+
+An expert leaf is either whole (``E`` rows) or already this process's slice
+(``local_units * E_loc`` rows, the sharded train state of
+:func:`repro_torch.train.step.state_shardings`).  :func:`record_drops`
+collects each expert-parallel call's per-unit drop counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +63,18 @@ def init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> Any:
     if cfg.num_shared_experts:
         p["shared"] = L.init_mlp(gen, cfg, d_ff=f * cfg.num_shared_experts)
     return p
+
+
+def specs_moe_layer(cfg: ModelConfig) -> Any:
+    s = {
+        "router": (None, None),
+        "w_gate": ("experts", "expert_fsdp", None),
+        "w_up": ("experts", "expert_fsdp", None),
+        "w_down": ("experts", None, "expert_fsdp"),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = L.specs_mlp(cfg)
+    return s
 
 
 def route(params, cfg: ModelConfig, x: torch.Tensor):
@@ -96,6 +117,23 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 # Expert-parallel path (the paper's exchange pipeline).
 # ----------------------------------------------------------------------------
+
+_DROPS: list | None = None
+
+
+@contextlib.contextmanager
+def record_drops() -> Iterator[list]:
+    """Inside the with-block every expert-parallel call appends its local
+    units' drop counts (``[local_units]`` int32) to the yielded list, in
+    call order: a remat recompute calls again (it stops early, past the
+    dispatch, once it has every saved tensor back)."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
 
 def _resolve_exchange(cfg: ModelConfig, mux) -> tuple[str, str]:
     """The EP exchange policy ``(impl, pack_impl)``: both from the ambient
@@ -161,6 +199,8 @@ def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
     ).reshape(-1, d)
     buffers = buffers.view(U, E * C + 1, d)[:, :-1]
     dropped = (~kept).sum(1, dtype=torch.int32)
+    if _DROPS is not None:
+        _DROPS.append(dropped)
 
     # -- step 3: the multiplexer shuffle to the experts' owner units.
     if pod_axis is None and mux is not None and mux.plan.pod_axis is not None \
@@ -186,8 +226,16 @@ def _ep_moe_local(params, cfg: ModelConfig, x: torch.Tensor, mesh: Mesh,
         )
 
     # Unit n owns experts [n * E_loc, (n + 1) * E_loc): expert order is
-    # already owner-major, so the local units' experts are one slice.
-    mine = slice(mesh.unit_offset * E_loc, (mesh.unit_offset + U) * E_loc)
+    # already owner-major, so the local units' experts are one slice, which
+    # a sharded state already holds alone.
+    held = params["w_gate"].shape[0]
+    if held == E:
+        mine = slice(mesh.unit_offset * E_loc, (mesh.unit_offset + U) * E_loc)
+    elif held == U * E_loc:
+        mine = slice(None)
+    else:
+        raise ValueError(f"expert leaves of {held} rows: neither all {E} experts nor this "
+                         f"process's {U * E_loc}")
     wg, wu, wd = (params[name][mine].to(dt) for name in ("w_gate", "w_up", "w_down"))
 
     chunks = mux.pipeline_chunks if mux is not None else cfg.moe_async_chunks
@@ -223,7 +271,11 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     axis and dispatch/combine take the two-level fabric; a single-level
     multiplexer on a pod mesh is an error.  Shapes the units do not divide
     (``T % N`` or ``E % N``) fall back to :func:`moe_dense`, as in the
-    reference.
+    reference, with ``T`` the global token count (under ``"local"`` tokens,
+    this process's rows times the process count, so every process decides
+    alike); across processes under ``"local"`` they raise instead, as the
+    expert leaves may be sharded and a silent dense path would differ from
+    the step the other processes take.
     """
     ctx = current_mesh_context()
     if ctx is None:
@@ -243,12 +295,23 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             "build the multiplexer for the same two-level mesh"
         )
 
-    T, d = x.shape
-    if N == 1 or T == 0 or T % N != 0 or cfg.num_experts % N != 0:
-        return moe_dense(params, cfg, x)
     mesh = ctx.mesh
-    mine = x.reshape(N, T // N, d)[mesh.unit_offset:mesh.unit_offset + mesh.local_units]
+    T, d = x.shape
+    local = ctx.moe_tokens == "local" and mesh.num_processes > 1
+    T_all = T * mesh.num_processes if local else T
+    if N == 1 or T_all == 0 or T_all % N != 0 or cfg.num_experts % N != 0:
+        if local:
+            raise ValueError(
+                f"expert-parallel MoE across {mesh.num_processes} processes: {T_all} tokens "
+                f"and {cfg.num_experts} experts must both split over the {N} units"
+            )
+        return moe_dense(params, cfg, x)
+    U = mesh.local_units
+    mine = (x.reshape(U, T // U, d) if local
+            else x.reshape(N, T // N, d)[mesh.unit_offset:mesh.unit_offset + U])
     y, _ = _ep_moe_local(params, cfg, mine, mesh, axis, pod_axis=pod)
+    if local:
+        return y.reshape(T, d)
     return exchange.gather_units(y, mesh).reshape(T, d)
 
 
@@ -269,8 +332,10 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "init_moe_layer",
+    "specs_moe_layer",
     "route",
     "moe_dense",
     "moe_ep",
     "moe_ffn",
+    "record_drops",
 ]

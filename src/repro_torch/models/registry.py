@@ -8,9 +8,11 @@ M-RoPE), the pure-SSM family (:mod:`.mamba2`), the hybrid family
 ``decode_step_slots`` is ``None`` for the SSM, hybrid and encoder-decoder
 families, whose caches are not per-position KV maps, as in the reference.
 ``forward`` (the final-normed hidden states) is the port's addition.
+``param_specs`` and ``cache_spec_fn()`` give every param and cache leaf's
+logical axes (:mod:`repro_torch.distributed.sharding`) in the port's own
+structure: a list entry a layer where the reference stacks layers.
 :func:`param_count` counts the leaves of ``init(..., device="meta")``.  The
-reference's param specs and its input and shape specs for the dry-run have
-no counterpart.
+reference's input and shape specs for the dry-run have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -31,12 +33,16 @@ VLM_PATCHES = 1024
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     cfg: ModelConfig
-    init: Callable[..., Any]  # (seed, device="cuda") -> params
+    # (seed, device="cuda") -> params; the transformer families also take
+    # place= (see transformer.init)
+    init: Callable[..., Any]
     forward: Callable[[Any, dict], torch.Tensor]  # -> hidden states [B, S, d]
     train_loss: Callable[[Any, dict], torch.Tensor]
     prefill: Callable[[Any, dict], tuple[torch.Tensor, Any]]
     decode_step: Callable[[Any, torch.Tensor, Any, int], tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]  # (batch_size, capacity, device="cuda") -> cache
+    param_specs: Any  # tree of logical-axis tuples (matches init)
+    cache_spec_fn: Callable[[], Any]
     # Per-slot decode (continuous batching): (params, tokens [B, 1], cache,
     # positions [B]) -> (logits, cache); None for the SSM, hybrid and
     # encoder-decoder families.
@@ -55,12 +61,14 @@ def build(cfg: ModelConfig) -> ModelApi:
     slots = getattr(m, "decode_step_slots", None)
     return ModelApi(
         cfg=cfg,
-        init=lambda seed, device="cuda": m.init(seed, cfg, device=device),
+        init=lambda seed, device="cuda", **kw: m.init(seed, cfg, device=device, **kw),
         forward=lambda params, batch: m.forward(params, cfg, batch),
         train_loss=lambda params, batch: m.train_loss(params, cfg, batch),
         prefill=lambda params, batch: m.prefill(params, cfg, batch),
         decode_step=lambda params, tokens, cache, pos: m.decode_step(params, cfg, tokens, cache, pos),
         init_cache=lambda bs, cap, device="cuda": m.init_cache(cfg, bs, cap, device=device),
+        param_specs=m.specs(cfg),
+        cache_spec_fn=lambda: m.cache_specs(cfg),
         decode_step_slots=None if slots is None else (
             lambda params, tokens, cache, positions: slots(params, cfg, tokens, cache, positions)
         ),

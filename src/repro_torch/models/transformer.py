@@ -23,6 +23,7 @@ them; the loss reads the text positions only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -30,6 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.multiplexer import current_multiplexer, use_multiplexer
+from ..distributed.sharding import current_mesh_context, mesh_context
 from . import layers as L
 from . import moe as M
 
@@ -64,16 +67,44 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Any:
     }
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
+def _specs_layer(cfg: ModelConfig, kind: str) -> Any:
+    attn = (L.specs_mla if cfg.attn_kind == "mla" else L.specs_attention)(cfg)
+    return {
+        "ln1": L.specs_rmsnorm(),
+        "attn": attn,
+        "ln2": L.specs_rmsnorm(),
+        "ffn": M.specs_moe_layer(cfg) if kind == "moe" else L.specs_mlp(cfg),
+    }
+
+
+def init(seed: int, cfg: ModelConfig, device="cuda", place=None) -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only."""
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only.  Each
+    layer goes through ``place(path, layer) -> layer`` as it is drawn, which
+    may keep a slice of each leaf and free the rest (the sharded train
+    state's experts)."""
+    keep = place or (lambda path, layer: layer)
     gen = L.make_generator(seed, device)
     params: dict[str, Any] = {"embedding": L.init_embedding(gen, cfg)}
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device)
     for i, seg in enumerate(segments_for(cfg)):
-        params[f"seg{i}"] = [_init_layer(gen, cfg, seg.kind) for _ in range(seg.count)]
+        params[f"seg{i}"] = [keep((f"seg{i}", l), _init_layer(gen, cfg, seg.kind))
+                             for l in range(seg.count)]
     return params
+
+
+def specs(cfg: ModelConfig) -> Any:
+    """Every param leaf's logical axes, in :func:`init`'s structure (a list
+    entry a layer, where the reference stacks layers under a leading
+    ``None``)."""
+    s: dict[str, Any] = {
+        "embedding": L.specs_embedding(cfg),
+        "final_norm": L.specs_rmsnorm(),
+    }
+    for i, seg in enumerate(segments_for(cfg)):
+        s[f"seg{i}"] = [_specs_layer(cfg, seg.kind) for _ in range(seg.count)]
+    return s
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
@@ -90,6 +121,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
         cache[f"seg{i}"] = {name: torch.zeros(shape, dtype=dtype, device=device)
                             for name, shape in shapes.items()}
     return cache
+
+
+def cache_specs(cfg: ModelConfig) -> Any:
+    """Logical axes for each cache leaf (leading layer dim replicated)."""
+    out: dict[str, Any] = {}
+    for i, _seg in enumerate(segments_for(cfg)):
+        if cfg.attn_kind == "mla":
+            out[f"seg{i}"] = {
+                "c": (None, "batch", "kv_seq", None),
+                "kr": (None, "batch", "kv_seq", None),
+            }
+        else:
+            out[f"seg{i}"] = {
+                "k": (None, "batch", "kv_seq", None, None),
+                "v": (None, "batch", "kv_seq", None, None),
+            }
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -112,6 +160,21 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, cos, sin):
     return _ffn_block(p, cfg, kind, x)
 
 
+def _ambient():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs under
+    the mesh context and multiplexer the forward saw.  On the card the
+    backward, and so the recompute, runs on an autograd worker thread, where
+    the context variables that hold them are not set."""
+    ctx, mux = current_mesh_context(), current_multiplexer()
+
+    @contextlib.contextmanager
+    def recompute():
+        with mesh_context(ctx), use_multiplexer(mux):
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
 def _maybe_remat(fn, cfg: ModelConfig):
     """``"block"`` and ``"full"``: the layer under ``torch.utils.checkpoint``,
     its activations recomputed in the backward pass; ``"none"``: as it is.
@@ -120,7 +183,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
     the recompute's cost and not a value."""
     if cfg.remat == "none":
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=_ambient)
 
 
 def _run_segments(params, cfg: ModelConfig, x, cos, sin):
@@ -262,7 +325,9 @@ __all__ = [
     "Segment",
     "segments_for",
     "init",
+    "specs",
     "init_cache",
+    "cache_specs",
     "forward",
     "train_loss",
     "decode_step",

@@ -78,6 +78,26 @@ def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig) -> Any:
     }
 
 
+def _enc_layer_specs(cfg: ModelConfig) -> Any:
+    return {
+        "ln1": L.specs_layernorm(),
+        "attn": L.specs_attention(cfg),
+        "ln2": L.specs_layernorm(),
+        "mlp": L.specs_mlp(cfg),
+    }
+
+
+def _dec_layer_specs(cfg: ModelConfig) -> Any:
+    return {
+        "ln1": L.specs_layernorm(),
+        "self_attn": L.specs_attention(cfg),
+        "ln2": L.specs_layernorm(),
+        "cross_attn": L.specs_attention(cfg),
+        "ln3": L.specs_layernorm(),
+        "mlp": L.specs_mlp(cfg),
+    }
+
+
 def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
@@ -90,6 +110,16 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
         "enc_norm": L.init_layernorm(cfg.d_model, dt, gen.device),
         "decoder": [_dec_layer_init(gen, cfg) for _ in range(cfg.num_layers)],
         "dec_norm": L.init_layernorm(cfg.d_model, dt, gen.device),
+    }
+
+
+def specs(cfg: ModelConfig) -> Any:
+    return {
+        "embedding": L.specs_embedding(cfg),
+        "encoder": [_enc_layer_specs(cfg) for _ in range(cfg.encoder_layers)],
+        "enc_norm": L.specs_layernorm(),
+        "decoder": [_dec_layer_specs(cfg) for _ in range(cfg.num_layers)],
+        "dec_norm": L.specs_layernorm(),
     }
 
 
@@ -189,6 +219,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
     return {name: torch.zeros(shape, dtype=dtype, device=device) for name in CACHE_KEYS}
 
 
+def cache_specs(cfg: ModelConfig) -> Any:
+    del cfg
+    kv = (None, "batch", "kv_seq", None, None)
+    return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}
+
+
 def prefill(params, cfg: ModelConfig, batch):
     """Encode ``batch["frames"]`` and run the decoder over the prompt
     ``batch["tokens"] [B, S]`` -> ``(last-token logits [B, vocab], cache)``:
@@ -237,6 +273,6 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
 
 
 __all__ = [
-    "sinusoidal", "init", "encode", "decode_train", "forward", "train_loss",
-    "init_cache", "prefill", "decode_step",
+    "sinusoidal", "init", "specs", "encode", "decode_train", "forward", "train_loss",
+    "init_cache", "cache_specs", "prefill", "decode_step",
 ]

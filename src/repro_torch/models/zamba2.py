@@ -58,6 +58,24 @@ def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
     return p
 
 
+def specs(cfg: ModelConfig) -> Any:
+    ng, gs, tail = layout(cfg)
+    s = {
+        "embedding": L.specs_embedding(cfg),
+        "groups": [[MB.specs_layer(cfg) for _ in range(gs)] for _ in range(ng)],
+        "shared": {
+            "ln1": L.specs_rmsnorm(),
+            "attn": L.specs_attention(cfg),
+            "ln2": L.specs_rmsnorm(),
+            "mlp": L.specs_mlp(cfg),
+        },
+        "final_norm": L.specs_rmsnorm(),
+    }
+    if tail:
+        s["tail"] = [MB.specs_layer(cfg) for _ in range(tail)]
+    return s
+
+
 def _mlp_residual(shared, cfg: ModelConfig, x):
     return x + L.mlp_block(shared["mlp"], cfg, L.rmsnorm(shared["ln2"], x, cfg.norm_eps))
 
@@ -115,6 +133,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
     if tail:
         cache["tail"] = MB.mamba_state(cfg, tail, batch_size, dtype, device)
     return cache
+
+
+def cache_specs(cfg: ModelConfig) -> Any:
+    _ng, _gs, tail = layout(cfg)
+    s = {
+        "groups": {
+            "ssm": (None, None, "batch", "ssm_heads", None, None),
+            "conv": (None, None, "batch", None, "conv_dim"),
+        },
+        "attn": {
+            "k": (None, "batch", "kv_seq", None, None),
+            "v": (None, "batch", "kv_seq", None, None),
+        },
+    }
+    if tail:
+        s["tail"] = MB.cache_specs(cfg)
+    return s
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
@@ -178,4 +213,5 @@ def prefill(params, cfg: ModelConfig, batch):
     return logits[:, 0], cache
 
 
-__all__ = ["layout", "init", "forward", "train_loss", "init_cache", "decode_step", "prefill"]
+__all__ = ["layout", "init", "specs", "forward", "train_loss", "init_cache", "cache_specs",
+           "decode_step", "prefill"]

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -65,8 +65,19 @@ def adamw_init(params: Any) -> Any:
     }
 
 
-def _global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves(tree)))
+def _global_norm(tree: Any, sharded: list[bool] | None = None,
+                 process_sum: Callable[[torch.Tensor], torch.Tensor] | None = None
+                 ) -> torch.Tensor:
+    """The gradient's global norm.  Where ``sharded`` marks a leaf as this
+    process's shard of it, the squares of every process's shards are added
+    through one scalar ``process_sum`` (an all-reduce over the processes),
+    so every process gets the same norm."""
+    squares = [g.float().square().sum() for g in leaves(tree)]
+    if sharded is None:
+        return torch.sqrt(sum(squares))
+    whole = sum(q for q, s in zip(squares, sharded) if not s)
+    shards = process_sum(sum(q for q, s in zip(squares, sharded) if s))
+    return torch.sqrt(whole + shards)
 
 
 def _decays(path: tuple, p: torch.Tensor) -> bool:
@@ -79,14 +90,18 @@ def _decays(path: tuple, p: torch.Tensor) -> bool:
 
 
 def adamw_update(
-    cfg: AdamWConfig, grads: Any, opt_state: Any, params: Any
+    cfg: AdamWConfig, grads: Any, opt_state: Any, params: Any,
+    sharded: list[bool] | None = None,
+    process_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[Any, Any, dict]:
     """One AdamW step; returns ``(new_params, new_opt_state, metrics)``.
 
     The gradient is clipped by its global norm (``metrics["grad_norm"]`` is
-    the norm before clipping)."""
+    the norm before clipping); ``sharded`` and ``process_sum`` are
+    :func:`_global_norm`'s, for a state whose leaves are partly this
+    process's shards."""
     count = opt_state["count"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, sharded, process_sum)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, count)
     b1c = 1.0 - cfg.b1 ** count.to(torch.float32)

@@ -34,29 +34,66 @@ took over the whole global batch, replicated on every device, so its
 data-parallel devices: a deliberate difference (ROADMAP §C).  The mean over
 slices weights each slice alike, as the microbatch loop does, which is the
 global mean when every slice scores the same number of tokens (no
-``loss_mask``).  The MoE family does not train over a mesh that spans
-processes (its expert dispatch crosses them through ``torch.distributed``,
-which autograd cannot differentiate): that is ROADMAP queue A item 3(b).
+``loss_mask``).
 
-The reference's ``train_state_specs``, ``state_shardings`` and the
-gradient pinning ``_pin`` lay the state out over a device mesh for ``jit``;
-here every process holds the whole state (item 3(b) ports the sharding).
+**Sharded state.**  :func:`train_state_specs` is the reference's tree of
+logical axes over the state; :func:`state_shardings` resolves it with the
+context's rules (the port's :func:`~repro_torch.distributed.sharding.
+unit_rules` put the experts dim of the MoE weights over the joint unit
+axis) into the :class:`Shard` each process holds, on a mesh that spans
+processes.  ``TrainState.create(..., shardings=...)`` then draws the state
+layer by layer and keeps only this process's experts (in params, ``m`` and
+``v``).  The MoE family trains across processes under ``"auto"``: the
+step feeds the expert-parallel layer this process's rows (the context's
+``moe_tokens="local"``), the pod hop's backward brings every process's
+tokens' gradient to the experts' owner, so an expert leaf's gradient is
+divided by ``R`` and never all-reduced, the replicated leaves take
+:func:`process_mean`, and the clipping norm adds every process's expert
+shards through one scalar all-reduce, so every process clips alike and the
+replicated params stay bit-identical.  ``"hierarchical"`` with the MoE
+family across processes raises: the per-unit passes cannot run the
+expert-parallel layer unit by unit (ROADMAP §C).  The reference's gradient
+pinning ``_pin`` places gradients for ``jit``; it has no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import functools
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from ..core import exchange
 from ..core.exchange import POD_AXIS, Mesh
 from ..core.multiplexer import make_multiplexer
-from ..distributed.sharding import MeshContext, current_mesh_context
+from ..distributed.sharding import (
+    MeshContext,
+    build_shardings,
+    current_mesh_context,
+    mesh_context,
+)
 from ..models import registry
 from ..tree import leaves, tree_map, unflatten
 from .optim import AdamWConfig, adamw_init, adamw_update
+
+
+class Shard(NamedTuple):
+    """The part of a leaf one process holds: rows ``[start, stop)`` of its
+    dim ``dim``, whose whole size is ``size``."""
+
+    dim: int
+    start: int
+    stop: int
+    size: int
+
+
+def _keep(t: torch.Tensor, held: Shard | None) -> torch.Tensor:
+    """``t``'s held rows as a tensor of their own (the rest freed), or ``t``
+    when it is whole on this process or already the slice."""
+    if held is None or t.shape[held.dim] != held.size:
+        return t
+    return t.narrow(held.dim, held.start, held.stop - held.start).clone()
 
 
 @dataclasses.dataclass
@@ -66,8 +103,25 @@ class TrainState:
     step: torch.Tensor  # int32 scalar, on the params' device
 
     @staticmethod
-    def create(api: registry.ModelApi, seed: int, device="cuda") -> "TrainState":
-        params = api.init(seed, device=device)
+    def create(api: registry.ModelApi, seed: int, device="cuda",
+               shardings: "TrainState | None" = None) -> "TrainState":
+        """Step 0 from ``seed``.  With ``shardings`` (:func:`state_shardings`)
+        every leaf keeps only the rows this process holds: each layer is
+        drawn whole from the seed and cut as it is drawn, so the peak is one
+        layer, and the result equals the whole state sliced.  Only the
+        transformer families' init takes that cut (the MoE family's experts
+        are the only leaves the rules split)."""
+        if shardings is None or all(h is None for h in leaves(shardings.params)):
+            return TrainState.from_params(api.init(seed, device=device))
+        held = shardings.params
+
+        def place(path, layer):
+            sub = held
+            for key in path:
+                sub = sub[key]
+            return tree_map(_keep, layer, sub)
+
+        params = tree_map(_keep, api.init(seed, device=device, place=place), held)
         return TrainState.from_params(params)
 
     @staticmethod
@@ -93,15 +147,19 @@ def local_rows(batch: dict, mesh: Mesh) -> dict:
     return _slices(batch, mesh.num_processes, "processes")[mesh.process_index]
 
 
-def process_mean(tree: Any, mesh: Mesh) -> Any:
-    """The mean over the processes of a tree of tensors, in f32, on every
-    process: one all-reduce a leaf over the pod axis of a one-unit-a-pod
-    view of ``mesh``, so each process puts each leaf's bytes on the pod hop
-    once."""
+def process_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the processes of one tensor, on every process: one
+    all-reduce over the pod axis of a one-unit-a-pod view of ``mesh``, so
+    each process puts the tensor's bytes on the pod hop once."""
     R = mesh.num_processes
     view = Mesh(R, 1, R, mesh.process_index, mesh.group)
-    total = exchange.flat_psum_tree(tree_map(lambda t: t.float()[None], tree), view, (POD_AXIS,))
-    return tree_map(lambda t: t[0] / R, total)
+    return exchange.psum(t[None], view, POD_AXIS)[0]
+
+
+def process_mean(tree: Any, mesh: Mesh) -> Any:
+    """The mean over the processes of a tree of tensors, in f32, on every
+    process: :func:`process_sum` a leaf."""
+    return tree_map(lambda t: process_sum(t.float(), mesh) / mesh.num_processes, tree)
 
 
 def unit_mean(stacked: Any, mesh: Mesh) -> Any:
@@ -114,6 +172,67 @@ def unit_mean(stacked: Any, mesh: Mesh) -> Any:
     return tree_map(lambda t: t[0] / mesh.num_units, total)
 
 
+def train_state_specs(api: registry.ModelApi) -> TrainState:
+    """The logical-axis tree of a :class:`TrainState` (for its shardings and
+    checkpoints)."""
+    p = api.param_specs
+    return TrainState(params=p, opt={"m": p, "v": p, "count": ()}, step=())
+
+
+@functools.lru_cache(maxsize=16)
+def _state_shapes(cfg) -> TrainState:
+    """A state of ``meta`` tensors: every leaf's whole shape."""
+    return TrainState.from_params(registry.build(cfg).init(0, device="meta"))
+
+
+def _held(shape: tuple, spec: tuple, mesh: Mesh) -> Shard | None:
+    """The rows of a leaf of ``shape``, resolved to ``spec``, that this
+    process holds; ``None`` when no dim is split over the processes.  The
+    units along a dim's mesh axes run in mesh order, so a process's units
+    (whole pods) hold one contiguous run of rows."""
+    Lp = mesh.pods_per_process
+    for dim, axes in enumerate(spec):
+        axes = (axes,) if isinstance(axes, str) else (axes or ())
+        if POD_AXIS not in axes:
+            continue
+        lo, hi, k = 0, 1, 1
+        for a in axes:
+            n = mesh.size(a)
+            a_lo, a_hi = ((mesh.process_index * Lp, (mesh.process_index + 1) * Lp)
+                          if a == POD_AXIS else (0, n))
+            if hi - lo > 1 and (a_lo, a_hi) != (0, n):
+                raise ValueError(f"spec {spec}: this process's units are not one run of rows")
+            lo, hi, k = lo * n + a_lo, (hi - 1) * n + a_hi, k * n
+        rows = shape[dim] // k
+        return Shard(dim, lo * rows, hi * rows, shape[dim])
+    return None
+
+
+def state_shardings(api: registry.ModelApi, ctx: MeshContext | None = None) -> TrainState | None:
+    """For every leaf of the train state, the :class:`Shard` this process
+    holds, or ``None`` where it holds the whole leaf (the resolved specs of
+    :func:`train_state_specs` under the context's rules, strict).  ``None``
+    off-mesh and on a mesh inside one process, which holds everything."""
+    ctx = ctx or current_mesh_context()
+    if ctx is None or ctx.mesh.num_processes == 1:
+        return None
+    shapes = _state_shapes(api.cfg)
+    resolved = build_shardings(train_state_specs(api), shapes, ctx)
+    return tree_map(lambda spec, shp: _held(tuple(shp.shape), spec, ctx.mesh), resolved, shapes)
+
+
+def _sharded(api: registry.ModelApi, params: Any, ctx: MeshContext | None) -> list[bool] | None:
+    """Per param leaf, whether this process holds only its shard of it (a
+    shape that is not the whole leaf's); ``None`` when it holds every leaf
+    whole.  Only the MoE family's expert leaves are ever split, so every
+    other family, and a mesh inside one process, return at once."""
+    if ctx is None or ctx.mesh.num_processes == 1 or api.cfg.family != "moe":
+        return None
+    whole = leaves(_state_shapes(api.cfg).params)
+    mask = [p.shape != w.shape for p, w in zip(leaves(params), whole)]
+    return mask if any(mask) else None
+
+
 def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Tensor, Any]]:
     """Builds ``grad_fn(params, batch) -> (loss, grads)``, the gradient half
     of the train step under the active mesh context (see the module
@@ -124,7 +243,8 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
     rows; under the per-unit sync, each unit's) is split into
     ``cfg.num_microbatches`` row slices run one after another, gradients
     accumulated in f32.  With remat the live activation set is one
-    microbatch x one layer.
+    microbatch x one layer.  On a mesh over processes the MoE family's
+    expert leaves may be this process's shards (their gradients too).
     """
     cfg = api.cfg
     num_mb = max(cfg.num_microbatches, 1)
@@ -164,19 +284,33 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
         ctx = current_mesh_context()
         mesh = ctx.mesh if ctx is not None else None
         spans = mesh is not None and mesh.num_processes > 1
-        if spans and cfg.family == "moe":
-            raise NotImplementedError(
-                "training the MoE family over a mesh that spans processes (its expert "
-                "dispatch crosses them through torch.distributed, which autograd cannot "
-                "differentiate) is ROADMAP queue A item 3(b)"
-            )
+        moe = spans and cfg.family == "moe"
         if cfg.grad_sync == "hierarchical" and ctx is not None and ctx.pod_axis is not None:
+            if moe:
+                raise NotImplementedError(
+                    'grad_sync="hierarchical" with the MoE family over a mesh that spans '
+                    "processes: the per-unit passes cannot run the expert-parallel layer unit "
+                    'by unit (ROADMAP §C); use grad_sync="auto"'
+                )
             return per_unit(params, batch, mesh)
-        loss, grads = rows_loss_and_grads(params, batch)
-        if spans:
+        if not spans:
+            return rows_loss_and_grads(params, batch)
+        if not moe:
+            loss, grads = rows_loss_and_grads(params, batch)
             mean = process_mean({"loss": loss, "grads": grads}, mesh)
             return mean["loss"], mean["grads"]
-        return loss, grads
+        with mesh_context(dataclasses.replace(ctx, moe_tokens="local")):
+            loss, grads = rows_loss_and_grads(params, batch)
+        # An expert shard's gradient already sums every process's tokens (the
+        # pod hop's backward brings them to the owner): divide, no all-reduce.
+        flat = leaves(grads)
+        sharded = _sharded(api, params, ctx) or [False] * len(flat)
+        mean = process_mean({"loss": loss, "grads": [g for g, s in zip(flat, sharded) if not s]},
+                            mesh)
+        rest = iter(mean["grads"])
+        R = mesh.num_processes
+        return mean["loss"], unflatten(grads, [g.float() / R if s else next(rest)
+                                               for g, s in zip(flat, sharded)])
 
     return grad_fn
 
@@ -193,12 +327,17 @@ def make_train_step(
 
     def step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, grads = grad_fn(state.params, batch)
-        new_params, new_opt, metrics = adamw_update(opt_cfg, grads, state.opt, state.params)
+        ctx = current_mesh_context()
+        sharded = _sharded(api, state.params, ctx)
+        new_params, new_opt, metrics = adamw_update(
+            opt_cfg, grads, state.opt, state.params, sharded=sharded,
+            process_sum=None if sharded is None else
+            functools.partial(process_sum, mesh=ctx.mesh))
         metrics["loss"] = loss
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return step
 
 
-__all__ = ["TrainState", "make_train_step", "make_grad_fn", "local_rows", "process_mean",
-           "unit_mean"]
+__all__ = ["Shard", "TrainState", "train_state_specs", "state_shardings", "make_train_step",
+           "make_grad_fn", "local_rows", "process_sum", "process_mean", "unit_mean"]

@@ -47,7 +47,9 @@ from repro_torch.relational.context import ExecutionContext  # noqa: E402
 
 DEV = "cpu" if INFO.device == "cpu" else "cuda"
 ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
-                          dp_archs=["train100m", "mamba2-1.3b"], dp_full=False, dp_shape=(8, 32))
+                          dp_archs=["train100m", "mamba2-1.3b"], dp_full=False, dp_shape=(8, 32),
+                          moe_full=False, moe_layers=0, moe_shape=(8, 32), moe_fabric_check=False,
+                          moe_ckpt="", moe_deep_steps=0)
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -747,13 +749,390 @@ def scenario_dp_train():
     print("PASS dp_train")
 
 
+def _expert_leaf(path) -> bool:
+    return path[-1] in ("w_gate", "w_up", "w_down") and "ffn" in path and "shared" not in path
+
+
+def _whole_experts(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every process's rows of an expert leaf, in expert order, on every
+    process (``gather_units`` of its ``[local_units, E_loc, ...]`` view)."""
+    U = mesh.local_units
+    return gather_units(t.reshape((U, t.shape[0] // U) + tuple(t.shape[1:])), mesh).reshape(
+        (mesh.num_units * (t.shape[0] // U),) + tuple(t.shape[1:]))
+
+
+def _process_rows(ref: dict | None, like: dict, mesh) -> dict:
+    """Process 0's whole host leaves ``ref`` cut, for each process, to the
+    rows of the leaves ``like`` that it holds, and sent to it over the
+    process fabric (one process's rows at a time); on every process, its
+    own rows on ``DEV``."""
+    import torch.distributed as dist
+
+    out = {}
+    for p, t in like.items():
+        n = t.shape[0]
+        if mesh.process_index == 0:
+            wire = "cpu" if dist.get_backend(mesh.group) == "gloo" else DEV
+            exchange._p2p(mesh, [(r, 0, ref[p][r * n:(r + 1) * n].to(wire))
+                                 for r in range(1, mesh.num_processes)], [])
+            out[p] = ref[p][:n].to(DEV)
+        else:
+            out[p] = torch.empty_like(t)
+            exchange._p2p(mesh, [], [(0, 0, out[p])])
+    return out
+
+
+def _moe_cfg(layers: int, dtype: str):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    base = (get_config if ARGS.moe_full else get_smoke_config)("olmoe-1b-7b")
+    return base.scaled(num_layers=layers or base.num_layers, moe_impl="ep_shardmap",
+                       remat="block", attn_impl="flash", dtype=dtype, param_dtype="float32")
+
+
+def _moe_batch(cfg, shape):
+    B, S = shape
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1]).to(DEV),
+            "labels": torch.from_numpy(toks[:, 1:]).to(DEV)}
+
+
+def _moe_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+
+    return {"moe_dispatch": md.LAUNCHES["moe_dispatch"], "flash_attention": fa.LAUNCHES[
+        "flash_attention"]}
+
+
+def _moe_steps(api, step, held: list, rows, steps: int) -> tuple:
+    """``steps`` train steps from the state in the one-item list ``held``,
+    which they take out of it, so that no caller keeps a state a step
+    replaces (a full-depth state is a third of a card); per step its wall,
+    metrics, pod-hop bytes and kernel launches."""
+    state = held.pop()
+    walls, metrics, hops, launched = [], [], [], []
+    for _ in range(steps):
+        exchange.reset_pod_hop()
+        k0 = _moe_launches()
+        (state, m), wall = _synced(lambda: step(state, rows))
+        walls.append(wall)
+        metrics.append({k: float(v) for k, v in m.items()})
+        hops.append(exchange.POD_HOP["bytes"])
+        launched.append({k: v - k0[k] for k, v in _moe_launches().items()})
+    return state, {"step_s": walls, "metrics": metrics, "step_hop_bytes": hops,
+                   "launches": launched}
+
+
+def _peak() -> int | None:
+    return torch.cuda.max_memory_allocated() if DEV == "cuda" else None
+
+
+def _reset_peak() -> None:
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _hop_gradients(mesh) -> dict:
+    """The pod-axis all-to-all's backward is the same hop on the gradient:
+    for ``y = all_to_all(x)`` and a loss ``<y, w>``, ``dx = all_to_all(w)``,
+    bit for bit, for the monolithic and the scheduled transport."""
+    U, P = mesh.local_units, mesh.num_pods
+    out = {}
+    for impl in ("xla", "round_robin"):
+        gen = torch.Generator().manual_seed(7 + INFO.process_id)
+        x = torch.randn((U, P, 6, 3), generator=gen).to(DEV).requires_grad_()
+        w = torch.randn((U, P, 6, 3), generator=gen).to(DEV)
+        y = exchange.all_to_all(x, mesh, POD_AXIS, impl=impl)
+        (g,) = torch.autograd.grad((y * w).sum(), x)
+        out[impl] = bool(torch.equal(g, exchange.all_to_all(w, mesh, POD_AXIS, impl=impl)))
+        if not out[impl]:
+            raise AssertionError(f"moe_train: the {impl} pod hop's backward is not the hop")
+    return out
+
+
+def _moe_warm_up(mesh, pack_impl: str) -> None:
+    """One gradient of the smoke config over this process's own whole
+    mesh: a process's first training pass loads its kernels and libraries,
+    which would otherwise happen inside the first sharded gradient, with
+    the other processes waiting on it at the pod hop."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.multiplexer import make_multiplexer, use_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import registry
+    from repro_torch.train import TrainState
+    from repro_torch.train.step import make_grad_fn
+
+    cfg = get_smoke_config("olmoe-1b-7b").scaled(
+        moe_impl="ep_shardmap", remat="block", attn_impl="flash", dtype="float32")
+    api = registry.build(cfg)
+    one = exchange.Mesh(mesh.num_pods, mesh.n)
+    with mesh_context(MeshContext(one)), use_multiplexer(make_multiplexer(
+            one, pack_impl=pack_impl)):
+        make_grad_fn(api)(TrainState.create(api, 1, device=DEV).params, _moe_batch(cfg, (8, 32)))
+    torch.cuda.synchronize()
+
+
+def _moe_check(mesh, ctx, mux) -> dict:
+    """Process 0's one-process step over the same units against the
+    sharded step across the processes (the gates of ``scenario_moe_train``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.autotune import ep_capacity
+    from repro_torch.core.multiplexer import make_multiplexer, use_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import moe, registry
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import local_rows, make_grad_fn, state_shardings
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    rank, R, U = INFO.process_id, mesh.num_processes, mesh.local_units
+    cfg = _moe_cfg(ARGS.moe_layers, "float32")
+    api, opt = registry.build(cfg), AdamWConfig()
+    batch = _moe_batch(cfg, ARGS.moe_shape)
+    E = cfg.num_experts
+    rec = {"layers": cfg.num_layers, "shape": list(ARGS.moe_shape), "experts": E}
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):  # the seconds since the last mark, under ``name``
+        nonlocal t0
+        now = time.perf_counter()
+        parts[name], t0 = now - t0, now
+
+    if rank == 0:  # the one-process step: every unit of the same mesh here
+        one = exchange.Mesh(mesh.num_pods, mesh.n)
+        state = TrainState.create(api, 0, device=DEV)
+        one_ctx = MeshContext(one)
+        _reset_peak()
+        with mesh_context(one_ctx), use_multiplexer(make_multiplexer(
+                one, pack_impl=mux.pack_impl)), moe.record_drops() as drops:
+            (ref_loss, ref_grads), rec["one_process_grad_s"] = _synced(
+                lambda: make_grad_fn(api)(state.params, batch))
+            ref_state, ref_run = _moe_steps(api, make_train_step(api, opt), [state], batch, 3)
+        rec["one_process"] = ref_run
+        rec["one_process_peak"] = _peak()
+        ref_drops = torch.stack(drops[:2 * cfg.num_layers]).cpu()  # the first gradient's calls
+        ref_grads = {p: t.cpu() for p, t in leaves_with_paths(ref_grads)}
+        ref_final = {p: t.cpu() for p, t in leaves_with_paths(ref_state.params)}
+        del state, ref_state
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    else:
+        ref_grads = ref_final = None
+    part("one_process")
+    sync_processes()
+    part("wait")
+
+    shardings = state_shardings(api, ctx)
+    _reset_peak()
+    state = TrainState.create(api, 0, device=DEV, shardings=shardings)
+    rec["state_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state))
+    held_experts = [(p, t.shape[0]) for p, t in leaves_with_paths(state) if _expert_leaf(p)]
+    for p, n in held_experts:  # params, m and v hold this process's experts alone
+        if n != U * E // mesh.num_units:
+            raise AssertionError(f"moe_train: {p} holds {n} experts")
+    rec["expert_leaves"] = len(held_experts)
+    mine = slice(rank * U * E // mesh.num_units, (rank + 1) * U * E // mesh.num_units)
+    whole = api.init(0, device=DEV)  # the whole init, drawn again, sliced here
+    init_equal = all(torch.equal(t, w[mine] if _expert_leaf(p) else w)
+                     for (p, t), w in zip(leaves_with_paths(state.params), leaves(whole)))
+    del whole
+    rows = local_rows(batch, mesh)
+    # what the pod hop should carry a step: the replicated leaves' f32
+    # gradient, the loss and the norm's scalar; and 6 trips a layer
+    rec["replicated_bytes"] = 4 * (sum(t.numel() for p, t in leaves_with_paths(state.params)
+                                       if not _expert_leaf(p)) + 2)
+    C = ep_capacity(ARGS.moe_shape[0] * ARGS.moe_shape[1] // mesh.num_units, cfg.top_k, E,
+                    cfg.capacity_factor)
+    rec["capacity"] = C
+    rec["trip_bytes"] = U * (mesh.num_units - U) * (E // mesh.num_units) * C * cfg.d_model * 4
+    part("sharded_init")
+    grad_fn, step = make_grad_fn(api), make_train_step(api, opt)
+    with mesh_context(ctx), use_multiplexer(mux):
+        exchange.reset_pod_hop()
+        k0 = _moe_launches()
+        with moe.record_drops() as drops:
+            (loss, grads), rec["grad_s"] = _synced(lambda: grad_fn(state.params, rows))
+        rec["grad_hop"] = dict(exchange.POD_HOP)
+        rec["grad_launches"] = {k: v - k0[k] for k, v in _moe_launches().items()}
+        my_drops = torch.stack(drops)
+        if ARGS.moe_fabric_check:  # the same gradient through the fabric, no multiplexer
+            with use_multiplexer(None):
+                loss_f, grads_f = grad_fn(state.params, rows)
+            rec["fabric_loss_rel"] = abs(float(loss_f) - float(loss)) / abs(float(loss))
+            rec["fabric_leaf_rel"] = _worst_leaf(grads_f, grads)
+            del grads_f
+        held = [state]
+        del state
+        new_state, run = _moe_steps(api, step, held, rows, 3)
+    rec.update(run)
+    rec["peak"] = _peak()
+    part("sharded_steps")
+    rec["hop_grad"] = _hop_gradients(mesh)
+    all_drops = gather_units(my_drops.T.contiguous(), mesh).cpu()  # [N, calls]
+    replicated = [t for p, t in leaves_with_paths(new_state.params) if not _expert_leaf(p)]
+    digests = [None] * R
+    dist.all_gather_object(digests, _digest(replicated))
+    rec["ranks_identical"] = len(set(digests)) == 1
+    if not rec["ranks_identical"]:
+        raise AssertionError("moe_train: the replicated params differ between processes")
+    # each process's expert rows against the same rows of process 0's run,
+    # which process 0 sends it: no process gathers the experts whole
+    got_grads = dict(leaves_with_paths(grads))
+    got_final = dict(leaves_with_paths(new_state.params))
+    experts = [p for p in got_grads if _expert_leaf(p)]
+    want_grads = _process_rows(ref_grads, {p: got_grads[p] for p in experts}, mesh)
+    want_final = _process_rows(ref_final, {p: got_final[p] for p in experts}, mesh)
+    part("gathers")
+    slice_rel = _worst_leaf([got_grads[p] for p in experts], [want_grads[p] for p in experts])
+    final_abs = max(float((got_final[p] - want_final[p]).abs().max()) for p in experts)
+    del want_grads, want_final
+    if ARGS.moe_ckpt:
+        from repro_torch.checkpoint import save_checkpoint
+
+        from repro_torch.tree import unflatten
+
+        save_checkpoint(ARGS.moe_ckpt + "/sharded", 3, new_state, shardings, mesh)
+        gathered = unflatten(new_state, [_whole_experts(t, mesh) if _expert_leaf(p) else t
+                                         for p, t in leaves_with_paths(new_state)])
+        if rank == 0:
+            save_checkpoint(ARGS.moe_ckpt + "/whole", 3, gathered)
+        part("checkpoint")
+    per_process = [None] * R
+    dist.all_gather_object(per_process, (init_equal, slice_rel, final_abs))
+    if rank == 0:
+        rec["init_equal"] = all(eq for eq, _, _ in per_process)
+        rec["loss_rel"] = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        rep = [p for p in ref_grads if not _expert_leaf(p)]
+        rec["replicated_rel"] = _worst_leaf([got_grads[p] for p in rep],
+                                            [ref_grads[p].to(DEV) for p in rep])
+        rec["expert_slice_rel"] = {r: rel for r, (_, rel, _) in enumerate(per_process)}
+        rec["leaf_rel"] = max(rec["replicated_rel"], *rec["expert_slice_rel"].values())
+        rec["drops_equal"] = bool(torch.equal(all_drops, ref_drops.T))
+        rec["drops"] = _ints(all_drops.sum(0))
+        m0, r0 = rec["metrics"], rec["one_process"]["metrics"]
+        rec["step_loss_rel"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(m0, r0)]
+        rec["step_norm_rel"] = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                for a, b in zip(m0, r0)]
+        rec["params_abs"] = max(
+            max(a for _, _, a in per_process),
+            max(float((got_final[p] - ref_final[p].to(DEV)).abs().max()) for p in rep))
+        fails = [k for k, bad in (
+            ("init", not rec["init_equal"]), ("loss", rec["loss_rel"] > 1e-5),
+            ("leaves", rec["leaf_rel"] > 1e-4), ("grad norm", rec["step_norm_rel"][0] > 1e-4),
+            ("step loss", rec["step_loss_rel"][0] > 1e-5), ("drops", not rec["drops_equal"]),
+        ) if bad]
+        if fails:
+            raise AssertionError(f"moe_train against the one-process step: {fails}: {rec}")
+    part("compare")
+    rec["parts_s"] = parts
+    per_step = 2 * cfg.num_layers if DEV == "cuda" else 0
+    for got in rec["launches"] + [rec["grad_launches"]]:
+        if got != {"moe_dispatch": per_step, "flash_attention": per_step}:
+            raise AssertionError(f"moe_train: launches {got} a step, {per_step} of each implied")
+    return rec
+
+
+def _moe_deep(mesh, ctx, mux) -> dict:
+    """``--moe-deep-steps`` steps of the full-depth model (bf16 compute over
+    f32 params, a global batch of 8 x 2,048) on the sharded state: losses
+    finite, the replicated params bit-identical on every process, the
+    peak."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.core.multiplexer import use_multiplexer
+    from repro_torch.models import registry
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import local_rows, state_shardings
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = _moe_cfg(0, "bfloat16")
+    api = registry.build(cfg)
+    shape = (8, 2048)
+    rows = local_rows(_moe_batch(cfg, shape), mesh)
+    _reset_peak()
+    held, init_s = _synced(lambda: [TrainState.create(
+        api, 0, device=DEV, shardings=state_shardings(api, ctx))])
+    rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
+           "init_s": init_s, "init_peak": _peak(),
+           "state_bytes": sum(t.numel() * t.element_size() for t in leaves(held[0]))}
+    with mesh_context(ctx), use_multiplexer(mux):
+        state, run = _moe_steps(api, make_train_step(api, AdamWConfig()), held, rows,
+                                ARGS.moe_deep_steps)
+    rec.update(run)
+    rec["peak"] = _peak()
+    if not all(math.isfinite(m["loss"]) for m in run["metrics"]):
+        raise AssertionError(f"moe_train deep: a loss is not finite: {run['metrics']}")
+    digests = [None] * mesh.num_processes
+    dist.all_gather_object(digests, _digest(
+        [t for p, t in leaves_with_paths(state.params) if not _expert_leaf(p)]))
+    rec["ranks_identical"] = len(set(digests)) == 1
+    if not rec["ranks_identical"]:
+        raise AssertionError("moe_train deep: the replicated params differ between processes")
+    return rec
+
+
+def scenario_moe_train():
+    """OLMoE training with its experts sharded across the processes
+    (``train/step.py``'s sharded state under ``grad_sync="auto"``), f32,
+    ``remat="block"``, flash attention, under an ambient two-level
+    multiplexer (the ``moe_dispatch`` kernel pack on the card).  Process 0
+    first runs the one-process step over the same 8 units (a whole state)
+    and frees it; then each process creates the sharded state (only its
+    experts, drawn layer by layer: the whole init, drawn again, sliced, bit
+    for bit) and takes the gradient and 3 steps on its rows.  Each process
+    holds its expert rows against the same rows of process 0's run, which
+    process 0 sends it (no process gathers the experts whole).  Gates: the
+    loss within rel 1e-5, every gradient leaf within ``1e-4 * max |b|``
+    (each process's expert slice and the replicated leaves), the first
+    step's grad norm
+    within rel 1e-4, the per-unit drop counts bit-exact, the replicated
+    params after 3 steps bit-identical on every process, the pod hop's
+    backward equal to the hop, and ``moe_dispatch`` and ``flash_attention``
+    launching twice a layer a step (forward and recompute) on the card.
+    ``--moe-full`` / ``--moe-layers`` / ``--moe-shape`` size it,
+    ``--moe-fabric-check`` also takes the gradient with no multiplexer,
+    ``--moe-ckpt DIR`` saves the sharded state there (and process 0 the
+    gathered whole one), and ``--moe-deep-steps`` adds that many steps of the
+    full-depth model in bf16 at 8 x 2,048."""
+    from repro_torch.core.multiplexer import make_multiplexer
+    from repro_torch.distributed.sharding import MeshContext
+
+    started_at = time.time()
+    mesh = _pod_mesh()
+    ctx = MeshContext(mesh)
+    mux = make_multiplexer(mesh, pack_impl="cuda" if DEV == "cuda" else "torch")
+    t0 = time.perf_counter()
+    if DEV == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _moe_warm_up(mesh, mux.pack_impl)
+    warm_up = time.perf_counter() - t0
+    out = {"check": _moe_check(mesh, ctx, mux)}
+    out["check"]["parts_s"] = {"warm_up": warm_up, **out["check"]["parts_s"]}
+    out["check"]["started_at"] = started_at
+    c = out["check"]
+    print(f"[moe] check: {c['layers']} layers, steps "
+          f"{' '.join(f'{w * 1e3:.1f}' for w in c['step_s'])} ms, "
+          f"{c['step_hop_bytes']} B a step on the pod hop, peak {c['peak']}")
+    if ARGS.moe_deep_steps:
+        out["deep"] = _moe_deep(mesh, ctx, mux)
+        d = out["deep"]
+        print(f"[moe] deep: {d['layers']} layers {d['dtype']}, steps "
+              f"{' '.join(f'{w * 1e3:.1f}' for w in d['step_s'])} ms, peak {d['peak']}")
+    RESULTS["moe_train"] = out
+    print("PASS moe_train")
+
+
 SCENARIOS = {
     name.removeprefix("scenario_"): fn
     for name, fn in list(globals().items())
     if name.startswith("scenario_")
 }
 #: Run only when named: not part of "all".
-ON_REQUEST = ("dp_train",)
+ON_REQUEST = ("dp_train", "moe_train")
 
 
 def main(argv: list[str]) -> None:
@@ -766,10 +1145,20 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--dp-archs", default="train100m,mamba2-1.3b")
     ap.add_argument("--dp-full", action="store_true", help="full configs, not smoke ones")
     ap.add_argument("--dp-shape", default="8x32", help="dp_train's global batch, BxS")
+    ap.add_argument("--moe-full", action="store_true", help="moe_train at full width")
+    ap.add_argument("--moe-layers", type=int, default=0, help="moe_train's depth (0: the config's)")
+    ap.add_argument("--moe-shape", default="8x32", help="moe_train's global batch, BxS")
+    ap.add_argument("--moe-fabric-check", action="store_true")
+    ap.add_argument("--moe-ckpt", default="")
+    ap.add_argument("--moe-deep-steps", type=int, default=0)
     args = ap.parse_args(argv)
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
     ARGS.dp_shape = tuple(int(v) for v in args.dp_shape.split("x"))
+    ARGS.moe_full, ARGS.moe_layers = args.moe_full, args.moe_layers
+    ARGS.moe_shape = tuple(int(v) for v in args.moe_shape.split("x"))
+    ARGS.moe_fabric_check, ARGS.moe_ckpt = args.moe_fabric_check, args.moe_ckpt
+    ARGS.moe_deep_steps = args.moe_deep_steps
     names = ([n for n in SCENARIOS if n not in ON_REQUEST] if args.scenario == "all"
              else args.scenario.split(","))
     start = _counts()

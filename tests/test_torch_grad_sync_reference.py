@@ -99,7 +99,7 @@ def test_port_hierarchical_sync_equals_the_reference_auto_mesh_step(reference):
     from repro_torch.train import AdamWConfig, TrainState, make_train_step
 
     api = registry.build(get_smoke_config(ARCH).scaled(grad_sync="hierarchical"))
-    state = TrainState.from_params(convert.from_reference(reference["params"]))
+    state = TrainState.from_params(convert.from_reference(reference["params"], device="cpu"))
     batch = {k: torch.from_numpy(v) for k, v in reference["batch"].items()}
     with mesh_context(MeshContext(make_mesh(8, 2))):
         _, m = make_train_step(api, AdamWConfig(lr=1e-3))(state, batch)

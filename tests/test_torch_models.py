@@ -57,7 +57,8 @@ def pair(request):
     return types.SimpleNamespace(
         arch=arch, jax=jax, jnp=jax.numpy, ref_api=ref_api, ref_params=ref_params,
         ref_module=ref_transformer, np_params=np_params,
-        api=registry.build(get_smoke_config(arch)), params=convert.from_reference(np_params),
+        api=registry.build(get_smoke_config(arch)),
+        params=convert.from_reference(np_params, device="cpu"),
     )
 
 
@@ -219,7 +220,8 @@ def test_train_loss_and_every_gradient_match_the_reference(pair):
     got = pair.api.train_loss(params, {k: torch.from_numpy(v) for k, v in nb.items()})
     np.testing.assert_allclose(got.item(), float(loss), rtol=1e-5)
     got_grads = dict(leaves_with_paths(unflatten(params, torch.autograd.grad(got, live))))
-    want = dict(leaves_with_paths(convert.from_reference(pair.jax.tree.map(np.asarray, grads))))
+    want = dict(leaves_with_paths(
+        convert.from_reference(pair.jax.tree.map(np.asarray, grads), device="cpu")))
     assert sorted(got_grads, key=str) == sorted(want, key=str)
     for path, w in want.items():
         # f32 sums in another order: near-zero elements within 1e-4 of the
@@ -303,7 +305,7 @@ def test_chunked_mla_matches_reference_chunked():
     toks = np.random.default_rng(10).integers(0, ref_cfg.vocab_size, (B, 16), dtype=np.int32)
     want = ref_transformer.forward(ref_params, ref_cfg, {"tokens": jax.numpy.asarray(toks)})
     cfg = get_smoke_config("deepseek-v2-lite-16b").scaled(**over)
-    params = convert.from_reference(jax.tree.map(np.asarray, ref_params))
+    params = convert.from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
     _close(T.forward(params, cfg, {"tokens": torch.from_numpy(toks)}).numpy(), want)
 
 
@@ -327,7 +329,7 @@ def vlm():
     return types.SimpleNamespace(
         ref_api=ref_api, ref_params=ref_params, Request=RefRequest, ServeEngine=RefServeEngine,
         ContinuousEngine=RefContinuousEngine, api=registry.build(cfg),
-        params=convert.from_reference(jax.tree.map(np.asarray, ref_params)),
+        params=convert.from_reference(jax.tree.map(np.asarray, ref_params), device="cpu"),
         prompts=[rng.integers(0, cfg.vocab_size, PLEN, dtype=np.int32) for _ in range(4)],
         extra={"patches": rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)},
     )

@@ -55,7 +55,8 @@ def jref():
 @pytest.fixture(scope="module")
 def port(jref):
     api = registry.build(get_smoke_config("olmoe-1b-7b"))
-    return types.SimpleNamespace(api=api, params=convert.from_reference(jref.np_params))
+    return types.SimpleNamespace(api=api,
+                                 params=convert.from_reference(jref.np_params, device="cpu"))
 
 
 def _close(got, want):

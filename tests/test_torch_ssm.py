@@ -47,7 +47,7 @@ def pair(request):
     return types.SimpleNamespace(
         arch=arch, jax=jax, jnp=jax.numpy, ref_api=ref_api, ref_params=ref_params,
         ref_module=module, np_params=np_params, Request=RefRequest, ServeEngine=RefServeEngine,
-        api=api, params=convert.from_reference(np_params),
+        api=api, params=convert.from_reference(np_params, device="cpu"),
     )
 
 

@@ -167,7 +167,7 @@ def jref(request):
 def _port(jref, **over):
     api = registry.build(get_smoke_config(jref.arch).scaled(**over))
     batch = {k: torch.from_numpy(v) for k, v in jref.batch.items()}
-    return api, TrainState.from_params(convert.from_reference(jref.params)), batch
+    return api, TrainState.from_params(convert.from_reference(jref.params, device="cpu")), batch
 
 
 def _loss_and_grads(api, params, batch):
@@ -178,7 +178,8 @@ def _loss_and_grads(api, params, batch):
 
 def _assert_trees_close(got, want, rtol, atol):
     """Leaf for leaf, matched by path; ``want`` is a reference tree."""
-    got, want = dict(leaves_with_paths(got)), dict(leaves_with_paths(convert.from_reference(want)))
+    got = dict(leaves_with_paths(got))
+    want = dict(leaves_with_paths(convert.from_reference(want, device="cpu")))
     assert sorted(got) == sorted(want)
     for path, w in want.items():
         np.testing.assert_allclose(got[path].detach().numpy(), w.numpy(), rtol=rtol, atol=atol,
@@ -230,7 +231,8 @@ def test_adamw_update_on_the_reference_gradients_matches_the_reference(jref):
     params = jax.tree.map(jax.numpy.asarray, jref.params)
     grads = jax.tree.map(jax.numpy.asarray, jref.grads)
     ropt = ref_init(params)
-    mine, my_grads = convert.from_reference(jref.params), convert.from_reference(jref.grads)
+    mine = convert.from_reference(jref.params, device="cpu")
+    my_grads = convert.from_reference(jref.grads, device="cpu")
     opt = adamw_init(mine)
     for _ in range(3):
         params, ropt, rm = ref_update(RefAdamW(**kw), grads, ropt, params)
@@ -249,7 +251,7 @@ def test_weight_decay_takes_the_reference_leaves(jref):
     block's or the final norms."""
     stacked = {path: np.ndim(v) >= 2 for path, v in leaves_with_paths(jref.params)}
     want = {}
-    for path, p in leaves_with_paths(convert.from_reference(jref.params)):
+    for path, p in leaves_with_paths(convert.from_reference(jref.params, device="cpu")):
         ref_path = tuple(k for k in path if not isinstance(k, int))
         want[path] = stacked[ref_path]
         assert _decays(path, p) == want[path], path

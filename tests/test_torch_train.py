@@ -76,7 +76,7 @@ def jref():
 def _port(jref, **over):
     cfg = get_smoke_config("train100m").scaled(**{**OVER, **over})
     api = registry.build(cfg)
-    params = convert.from_reference(jref.params)
+    params = convert.from_reference(jref.params, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in jref.batch.items()}
     return api, TrainState.from_params(params), batch
 
@@ -88,7 +88,7 @@ def _by_path(tree) -> dict:
 def _assert_trees_close(got, want, rtol, atol):
     """Leaf for leaf, matched by path (the reference's dicts come back with
     sorted keys)."""
-    got, want = _by_path(got), _by_path(convert.from_reference(want))
+    got, want = _by_path(got), _by_path(convert.from_reference(want, device="cpu"))
     assert sorted(got) == sorted(want)
     for path, w in want.items():
         np.testing.assert_allclose(got[path].detach().numpy(), w.numpy(), rtol=rtol, atol=atol,
@@ -102,7 +102,7 @@ def _assert_trees_close(got, want, rtol, atol):
 def test_params_have_the_reference_structure(jref):
     api, state, _ = _port(jref)
     mine = api.init(0, device="cpu")
-    want = convert.from_reference(jref.params)
+    want = convert.from_reference(jref.params, device="cpu")
     assert sorted((p, tuple(t.shape), t.dtype) for p, t in leaves_with_paths(mine)) == \
         sorted((p, tuple(t.shape), t.dtype) for p, t in leaves_with_paths(want))
     assert "unembed" not in mine["embedding"]  # tied
@@ -256,8 +256,8 @@ def test_adamw_update_matches_reference_on_given_grads(jref):
     params = jax.tree.map(jnp.asarray, jref.params)
     grads = jax.tree.map(jnp.asarray, jref.grads)
     ropt = ref_init(params)
-    mine = convert.from_reference(jref.params)
-    my_grads = convert.from_reference(jref.grads)
+    mine = convert.from_reference(jref.params, device="cpu")
+    my_grads = convert.from_reference(jref.grads, device="cpu")
     opt = adamw_init(mine)
     for _ in range(3):
         params, ropt, rm = ref_update(RefAdamW(**kw), grads, ropt, params)
@@ -301,12 +301,13 @@ def test_grad_sync_in_one_process_equals_the_no_mesh_step(shards, pods, grad_syn
 
 
 def test_moe_over_a_mesh_across_processes_raises():
-    """The MoE layer's expert dispatch would cross the processes through
-    ``torch.distributed``, which autograd cannot differentiate: training it
-    data-parallel across processes is queue A item 3(b), and the step says
-    so before it computes anything (the mesh's process group is never
-    reached)."""
-    cfg = get_smoke_config("olmoe-1b-7b")
+    """The MoE family trains across processes under ``grad_sync="auto"``
+    (``tests/test_torch_moe_train.py``); under ``"hierarchical"`` the
+    per-unit passes cannot run the expert-parallel layer unit by unit, and
+    the step says so before it computes anything (the mesh's process group
+    is never reached)."""
+    cfg = get_smoke_config("olmoe-1b-7b").scaled(moe_impl="ep_shardmap",
+                                                 grad_sync="hierarchical")
     api = registry.build(cfg)
     assert cfg.family == "moe"
     state = TrainState.create(api, 0, device="cpu")
@@ -314,7 +315,7 @@ def test_moe_over_a_mesh_across_processes_raises():
     batch = {"tokens": toks[:, :8], "labels": toks[:, 1:]}
     spanning = exchange.Mesh(2, 4, num_processes=2, process_index=0)
     with mesh_context(MeshContext(spanning)):
-        with pytest.raises(NotImplementedError, match=r"item 3\(b\)"):
+        with pytest.raises(NotImplementedError, match=r"hierarchical.*ROADMAP §C"):
             make_train_step(api, AdamWConfig())(state, batch)
 
 

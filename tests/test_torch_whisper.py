@@ -55,7 +55,7 @@ def pair():
         jax=jax, jnp=jax.numpy, ref_api=ref_api, ref_params=ref_params, ref_W=ref_whisper,
         ref_L=ref_layers, np_params=np_params, Request=RefRequest, ServeEngine=RefServeEngine,
         cfg=get_smoke_config("whisper-medium"), api=registry.build(get_smoke_config("whisper-medium")),
-        params=convert.from_reference(np_params),
+        params=convert.from_reference(np_params, device="cpu"),
     )
 
 
@@ -223,7 +223,8 @@ def test_train_loss_and_every_gradient_match_the_reference(pair):
     got = pair.api.train_loss(params, _torch(nb))
     np.testing.assert_allclose(got.item(), float(loss), rtol=1e-5)
     got_grads = dict(leaves_with_paths(unflatten(params, torch.autograd.grad(got, live))))
-    want = dict(leaves_with_paths(convert.from_reference(pair.jax.tree.map(np.asarray, grads))))
+    want = dict(leaves_with_paths(
+        convert.from_reference(pair.jax.tree.map(np.asarray, grads), device="cpu")))
     assert sorted(got_grads, key=str) == sorted(want, key=str)
     for path, w in want.items():
         scale = want[path[:-1] + ("wk",)] if path[-1] == "bk" else w

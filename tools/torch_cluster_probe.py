@@ -2,7 +2,7 @@
 """The port's process fabric on the card, beyond what ``chip_smoke.py`` runs.
 
     python3 tools/torch_cluster_probe.py gloo-cuda
-    python3 tools/torch_cluster_probe.py train [--out DIR]
+    python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -20,7 +20,14 @@ NCCL ranks of 2 units, one pod and one card a rank, at a global batch of 8
 x 2,048: each worker asserts that both ``grad_sync`` modes equal process
 0's one-process step and that the params stay bit-identical; each mode's
 step walls, the sync's wall alone and the bytes a rank puts on the pod hop
-a step are printed beside the cards' names and power limits.
+a step are printed beside the cards' names and power limits.  ``train
+--arch olmoe-1b-7b`` runs the ``moe_train`` scenario instead (OLMoE-1B-7B's
+experts sharded over the 4 ranks, a quarter each): first a 2-layer cut at
+full width in f32 (8 x 1,024 tokens) held to rank 0's one-process step
+over the same 8 units, as ``chip_smoke.py`` phase 6c holds it, then 3 steps
+of all 16 layers with bf16 compute over f32 params at 8 x 2,048: losses
+finite, the replicated params bit-identical on every rank; each rank's step
+walls, pod-hop bytes and peak memory are printed.
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -177,7 +184,7 @@ def layouts(specs: list[str], sf: float, morsel_rows: int, out: Path) -> int:
     return 0
 
 
-def train(out: Path) -> int:
+def train(out: Path, arch: str) -> int:
     import time
 
     from repro_torch.kernels import build
@@ -186,6 +193,8 @@ def train(out: Path) -> int:
 
     backend, procs, units = "nccl", 4, 2
     _smi()
+    if arch == "olmoe-1b-7b":
+        return train_moe(out, backend, procs, units)
     build.build_all((fa.LIBRARY,))
     dump = out / f"dp_{backend}_{procs}x{units}"
     t0 = time.perf_counter()
@@ -217,6 +226,52 @@ def train(out: Path) -> int:
     return 0
 
 
+def train_moe(out: Path, backend: str, procs: int, units: int) -> int:
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.launch.cluster import run_local_cluster
+
+    build.build_all((fa.LIBRARY, md.LIBRARY))
+    dump = out / f"moe_{backend}_{procs}x{units}"
+    tag = f"[train-moe {backend}:{procs}x{units}]"
+    t0 = time.perf_counter()
+    outs = run_local_cluster(
+        [str(DRIVER), "moe_train", "--moe-full", "--moe-layers", "2", "--moe-shape", "8x1024",
+         "--moe-deep-steps", "3", "--dump", str(dump)],
+        num_processes=procs, local_units=units, timeout_s=900, echo=False,
+        backend=backend, device="cuda",
+    )
+    wall = time.perf_counter() - t0
+    for pid, log in enumerate(outs):
+        for line in log.splitlines():
+            if line.startswith(("PASS", "[moe]")):
+                print(f"{tag} proc {pid}: {line}")
+    recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["moe_train"]
+            for p in range(procs)]
+    c = recs[0]["check"]
+    print(f"{tag} 2-layer cut against rank 0's one-process step: loss rel {c['loss_rel']:.3g}, "
+          f"worst leaf {c['leaf_rel']:.3g} (expert slices "
+          + ", ".join(f"{k} {v:.3g}" for k, v in c["expert_slice_rel"].items())
+          + f"), first grad norm rel {c['step_norm_rel'][0]:.3g}, drops bit-exact "
+          f"{c['drops_equal']}, init equal {c['init_equal']}, params after 3 steps within "
+          f"{c['params_abs']:.3g}; rank 0's seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in c["parts_s"].items()))
+    for pid, r in enumerate(recs):
+        for part in ("check", "deep"):
+            m = r[part]
+            hop = m["step_hop_bytes"][0]
+            print(f"{tag} {part} proc {pid}: {m['layers']} layers, state {m['state_bytes']} B, "
+                  f"steps " + ", ".join(f"{w * 1e3:.1f}" for w in m["step_s"])
+                  + f" ms, losses " + ", ".join(f"{x['loss']:.5f}" for x in m["metrics"])
+                  + f", pod hop {hop} B a step, peak {m['peak']} B, launches a step "
+                  f"{m['launches'][0]}")
+    print(f"{tag} passed in {wall:.1f} s (launcher wall)")
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("gloo-cuda", "layouts", "train"))
@@ -224,6 +279,7 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
     ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
+    ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b"), default="train100m")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(SRC))
     import torch
@@ -235,7 +291,7 @@ def main(argv: list[str]) -> int:
         return gloo_cuda()
     os.makedirs(args.out, exist_ok=True)
     if args.mode == "train":
-        return train(args.out)
+        return train(args.out, args.arch)
     return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
 
 
