@@ -194,7 +194,17 @@ Phases, in order; any failure raises and the process exits non-zero:
    pod hop carrying the leaves' f32 bytes once a step (padded to the unit
    count under ``"hierarchical"``).  Each mode's step walls, the sync's wall
    alone and the bytes a process puts on the pod hop are printed beside the
-   card's name and power limit;
+   card's name and power limit.  After the ``"auto"`` steps each process
+   takes one more step counted op by op (``launch/op_cost.py``) and one under
+   ``torch.profiler``, and prints one line (``[dp-train] profiled step``)
+   of JSON: the step's ms, its counted flops, bytes and collective bytes by
+   kind, the trace's overlap fraction, idle share and device busy share
+   (``launch/roofline.py``'s ``trace_overlap``), MFU against the bf16 peak,
+   the counter's peak of live bytes beside the allocator's, and the
+   ``nvidia-smi`` line.  Gates: the collective bytes equal the step's pod-hop
+   bytes to the byte, and the flops equal the dry run's count of the same
+   config, batch and 2 x 4 layout on ``meta`` (``launch/dryrun.py``'s
+   ``count_cell`` under a fake 2-rank group, made here);
 6c. MoE training across processes (``[moe-train]``) — ``run_local_cluster``
    runs the driver's ``moe_train`` in 2 worker processes x 4 units on this
    card over Gloo: OLMoE-1B-7B at full width, 2 of its 16 layers (f32, TF32
@@ -212,7 +222,11 @@ Phases, in order; any failure raises and the process exits non-zero:
    processes, ``moe_dispatch`` and ``flash_attention`` 2 x 2 launches a
    step a process.  Step walls, the bytes each process puts on the pod hop
    (replicated gradient and expert-parallel trips) and the peak memory are
-   printed beside the card's name and power limit;
+   printed beside the card's name and power limit; then one profiled step
+   as in 6b (``[moe-train] profiled step``), its collective bytes split into
+   the replicated gradient's ``all-reduce`` and the expert-parallel trips'
+   ``collective-permute``, each gated to the byte, and its flops to the dry
+   run's count;
 7. SSM serving — Mamba2-1.3B (48 layers, d_model 2,048) and Zamba2-7B (81
    layers, d_model 3,584) at full width and depth (random weights from
    ``--seed``, f32 master params, bf16 compute) through the static engine:
@@ -532,13 +546,6 @@ def _kernel_row(name, replaces, source, label, nbytes, kern, plain, note=""):
     )
 
 
-def _attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, causal: bool) -> int:
-    """``4 * B * H * D`` (two products of ``D`` multiply-adds) for every
-    (query, key) pair the kernel computes; causal from the top-left corner."""
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
-    return 4 * B * H * D * pairs
-
-
 def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
     """The attention kernel against its plain version within the reference's
     tolerance, timed beside the plain version and SDPA (never used by the
@@ -567,8 +574,7 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
     plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), iters=20)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True), iters=20)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = _attention_flops(B, H, Sq, Sk, D, causal)
+    flops, nbytes = fa.attention_work(q, k, causal)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # f32 runs three tf32 products (3xTF32) on the tensor cores; one f32 FMA
     # pass on the CUDA cores is the other bound printed
@@ -593,15 +599,6 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
         replaces="src/repro/kernels/flash_attention.py:100", match=True, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, **extra,
     )
-
-
-def _ssd_flops(B: int, L: int, H: int, P: int, N: int, Q: int, G: int) -> int:
-    """The least work of the chunk scan: the ``C_i . B_j`` scores once per
-    (b, group, chunk) for the ``Q (Q + 1) / 2`` pairs ``j <= i``; per (b,
-    head, chunk) the intra term over the same pairs, the state read and the
-    state update (``Q N P`` multiply-adds each)."""
-    nc, pairs = L // Q, Q * (Q + 1) // 2
-    return 2 * pairs * N * B * G * nc + (2 * pairs * P + 4 * Q * N * P) * B * H * nc
 
 
 def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
@@ -640,9 +637,7 @@ def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
     del want_y, want_fin
     ms = _time_ms(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0), iters=10, warmup=2)
     plain_ms = _time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q, s0), iters=3, warmup=1)
-    nbytes = (2 * x.numel() + 2 * Bm.numel()) * x.element_size() + 4 * (
-        dt.numel() + A.numel() + fin.numel() + (s0.numel() if initial_state else 0))
-    flops = _ssd_flops(B, L, H, P, N, Q, G)
+    flops, nbytes = sk.scan_work(x, dt, A, Bm, Q, s0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
@@ -2425,6 +2420,95 @@ def phase_training(seed: int) -> dict:
     return {k: launches.get(k, 0) + launches16.get(k, 0) for k in {*launches, *launches16}}
 
 
+_META_COUNTS = []  # the one thread that counts on meta, made at first use
+
+
+def _count_on_meta(cfg, shape: tuple, layout: tuple):
+    """The dry run's count (``launch/dryrun.py``'s ``count_cell``) of ``cfg``
+    at the global batch ``shape`` (B, S) on ``layout`` (processes, units),
+    rank 0 on ``meta`` under a fake process group, with the model flops of
+    the batch (6 N D): a future, counted in a thread of this process while
+    its workers run (it only waits on them).  One thread takes every count
+    in turn: each holds the process's one default (fake) group while it
+    counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def count():
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import dryrun
+        from repro_torch.launch import roofline as RL
+        from repro_torch.models import registry
+
+        spec = ShapeSpec("train", shape[1], shape[0], "train")
+        meta = dryrun.count_cell(cfg, spec, *layout)
+        meta["model_flops"] = RL.model_flops(cfg, spec, registry.param_count(cfg, active_only=True))
+        return meta
+
+    if not _META_COUNTS:
+        _META_COUNTS.append(ThreadPoolExecutor(1))
+    return _META_COUNTS[0].submit(count)
+
+
+def _profiled_steps(tag: str, meta_future, layout: tuple, chips: int, recs: list,
+                    want_collective: dict, dtype: str, smi: str) -> list[dict]:
+    """Each process's profiled step (the driver's ``--profile``: one step
+    counted op by op, one under ``torch.profiler``) against the dry run's
+    count of the same config, batch and ``layout`` on ``meta``
+    (:func:`_count_on_meta`): its flops and collective bytes must equal the
+    count's, its collective bytes by kind ``want_collective`` and the step's
+    pod-hop bytes.  MFU (``roofline.measured_row``) sets the model flops of
+    the global batch (6 N D) on ``chips`` cards against ``H100_SXM``'s bf16
+    peak over the mean of the plain steps after the first.  Prints and
+    returns one JSON line a process."""
+    from repro_torch.core.topology import H100_SXM
+    from repro_torch.launch import roofline as RL
+
+    meta = meta_future.result()
+    model = meta["model_flops"]
+    terms = RL.RooflineTerms(
+        arch=tag, shape="train", mesh=f"{layout[0]}x{layout[1]}",
+        flops_per_chip=meta["flops"] * layout[0] / chips,
+        bytes_per_chip=meta["bytes"] * layout[0] / chips,
+        coll_bytes_per_chip=meta["collective_bytes"], model_flops_global=model, chips=chips,
+        chip=H100_SXM)
+    print(f"[{tag}] the dry run's count on meta, {layout[0]} x {layout[1]} under a fake group: "
+          f"{meta['flops']} flops, {meta['bytes']} B, collectives {meta['collective_bytes']}, "
+          f"peak live {meta['peak_live_bytes']} B, in {meta['count_s']:.1f} s (beside the "
+          f"workers)")
+    lines = []
+    for pid, r in enumerate(recs):
+        p = r["profile"]
+        coll = p["collective_bytes"]
+        if coll != want_collective or sum(coll.values()) != p["pod_hop_bytes"] \
+                or coll != meta["collective_bytes"]:
+            raise AssertionError(f"{tag} process {pid}: collective bytes {coll}, the step's pod "
+                                 f"hop {p['pod_hop_bytes']} B, want {want_collective}, the "
+                                 f"count on meta {meta['collective_bytes']}")
+        if p["flops"] != meta["flops"]:
+            raise AssertionError(f"{tag} process {pid}: {p['flops']} flops counted on the card, "
+                                 f"{meta['flops']} on meta")
+        step_s = sum(r["step_s"][1:]) / len(r["step_s"][1:])
+        measured = RL.measured_row(terms, step_s)
+        ov = p["overlap"]
+        line = {
+            "process": pid, "step_ms": step_s * 1e3, "profiled_step_ms": p["step_s"] * 1e3,
+            "flops": p["flops"], "bytes": p["bytes"], "collective_bytes": coll,
+            "overlap_fraction": ov["overlap_fraction"], "idle_share": ov["idle_share"],
+            "device_busy": ov["device_busy"], "window_ms": ov["window_s"] * 1e3,
+            "collective_ms": ov["collective_s"] * 1e3, "compute_ms": ov["compute_s"] * 1e3,
+            "overlapped_ms": ov["overlapped_s"] * 1e3,
+            "mfu": measured["mfu"], "ideal_over_step": measured["ideal_over_step"],
+            "mfu_of": f"6 N D = {model:.6g} flops on {chips} card(s) against the bf16 peak of "
+                      f"{H100_SXM.peak_flops_bf16:.4g} flop/s; the step computes in {dtype}",
+            "peak_live_bytes": p["peak_live_bytes"],
+            "max_memory_allocated": p["max_memory_allocated"],
+            "allocated_before": p.get("allocated_before"), "nvidia_smi": smi,
+        }
+        print(f"[{tag}] profiled step process {pid}: {json.dumps(line)}")
+        lines.append(line)
+    return lines
+
+
 def phase_dp_train(smi: str) -> dict:
     """train100m data-parallel over ``DP_PROCESSES`` worker processes of
     ``DP_UNITS`` units on this card (Gloo): the ``dp_train`` scenario of
@@ -2435,13 +2519,18 @@ def phase_dp_train(smi: str) -> dict:
 
     from repro_torch.launch.cluster import run_local_cluster
 
+    from repro_torch.configs import get_config
+
     B, S = DP_SHAPE
     dump = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     t0 = time.perf_counter()
+    meta = _count_on_meta(get_config("train100m").scaled(attn_impl="flash"), DP_SHAPE,
+                          (DP_PROCESSES, DP_UNITS))
     try:
         outs = run_local_cluster(
             [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "dp_train", "--dp-archs",
-             "train100m", "--dp-full", "--dp-shape", f"{B}x{S}", "--dump", dump],
+             "train100m", "--dp-full", "--dp-shape", f"{B}x{S}", "--dump", dump,
+             "--profile", dump],
             num_processes=DP_PROCESSES, local_units=DP_UNITS, timeout_s=DP_TIMEOUT_S,
             echo=False, backend="gloo", device="cuda",
         )
@@ -2475,8 +2564,11 @@ def phase_dp_train(smi: str) -> dict:
                   f"{r['leaf_bytes']}); flash_attention {mr['launches']} a step "
                   f"({mr['per_step']} implied) ({smi})")
             launched += mr["grad_launches"] + sum(mr["launches"])
-    print(f"[dp-train] phase 6b in {wall:.1f} s (launcher wall); flash_attention launches over "
-          f"the data-parallel steps: {launched}")
+    _profiled_steps("dp-train", meta, (DP_PROCESSES, DP_UNITS), 1,
+                    [r["modes"]["auto"] for r in recs], {"all-reduce": r0["leaf_bytes"]},
+                    "float32", smi)
+    print(f"[dp-train] phase 6b in {time.perf_counter() - t0:.1f} s (the launcher's wall "
+          f"{wall:.1f} s); flash_attention launches over the data-parallel steps: {launched}")
     return {"flash_attention": launched}
 
 
@@ -2494,10 +2586,12 @@ def phase_moe_train(smi: str) -> dict:
     B, S = MOE_SHAPE
     dump = tempfile.mkdtemp(prefix="chip_smoke_moe_")
     t0, launched_at = time.perf_counter(), time.time()
+    meta = _count_on_meta(moe_train_config(MOE_LAYERS), MOE_SHAPE, (MOE_PROCESSES, MOE_UNITS))
     try:
         outs = run_local_cluster(
             [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "moe_train", "--moe-full",
-             "--moe-layers", str(MOE_LAYERS), "--moe-shape", f"{B}x{S}", "--dump", dump],
+             "--moe-layers", str(MOE_LAYERS), "--moe-shape", f"{B}x{S}", "--dump", dump,
+             "--profile", dump],
             num_processes=MOE_PROCESSES, local_units=MOE_UNITS, timeout_s=MOE_TIMEOUT_S,
             echo=False, backend="gloo", device="cuda",
         )
@@ -2549,7 +2643,30 @@ def phase_moe_train(smi: str) -> dict:
         print(f"[moe-train] process {pid}'s seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
               + f"; the rest (exit, the launcher) {wall - sum(parts.values()):.1f}")
+    _profiled_steps("moe-train", meta, (MOE_PROCESSES, MOE_UNITS), 1, recs,
+                    moe_collectives(r0), "float32", smi)
+    print(f"[moe-train] phase 6c with the profiled step and the count on meta: "
+          f"{time.perf_counter() - t0:.1f} s")
     return launched
+
+
+def moe_train_config(layers: int):
+    """The driver's ``moe_train`` config: OLMoE-1B-7B at full width, ``layers``
+    of its 16, f32, expert-parallel, ``remat="block"``, flash."""
+    from repro_torch.configs import get_config
+
+    return get_config("olmoe-1b-7b").scaled(num_layers=layers, moe_impl="ep_shardmap",
+                                            remat="block", attn_impl="flash", dtype="float32",
+                                            param_dtype="float32")
+
+
+def moe_collectives(rec: dict) -> dict:
+    """What a sharded MoE step hands the pod hop, by kind: the replicated
+    gradient (with the loss and the norm's scalar) in all-reduces, and 6
+    expert-parallel trips a layer (dispatch and combine, their remat
+    recompute, their backward) as the scheduled sends."""
+    return {"all-reduce": rec["replicated_bytes"],
+            "collective-permute": 6 * rec["layers"] * rec["trip_bytes"]}
 
 
 def _rel_err(got, want) -> float:

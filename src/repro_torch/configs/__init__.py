@@ -2,14 +2,29 @@
 
 ``get_config(name)`` returns the full-size :class:`~.base.ModelConfig`;
 ``get_smoke_config(name)`` the reduced same-family config the CPU tests
-use.  Every architecture of the reference is here.
+use.  Every architecture of the reference is here; ``ARCH_IDS`` lists the
+reference's ten assigned ones in its order (``train100m`` is extra, as in
+the reference).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeSpec, shapes_for
+
+ARCH_IDS = (
+    "minicpm-2b",
+    "qwen2.5-3b",
+    "deepseek-67b",
+    "qwen1.5-32b",
+    "mamba2-1.3b",
+    "deepseek-v2-lite-16b",
+    "olmoe-1b-7b",
+    "zamba2-7b",
+    "whisper-medium",
+    "qwen2-vl-2b",
+)
 
 _MODULES = {
     "minicpm-2b": "minicpm_2b",
@@ -40,4 +55,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "ShapeSpec", "SHAPES", "shapes_for", "get_config",
+           "get_smoke_config"]

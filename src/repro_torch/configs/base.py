@@ -3,8 +3,9 @@
 A copy of the reference's dataclasses: the port keeps its own, so it
 imports nothing of the JAX package.  ``param_count`` and
 ``active_param_count`` count the leaves of the port's own params (built on
-the ``meta`` device, so nothing is allocated).  Left out: the dry-run's
-assigned shape cells (``SHAPES``), which nothing in the port reads.
+the ``meta`` device, so nothing is allocated).  ``SHAPES`` and
+:func:`shapes_for` are the reference's assigned shape cells, which the dry
+run (:mod:`repro_torch.launch.dryrun`) counts.
 """
 
 from __future__ import annotations
@@ -116,6 +117,11 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic (SSM/hybrid) archs."""
+        return self.family in ("ssm", "hybrid")
+
     def scaled(self, **overrides) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
 
@@ -144,4 +150,20 @@ class ShapeSpec:
     kind: Literal["train", "prefill", "decode"]
 
 
-__all__ = ["ModelConfig", "Family", "ShapeSpec"]
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeSpec]:
+    """The assigned shape set for one arch (long_500k only if sub-quadratic)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.supports_long_context:
+        out.append(SHAPES["long_500k"])
+    return out
+
+
+__all__ = ["ModelConfig", "Family", "ShapeSpec", "SHAPES", "shapes_for"]

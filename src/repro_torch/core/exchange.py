@@ -54,9 +54,11 @@ from typing import Any, Callable, Iterator, Literal
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import fibonacci_hash, partition_pack_ref
+from ..obs import cost
 from ..tree import tree_map
 from .schedule import make_schedule
 
@@ -411,15 +413,26 @@ def flat_psum_tree(tree: Any, mesh: Mesh, axis_names: tuple[str, ...]) -> Any:
 #: :func:`reset_pod_hop`: ``messages`` (each collective's buffer, each sent
 #: message) and their ``bytes``.
 POD_HOP = {"messages": 0, "bytes": 0}
+#: The same bytes by kind, in the reference's names: ``all-reduce``
+#: (:func:`_all_reduce`), ``all-gather`` (:func:`_all_gather`), ``all-to-all``
+#: (:func:`_all_to_all`) and ``collective-permute`` (the sends of
+#: :func:`_p2p`).  Each is also reported to an active op counter
+#: (:mod:`repro_torch.obs.cost`), and each runs inside a
+#: ``torch.profiler.record_function("exchange.<kind>")`` span.
+POD_HOP_KINDS: dict[str, int] = {}
 
 
 def reset_pod_hop() -> None:
     POD_HOP.update(messages=0, bytes=0)
+    POD_HOP_KINDS.clear()
 
 
-def _hop(t: torch.Tensor) -> torch.Tensor:
+def _hop(t: torch.Tensor, kind: str) -> torch.Tensor:
+    nbytes = t.numel() * t.element_size()
     POD_HOP["messages"] += 1
-    POD_HOP["bytes"] += t.numel() * t.element_size()
+    POD_HOP["bytes"] += nbytes
+    POD_HOP_KINDS[kind] = POD_HOP_KINDS.get(kind, 0) + nbytes
+    cost.collective(kind, nbytes)
     return t
 
 
@@ -456,43 +469,52 @@ def _peer(mesh: Mesh, process: int) -> int:
 
 
 def _all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    w = _host(t) if _staged(mesh, t) else t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(_hop(w), op=op, group=mesh.group)
-    return w.to(t.device)
+    with record_function("exchange.all-reduce"):
+        w = _host(t) if _staged(mesh, t) else t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(_hop(w, "all-reduce"), op=op, group=mesh.group)
+        return w.to(t.device)
 
 
 def _all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``[R, *t.shape]``: every process's ``t``, in process order."""
-    out = _wire_empty(mesh, t, mesh.num_processes)
-    dist.all_gather(list(out), _hop(_wire(mesh, t)), group=mesh.group)
-    return _unwire(out, t, (mesh.num_processes,))
+    with record_function("exchange.all-gather"):
+        out = _wire_empty(mesh, t, mesh.num_processes)
+        dist.all_gather(list(out), _hop(_wire(mesh, t), "all-gather"), group=mesh.group)
+        return _unwire(out, t, (mesh.num_processes,))
 
 
 def _all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``t [R, ...]``: row ``r`` goes to process ``r``; row ``r`` of the
     result came from process ``r``."""
-    out = _wire_empty(mesh, t)[0]
-    dist.all_to_all_single(out, _hop(_wire(mesh, t)), group=mesh.group)
-    return _unwire(out, t)
+    with record_function("exchange.all-to-all"):
+        out = _wire_empty(mesh, t)[0]
+        dist.all_to_all_single(out, _hop(_wire(mesh, t), "all-to-all"), group=mesh.group)
+        return _unwire(out, t)
 
 
 def _p2p(mesh: Mesh, sends: list, recvs: list) -> None:
     """One ``batch_isend_irecv``: ``sends`` are ``(process, tag, tensor)``,
     ``recvs`` ``(process, tag, destination view)``; each received message
-    is copied into its view."""
-    ops, bufs = [], []
-    for proc, tag, t in sends:
-        ops.append(dist.P2POp(dist.isend, _hop(_wire(mesh, t)), _peer(mesh, proc), mesh.group,
-                              tag))
-    for proc, tag, dst in recvs:
-        buf = _wire_empty(mesh, dst)[0]
-        bufs.append(buf)
-        ops.append(dist.P2POp(dist.irecv, buf, _peer(mesh, proc), mesh.group, tag))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
+    is copied into its view.  ``meta`` messages (the dry run, under a fake
+    process group) go one op at a time: ``batch_isend_irecv`` asks the group
+    for a backend of the tensors' device, which no group has for ``meta``."""
+    with record_function("exchange.collective-permute"):
+        ops, bufs = [], []
+        for proc, tag, t in sends:
+            ops.append(dist.P2POp(dist.isend, _hop(_wire(mesh, t), "collective-permute"),
+                                  _peer(mesh, proc), mesh.group, tag))
+        for proc, tag, dst in recvs:
+            buf = _wire_empty(mesh, dst)[0]
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, _peer(mesh, proc), mesh.group, tag))
+        if any(op.tensor.is_meta for op in ops):
+            reqs = [op.op(op.tensor, op.peer, op.group, op.tag) for op in ops]
+        else:
+            reqs = dist.batch_isend_irecv(ops) if ops else []
+        for req in reqs:
             req.wait()
-    for (_proc, _tag, dst), buf in zip(recvs, bufs):
-        dst.copy_(_unwire(buf, dst))
+        for (_proc, _tag, dst), buf in zip(recvs, bufs):
+            dst.copy_(_unwire(buf, dst))
 
 
 def _pod_view(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -1016,6 +1038,7 @@ __all__ = [
     "gather_units",
     "unit_sum",
     "POD_HOP",
+    "POD_HOP_KINDS",
     "reset_pod_hop",
     "fibonacci_hash",
     "pack_by_destination",

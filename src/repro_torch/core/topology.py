@@ -6,8 +6,10 @@ Two roles:
    197 TFLOP/s bf16 per chip, 819 GB/s HBM, ~50 GB/s/link ICI.  The port
    keeps ``V5E`` ONLY so that its planner prices exchanges exactly as the
    reference does (``explain()`` parity).  Every ``modeled=`` second the
-   port's planner prints is this TPU model, not an H100 prediction; an
-   H100 ``ChipSpec`` waits for a calibration pass.
+   port's planner prints is this TPU model, not an H100 prediction.
+   ``H100_SXM`` holds an H100's published peaks for the roofline
+   (``launch/roofline.py``); it is not a calibration, and the planner
+   never prices with it.
 
 2. A discrete-event model of the paper's switch-contention experiment
    (Fig 10b): uncoordinated all-to-all vs round-robin scheduled phases.
@@ -65,6 +67,23 @@ class ChipSpec:
 
 
 V5E = ChipSpec()
+
+#: One NVIDIA H100 SXM, from NVIDIA's data sheet: 989 TFLOP/s dense bf16,
+#: 3.35 TB/s HBM3, 80 GB, NVLink 900 GB/s to the host's other cards, 450 GB/s
+#: each way, the one link a card has through the NVSwitches.  These are
+#: published peaks at the 700 W limit, not a calibration (``calibrate_chip``
+#: fits a card).  Only the roofline reads it (its three peaks and the
+#: memory); the launch latencies and the DCI figure are V5E's, which no
+#: H100 reading has replaced.
+H100_SXM = ChipSpec(
+    name="h100-sxm",
+    peak_flops_bf16=989e12,
+    hbm_bandwidth=3.35e12,
+    ici_link_bandwidth=450e9,
+    ici_links_per_chip=1,
+    hbm_bytes=80 * 10**9,
+    vmem_bytes=50 * 2**20,  # the L2 cache
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -393,6 +412,7 @@ __all__ = [
     "ChipSpec",
     "ClusterSpec",
     "V5E",
+    "H100_SXM",
     "simulate_contention_factor",
     "contention_factor",
     "scheduled_vs_unscheduled_speedup",

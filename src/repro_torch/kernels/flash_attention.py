@@ -12,7 +12,10 @@ masks its last, partial q and key tiles) and every head dim ``0 < D <=
 256``: a ``D`` outside ``HEAD_DIMS`` is zero-padded to the next one, the
 kernel scales by ``1 / sqrt(D)`` of the unpadded ``D``, and the output is
 sliced back.  A tensor on the CPU goes to the plain version in :mod:`.ref`;
-a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
+a CUDA tensor launches the kernel or raises; a ``meta`` tensor (the dry run)
+gets an output of the right shape and launches nothing.  Every call reports
+its work to an active op counter (:mod:`repro_torch.obs.cost`,
+:func:`attention_work`).  ``LAUNCHES`` counts kernel
 launches only: ``"flash_attention"`` every launch,
 ``"flash_attention[noncausal]"`` those of them without the causal mask and
 ``"flash_attention[ragged]"`` those with a partial tile (a length not a
@@ -26,6 +29,7 @@ import math
 
 import torch
 
+from ..obs import cost
 from . import ref
 from .build import CudaLibrary, raise_on
 
@@ -56,6 +60,28 @@ def reset_launch_counts() -> None:
 def kernel_head_dim(D: int) -> int:
     """The kernel's head dim that a ``D`` in (0, 256] is zero-padded to."""
     return next(d for d in HEAD_DIMS if d >= D)
+
+
+def attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, causal: bool) -> int:
+    """``4 * B * H * D`` (two products of ``D`` multiply-adds) for every
+    (query, key) pair the kernel computes; causal from the top-left corner,
+    where query ``i`` sees ``min(i + 1, Sk)`` keys."""
+    if not causal:
+        pairs = Sq * Sk
+    elif Sq <= Sk:
+        pairs = Sq * (Sq + 1) // 2
+    else:
+        pairs = Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+    return 4 * B * H * D * pairs
+
+
+def attention_work(q: torch.Tensor, k: torch.Tensor, causal: bool) -> tuple[int, int]:
+    """(flops, bytes) of one call at the call's own ``D`` (a padded head
+    dim's zero columns are not the function's work): q, k and v read once,
+    the output written once."""
+    B, H, Sq, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return attention_flops(B, H, Sq, k.shape[2], D, causal), nbytes
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -91,8 +117,15 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention forward ``[B, H, Sq, D]`` in q's dtype; ``scale`` defaults
     to ``1 / sqrt(D)`` and the causal mask runs from the top-left corner."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    with cost.kernel("flash_attention", *attention_work(q, k, causal)):
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        return _launch(q, k, v, causal, scale)
+
+
+def _launch(q, k, v, causal: bool, scale: float | None) -> torch.Tensor:
     _check(q, k, v)
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
@@ -117,4 +150,4 @@ def flash_attention(
 
 
 __all__ = ["LIBRARY", "LAUNCHES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "reset_launch_counts",
-           "kernel_head_dim", "flash_attention"]
+           "kernel_head_dim", "attention_flops", "attention_work", "flash_attention"]

@@ -7,8 +7,12 @@ first use by :mod:`.build` and loaded with ``ctypes``.
 
 Every wrapper takes a leading shard dim ``S`` and launches ONE kernel over
 all shards.  A tensor on the CPU goes to the plain version in :mod:`.ref`; a
-CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches only (plain-version calls never count).  The stream handle is the
+CUDA tensor launches the kernel or raises; a ``meta`` tensor (the dry run)
+gets outputs of the right shapes and launches nothing.  Every call reports
+its work to an active op counter (:mod:`repro_torch.obs.cost`): no flops,
+its inputs read once and its outputs written once, all int32.
+``LAUNCHES`` counts kernel launches only (plain-version calls never
+count).  The stream handle is the
 raw current stream (``torch.cuda.current_stream`` costs microseconds a
 call), and the checks are the ones the kernel needs.
 """
@@ -16,9 +20,11 @@ call), and the checks are the ones the kernel needs.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from ..obs import cost
 from . import ref
 from .build import CudaLibrary, check_int32 as _check, raise_on as _raise_on
 
@@ -69,8 +75,17 @@ def hash_partition_pack(
     Returns ``(dest [S, T], per-block histograms [S, T/block, P+1],
     block-local ranks [S, T])``; ``valid`` is int32 (nonzero == valid).
     """
-    if keys.device.type == "cpu":
-        return ref.hash_partition_pack_ref(keys, valid, num_partitions, block)
+    S, T = keys.shape
+    hist = (S, T // max(block, 1), num_partitions + 1)
+    with cost.kernel("hash_partition_pack", 0, 4 * (4 * S * T + math.prod(hist))):
+        if keys.device.type == "cpu":
+            return ref.hash_partition_pack_ref(keys, valid, num_partitions, block)
+        if keys.device.type == "meta":
+            return torch.empty_like(keys), keys.new_empty(hist), torch.empty_like(keys)
+        return _hash_partition_pack(keys, valid, num_partitions, block)
+
+
+def _hash_partition_pack(keys, valid, num_partitions: int, block: int):
     S, T = keys.shape
     _check("keys", keys, (S, T))
     _check("valid", valid, (S, T))
@@ -97,8 +112,17 @@ def partition_pack(
     Returns ``(per-block histograms [S, T/block, num_bins], block-local
     ranks [S, T])``; out-of-range ids get rank 0 and are not counted.
     """
-    if dest.device.type == "cpu":
-        return ref.partition_pack_ref(dest, num_bins, block)
+    S, T = dest.shape
+    hist = (S, T // max(block, 1), num_bins)
+    with cost.kernel("partition_pack", 0, 4 * (2 * S * T + math.prod(hist))):
+        if dest.device.type == "cpu":
+            return ref.partition_pack_ref(dest, num_bins, block)
+        if dest.device.type == "meta":
+            return dest.new_empty(hist), torch.empty_like(dest)
+        return _partition_pack(dest, num_bins, block)
+
+
+def _partition_pack(dest, num_bins: int, block: int):
     S, T = dest.shape
     _check("dest", dest, (S, T))
     stream = _check_launch("partition_pack", S, T, block, num_bins, dest.device)
@@ -119,8 +143,17 @@ def hash_partition(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Hash ``[S, T]`` int32 keys to partition ids: ``(pid [S, T],
     per-block histograms [S, T/block, P])``."""
-    if keys.device.type == "cpu":
-        return ref.hash_partition_ref(keys, num_partitions, block)
+    S, T = keys.shape
+    hist = (S, T // max(block, 1), num_partitions)
+    with cost.kernel("hash_partition", 0, 4 * (2 * S * T + math.prod(hist))):
+        if keys.device.type == "cpu":
+            return ref.hash_partition_ref(keys, num_partitions, block)
+        if keys.device.type == "meta":
+            return torch.empty_like(keys), keys.new_empty(hist)
+        return _hash_partition(keys, num_partitions, block)
+
+
+def _hash_partition(keys, num_partitions: int, block: int):
     S, T = keys.shape
     _check("keys", keys, (S, T))
     stream = _check_launch("hash_partition", S, T, block, num_partitions, keys.device)

@@ -9,7 +9,10 @@ The wrapper takes a leading shard dim ``S`` and launches ONE kernel over all
 shards.  Expert ids may be int32 or the router's int64 (``torch.topk``'s
 index dtype), so the serving path launches no cast.  A tensor on the CPU
 goes to the plain version in :mod:`.ref`; a CUDA tensor launches the kernel
-or raises.  ``LAUNCHES`` counts kernel launches only.
+or raises; a ``meta`` tensor (the dry run) gets outputs of the right shapes
+and launches nothing.  Every call reports its work to an active op counter
+(:mod:`repro_torch.obs.cost`): no flops, the ids read once and the slots and
+counts written once.  ``LAUNCHES`` counts kernel launches only.
 
 The call runs once per MoE layer of every decode step, where its host time
 is most of its cost: the stream handle is the raw current stream, and a
@@ -22,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..obs import cost
 from . import ref
 from .build import CudaLibrary, raise_on
 
@@ -91,8 +95,18 @@ def moe_dispatch(
     """Capacity-bounded slots for ``[S, T]`` int32 or int64 expert ids:
     ``(slot [S, T], counts [S, num_dest])``, both int32; overflow and ids
     outside ``[0, num_dest)`` go to the drop bin ``num_dest * capacity``."""
-    if dest.device.type == "cpu":
-        return ref.moe_dispatch_ref(dest, num_dest, capacity)
+    rows = dest.shape[0] if dest.dim() else 1
+    nbytes = dest.numel() * (dest.element_size() + 4) + 4 * rows * num_dest
+    with cost.kernel("moe_dispatch", 0, nbytes):
+        if dest.device.type == "cpu":
+            return ref.moe_dispatch_ref(dest, num_dest, capacity)
+        if dest.device.type == "meta":
+            return (dest.new_empty(dest.shape, dtype=torch.int32),
+                    dest.new_empty((rows, num_dest), dtype=torch.int32))
+        return _launch(dest, num_dest, capacity)
+
+
+def _launch(dest: torch.Tensor, num_dest: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     dev = dest.device
     id_bytes = _ID_BYTES.get(dest.dtype)
     if id_bytes is None or dest.dim() != 2 or not dest.is_contiguous():

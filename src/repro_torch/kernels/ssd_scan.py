@@ -9,7 +9,10 @@ It takes the reference's layout: ``x [B, L, H, P]``, ``dt [B, L, H]`` f32,
 ``A [H]`` f32, ``Bm``/``Cm [B, L, G, N]`` and an optional initial state
 ``[B, H, P, N]`` f32; x, B and C in float32 or bfloat16 (one dtype).  A
 tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA tensor
-launches the kernel or raises.  One launch enqueues the source's three
+launches the kernel or raises; a ``meta`` tensor (the dry run) gets outputs
+of the right shapes and launches nothing.  Every call reports its work to
+an active op counter (:mod:`repro_torch.obs.cost`, :func:`scan_work`).  One
+launch enqueues the source's three
 kernels (chunk states and shared scores, state passing, chunk outputs); the
 wrapper allocates their f32 scratch with ``torch.empty``: the chunk states
 ``[B, L / chunk, H, N, P]`` (134 MB at Mamba2-1.3B's 8 x 2,048 prefill), the
@@ -26,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..obs import cost
 from . import ref
 from .build import CudaLibrary, raise_on
 
@@ -48,6 +52,26 @@ LIBRARY = CudaLibrary("ssd_scan.cu", _bind)
 
 def reset_launch_counts() -> None:
     LAUNCHES["ssd_scan"] = 0
+
+
+def scan_flops(B: int, L: int, H: int, P: int, N: int, Q: int, G: int) -> int:
+    """The least work of the chunk scan: the ``C_i . B_j`` scores once per
+    (b, group, chunk) for the ``Q (Q + 1) / 2`` pairs ``j <= i``; per (b,
+    head, chunk) the intra term over the same pairs, the state read and the
+    state update (``Q N P`` multiply-adds each)."""
+    nc, pairs = L // Q, Q * (Q + 1) // 2
+    return 2 * pairs * N * B * G * nc + (2 * pairs * P + 4 * Q * N * P) * B * H * nc
+
+
+def scan_work(x, dt, A, Bm, chunk: int, initial_state) -> tuple[int, int]:
+    """(flops, bytes) of one call: x, dt, A, B, C and the initial state read
+    once; y and the f32 final state written once."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nbytes = (2 * x.numel() + 2 * Bm.numel()) * x.element_size() + 4 * (
+        dt.numel() + A.numel() + B * H * P * N
+        + (initial_state.numel() if initial_state is not None else 0))
+    return scan_flops(B, L, H, P, N, chunk, G), nbytes
 
 
 def _check(x, dt, A, Bm, Cm, chunk, initial_state) -> None:
@@ -101,8 +125,16 @@ def ssd_scan(
     initial_state: torch.Tensor | None = None,  # [B, H, P, N] f32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(y [B, L, H, P] in x's dtype, final state [B, H, P, N] f32)``."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    with cost.kernel("ssd_scan", *scan_work(x, dt, A, Bm, chunk, initial_state)):
+        if x.device.type == "cpu":
+            return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+        if x.device.type == "meta":
+            B, _, H, P = x.shape
+            return torch.empty_like(x), x.new_empty((B, H, P, Bm.shape[3]), dtype=torch.float32)
+        return _launch(x, dt, A, Bm, Cm, chunk, initial_state)
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int, initial_state) -> tuple[torch.Tensor, torch.Tensor]:
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     B, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -127,4 +159,4 @@ def ssd_scan(
 
 
 __all__ = ["LIBRARY", "LAUNCHES", "HEAD_DIMS", "STATE_DIMS", "MAX_CHUNK",
-           "reset_launch_counts", "ssd_scan"]
+           "reset_launch_counts", "scan_flops", "scan_work", "ssd_scan"]

@@ -11,8 +11,11 @@ families, whose caches are not per-position KV maps, as in the reference.
 ``param_specs`` and ``cache_spec_fn()`` give every param and cache leaf's
 logical axes (:mod:`repro_torch.distributed.sharding`) in the port's own
 structure: a list entry a layer where the reference stacks layers.
-:func:`param_count` counts the leaves of ``init(..., device="meta")``.  The
-reference's input and shape specs for the dry-run have no counterpart yet.
+:func:`param_count` counts the leaves of ``init(..., device="meta")``.
+:func:`input_specs`, :func:`cache_shape_specs` and :func:`param_shape_specs`
+give the dry run (:mod:`repro_torch.launch.dryrun`) its arguments: trees of
+``meta`` tensors, the port's stand-in for the reference's
+``ShapeDtypeStruct``s, beside their logical axes.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..tree import leaves_with_paths
 
 # Image-patch positions the VLM stub prepends (Qwen2-VL's dynamic resolution
@@ -94,4 +97,67 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-__all__ = ["ModelApi", "VLM_PATCHES", "build", "param_count"]
+# ----------------------------------------------------------------------------
+# Input specs (``meta`` tensors) per (arch x shape).
+# ----------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> tuple[dict, dict]:
+    """(``meta`` tensors, logical axes) for the batch argument of the step."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    act = getattr(torch, cfg.dtype)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            specs = {
+                "frames": _meta((B, S, cfg.d_model), act),
+                "tokens": _meta((B, S), i32),
+            }
+            axes = {
+                "frames": ("batch", "seq", "d_model"),
+                "tokens": ("batch", "seq"),
+            }
+        elif cfg.family == "vlm":
+            P = min(VLM_PATCHES, S // 2)
+            specs = {
+                "tokens": _meta((B, S - P), i32),
+                "patches": _meta((B, P, cfg.d_model), act),
+            }
+            axes = {
+                "tokens": ("batch", "seq"),
+                "patches": ("batch", "seq", "d_model"),
+            }
+        else:
+            specs = {"tokens": _meta((B, S), i32)}
+            axes = {"tokens": ("batch", "seq")}
+        if shape.kind == "train":
+            n_text = specs["tokens"].shape[1]
+            specs["labels"] = _meta((B, n_text), i32)
+            axes["labels"] = ("batch", "seq")
+        return specs, axes
+
+    # decode: one new token per stream against a cache of length S
+    specs = {"tokens": _meta((B, 1), i32)}
+    axes = {"tokens": ("batch", None)}
+    return specs, axes
+
+
+def cache_shape_specs(cfg: ModelConfig, shape: ShapeSpec) -> tuple[Any, Any]:
+    """(``meta`` tree, logical axes tree) for the decode cache."""
+    api = build(cfg)
+    return api.init_cache(shape.global_batch, shape.seq_len, device="meta"), api.cache_spec_fn()
+
+
+def param_shape_specs(cfg: ModelConfig) -> tuple[Any, Any]:
+    """(``meta`` tree, logical axes tree) for the params, in the port's
+    list-a-layer structure."""
+    api = build(cfg)
+    return api.init(0, device="meta"), api.param_specs
+
+
+__all__ = ["ModelApi", "VLM_PATCHES", "build", "param_count", "input_specs",
+           "cache_shape_specs", "param_shape_specs"]

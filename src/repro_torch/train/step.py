@@ -74,6 +74,7 @@ from ..distributed.sharding import (
     mesh_context,
 )
 from ..models import registry
+from ..obs import cost
 from ..tree import leaves, tree_map, unflatten
 from .optim import AdamWConfig, adamw_init, adamw_update
 
@@ -256,15 +257,19 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
         return loss.detach(), unflatten(params, grads)
 
     def rows_loss_and_grads(params, batch):
+        # Each microbatch's work runs in the op counter's "microbatch" region
+        # (obs/cost.py), which the dry run multiplies by the microbatch count.
         if num_mb == 1:
-            return loss_and_grads(params, batch)
+            with cost.region("microbatch"):
+                return loss_and_grads(params, batch)
         loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                          params)
         for mb in _slices(batch, num_mb, "microbatches"):
-            mb_loss, mb_grads = loss_and_grads(params, mb)
-            grads = tree_map(lambda a, g: a + g.float(), grads, mb_grads)
-            loss = loss + mb_loss
+            with cost.region("microbatch"):
+                mb_loss, mb_grads = loss_and_grads(params, mb)
+                grads = tree_map(lambda a, g: a + g.float(), grads, mb_grads)
+                loss = loss + mb_loss
         return loss / num_mb, tree_map(lambda g: g / num_mb, grads)
 
     def per_unit(params, batch, mesh):

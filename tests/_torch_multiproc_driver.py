@@ -49,7 +49,7 @@ DEV = "cpu" if INFO.device == "cpu" else "cuda"
 ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           dp_archs=["train100m", "mamba2-1.3b"], dp_full=False, dp_shape=(8, 32),
                           moe_full=False, moe_layers=0, moe_shape=(8, 32), moe_fabric_check=False,
-                          moe_ckpt="", moe_deep_steps=0)
+                          moe_ckpt="", moe_deep_steps=0, profile="")
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -570,6 +570,42 @@ def _synced(fn):
     return out, time.perf_counter() - t0
 
 
+def _profiled_step(step, state, rows, tag: str) -> dict:
+    """``--profile``: from ``state``, one more step counted op by op
+    (``launch.op_cost``: flops, bytes, collective bytes by kind, the peak of
+    live bytes beside the allocator's), then one under ``torch.profiler``
+    (CPU and CUDA), timed, its chrome trace written to ``--profile`` and read
+    by ``roofline.trace_overlap``.  Both new states are dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import op_cost, roofline
+
+    out = {}
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["allocated_before"] = torch.cuda.memory_allocated()
+    exchange.reset_pod_hop()
+    counter = op_cost.OpCounter()
+    with counter.counting():
+        new, _ = step(state, rows)
+        del new
+    r = counter.result()
+    out.update(flops=r["flops"], bytes=r["bytes"], collective_bytes=r["collective_bytes"],
+               peak_live_bytes=r["peak_live_bytes"], kernels=r["kernels"],
+               pod_hop_bytes=exchange.POD_HOP["bytes"],
+               pod_hop_kinds=dict(exchange.POD_HOP_KINDS), max_memory_allocated=_peak())
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEV == "cuda" else [])
+    with profile(activities=activities) as prof:
+        (new, _), out["step_s"] = _synced(lambda: step(state, rows))
+        del new
+    path = os.path.join(ARGS.profile, f"{tag}_p{INFO.process_id}.json")
+    prof.export_chrome_trace(path)
+    out["trace"] = path
+    out["overlap"] = roofline.trace_overlap(path)
+    return out
+
+
 def _digest(tree) -> str:
     """sha256 of every leaf's bytes, in order."""
     import hashlib
@@ -708,6 +744,8 @@ def scenario_dp_train():
                 _, m_rec["sync_s"] = _synced(sync)
                 m_rec["sync_hop"] = dict(exchange.POD_HOP)
                 del tree
+                if ARGS.profile and mode == "auto":
+                    m_rec["profile"] = _profiled_step(step, s, rows, f"dp_{arch}")
             m_rec.update(step_s=walls, step_hop_bytes=hops, launches=launched, metrics=metrics,
                          per_step=passes * per_pass)
             if any(n != passes * per_pass for n in launched + [m_rec["grad_launches"]]):
@@ -872,12 +910,27 @@ def _moe_warm_up(mesh, pack_impl: str) -> None:
     torch.cuda.synchronize()
 
 
+def _moe_hop_bytes(cfg, params, shape, mesh) -> dict:
+    """What the pod hop should carry a step: the replicated leaves' f32
+    gradient, the loss and the norm's scalar; and 6 trips a layer of a
+    unit's capacity rows to every unit of the other processes, in the
+    compute dtype."""
+    from repro_torch.core.autotune import ep_capacity
+    from repro_torch.tree import leaves_with_paths
+
+    U, N, E = mesh.local_units, mesh.num_units, cfg.num_experts
+    C = ep_capacity(shape[0] * shape[1] // N, cfg.top_k, E, cfg.capacity_factor)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return {"replicated_bytes": 4 * (sum(t.numel() for p, t in leaves_with_paths(params)
+                                         if not _expert_leaf(p)) + 2),
+            "capacity": C, "trip_bytes": U * (N - U) * (E // N) * C * cfg.d_model * item}
+
+
 def _moe_check(mesh, ctx, mux) -> dict:
     """Process 0's one-process step over the same units against the
     sharded step across the processes (the gates of ``scenario_moe_train``)."""
     import torch.distributed as dist
 
-    from repro_torch.core.autotune import ep_capacity
     from repro_torch.core.multiplexer import make_multiplexer, use_multiplexer
     from repro_torch.distributed.sharding import MeshContext, mesh_context
     from repro_torch.models import moe, registry
@@ -937,14 +990,7 @@ def _moe_check(mesh, ctx, mux) -> dict:
                      for (p, t), w in zip(leaves_with_paths(state.params), leaves(whole)))
     del whole
     rows = local_rows(batch, mesh)
-    # what the pod hop should carry a step: the replicated leaves' f32
-    # gradient, the loss and the norm's scalar; and 6 trips a layer
-    rec["replicated_bytes"] = 4 * (sum(t.numel() for p, t in leaves_with_paths(state.params)
-                                       if not _expert_leaf(p)) + 2)
-    C = ep_capacity(ARGS.moe_shape[0] * ARGS.moe_shape[1] // mesh.num_units, cfg.top_k, E,
-                    cfg.capacity_factor)
-    rec["capacity"] = C
-    rec["trip_bytes"] = U * (mesh.num_units - U) * (E // mesh.num_units) * C * cfg.d_model * 4
+    rec.update(_moe_hop_bytes(cfg, state.params, ARGS.moe_shape, mesh))
     part("sharded_init")
     grad_fn, step = make_grad_fn(api), make_train_step(api, opt)
     with mesh_context(ctx), use_multiplexer(mux):
@@ -964,8 +1010,10 @@ def _moe_check(mesh, ctx, mux) -> dict:
         held = [state]
         del state
         new_state, run = _moe_steps(api, step, held, rows, 3)
-    rec.update(run)
-    rec["peak"] = _peak()
+        rec.update(run)
+        rec["peak"] = _peak()
+        if ARGS.profile:
+            rec["profile"] = _profiled_step(step, new_state, rows, "moe")
     part("sharded_steps")
     rec["hop_grad"] = _hop_gradients(mesh)
     all_drops = gather_units(my_drops.T.contiguous(), mesh).cpu()  # [N, calls]
@@ -1058,11 +1106,14 @@ def _moe_deep(mesh, ctx, mux) -> dict:
     rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
            "init_s": init_s, "init_peak": _peak(),
            "state_bytes": sum(t.numel() * t.element_size() for t in leaves(held[0]))}
+    rec.update(_moe_hop_bytes(cfg, held[0].params, shape, mesh))
+    step = make_train_step(api, AdamWConfig())
     with mesh_context(ctx), use_multiplexer(mux):
-        state, run = _moe_steps(api, make_train_step(api, AdamWConfig()), held, rows,
-                                ARGS.moe_deep_steps)
-    rec.update(run)
-    rec["peak"] = _peak()
+        state, run = _moe_steps(api, step, held, rows, ARGS.moe_deep_steps)
+        rec.update(run)
+        rec["peak"] = _peak()
+        if ARGS.profile:
+            rec["profile"] = _profiled_step(step, state, rows, "moe_deep")
     if not all(math.isfinite(m["loss"]) for m in run["metrics"]):
         raise AssertionError(f"moe_train deep: a loss is not finite: {run['metrics']}")
     digests = [None] * mesh.num_processes
@@ -1151,6 +1202,9 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--moe-fabric-check", action="store_true")
     ap.add_argument("--moe-ckpt", default="")
     ap.add_argument("--moe-deep-steps", type=int, default=0)
+    ap.add_argument("--profile", default="",
+                    help="dp_train and moe_train: one more step counted op by op and one "
+                         "under torch.profiler, its chrome trace written into this directory")
     args = ap.parse_args(argv)
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
@@ -1159,6 +1213,7 @@ def main(argv: list[str]) -> None:
     ARGS.moe_shape = tuple(int(v) for v in args.moe_shape.split("x"))
     ARGS.moe_fabric_check, ARGS.moe_ckpt = args.moe_fabric_check, args.moe_ckpt
     ARGS.moe_deep_steps = args.moe_deep_steps
+    ARGS.profile = args.profile
     names = ([n for n in SCENARIOS if n not in ON_REQUEST] if args.scenario == "all"
              else args.scenario.split(","))
     start = _counts()

@@ -2,7 +2,8 @@
 """The port's process fabric on the card, beyond what ``chip_smoke.py`` runs.
 
     python3 tools/torch_cluster_probe.py gloo-cuda
-    python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--out DIR]
+    python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
+                                               [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -27,7 +28,15 @@ full width in f32 (8 x 1,024 tokens) held to rank 0's one-process step
 over the same 8 units, as ``chip_smoke.py`` phase 6c holds it, then 3 steps
 of all 16 layers with bf16 compute over f32 params at 8 x 2,048: losses
 finite, the replicated params bit-identical on every rank; each rank's step
-walls, pod-hop bytes and peak memory are printed.
+walls, pod-hop bytes and peak memory are printed.  ``--profile`` adds, on
+each rank, one more step counted op by op and one under ``torch.profiler``
+(train100m's, and each OLMoE run's), and prints a line of JSON a rank as
+``chip_smoke.py`` phases 6b and 6c do (``chip_smoke._profiled_steps``): the
+step's ms, counted flops, bytes and collective bytes by kind (gated against
+the pod hop's and the dry run's count on ``meta`` of the same config,
+batch and 4 x 2 layout), the trace's overlap fraction, idle share and busy
+share, MFU of the four cards against the bf16 peak, and the peak of live
+bytes beside the allocator's.  The traces go to a temporary directory.
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -107,10 +116,15 @@ dist.destroy_process_group()
 """
 
 
-def _smi() -> None:
+def _smi() -> str:
+    """Prints the cards' names, power limits and topology; returns the
+    names and power limits, one card after another."""
+    lines = []
     for args in (["--query-gpu=name,power.limit", "--format=csv,noheader"], ["topo", "-m"]):
         out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
         print(f"[smi] nvidia-smi {' '.join(args)}:\n{out.stdout.strip()}")
+        lines.append(out.stdout.strip())
+    return "; ".join(lines[0].splitlines())
 
 
 def gloo_cuda() -> int:
@@ -184,7 +198,19 @@ def layouts(specs: list[str], sf: float, morsel_rows: int, out: Path) -> int:
     return 0
 
 
-def train(out: Path, arch: str) -> int:
+def _profile_args(profile: str | None) -> list[str]:
+    return ["--profile", profile] if profile else []
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def train(out: Path, arch: str, profile: bool = False) -> int:
+    import tempfile
     import time
 
     from repro_torch.kernels import build
@@ -192,15 +218,21 @@ def train(out: Path, arch: str) -> int:
     from repro_torch.launch.cluster import run_local_cluster
 
     backend, procs, units = "nccl", 4, 2
-    _smi()
+    smi = _smi()
+    traces = tempfile.mkdtemp(prefix="probe_traces_") if profile else None
     if arch == "olmoe-1b-7b":
-        return train_moe(out, backend, procs, units)
+        return train_moe(out, backend, procs, units, traces, smi)
     build.build_all((fa.LIBRARY,))
     dump = out / f"dp_{backend}_{procs}x{units}"
     t0 = time.perf_counter()
+    if traces:
+        from repro_torch.configs import get_config
+
+        meta = _chip_smoke()._count_on_meta(get_config("train100m").scaled(attn_impl="flash"),
+                                            (8, 2048), (procs, units))
     outs = run_local_cluster(
         [str(DRIVER), "dp_train", "--dp-archs", "train100m", "--dp-full", "--dp-shape", "8x2048",
-         "--dump", str(dump)],
+         "--dump", str(dump)] + _profile_args(traces),
         num_processes=procs, local_units=units, timeout_s=600, echo=False,
         backend=backend, device="cuda",
     )
@@ -223,10 +255,16 @@ def train(out: Path, arch: str) -> int:
                   + f" ms, first gradient (warm-up included) {mr['grad_s'] * 1e3:.1f} ms, sync "
                   f"alone {mr['sync_s'] * 1e3:.1f} ms, flash_attention {mr['launches']} a step")
     print(f"[train {backend}:{procs}x{units}] passed in {wall:.1f} s (launcher wall)")
+    if traces:
+        _chip_smoke()._profiled_steps(
+            f"train {backend}:{procs}x{units}", meta, (procs, units), procs,
+            [r["modes"]["auto"] for r in recs], {"all-reduce": recs[0]["leaf_bytes"]},
+            "float32", smi)
     return 0
 
 
-def train_moe(out: Path, backend: str, procs: int, units: int) -> int:
+def train_moe(out: Path, backend: str, procs: int, units: int, traces: str | None,
+              smi: str) -> int:
     import time
 
     from repro_torch.kernels import build
@@ -238,9 +276,15 @@ def train_moe(out: Path, backend: str, procs: int, units: int) -> int:
     dump = out / f"moe_{backend}_{procs}x{units}"
     tag = f"[train-moe {backend}:{procs}x{units}]"
     t0 = time.perf_counter()
+    if traces:  # the 2-layer f32 cut at 8 x 1,024, and all 16 layers in bf16 at 8 x 2,048
+        cs = _chip_smoke()
+        cut = cs.moe_train_config(2)
+        runs = {"check": (cs._count_on_meta(cut, (8, 1024), (procs, units)), cut.dtype),
+                "deep": (cs._count_on_meta(cut.scaled(num_layers=16, dtype="bfloat16"),
+                                           (8, 2048), (procs, units)), "bfloat16")}
     outs = run_local_cluster(
         [str(DRIVER), "moe_train", "--moe-full", "--moe-layers", "2", "--moe-shape", "8x1024",
-         "--moe-deep-steps", "3", "--dump", str(dump)],
+         "--moe-deep-steps", "3", "--dump", str(dump)] + _profile_args(traces),
         num_processes=procs, local_units=units, timeout_s=900, echo=False,
         backend=backend, device="cuda",
     )
@@ -269,6 +313,11 @@ def train_moe(out: Path, backend: str, procs: int, units: int) -> int:
                   + f", pod hop {hop} B a step, peak {m['peak']} B, launches a step "
                   f"{m['launches'][0]}")
     print(f"{tag} passed in {wall:.1f} s (launcher wall)")
+    if traces:
+        for part, (meta, dtype) in runs.items():
+            cs._profiled_steps(f"{tag.strip('[]')} {part}", meta, (procs, units), procs,
+                               [r[part] for r in recs], cs.moe_collectives(recs[0][part]),
+                               dtype, smi)
     return 0
 
 
@@ -280,6 +329,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
     ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
     ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b"), default="train100m")
+    ap.add_argument("--profile", action="store_true",
+                    help="train: one step a rank counted and one profiled (see above)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(SRC))
     import torch
@@ -291,7 +342,7 @@ def main(argv: list[str]) -> int:
         return gloo_cuda()
     os.makedirs(args.out, exist_ok=True)
     if args.mode == "train":
-        return train(args.out, args.arch)
+        return train(args.out, args.arch, args.profile)
     return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
 
 
