@@ -156,10 +156,28 @@ Phases, in order; any failure raises and the process exits non-zero:
    continuous runs must launch ``moe_dispatch`` once per MoE layer of every
    prefill and decode step, the static runs never.  A mixed workload
    (``make_mixed_workload``: prompts 128/256/512, 1-32 new tokens, 4
-   arrivals a step; 128 requests flat, 64 on 2 x 4) must complete with ``alloc.check()`` holding and in
+   arrivals a step; 64 requests flat, 32 on 2 x 4) must complete with ``alloc.check()`` holding and in
    fewer slot-steps than static batching.  Prefill and decode tokens/s,
    TTFT p50/p99 and peak memory are printed; one prefill and one decode
    step are profiled;
+5b. serving across processes (``[serve-procs]``) — ``run_local_cluster``
+   runs the driver's ``serve`` scenario in 2 worker processes x 4 units on
+   this card over Gloo, f32 with TF32 off: OLMoE-1B-7B at full width, 2 of
+   its 16 layers (8 x 256-token prompts + 8 new, batch 8, expert-parallel
+   under a two-level multiplexer with the ``moe_dispatch`` kernel pack) and
+   Mamba2-1.3B at full width and depth (8 x 2,048 + 8).  Process 0 first
+   runs the one-process static engine on the whole batch over the same 8
+   units; then each process serves its 4 rows (the engine's split batch:
+   its rows of the prompts and the cache, the MoE layer under
+   ``moe_tokens="local"``, every step's tokens gathered).  Gates: greedy
+   tokens equal to the one-process run's and on both processes, the
+   prefill's and every decode step's logits within 1e-4 of their max, the
+   per-unit drops bit-exact, ``moe_dispatch`` once an expert-parallel call
+   and ``ssd_scan`` 48 times a prefill a process, the pod hop's bytes equal
+   to the gathered tokens plus, for OLMoE, the capacity buffers' trips
+   (Mamba2 none); the continuous engine must refuse the mesh.  Prefill and
+   decode ms, the pod-hop bytes and the peak of each run are printed beside
+   the card's name and power limit;
 6. training — train100m at full width and depth (random weights from
    ``--seed``, f32, ``remat="block"``) with ``attn_impl="flash"``, batch 8 x
    2,048 tokens, 20 AdamW steps (lr 3e-4, 5 warm-up steps), through the
@@ -336,7 +354,14 @@ ALL_RUNS = ("q1", "q6", "q17", "q3", "q3_pods", "q18_pods", "q3_rr")
 # serving: batch, prompt tokens, new tokens, cache positions (the uniform
 # workload); mixed requests on 8 units and on 2 x 4 (fewer, for time)
 SERVE_SHAPE = (64, 256, 16, 545)
-MIXED_REQUESTS = {1: 128, 2: 64}
+MIXED_REQUESTS = {1: 64, 2: 32}
+# Phase 5b: the static engine's batch split over 2 worker processes x 4 units
+# on this card (Gloo): arch:layers:BxSxNEW cells (layers 0: the config's), f32
+# with TF32 off, logits within this fraction of their max of the one-process run
+SERVE_PROCS, SERVE_UNITS = 2, 4
+SERVE_PROCS_CELLS = "olmoe-1b-7b:2:8x256x8,mamba2-1.3b:0:8x2048x8"
+SERVE_PROCS_TOL = 1e-4
+SERVE_PROCS_TIMEOUT_S = 300
 # training: batch, seq, steps; the CLI resume check's seq
 TRAIN_SHAPE = (8, 2048, 20)
 # data-parallel training (6b): worker processes and units each on this card,
@@ -2253,6 +2278,86 @@ def phase_serving(seed: int) -> dict:
     return main_path
 
 
+def phase_serve_procs(smi: str) -> dict:
+    """The static serving engine with its batch split over ``SERVE_PROCS``
+    worker processes of ``SERVE_UNITS`` units on this card (Gloo): the
+    ``serve`` scenario of ``tests/_torch_multiproc_driver.py``, which asserts
+    every gate in the workers; printed and checked again here from their
+    dumps.  Returns the workers' ``moe_dispatch`` and ``ssd_scan`` launches
+    over the split runs (the main path)."""
+    import shutil
+
+    from repro_torch.launch.cluster import run_local_cluster
+
+    dump = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    t0, launched_at = time.perf_counter(), time.time()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "serve", "--serve-full",
+             "--serve-cells", SERVE_PROCS_CELLS, "--serve-tol", str(SERVE_PROCS_TOL),
+             "--serve-dtype", "float32", "--serve-param-dtype", "float32", "--dump", dump],
+            num_processes=SERVE_PROCS, local_units=SERVE_UNITS, timeout_s=SERVE_PROCS_TIMEOUT_S,
+            echo=False, backend="gloo", device="cuda",
+        )
+        recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["serve"]
+                for p in range(SERVE_PROCS)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        if "PASS serve" not in out:
+            raise AssertionError(f"serve-procs process {pid}: no PASS\n{out[-4000:]}")
+    launched = {"moe_dispatch": 0, "ssd_scan": 0}
+    for arch, r0 in recs[0]["archs"].items():
+        B, S, new = r0["shape"]
+        one = r0["one_process"]
+        if not (r0["tokens_equal"] and max(r0["logit_rel"]) <= SERVE_PROCS_TOL
+                and r0.get("drops_equal", True)):
+            raise AssertionError(f"serve-procs {arch}: against the one-process engine {r0}")
+        print(f"[serve-procs] {arch} full width, {r0['layers']} layers, f32 (TF32 off): {B} x "
+              f"{S}-token prompts + {new} new over {SERVE_PROCS} processes x {SERVE_UNITS} units "
+              f"on this card over Gloo, {B // SERVE_PROCS} rows a process ({r0['rows']}); "
+              f"greedy tokens equal to process 0's one-process engine over the same 8 units; "
+              f"logits within {max(r0['logit_rel']):.3g} of their max ({SERVE_PROCS_TOL}) over "
+              f"{len(r0['logit_rel'])} calls; drops "
+              + (f"bit-exact over {r0['expert_calls']} expert-parallel calls ({sum(r0['drops'])}"
+                 " dropped)" if "drops" in r0 and r0["expert_calls"] else "none (no "
+                 "expert-parallel call)") + f" ({smi})")
+        print(f"[serve-procs] {arch} one process (8 units, whole batch): prefill "
+              f"{one['prefill_s'][0] * 1e3:.1f} ms, decode {sum(one['decode_s']) * 1e3:.1f} ms "
+              f"over {len(one['decode_s'])} steps, peak {one['peak']} B, launches "
+              f"{one['launches']}")
+        for pid, rec in enumerate(recs):
+            r = rec["archs"][arch]
+            h = r["want_hop"]
+            print(f"[serve-procs] {arch} process {pid}: prefill {r['prefill_s'][-1][0] * 1e3:.1f}"
+                  f" ms, decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over "
+                  f"{len(r['decode_s'][-1])} steps ({1e3 * sum(r['decode_s'][-1]) / max(len(r['decode_s'][-1]), 1):.2f} ms a step); "
+                  f"pod hop {r['hop_bytes']} B = gathered tokens {h['gathers']} B (4 B x "
+                  f"{B // SERVE_PROCS} rows x {1 + r['stats']['decode_steps']} calls) + "
+                  f"expert-parallel trips {h['expert_trips']} B (2 x U x (N - U) x E / N x C x d "
+                  f"x itemsize a MoE layer's call) {r['hop_kinds']}; peak {r['peak']} B; "
+                  f"launches {r['launches']} ({smi})")
+            if r["hop_bytes"] != h["total"] or not r["tokens_equal_on_every_process"]:
+                raise AssertionError(f"serve-procs {arch} process {pid}: {r}")
+            if arch.startswith("mamba2") and h["expert_trips"]:
+                raise AssertionError(f"serve-procs {arch}: expert trips on the pod hop")
+            for k in launched:
+                launched[k] += r["launches"][k]
+    if not recs[0]["continuous_raises"]:
+        raise AssertionError("serve-procs: the continuous engine ran across processes")
+    print(f"[serve-procs] the continuous engine across processes raises: "
+          f"{recs[0]['continuous_raises'][:100]}...")
+    for pid, rec in enumerate(recs):
+        parts = {"start-up": rec["started_at"] - launched_at,
+                 **{a: r["seconds"] for a, r in rec["archs"].items()}}
+        print(f"[serve-procs] process {pid}'s seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    print(f"[serve-procs] phase 5b in {wall:.1f} s (launcher wall); launches over the split "
+          f"runs: {launched}")
+    return launched
+
+
 def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
                kernel: str = "flash_attention", tail: int = 5):
     """``steps`` AdamW steps (lr 3e-4, 5 warm-up steps over a 20-step
@@ -3406,6 +3511,9 @@ def main() -> int:
     # 5. serving (the MoE main path)
     s_launches = phase_serving(args.seed)
 
+    # 5b. serving with the batch split across two processes
+    b_launches = phase_serve_procs(smi)
+
     # 6. training (the training main path)
     t_launches = phase_training(args.seed)
 
@@ -3427,7 +3535,7 @@ def main() -> int:
     # 10. Whisper (the encoder-decoder serving and training main path)
     w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
-             t_launches, p_launches, x_launches, m_launches, r_launches, f_launches,
+             b_launches, t_launches, p_launches, x_launches, m_launches, r_launches, f_launches,
              w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:

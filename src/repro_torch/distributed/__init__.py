@@ -8,10 +8,13 @@ from .sharding import (
     build_shardings,
     current_mesh_context,
     default_rules,
+    gather_rows,
     is_spec_leaf,
+    local_rows,
     logical_sharding,
     mesh_context,
     shard,
+    split_rows,
     unit_rules,
 )
 
@@ -27,4 +30,7 @@ __all__ = [
     "is_spec_leaf",
     "build_shardings",
     "shard",
+    "split_rows",
+    "local_rows",
+    "gather_rows",
 ]

@@ -22,7 +22,11 @@ pod-major, possibly spanning processes); its rules default to
 :func:`unit_rules`, and ``axis_sizes`` lets a context resolve against
 another mesh's axes (the reference's ``data x model``, say) for
 comparison.  The expert-parallel MoE layer reads the context to lay tokens
-and experts out over the units.
+and experts out over the units.  The batch follows the reference's
+``"batch" -> (pod, data)``: on a mesh that spans processes each process
+holds its contiguous rows (:func:`local_rows`, where :func:`split_rows`
+holds; the trainer and the static serving engine), and :func:`gather_rows`
+puts them back together on every process.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Iterator, Literal, Mapping, Sequence
 
 import torch
 
+from ..core import exchange
 from ..core.exchange import POD_AXIS, SHUFFLE_AXIS, Mesh
 from ..tree import tree_map
 
@@ -257,6 +262,42 @@ def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     return x
 
 
+# ----------------------------------------------------------------------------
+# A process's rows of a batch (the logical ``"batch"`` axis over the pods).
+# ----------------------------------------------------------------------------
+
+def _slices(batch: dict, num: int, what: str) -> list[dict]:
+    """``num`` consecutive row slices of every batch entry."""
+    B = next(iter(batch.values())).shape[0]
+    if B % num:
+        raise ValueError(f"batch {B} not divisible by {num} {what}")
+    n = B // num
+    return [{k: v[i * n : (i + 1) * n] for k, v in batch.items()} for i in range(num)]
+
+
+def split_rows(n: int, mesh: Mesh) -> bool:
+    """Do ``mesh``'s ``R`` processes divide a batch of ``n`` rows?  Where
+    they do not, the batch stays whole on every process, as the reference
+    drops a mesh axis that does not divide a dim."""
+    return n % mesh.num_processes == 0
+
+
+def local_rows(batch: dict, mesh: Mesh) -> dict:
+    """This process's contiguous slice of a global batch: rows
+    ``[rank * B / R, (rank + 1) * B / R)`` on a mesh over ``R`` processes
+    (the whole batch on a mesh in one process)."""
+    return _slices(batch, mesh.num_processes, "processes")[mesh.process_index]
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole ``[B, ...]`` tensor on every process from each process's
+    ``[B / R, ...]`` rows (:func:`local_rows`' inverse): one all-gather over
+    the pod hop (``exchange.POD_HOP``, kind ``"all-gather"``)."""
+    if mesh.num_processes == 1:
+        return t
+    return exchange._all_gather(mesh, t).reshape((-1,) + tuple(t.shape[1:]))
+
+
 __all__ = [
     "LOGICAL_AXES",
     "AxisRules",
@@ -269,4 +310,7 @@ __all__ = [
     "is_spec_leaf",
     "build_shardings",
     "shard",
+    "split_rows",
+    "local_rows",
+    "gather_rows",
 ]

@@ -10,7 +10,8 @@ It takes the reference's layout: ``x [B, L, H, P]``, ``dt [B, L, H]`` f32,
 ``[B, H, P, N]`` f32; x, B and C in float32 or bfloat16 (one dtype).  A
 tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA tensor
 launches the kernel or raises; a ``meta`` tensor (the dry run) gets outputs
-of the right shapes and launches nothing.  Every call reports its work to
+of the right shapes, allocates the launch's scratch beside them (so an op
+counter's peak of live bytes holds it) and launches nothing.  Every call reports its work to
 an active op counter (:mod:`repro_torch.obs.cost`, :func:`scan_work`).  One
 launch enqueues the source's three
 kernels (chunk states and shared scores, state passing, chunk outputs); the
@@ -128,10 +129,23 @@ def ssd_scan(
     with cost.kernel("ssd_scan", *scan_work(x, dt, A, Bm, chunk, initial_state)):
         if x.device.type == "cpu":
             return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
-        if x.device.type == "meta":
-            B, _, H, P = x.shape
-            return torch.empty_like(x), x.new_empty((B, H, P, Bm.shape[3]), dtype=torch.float32)
+        if x.device.type == "meta":  # the launch's allocations, so a counter sees its peak
+            y, fin, scratch = _buffers(x, Bm, chunk)
+            del scratch
+            return y, fin
         return _launch(x, dt, A, Bm, Cm, chunk, initial_state)
+
+
+def _buffers(x, Bm, chunk: int):
+    """``(y, final state, (chunk states, scores, cumsums))``: the outputs
+    and the f32 scratch of one launch, on ``x``'s device."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nc = L // chunk
+    scratch = (torch.empty((B, nc, H, N, P), **f32), torch.empty((B, nc, G, chunk, chunk), **f32),
+               torch.empty((B, H, L), **f32))
+    return torch.empty_like(x), torch.empty((B, H, P, N), **f32), scratch
 
 
 def _launch(x, dt, A, Bm, Cm, chunk: int, initial_state) -> tuple[torch.Tensor, torch.Tensor]:
@@ -139,13 +153,7 @@ def _launch(x, dt, A, Bm, Cm, chunk: int, initial_state) -> tuple[torch.Tensor, 
     B, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     lib = LIBRARY.load()
-    y = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    fin = torch.empty((B, H, P, N), **f32)
-    nc = L // chunk
-    states = torch.empty((B, nc, H, N, P), **f32)
-    scores = torch.empty((B, nc, G, chunk, chunk), **f32)
-    acs = torch.empty((B, H, L), **f32)
+    y, fin, (states, scores, acs) = _buffers(x, Bm, chunk)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),

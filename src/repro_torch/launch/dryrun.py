@@ -36,17 +36,21 @@ accumulation) is added ``n - 2`` times more, the counterpart of the
 reference's trip-count multiplication; the rest of the step (the gradient
 sync and the AdamW update) counts once.  The result equals the looped
 step's count key for key (``tests/test_torch_dryrun.py``).  Prefill and decode cells run ``api.prefill`` and
-``api.decode_step`` under the mesh context.  A MoE cell runs under the
-two-level multiplexer with the kernel pack, as the card does.  A cell the
-port cannot run on a layout is ``skipped`` with the port's reason: serving
-across processes (the serving engines run in one process, ROADMAP §A), and
-``long_500k`` for the attention archs (the reference's reason).
+``api.decode_step`` under the mesh context, as the static serving engine
+runs them: on ``4x2`` each rank takes its ``B / 4`` rows of the batch and a
+cache of as many rows, the MoE layer under ``moe_tokens="local"``, where 4
+divides the batch; a batch it does not divide (``long_500k``'s one row)
+is counted whole, replicated on every rank, as the reference drops a mesh
+axis that does not divide a dim.  A MoE cell runs under the two-level
+multiplexer with the kernel pack, as the card does.  ``long_500k`` for the
+attention archs is ``skipped`` with the reference's reason.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -61,10 +65,10 @@ from ..configs.base import SHAPES, ModelConfig, ShapeSpec
 from ..core.exchange import Mesh, make_mesh
 from ..core.multiplexer import make_multiplexer, use_multiplexer
 from ..core.topology import H100_SXM
-from ..distributed.sharding import MeshContext, mesh_context
+from ..distributed.sharding import MeshContext, local_rows, mesh_context, split_rows
 from ..models import registry as R
 from ..train import AdamWConfig
-from ..train.step import TrainState, local_rows, make_train_step, state_shardings
+from ..train.step import TrainState, make_train_step, state_shardings
 from ..tree import leaves
 from . import op_cost
 from . import roofline as RL
@@ -87,9 +91,6 @@ MICROBATCHES = {
 LAYOUTS = {False: ("1x8", 1, 1, 8), True: ("4x2", 4, 4, 2)}
 
 LONG_CONTEXT_REASON = "pure full-attention arch; sub-quadratic required (DESIGN.md)"
-SERVING_ACROSS_PROCESSES_REASON = (
-    "the port's serving engines run in one process: no serving cell spans processes "
-    "(ROADMAP §A item 8)")
 
 
 def dryrun_config(
@@ -146,17 +147,24 @@ def _nbytes(tree: Any) -> int:
 
 
 def build_cell(api: R.ModelApi, shape: ShapeSpec, ctx: MeshContext):
-    """``(fn, args)`` of one cell on ``meta``, for this process."""
+    """``(fn, args)`` of one cell on ``meta``, for this process: a train
+    step on its rows; a prefill or a decode step on its ``B / R`` rows and
+    a cache of as many where the ``R`` processes divide the batch (the
+    static engine's split), the whole batch and cache where they do not."""
     cfg = api.cfg
     batch, _ = R.input_specs(cfg, shape)
     if shape.kind == "train":
         step = make_train_step(api, AdamWConfig(schedule=cfg.lr_schedule))
         state = TrainState.create(api, 0, device="meta", shardings=state_shardings(api, ctx))
         return step, (state, local_rows(batch, ctx.mesh))
+    rows = shape.global_batch
+    if split_rows(rows, ctx.mesh):
+        batch = local_rows(batch, ctx.mesh)
+        rows //= ctx.mesh.num_processes
     params, _ = R.param_shape_specs(cfg)
     if shape.kind == "prefill":
         return api.prefill, (params, batch)
-    cache, _ = R.cache_shape_specs(cfg, shape)
+    cache, _ = R.cache_shape_specs(cfg, dataclasses.replace(shape, global_batch=rows))
     return api.decode_step, (params, batch["tokens"], cache, shape.seq_len - 1)
 
 
@@ -200,6 +208,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeSpec, processes: int, units: int) -
         api = R.build(cfg)
         mux = (use_multiplexer(make_multiplexer(mesh, pack_impl="cuda"))
                if cfg.num_experts and cfg.moe_impl == "ep_shardmap" else contextlib.nullcontext())
+        if shape.kind != "train" and split_rows(shape.global_batch, mesh):
+            ctx = dataclasses.replace(ctx, moe_tokens="local")  # each rank's own tokens
         with mesh_context(ctx), mux, torch.no_grad() if shape.kind != "train" else \
                 contextlib.nullcontext():
             res = _count(api, shape, ctx)
@@ -232,8 +242,6 @@ def run_cell(
     reason = None
     if shape.name == "long_500k" and not cfg.supports_long_context:
         reason = LONG_CONTEXT_REASON
-    elif shape.kind != "train" and processes > 1:
-        reason = SERVING_ACROSS_PROCESSES_REASON
     if reason:
         art = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "status": "skipped",
                "reason": reason}

@@ -19,8 +19,9 @@ Two execution paths (``cfg.moe_impl``):
   experts).  Under the context's ``moe_tokens="global"`` (serving) every
   process holds all ``T`` tokens and the outputs are gathered, so every
   process returns all ``T``; under ``"local"`` (training, set by the train
-  step) each process feeds its own ``T / R`` rows and gets back only
-  theirs, and the pod hop's backward carries the gradient.
+  step; serving a batch split over the processes, set by the static engine)
+  each process feeds its own ``T / R`` rows and gets back only theirs, and
+  the pod hop's backward carries the gradient.
 
 An expert leaf is either whole (``E`` rows) or already this process's slice
 (``local_units * E_loc`` rows, the sharded train state of
@@ -273,9 +274,10 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     (``T % N`` or ``E % N``) fall back to :func:`moe_dense`, as in the
     reference, with ``T`` the global token count (under ``"local"`` tokens,
     this process's rows times the process count, so every process decides
-    alike); across processes under ``"local"`` they raise instead, as the
-    expert leaves may be sharded and a silent dense path would differ from
-    the step the other processes take.
+    alike), on this process's tokens under ``"local"`` (the dense path is
+    token by token).  Across processes under ``"local"`` with sharded expert
+    leaves (the train state) they raise instead: this process holds only its
+    own experts, so it cannot take the dense path.
     """
     ctx = current_mesh_context()
     if ctx is None:
@@ -300,7 +302,7 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     local = ctx.moe_tokens == "local" and mesh.num_processes > 1
     T_all = T * mesh.num_processes if local else T
     if N == 1 or T_all == 0 or T_all % N != 0 or cfg.num_experts % N != 0:
-        if local:
+        if local and params["w_gate"].shape[0] != cfg.num_experts:
             raise ValueError(
                 f"expert-parallel MoE across {mesh.num_processes} processes: {T_all} tokens "
                 f"and {cfg.num_experts} experts must both split over the {N} units"

@@ -25,6 +25,15 @@ positions after prefill, an SSM state is O(1) and stays as it is
 (``decode_step_slots``) and raises for the SSM, hybrid and encoder-decoder
 families.
 
+Across processes (a mesh context whose mesh spans ``R`` processes, every
+process running the same calls) the static engine splits its batch as the
+reference's ``"batch" -> (pod, data)`` rule does: each process prefills,
+caches and decodes its ``B / R`` rows, the expert-parallel MoE layer moves
+tokens between the processes over the pod hop, and each step's sampled
+tokens are gathered, so every process returns every request's tokens.  A
+batch that ``R`` does not divide runs whole on every process.  Params stay
+whole on every process.  The continuous engine raises on such a mesh.
+
 Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``, an
 encoder-decoder's ``frames [B, S_f, d]``) join every prefill batch.  Static
 decode continues where the reference reads it from its first cache leaf
@@ -50,6 +59,13 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..distributed.sharding import (
+    current_mesh_context,
+    gather_rows,
+    local_rows,
+    mesh_context,
+    split_rows,
+)
 from ..models import registry
 from ..obs.trace import maybe_span
 from ..relational.table import resolve_device
@@ -164,10 +180,40 @@ class ServeEngine:
         self.gen = _generator(self.device, seed)
         self.stats = {"prefill_tokens": 0, "decode_steps": 0, "slot_steps": 0, "wall": 0.0}
 
+    def _rows(self):
+        """How the batch lies over the active mesh: ``(mode, mesh, ctx)``.
+        ``"whole"`` without a mesh that spans processes; on one over ``R``
+        processes ``"split"`` where ``R`` divides the batch (each process
+        its rows, the MoE layer under ``moe_tokens="local"``), else
+        ``"replicated"`` (every process the whole batch under
+        ``"global"``)."""
+        ctx = current_mesh_context()
+        if ctx is None or ctx.mesh.num_processes == 1:
+            return "whole", None, ctx
+        if split_rows(self.batch_size, ctx.mesh):
+            return "split", ctx.mesh, dataclasses.replace(ctx, moe_tokens="local")
+        return "replicated", None, ctx
+
     def generate(self, params, requests: list[Request],
                  extra_inputs: dict | None = None) -> list[Request]:
         """Run one static batch of same-length prompts to completion, with
-        ``extra_inputs`` (``[batch_size, ...]`` each) in its prefill."""
+        ``extra_inputs`` (``[batch_size, ...]`` each) in its prefill.
+
+        Under a mesh context whose mesh spans ``R`` processes every process
+        calls this with the same whole batch.  Where ``R`` divides
+        ``batch_size``, each process prefills and decodes only its rows of
+        the prompts, of ``extra_inputs`` and of the cache (``batch_size / R``
+        of them), and every step's sampled tokens are gathered over the pod
+        hop, so that every process fills every ``Request`` and keeps the
+        same live mask.  Otherwise every process runs the whole batch.
+        ``stats["rows"]`` says which (``"split"``, ``"replicated"``, or
+        ``"whole"`` off such a mesh).  Every process makes the same number
+        of prefill and decode calls: the MoE layer's pod hops and the
+        gathers are collectives, and a process that left the loop early
+        would hang the others.  Greedy tokens equal the one-process run's;
+        with a temperature each process draws its rows' tokens from its own
+        generator.
+        """
         t0 = time.perf_counter()
         if len(requests) > self.batch_size:
             raise ValueError(f"{len(requests)} requests exceed batch_size={self.batch_size}")
@@ -179,19 +225,30 @@ class ServeEngine:
         for i, r in enumerate(requests):
             prompts[i] = r.prompt
 
-        batch = {"tokens": torch.from_numpy(prompts).to(self.device),
-                 **_on_device(extra_inputs, self.device)}
-        logits, cache = self.api.prefill(params, batch)
+        mode, mesh, ctx = self._rows()
+        self.stats["rows"] = mode
+        batch = {"tokens": torch.from_numpy(prompts),
+                 **{k: torch.as_tensor(v) for k, v in (extra_inputs or {}).items()}}
+        if mesh is not None:
+            batch = local_rows(batch, mesh)
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        rows = batch["tokens"].shape[0]
+
+        def gathered(t: torch.Tensor) -> np.ndarray:
+            return (t if mesh is None else gather_rows(t, mesh)).cpu().numpy()
+
+        with mesh_context(ctx):
+            logits, cache = self.api.prefill(params, batch)
         self.stats["prefill_tokens"] += int(prompts.size)
         # decode continues after the WHOLE prefill context (a VLM's patch
         # rows + the prompt; an encoder-decoder's frames), in a capacity-long
         # cache
         ctx_len = _decode_start(self.cfg, plen, extra_inputs)
-        cache = grow_cache(self.api, cache, B, self.capacity)
+        cache = grow_cache(self.api, cache, rows, self.capacity)
 
         max_new = max(r.max_new_tokens for r in requests)
         tokens = sample_token(self.gen, logits, self.temperature)
-        first = tokens.cpu().numpy()
+        first = gathered(tokens)
         live = np.array([not r.done for r in requests] + [False] * (B - len(requests)))
         for i, r in enumerate(requests):
             r.out_tokens.append(int(first[i]))
@@ -203,12 +260,13 @@ class ServeEngine:
         for _step in range(1, max_new):
             if pos >= self.capacity or not live.any():
                 break
-            logits, cache = self.api.decode_step(params, tokens[:, None], cache, pos)
+            with mesh_context(ctx):
+                logits, cache = self.api.decode_step(params, tokens[:, None], cache, pos)
             tokens = sample_token(self.gen, logits, self.temperature)
             self.stats["decode_steps"] += 1
             self.stats["slot_steps"] += B
             pos += 1
-            arr = tokens.cpu().numpy()
+            arr = gathered(tokens)
             for i, r in enumerate(requests):
                 if live[i]:
                     r.out_tokens.append(int(arr[i]))
@@ -329,6 +387,14 @@ class ContinuousEngine:
                 f"continuous batching needs a per-position KV cache; family "
                 f"{api.cfg.family!r} does not provide decode_step_slots"
             )
+        ctx = current_mesh_context()
+        if ctx is not None and ctx.mesh.num_processes > 1:
+            raise NotImplementedError(
+                f"continuous batching on a mesh over {ctx.mesh.num_processes} processes: the "
+                "slot map, admission and eviction would have to agree on every process while "
+                "each holds only its slots' cache rows (ROADMAP §A item 8(b)); serve the batch "
+                "with the static ServeEngine, which splits it over the processes"
+            )
         self.api = api
         self.cfg = api.cfg
         self.batch_size = batch_size
@@ -350,8 +416,6 @@ class ContinuousEngine:
         model is expert-parallel and a mesh context is active."""
         if self.cfg.moe_impl != "ep_shardmap":
             return None
-        from ..distributed.sharding import current_mesh_context
-
         ctx = current_mesh_context()
         if ctx is None:
             return None

@@ -69,8 +69,10 @@ from ..core.exchange import POD_AXIS, Mesh
 from ..core.multiplexer import make_multiplexer
 from ..distributed.sharding import (
     MeshContext,
+    _slices,
     build_shardings,
     current_mesh_context,
+    local_rows,
     mesh_context,
 )
 from ..models import registry
@@ -130,22 +132,6 @@ class TrainState:
         """Step 0 with fresh optimizer state around given params."""
         opt = adamw_init(params)
         return TrainState(params=params, opt=opt, step=torch.zeros_like(opt["count"]))
-
-
-def _slices(batch: dict, num: int, what: str) -> list[dict]:
-    """``num`` consecutive row slices of every batch entry."""
-    B = next(iter(batch.values())).shape[0]
-    if B % num:
-        raise ValueError(f"batch {B} not divisible by {num} {what}")
-    n = B // num
-    return [{k: v[i * n : (i + 1) * n] for k, v in batch.items()} for i in range(num)]
-
-
-def local_rows(batch: dict, mesh: Mesh) -> dict:
-    """This process's contiguous slice of a global batch: rows
-    ``[rank * B / R, (rank + 1) * B / R)`` on a mesh over ``R`` processes
-    (the whole batch on a mesh in one process)."""
-    return _slices(batch, mesh.num_processes, "processes")[mesh.process_index]
 
 
 def process_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -49,7 +49,10 @@ DEV = "cpu" if INFO.device == "cpu" else "cuda"
 ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           dp_archs=["train100m", "mamba2-1.3b"], dp_full=False, dp_shape=(8, 32),
                           moe_full=False, moe_layers=0, moe_shape=(8, 32), moe_fabric_check=False,
-                          moe_ckpt="", moe_deep_steps=0, profile="")
+                          moe_ckpt="", moe_deep_steps=0, profile="",
+                          serve_cells="qwen2.5-3b", serve_full=False,
+                          serve_dtype="float32", serve_param_dtype="float32", serve_ref="whole",
+                          serve_tol=1e-5, serve_repeat=1, serve_replicated="")
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1177,13 +1180,331 @@ def scenario_moe_train():
     print("PASS moe_train")
 
 
+def _serve_cells() -> list[tuple[str, int, tuple]]:
+    """``--serve-cells``: ``arch[:layers[:BxSxNEW]]`` items, comma-separated
+    (layers 0: the config's; the shape by default 4 x 16 + 4 new)."""
+    out = []
+    for item in ARGS.serve_cells.split(","):
+        arch, layers, shape = (item.split(":") + ["0", "4x16x4"][item.count(":"):])[:3]
+        out.append((arch, int(layers), tuple(int(v) for v in shape.split("x"))))
+    return out
+
+
+def _serve_cfg(arch: str, layers: int):
+    """The served config: smoke or full (``--serve-full``), cut to ``layers``,
+    ``--serve-dtype`` compute over ``--serve-param-dtype`` params, a MoE
+    config expert-parallel."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    base = (get_config if ARGS.serve_full else get_smoke_config)(arch)
+    over = dict(dtype=ARGS.serve_dtype, param_dtype=ARGS.serve_param_dtype)
+    if layers:
+        over["num_layers"] = layers
+    if base.num_experts:
+        over["moe_impl"] = "ep_shardmap"
+    return base.scaled(**over)
+
+
+def _serve_inputs(cfg, B: int, S: int, new: int):
+    """``B`` prompts of ``S`` tokens and the side inputs, drawn from seed 0
+    as the serving launcher draws them (an encoder-decoder's frames ``[B, S,
+    d]``, a VLM's ``min(1024, S // 2)`` patch rows), and the capacity."""
+    from repro_torch.models.registry import VLM_PATCHES
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    extra, side = None, 0
+    if cfg.family == "encdec":
+        extra = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    elif cfg.family == "vlm":
+        side = min(VLM_PATCHES, S // 2)
+        extra = {"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
+    return prompts, extra, S + new + 1 + side
+
+
+class _Recorded:
+    """A model-API call with each call's logits kept on the host and its
+    wall, the card drained on both sides."""
+
+    def __init__(self, fn):
+        self.fn, self.logits, self.seconds = fn, [], []
+
+    def __call__(self, *args):
+        out, wall = _synced(lambda: self.fn(*args))
+        self.seconds.append(wall)
+        self.logits.append(out[0].float().cpu())
+        return out
+
+
+def _serve_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    return {"moe_dispatch": md.LAUNCHES["moe_dispatch"], "ssd_scan": sk.LAUNCHES["ssd_scan"],
+            "flash_attention": fa.LAUNCHES["flash_attention"]}
+
+
+def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux) -> dict:
+    """One static batch through ``ServeEngine`` under ``ctx`` and ``mux``:
+    tokens, each call's logits (this process's rows), the drops of every
+    expert-parallel call (this process's units), the stats, the pod hop's
+    bytes, the kernels' launches, the walls and the peak."""
+    import dataclasses
+
+    from repro_torch.core.multiplexer import use_multiplexer
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, ServeEngine
+
+    prompts, extra, cap = inputs
+    rec = dataclasses.replace(api, prefill=_Recorded(api.prefill),
+                              decode_step=_Recorded(api.decode_step))
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts[:B]]
+    engine = ServeEngine(rec, batch_size=B, capacity=cap, device=DEV)
+    side = None if extra is None else {k: v[:B] for k, v in extra.items()}
+    exchange.reset_pod_hop()
+    k0 = _serve_launches()
+    _reset_peak()
+    with mesh_context(ctx), use_multiplexer(mux), moe.record_drops() as drops:
+        _, wall = _synced(lambda: engine.generate(params, reqs, side))
+    return {"tokens": [r.out_tokens for r in reqs],
+            "logits": rec.prefill.logits + rec.decode_step.logits,
+            "drops": [d.cpu() for d in drops], "stats": dict(engine.stats),
+            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
+            "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
+            "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step.seconds,
+            "wall_s": wall, "peak": _peak()}
+
+
+def _serve_hop_bytes(cfg, params, rows: int, S: int, steps: int, mesh) -> dict:
+    """What the pod hop carries in one split run, a process: the sampled
+    int32 tokens of its ``rows`` gathered once a call (the prefill and
+    ``steps`` decode steps); and, for each expert-parallel MoE layer call
+    (a call whose ``rows * S * R`` tokens the ``N`` units divide; one
+    decode token a row), the dispatch and the combine trips, each this
+    process's ``U`` units' capacity buffers for the ``N - U`` units of the
+    other processes: ``2 * U * (N - U) * (E / N) * C * d * itemsize`` with
+    ``C = ep_capacity(tokens / U, k, E, capacity_factor)``."""
+    from repro_torch.core.autotune import ep_capacity
+    from repro_torch.tree import leaves_with_paths
+
+    gathers = (1 + steps) * rows * 4
+    moe_layers = sum(1 for p, _ in leaves_with_paths(params) if p[-1] == "router")
+    U, N, R = mesh.local_units, mesh.num_units, mesh.num_processes
+    E = cfg.num_experts
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+    def trips(tokens: int) -> int:
+        if cfg.moe_impl != "ep_shardmap" or (tokens * R) % N or E % N:
+            return 0  # the dense path: no hop
+        C = ep_capacity(tokens // U, cfg.top_k, E, cfg.capacity_factor)
+        return 2 * U * (N - U) * (E // N) * C * cfg.d_model * item
+
+    ep = moe_layers * (trips(rows * S) + steps * trips(rows))
+    return {"gathers": gathers, "expert_trips": ep, "total": gathers + ep}
+
+
+def _check_launches(tag: str, cfg, run: dict) -> None:
+    """The launches a run implies on the card: ``moe_dispatch`` once an
+    expert-parallel call (the multiplexer's kernel pack), ``ssd_scan`` once
+    an SSM layer a prefill; none off the card."""
+    on = DEV == "cuda"
+    scan = cfg.num_layers * len(run["prefill_s"]) if cfg.family == "ssm" else 0
+    want = {"moe_dispatch": len(run["drops"]) if on else 0, "ssd_scan": scan if on else 0}
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"serve {tag}: launches {got}, the run implies {want}")
+
+
+def _worst_rows(got: list, want: list, lo: int) -> list:
+    """Per call, ``max |a - b| / max |b|`` of this process's logit rows
+    against rows ``lo ..`` of the whole batch's."""
+    return [float((a - b[lo:lo + a.shape[0]]).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def _serve_arch(arch: str, layers: int, shape: tuple, mesh, ctx, mux_for) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import MeshContext
+    from repro_torch.models import registry
+
+    rank, R = INFO.process_id, mesh.num_processes
+    B, S, new = shape
+    cfg = _serve_cfg(arch, layers)
+    api = registry.build(cfg)
+    params = api.init(0, device=DEV)
+    inputs = _serve_inputs(cfg, B, S, new)
+    rows = B // R
+    rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "family": cfg.family}
+    ref = None
+    if ARGS.serve_ref == "whole" and rank == 0:  # every unit of the same mesh in this process
+        one = exchange.Mesh(mesh.num_pods, mesh.n)
+        ref = _serve_run(api, params, inputs, B, new, MeshContext(one), mux_for(one))
+        _check_launches(f"{arch} one process", cfg, ref)
+        if ref["hop_bytes"]:
+            raise AssertionError(f"serve {arch}: the one-process run used the pod hop")
+        rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s", "wall_s",
+                                                  "peak", "launches")}
+    elif ARGS.serve_ref == "rows":  # this process's rows alone, no mesh
+        lo, hi = rank * rows, (rank + 1) * rows
+        mine = (inputs[0][lo:hi],
+                None if inputs[1] is None else {k: v[lo:hi] for k, v in inputs[1].items()},
+                inputs[2])
+        ref = _serve_run(api, params, mine, rows, new, None, None)
+        rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s", "wall_s",
+                                                  "peak", "launches")}
+    sync_processes()
+    runs = []
+    for _ in range(ARGS.serve_repeat):
+        runs.append(_serve_run(api, params, inputs, B, new, ctx, mux_for(mesh)))
+    run = runs[-1]
+    _check_launches(arch, cfg, run)
+    mode = run["stats"]["rows"]
+    if mode != "split":
+        raise AssertionError(f"serve {arch}: a batch of {B} over {R} processes ran {mode}")
+    want_hop = _serve_hop_bytes(cfg, params, rows, S, run["stats"]["decode_steps"], mesh)
+    rec.update(rows=mode, tokens=run["tokens"], stats=run["stats"], hop_bytes=run["hop_bytes"],
+               hop_kinds=run["hop_kinds"], want_hop=want_hop, launches=run["launches"],
+               prefill_s=[r["prefill_s"] for r in runs], decode_s=[r["decode_s"] for r in runs],
+               wall_s=[r["wall_s"] for r in runs], peak=run["peak"],
+               tokens_repeat_equal=all(r["tokens"] == run["tokens"] for r in runs),
+               expert_calls=len(run["drops"]))
+    if run["hop_bytes"] != want_hop["total"]:
+        raise AssertionError(f"serve {arch}: {run['hop_bytes']} B on the pod hop, derived "
+                             f"{want_hop}")
+    every = [None] * R
+    whole = ARGS.serve_ref == "whole"  # process 0 holds every process's rows to its run
+    dist.all_gather_object(every, (run["tokens"], run["logits"] if whole else None,
+                                   [d.tolist() for d in run["drops"]]))
+    rec["tokens_equal_on_every_process"] = all(t == run["tokens"] for t, _, _ in every)
+    if not rec["tokens_equal_on_every_process"]:
+        raise AssertionError(f"serve {arch}: the processes' tokens differ")
+    if ref is not None:
+        if ARGS.serve_ref == "rows":
+            rec["tokens_equal"] = run["tokens"][rank * rows:(rank + 1) * rows] == ref["tokens"]
+            rec["logit_rel"] = _worst_rows(run["logits"], ref["logits"], 0)
+            rec["logits_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                          zip(run["logits"], ref["logits"]))
+        else:
+            rec["tokens_equal"] = run["tokens"] == ref["tokens"]
+            rec["logit_rel"] = [max(v) for v in zip(*(
+                _worst_rows(lg, ref["logits"], r * rows) for r, (_, lg, _) in enumerate(every)))]
+            split_drops = [sum((d[c] for _, _, d in every), []) for c in range(len(run["drops"]))]
+            rec["drops_equal"] = split_drops == [d.tolist() for d in ref["drops"]]
+            rec["drops"] = [sum(d) for d in split_drops]
+        fails = [k for k, bad in (
+            ("tokens", not rec["tokens_equal"]),
+            ("logits", max(rec["logit_rel"]) > ARGS.serve_tol),
+            ("drops", not rec.get("drops_equal", True)),
+        ) if bad]
+        if fails:
+            raise AssertionError(f"serve {arch} against the one-process engine: {fails}: "
+                                 f"{ {k: rec.get(k) for k in ('logit_rel', 'drops')} }")
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_replicated(arch: str, B: int, shape: tuple, ctx, mux) -> dict:
+    """A batch of ``B`` rows that the processes do not divide: every process
+    runs it whole (``stats["rows"] == "replicated"``), nothing crosses the
+    pod hop but what the MoE layer's gather would, and the tokens equal on
+    every process."""
+    import torch.distributed as dist
+
+    from repro_torch.models import registry
+
+    cfg = _serve_cfg(arch, 0)
+    api = registry.build(cfg)
+    params = api.init(0, device=DEV)
+    run = _serve_run(api, params, _serve_inputs(cfg, *shape), B, shape[2], ctx, mux)
+    every = [None] * INFO.num_processes
+    dist.all_gather_object(every, run["tokens"])
+    return {"arch": arch, "batch": B, "rows": run["stats"]["rows"], "tokens": run["tokens"],
+            "hop_bytes": run["hop_bytes"],
+            "tokens_equal_on_every_process": all(t == run["tokens"] for t in every)}
+
+
+def scenario_serve():
+    """The static serving engine with its batch split over the processes
+    (``serve/engine.py``): each process prefills, caches and decodes its
+    ``B / R`` rows (and side inputs) under ``moe_tokens="local"``, the
+    expert-parallel MoE layer crossing the pod hop under an ambient
+    two-level multiplexer (the ``moe_dispatch`` kernel pack on the card),
+    and every step's tokens are gathered.  ``--serve-ref whole``: process 0
+    first runs the one-process engine on the whole batch over the same 8
+    units; the split run's greedy tokens must equal it, each call's logits
+    (each process's rows) within ``--serve-tol`` of their max, the per-unit
+    drops bit-exact.  ``--serve-ref rows``: each process first runs the
+    one-process engine on its own rows with no mesh (families with no
+    expert-parallel layer), which the split run must equal.  Every run:
+    tokens equal on every process, the pod hop's bytes equal to the derived
+    count (``_serve_hop_bytes``), ``moe_dispatch`` once an expert-parallel
+    call and ``ssd_scan`` once an SSM layer a prefill on the card.  Also a
+    ``ContinuousEngine`` under the mesh must raise, and with
+    ``--serve-replicated arch:B`` a batch the processes do not divide runs
+    whole.  ``--serve-cells``, ``--serve-full``,
+    ``--serve-dtype``, ``--serve-param-dtype`` and ``--serve-repeat`` size
+    it."""
+    from repro_torch.core.multiplexer import make_multiplexer
+    from repro_torch.distributed.sharding import MeshContext, mesh_context
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine
+
+    started_at = time.time()
+    mesh = _pod_mesh()
+    ctx = MeshContext(mesh)
+    pack = "cuda" if DEV == "cuda" else "torch"
+
+    def mux_for(m):
+        return make_multiplexer(m, pack_impl=pack)
+
+    if DEV == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {"started_at": started_at, "archs": {}}
+    cells = _serve_cells()
+    for arch, layers, shape in cells:
+        t0 = time.perf_counter()
+        out["archs"][arch] = _serve_arch(arch, layers, shape, mesh, ctx, mux_for)
+        out["archs"][arch]["seconds"] = time.perf_counter() - t0
+        r = out["archs"][arch]
+        print(f"[serve] {arch}: {r['layers']} layers {r['dtype']}, {r['shape']}, rows {r['rows']}, "
+              f"prefill {[round(s * 1e3, 1) for s in r['prefill_s'][-1]]} ms, decode "
+              f"{sum(r['decode_s'][-1]) * 1e3:.1f} ms over {len(r['decode_s'][-1])} steps, "
+              f"pod hop {r['hop_bytes']} B, peak {r['peak']}")
+    api = registry.build(_serve_cfg(cells[0][0], cells[0][1]))
+    try:
+        with mesh_context(ctx):
+            ContinuousEngine(api, batch_size=cells[0][2][0], capacity=8, device=DEV)
+        out["continuous_raises"] = None
+    except NotImplementedError as e:
+        out["continuous_raises"] = str(e)
+    if api.decode_step_slots is not None and out["continuous_raises"] is None:
+        raise AssertionError("serve: ContinuousEngine ran on a mesh that spans processes")
+    if ARGS.serve_replicated:
+        arch, B = ARGS.serve_replicated.split(":")
+        shape = next(s for a, _, s in cells if a == arch) if any(
+            a == arch for a, _, _ in cells) else cells[0][2]
+        out["replicated"] = _serve_replicated(arch, int(B), shape, ctx, mux_for(mesh))
+        if out["replicated"]["rows"] != "replicated" or \
+                not out["replicated"]["tokens_equal_on_every_process"]:
+            raise AssertionError(f"serve: batch {B} over {mesh.num_processes} processes: "
+                                 f"{out['replicated']}")
+    RESULTS["serve"] = out
+    print("PASS serve")
+
+
 SCENARIOS = {
     name.removeprefix("scenario_"): fn
     for name, fn in list(globals().items())
     if name.startswith("scenario_")
 }
 #: Run only when named: not part of "all".
-ON_REQUEST = ("dp_train", "moe_train")
+ON_REQUEST = ("dp_train", "moe_train", "serve")
 
 
 def main(argv: list[str]) -> None:
@@ -1205,6 +1526,15 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--profile", default="",
                     help="dp_train and moe_train: one more step counted op by op and one "
                          "under torch.profiler, its chrome trace written into this directory")
+    ap.add_argument("--serve-cells", default="qwen2.5-3b",
+                    help="serve: arch[:layers[:BxSxNEW]] items, comma-separated")
+    ap.add_argument("--serve-full", action="store_true", help="serve at full width")
+    ap.add_argument("--serve-dtype", default="float32")
+    ap.add_argument("--serve-param-dtype", default="float32")
+    ap.add_argument("--serve-ref", choices=("whole", "rows", "none"), default="whole")
+    ap.add_argument("--serve-tol", type=float, default=1e-5)
+    ap.add_argument("--serve-repeat", type=int, default=1)
+    ap.add_argument("--serve-replicated", default="", help="serve: arch:B, a batch run whole")
     args = ap.parse_args(argv)
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
@@ -1214,6 +1544,9 @@ def main(argv: list[str]) -> None:
     ARGS.moe_fabric_check, ARGS.moe_ckpt = args.moe_fabric_check, args.moe_ckpt
     ARGS.moe_deep_steps = args.moe_deep_steps
     ARGS.profile = args.profile
+    for k in ("cells", "full", "dtype", "param_dtype", "ref", "tol", "repeat",
+              "replicated"):
+        setattr(ARGS, f"serve_{k}", getattr(args, f"serve_{k}"))
     names = ([n for n in SCENARIOS if n not in ON_REQUEST] if args.scenario == "all"
              else args.scenario.split(","))
     start = _counts()

@@ -9,11 +9,13 @@ dtypes, logical axes) for every arch x shape; ``param_shape_specs`` (smoke
 configs) and ``cache_shape_specs`` (full configs at ``decode_32k``) numel
 per leaf, the reference's stacked layer dims summed over the port's list
 entries.  The port's cells: every family and kind at a smoke size on
-``1x8``, and train cells on ``4x2``, with every op on ``meta``; a dense
-train cell's flops on ``4x2`` times 4 equal ``1x8``'s; the microbatch
-count multiplied out equals the looped step's count, key for key; the
-skipped cells' reasons; Mamba2-1.3B's ``long_500k`` at full size counted in
-under 30 s.
+``1x8`` and ``4x2`` (serving on ``4x2`` with each rank's rows of the
+batch), with every op on ``meta``; a dense train, prefill and decode cell's
+flops on ``4x2`` times 4 equal ``1x8``'s; ``long_500k``'s one row counted
+whole on ``4x2``; the microbatch count multiplied out equals the looped
+step's count, key for key; the skipped cells' reasons; Mamba2-1.3B's
+``long_500k`` at full size counted in under 30 s; ``ssd_scan``'s launch
+scratch held on ``meta``.
 """
 
 import dataclasses
@@ -35,6 +37,7 @@ from repro.configs.base import shapes_for as ref_shapes_for
 from repro.models import registry as ref_registry
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get_config, get_smoke_config, \
     shapes_for
+from repro_torch.kernels import ssd_scan as sk
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_cost import OpCounter
 from repro_torch.models import registry
@@ -164,9 +167,9 @@ class _MetaOnly(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
-# every family and kind on 1x8; train on 4x2 (serving spans no processes)
+# every family and kind on 1x8 and 4x2 (serving: each rank its rows of the batch)
 CELLS = [(arch, kind, layout) for arch in FAMILIES for kind in ("train", "prefill", "decode")
-         for layout in ("1x8", "4x2") if layout == "1x8" or kind == "train"]
+         for layout in ("1x8", "4x2")]
 
 
 @pytest.mark.parametrize("arch,kind,layout", CELLS)
@@ -184,7 +187,10 @@ def test_smoke_cells_run_on_meta(arch, kind, layout):
         want = {"mamba2-1.3b": "ssd_scan", "zamba2-7b": "ssd_scan",
                 "olmoe-1b-7b": "moe_dispatch"}.get(arch)
     assert list(r["kernels"]) == ([want] if want else [])
-    assert bool(r["collective_bytes"]) == (processes > 1)
+    # across processes a train step syncs its gradient; a serving cell's rows
+    # cross no process but through the expert-parallel layer (OLMoE's prefill)
+    crosses = kind == "train" or (arch == "olmoe-1b-7b" and kind == "prefill")
+    assert bool(r["collective_bytes"]) == (processes > 1 and crosses)
     assert not torch.distributed.is_initialized()
 
 
@@ -223,8 +229,52 @@ def test_microbatches_multiplied_equal_the_looped_step(arch):
 def test_skipped_cells_say_why():
     art = dryrun.run_cell("qwen2.5-3b", "long_500k", False, verbose=False)
     assert (art["status"], art["reason"]) == ("skipped", dryrun.LONG_CONTEXT_REASON)
+    # serving across processes is counted: each rank holds 8 of the 32 rows
     art = dryrun.run_cell("mamba2-1.3b", "prefill_32k", True, verbose=False)
-    assert (art["status"], art["reason"]) == ("skipped", dryrun.SERVING_ACROSS_PROCESSES_REASON)
+    assert (art["status"], art["mesh"], art["chips"]) == ("ok", "4x2", 4)
+    one = dryrun.run_cell("mamba2-1.3b", "prefill_32k", False, verbose=False)
+    assert 4 * art["cost_analysis"]["flops"] == one["cost_analysis"]["flops"]
+    assert art["kernels"]["ssd_scan"]["calls"] == get_config("mamba2-1.3b").num_layers
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_dense_serving_flops_on_4x2_times_4_equal_1x8(kind):
+    cfg = _smoke_cfg("qwen2.5-3b", kind)
+    one = dryrun.count_cell(cfg, SMOKE_SHAPES[kind], 1, 8)
+    four = dryrun.count_cell(cfg, SMOKE_SHAPES[kind], 4, 2)
+    assert 4 * four["flops"] == one["flops"]
+    assert one["collective_bytes"] == four["collective_bytes"] == {}
+    assert four["argument_bytes"] < one["argument_bytes"]  # a quarter of the rows and cache
+
+
+def test_long_500k_on_4x2_counts_a_replicated_batch():
+    """One row over four ranks: the batch and the cache stay whole on every
+    rank, so rank 0 counts what one process counts."""
+    one = dryrun.run_cell("mamba2-1.3b", "long_500k", False, verbose=False)
+    four = dryrun.run_cell("mamba2-1.3b", "long_500k", True, verbose=False)
+    assert four["status"] == "ok" and four["mesh"] == "4x2"
+    assert four["cost_analysis"] == one["cost_analysis"]
+    assert four["memory_analysis"] == one["memory_analysis"]
+    assert four["collective_bytes"] == {}
+
+
+def test_ssd_scan_on_meta_holds_its_launch_scratch():
+    """The wrapper's ``meta`` branch allocates the launch's f32 scratch
+    (chunk states, scores, cumsums), so a counter's peak holds it."""
+    Bt, L, H, P, G, N, Q = 2, 512, 4, 16, 1, 16, 128
+    meta = dict(device="meta")
+    x = torch.empty((Bt, L, H, P), **meta)
+    dt = torch.empty((Bt, L, H), **meta)
+    A = torch.empty((H,), **meta)
+    Bm = torch.empty((Bt, L, G, N), **meta)
+    counter = OpCounter()
+    with counter.counting():
+        y, fin = sk.ssd_scan(x, dt, A, Bm, Bm, Q)
+    nc = L // Q
+    scratch = 4 * (Bt * nc * H * N * P + Bt * nc * G * Q * Q + Bt * H * L)
+    outputs = 4 * (x.numel() + Bt * H * P * N)
+    assert counter.result()["peak_live_bytes"] >= scratch + outputs
+    assert (y.shape, fin.shape) == (x.shape, (Bt, H, P, N))
 
 
 def test_mamba2_long_500k_full_size_counts_in_under_30_s(tmp_path):

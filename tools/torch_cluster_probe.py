@@ -4,6 +4,7 @@
     python3 tools/torch_cluster_probe.py gloo-cuda
     python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
                                                [--out DIR]
+    python3 tools/torch_cluster_probe.py serve [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -37,6 +38,19 @@ the pod hop's and the dry run's count on ``meta`` of the same config,
 batch and 4 x 2 layout), the trace's overlap fraction, idle share and busy
 share, MFU of the four cards against the bf16 peak, and the peak of live
 bytes beside the allocator's.  The traces go to a temporary directory.
+
+``serve`` runs the ``serve`` scenario (the static serving engine with its
+batch split over the processes, ``serve/engine.py``) over 4 NCCL ranks of 2
+units, a card a rank, in two clusters: (a) OLMoE-1B-7B at full width and
+depth, bf16 compute over bf16 params, expert-parallel, 32 x 2,048-token
+prompts + 16 new (8 rows a rank), the split run twice; (b) Mamba2-1.3B at
+``prefill_32k``'s own batch, 32 x 32,768 + 4 new (8 rows a rank, bf16 over
+f32 params, the dry run's policy), each rank's tokens held to a
+one-process engine on its 8 rows (the same shapes, so bit-identical).  It
+prints a line of JSON a rank and run: prefill and decode ms, tokens/s, the
+pod hop's bytes beside the derived count, the peak memory, and for Mamba2
+the dry run's count of the same cell on ``4x2`` (arguments plus peak live,
+counted on ``meta`` beside the workers).
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -321,9 +335,104 @@ def train_moe(out: Path, backend: str, procs: int, units: int, traces: str | Non
     return 0
 
 
+SERVE_RUNS = {
+    # (a) OLMoE-1B-7B, all 16 layers, bf16 over bf16 params, expert-parallel,
+    # 8 rows a rank; the split run twice (the first warms the kernels)
+    "olmoe": ["--serve-cells", "olmoe-1b-7b:0:32x2048x16", "--serve-dtype", "bfloat16",
+              "--serve-param-dtype", "bfloat16", "--serve-ref", "none", "--serve-repeat", "2"],
+    # (b) Mamba2-1.3B at prefill_32k's own batch of 32 (8 rows a rank), the dry
+    # run's policy (bf16 over f32 params), each rank held to a one-process
+    # engine on its own rows
+    "mamba2": ["--serve-cells", "mamba2-1.3b:0:32x32768x4", "--serve-dtype", "bfloat16",
+               "--serve-param-dtype", "float32", "--serve-ref", "rows"],
+}
+
+
+def serve(out: Path) -> int:
+    """The static engine's batch split over 4 NCCL ranks of 2 units, a card a
+    rank: the driver's ``serve`` scenario for each of ``SERVE_RUNS``, each
+    in its own cluster.  Prints each rank's prefill and decode ms, tokens/s,
+    pod-hop bytes and peak memory, and for Mamba2 the peak beside the dry
+    run's count of ``prefill_32k`` on ``4x2`` (arguments plus peak live)."""
+    import threading
+    import time
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cluster import run_local_cluster
+
+    backend, procs, units = "nccl", 4, 2
+    smi = _smi()
+    build.build_all((md.LIBRARY, sk.LIBRARY))
+    counted = {}
+
+    def count():  # rank 0's program on meta, beside the workers
+        cfg = dryrun.dryrun_config("mamba2-1.3b", SHAPES["prefill_32k"], multi_pod=True)
+        counted.update(dryrun.count_cell(cfg, SHAPES["prefill_32k"], procs, units))
+
+    counter = threading.Thread(target=count)
+    counter.start()
+    for name, flags in SERVE_RUNS.items():
+        tag = f"[serve {name} {backend}:{procs}x{units}]"
+        dump = out / f"serve_{name}_{backend}_{procs}x{units}"
+        t0 = time.perf_counter()
+        outs = run_local_cluster(
+            [str(DRIVER), "serve", "--serve-full", "--dump", str(dump)] + flags,
+            num_processes=procs, local_units=units, timeout_s=900, echo=False,
+            backend=backend, device="cuda",
+        )
+        wall = time.perf_counter() - t0
+        for pid, log in enumerate(outs):
+            for line in log.splitlines():
+                if line.startswith(("PASS", "[serve]")):
+                    print(f"{tag} proc {pid}: {line}")
+        recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["serve"]
+                for p in range(procs)]
+        if name == "mamba2":
+            counter.join()
+        for pid, rec in enumerate(recs):
+            for arch, r in rec["archs"].items():
+                B, S, new = r["shape"]
+                rows = B // procs
+                line = {"rank": pid, "arch": arch, "layers": r["layers"], "dtype": r["dtype"],
+                        "param_dtype": r["param_dtype"], "rows": r["rows"],
+                        "rows_a_rank": rows, "prompt": S, "new": new,
+                        "prefill_ms": [p[0] * 1e3 for p in r["prefill_s"]],
+                        "prefill_tok_s": [rows * S / p[0] for p in r["prefill_s"]],
+                        "decode_ms_a_step": [1e3 * sum(d) / max(len(d), 1)
+                                             for d in r["decode_s"]],
+                        "decode_tok_s": [rows * len(d) / sum(d) if d else None
+                                         for d in r["decode_s"]],
+                        "pod_hop_bytes": r["hop_bytes"], "pod_hop_derived": r["want_hop"],
+                        "pod_hop_kinds": r["hop_kinds"], "peak": r["peak"],
+                        "launches": r["launches"], "expert_calls": r["expert_calls"],
+                        "tokens_repeat_equal": r["tokens_repeat_equal"], "nvidia_smi": smi}
+                if "one_process" in r:
+                    one = r["one_process"]
+                    line.update(tokens_equal_one_process=r["tokens_equal"],
+                                logits_bit_equal=r.get("logits_bit_equal"),
+                                logit_rel=max(r["logit_rel"]),
+                                one_process_prefill_ms=one["prefill_s"][0] * 1e3,
+                                one_process_peak=one["peak"])
+                if name == "mamba2":
+                    model = counted["argument_bytes"] + counted["peak_live_bytes"]
+                    line.update(dryrun_args_plus_peak_live=model,
+                                peak_over_dryrun=r["peak"] / model if r["peak"] else None)
+                print(f"{tag} rank {pid}: {json.dumps(line)}")
+        print(f"{tag} passed in {wall:.1f} s (launcher wall)")
+    counter.join()
+    print(f"[serve] the dry run's count of mamba2-1.3b x prefill_32k x 4x2 (rank 0, meta): "
+          f"arguments {counted['argument_bytes']} B + peak live {counted['peak_live_bytes']} B "
+          f"in {counted['count_s']:.1f} s")
+    return 0
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("gloo-cuda", "layouts", "train"))
+    ap.add_argument("mode", choices=("gloo-cuda", "layouts", "train", "serve"))
     ap.add_argument("--layouts", default="gloo:2x4,nccl:2x4,nccl:4x2")
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
@@ -343,6 +452,8 @@ def main(argv: list[str]) -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.mode == "train":
         return train(args.out, args.arch, args.profile)
+    if args.mode == "serve":
+        return serve(args.out)
     return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
 
 
