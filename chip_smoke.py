@@ -175,9 +175,20 @@ Phases, in order; any failure raises and the process exits non-zero:
    per-unit drops bit-exact, ``moe_dispatch`` once an expert-parallel call
    and ``ssd_scan`` 48 times a prefill a process, the pod hop's bytes equal
    to the gathered tokens plus, for OLMoE, the capacity buffers' trips
-   (Mamba2 none); the continuous engine must refuse the mesh.  Prefill and
-   decode ms, the pod-hop bytes and the peak of each run are printed beside
-   the card's name and power limit;
+   (Mamba2 none).  Then the continuous engine's slots split the same way:
+   OLMoE-1B-7B at full width and 2 layers, 8 slots (4 a process, each
+   process holding only its slots' cache rows), 16 mixed requests (prompts
+   of 128 and 256 tokens, 1-8 new, 2 arrivals a step), against process 0's
+   one-process continuous engine over the same 8 units: greedy tokens,
+   admission and finish steps, the stats' counters and the spans equal,
+   logits within 1e-4 of their max, drops bit-exact, half the cache a
+   process, the pod hop equal to the gathered tokens, the expert trips and
+   the prefilled rows sent to their slot's process as derived from the
+   one-process engine's slots, and ``moe_dispatch`` once a layer a prefill
+   group and a decode step on each process; the SSM family must still
+   refuse the continuous engine.  Prefill and decode ms, tokens/s, TTFT,
+   the moved rows, the pod-hop bytes and the peak of each run are printed
+   beside the card's name and power limit;
 6. training — train100m at full width and depth (random weights from
    ``--seed``, f32, ``remat="block"``) with ``attn_impl="flash"``, batch 8 x
    2,048 tokens, 20 AdamW steps (lr 3e-4, 5 warm-up steps), through the
@@ -283,7 +294,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    before every prompt) through the static and the continuous engine must
    give identical greedy tokens; a mixed workload (``make_mixed_workload``
    with the reference launcher's prompt lengths: 128/256, the VLM's 256
-   alone; 4 requests a slot, 1-16 new, queued up front) must complete with
+   alone; 2 requests a slot, 1-16 new, queued up front) must complete with
    ``alloc.check()`` holding and in fewer slot-steps than static batching.
    DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
    (the units must divide a decode step's tokens): the continuous engine,
@@ -360,6 +371,10 @@ MIXED_REQUESTS = {1: 64, 2: 32}
 # with TF32 off, logits within this fraction of their max of the one-process run
 SERVE_PROCS, SERVE_UNITS = 2, 4
 SERVE_PROCS_CELLS = "olmoe-1b-7b:2:8x256x8,mamba2-1.3b:0:8x2048x8"
+# ... and the continuous engine's slots split the same way: OLMoE-1B-7B at 2
+# of its 16 layers, arch:layers:SLOTSxREQUESTSxNEW (1 to NEW new tokens), the
+# mixed workload's prompt lengths and arrivals a step
+SERVE_PROCS_CONTINUOUS = ("olmoe-1b-7b:2:8x16x8", "128,256", 2)
 SERVE_PROCS_TOL = 1e-4
 SERVE_PROCS_TIMEOUT_S = 300
 # training: batch, seq, steps; the CLI resume check's seq
@@ -422,8 +437,9 @@ TF_CONFIGS = {
 TF_SERVE = (8, 256, 16, 4)
 TF_EP_UNITS = 8
 # the mixed workload: requests per batch slot, arrivals a decode step (0: all
-# queued up front, as the reference launcher's default)
-TF_MIXED = (4, 0.0)
+# queued up front, as the reference launcher's default); 2 a slot, not 4, to
+# keep the whole script well inside its time limit
+TF_MIXED = (2, 0.0)
 # the f32 check at batch 1: full prompt, split point (then one decode step a
 # token to the full prompt), and the limit of the largest magnitude
 TF_CHECK = (256, 192)
@@ -2295,7 +2311,10 @@ def phase_serve_procs(smi: str) -> dict:
         outs = run_local_cluster(
             [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "serve", "--serve-full",
              "--serve-cells", SERVE_PROCS_CELLS, "--serve-tol", str(SERVE_PROCS_TOL),
-             "--serve-dtype", "float32", "--serve-param-dtype", "float32", "--dump", dump],
+             "--serve-dtype", "float32", "--serve-param-dtype", "float32", "--dump", dump,
+             "--serve-continuous", SERVE_PROCS_CONTINUOUS[0],
+             "--serve-prompts", SERVE_PROCS_CONTINUOUS[1],
+             "--serve-rate", str(SERVE_PROCS_CONTINUOUS[2])],
             num_processes=SERVE_PROCS, local_units=SERVE_UNITS, timeout_s=SERVE_PROCS_TIMEOUT_S,
             echo=False, backend="gloo", device="cuda",
         )
@@ -2344,18 +2363,81 @@ def phase_serve_procs(smi: str) -> dict:
                 raise AssertionError(f"serve-procs {arch}: expert trips on the pod hop")
             for k in launched:
                 launched[k] += r["launches"][k]
+    for arch in recs[0]["continuous"]:
+        _serve_procs_continuous(arch, recs, launched, smi)
     if not recs[0]["continuous_raises"]:
-        raise AssertionError("serve-procs: the continuous engine ran across processes")
-    print(f"[serve-procs] the continuous engine across processes raises: "
+        raise AssertionError("serve-procs: the continuous engine took an SSM across processes")
+    print(f"[serve-procs] the continuous engine still refuses the SSM family: "
           f"{recs[0]['continuous_raises'][:100]}...")
     for pid, rec in enumerate(recs):
         parts = {"start-up": rec["started_at"] - launched_at,
-                 **{a: r["seconds"] for a, r in rec["archs"].items()}}
+                 **{a: r["seconds"] for a, r in rec["archs"].items()},
+                 **{f"{a} continuous": r["seconds"] for a, r in rec["continuous"].items()}}
         print(f"[serve-procs] process {pid}'s seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     print(f"[serve-procs] phase 5b in {wall:.1f} s (launcher wall); launches over the split "
           f"runs: {launched}")
     return launched
+
+
+def _serve_procs_continuous(arch: str, recs: list, launched: dict, smi: str) -> None:
+    """Phase 5b's continuous cell, from the workers' dumps: against process
+    0's one-process engine (tokens, admission and finish steps, the stats'
+    counters, spans, logits, drops), half the cache a process, the pod hop
+    equal to the count derived from the one-process engine's schedule, and
+    ``moe_dispatch`` once a MoE layer a prefill group and a decode step on
+    each process; each process's numbers printed beside the one process's.
+    Adds the workers' launches to ``launched``."""
+    r0 = recs[0]["continuous"][arch]
+    one = r0["one_process"]
+    slots, n_req, new = r0["shape"]
+    if not (r0["tokens_equal"] and r0["steps_equal"] and r0["stats_equal"] and r0["spans_equal"]
+            and max(r0["logit_rel"]) <= SERVE_PROCS_TOL and r0["drops_equal"]):
+        raise AssertionError(f"serve-procs {arch} continuous: against the one-process engine "
+                             f"{ {k: v for k, v in r0.items() if k != 'tokens'} }")
+    st = r0["stats"]
+    print(f"[serve-procs] {arch} continuous, full width, {r0['layers']} layers, f32 (TF32 off): "
+          f"{slots} slots ({slots // SERVE_PROCS} a process), {n_req} mixed requests (prompts "
+          f"{r0['prompts']}, 1-{new} new, {r0['rate']} arrivals a step) over {SERVE_PROCS} "
+          f"processes x {SERVE_UNITS} units on this card over Gloo ({r0['rows']}): "
+          f"{st['prefill_calls']} prefill groups, {st['decode_steps']} decode steps, "
+          f"{st['moved_rows']} prefilled rows moved to their slot's process; greedy tokens, "
+          f"admission and finish steps, stats and spans equal to process 0's one-process engine "
+          f"over the same 8 units; logits within {max(r0['logit_rel']):.3g} of their max "
+          f"({SERVE_PROCS_TOL}) over {len(r0['logit_rel'])} calls; drops bit-exact over "
+          f"{r0['expert_calls']} expert-parallel calls ({sum(r0['drops'])} dropped); "
+          f"multiplexer {r0['mux']} ({smi})")
+    n_one = len(one["decode_s"])
+    print(f"[serve-procs] {arch} continuous one process (8 units, {slots} slots): prefill "
+          f"{[round(v * 1e3, 2) for v in one['prefill_s']]} ms a group, decode "
+          f"{1e3 * sum(one['decode_s']) / max(n_one, 1):.2f} ms a step over {n_one} steps, "
+          f"{one['record']} cache {one['cache_bytes']} B, peak {one['peak']} B, launches "
+          f"{one['launches']} ({smi})")
+    for pid, rec in enumerate(recs):
+        r = rec["continuous"][arch]
+        h, s = r["want_hop"], r["stats"]
+        calls = s["prefill_calls"] + s["decode_steps"]
+        want_launch = r0["layers"] * calls  # every OLMoE layer is a MoE layer
+        n = len(r["decode_s"])
+        print(f"[serve-procs] {arch} continuous process {pid}: prefill "
+              f"{[round(v * 1e3, 2) for v in r['prefill_s']]} ms a group, decode "
+              f"{1e3 * sum(r['decode_s']) / max(n, 1):.2f} ms a step over {n} steps, "
+              f"{r['record']}; moved rows sent {h['sent_rows']} ({h['moved_row_bytes']} B); pod "
+              f"hop {r['hop_bytes']} B = gathered tokens {h['gathers']} B + expert trips "
+              f"{h['expert_trips']} B + moved rows {h['moved_row_bytes']} B {r['hop_kinds']}; "
+              f"cache {r['cache_bytes']} B (one process {r['whole_cache_bytes']} B); peak "
+              f"{r['peak']} B; launches {r['launches']} ({smi})")
+        bad = [k for k, b in (
+            ("pod hop", r["hop_bytes"] != h["total"]),
+            ("cache", r["cache_bytes"] * SERVE_PROCS != r["whole_cache_bytes"]),
+            ("equal on every process", not all(r["equal_on_every_process"].values())),
+            ("moe_dispatch", r["launches"]["moe_dispatch"] != want_launch
+             or r["expert_calls"] != want_launch),
+        ) if b]
+        if bad:
+            raise AssertionError(f"serve-procs {arch} continuous process {pid}: {bad}")
+        for k in launched:
+            launched[k] += r["launches"][k]
 
 
 def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],

@@ -26,13 +26,17 @@ positions after prefill, an SSM state is O(1) and stays as it is
 families.
 
 Across processes (a mesh context whose mesh spans ``R`` processes, every
-process running the same calls) the static engine splits its batch as the
-reference's ``"batch" -> (pod, data)`` rule does: each process prefills,
-caches and decodes its ``B / R`` rows, the expert-parallel MoE layer moves
-tokens between the processes over the pod hop, and each step's sampled
-tokens are gathered, so every process returns every request's tokens.  A
-batch that ``R`` does not divide runs whole on every process.  Params stay
-whole on every process.  The continuous engine raises on such a mesh.
+process running the same calls) both engines split their batch as the
+reference's ``"batch" -> (pod, data)`` rule does (:func:`_batch_rows`):
+each process prefills, caches and decodes its ``B / R`` rows, the
+expert-parallel MoE layer moves tokens between the processes over the pod
+hop, and each call's sampled tokens are gathered, so every process returns
+every request's tokens.  The continuous engine's slot ``s`` lives on
+process ``s // (B / R)``; its slot map, admission and eviction run alike on
+every process from the request list and the gathered tokens, and a
+prefilled cache row whose slot another process owns is sent there
+(:func:`route_rows`).  A batch that ``R`` does not divide runs whole on
+every process.  Params stay whole on every process.
 
 Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``, an
 encoder-decoder's ``frames [B, S_f, d]``) join every prefill batch.  Static
@@ -59,6 +63,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..core import exchange
 from ..distributed.sharding import (
     current_mesh_context,
     gather_rows,
@@ -155,6 +160,27 @@ def _side_rows(extra: dict | None) -> int:
     return int(extra["patches"].shape[1]) if extra and "patches" in extra else 0
 
 
+def _batch_rows(batch_size: int):
+    """How a batch of ``batch_size`` rows lies over the active mesh:
+    ``(mode, mesh, ctx)``.  ``"whole"`` without a mesh that spans processes;
+    on one over ``R`` processes ``"split"`` where ``R`` divides the batch
+    (each process its rows, the MoE layer under ``moe_tokens="local"``),
+    else ``"replicated"`` (every process the whole batch under
+    ``"global"``).  ``mesh`` is the mesh to split over (``None`` unless
+    ``"split"``), ``ctx`` the context to run the model under."""
+    ctx = current_mesh_context()
+    if ctx is None or ctx.mesh.num_processes == 1:
+        return "whole", None, ctx
+    if split_rows(batch_size, ctx.mesh):
+        return "split", ctx.mesh, dataclasses.replace(ctx, moe_tokens="local")
+    return "replicated", None, ctx
+
+
+def _gathered(t: torch.Tensor, mesh) -> np.ndarray:
+    """Every process's rows of ``t`` on the host (``t`` itself off a split)."""
+    return (t if mesh is None else gather_rows(t, mesh)).cpu().numpy()
+
+
 def _decode_start(cfg, plen: int, extra: dict | None) -> int:
     """The static engine's first decode position, as the reference reads it
     (the position axis of ``jax.tree.leaves(cache)[0]``, whose dict keys
@@ -179,20 +205,6 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.gen = _generator(self.device, seed)
         self.stats = {"prefill_tokens": 0, "decode_steps": 0, "slot_steps": 0, "wall": 0.0}
-
-    def _rows(self):
-        """How the batch lies over the active mesh: ``(mode, mesh, ctx)``.
-        ``"whole"`` without a mesh that spans processes; on one over ``R``
-        processes ``"split"`` where ``R`` divides the batch (each process
-        its rows, the MoE layer under ``moe_tokens="local"``), else
-        ``"replicated"`` (every process the whole batch under
-        ``"global"``)."""
-        ctx = current_mesh_context()
-        if ctx is None or ctx.mesh.num_processes == 1:
-            return "whole", None, ctx
-        if split_rows(self.batch_size, ctx.mesh):
-            return "split", ctx.mesh, dataclasses.replace(ctx, moe_tokens="local")
-        return "replicated", None, ctx
 
     def generate(self, params, requests: list[Request],
                  extra_inputs: dict | None = None) -> list[Request]:
@@ -225,7 +237,7 @@ class ServeEngine:
         for i, r in enumerate(requests):
             prompts[i] = r.prompt
 
-        mode, mesh, ctx = self._rows()
+        mode, mesh, ctx = _batch_rows(B)
         self.stats["rows"] = mode
         batch = {"tokens": torch.from_numpy(prompts),
                  **{k: torch.as_tensor(v) for k, v in (extra_inputs or {}).items()}}
@@ -233,9 +245,6 @@ class ServeEngine:
             batch = local_rows(batch, mesh)
         batch = {k: v.to(self.device) for k, v in batch.items()}
         rows = batch["tokens"].shape[0]
-
-        def gathered(t: torch.Tensor) -> np.ndarray:
-            return (t if mesh is None else gather_rows(t, mesh)).cpu().numpy()
 
         with mesh_context(ctx):
             logits, cache = self.api.prefill(params, batch)
@@ -248,7 +257,7 @@ class ServeEngine:
 
         max_new = max(r.max_new_tokens for r in requests)
         tokens = sample_token(self.gen, logits, self.temperature)
-        first = gathered(tokens)
+        first = _gathered(tokens, mesh)
         live = np.array([not r.done for r in requests] + [False] * (B - len(requests)))
         for i, r in enumerate(requests):
             r.out_tokens.append(int(first[i]))
@@ -266,7 +275,7 @@ class ServeEngine:
             self.stats["decode_steps"] += 1
             self.stats["slot_steps"] += B
             pos += 1
-            arr = gathered(tokens)
+            arr = _gathered(tokens, mesh)
             for i, r in enumerate(requests):
                 if live[i]:
                     r.out_tokens.append(int(arr[i]))
@@ -360,6 +369,39 @@ def engine_record(reqs: list[Request], stats: dict, wall: float) -> dict:
 # Continuous batching.
 # ----------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class RowRoute:
+    """Where one process's prefilled cache rows go (:func:`route_rows`), in
+    local row numbers: ``keep`` pairs ``(prefill row, slot row)`` written in
+    place; ``send[p]`` the prefill rows for process ``p``; ``recv[p]`` the
+    slot rows that process ``p``'s message fills, both in admission order."""
+
+    keep: list
+    send: dict
+    recv: dict
+
+
+def route_rows(slot_of: Sequence[int], batch_size: int, processes: int, rank: int) -> RowRoute:
+    """Process ``rank``'s part in moving a prefill group's cache rows to their
+    slots, a pure function of the slot map: admitted row ``j`` is prefilled
+    on process ``j // n`` (``n = batch_size / processes``) at local row
+    ``j % n`` and belongs to slot ``slot_of[j]``, which lives on process
+    ``slot_of[j] // n`` at local row ``slot_of[j] % n``.  Rows are listed in
+    admission order, so a (source, destination) pair's message holds the
+    same rows in the same order on both ends."""
+    n = batch_size // processes
+    keep, send, recv = [], {}, {}
+    for j, slot in enumerate(slot_of):
+        src, dst = j // n, slot // n
+        if src == dst == rank:
+            keep.append((j % n, slot % n))
+        elif src == rank:
+            send.setdefault(dst, []).append(j % n)
+        elif dst == rank:
+            recv.setdefault(src, []).append(slot % n)
+    return RowRoute(keep, send, recv)
+
+
 class ContinuousEngine:
     """Continuous-batching generation: slot map + admission between steps.
 
@@ -375,6 +417,13 @@ class ContinuousEngine:
 
     ``slot_steps`` (= decode_steps x batch_size) is the slot-occupancy
     currency of the static-vs-continuous comparison.
+
+    On a mesh over ``R`` processes that divide ``batch_size`` (``stats["rows"]
+    == "split"``) each process holds the cache rows of its ``batch_size / R``
+    slots, prefills its rows of each group and decodes its slots;
+    ``stats["moved_rows"]`` counts the prefilled rows sent to the process
+    that owns their slot.  The multiplexer is tuned from the model alone (no
+    timing), so every process builds the same one.
     """
 
     def __init__(self, api: registry.ModelApi, batch_size: int, capacity: int,
@@ -387,14 +436,6 @@ class ContinuousEngine:
                 f"continuous batching needs a per-position KV cache; family "
                 f"{api.cfg.family!r} does not provide decode_step_slots"
             )
-        ctx = current_mesh_context()
-        if ctx is not None and ctx.mesh.num_processes > 1:
-            raise NotImplementedError(
-                f"continuous batching on a mesh over {ctx.mesh.num_processes} processes: the "
-                "slot map, admission and eviction would have to agree on every process while "
-                "each holds only its slots' cache rows (ROADMAP §A item 8(b)); serve the batch "
-                "with the static ServeEngine, which splits it over the processes"
-            )
         self.api = api
         self.cfg = api.cfg
         self.batch_size = batch_size
@@ -405,7 +446,8 @@ class ContinuousEngine:
         self.alloc = SlotAllocator(batch_size)
         self.stats = {
             "prefill_tokens": 0, "prefill_calls": 0, "decode_steps": 0, "slot_steps": 0,
-            "live_slot_steps": 0, "idle_steps": 0, "admitted": 0, "finished": 0, "wall": 0.0,
+            "live_slot_steps": 0, "idle_steps": 0, "admitted": 0, "finished": 0,
+            "moved_rows": 0, "wall": 0.0,
         }
         self.mux = self._make_decode_multiplexer()
 
@@ -440,30 +482,68 @@ class ContinuousEngine:
     # -- prefill-on-admit ---------------------------------------------------
 
     @staticmethod
-    def _scatter_prefill(cache, pref, slots: torch.Tensor) -> None:
-        """Write prefill rows ``0..len(slots)-1`` into their slots' cache
-        regions, in place.  The reference completes the slot vector to a
-        permutation and re-writes the other slots' current bytes; writing
-        only the admitted rows leaves the same cache."""
-        n = slots.shape[0]
+    def _scatter_prefill(cache, pref, slots: torch.Tensor, rows: torch.Tensor | None = None
+                         ) -> None:
+        """Write prefill rows ``rows`` (default ``0..len(slots)-1``) into the
+        cache rows ``slots`` (this process's), in place.  The reference
+        completes the slot vector to a permutation and re-writes the other
+        slots' current bytes; writing only the admitted rows leaves the same
+        cache."""
         for seg, leaves in cache.items():
             for name, leaf in leaves.items():
                 p = pref[seg][name]
-                leaf[:, slots, : p.shape[2]] = p[:, :n].to(leaf.dtype)
+                p = p[:, : slots.shape[0]] if rows is None else p[:, rows]
+                leaf[:, slots, : p.shape[2]] = p.to(leaf.dtype)
+
+    def _route_prefill(self, cache, pref, slot_of: list[int], mesh) -> None:
+        """Across processes: write this process's prefilled rows whose slots
+        it owns in place, and trade the others with their owners in one
+        ``collective-permute`` round (a message a cache leaf and process
+        pair, tagged with the leaf's number)."""
+        R = mesh.num_processes
+        n = self.batch_size // R
+        route = route_rows(slot_of, self.batch_size, R, mesh.process_index)
+        self.stats["moved_rows"] += sum(j // n != s // n for j, s in enumerate(slot_of))
+
+        def index(rows):
+            return torch.tensor(rows, dtype=torch.long, device=self.device)
+
+        if route.keep:
+            src, dst = zip(*route.keep)
+            self._scatter_prefill(cache, pref, index(dst), index(src))
+        named = [(seg, name, leaf) for seg, lv in pref.items() for name, leaf in lv.items()]
+        sends = [(proc, tag, leaf[:, index(rows)])
+                 for proc, rows in route.send.items() for tag, (_, _, leaf) in enumerate(named)]
+        got: dict[int, dict] = {proc: {} for proc in route.recv}
+        recvs = []
+        for proc, rows in route.recv.items():
+            for tag, (seg, name, leaf) in enumerate(named):
+                buf = leaf.new_empty((leaf.shape[0], len(rows)) + tuple(leaf.shape[2:]))
+                got[proc].setdefault(seg, {})[name] = buf
+                recvs.append((proc, tag, buf))
+        if sends or recvs:
+            exchange._p2p(mesh, sends, recvs)
+        for proc, rows in route.recv.items():
+            self._scatter_prefill(cache, got[proc], index(rows))
 
     def _admit_group(self, params, cache, requests: list[Request], step: int, t0: float,
                      extra: dict):
         """Prefill one same-prompt-length group (padded to the batch), with
-        the side inputs ``extra`` (on the device), and write it into the
-        admitted slots."""
+        the side inputs ``extra`` (on the device; this process's rows under
+        a split), and write it into the admitted slots."""
         B, plen = self.batch_size, requests[0].prompt.shape[0]
+        _mode, mesh, ctx = self._layout
         prompts = np.zeros((B, plen), np.int32)
         for j, r in enumerate(requests):
             prompts[j] = r.prompt
+        tokens = {"tokens": torch.from_numpy(prompts)}
+        if mesh is not None:
+            tokens = local_rows(tokens, mesh)
         with maybe_span(self.tracer, f"prefill:len{plen}", "serve",
                         requests=len(requests), step=step):
-            logits, pref_cache = self.api.prefill(
-                params, {"tokens": torch.from_numpy(prompts).to(self.device), **extra})
+            with mesh_context(ctx):
+                logits, pref_cache = self.api.prefill(
+                    params, {"tokens": tokens["tokens"].to(self.device), **extra})
             if self.tracer is not None and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()  # the span ends with the work
         self.stats["prefill_tokens"] += len(requests) * plen
@@ -478,10 +558,13 @@ class ContinuousEngine:
                 f"side inputs) cannot fit a capacity-{self.capacity} cache slot"
             )
 
+        first = _gathered(sample_token(self.gen, logits, self.temperature), mesh)
         slot_of = [self.alloc.admit(r) for r in requests]
-        self._scatter_prefill(cache, pref_cache, torch.tensor(slot_of, device=self.device))
+        if mesh is None:
+            self._scatter_prefill(cache, pref_cache, torch.tensor(slot_of, device=self.device))
+        else:
+            self._route_prefill(cache, pref_cache, slot_of, mesh)
 
-        first = sample_token(self.gen, logits, self.temperature).cpu().numpy()
         now = time.perf_counter() - t0
         for j, r in enumerate(requests):
             r.admitted_step = step
@@ -520,6 +603,19 @@ class ContinuousEngine:
         group.  Raises before any state changes on a request whose prompt,
         with the side-input rows a VLM's patches prepend, cannot fit a cache
         slot.
+
+        Under a mesh context whose mesh spans ``R`` processes every process
+        calls this with the same requests.  Where ``R`` divides
+        ``batch_size`` each process holds a ``[batch_size / R, capacity]``
+        cache, the rows of its slots (slot ``s`` on process ``s // (batch_size
+        / R)``), prefills its rows of every group (and of ``extra_inputs``)
+        and decodes its slots, the MoE layer under ``moe_tokens="local"``;
+        every call's sampled tokens are gathered, so the slot map, admission
+        and eviction run alike on every process, and every process fills
+        every ``Request``.  Otherwise every process runs the whole engine.
+        ``stats["rows"]`` says which.  Every process makes every prefill and
+        decode call: the MoE layer's pod hops and the gathers are
+        collectives.
         """
         side = _side_rows(extra_inputs)
         for r in requests:
@@ -529,11 +625,18 @@ class ContinuousEngine:
                     + (f" + {side} side-input rows" if side else "")
                     + f" cannot fit a capacity-{self.capacity} cache slot"
                 )
-        extra = _on_device(extra_inputs, self.device)
-        t0 = time.perf_counter()
         B = self.batch_size
+        self._layout = mode, mesh, ctx = _batch_rows(B)
+        self.stats["rows"] = mode
+        if mesh is not None and extra_inputs:
+            extra_inputs = local_rows({k: torch.as_tensor(v) for k, v in extra_inputs.items()},
+                                      mesh)
+        extra = _on_device(extra_inputs, self.device)
+        rows = B if mesh is None else B // mesh.num_processes
+        lo = 0 if mesh is None else mesh.process_index * rows  # this process's first slot
+        t0 = time.perf_counter()
         pending = sorted(requests, key=lambda r: r.arrival_step)
-        cache = self.api.init_cache(B, self.capacity, device=self.device)
+        cache = self.api.init_cache(rows, self.capacity, device=self.device)
         self._positions = np.zeros((B,), np.int32)
         self._tokens = np.zeros((B,), np.int32)
         step = 0
@@ -573,13 +676,16 @@ class ContinuousEngine:
                 # -- one fixed-shape decode step over every slot -----------
                 with maybe_span(self.tracer, f"decode-step:{step}", "serve",
                                 live=len(self.alloc.live)):
-                    logits, cache = self.api.decode_step_slots(
-                        params,
-                        torch.from_numpy(self._tokens[:, None].copy()).to(self.device),
-                        cache,
-                        torch.from_numpy(self._positions.copy()).to(self.device),
-                    )
-                    sampled = sample_token(self.gen, logits, self.temperature).cpu().numpy()
+                    with mesh_context(ctx):
+                        logits, cache = self.api.decode_step_slots(
+                            params,
+                            torch.from_numpy(self._tokens[lo:lo + rows, None].copy()).to(
+                                self.device),
+                            cache,
+                            torch.from_numpy(self._positions[lo:lo + rows].copy()).to(
+                                self.device),
+                        )
+                    sampled = _gathered(sample_token(self.gen, logits, self.temperature), mesh)
                 self.stats["decode_steps"] += 1
                 self.stats["slot_steps"] += B
                 self.stats["live_slot_steps"] += len(self.alloc.live)
@@ -605,6 +711,8 @@ __all__ = [
     "ContinuousEngine",
     "SlotAllocator",
     "Request",
+    "RowRoute",
+    "route_rows",
     "sample_token",
     "generate_bucketed",
     "grow_cache",

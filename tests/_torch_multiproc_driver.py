@@ -52,7 +52,9 @@ ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           moe_ckpt="", moe_deep_steps=0, profile="",
                           serve_cells="qwen2.5-3b", serve_full=False,
                           serve_dtype="float32", serve_param_dtype="float32", serve_ref="whole",
-                          serve_tol=1e-5, serve_repeat=1, serve_replicated="")
+                          serve_tol=1e-5, serve_repeat=1, serve_replicated="",
+                          serve_continuous="", serve_prompts=[8, 16], serve_rate=2.0,
+                          serve_uniform="", serve_temperature="")
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1184,7 +1186,7 @@ def _serve_cells() -> list[tuple[str, int, tuple]]:
     """``--serve-cells``: ``arch[:layers[:BxSxNEW]]`` items, comma-separated
     (layers 0: the config's; the shape by default 4 x 16 + 4 new)."""
     out = []
-    for item in ARGS.serve_cells.split(","):
+    for item in filter(None, ARGS.serve_cells.split(",")):
         arch, layers, shape = (item.split(":") + ["0", "4x16x4"][item.count(":"):])[:3]
         out.append((arch, int(layers), tuple(int(v) for v in shape.split("x"))))
     return out
@@ -1276,19 +1278,20 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux) -> dict:
             "wall_s": wall, "peak": _peak()}
 
 
-def _serve_hop_bytes(cfg, params, rows: int, S: int, steps: int, mesh) -> dict:
-    """What the pod hop carries in one split run, a process: the sampled
-    int32 tokens of its ``rows`` gathered once a call (the prefill and
-    ``steps`` decode steps); and, for each expert-parallel MoE layer call
-    (a call whose ``rows * S * R`` tokens the ``N`` units divide; one
-    decode token a row), the dispatch and the combine trips, each this
-    process's ``U`` units' capacity buffers for the ``N - U`` units of the
-    other processes: ``2 * U * (N - U) * (E / N) * C * d * itemsize`` with
-    ``C = ep_capacity(tokens / U, k, E, capacity_factor)``."""
+def _expert_trips(cfg, params, mesh, impl: str = "round_robin"):
+    """``(layers, trips)``: the expert-parallel MoE layers, and what one
+    such layer's call over ``tokens`` of this process's tokens puts on the
+    pod hop: the dispatch and the combine trips, each this process's ``U``
+    units' capacity buffers for the ``N - U`` units of the other processes,
+    ``2 * U * (N - U) * (E / N) * C * d * itemsize`` with ``C =
+    ep_capacity(tokens / U, k, E, capacity_factor)``; under the ``"xla"``
+    transport (one ``all_to_all_single``, whose buffer holds the process's
+    own share too) all ``N`` units' buffers, ``2 * U * E * C * d *
+    itemsize``; 0 for a call the ``N`` units do not divide (``tokens * R``
+    tokens in all), which takes the dense path."""
     from repro_torch.core.autotune import ep_capacity
     from repro_torch.tree import leaves_with_paths
 
-    gathers = (1 + steps) * rows * 4
     moe_layers = sum(1 for p, _ in leaves_with_paths(params) if p[-1] == "router")
     U, N, R = mesh.local_units, mesh.num_units, mesh.num_processes
     E = cfg.num_experts
@@ -1298,8 +1301,18 @@ def _serve_hop_bytes(cfg, params, rows: int, S: int, steps: int, mesh) -> dict:
         if cfg.moe_impl != "ep_shardmap" or (tokens * R) % N or E % N:
             return 0  # the dense path: no hop
         C = ep_capacity(tokens // U, cfg.top_k, E, cfg.capacity_factor)
-        return 2 * U * (N - U) * (E // N) * C * cfg.d_model * item
+        return 2 * U * (N if impl == "xla" else N - U) * (E // N) * C * cfg.d_model * item
 
+    return moe_layers, trips
+
+
+def _serve_hop_bytes(cfg, params, rows: int, S: int, steps: int, mesh) -> dict:
+    """What the pod hop carries in one split run, a process: the sampled
+    int32 tokens of its ``rows`` gathered once a call (the prefill and
+    ``steps`` decode steps), and each MoE layer call's expert trips
+    (:func:`_expert_trips`; one decode token a row)."""
+    gathers = (1 + steps) * rows * 4
+    moe_layers, trips = _expert_trips(cfg, params, mesh)
     ep = moe_layers * (trips(rows * S) + steps * trips(rows))
     return {"gathers": gathers, "expert_trips": ep, "total": gathers + ep}
 
@@ -1412,7 +1425,8 @@ def _serve_replicated(arch: str, B: int, shape: tuple, ctx, mux) -> dict:
     """A batch of ``B`` rows that the processes do not divide: every process
     runs it whole (``stats["rows"] == "replicated"``), nothing crosses the
     pod hop but what the MoE layer's gather would, and the tokens equal on
-    every process."""
+    every process; through the static engine and through the continuous one
+    (``2 B`` mixed requests into ``B`` slots)."""
     import torch.distributed as dist
 
     from repro_torch.models import registry
@@ -1421,11 +1435,355 @@ def _serve_replicated(arch: str, B: int, shape: tuple, ctx, mux) -> dict:
     api = registry.build(cfg)
     params = api.init(0, device=DEV)
     run = _serve_run(api, params, _serve_inputs(cfg, *shape), B, shape[2], ctx, mux)
+    work = _continuous_workload(cfg, B, 2 * B, shape[2])
+    cont = _continuous_run(api, params, work, B, ctx)
     every = [None] * INFO.num_processes
-    dist.all_gather_object(every, run["tokens"])
+    dist.all_gather_object(every, (run["tokens"], cont["tokens"]))
     return {"arch": arch, "batch": B, "rows": run["stats"]["rows"], "tokens": run["tokens"],
             "hop_bytes": run["hop_bytes"],
-            "tokens_equal_on_every_process": all(t == run["tokens"] for t in every)}
+            "tokens_equal_on_every_process": all(t == run["tokens"] for t, _ in every),
+            "continuous": {"rows": cont["stats"]["rows"], "hop_bytes": cont["hop_bytes"],
+                           "done": cont["done"], "cache_bytes": cont["cache_bytes"],
+                           "whole_cache_bytes": _cache_bytes(api, B, work[2]),
+                           "tokens_equal_on_every_process": all(
+                               c == cont["tokens"] for _, c in every)}}
+
+
+def _continuous_cells() -> list[tuple[str, int, tuple]]:
+    """``--serve-continuous``: ``arch[:layers[:BxREQxNEW]]`` items,
+    comma-separated (layers 0: the config's; by default 8 slots, 12
+    requests, 1-6 new tokens)."""
+    out = []
+    for item in filter(None, ARGS.serve_continuous.split(",")):
+        arch, layers, shape = (item.split(":") + ["0", "8x12x6"][item.count(":"):])[:3]
+        out.append((arch, int(layers), tuple(int(v) for v in shape.split("x"))))
+    return out
+
+
+def _continuous_workload(cfg, B: int, n_req: int, new: int):
+    """``n_req`` mixed requests from seed 0 (``make_mixed_workload``:
+    prompts cycling through ``--serve-prompts``, 1 to ``new`` new tokens,
+    ``--serve-rate`` arrivals a step), a VLM's ``min(1024, shortest // 2)``
+    patch rows ``[B, P, d]`` drawn next, and the capacity."""
+    from repro_torch.models.registry import VLM_PATCHES
+    from repro_torch.serve import make_mixed_workload
+
+    rng = np.random.default_rng(0)
+    plens = ARGS.serve_prompts
+    reqs = make_mixed_workload(cfg.vocab_size, n_req, plens, new, rng,
+                               arrival_rate=ARGS.serve_rate)
+    extra, side = None, 0
+    if cfg.family == "vlm":
+        side = min(VLM_PATCHES, min(plens) // 2)
+        extra = {"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
+    return reqs, extra, max(plens) + side + new + 1
+
+
+def _fresh(reqs: list) -> list:
+    from repro_torch.serve import Request
+
+    return [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
+                    arrival_step=r.arrival_step) for r in reqs]
+
+
+def _spans(tracer) -> list:
+    """Every span's name, category, arguments and children's names, in order."""
+    return [[s.name, s.cat, dict(s.args), [c.name for c in s.children]]
+            for root in tracer.spans for s in root.walk()]
+
+
+def _cache_bytes(api, rows: int, capacity: int) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in leaves(api.init_cache(rows, capacity, device="meta")))
+
+
+def _continuous_schedule(api, B: int, work: tuple) -> dict:
+    """The one-process engine's schedule of a workload, which the requests
+    alone decide (no request stops early: ``eos_id`` is -1): each prefill
+    group's prompt length, context length and slots (recorded by wrapping
+    the engine's ``_scatter_prefill``), the decode steps and the spans.
+    Taken from ``ContinuousEngine`` in this process with no mesh over a
+    stand-in model (zero logits, a one-number-a-position cache), so it
+    costs nothing and needs no reference run."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import ContinuousEngine
+
+    reqs, extra, cap = work
+    side = 0 if extra is None else extra["patches"].shape[1]
+
+    def cache(rows, length):
+        return {"seg0": {"k": torch.zeros((1, rows, length, 1))}}
+
+    stub = dataclasses.replace(
+        api,
+        prefill=lambda _p, b: (torch.zeros((b["tokens"].shape[0], 1)),
+                               cache(b["tokens"].shape[0], b["tokens"].shape[1] + side)),
+        decode_step_slots=lambda _p, t, c, _pos: (torch.zeros((t.shape[0], 1)), c),
+        init_cache=lambda rows, capacity, device="cpu": cache(rows, capacity),
+    )
+    groups = []
+    tracer = Tracer(pid=0)
+    with mesh_context(None):
+        engine = ContinuousEngine(stub, batch_size=B, capacity=cap, tracer=tracer, device="cpu")
+        scatter = engine._scatter_prefill
+
+        def recorded(c, pref, slots, rows=None):
+            ctx_len = int(pref["seg0"]["k"].shape[2])
+            groups.append({"plen": ctx_len - side, "ctx_len": ctx_len, "slots": slots.tolist()})
+            scatter(c, pref, slots, rows)
+
+        engine._scatter_prefill = recorded
+        engine.serve(None, _fresh(reqs), extra)
+    return {"groups": groups, "decode_steps": engine.stats["decode_steps"],
+            "spans": _spans(tracer)}
+
+
+def _continuous_mux(cfg, B: int, mesh) -> dict | None:
+    """The multiplexer the continuous engine should tune on ``mesh`` (the
+    model's decode-step traffic, no timing), as ``describe()`` gives it."""
+    from repro_torch.core.autotune import decode_table_stats
+    from repro_torch.core.multiplexer import make_multiplexer
+
+    if cfg.moe_impl != "ep_shardmap":
+        return None
+    stats = decode_table_stats(cfg, B, mesh.num_units)
+    return make_multiplexer(mesh, auto=True, table_stats=[stats]).describe()
+
+
+def _continuous_hop_bytes(cfg, params, api, sched: dict, B: int, mesh, mux) -> dict:
+    """What the pod hop carries in one split continuous run, a process, from
+    the schedule: the int32 tokens of its ``B / R`` slots gathered once a
+    prefill group and once a decode step; each MoE layer call's expert
+    trips (:func:`_expert_trips`) over its ``B / R`` rows of every group's
+    context (a VLM's patch rows and the prompt) and of every decode step's
+    tokens, under the transport of the tuned multiplexer ``mux``; and every
+    prefilled row it sends to the process that owns its slot (admitted row ``j`` prefilled on process ``j // (B / R)``, slot
+    ``s`` owned by ``s // (B / R)``), at one row's bytes over the cache
+    leaves at the group's context length.  Also the expert-parallel calls
+    and every process's moved rows."""
+    R, me = mesh.num_processes, mesh.process_index
+    n = B // R
+    groups, steps = sched["groups"], sched["decode_steps"]
+    moe_layers, trips = _expert_trips(cfg, params, mesh, mux["impl"] if mux else "round_robin")
+    gathers = 4 * n * (len(groups) + steps)
+    ep = moe_layers * (sum(trips(n * g["ctx_len"]) for g in groups) + steps * trips(n))
+    ep_calls = moe_layers * (sum(trips(n * g["ctx_len"]) > 0 for g in groups)
+                             + steps * (trips(n) > 0))
+    sent = [sum(j // n == me and s // n != me for j, s in enumerate(g["slots"])) for g in groups]
+    rows = sum(k * _cache_bytes(api, 1, g["ctx_len"]) for k, g in zip(sent, groups))
+    moved = sum(j // n != s // n for g in groups for j, s in enumerate(g["slots"]))
+    return {"gathers": gathers, "expert_trips": ep, "moved_row_bytes": rows,
+            "sent_rows": sum(sent), "moved_rows": moved, "expert_calls": ep_calls,
+            "total": gathers + ep + rows}
+
+
+#: The stats that must equal the one-process engine's (``rows`` and
+#: ``moved_rows`` say how the batch lay; ``wall`` is the clock's).
+_COUNTERS = ("prefill_tokens", "prefill_calls", "decode_steps", "slot_steps",
+             "live_slot_steps", "idle_steps", "admitted", "finished")
+
+
+def _continuous_run(api, params, work: tuple, B: int, ctx, temperature: float = 0.0) -> dict:
+    """One mixed workload through ``ContinuousEngine`` under ``ctx`` (the
+    engine tunes its own multiplexer): tokens, admission and finish steps,
+    each call's logits (this process's rows), the drops of every
+    expert-parallel call, the stats, the spans, the slots of each prefill
+    group (whole runs), the bytes of the cache it built, the pod hop's
+    bytes, the kernels' launches, the walls, ``engine_record`` and the
+    peak."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.models import moe
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve import ContinuousEngine, engine_record
+    from repro_torch.tree import leaves
+
+    reqs, extra, cap = work
+    built = []
+
+    def init_cache(rows, capacity, device="cuda"):
+        cache = api.init_cache(rows, capacity, device=device)
+        built.append(sum(t.numel() * t.element_size() for t in leaves(cache)))
+        return cache
+
+    rec = dataclasses.replace(api, prefill=_Recorded(api.prefill),
+                              decode_step_slots=_Recorded(api.decode_step_slots),
+                              init_cache=init_cache)
+    reqs = _fresh(reqs)
+    tracer = Tracer(pid=0)
+    slots = []
+    with mesh_context(ctx):
+        engine = ContinuousEngine(rec, batch_size=B, capacity=cap, temperature=temperature,
+                                  tracer=tracer, device=DEV)
+    scatter = engine._scatter_prefill
+
+    def recorded(cache, pref, s, rows=None):
+        slots.append(s.tolist())
+        scatter(cache, pref, s, rows)
+
+    engine._scatter_prefill = recorded
+    exchange.reset_pod_hop()
+    k0 = _serve_launches()
+    _reset_peak()
+    with mesh_context(ctx), moe.record_drops() as drops:
+        _, wall = _synced(lambda: engine.serve(params, reqs, extra))
+    return {"tokens": [r.out_tokens for r in reqs],
+            "admitted": [r.admitted_step for r in reqs],
+            "finished": [r.finished_step for r in reqs],
+            "done": all(r.done for r in reqs),
+            "logits": rec.prefill.logits + rec.decode_step_slots.logits,
+            "drops": [d.cpu() for d in drops], "stats": dict(engine.stats),
+            "spans": _spans(tracer), "slots": slots, "cache_bytes": built[0],
+            "mux": None if engine.mux is None else engine.mux.describe(),
+            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
+            "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
+            "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step_slots.seconds,
+            "wall_s": wall, "record": engine_record(reqs, engine.stats, wall), "peak": _peak()}
+
+
+def _continuous_arch(arch: str, layers: int, shape: tuple, mesh, ctx) -> dict:
+    """One ``--serve-continuous`` cell: the continuous engine's slots split
+    over the processes, held to process 0's one-process engine over the same
+    units (``--serve-ref whole``) and to the schedule's derived counts."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import MeshContext
+    from repro_torch.models import registry
+
+    rank, R = INFO.process_id, mesh.num_processes
+    B, n_req, new = shape
+    cfg = _serve_cfg(arch, layers)
+    api = registry.build(cfg)
+    params = api.init(0, device=DEV)
+    work = _continuous_workload(cfg, B, n_req, new)
+    sched = _continuous_schedule(api, B, work)
+    whole_cache = _cache_bytes(api, B, work[2])
+    rec = {"layers": cfg.num_layers, "shape": list(shape), "prompts": ARGS.serve_prompts,
+           "rate": ARGS.serve_rate, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "family": cfg.family, "whole_cache_bytes": whole_cache}
+    ref = None
+    if ARGS.serve_ref == "whole" and rank == 0:  # every unit of the same mesh in this process
+        ref = _continuous_run(api, params, work, B, MeshContext(exchange.Mesh(mesh.num_pods,
+                                                                              mesh.n)))
+        _check_launches(f"{arch} continuous one process", cfg, ref)
+        bad = [k for k, b in (("pod hop", ref["hop_bytes"]),
+                              ("slots", ref["slots"] != [g["slots"] for g in sched["groups"]]),
+                              ("spans", ref["spans"] != sched["spans"]),
+                              ("cache", ref["cache_bytes"] != whole_cache)) if b]
+        if bad:
+            raise AssertionError(f"serve continuous {arch}: the one-process run's {bad}")
+        rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s", "wall_s",
+                                                  "peak", "launches", "record", "cache_bytes")}
+    sync_processes()
+    run = _continuous_run(api, params, work, B, ctx)
+    _check_launches(f"{arch} continuous", cfg, run)
+    mux = _continuous_mux(cfg, B, mesh)
+    want = _continuous_hop_bytes(cfg, params, api, sched, B, mesh, mux)
+    rec.update(rows=run["stats"]["rows"], tokens=run["tokens"], stats=run["stats"],
+               hop_bytes=run["hop_bytes"], hop_kinds=run["hop_kinds"], want_hop=want,
+               launches=run["launches"], prefill_s=run["prefill_s"], decode_s=run["decode_s"],
+               wall_s=run["wall_s"], record=run["record"], peak=run["peak"],
+               cache_bytes=run["cache_bytes"], expert_calls=len(run["drops"]), mux=run["mux"],
+               groups=len(sched["groups"]))
+    fails = [k for k, bad in (
+        ("rows", run["stats"]["rows"] != "split"),
+        ("done", not run["done"]),
+        ("cache", run["cache_bytes"] * R != whole_cache),
+        ("pod hop", run["hop_bytes"] != want["total"]),
+        ("moved rows", run["stats"]["moved_rows"] != want["moved_rows"]),
+        ("expert calls", len(run["drops"]) != want["expert_calls"]),
+        ("spans", run["spans"] != sched["spans"]),
+        ("multiplexer", run["mux"] != mux),
+    ) if bad]
+    if fails:
+        raise AssertionError(f"serve continuous {arch} process {rank}: {fails}: "
+                             f"{ {k: rec[k] for k in ('hop_bytes', 'want_hop', 'cache_bytes')} }")
+    every = [None] * R
+    whole = ARGS.serve_ref == "whole"  # process 0 holds every process's rows to its run
+    dist.all_gather_object(every, (run["tokens"], run["spans"], run["mux"],
+                                   run["logits"] if whole else None,
+                                   [d.tolist() for d in run["drops"]]))
+    rec["equal_on_every_process"] = {
+        k: all(e[i] == every[0][i] for e in every)
+        for i, k in enumerate(("tokens", "spans", "mux"))}
+    if not all(rec["equal_on_every_process"].values()):
+        raise AssertionError(f"serve continuous {arch}: {rec['equal_on_every_process']}")
+    if ref is not None:
+        n = B // R
+        rec["tokens_equal"] = run["tokens"] == ref["tokens"]
+        rec["steps_equal"] = (run["admitted"], run["finished"]) == (ref["admitted"],
+                                                                    ref["finished"])
+        rec["stats_equal"] = all(run["stats"][k] == ref["stats"][k] for k in _COUNTERS)
+        rec["spans_equal"] = run["spans"] == ref["spans"]
+        rec["logit_rel"] = [max(v) for v in zip(*(
+            _worst_rows(e[3], ref["logits"], r * n) for r, e in enumerate(every)))]
+        split_drops = [sum((e[4][c] for e in every), []) for c in range(len(run["drops"]))]
+        rec["drops_equal"] = split_drops == [d.tolist() for d in ref["drops"]]
+        rec["drops"] = [sum(d) for d in split_drops]
+        fails = [k for k, bad in (
+            ("tokens", not rec["tokens_equal"]), ("steps", not rec["steps_equal"]),
+            ("stats", not rec["stats_equal"]), ("spans", not rec["spans_equal"]),
+            ("logits", max(rec["logit_rel"]) > ARGS.serve_tol),
+            ("drops", not rec["drops_equal"]),
+        ) if bad]
+        if fails:
+            raise AssertionError(f"serve continuous {arch} against the one-process engine: "
+                                 f"{fails}: { {k: rec.get(k) for k in ('logit_rel', 'drops')} }")
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _continuous_uniform(arch: str, shape: tuple, ctx, mux) -> dict:
+    """``B`` prompts of ``S`` tokens, ``NEW`` new each, all arriving at once,
+    through the split continuous engine and the split static engine: one
+    prefill group into slots ``0 .. B - 1``, so no row moves, and the same
+    greedy tokens."""
+    from repro_torch.models import registry
+    from repro_torch.serve import Request
+
+    B, S, new = shape
+    cfg = _serve_cfg(arch, 0)
+    api = registry.build(cfg)
+    params = api.init(0, device=DEV)
+    inputs = _serve_inputs(cfg, B, S, new)
+    static = _serve_run(api, params, inputs, B, new, ctx, mux)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new) for p in inputs[0]]
+    run = _continuous_run(api, params, (reqs, inputs[1], inputs[2]), B, ctx)
+    return {"arch": arch, "shape": list(shape), "rows": run["stats"]["rows"],
+            "moved_rows": run["stats"]["moved_rows"], "tokens": run["tokens"],
+            "tokens_equal_static": run["tokens"] == static["tokens"],
+            "static_rows": static["stats"]["rows"]}
+
+
+def _continuous_sampled(arch: str, temperature: float, ctx) -> dict:
+    """The first continuous cell's workload, split, with a temperature:
+    each process draws its slots' tokens from its own generator; the
+    gathered tokens, and so the slot map and the spans, are the same on
+    every process."""
+    import torch.distributed as dist
+
+    from repro_torch.models import registry
+
+    _, layers, (B, n_req, new) = next(c for c in _continuous_cells() if c[0] == arch)
+    cfg = _serve_cfg(arch, layers)
+    api = registry.build(cfg)
+    params = api.init(0, device=DEV)
+    run = _continuous_run(api, params, _continuous_workload(cfg, B, n_req, new), B, ctx,
+                          temperature=temperature)
+    every = [None] * INFO.num_processes
+    dist.all_gather_object(every, (run["tokens"], run["spans"]))
+    return {"arch": arch, "temperature": temperature, "rows": run["stats"]["rows"],
+            "done": run["done"], "admitted": run["stats"]["admitted"],
+            "finished": run["stats"]["finished"], "requests": n_req, "tokens": run["tokens"],
+            "equal_on_every_process": all(e == every[0] for e in every)}
 
 
 def scenario_serve():
@@ -1465,7 +1823,7 @@ def scenario_serve():
     if DEV == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    out = {"started_at": started_at, "archs": {}}
+    out = {"started_at": started_at, "archs": {}, "continuous": {}}
     cells = _serve_cells()
     for arch, layers, shape in cells:
         t0 = time.perf_counter()
@@ -1476,22 +1834,48 @@ def scenario_serve():
               f"prefill {[round(s * 1e3, 1) for s in r['prefill_s'][-1]]} ms, decode "
               f"{sum(r['decode_s'][-1]) * 1e3:.1f} ms over {len(r['decode_s'][-1])} steps, "
               f"pod hop {r['hop_bytes']} B, peak {r['peak']}")
-    api = registry.build(_serve_cfg(cells[0][0], cells[0][1]))
+    for arch, layers, shape in _continuous_cells():
+        t0 = time.perf_counter()
+        r = out["continuous"][arch] = _continuous_arch(arch, layers, shape, mesh, ctx)
+        r["seconds"] = time.perf_counter() - t0
+        print(f"[serve] {arch} continuous: {r['layers']} layers {r['dtype']}, {r['shape']}, "
+              f"rows {r['rows']}, {r['groups']} prefill groups "
+              f"{[round(v * 1e3, 1) for v in r['prefill_s']]} ms, decode "
+              f"{sum(r['decode_s']) * 1e3:.1f} ms over {len(r['decode_s'])} steps, moved rows "
+              f"{r['stats']['moved_rows']}, pod hop {r['hop_bytes']} B, cache "
+              f"{r['cache_bytes']} B, peak {r['peak']}")
+    if ARGS.serve_uniform:
+        arch, shape = ARGS.serve_uniform.split(":")
+        u = out["uniform"] = _continuous_uniform(
+            arch, tuple(int(v) for v in shape.split("x")), ctx, mux_for(mesh))
+        if not (u["tokens_equal_static"] and u["moved_rows"] == 0
+                and u["rows"] == u["static_rows"] == "split"):
+            raise AssertionError(f"serve: the uniform continuous run {u}")
+    if ARGS.serve_temperature:
+        arch, temp = ARGS.serve_temperature.split(":")
+        t = out["sampled"] = _continuous_sampled(arch, float(temp), ctx)
+        if not (t["equal_on_every_process"] and t["done"] and t["rows"] == "split"
+                and t["admitted"] == t["finished"] == t["requests"]):
+            raise AssertionError(f"serve: the sampled continuous run {t}")
+    # the families with no per-slot decode still refuse continuous batching
+    api = registry.build(_serve_cfg("mamba2-1.3b", 0))
     try:
         with mesh_context(ctx):
-            ContinuousEngine(api, batch_size=cells[0][2][0], capacity=8, device=DEV)
+            ContinuousEngine(api, batch_size=2 * mesh.num_processes, capacity=8, device=DEV)
         out["continuous_raises"] = None
     except NotImplementedError as e:
         out["continuous_raises"] = str(e)
-    if api.decode_step_slots is not None and out["continuous_raises"] is None:
-        raise AssertionError("serve: ContinuousEngine ran on a mesh that spans processes")
+    if out["continuous_raises"] is None:
+        raise AssertionError("serve: ContinuousEngine took a family with no decode_step_slots")
     if ARGS.serve_replicated:
         arch, B = ARGS.serve_replicated.split(":")
         shape = next(s for a, _, s in cells if a == arch) if any(
             a == arch for a, _, _ in cells) else cells[0][2]
         out["replicated"] = _serve_replicated(arch, int(B), shape, ctx, mux_for(mesh))
-        if out["replicated"]["rows"] != "replicated" or \
-                not out["replicated"]["tokens_equal_on_every_process"]:
+        rep = out["replicated"]
+        if not (rep["rows"] == rep["continuous"]["rows"] == "replicated"
+                and rep["tokens_equal_on_every_process"]
+                and rep["continuous"]["tokens_equal_on_every_process"]):
             raise AssertionError(f"serve: batch {B} over {mesh.num_processes} processes: "
                                  f"{out['replicated']}")
     RESULTS["serve"] = out
@@ -1535,6 +1919,17 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--serve-tol", type=float, default=1e-5)
     ap.add_argument("--serve-repeat", type=int, default=1)
     ap.add_argument("--serve-replicated", default="", help="serve: arch:B, a batch run whole")
+    ap.add_argument("--serve-continuous", default="",
+                    help="serve: arch[:layers[:BxREQxNEW]] items, comma-separated, through the "
+                         "continuous engine")
+    ap.add_argument("--serve-prompts", default="8,16",
+                    help="serve: the continuous workload's prompt lengths")
+    ap.add_argument("--serve-rate", type=float, default=2.0,
+                    help="serve: the continuous workload's arrivals a step")
+    ap.add_argument("--serve-uniform", default="",
+                    help="serve: arch:BxSxNEW, uniform requests through both split engines")
+    ap.add_argument("--serve-temperature", default="",
+                    help="serve: arch:T, a continuous cell's workload sampled at T")
     args = ap.parse_args(argv)
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
@@ -1545,8 +1940,9 @@ def main(argv: list[str]) -> None:
     ARGS.moe_deep_steps = args.moe_deep_steps
     ARGS.profile = args.profile
     for k in ("cells", "full", "dtype", "param_dtype", "ref", "tol", "repeat",
-              "replicated"):
+              "replicated", "continuous", "rate", "uniform", "temperature"):
         setattr(ARGS, f"serve_{k}", getattr(args, f"serve_{k}"))
+    ARGS.serve_prompts = [int(v) for v in args.serve_prompts.split(",")]
     names = ([n for n in SCENARIOS if n not in ON_REQUEST] if args.scenario == "all"
              else args.scenario.split(","))
     start = _counts()

@@ -4,7 +4,7 @@
     python3 tools/torch_cluster_probe.py gloo-cuda
     python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
                                                [--out DIR]
-    python3 tools/torch_cluster_probe.py serve [--out DIR]
+    python3 tools/torch_cluster_probe.py serve [--runs olmoe,mamba2,olmoe_continuous] [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -39,18 +39,24 @@ batch and 4 x 2 layout), the trace's overlap fraction, idle share and busy
 share, MFU of the four cards against the bf16 peak, and the peak of live
 bytes beside the allocator's.  The traces go to a temporary directory.
 
-``serve`` runs the ``serve`` scenario (the static serving engine with its
+``serve`` runs the ``serve`` scenario (the serving engines with their
 batch split over the processes, ``serve/engine.py``) over 4 NCCL ranks of 2
-units, a card a rank, in two clusters: (a) OLMoE-1B-7B at full width and
+units, a card a rank, in three clusters: (a) OLMoE-1B-7B at full width and
 depth, bf16 compute over bf16 params, expert-parallel, 32 x 2,048-token
-prompts + 16 new (8 rows a rank), the split run twice; (b) Mamba2-1.3B at
-``prefill_32k``'s own batch, 32 x 32,768 + 4 new (8 rows a rank, bf16 over
-f32 params, the dry run's policy), each rank's tokens held to a
-one-process engine on its 8 rows (the same shapes, so bit-identical).  It
-prints a line of JSON a rank and run: prefill and decode ms, tokens/s, the
-pod hop's bytes beside the derived count, the peak memory, and for Mamba2
-the dry run's count of the same cell on ``4x2`` (arguments plus peak live,
-counted on ``meta`` beside the workers).
+prompts + 16 new (8 rows a rank) through the static engine, the split run
+twice; (b) Mamba2-1.3B at ``prefill_32k``'s own batch, 32 x 32,768 + 4 new
+(8 rows a rank, bf16 over f32 params, the dry run's policy), each rank's
+tokens held to a one-process engine on its 8 rows (the same shapes, so
+bit-identical); (c) OLMoE-1B-7B as in (a) through the continuous engine:
+32 slots (8 a rank, each rank holding only its slots' cache rows), 64
+mixed requests (prompts of 1,024 and 2,048 tokens, 1-16 new, 4 arrivals a
+step), each worker asserting that the tokens, the spans and the tuned
+multiplexer are equal on every rank and that its pod-hop bytes equal the
+count derived from the one-process engine's schedule.  It prints a line of
+JSON a rank and run: prefill and decode ms, tokens/s (and for (c) TTFT and
+the moved rows), the pod hop's bytes beside the derived count, the peak
+memory, and for Mamba2 the dry run's count of the same cell on ``4x2``
+(arguments plus peak live, counted on ``meta`` beside the workers).
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -345,15 +351,23 @@ SERVE_RUNS = {
     # engine on its own rows
     "mamba2": ["--serve-cells", "mamba2-1.3b:0:32x32768x4", "--serve-dtype", "bfloat16",
                "--serve-param-dtype", "float32", "--serve-ref", "rows"],
+    # (c) OLMoE-1B-7B as in (a) through the continuous engine: 32 slots (8 a
+    # rank), 64 mixed requests, prompts 1,024 and 2,048, 1-16 new, 4 a step
+    "olmoe_continuous": ["--serve-cells", "", "--serve-continuous", "olmoe-1b-7b:0:32x64x16",
+                         "--serve-prompts", "1024,2048", "--serve-rate", "4",
+                         "--serve-dtype", "bfloat16", "--serve-param-dtype", "bfloat16",
+                         "--serve-ref", "none"],
 }
 
 
-def serve(out: Path) -> int:
-    """The static engine's batch split over 4 NCCL ranks of 2 units, a card a
-    rank: the driver's ``serve`` scenario for each of ``SERVE_RUNS``, each
-    in its own cluster.  Prints each rank's prefill and decode ms, tokens/s,
-    pod-hop bytes and peak memory, and for Mamba2 the peak beside the dry
-    run's count of ``prefill_32k`` on ``4x2`` (arguments plus peak live)."""
+def serve(out: Path, runs: list[str]) -> int:
+    """The serving engines' batch split over 4 NCCL ranks of 2 units, a card
+    a rank: the driver's ``serve`` scenario for each of ``runs`` (names in
+    ``SERVE_RUNS``), each in its own cluster.  Prints each rank's prefill and
+    decode ms, tokens/s, pod-hop bytes and peak memory (for the continuous
+    run also TTFT and the moved rows), and for Mamba2 the peak beside the
+    dry run's count of ``prefill_32k`` on ``4x2`` (arguments plus peak
+    live)."""
     import threading
     import time
 
@@ -374,8 +388,10 @@ def serve(out: Path) -> int:
         counted.update(dryrun.count_cell(cfg, SHAPES["prefill_32k"], procs, units))
 
     counter = threading.Thread(target=count)
-    counter.start()
-    for name, flags in SERVE_RUNS.items():
+    if "mamba2" in runs:
+        counter.start()
+    for name in runs:
+        flags = SERVE_RUNS[name]
         tag = f"[serve {name} {backend}:{procs}x{units}]"
         dump = out / f"serve_{name}_{backend}_{procs}x{units}"
         t0 = time.perf_counter()
@@ -422,11 +438,32 @@ def serve(out: Path) -> int:
                     line.update(dryrun_args_plus_peak_live=model,
                                 peak_over_dryrun=r["peak"] / model if r["peak"] else None)
                 print(f"{tag} rank {pid}: {json.dumps(line)}")
+            for arch, r in rec["continuous"].items():
+                slots, n_req, new = r["shape"]
+                n = len(r["decode_s"])
+                line = {"rank": pid, "arch": arch, "engine": "continuous", "layers": r["layers"],
+                        "dtype": r["dtype"], "param_dtype": r["param_dtype"], "rows": r["rows"],
+                        "slots": slots, "slots_a_rank": slots // procs, "requests": n_req,
+                        "prompts": r["prompts"], "max_new": new, "rate": r["rate"],
+                        "prefill_groups": len(r["prefill_s"]),
+                        "prefill_ms": [p * 1e3 for p in r["prefill_s"]],
+                        "decode_steps": n, "decode_ms_a_step": 1e3 * sum(r["decode_s"]) / max(n, 1),
+                        "record": r["record"], "moved_rows": r["stats"]["moved_rows"],
+                        "sent_rows": r["want_hop"]["sent_rows"],
+                        "moved_row_bytes": r["want_hop"]["moved_row_bytes"],
+                        "pod_hop_bytes": r["hop_bytes"], "pod_hop_derived": r["want_hop"],
+                        "pod_hop_kinds": r["hop_kinds"], "cache_bytes": r["cache_bytes"],
+                        "whole_cache_bytes": r["whole_cache_bytes"], "peak": r["peak"],
+                        "launches": r["launches"], "expert_calls": r["expert_calls"],
+                        "equal_on_every_process": r["equal_on_every_process"], "mux": r["mux"],
+                        "nvidia_smi": smi}
+                print(f"{tag} rank {pid}: {json.dumps(line)}")
         print(f"{tag} passed in {wall:.1f} s (launcher wall)")
-    counter.join()
-    print(f"[serve] the dry run's count of mamba2-1.3b x prefill_32k x 4x2 (rank 0, meta): "
-          f"arguments {counted['argument_bytes']} B + peak live {counted['peak_live_bytes']} B "
-          f"in {counted['count_s']:.1f} s")
+    if "mamba2" in runs:
+        counter.join()
+        print(f"[serve] the dry run's count of mamba2-1.3b x prefill_32k x 4x2 (rank 0, meta): "
+              f"arguments {counted['argument_bytes']} B + peak live {counted['peak_live_bytes']} B "
+              f"in {counted['count_s']:.1f} s")
     return 0
 
 
@@ -438,6 +475,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
     ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
     ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b"), default="train100m")
+    ap.add_argument("--runs", default=",".join(SERVE_RUNS),
+                    help="serve: which of " + ", ".join(SERVE_RUNS) + ", comma-separated")
     ap.add_argument("--profile", action="store_true",
                     help="train: one step a rank counted and one profiled (see above)")
     args = ap.parse_args(argv)
@@ -453,7 +492,7 @@ def main(argv: list[str]) -> int:
     if args.mode == "train":
         return train(args.out, args.arch, args.profile)
     if args.mode == "serve":
-        return serve(args.out)
+        return serve(args.out, args.runs.split(","))
     return layouts(args.layouts.split(","), args.sf, args.morsel_rows, args.out)
 
 
