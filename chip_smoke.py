@@ -37,7 +37,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    TFLOP/s is printed beside it); ``ssd_scan`` at Mamba2-1.3B's
    prefill shape (B=8, L=2,048, H=64, P=64, N=128, chunk 256) in bf16 (y
    within 2e-2, one bf16 rounding; the state within 2e-4) and f32 (2e-4),
-   and at batch 1 over a 32,768-token prompt, at Zamba2-7B's (B=4, H=112,
+   and at batch 1 over a 32,768-token and a 524,288-token prompt (bf16:
+   x of 2**31 elements; one timed plain call), at Zamba2-7B's (B=4, H=112,
    N=64), chained from a nonzero initial state and with two groups, against
    its plain version, bound by the larger of bytes and f32 flops, with one
    call profiled for the device time of each of its three kernels;
@@ -191,8 +192,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    beside the card's name and power limit;
 6. training — train100m at full width and depth (random weights from
    ``--seed``, f32, ``remat="block"``) with ``attn_impl="flash"``, batch 8 x
-   2,048 tokens, 20 AdamW steps (lr 3e-4, 5 warm-up steps), through the
-   calls ``launch/train.py`` makes.  Every loss must be finite and the mean
+   2,048 tokens, 10 AdamW steps (lr 3e-4, 5 warm-up steps of a 20-step
+   schedule), through the calls ``launch/train.py`` makes.  Every loss must
+   be finite and the mean
    of the last 5 below the first; ``flash_attention`` must launch 2 x 12
    times a step (each layer's forward and its remat recompute; the
    backward recomputes through the chunked plain attention).  One step
@@ -260,20 +262,27 @@ Phases, in order; any failure raises and the process exits non-zero:
    layers, d_model 3,584) at full width and depth (random weights from
    ``--seed``, f32 master params, bf16 compute) through the static engine:
    Mamba2 16 requests x 2,048 prompt tokens x 32 new at batch 8, then one
-   request of 32,768 tokens x 8 new; Zamba2 8 x 2,048 x 16 new at batch 4.
-   ``ssd_scan`` must launch once per Mamba2 layer of every prefill (48, 81).
-   In f32 compute, a prefill must agree with a shorter prefill followed by
-   decode steps (the plain token-by-token recurrence ``ssd_step``): Mamba2
-   2 x 2,048 against 1,792 + 256 steps, Zamba2 1 x 512 against 256 + 256;
-   the last logits and every layer's SSM state within 1e-3 of the largest
-   magnitude.  Prefill and decode tokens/s, ms a decode step and peak
-   memory are printed; one prefill and one decode step of each model are
-   profiled;
+   request of 32,768 tokens x 8 new, then the reference's ``long_500k``
+   cell: one request of 524,288 tokens x 8 new (each layer's scan one
+   launch over 2,048 chunks, x of 2**31 elements), its peak memory printed
+   beside the prefill's count on ``meta`` (``launch/op_cost.py``), then one
+   ``decode_step`` at position 524,287 holding only the params and the
+   cache, its peak beside the dry run's count of the cell; Zamba2 8 x 2,048
+   x 16 new at batch 4.  ``ssd_scan`` must launch once per Mamba2 layer of
+   every prefill (48, 81).  In f32 compute, a prefill must agree with a
+   shorter prefill followed by decode steps (the plain token-by-token
+   recurrence ``ssd_step``): Mamba2 2 x 2,048 against 1,792 + 256 steps and
+   1 x 524,288 against 524,032 + 256 (the last step at position 524,287),
+   Zamba2 1 x 512 against 256 + 256; the last logits and every layer's SSM
+   state within 1e-3 of the largest magnitude, each check's peak memory
+   beside its prefill's count.  Prefill and decode tokens/s, ms a decode
+   step and peak memory are printed; one prefill and one decode step of
+   each model are profiled;
 8. SSM training — Mamba2-1.3B at full width and depth (48 layers, d_model
    2,048; random weights from ``--seed``, bf16 compute over f32 master
-   params, ``remat="block"``), 8 AdamW steps at 8 x 2,048 tokens through
+   params, ``remat="block"``), 4 AdamW steps at 8 x 2,048 tokens through
    the calls ``launch/train.py`` makes: every loss finite, the mean of the
-   last 5 below the first, ``ssd_scan`` launched 2 x 48 times a step (each
+   last 3 below the first, ``ssd_scan`` launched 2 x 48 times a step (each
    layer's forward and its remat recompute; the backward recomputes through
    the plain scan); one step profiled (the scan kernels' and the plain
    backward's shares of device time); one step from the same state and
@@ -323,7 +332,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    f32 at batch 1, calling the model directly: 1,500 frames, a prefill of
    1,436 tokens and 64 decode steps over the unpadded cross cache against
    ``decode_train`` at the last position, the logits within 1e-3 of the
-   largest magnitude.  Training: 10 AdamW steps at 8 x 2,048 (and 2,048
+   largest magnitude.  Training: 5 AdamW steps at 8 x 2,048 (and 2,048
    frames), ``remat="block"``, through the calls ``launch/train.py``
    makes: losses finite, the mean of the last 3 below the first, 96
    ``flash_attention`` launches a step (48 non-causal: each encoder layer's
@@ -377,8 +386,12 @@ SERVE_PROCS_CELLS = "olmoe-1b-7b:2:8x256x8,mamba2-1.3b:0:8x2048x8"
 SERVE_PROCS_CONTINUOUS = ("olmoe-1b-7b:2:8x16x8", "128,256", 2)
 SERVE_PROCS_TOL = 1e-4
 SERVE_PROCS_TIMEOUT_S = 300
-# training: batch, seq, steps; the CLI resume check's seq
-TRAIN_SHAPE = (8, 2048, 20)
+# training: batch, seq, steps; the length of every training run's lr schedule
+# (5 warm-up steps over 20); the CLI resume check's seq.  train100m's f32 run
+# takes 10 steps to keep the whole script near 1,100 s with phase 7's long_500k
+# cell.
+TRAIN_SHAPE = (8, 2048, 10)
+TRAIN_SCHEDULE = 20
 # data-parallel training (6b): worker processes and units each on this card,
 # the global batch (rows, seq), the launcher's deadline
 DP_PROCESSES, DP_UNITS = 2, 4
@@ -400,7 +413,11 @@ TRAIN_BF16_RTOL = (2.0**-7, 2.0**-5)
 # batch, full length and split point
 SSM_SERVE = {"mamba2-1.3b": (16, 2048, 32, 8), "zamba2-7b": (8, 2048, 16, 4)}
 SSM_LONG = (32768, 8)  # Mamba2: one request of the reference's prefill_32k length
-SSM_CHECK = {"mamba2-1.3b": [(2, 2048, 1792), (1, SSM_LONG[0], SSM_LONG[0] - 256)],
+SSM_500K = (524_288, 8)  # Mamba2: one request of the reference's long_500k length
+# The long f32 check is the long_500k prompt against 524,032 tokens and 256
+# decode steps, the last at position 524,287 (the dry run's decode step); the
+# 32,768-token prompt has no f32 check of its own, for the script's time.
+SSM_CHECK = {"mamba2-1.3b": [(2, 2048, 1792), (1, SSM_500K[0], SSM_500K[0] - 256)],
              "zamba2-7b": [(1, 512, 256)]}
 SSM_CHECK_TOL = 1e-3
 # SSM training: Mamba2-1.3B at full width and depth (batch, seq, steps); its
@@ -409,8 +426,9 @@ SSM_CHECK_TOL = 1e-3
 # depth cut to 13 layers for memory (two groups of 6 with the shared block, a
 # tail of 1: 81 layers' ~6.7 B f32 params with their grads and AdamW moments
 # take ~108 GB, 13 layers' ~22 GB), batch and steps; the CLI's run.  Mamba2
-# trains 8 steps, not 20, to keep the whole script near 900 s with phase 6c.
-SSM_TRAIN = (8, 2048, 8)
+# trains 4 steps to keep the whole script near 1,100 s with phase 6c and phase
+# 7's long_500k cell.
+SSM_TRAIN = (8, 2048, 4)
 SSM_TRAIN_F32 = (2, 1e-4, 1e-3)
 ZAMBA_TRAIN = (13, 4, 5)
 SSM_TRAIN_CLI = (2, 512, 2)  # steps, seq, batch
@@ -448,10 +466,12 @@ TF_CHECK_TOL = 1e-3
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
 # steps; the CLI's steps, seq, batch.  Serving runs Whisper's own 1,500-frame
-# window, which the flash kernel takes with a partial last tile.
+# window, which the flash kernel takes with a partial last tile.  Training
+# takes 5 steps to keep the whole script near 1,100 s with phase 7's long_500k
+# cell.
 WHISPER_SERVE = (8, 1500, 32, 4)
 WHISPER_CHECK = (1500, 1436)
-WHISPER_TRAIN = (8, 2048, 10)
+WHISPER_TRAIN = (8, 2048, 5)
 WHISPER_TRAIN_CLI = (2, 512, 2)
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
@@ -642,12 +662,12 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
     )
 
 
-def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
+def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False, plain_iters=3) -> dict:
     """The chunk-scan kernel against its plain version (y within 2e-4 in
     f32 and 2e-2 in bf16, the f32 state within 2e-4), timed beside the plain
-    version; bound by the larger of bytes and f32 flops.  The inputs follow
-    the model's distributions: dt log-uniform in [1e-3, 1e-1], A uniform in
-    [-16, -1]."""
+    version (``plain_iters`` calls after one warm-up); bound by the larger of
+    bytes and f32 flops.  The inputs follow the model's distributions: dt
+    log-uniform in [1e-3, 1e-1], A uniform in [-16, -1]."""
     import torch
 
     from repro_torch.kernels import ref
@@ -677,7 +697,8 @@ def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False) -> dict:
                              f"plain version (max |err| y {err}, state {err_s})")
     del want_y, want_fin
     ms = _time_ms(lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0), iters=10, warmup=2)
-    plain_ms = _time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q, s0), iters=3, warmup=1)
+    plain_ms = _time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, Q, s0), iters=plain_iters,
+                        warmup=1)
     flops, nbytes = sk.scan_work(x, dt, A, Bm, Q, s0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
@@ -819,14 +840,16 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     serving["launch_key"] = "flash_attention[ragged]"
     _flash_row(1, 4, 1, frames, frames, 64, True, "float32", seed, smi)
     _flash_row(2, 8, 2, 192, 192, 48, True, "float32", seed, smi)
-    # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row) and its
-    # long prompt at batch 1 (64 blocks, the state carried over 128 chunks);
+    # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
+    # prefill_32k prompt at batch 1 (64 blocks, the state carried over 128
+    # chunks) and its long_500k prompt (x of 2**31 elements, 2,048 chunks);
     # Zamba2-7B
     L_long = SSM_LONG[0]
     ssd = [_ssd_row(8, 2048, 64, 64, 128, 256, 1, "bfloat16", seed),
            _ssd_row(8, 2048, 64, 64, 128, 256, 1, "float32", seed),
            _ssd_row(1, L_long, 64, 64, 128, 256, 1, "bfloat16", seed),
            _ssd_row(1, L_long, 64, 64, 128, 256, 1, "float32", seed),
+           _ssd_row(1, SSM_500K[0], 64, 64, 128, 256, 1, "bfloat16", seed, plain_iters=1),
            _ssd_row(4, 2048, 112, 64, 64, 256, 1, "bfloat16", seed),
            _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
@@ -2462,9 +2485,10 @@ def _train_run(cfg, seed: int, steps: int, tag: str, shape=TRAIN_SHAPE[:2],
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    (B, S), total = shape, TRAIN_SHAPE[2]
+    B, S = shape
     api = registry.build(cfg)
-    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=total, schedule=cfg.lr_schedule)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=TRAIN_SCHEDULE,
+                      schedule=cfg.lr_schedule)
     step_fn = make_train_step(api, opt)
     state = TrainState.create(api, seed)
     n_params = sum(t.numel() for t in leaves(state.params))
@@ -2538,7 +2562,7 @@ def _flash_vs_chunked(cfg, opt, step_fn, state, batch, tag: str, rtol_loss: floa
 
 
 def phase_training(seed: int) -> dict:
-    """train100m at full width with the flash kernel: 20 steps in f32, the
+    """train100m at full width with the flash kernel: 10 steps in f32, the
     chunked cross-check, the CLI's checkpoint resume, one profiled step;
     then 5 steps with bf16 compute over f32 master params, its own chunked
     cross-check and profiled step.  Returns every kernel's launches over the
@@ -2861,21 +2885,43 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def _ssm_check(api32, params, seed: int, arch: str, nb: int, full: int, split: int) -> None:
+def _prefill_count(cfg, nb: int, length: int) -> int:
+    """The dry run's counter (``launch/op_cost.py``) on ``meta``: the most
+    bytes a prefill of ``nb`` x ``length`` tokens holds at once, plus the
+    params' bytes, which ``torch.cuda.max_memory_allocated`` sees too."""
+    import torch
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves
+
+    params, _ = registry.param_shape_specs(cfg)
+    tokens = torch.empty((nb, length), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        res = op_cost.analyze(registry.build(cfg).prefill, params, {"tokens": tokens})
+    return res["peak_live_bytes"] + sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+def _ssm_check(api32, params, seed: int, arch: str, nb: int, full: int, split: int,
+               smi: str) -> None:
     """In f32 compute: one prefill of ``nb`` prompts of ``full`` tokens
     against a prefill of their first ``split`` followed by one decode step a
     token (the plain recurrence ``ssd_step``).  The last logits and every
     layer's SSM state must agree within ``SSM_CHECK_TOL`` of the largest
     magnitude: the two sides differ only in f32 rounding, compounded through
-    the layers (and, at batch 1, through the chunks of a long prompt)."""
+    the layers (and, at batch 1, through the chunks of a long prompt).  The
+    check's peak memory is printed beside the full prefill's count on
+    ``meta``."""
     import numpy as np
     import torch
 
     from repro_torch.serve import grow_cache
     from repro_torch.tree import leaves_with_paths
 
+    counted = _prefill_count(api32.cfg, nb, full)
     rng = np.random.default_rng(seed + 1)
     tokens = torch.from_numpy(rng.integers(0, api32.cfg.vocab_size, (nb, full), dtype=np.int32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     want_logits, want_cache = api32.prefill(params, {"tokens": tokens})
     _, cache = api32.prefill(params, {"tokens": tokens[:, :split]})
@@ -2884,6 +2930,7 @@ def _ssm_check(api32, params, seed: int, arch: str, nb: int, full: int, split: i
         logits, cache = api32.decode_step(params, tokens[:, pos : pos + 1], cache, pos)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     if not (torch.isfinite(logits).all() and torch.isfinite(want_logits).all()):
         raise AssertionError(f"{arch} f32 check: non-finite logits")
     err_logits = _rel_err(logits, want_logits)
@@ -2896,15 +2943,108 @@ def _ssm_check(api32, params, seed: int, arch: str, nb: int, full: int, split: i
             err_state = max(err_state, *(_rel_err(g, w) for g, w in zip(flat_got, flat_want)))
     n_states = sum(w.reshape(-1, *w.shape[-4:]).shape[0] for w in want_states.values())
     print(f"[ssm] {arch} f32 check: prefill of {nb} x {full} against a prefill of {split} "
-          f"and {full - split} decode steps: last logits rel err {err_logits:.3g}, the worst "
-          f"of {n_states} layers' SSM states {err_state:.3g} (limit {SSM_CHECK_TOL}); "
-          f"{wall:.2f} s")
+          f"and {full - split} decode steps (the last at position {full - 1}): last logits rel "
+          f"err {err_logits:.3g}, the worst of {n_states} layers' SSM states {err_state:.3g} "
+          f"(limit {SSM_CHECK_TOL}); {wall:.2f} s; peak torch.cuda.max_memory_allocated {peak} B "
+          f"against {counted} B counted on meta (the f32 prefill's peak live + params) ({smi})")
     if err_logits > SSM_CHECK_TOL or err_state > SSM_CHECK_TOL:
         raise AssertionError(f"{arch}: prefill and prefill + decode disagree beyond "
                              f"{SSM_CHECK_TOL}")
 
 
-def _ssm_model(arch: str, seed: int) -> dict:
+def _ssm_serve(api, params, rng, arch: str, tag: str, n: int, plen: int, new: int, batch: int,
+               keep: dict | None = None) -> dict:
+    """``n`` requests of ``plen`` random tokens and ``new`` new ones through
+    the static engine at ``batch``: ``ssd_scan`` once a layer a prefill,
+    every request its tokens.  With ``keep``, ``keep["cache"]`` is the last
+    prefill's cache (the engine's decode steps update it in place).
+    Returns every kernel's launches over the run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine
+
+    prefill = api.prefill
+    if keep is not None:
+        def prefill(params, batch_):
+            logits, keep["cache"] = api.prefill(params, batch_)
+            return logits, keep["cache"]
+
+    cfg, L = api.cfg, api.cfg.num_layers  # every layer of both models is a Mamba2 layer
+    t_api = _timed_api(dataclasses.replace(api, prefill=prefill))
+    engine = ServeEngine(t_api, batch_size=batch, capacity=plen + new)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, plen, dtype=np.int32),
+                    max_new_tokens=new) for _ in range(n)]
+    _reset_counts()
+    for i in range(0, n, batch):
+        engine.generate(params, reqs[i : i + batch])
+    counts = _counts()
+    if counts["ssd_scan"] != L * t_api.prefill.calls:
+        raise AssertionError(f"{arch} {tag}: ssd_scan launched {counts['ssd_scan']} times, "
+                             f"expected {L} x {t_api.prefill.calls} prefills")
+    if not all(len(r.out_tokens) == new and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+               for r in reqs):
+        raise AssertionError(f"{arch} {tag}: a request did not get {new} tokens")
+    _serving_line(f"{arch} {tag}", t_api, reqs, engine.stats)
+    print(f"[ssm] {arch} {tag}: ssd_scan launched {counts['ssd_scan']} = {L} layers x "
+          f"{t_api.prefill.calls} prefills; prefill {1e3 * t_api.prefill.seconds / t_api.prefill.calls:.1f} "
+          f"ms a call")
+    return counts
+
+
+def _long_500k(api, params, rng, smi: str) -> dict:
+    """The reference's ``long_500k`` cell for Mamba2-1.3B: one request of
+    524,288 tokens and 8 new through the static engine (each layer's scan
+    one ``ssd_scan`` launch over 2,048 chunks), its peak memory beside the
+    prefill's count on ``meta``; then, holding only the params and the
+    cache, one ``decode_step`` at position 524,287, its peak beside the dry
+    run's count of the cell (arguments + peak live).  Returns every kernel's
+    launches over the serving run."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    arch, shape = api.cfg.name, SHAPES["long_500k"]
+    plen, new = SSM_500K
+    counted = _prefill_count(api.cfg, 1, plen)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    keep = {}
+    counts = _ssm_serve(api, params, rng, arch, f"1 x {plen} + {new} new (long_500k)", 1, plen,
+                        new, 1, keep=keep)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] {arch} long_500k: peak torch.cuda.max_memory_allocated {peak} B over the run "
+          f"({before} B allocated before it) against {counted} B counted on meta (the "
+          f"{api.cfg.dtype} prefill's peak live + params) ({smi})")
+    cache = keep.pop("cache")
+    cell = dryrun.count_cell(api.cfg, shape, 1, 8)
+    token = torch.zeros((1, 1), dtype=torch.int32, device=cache["ssm"].device)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = api.decode_step(params, token, cache, shape.seq_len - 1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (1, api.cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} long_500k decode step: logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    print(f"[ssm] {arch} long_500k decode step at position {shape.seq_len - 1}: {ms:.2f} ms; "
+          f"peak torch.cuda.max_memory_allocated {peak} B ({before} B of params and cache "
+          f"before it) against the dry run's {cell['argument_bytes'] + cell['peak_live_bytes']} B "
+          f"(arguments {cell['argument_bytes']} + peak live {cell['peak_live_bytes']}; "
+          f"{cell['flops']} flops) ({smi})")
+    del cache, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ssm_model(arch: str, seed: int, smi: str) -> dict:
     """One SSM model at full width through the static engine.  Returns
     every kernel's launches over its serving runs (the main path)."""
     import numpy as np
@@ -2912,7 +3052,6 @@ def _ssm_model(arch: str, seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models import registry
-    from repro_torch.serve import Request, ServeEngine
     from repro_torch.tree import leaves
 
     torch.cuda.empty_cache()
@@ -2923,8 +3062,7 @@ def _ssm_model(arch: str, seed: int) -> dict:
     params = api.init(seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
-    L = cfg.num_layers  # every layer of both models is a Mamba2 layer
-    print(f"[ssm] {arch}: {L} Mamba2 layers, d_model {cfg.d_model}, "
+    print(f"[ssm] {arch}: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
           f"H={cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
           f"P={cfg.ssm_head_dim} N={cfg.ssm_state} chunk {cfg.ssm_chunk}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype} compute; {n_params} f32 params ({4 * n_params} B) "
@@ -2936,27 +3074,12 @@ def _ssm_model(arch: str, seed: int) -> dict:
         runs.append((f"1 x {SSM_LONG[0]} + {SSM_LONG[1]} new", 1, *SSM_LONG, 1))
     main_path = dict.fromkeys(_counts(), 0)
     for tag, n, plen_r, new_r, b in runs:
-        t_api = _timed_api(api)
-        engine = ServeEngine(t_api, batch_size=b, capacity=plen_r + new_r)
-        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, plen_r, dtype=np.int32),
-                        max_new_tokens=new_r) for _ in range(n)]
-        _reset_counts()
-        for i in range(0, n, b):
-            engine.generate(params, reqs[i : i + b])
-        counts = _counts()
-        for k, v in counts.items():
+        for k, v in _ssm_serve(api, params, rng, arch, tag, n, plen_r, new_r, b).items():
             main_path[k] += v
-        if counts["ssd_scan"] != L * t_api.prefill.calls:
-            raise AssertionError(f"{arch} {tag}: ssd_scan launched {counts['ssd_scan']} times, "
-                                 f"expected {L} x {t_api.prefill.calls} prefills")
-        if not all(len(r.out_tokens) == new_r and all(0 <= t < cfg.vocab_size
-                                                       for t in r.out_tokens) for r in reqs):
-            raise AssertionError(f"{arch} {tag}: a request did not get {new_r} tokens")
-        _serving_line(f"{arch} {tag}", t_api, reqs, engine.stats)
-        print(f"[ssm] {arch} {tag}: ssd_scan launched {counts['ssd_scan']} = {L} layers x "
-              f"{t_api.prefill.calls} prefills; prefill {1e3 * t_api.prefill.seconds / t_api.prefill.calls:.1f} "
-              f"ms a call")
     print(f"[ssm] {arch}: torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    if arch == "mamba2-1.3b":
+        for k, v in _long_500k(api, params, rng, smi).items():
+            main_path[k] += v
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, plen), dtype=np.int32)).cuda()
     _profile_call(f"{arch} prefill [{batch}, {plen}]",
                   lambda: api.prefill(params, {"tokens": tokens}),
@@ -2966,17 +3089,22 @@ def _ssm_model(arch: str, seed: int) -> dict:
                   lambda: api.decode_step(params, tokens[:, :1], cache, plen),
                   kernel=("ssd_", "ssd_scan"), top=5)
     del cache
+    torch.cuda.empty_cache()
     api32 = registry.build(cfg.scaled(dtype="float32"))
     for nb, full, split in SSM_CHECK[arch]:
-        _ssm_check(api32, params, seed, arch, nb, full, split)
+        _ssm_check(api32, params, seed, arch, nb, full, split, smi)
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return main_path
 
 
-def phase_ssm(seed: int) -> dict:
-    """Mamba2-1.3B, then Zamba2-7B; every kernel's launches over both."""
-    runs = [_ssm_model(arch, seed) for arch in SSM_SERVE]
+def phase_ssm(seed: int, smi: str) -> dict:
+    """Mamba2-1.3B (with the ``long_500k`` cell), then Zamba2-7B; every
+    kernel's launches over both."""
+    t_phase = time.perf_counter()
+    runs = [_ssm_model(arch, seed, smi) for arch in SSM_SERVE]
+    print(f"[ssm] phase 7 in {time.perf_counter() - t_phase:.1f} s ({smi})")
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -3045,7 +3173,7 @@ def _scan_vs_plain(step_fn, state, batch, tag: str, rtol_loss: float, rtol_norm:
 
 
 def phase_ssm_training(seed: int) -> dict:
-    """Mamba2-1.3B at full width and depth: 8 steps, one profiled step, one
+    """Mamba2-1.3B at full width and depth: 4 steps, one profiled step, one
     step against the plain scan in bf16 and one in f32; Zamba2-7B at full
     width and 13 layers: 5 steps; the CLI: 2 steps.  Returns every kernel's
     launches over the three runs (the main path)."""
@@ -3060,7 +3188,7 @@ def phase_ssm_training(seed: int) -> dict:
     B, S, steps = SSM_TRAIN
     cfg = get_config("mamba2-1.3b")
     state, step_fn, opt, next_batch, launches = _train_run(
-        cfg, seed, steps, "mamba2", shape=(B, S), kernel="ssd_scan")
+        cfg, seed, steps, "mamba2", shape=(B, S), kernel="ssd_scan", tail=steps - 1)
     batch = next_batch()
     with _ranged_scan_backward():
         _profile_call(f"mamba2 train step [{B}, {S}]", lambda: step_fn(state, batch),
@@ -3445,7 +3573,7 @@ def _whisper_serving(cfg, params, seed: int, smi: str) -> dict:
 def phase_whisper(seed: int, smi: str) -> dict:
     """Whisper-medium at full width and depth (24 + 24 layers, random
     weights from ``seed``, f32 master params, bf16 compute, flash
-    attention): static serving, the f32 decode check, 10 train steps with
+    attention): static serving, the f32 decode check, 5 train steps with
     96 ``flash_attention`` launches each (48 non-causal), one step against
     chunked attention, one profiled step and the training CLI.  Returns
     every kernel's launches over serving and training (the main path), the
@@ -3606,7 +3734,7 @@ def main() -> int:
     x_launches = phase_moe_train(smi)
 
     # 7. SSM serving (the SSM main path)
-    m_launches = phase_ssm(args.seed)
+    m_launches = phase_ssm(args.seed, smi)
 
     # 8. SSM training (the SSM training main path)
     r_launches = phase_ssm_training(args.seed)

@@ -156,22 +156,32 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
 
 
-def _causal_conv(w: torch.Tensor, b: torch.Tensor, xBC: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over ``[B, Lq, ch]`` with kernel ``[K, ch]``,
-    summed over the taps in the reference's order."""
-    K, Lq = w.shape[0], xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, K - 1, 0))
+def _causal_conv(w: torch.Tensor, b: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv with kernel ``[K, ch]`` over ``pad [B, K-1+Lq,
+    ch]``, the input after K-1 zero rows, summed over the taps in the
+    reference's order -> ``[B, Lq, ch]``.  Each tap is added in place
+    (``out += t`` rounds as ``out = out + t`` does), so the sum holds one
+    buffer, not two."""
+    K = w.shape[0]
+    Lq = pad.shape[1] - (K - 1)
     out = pad[:, 0:Lq] * w[0]
     for k in range(1, K):
-        out = out + pad[:, k : k + Lq] * w[k]
-    return F.silu(out + b)
+        out += pad[:, k : k + Lq] * w[k]
+    out += b
+    return F.silu(out)
 
 
 def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=None,
                 return_state: bool = False):
     """Full-sequence Mamba2 block (train/prefill): ``x [B, Lq, d_model]``;
     with ``return_state``, also ``{"ssm": final state, "conv": the last K-1
-    pre-conv inputs}``."""
+    pre-conv inputs}``.
+
+    Each ``[B, Lq, *]`` buffer is dropped as soon as its last use is done
+    (the projection once the gate, ``dt``, the conv state and the conv's
+    padded input are taken from it; the conv's output once the skip term is
+    taken from it), which bounds a long prefill's peak (Mamba2-1.3B's
+    524,288-token prompt); the values are the same, bit for bit."""
     d_inner, H, _ = dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
     dtype = x.dtype
@@ -179,25 +189,31 @@ def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=No
 
     zxbcdt = x @ params["in_proj"].to(dtype)
     z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
-    xBC = _causal_conv(params["conv_w"].to(dtype), params["conv_b"].to(dtype), xBC)
+    gate = F.silu(z)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    conv_state = None
+    if return_state and cfg.ssm_conv > 1:
+        # a copy: a view would keep the whole [B, Lq, proj] projection alive
+        conv_state = xBC[:, -(cfg.ssm_conv - 1):].clone()
+    pad = F.pad(xBC, (0, 0, cfg.ssm_conv - 1, 0))
+    del zxbcdt, z, xBC, dt_raw
+    xBC = _causal_conv(params["conv_w"].to(dtype), params["conv_b"].to(dtype), pad)
+    del pad
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
     xs = xs.reshape(B_, Lq, H, P)
     Bm = Bm.reshape(B_, Lq, G, N)
     Cm = Cm.reshape(B_, Lq, G, N)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
     y, final = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, initial_state)
-    y = y + params["D"].to(dtype)[None, None, :, None] * xs
+    skip = params["D"].to(dtype)[None, None, :, None] * xs
+    del xBC, xs, Bm, Cm
+    y = y + skip
+    del skip
     y = y.reshape(B_, Lq, d_inner)
-    y = L.rmsnorm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    y = L.rmsnorm(params["gate_norm"], y * gate, cfg.norm_eps)
     out = y @ params["out_proj"].to(dtype)
     if return_state:
-        conv_state = None
-        if cfg.ssm_conv > 1:
-            # a copy: a view would keep the whole [B, Lq, proj] projection alive
-            _, conv_state, _ = _split_proj(cfg, zxbcdt[:, -(cfg.ssm_conv - 1):])
-            conv_state = conv_state.clone()
         return out, {"ssm": final, "conv": conv_state}
     return out
 
