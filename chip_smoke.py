@@ -28,7 +28,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    training (B=8, H=KH=16, S=2,048, D=64, non-causal, bf16) and serving
    (B=4, S=1,500: a partial last q and key tile), one non-causal ``Sq !=
    Sk`` case, a ragged f32 causal case (B=1, H=4, KH=1, S=1,500) and a
-   padded head dim (D=48, f32, S=192), within the reference's tolerances
+   padded head dim (D=48, f32, S=192), phase 9b's prefill on a process's
+   heads (B=4, H=32, KH=4, S=256, D=128, causal, f32) and the four-card
+   probe's bf16 ones (B=8, S=2,048, D=128: H=16 and KH=2, H=KH=10), within
+   the reference's tolerances
    (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
    limit and beside
    ``scaled_dot_product_attention`` (timed only) and bound by the larger of
@@ -296,14 +299,16 @@ Phases, in order; any failure raises and the process exits non-zero:
    without a checkpoint.  Step walls, tokens/s and peak memory printed;
 9. transformer configs — MiniCPM-2B, Qwen2.5-3B, Qwen2-VL-2B (f32 params),
    DeepSeek-V2-Lite-16B (bf16 params) at full width and depth, Qwen1.5-32B
-   at 48 of 64 layers and DeepSeek-67B at 40 of 95 (bf16 params, for the
-   card's memory), random weights from ``--seed``, bf16 compute, one at a
+   at 24 of 64 layers and DeepSeek-67B at 20 of 95 (bf16 params; the
+   four-card probe serves both whole, tensor-parallel), random weights from
+   ``--seed``, bf16 compute, one at a
    time, each freed before the next loads.  A uniform workload (8 requests
    x 256 prompt tokens x 16 new at batch 4; Qwen2-VL with 128 patch rows
    before every prompt) through the static and the continuous engine must
    give identical greedy tokens; a mixed workload (``make_mixed_workload``
    with the reference launcher's prompt lengths: 128/256, the VLM's 256
-   alone; 2 requests a slot, 1-16 new, queued up front) must complete with
+   alone; 2 requests a slot, 1-16 new, queued up front; not for Qwen1.5-32B
+   and DeepSeek-67B) must complete with
    ``alloc.check()`` holding and in fewer slot-steps than static batching.
    DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
    (the units must divide a decode step's tokens): the continuous engine,
@@ -316,6 +321,21 @@ Phases, in order; any failure raises and the process exits non-zero:
    cache leaf (KV, or MLA's compressed ``c`` and ``kr``) within 1e-3 of the
    largest magnitude.  Layers, param count and dtype, prefill tokens/s, ms a
    decode step, TTFT p50/p99 and peak memory printed for each;
+9b. tensor-parallel serving — the ``tensor_serve`` scenario of
+   ``tests/_torch_multiproc_driver.py`` in 2 worker processes on this card
+   (Gloo) under the tensor table (``distributed.sharding.tensor_rules``):
+   DeepSeek-67B at full width, 4 of its 95 layers, f32 params and compute
+   (TF32 off), ``attn_impl="flash"``, 4 x 256-token prompts + 8 new through
+   the static engine, every process the whole batch over its slices (32 q
+   and 4 kv heads, half of ``d_ff`` and of the vocab), drawn from the seed
+   through ``init``'s ``tensor_place``.  Process 0 first serves the whole
+   tree in one process; its placed params must equal the whole tree's
+   slices, every call's logits within ``rtol = atol = 2e-4`` (the
+   reference's ``decode_sharded_equiv`` tolerance), the greedy tokens equal,
+   the tokens equal on both processes, the all-reduce and all-gather bytes
+   equal to the count from the shapes, and ``flash_attention`` launched 4
+   times a prefill a process (D = 128; their sum is the JSON line's
+   ``flash_attention[tensor]`` row);
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
@@ -436,18 +456,22 @@ SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
 # transformer configs (phase 9): each at full width with random weights from
 # --seed and bf16 compute: (layers run or None for all, param dtype).  f32
 # params where they fit; DeepSeek-V2-Lite's f32 params alone would take
-# 62.8 GB, so bf16.  Qwen1.5-32B and DeepSeek-67B cut in depth for the 80 GB
-# card, in bf16: 48 of 64 layers (26,787,107,840 params, 53.6 GB; all 64:
-# 35,197,096,960, 70.4 GB) and 40 of 95 layers (29,360,791,552, 58.7 GB; all
-# 95: 67,425,001,472, 134.9 GB), counts from the port's ``param_count``.
+# 62.8 GB, so bf16.  Qwen1.5-32B and DeepSeek-67B, in bf16, do not fit one
+# card whole (all 64 layers: 35,197,096,960 params, 70.4 GB; all 95:
+# 67,425,001,472, 134.9 GB, counts from the port's ``param_count``); the
+# four-card probe serves them whole, tensor-parallel
+# (``tools/torch_cluster_probe.py serve --runs tensor``), so here they run
+# cut to 24 and 20 layers (48 and 40 until the tensor-parallel phase 9b came,
+# cut for the script's time), and without the mixed workload (TF_UNMIXED).
 TF_CONFIGS = {
     "minicpm-2b": (None, "float32"),
     "qwen2.5-3b": (None, "float32"),
     "qwen2-vl-2b": (None, "float32"),
     "deepseek-v2-lite-16b": (None, "bfloat16"),
-    "qwen1.5-32b": (48, "bfloat16"),
-    "deepseek-67b": (40, "bfloat16"),
+    "qwen1.5-32b": (24, "bfloat16"),
+    "deepseek-67b": (20, "bfloat16"),
 }
+TF_UNMIXED = ("qwen1.5-32b", "deepseek-67b")
 # the uniform workload: requests, prompt tokens, new tokens, batch; a VLM adds
 # min(VLM_PATCHES, prompt // 2) patch rows.  The expert-parallel model runs at
 # batch 8: its 8 units must divide a decode step's tokens, or the MoE layer
@@ -462,6 +486,19 @@ TF_MIXED = (2, 0.0)
 # token to the full prompt), and the limit of the largest magnitude
 TF_CHECK = (256, 192)
 TF_CHECK_TOL = 1e-3
+# Phase 9b: tensor-parallel serving (the tensor table) over 2 worker processes
+# on this card (Gloo): DeepSeek-67B at full width cut to 4 of its 95 layers,
+# f32 params and compute with TF32 off, attn_impl="flash" (32 q and 4 kv heads
+# a process, D = 128), arch:layers:BxSxNEW; process 0's one-process engine on
+# the whole tree first, the logits held within the reference's
+# decode_sharded_equiv tolerance (TP_TOL in tests/_torch_multiproc_driver.py).
+TP_PROCS, TP_UNITS = 2, 2
+TP_CELL = "deepseek-67b:4:4x256x8"
+TP_TIMEOUT_S = 300
+# the bf16 attention shapes a process runs in the four-card probe's full-depth
+# prefills (8 x 2,048): DeepSeek-67B's 16 q and 2 kv heads, Qwen1.5-32B's 10
+# and 10, D = 128
+TP_PROBE_FLASH = ((8, 16, 2, 2048, 128), (8, 10, 10, 2048, 128))
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
@@ -840,6 +877,14 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     serving["launch_key"] = "flash_attention[ragged]"
     _flash_row(1, 4, 1, frames, frames, 64, True, "float32", seed, smi)
     _flash_row(2, 8, 2, 192, 192, 48, True, "float32", seed, smi)
+    # tensor-parallel serving at D = 128: phase 9b's prefill on a process's
+    # heads (f32, the row), and the four-card probe's bf16 shapes
+    tp_b, tp_s = (int(v) for v in TP_CELL.split(":")[2].split("x")[:2])
+    tensor = _flash_row(tp_b, 64 // TP_PROCS, 8 // TP_PROCS, tp_s, tp_s, 128, True, "float32",
+                        seed, smi)
+    tensor["launch_key"] = "flash_attention[tensor]"
+    for b, h, kh, s_, d in TP_PROBE_FLASH:
+        _flash_row(b, h, kh, s_, s_, d, True, "bfloat16", seed, smi)
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
     # prefill_32k prompt at batch 1 (64 blocks, the state carried over 128
     # chunks) and its long_500k prompt (x of 2**31 elements, 2,048 chunks);
@@ -855,7 +900,7 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
     # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
-    return rows + moe_rows + [flash[0], flash[1], encoder, serving, ssd[0]]
+    return rows + moe_rows + [flash[0], flash[1], encoder, serving, tensor, ssd[0]]
 
 
 def _close(got, want, rtol) -> bool:
@@ -3402,26 +3447,28 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
                   f"pack vs plain pack over {TF_EP_UNITS} units; all finite")
             del k_logits, p_logits, batch
 
-        # -- mixed: the reference launcher's prompt lengths ------------------
-        lens = [plen] if side else [plen // 2, plen]
-        per_slot, rate = TF_MIXED
-        mixed = make_mixed_workload(cfg.vocab_size, per_slot * B, lens, new, rng,
-                                    arrival_rate=rate)
-        mixed_s = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens)
-                   for r in mixed]
-        ce2, m_api = continuous(mixed, "mixed")
-        ce2.alloc.check()
-        if not all(r.done and 1 <= len(r.out_tokens) <= r.max_new_tokens for r in mixed):
-            raise AssertionError(f"{arch} mixed: a request did not complete")
-        _serving_line(f"{arch} mixed continuous", m_api, mixed, ce2.stats)
-        st, sm_api = static(mixed_s, "mixed", bucketed=True)
-        _serving_line(f"{arch} mixed static", sm_api, mixed_s, st.stats)
-        c, s_ = ce2.stats["slot_steps"], st.stats["slot_steps"]
-        if c >= s_:
-            raise AssertionError(f"{arch} mixed: continuous {c} slot-steps, static {s_}")
-        print(f"[tf] {arch} mixed ({len(mixed)} requests, prompts {lens}, 1-{new} new, "
-              f"arrival rate {rate}): alloc.check() holds; slot_steps continuous={c} static={s_} "
-              f"({s_ / c:.2f}x fewer)")
+        # -- mixed: the reference launcher's prompt lengths (not for the
+        # configs the four-card probe serves whole) --------------------------
+        if arch not in TF_UNMIXED:
+            lens = [plen] if side else [plen // 2, plen]
+            per_slot, rate = TF_MIXED
+            mixed = make_mixed_workload(cfg.vocab_size, per_slot * B, lens, new, rng,
+                                        arrival_rate=rate)
+            mixed_s = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens)
+                       for r in mixed]
+            ce2, m_api = continuous(mixed, "mixed")
+            ce2.alloc.check()
+            if not all(r.done and 1 <= len(r.out_tokens) <= r.max_new_tokens for r in mixed):
+                raise AssertionError(f"{arch} mixed: a request did not complete")
+            _serving_line(f"{arch} mixed continuous", m_api, mixed, ce2.stats)
+            st, sm_api = static(mixed_s, "mixed", bucketed=True)
+            _serving_line(f"{arch} mixed static", sm_api, mixed_s, st.stats)
+            c, s_ = ce2.stats["slot_steps"], st.stats["slot_steps"]
+            if c >= s_:
+                raise AssertionError(f"{arch} mixed: continuous {c} slot-steps, static {s_}")
+            print(f"[tf] {arch} mixed ({len(mixed)} requests, prompts {lens}, 1-{new} new, "
+                  f"arrival rate {rate}): alloc.check() holds; slot_steps continuous={c} "
+                  f"static={s_} ({s_ / c:.2f}x fewer)")
     peak = torch.cuda.max_memory_allocated()
 
     # -- f32: prefill against prefill + decode (the exact MoE path) ----------
@@ -3446,6 +3493,84 @@ def phase_transformers(seed: int, smi: str) -> dict:
     print(f"[tf] phase 9 in {time.perf_counter() - t_phase:.1f} s; launches over the main "
           f"path: {total}")
     return total
+
+
+def phase_tensor_serve(smi: str) -> dict:
+    """Tensor-parallel serving over ``TP_PROCS`` worker processes on this
+    card (Gloo): the ``tensor_serve`` scenario of
+    ``tests/_torch_multiproc_driver.py`` at ``TP_CELL``, which asserts every
+    gate in the workers; checked and printed again here from their dumps.
+    Returns the workers' ``flash_attention`` launches over the tensor runs
+    (the main path) under ``flash_attention[tensor]``."""
+    import shutil
+
+    from repro_torch.launch.cluster import run_local_cluster
+
+    dump = tempfile.mkdtemp(prefix="chip_smoke_tensor_")
+    t0, launched_at = time.perf_counter(), time.time()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "tensor_serve", "--tp-full",
+             "--tp-cells", TP_CELL, "--tp-ref", "whole", "--tp-dtype", "float32",
+             "--tp-param-dtype", "float32", "--dump", dump],
+            num_processes=TP_PROCS, local_units=TP_UNITS, timeout_s=TP_TIMEOUT_S, echo=False,
+            backend="gloo", device="cuda",
+        )
+        recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["tensor_serve"]
+                for p in range(TP_PROCS)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        if "PASS tensor_serve" not in out:
+            raise AssertionError(f"tensor-serve process {pid}: no PASS\n{out[-4000:]}")
+    launched = 0
+    for arch, r0 in recs[0]["archs"].items():
+        B, S, new = r0["shape"]
+        one = r0["one_process"]
+        if not (r0["rows"] == "tensor" and r0["logits_close"] and r0["tokens_equal"]
+                and r0["params_equal_slices"]):
+            raise AssertionError(f"tensor-serve {arch}: against the one-process engine "
+                                 f"{ {k: v for k, v in r0.items() if k != 'leaf_shapes'} }")
+        print(f"[tensor-serve] {arch} full width, {r0['layers']} layers, f32 (TF32 off), "
+              f"attn_impl={r0['attn_impl']}: {B} x {S}-token prompts + {new} new over "
+              f"{TP_PROCS} processes on this card over Gloo ({r0['rows']}: heads, d_ff and "
+              f"vocab split, {r0['leaf_shapes']['seg0/0/attn/wq'][1]} q and "
+              f"{r0['leaf_shapes']['seg0/0/attn/wk'][1]} kv heads a process); greedy tokens "
+              f"equal to process 0's one-process engine on the whole tree; logits within "
+              f"max |err| {max(r0['logit_abs']):.3g} (allclose rtol = atol = {r0['tol']}) over "
+              f"{len(r0['logit_abs'])} calls; process 0's params equal the whole tree's "
+              f"slices ({smi})")
+        print(f"[tensor-serve] {arch} one process (whole tree): prefill "
+              f"{one['prefill_s'][0] * 1e3:.1f} ms, decode {sum(one['decode_s']) * 1e3:.1f} ms "
+              f"over {len(one['decode_s'])} steps, peak {one['peak']} B, launches "
+              f"{one['launches']}")
+        for pid, rec in enumerate(recs):
+            r = rec["archs"][arch]
+            h = r["want_hop"]
+            n = len(r["decode_s"][-1])
+            print(f"[tensor-serve] {arch} process {pid}: prefill {r['prefill_s'][-1][0] * 1e3:.1f}"
+                  f" ms, decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over {n} steps "
+                  f"({1e3 * sum(r['decode_s'][-1]) / max(n, 1):.2f} ms a step); pod hop "
+                  f"{r['hop_kinds']} = derived {h['all-reduce']} B all-reduce ({h['reduces_a_call']}"
+                  f" [B, T, d] f32 a call) + {h['all-gather']} B all-gather ([B, V / R] f32 logits "
+                  f"a call); params {r['param_bytes_counted']} B and cache "
+                  f"{r['cache_bytes_counted']} B counted on meta, peak {r['peak']} B; "
+                  f"flash_attention {r['launches']['flash_attention']} launches "
+                  f"({r['layers']} a prefill) ({smi})")
+            if (r["hop_bytes"] != h["total"] or not r["tokens_equal_on_every_process"]
+                    or r["launches"]["flash_attention"] != r["layers"]):
+                raise AssertionError(f"tensor-serve {arch} process {pid}: "
+                                     f"{ {k: v for k, v in r.items() if k != 'leaf_shapes'} }")
+            launched += r["launches"]["flash_attention"]
+    for pid, rec in enumerate(recs):
+        parts = {"start-up": rec["started_at"] - launched_at,
+                 **{a: r["seconds"] for a, r in rec["archs"].items()}}
+        print(f"[tensor-serve] process {pid}'s seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    print(f"[tensor-serve] phase 9b in {wall:.1f} s (launcher wall); flash_attention launches "
+          f"over the tensor runs: {launched}")
+    return {"flash_attention[tensor]": launched}
 
 
 def _whisper_check(cfg, params, seed: int) -> None:
@@ -3742,11 +3867,15 @@ def main() -> int:
     # 9. the six transformer configs (the dense, VLM and MLA serving main path)
     f_launches = phase_transformers(args.seed, smi)
 
+    # 9b. tensor-parallel serving across two processes (the dense serving main
+    # path with its heads, d_ff and vocab split)
+    g_launches = phase_tensor_serve(smi)
+
     # 10. Whisper (the encoder-decoder serving and training main path)
     w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
              b_launches, t_launches, p_launches, x_launches, m_launches, r_launches, f_launches,
-             w_launches)
+             g_launches, w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

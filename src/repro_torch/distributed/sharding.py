@@ -14,9 +14,12 @@ The reference resolves to a ``NamedSharding`` for GSPMD.  The port runs
 every parallel unit as a slice of a tensor's leading dim and a process is
 one device, so :func:`logical_sharding` returns the resolved per-dim tuple
 (the reference's ``NamedSharding.spec``), :func:`shard` is an identity that
-checks the names against the tensor's rank, and the one placement the port
-makes from the rules is the train state's (:func:`repro_torch.train.step.
-state_shardings`).  The context wraps the
+checks the names against the tensor's rank, and the port places from the
+rules in two places: the train state's experts (:func:`repro_torch.train.
+step.state_shardings`) and, under :func:`tensor_rules`, a served model's
+matrices (:func:`tensor_place`: each process keeps its slices of the heads,
+``d_ff`` and vocab dims, and the layers reduce or gather over the processes
+where the reference's GSPMD would).  The context wraps the
 :class:`~repro_torch.core.exchange.Mesh` (``num_pods x n`` units,
 pod-major, possibly spanning processes); its rules default to
 :func:`unit_rules`, and ``axis_sizes`` lets a context resolve against
@@ -108,12 +111,27 @@ def default_rules(multi_pod: bool) -> AxisRules:
     )
 
 
+#: The logical names :func:`tensor_rules` splits over the processes.
+TENSOR_AXES = ("heads", "kv_heads", "d_ff", "vocab")
+
+
+def tensor_rules() -> AxisRules:
+    """The port's tensor-parallel serving table: the names that the
+    reference's :func:`default_rules` put on ``model`` and that a dense
+    layer's matrices carry (``heads``, ``kv_heads``, ``d_ff``, ``vocab``)
+    over the pod axis, which spans the processes one pod each and stands
+    for the reference's ``model``.  ``batch``, ``fsdp``, ``seq`` and the
+    rest stay whole (serving keeps no FSDP), and so does every dim that the
+    process count does not divide (no ``allow_uneven``)."""
+    return AxisRules({name: POD_AXIS if name in TENSOR_AXES else None for name in LOGICAL_AXES})
+
+
 def unit_rules(multi_pod: bool) -> AxisRules:
     """The port's table on its own ``(pod, q)`` mesh: the experts dim over
     the joint unit axis, where the expert-parallel layer consumes the
     expert weights (the reference's ``shard_map`` takes them as ``P(unit,
-    None, None)``); every other name replicated, as the port has no tensor
-    parallelism and no FSDP."""
+    None, None)``); every other name replicated, as the port has no FSDP
+    (tensor-parallel serving takes :func:`tensor_rules` instead)."""
     unit = (POD_AXIS, SHUFFLE_AXIS) if multi_pod else (SHUFFLE_AXIS,)
     return AxisRules({name: unit if name == "experts" else None for name in LOGICAL_AXES})
 
@@ -146,6 +164,22 @@ class MeshContext:
                                dict(zip(self.mesh.axis_names, self.mesh.shape)))
         if self.moe_tokens not in ("global", "local"):
             raise ValueError(f"unknown moe_tokens {self.moe_tokens!r}")
+        m = self.mesh
+        if self.tensor and not (m.num_processes > 1 and m.pods_per_process == 1):
+            raise ValueError(
+                f"the tensor table splits heads, d_ff and vocab over the processes, a pod "
+                f"each; a mesh of {m.num_pods} pod(s) over {m.num_processes} process(es) has "
+                "no such axis (launch under `python -m repro_torch.launch.cluster` and make "
+                "the mesh with one pod a process)")
+
+    @property
+    def tensor(self) -> bool:
+        """Do the rules split a layer's matrices over the pod axis (the
+        tensor table)?"""
+        def axes(a):
+            return (a,) if isinstance(a, str) else tuple(a or ())
+
+        return any(POD_AXIS in axes(self.rules.table.get(n)) for n in TENSOR_AXES)
 
     @property
     def exchange_axis(self) -> str:
@@ -263,6 +297,73 @@ def shard(x: torch.Tensor, *names: str | None) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
+# Tensor parallelism: a process's slices of the layers' matrices.
+# ----------------------------------------------------------------------------
+
+def tensor_context() -> MeshContext | None:
+    """The active context when its rules are the tensor table, else None."""
+    ctx = current_mesh_context()
+    return ctx if ctx is not None and ctx.tensor else None
+
+
+def tensor_split(dim: int, name: str, ctx: MeshContext | None = None) -> int:
+    """Into how many parts the tensor table cuts a dim of ``dim`` entries
+    named ``name``: the process count where it resolves onto the pod axis,
+    1 otherwise (no tensor table, or a count that does not divide ``dim``)."""
+    ctx = ctx or tensor_context()
+    if ctx is None or not ctx.tensor:
+        return 1
+    if logical_sharding((dim,), name, ctx=ctx) != (POD_AXIS,):
+        return 1
+    return ctx.mesh.num_processes
+
+
+def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext) -> torch.Tensor:
+    """This process's slice of a whole leaf ``t`` with logical axes
+    ``spec``: along each dim that resolves onto the pod axis, the ``i``-th
+    of ``R`` equal runs for process ``i``, in storage of its own (so the
+    whole leaf can be freed)."""
+    R, i = ctx.mesh.num_processes, ctx.mesh.process_index
+    cut = False
+    for d, axes in enumerate(logical_sharding(tuple(t.shape), *spec, ctx=ctx)):
+        if axes == POD_AXIS:
+            n = t.shape[d] // R
+            t, cut = t.narrow(d, i * n, n), True
+    return t.clone() if cut else t
+
+
+def tensor_slices(tree, spec_tree, ctx: MeshContext):
+    """:func:`tensor_slice` of every leaf of ``tree`` by its spec."""
+    return tree_map(lambda t, spec: tensor_slice(t, spec, ctx), tree, spec_tree)
+
+
+def tensor_place(spec_tree, ctx: MeshContext):
+    """The ``place(path, sub) -> sub`` hook of a model's ``init`` that keeps
+    this process's slices of each layer (and of the embedding) as it is
+    drawn, so no process ever holds the whole tree."""
+    def place(path, sub):
+        specs = spec_tree
+        for key in path:
+            specs = specs[key]
+        return tensor_slices(sub, specs, ctx)
+
+    return place
+
+
+def tensor_all_reduce(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of every process's ``x`` (a row-parallel product's partial
+    sums), on every process: one all-reduce over the pod hop."""
+    return exchange._all_reduce(ctx.mesh, x)
+
+
+def tensor_all_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Every process's ``x [..., n]`` joined along the last dim in process
+    order (``[..., R * n]``), on every process: one all-gather over the pod
+    hop."""
+    return torch.cat(exchange._all_gather(ctx.mesh, x).unbind(0), dim=-1)
+
+
+# ----------------------------------------------------------------------------
 # A process's rows of a batch (the logical ``"batch"`` axis over the pods).
 # ----------------------------------------------------------------------------
 
@@ -303,6 +404,8 @@ __all__ = [
     "AxisRules",
     "default_rules",
     "unit_rules",
+    "TENSOR_AXES",
+    "tensor_rules",
     "MeshContext",
     "current_mesh_context",
     "mesh_context",
@@ -310,6 +413,13 @@ __all__ = [
     "is_spec_leaf",
     "build_shardings",
     "shard",
+    "tensor_context",
+    "tensor_split",
+    "tensor_slice",
+    "tensor_slices",
+    "tensor_place",
+    "tensor_all_reduce",
+    "tensor_all_gather",
     "split_rows",
     "local_rows",
     "gather_rows",

@@ -19,7 +19,7 @@ process by default, so the in-pod axis never leaves a process.
 from __future__ import annotations
 
 from ..core.exchange import POD_AXIS, SHUFFLE_AXIS, Mesh, live_processes, make_mesh
-from ..distributed.sharding import MeshContext
+from ..distributed.sharding import AxisRules, MeshContext
 from .cluster import local_unit_count
 
 #: The reference's in-pod axis names; each maps onto the port's ``q``.
@@ -129,14 +129,18 @@ def make_context(
     multi_pod: bool = False,
     num_pods: int | None = None,
     mesh: Mesh | None = None,
+    rules: AxisRules | None = None,
 ) -> MeshContext:
     """The model code's :class:`MeshContext` over the production mesh (or
-    ``mesh``), with the port's sharding rules
-    (:func:`~repro_torch.distributed.sharding.unit_rules`).  The reference's
-    ``exchange_impl`` has no counterpart here."""
+    ``mesh``), with ``rules`` (default the port's
+    :func:`~repro_torch.distributed.sharding.unit_rules`; tensor-parallel
+    serving passes :func:`~repro_torch.distributed.sharding.tensor_rules`,
+    with ``multi_pod=True`` for one pod a process, and raises on a mesh
+    inside one process).  The reference's ``exchange_impl`` has no
+    counterpart here."""
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, num_pods=num_pods)
-    return MeshContext(mesh)
+    return MeshContext(mesh, rules=rules)
 
 
 __all__ = [

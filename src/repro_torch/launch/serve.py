@@ -23,10 +23,23 @@ patch rows before every prompt, one prompt length, and that much more cache.
 Whisper (``whisper-medium``) gets ``prompt_len`` random frame rows a
 request, and one prompt length.
 
-The flags are the reference's (``repro.launch.serve``), plus ``--units``
-and ``--pods``: the simulated mesh takes the place of the devices a JAX
-process sees.  ``--trace-dir`` writes the continuous run's admission-round,
-prefill and decode-step spans there as a Perfetto-loadable JSON file.  With
+Tensor-parallel (``--tensor``) across the processes of a launch: every
+process serves the whole batch over its slices of the heads, ``d_ff`` and
+vocab (:func:`~repro_torch.distributed.sharding.tensor_rules`, one pod a
+process; the dense and VLM families through the static engine), drawn from
+the seed as each layer is drawn:
+
+  PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
+      --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
+      --arch deepseek-67b --tensor --batch 8 --requests 8 --prompt-len 2048
+
+(``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)
+
+The flags are the reference's (``repro.launch.serve``), plus ``--units``,
+``--pods`` and ``--tensor``: the simulated mesh takes the place of the
+devices a JAX process sees.  ``--trace-dir`` writes the continuous run's
+admission-round, prefill and decode-step spans there as a Perfetto-loadable
+JSON file.  With
 more than one unit, an expert-parallel model (``moe_impl="ep_shardmap"``)
 dispatches its tokens over ``--units`` units in ``--pods`` pods.  It runs
 on the card; :func:`main` takes ``device="cpu"`` from Python.
@@ -42,7 +55,7 @@ import numpy as np
 
 from ..configs import get_config, get_smoke_config
 from ..core.exchange import make_mesh
-from ..distributed.sharding import MeshContext, mesh_context
+from ..distributed.sharding import MeshContext, mesh_context, tensor_place, tensor_rules
 from ..models import registry as R
 from ..models.registry import VLM_PATCHES
 from ..obs.export import write_trace_dir
@@ -55,6 +68,8 @@ from ..serve import (
     generate_bucketed,
     make_mixed_workload,
 )
+from .cluster import init_cluster
+from .mesh import make_context, make_pod_mesh
 
 
 def _extra_inputs(cfg, args, rng):
@@ -112,6 +127,9 @@ def main(argv=None, device: str = "cuda"):
                    help="simulated parallel units the expert-parallel dispatch spans")
     p.add_argument("--pods", type=int, default=1,
                    help="pods the units split into (two-level dispatch when > 1)")
+    p.add_argument("--tensor", action="store_true",
+                   help="tensor-parallel over the processes of a launch "
+                        "(repro_torch.launch.cluster): heads, d_ff and vocab split")
     p.add_argument("--trace-dir", default=None,
                    help="write a Perfetto-loadable trace JSON per process "
                         "(admission/prefill/decode-step spans; continuous "
@@ -120,17 +138,26 @@ def main(argv=None, device: str = "cuda"):
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     api = R.build(cfg)
-    params = api.init(args.seed, device=device)
+    if args.tensor:
+        info = init_cluster()  # a no-op outside a launch: the context then raises
+        device = info.device or device
+        ctx = make_context(mesh=make_pod_mesh(), rules=tensor_rules())
+        R.require_tensor_parallel(cfg)
+        params = api.init(args.seed, device=device, place=tensor_place(api.param_specs, ctx))
+    else:
+        params = api.init(args.seed, device=device)
     capacity = args.prompt_len + args.max_new + 1
     if cfg.family == "vlm":
         # the VLM frontend prepends patch rows to the decode context
         capacity += min(VLM_PATCHES, args.prompt_len // 2)
     rng = np.random.default_rng(args.seed)
     extra = _extra_inputs(cfg, args, rng)
-    scope = (
-        mesh_context(MeshContext(make_mesh(args.units, args.pods)))
-        if args.units > 1 else contextlib.nullcontext()
-    )
+    if args.tensor:
+        scope = mesh_context(ctx)
+    elif args.units > 1:
+        scope = mesh_context(MeshContext(make_mesh(args.units, args.pods)))
+    else:
+        scope = contextlib.nullcontext()
 
     with scope:
         if args.continuous:

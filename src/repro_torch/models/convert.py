@@ -10,7 +10,8 @@ per-layer dicts (a list of such lists for ``groups``).
 Every other leaf keeps its shape and layout: attention, dense-MLP, MoE
 ``ffn`` and Mamba2 leaves alike, Zamba2's unstacked ``shared`` block, and
 the embedding ``table`` (with no ``unembed`` leaf when the embeddings are
-tied).
+tied).  :func:`tensor_params` cuts such params into a tensor-parallel
+process's slices.
 """
 
 from __future__ import annotations
@@ -53,4 +54,18 @@ def from_reference(params: Mapping[str, Any], device="cuda") -> dict:
     return {name: _unstack(sub, _stack_depth(name), device) for name, sub in params.items()}
 
 
-__all__ = ["from_reference"]
+def tensor_params(params: dict, cfg, ctx=None) -> dict:
+    """This process's slices of whole port params (:func:`from_reference`'s
+    output) under the tensor table of ``ctx`` (default the active
+    context), cut as ``init``'s ``tensor_place`` cuts them as it draws."""
+    from ..distributed.sharding import current_mesh_context, tensor_slices
+    from .registry import build, require_tensor_parallel
+
+    ctx = ctx or current_mesh_context()
+    if ctx is None or not ctx.tensor:
+        raise ValueError("tensor_params needs a mesh context with the tensor table")
+    require_tensor_parallel(cfg)
+    return tensor_slices(params, build(cfg).param_specs, ctx)
+
+
+__all__ = ["from_reference", "tensor_params"]

@@ -25,6 +25,16 @@ it cannot reproduce ``jax.random``'s numbers.
 Each ``init_*`` has a ``specs_*`` beside it: the logical axis names of every
 leaf (:mod:`repro_torch.distributed.sharding`), the reference's tree for
 tree.
+
+Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`)
+each process holds its slices of the heads, ``d_ff`` and vocab dims that
+the process count divides: q/k/v (and their biases) are column-parallel and
+each process attends with its own heads (with the kv heads they read, where
+the kv heads stay whole); :func:`attention_out` and the MLP's down
+projection are row-parallel, each followed by one all-reduce; :func:`embed`
+looks up the process's vocab rows and all-reduces, and :func:`unembed`
+all-gathers its logits to the full vocab.  A dim that stays whole needs no
+collective.
 """
 
 from __future__ import annotations
@@ -36,6 +46,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (
+    tensor_all_gather,
+    tensor_all_reduce,
+    tensor_context,
+    tensor_split,
+)
 from ..kernels import ops
 
 Params = Any  # nested dict[str, torch.Tensor]
@@ -263,6 +279,17 @@ def sdpa(
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
+def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """The serving prefill's causal attention: the CUDA kernel under
+    ``attn_impl="flash"`` (its plain version on the CPU), plain :func:`sdpa`
+    otherwise.  The reference's prefill runs ``sdpa`` whatever
+    ``attn_impl`` says; the kernel computes the same function."""
+    if cfg.attn_impl == "flash":
+        return ops.flash_attention(q, k, v, causal=True)
+    return sdpa(q, k, v, causal=True)
+
+
 def _sdpa_block(qi, k, v, causal, q_offset, scale):
     return sdpa(qi, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
@@ -378,20 +405,63 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, -1)).reshape(B, S, *w.shape[1:])
 
 
+def kv_heads_read(cfg: ModelConfig) -> list[int] | None:
+    """Under the tensor table, where the query heads split over the
+    processes and the kv heads stay whole (the process count does not
+    divide them), the kv heads this process's query heads read, query head
+    ``h`` reading ``h // (H / KH)``: each once where the process's heads
+    fall in one group, else one a query head (a group of 1).  ``None``
+    otherwise: the process reads every kv head it holds."""
+    ctx = tensor_context()
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    if ctx is None or tensor_split(H, "heads", ctx) == 1 or tensor_split(KH, "kv_heads", ctx) > 1:
+        return None
+    R, r = ctx.mesh.num_processes, ctx.mesh.process_index
+    Hl, G = H // R, H // KH
+    heads = [(r * Hl + j) // G for j in range(Hl)]
+    return sorted(set(heads)) if G % Hl == 0 else heads
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads this process attends with (and caches): all of them
+    off the tensor table."""
+    read = kv_heads_read(cfg)
+    if read is not None:
+        return len(read)
+    return cfg.num_kv_heads // tensor_split(cfg.num_kv_heads, "kv_heads")
+
+
 def attention_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    """Project to q/k/v (+ bias) in the compute dtype."""
+    """Project to q/k/v (+ bias) in the compute dtype; under the tensor
+    table the process's heads, and of whole kv heads those it reads
+    (:func:`kv_heads_read`)."""
     q, k, v = _project(x, params["wq"]), _project(x, params["wk"]), _project(x, params["wv"])
     if cfg.qkv_bias:
         dt = x.dtype
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    read = kv_heads_read(cfg)
+    if read is not None:
+        k, v = k[:, :, read], v[:, :, read]
     return q, k, v
 
 
-def attention_out(params: Params, x: torch.Tensor) -> torch.Tensor:
+def attention_out(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The output projection; row-parallel under the tensor table (the
+    process's heads' partial sum, then one all-reduce)."""
     B, S, H, Dh = x.shape
-    return x.reshape(B, S, H * Dh) @ params["wo"].to(x.dtype).reshape(H * Dh, -1)
+    y = x.reshape(B, S, H * Dh) @ params["wo"].to(x.dtype).reshape(H * Dh, -1)
+    return _row_parallel(y, "heads", cfg.num_heads)
+
+
+def _row_parallel(y: torch.Tensor, name: str, dim: int) -> torch.Tensor:
+    """A product contracted over a dim of ``dim`` entries named ``name``:
+    summed over the processes where the tensor table split it."""
+    ctx = tensor_context()
+    if ctx is None or tensor_split(dim, name, ctx) == 1:
+        return y
+    return tensor_all_reduce(y, ctx)
 
 
 def attention_block(
@@ -406,7 +476,7 @@ def attention_block(
     """Full-sequence (training) GQA attention."""
     q, k, v = attention_qkv(params, cfg, x)
     q, k = rotate_qk(cfg, q, k, cos, sin)
-    return attention_out(params, attention_core(cfg, q, k, v, causal=causal))
+    return attention_out(params, cfg, attention_core(cfg, q, k, v, causal=causal))
 
 
 def attention_decode(
@@ -427,7 +497,7 @@ def attention_decode(
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     o = sdpa(q, cache_k, cache_v, causal=False, kv_valid_len=pos + 1)
-    return attention_out(params, o), cache_k, cache_v
+    return attention_out(params, cfg, o), cache_k, cache_v
 
 
 def attention_decode_slots(
@@ -450,7 +520,7 @@ def attention_decode_slots(
     cache_k[b, positions] = k[:, 0].to(cache_k.dtype)
     cache_v[b, positions] = v[:, 0].to(cache_v.dtype)
     o = sdpa(q, cache_k, cache_v, causal=False, kv_valid_len=positions + 1)
-    return attention_out(params, o), cache_k, cache_v
+    return attention_out(params, cfg, o), cache_k, cache_v
 
 
 # ----------------------------------------------------------------------------
@@ -621,15 +691,19 @@ def specs_mlp(cfg: ModelConfig) -> Specs:
 
 
 def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form)."""
+    """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form).
+    Under the tensor table the up projections are column-parallel and the
+    down projection row-parallel: one all-reduce, before ``b_out``."""
     dt = x.dtype
     if cfg.act == "gelu":
         h = x @ params["w_in"].to(dt) + params["b_in"].to(dt)
         h = torch.nn.functional.gelu(h, approximate="tanh")
-        return h @ params["w_out"].to(dt) + params["b_out"].to(dt)
+        y = _row_parallel(h @ params["w_out"].to(dt), "d_ff", cfg.d_ff)
+        return y + params["b_out"].to(dt)
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
-    return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt)
+    return _row_parallel((torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt),
+                         "d_ff", cfg.d_ff)
 
 
 # ----------------------------------------------------------------------------
@@ -661,17 +735,36 @@ def scale_as(x: torch.Tensor, scale: float) -> float:
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Gather rows, then cast (the reference casts the table first: the
-    same values, without a compute-dtype copy of the whole table)."""
-    x = params["table"][tokens].to(cdtype(cfg))
+    same values, without a compute-dtype copy of the whole table).  Under
+    the tensor table with the vocab split, each process looks up the ids in
+    its rows (zeros elsewhere) and one all-reduce puts every row together,
+    exactly."""
+    table = params["table"]
+    ctx = tensor_context()
+    if ctx is None or tensor_split(cfg.vocab_size, "vocab", ctx) == 1:
+        x = table[tokens].to(cdtype(cfg))
+    else:
+        n = table.shape[0]
+        local = tokens - ctx.mesh.process_index * n
+        mine = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)].to(cdtype(cfg))
+        x = tensor_all_reduce(torch.where(mine[..., None], rows, 0), ctx)
     return x * scale_as(x, cfg.emb_scale)
 
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x @ unembed``, or ``x @ table.T`` with tied embeddings."""
+    """Logits ``x @ unembed``, or ``x @ table.T`` with tied embeddings;
+    under the tensor table with the vocab split, the process's columns
+    all-gathered to the full vocab on every process."""
     x = x * scale_as(x, cfg.logits_scale)
     if cfg.tie_embeddings:
-        return x @ params["table"].to(x.dtype).T
-    return x @ params["unembed"].to(x.dtype)
+        logits = x @ params["table"].to(x.dtype).T
+    else:
+        logits = x @ params["unembed"].to(x.dtype)
+    ctx = tensor_context()
+    if ctx is None or tensor_split(cfg.vocab_size, "vocab", ctx) == 1:
+        return logits
+    return tensor_all_gather(logits, ctx)
 
 
 def xent_loss(
@@ -706,11 +799,14 @@ __all__ = [
     "rope_tables",
     "rotate_qk",
     "sdpa",
+    "prefill_attention",
     "chunked_sdpa",
     "attention_core",
     "scale_as",
     "init_attention",
     "specs_attention",
+    "kv_heads_read",
+    "local_kv_heads",
     "attention_qkv",
     "attention_out",
     "attention_block",

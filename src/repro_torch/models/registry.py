@@ -78,6 +78,20 @@ def build(cfg: ModelConfig) -> ModelApi:
     )
 
 
+def require_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that the tensor table
+    (:func:`~repro_torch.distributed.sharding.tensor_rules`) does not serve
+    yet: every family but the dense and VLM transformers with GQA."""
+    if cfg.family in ("dense", "vlm") and cfg.attn_kind != "mla":
+        return
+    what = ("MLA attention" if cfg.attn_kind == "mla" and cfg.family != "moe"
+            else f"the {cfg.family!r} family")
+    raise NotImplementedError(
+        f"tensor-parallel serving of {what} ({cfg.name}) is not ported yet: the tensor "
+        "table serves the dense and VLM transformers with GQA (ROADMAP queue A, item "
+        "9(c): tensor parallelism for MLA, MoE, SSM, hybrid and encoder-decoder)")
+
+
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """The model's parameters, counted on ``init(..., device="meta")`` (no
     memory).  With ``active_only`` an MoE layer's ``ffn`` matrices count
@@ -159,5 +173,5 @@ def param_shape_specs(cfg: ModelConfig) -> tuple[Any, Any]:
     return api.init(0, device="meta"), api.param_specs
 
 
-__all__ = ["ModelApi", "VLM_PATCHES", "build", "param_count", "input_specs",
-           "cache_shape_specs", "param_shape_specs"]
+__all__ = ["ModelApi", "VLM_PATCHES", "build", "require_tensor_parallel", "param_count",
+           "input_specs", "cache_shape_specs", "param_shape_specs"]

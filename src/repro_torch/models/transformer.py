@@ -19,6 +19,12 @@ recomputed in the backward pass.
 A VLM batch's ``patches [B, P, d]`` are prepended to the token embeddings:
 prefill's cache then holds ``P + S`` positions and decode continues after
 them; the loss reads the text positions only.
+
+Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`,
+serving the dense and VLM families) the params are a process's slices
+(``init(..., place=tensor_place(specs(cfg), ctx))`` or
+:func:`~repro_torch.models.convert.tensor_params`) and the same code runs on
+the process's heads: :mod:`.layers` adds the collectives.
 """
 
 from __future__ import annotations
@@ -80,13 +86,15 @@ def _specs_layer(cfg: ModelConfig, kind: str) -> Any:
 def init(seed: int, cfg: ModelConfig, device="cuda", place=None) -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only.  Each
-    layer goes through ``place(path, layer) -> layer`` as it is drawn, which
-    may keep a slice of each leaf and free the rest (the sharded train
-    state's experts)."""
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only.  The
+    embedding and each layer go through ``place(path, sub) -> sub`` as they
+    are drawn (paths ``("embedding",)`` and ``("seg<i>", l)``), which may
+    keep a slice of each leaf and free the rest: the sharded train state's
+    experts, a tensor-parallel process's slices
+    (:func:`~repro_torch.distributed.sharding.tensor_place`)."""
     keep = place or (lambda path, layer: layer)
     gen = L.make_generator(seed, device)
-    params: dict[str, Any] = {"embedding": L.init_embedding(gen, cfg)}
+    params: dict[str, Any] = {"embedding": keep(("embedding",), L.init_embedding(gen, cfg))}
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device)
     for i, seg in enumerate(segments_for(cfg)):
         params[f"seg{i}"] = [keep((f"seg{i}", l), _init_layer(gen, cfg, seg.kind))
@@ -109,6 +117,8 @@ def specs(cfg: ModelConfig) -> Any:
 
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
                device="cuda") -> Any:
+    """Zeroed caches; under the tensor table a GQA cache holds the kv
+    heads this process attends with (:func:`layers.local_kv_heads`)."""
     dtype = dtype or L.cdtype(cfg)
     cache: dict[str, Any] = {}
     for i, seg in enumerate(segments_for(cfg)):
@@ -116,7 +126,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
         if cfg.attn_kind == "mla":
             shapes = {"c": lead + (cfg.kv_lora_rank,), "kr": lead + (cfg.qk_rope_head_dim,)}
         else:
-            kv = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+            kv = lead + (L.local_kv_heads(cfg), cfg.resolved_head_dim)
             shapes = {"k": kv, "v": kv}
         cache[f"seg{i}"] = {name: torch.zeros(shape, dtype=dtype, device=device)
                             for name, shape in shapes.items()}
@@ -124,7 +134,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
 
 
 def cache_specs(cfg: ModelConfig) -> Any:
-    """Logical axes for each cache leaf (leading layer dim replicated)."""
+    """Logical axes for each cache leaf (leading layer dim replicated), the
+    reference's letter for letter.  The tensor table places the cache by
+    its kv heads instead (:func:`init_cache`)."""
     out: dict[str, Any] = {}
     for i, _seg in enumerate(segments_for(cfg)):
         if cfg.attn_kind == "mla":
@@ -292,7 +304,9 @@ def decode_step_slots(params, cfg: ModelConfig, tokens, cache, positions):
 def prefill(params, cfg: ModelConfig, batch):
     """Process whole prompts: ``batch["tokens"] [B, S]`` (after
     ``batch["patches"] [B, P, d]`` for a VLM) -> ``(last-token logits [B,
-    vocab], cache)`` with a cache of exactly ``P + S`` positions."""
+    vocab], cache)`` with a cache of exactly ``P + S`` positions.  GQA
+    attends through :func:`layers.prefill_attention` (the kernel under
+    ``attn_impl="flash"``)."""
     x, pos = _embed_inputs(params, cfg, batch)
     cos, sin = L.rope_tables(cfg, pos, _rope_dim(cfg))
 
@@ -308,7 +322,7 @@ def prefill(params, cfg: ModelConfig, batch):
             else:
                 q, k, v = L.attention_qkv(p["attn"], cfg, hn)
                 q, k = L.rotate_qk(cfg, q, k, cos, sin)
-                a = L.attention_out(p["attn"], L.sdpa(q, k, v, causal=True))
+                a = L.attention_out(p["attn"], cfg, L.prefill_attention(cfg, q, k, v))
                 kept = {"k": k, "v": v}
             x = x + L.scale_as(x, cfg.residual_scale) * a
             x = _ffn_block(p, cfg, seg.kind, x)

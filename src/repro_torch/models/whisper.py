@@ -154,7 +154,7 @@ def _cross_attend(p, cfg: ModelConfig, h, mem_k, mem_v) -> torch.Tensor:
     q = L._project(h, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(h.dtype)
-    return L.attention_out(p, L.sdpa(q, mem_k, mem_v, causal=False))
+    return L.attention_out(p, cfg, L.sdpa(q, mem_k, mem_v, causal=False))
 
 
 def _memory_kv(p, cfg: ModelConfig, memory):
@@ -239,7 +239,7 @@ def prefill(params, cfg: ModelConfig, batch):
     for p in params["decoder"]:
         h = L.layernorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(p["self_attn"], cfg, h)
-        x = x + L.attention_out(p["self_attn"], L.sdpa(q, k, v, causal=True))
+        x = x + L.attention_out(p["self_attn"], cfg, L.sdpa(q, k, v, causal=True))
         h = L.layernorm(p["ln2"], x, cfg.norm_eps)
         mk, mv = _memory_kv(p["cross_attn"], cfg, memory)
         x = x + _cross_attend(p["cross_attn"], cfg, h, mk, mv)

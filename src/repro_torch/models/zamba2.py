@@ -196,7 +196,7 @@ def prefill(params, cfg: ModelConfig, batch):
         h = L.rmsnorm(shared["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(shared["attn"], cfg, h)
         q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-        x = x + L.attention_out(shared["attn"], L.sdpa(q, k, v, causal=True))
+        x = x + L.attention_out(shared["attn"], cfg, L.sdpa(q, k, v, causal=True))
         x = _mlp_residual(shared, cfg, x)
         ks.append(k)
         vs.append(v)

@@ -36,7 +36,11 @@ process ``s // (B / R)``; its slot map, admission and eviction run alike on
 every process from the request list and the gathered tokens, and a
 prefilled cache row whose slot another process owns is sent there
 (:func:`route_rows`).  A batch that ``R`` does not divide runs whole on
-every process.  Params stay whole on every process.
+every process.  Params stay whole on every process, except under the
+tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`),
+where the static engine runs the whole batch on every process over each
+process's slices of the model (``stats["rows"] == "tensor"``) and the
+continuous engine raises.
 
 Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``, an
 encoder-decoder's ``frames [B, S_f, d]``) join every prefill batch.  Static
@@ -163,14 +167,18 @@ def _side_rows(extra: dict | None) -> int:
 def _batch_rows(batch_size: int):
     """How a batch of ``batch_size`` rows lies over the active mesh:
     ``(mode, mesh, ctx)``.  ``"whole"`` without a mesh that spans processes;
-    on one over ``R`` processes ``"split"`` where ``R`` divides the batch
-    (each process its rows, the MoE layer under ``moe_tokens="local"``),
-    else ``"replicated"`` (every process the whole batch under
-    ``"global"``).  ``mesh`` is the mesh to split over (``None`` unless
-    ``"split"``), ``ctx`` the context to run the model under."""
+    ``"tensor"`` under the tensor table (every process the whole batch, the
+    model's matrices split); otherwise on a mesh over ``R`` processes
+    ``"split"`` where ``R`` divides the batch (each process its rows, the
+    MoE layer under ``moe_tokens="local"``), else ``"replicated"`` (every
+    process the whole batch under ``"global"``).  ``mesh`` is the mesh to
+    split over (``None`` unless ``"split"``), ``ctx`` the context to run the
+    model under."""
     ctx = current_mesh_context()
     if ctx is None or ctx.mesh.num_processes == 1:
         return "whole", None, ctx
+    if ctx.tensor:
+        return "tensor", None, ctx
     if split_rows(batch_size, ctx.mesh):
         return "split", ctx.mesh, dataclasses.replace(ctx, moe_tokens="local")
     return "replicated", None, ctx
@@ -217,14 +225,18 @@ class ServeEngine:
         the prompts, of ``extra_inputs`` and of the cache (``batch_size / R``
         of them), and every step's sampled tokens are gathered over the pod
         hop, so that every process fills every ``Request`` and keeps the
-        same live mask.  Otherwise every process runs the whole batch.
-        ``stats["rows"]`` says which (``"split"``, ``"replicated"``, or
-        ``"whole"`` off such a mesh).  Every process makes the same number
-        of prefill and decode calls: the MoE layer's pod hops and the
-        gathers are collectives, and a process that left the loop early
-        would hang the others.  Greedy tokens equal the one-process run's;
-        with a temperature each process draws its rows' tokens from its own
-        generator.
+        same live mask.  Otherwise every process runs the whole batch: under
+        the tensor table (``params`` then the process's slices) each call's
+        logits are gathered to the full vocab on every process, so every
+        process samples the same tokens from generators seeded alike.
+        ``stats["rows"]`` says which (``"split"``, ``"tensor"``,
+        ``"replicated"``, or ``"whole"`` off such a mesh).  Every process
+        makes the same number of prefill and decode calls: the MoE layer's
+        pod hops, the tensor table's reductions and the gathers are
+        collectives, and a process that left the loop early would hang the
+        others.  Greedy tokens equal the one-process run's; with a
+        temperature, under a split each process draws its rows' tokens from
+        its own generator.
         """
         t0 = time.perf_counter()
         if len(requests) > self.batch_size:
@@ -238,6 +250,8 @@ class ServeEngine:
             prompts[i] = r.prompt
 
         mode, mesh, ctx = _batch_rows(B)
+        if mode == "tensor":
+            registry.require_tensor_parallel(self.cfg)
         self.stats["rows"] = mode
         batch = {"tokens": torch.from_numpy(prompts),
                  **{k: torch.as_tensor(v) for k, v in (extra_inputs or {}).items()}}
@@ -431,6 +445,11 @@ class ContinuousEngine:
         #: Optional :class:`repro_torch.obs.trace.Tracer` — admission rounds,
         #: prefill groups and decode steps become spans on it.
         self.tracer = tracer
+        ctx = current_mesh_context()
+        if ctx is not None and ctx.tensor:
+            raise NotImplementedError(
+                "the continuous engine under the tensor table is not ported yet: serve "
+                "through ServeEngine (ROADMAP queue A, item 9(b))")
         if api.decode_step_slots is None:
             raise NotImplementedError(
                 f"continuous batching needs a per-position KV cache; family "

@@ -54,7 +54,10 @@ ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           serve_dtype="float32", serve_param_dtype="float32", serve_ref="whole",
                           serve_tol=1e-5, serve_repeat=1, serve_replicated="",
                           serve_continuous="", serve_prompts=[8, 16], serve_rate=2.0,
-                          serve_uniform="", serve_temperature="")
+                          serve_uniform="", serve_temperature="",
+                          tp_cells="deepseek-67b", tp_full=False, tp_dtype="float32",
+                          tp_param_dtype="float32", tp_ref="whole", tp_repeat=1,
+                          tp_temperature=0.0, tp_profile=False)
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1246,8 +1249,10 @@ def _serve_launches() -> dict:
             "flash_attention": fa.LAUNCHES["flash_attention"]}
 
 
-def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux) -> dict:
-    """One static batch through ``ServeEngine`` under ``ctx`` and ``mux``:
+def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
+               temperature: float = 0.0) -> dict:
+    """One static batch through ``ServeEngine`` under ``ctx`` and ``mux``
+    (at ``temperature``, seed 0):
     tokens, each call's logits (this process's rows), the drops of every
     expert-parallel call (this process's units), the stats, the pod hop's
     bytes, the kernels' launches, the walls and the peak."""
@@ -1262,7 +1267,7 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux) -> dict:
     rec = dataclasses.replace(api, prefill=_Recorded(api.prefill),
                               decode_step=_Recorded(api.decode_step))
     reqs = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts[:B]]
-    engine = ServeEngine(rec, batch_size=B, capacity=cap, device=DEV)
+    engine = ServeEngine(rec, batch_size=B, capacity=cap, temperature=temperature, device=DEV)
     side = None if extra is None else {k: v[:B] for k, v in extra.items()}
     exchange.reset_pod_hop()
     k0 = _serve_launches()
@@ -1882,13 +1887,278 @@ def scenario_serve():
     print("PASS serve")
 
 
+def _tp_cells() -> list[tuple[str, str, int, tuple, int]]:
+    """``--tp-cells``: ``arch[:layers[:BxSxNEW[:vocab]]]`` items,
+    comma-separated (layers 0: the config's; the shape by default 4 x 16 +
+    4 new; vocab 0: the config's), as ``(key, arch, layers, shape, vocab)``
+    with the key ``arch`` or ``arch:v<vocab>``."""
+    out = []
+    for item in filter(None, ARGS.tp_cells.split(",")):
+        arch, layers, shape, vocab = (item.split(":")
+                                      + ["0", "4x16x4", "0"][item.count(":"):])[:4]
+        key = arch if vocab == "0" else f"{arch}:v{vocab}"
+        out.append((key, arch, int(layers), tuple(int(v) for v in shape.split("x")),
+                    int(vocab)))
+    return out
+
+
+#: ``tensor_serve``'s logits against the reference's, ``allclose`` at rtol =
+#: atol = this: the reference's ``decode_sharded_equiv`` tolerance
+TP_TOL = 2e-4
+
+
+def _tp_cfg(arch: str, layers: int, vocab: int = 0):
+    """The served config: smoke or full (``--tp-full``), cut to ``layers``
+    (and to a ``vocab`` of another size), ``--tp-dtype`` compute over
+    ``--tp-param-dtype`` params, ``attn_impl="flash"`` (the prefill's
+    kernel)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    base = (get_config if ARGS.tp_full else get_smoke_config)(arch)
+    over = dict(dtype=ARGS.tp_dtype, param_dtype=ARGS.tp_param_dtype, attn_impl="flash")
+    if layers:
+        over["num_layers"] = layers
+    if vocab:
+        over["vocab_size"] = vocab
+    return base.scaled(**over)
+
+
+def _tp_hop_bytes(cfg, B: int, S: int, side: int, steps: int, ctx) -> dict:
+    """What one tensor-parallel static run puts on the pod hop, a process,
+    from the shapes: a call over ``T`` tokens a row (the prefill's ``side +
+    S``, a decode step's 1) all-reduces ``[B, T, d]`` in the compute dtype
+    once for the embedding (the vocab split), once for each layer's
+    attention output (the heads split) and once for its MLP (``d_ff``
+    split), and all-gathers its ``[B, 1, V / R]`` logits (the vocab split)."""
+    from repro_torch.distributed.sharding import tensor_split
+
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    R = tensor_split(cfg.vocab_size, "vocab", ctx)
+    layers = cfg.num_layers * ((tensor_split(cfg.num_heads, "heads", ctx) > 1)
+                               + (tensor_split(cfg.d_ff, "d_ff", ctx) > 1))
+    reduces = layers + (R > 1)
+    tokens = B * (side + S) + steps * B  # the embedding's rows (the patches skip it)
+    embed_rows = B * S + steps * B
+    reduce_bytes = (layers * tokens + (R > 1) * embed_rows) * cfg.d_model * item
+    gather_bytes = (1 + steps) * B * (cfg.vocab_size // R) * item if R > 1 else 0
+    return {"all-reduce": reduce_bytes, "all-gather": gather_bytes,
+            "reduces_a_call": reduces, "total": reduce_bytes + gather_bytes}
+
+
+def _tp_decode_profile(api, params, cache, tokens, pos: int, ctx) -> dict:
+    """One more decode step under ``torch.profiler`` on the card: its wall,
+    and the device time of the collectives' kernels (NCCL's) and of every
+    kernel, by the profiler's own sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.sharding import mesh_context
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with mesh_context(ctx):
+            _, wall = _synced(lambda: api.decode_step(params, tokens, cache, pos))
+    out = {"step_ms": wall * 1e3, "device_ms": 0.0, "all_reduce_ms": 0.0,
+           "all_gather_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        out["device_ms"] += ms
+        name = e.key.lower()
+        if "allreduce" in name or "all_reduce" in name:
+            out["all_reduce_ms"] += ms
+        elif "allgather" in name or "all_gather" in name:
+            out["all_gather_ms"] += ms
+    return out
+
+
+def _tp_reference(key: str):
+    """``--tp-ref DIR``: the reference's params (numpy, the JAX package's
+    tree) and its one-device greedy run (the prompts, each call's logits,
+    the tokens) from ``DIR/<key>.pkl`` (``:`` in the key as ``_``)."""
+    import pickle
+
+    with open(os.path.join(ARGS.tp_ref, key.replace(":", "_") + ".pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) -> dict:
+    """One cell of ``tensor_serve``: the params (from the seed through
+    ``tensor_place``, or the reference's cut by ``convert.tensor_params``),
+    the one-process reference, the tensor-parallel static run, its checks."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import mesh_context, tensor_place, tensor_slice
+    from repro_torch.models import convert, registry
+    from repro_torch.serve.engine import grow_cache
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    rank, R = INFO.process_id, INFO.num_processes
+    B, S, new = shape
+    cfg = _tp_cfg(arch, layers, vocab)
+    api = registry.build(cfg)
+    place = tensor_place(api.param_specs, ctx)
+    rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl, "tol": TP_TOL}
+    meta = api.init(0, device="meta", place=place)
+    rec["param_bytes_counted"] = sum(t.numel() * t.element_size() for t in leaves(meta))
+    ref = whole = None
+    if ARGS.tp_ref not in ("whole", "none"):
+        ref = _tp_reference(key)
+        prompts, extra = ref["prompts"], ref.get("extra")
+        params = convert.tensor_params(convert.from_reference(ref["params"], device=DEV), cfg,
+                                       ctx)
+    else:
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+        extra = None
+        if cfg.family == "vlm":
+            side = min(1024, S // 2)
+            extra = {"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
+        if ARGS.tp_ref == "whole" and rank == 0:
+            _reset_peak()
+            whole = api.init(0, device=DEV)
+            ref = _serve_run(api, whole, (prompts, extra, _tp_capacity(S, extra, new)), B,
+                             new, None, None)
+            rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s",
+                                                      "wall_s", "peak", "launches")}
+        params = api.init(0, device=DEV, place=place)
+    if whole is not None:  # the placed draw is the whole draw's slices
+        rec["params_equal_slices"] = all(  # a slice at a time: the whole tree is large
+            torch.equal(a, tensor_slice(b, spec, ctx)) for a, b, spec in zip(
+                leaves(params), leaves(whole), leaves(api.param_specs)))
+        if not rec["params_equal_slices"]:
+            raise AssertionError(f"tensor_serve {key}: the placed params are not the whole "
+                                 "tree's slices")
+        whole = None
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    rec["leaf_shapes"] = {"/".join(map(str, p)): list(t.shape)
+                          for p, t in leaves_with_paths(params)}
+    side = 0 if not extra else int(extra["patches"].shape[1])
+    cap = _tp_capacity(S, extra, new)
+    with mesh_context(ctx):
+        rec["cache_bytes_counted"] = sum(
+            t.numel() * t.element_size()
+            for t in leaves(api.init_cache(B, cap, device="meta")))
+    sync_processes()
+    runs = [_serve_run(api, params, (prompts, extra, cap), B, new, ctx, None)
+            for _ in range(ARGS.tp_repeat)]
+    run = runs[-1]
+    if run["stats"]["rows"] != "tensor":
+        raise AssertionError(f"tensor_serve {key}: ran {run['stats']['rows']}")
+    want_hop = _tp_hop_bytes(cfg, B, S, side, run["stats"]["decode_steps"], ctx)
+    on = DEV == "cuda" and cfg.attn_impl == "flash"
+    want_flash = cfg.num_layers if on else 0
+    rec.update(rows=run["stats"]["rows"], tokens=run["tokens"], stats=run["stats"],
+               hop_bytes=run["hop_bytes"], hop_kinds=run["hop_kinds"], want_hop=want_hop,
+               launches=run["launches"], prefill_s=[r["prefill_s"] for r in runs],
+               decode_s=[r["decode_s"] for r in runs], wall_s=[r["wall_s"] for r in runs],
+               peak=run["peak"], tokens_repeat_equal=all(r["tokens"] == run["tokens"]
+                                                        for r in runs))
+    bad = []
+    if {k: run["hop_kinds"].get(k, 0) for k in ("all-reduce", "all-gather")} != \
+            {k: want_hop[k] for k in ("all-reduce", "all-gather")} or \
+            run["hop_bytes"] != want_hop["total"]:
+        bad.append(f"pod hop {run['hop_kinds']} against {want_hop}")
+    if any(r["launches"]["flash_attention"] != want_flash for r in runs):
+        bad.append(f"flash_attention launched {[r['launches']['flash_attention'] for r in runs]}"
+                   f" times a run, {want_flash} a prefill")
+    every = [None] * R
+    dist.all_gather_object(every, run["tokens"])
+    rec["tokens_equal_on_every_process"] = all(t == run["tokens"] for t in every)
+    if not rec["tokens_equal_on_every_process"]:
+        bad.append("the processes' tokens differ")
+    if ref is not None:
+        want_logits = [torch.as_tensor(np.asarray(w)) for w in ref["logits"]]
+        want_tokens = ref["tokens"]
+        got = run["logits"]
+        rec["logit_abs"] = [float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, want_logits)]
+        rec["logits_close"] = len(got) == len(want_logits) and all(
+            torch.allclose(a.float(), b.float(), rtol=TP_TOL, atol=TP_TOL)
+            for a, b in zip(got, want_logits))
+        rec["tokens_equal"] = run["tokens"] == want_tokens
+        if not (rec["logits_close"] and rec["tokens_equal"]):
+            bad.append(f"against the one-device run: logits {rec['logit_abs']} "
+                       f"(tolerance {TP_TOL}), tokens equal {rec['tokens_equal']}")
+    if bad:
+        raise AssertionError(f"tensor_serve {key}: {bad}")
+    if ARGS.tp_temperature:
+        temp = ARGS.tp_temperature
+        sampled = _serve_run(api, params, (prompts, extra, cap), B, new, ctx, None,
+                             temperature=temp)
+        dist.all_gather_object(every, sampled["tokens"])
+        rec["sampled"] = {"temperature": temp, "tokens": sampled["tokens"],
+                          "equal_on_every_process": all(t == sampled["tokens"] for t in every),
+                          "differs_from_greedy": sampled["tokens"] != run["tokens"]}
+        if not rec["sampled"]["equal_on_every_process"]:
+            raise AssertionError(f"tensor_serve {key}: sampled tokens differ between "
+                                 "processes")
+    if ARGS.tp_profile and DEV == "cuda":
+        with mesh_context(ctx):
+            batch = {"tokens": torch.from_numpy(prompts),
+                     **{k: torch.as_tensor(v) for k, v in (extra or {}).items()}}
+            logits, cache = api.prefill(params, {k: v.to(DEV) for k, v in batch.items()})
+            cache = grow_cache(api, cache, B, cap)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        rec["decode_profile"] = _tp_decode_profile(api, params, cache, tok, S + side, ctx)
+        del cache, logits
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_capacity(S: int, extra, new: int) -> int:
+    side = 0 if not extra else int(extra["patches"].shape[1])
+    return S + new + 1 + side
+
+
+def scenario_tensor_serve():
+    """Tensor-parallel serving across the processes (``tensor_rules``): the
+    static engine runs the whole batch on every process over each process's
+    slices of the heads, ``d_ff`` and vocab dims, the layers all-reducing
+    and all-gathering over the pod hop.  ``--tp-ref DIR``: the reference's
+    params and one-device greedy run from ``DIR/<arch>.pkl`` (the CPU test
+    writes them with the JAX package), the params cut by
+    ``convert.tensor_params``; ``--tp-ref whole``: process 0 first runs the
+    one-process engine on the whole tree from the seed, and the placed
+    params must equal its slices.  Every config runs ``attn_impl="flash"``.
+    Gates: ``stats["rows"] == "tensor"``, logits within ``TP_TOL``
+    (``allclose``, rtol = atol) of the reference call for call, greedy tokens equal, tokens equal on every process, the
+    pod hop's all-reduce and all-gather bytes equal to the count from the
+    shapes, ``flash_attention`` once a layer a prefill on the card under
+    ``attn_impl="flash"``.  ``--tp-temperature T``: a sampled run's tokens
+    equal on every process.  ``--tp-profile``: one decode step profiled (the
+    collectives' device time)."""
+    from repro_torch.distributed.sharding import tensor_rules
+    from repro_torch.launch.mesh import make_context
+
+    ctx = make_context(multi_pod=True, rules=tensor_rules())
+    if DEV == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {"started_at": time.time(), "archs": {}}
+    for key, arch, layers, shape, vocab in _tp_cells():
+        t0 = time.perf_counter()
+        r = out["archs"][key] = _tp_arch(key, arch, layers, shape, vocab, ctx)
+        r["seconds"] = time.perf_counter() - t0
+        print(f"[tensor-serve] {key}: {r['layers']} layers {r['dtype']}, {r['shape']}, rows "
+              f"{r['rows']}, prefill {[round(s * 1e3, 1) for s in r['prefill_s'][-1]]} ms, "
+              f"decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over {len(r['decode_s'][-1])} "
+              f"steps, pod hop {r['hop_kinds']}, peak {r['peak']}, "
+              f"logits {max(r.get('logit_abs') or [0.0]):.3g}")
+    RESULTS["tensor_serve"] = out
+    print("PASS tensor_serve")
+
+
 SCENARIOS = {
     name.removeprefix("scenario_"): fn
     for name, fn in list(globals().items())
     if name.startswith("scenario_")
 }
 #: Run only when named: not part of "all".
-ON_REQUEST = ("dp_train", "moe_train", "serve")
+ON_REQUEST = ("dp_train", "moe_train", "serve", "tensor_serve")
 
 
 def main(argv: list[str]) -> None:
@@ -1930,7 +2200,22 @@ def main(argv: list[str]) -> None:
                     help="serve: arch:BxSxNEW, uniform requests through both split engines")
     ap.add_argument("--serve-temperature", default="",
                     help="serve: arch:T, a continuous cell's workload sampled at T")
+    ap.add_argument("--tp-cells", default="deepseek-67b",
+                    help="tensor_serve: arch[:layers[:BxSxNEW]] items, comma-separated")
+    ap.add_argument("--tp-full", action="store_true", help="tensor_serve at full width")
+    ap.add_argument("--tp-dtype", default="float32")
+    ap.add_argument("--tp-param-dtype", default="float32")
+    ap.add_argument("--tp-ref", default="whole",
+                    help="tensor_serve: whole (process 0's one-process engine), none, or a "
+                         "directory of the reference's runs")
+    ap.add_argument("--tp-repeat", type=int, default=1)
+    ap.add_argument("--tp-temperature", type=float, default=0.0)
+    ap.add_argument("--tp-profile", action="store_true",
+                    help="tensor_serve: one decode step a cell under torch.profiler")
     args = ap.parse_args(argv)
+    for k in ("cells", "full", "dtype", "param_dtype", "ref", "repeat", "temperature",
+              "profile"):
+        setattr(ARGS, f"tp_{k}", getattr(args, f"tp_{k}"))
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
     ARGS.dp_shape = tuple(int(v) for v in args.dp_shape.split("x"))

@@ -8,9 +8,10 @@ tests.
 ``out.json`` gets, for every config, the reference's ``specs(cfg)`` and
 ``cache_specs(cfg)`` (tuples as lists), and for every pair its
 ``NamedSharding.spec`` from ``repro.distributed.sharding.logical_sharding``
-on the ``(4, 2)`` ``data x model`` mesh (``default_rules(False)``) and the
-``(2, 2, 2)`` ``pod x data x model`` mesh (``default_rules(True)``), with
-and without ``allow_uneven`` and ``strict``.  The meshes need 8 fake
+on the ``(4, 2)`` and ``(2, 4)`` ``data x model`` meshes
+(``default_rules(False)``) and the ``(2, 2, 2)`` ``pod x data x model`` mesh
+(``default_rules(True)``), with and without ``allow_uneven`` and
+``strict``.  The meshes need 8 fake
 devices, whose flag must be set before JAX starts, so this runs as a
 subprocess.
 """
@@ -33,6 +34,7 @@ from repro.launch.mesh import make_test_mesh  # noqa: E402
 from repro.models import registry  # noqa: E402
 
 MESHES = {"data4_model2": ((4, 2), ("data", "model"), False),
+          "data2_model4": ((2, 4), ("data", "model"), False),
           "pod2_data2_model2": ((2, 2, 2), ("pod", "data", "model"), True)}
 
 

@@ -271,6 +271,29 @@ def test_cuda_bf16_flash_attention_matches_plain_version(cuda_device, B, H, KH, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,S,D,dtype", [
+    # a process's heads in tensor-parallel serving (the four-card probe's
+    # prefills at 8 x 2,048: DeepSeek-67B's 16 q and 2 kv heads, Qwen1.5-32B's
+    # 10 and 10), and chip_smoke.py phase 9b's (32 and 4 over 2 processes, f32)
+    (8, 16, 2, 2048, 128, torch.bfloat16),
+    (8, 10, 10, 2048, 128, torch.bfloat16),
+    (4, 32, 4, 256, 128, torch.float32),
+])
+def test_cuda_tensor_parallel_prefill_shapes_match_plain_version(cuda_device, B, H, KH, S, D,
+                                                                 dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(H * S + KH)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = kref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1 and fa.LAUNCHES["flash_attention[ragged]"] == 0
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 4, 2, 96, 96, 320), (1, 4, 4, 128, 0, 64)])
 def test_cuda_wrapper_raises_for_shapes_the_kernel_cannot_take(cuda_device, shape):
     """On the card the model-layout wrapper never gives way to the plain

@@ -1,0 +1,448 @@
+"""Tensor-parallel serving across REAL processes (Gloo on the CPU) against the
+reference: ``distributed.sharding.tensor_rules``, the layers' collectives,
+``init``'s ``tensor_place``, ``convert.tensor_params`` and the static
+engine's ``"tensor"`` rows.
+
+The reference's own ``ServeEngine`` runs each cell on one device (greedy, 4 x
+16-token prompts + 4 new, smoke configs in f32), each prefill and decode
+call's logits recorded, on params that the port's ``init`` draws from seed 0
+and stacks into the reference's layout (a ``jax.random`` init would compile
+for seconds a cell; the distributions are the reference's).  Then ONE
+port cluster a process count (2 and 4 processes of 2 units over Gloo) runs
+the ``tensor_serve`` scenario of ``tests/_torch_multiproc_driver.py`` on the
+reference's params cut into each process's slices, with
+``attn_impl="flash"`` (the kernel's plain version on the CPU): every call's
+logits within ``rtol = atol = 2e-4`` (the tolerance of the reference's
+``decode_sharded_equiv``), greedy tokens equal, tokens equal on every
+process (also sampled at temperature 0.8), and the pod hop's all-reduce and
+all-gather bytes equal to a count from the shapes.  The cells: DeepSeek-67B
+(GQA 8:2; over 4 processes its 2 kv heads stay whole and each process reads
+the one its 2 query heads map to), Qwen1.5-32B (5 heads, which neither
+count divides: attention runs whole, the MLP split), Qwen2.5-3B (q/k/v
+biases, kv heads whole over 4) and MiniCPM-2B (a tied table, muP scales);
+their smoke vocabs are odd and stay whole, so DeepSeek-67B and MiniCPM-2B
+also run at a vocab of 512, split (the masked lookup, the gathered logits;
+the tied table both).
+
+Each process's leaf shapes equal the reference's shard shapes: the full
+shape divided along every dim that the reference's ``logical_sharding``
+puts on ``model`` on a ``data x model`` mesh with ``model`` = 2 and 4 (ONE
+subprocess on 8 fake devices, ``tests/_torch_sharding_ref_run.py``); at
+smoke size from the workers' own params, at full width on ``meta``.  In
+process: the placed init equals the whole init's slices, the cache holds
+the process's kv heads, the kv heads a process reads, and the refusals
+(the other families, the continuous engine, a mesh inside one process).
+"""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.exchange import Mesh, make_mesh
+from repro_torch.distributed.sharding import (
+    MeshContext,
+    mesh_context,
+    tensor_place,
+    tensor_rules,
+    tensor_slices,
+    unit_rules,
+)
+from repro_torch.launch.cluster import run_local_cluster
+from repro_torch.launch.mesh import make_context
+from repro_torch.models import convert, registry
+from repro_torch.models import layers as L
+from repro_torch.serve import ContinuousEngine, ServeEngine
+from repro_torch.tree import leaves, leaves_with_paths
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DRIVER = os.path.join(HERE, "_torch_multiproc_driver.py")
+ARCHS = ["deepseek-67b", "qwen1.5-32b", "qwen2.5-3b", "minicpm-2b"]
+#: (key, arch, vocab): the smoke configs, and two at a vocab both counts split
+CELLS = [(a, a, 0) for a in ARCHS] + [(f"{a}:v512", a, 512) for a in ("deepseek-67b",
+                                                                    "minicpm-2b")]
+B, S, NEW = 4, 16, 4
+TOL = 2e-4
+PROCESSES = (2, 4)
+UNITS = 2
+TEMPERATURE = 0.8
+REFUSED = ["olmoe-1b-7b", "deepseek-v2-lite-16b", "mamba2-1.3b", "zamba2-7b", "whisper-medium"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Every tensor here is small: one intra-op thread, so that in a
+    parallel test run many small ops do not wait on oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _smoke(arch, vocab=0):
+    cfg = get_smoke_config(arch)
+    return cfg.scaled(vocab_size=vocab) if vocab else cfg
+
+
+@pytest.fixture(scope="module")
+def reference(resolver, tmp_path_factory):
+    """The reference's params and one-device greedy run of every cell, as
+    the pickles ``--tp-ref`` reads."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.models import registry as ref_registry
+    from repro.serve.engine import Request as RefRequest
+    from repro.serve.engine import ServeEngine as RefServeEngine
+
+    out = tmp_path_factory.mktemp("tensor_ref")
+    for key, arch, vocab in CELLS:
+        cfg = ref_smoke(arch)
+        api = ref_registry.build(cfg.scaled(vocab_size=vocab) if vocab else cfg)
+        params = _stacked(registry.build(_smoke(arch, vocab)).init(0, device="cpu"))
+        prompts = np.random.default_rng(0).integers(0, api.cfg.vocab_size, (B, S),
+                                                    dtype=np.int32)
+        engine = RefServeEngine(api, batch_size=B, capacity=S + NEW + 1)
+        logits = []
+
+        def recorded(fn):
+            def call(*args):
+                got = fn(*args)
+                logits.append(np.asarray(got[0]))
+                return got
+            return call
+
+        engine._prefill, engine._decode = recorded(engine._prefill), recorded(engine._decode)
+        reqs = [RefRequest(prompt=p.copy(), max_new_tokens=NEW) for p in prompts]
+        engine.generate(jax.tree.map(jax.numpy.asarray, params), reqs)
+        with open(out / (key.replace(":", "_") + ".pkl"), "wb") as f:
+            pickle.dump({"params": params, "prompts": prompts, "logits": logits,
+                         "tokens": [r.out_tokens for r in reqs]}, f)
+    return out
+
+
+def _stacked(params: dict) -> dict:
+    """Port params in the reference's layout (numpy): each ``seg<i>`` list
+    of layers stacked on a leading dim, the inverse of
+    ``convert.from_reference``."""
+    from repro_torch.tree import tree_map
+
+    def np_leaf(*ts):
+        return np.stack([t.numpy() for t in ts]) if len(ts) > 1 else ts[0].numpy()
+
+    return {k: tree_map(np_leaf, *v) if k.startswith("seg") else tree_map(np_leaf, v)
+            for k, v in params.items()}
+
+
+def _cluster(R: int, reference, tmp) -> list:
+    """Every process's ``tensor_serve`` record of every cell, over ``R``
+    processes."""
+    cells = ",".join(f"{arch}:0:{B}x{S}x{NEW}:{vocab}" for _, arch, vocab in CELLS)
+    outs = run_local_cluster(
+        [DRIVER, "tensor_serve", "--tp-cells", cells, "--tp-ref", str(reference),
+         "--tp-temperature", str(TEMPERATURE),
+         "--dump", str(tmp)],
+        num_processes=R, local_units=UNITS, timeout_s=300, echo=False, backend="gloo",
+        device="cpu", env={"OMP_NUM_THREADS": "1"},
+    )
+    assert all("PASS tensor_serve" in o for o in outs), outs
+    got = []
+    for pid in range(R):
+        with open(os.path.join(tmp, f"p{pid}.json")) as f:
+            got.append(json.load(f)["results"]["tensor_serve"]["archs"])
+    return got
+
+
+CLI = ["--arch", "deepseek-67b", "--smoke", "--requests", "4", "--batch", "2",
+       "--prompt-len", "8", "--max-new", "4"]
+
+
+def _launcher() -> list:
+    """``launch.serve --tensor`` under ``launch.cluster``, 2 processes of one
+    unit: each process's printed lines."""
+    src = os.path.join(HERE, "..", "src")
+    return run_local_cluster(
+        ["-m", "repro_torch.launch.serve", "--tensor"] + CLI, num_processes=2, local_units=1,
+        timeout_s=300, echo=False, backend="gloo", device="cpu",
+        env={"OMP_NUM_THREADS": "1",
+             "PYTHONPATH": os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")]))},
+    )
+
+
+@pytest.fixture(scope="module")
+def clusters(reference, tmp_path_factory):
+    """Both clusters (2 and 4 processes) and the launcher's at once: each
+    collective over Gloo waits on localhost, so they overlap well."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(PROCESSES) + 1) as pool:
+        runs = {R: pool.submit(_cluster, R, reference, tmp_path_factory.mktemp(f"tensor{R}"))
+                for R in PROCESSES}
+        runs["launcher"] = pool.submit(_launcher)
+        return {R: run.result() for R, run in runs.items()}
+
+
+def test_launcher_serves_tensor_parallel_as_one_process(clusters, capsys):
+    """``python -m repro_torch.launch.cluster ... -- -m repro_torch.launch.serve
+    --tensor``: both processes print the one-process launcher's batches."""
+    from repro_torch.launch import serve
+
+    serve.main(CLI, device="cpu")
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("batch")]
+    assert len(want) == 2
+    for out in clusters["launcher"]:
+        assert [ln for ln in out.splitlines() if ln.startswith("batch")] == want, out
+    with pytest.raises(ValueError, match="tensor table"):  # no launch: no processes to split over
+        serve.main(["--tensor"] + CLI, device="cpu")
+
+
+@pytest.fixture(scope="module", params=PROCESSES, ids=lambda r: f"{r}proc")
+def dumps(request, clusters):
+    return request.param, clusters[request.param]
+
+
+@pytest.mark.parametrize("key", [c[0] for c in CELLS])
+def test_tensor_parallel_engine_equals_the_reference(dumps, key):
+    R, recs = dumps
+    for pid, rec in enumerate(recs):
+        r = rec[key]
+        assert r["rows"] == "tensor"
+        assert r["tokens_equal"], (pid, r["tokens"])
+        assert len(r["logit_abs"]) == NEW  # the prefill and every decode step
+        assert r["tol"] == TOL and r["logits_close"], (pid, r["logit_abs"])
+        assert r["tokens_equal_on_every_process"]
+        assert r["tokens"] == recs[0][key]["tokens"]
+        assert [len(t) for t in r["tokens"]] == [NEW] * B
+
+
+@pytest.mark.parametrize("key", [c[0] for c in CELLS])
+def test_sampled_tokens_equal_on_every_process(dumps, key):
+    """At temperature 0.8 every process draws the same tokens: the logits
+    are gathered whole on each and the generators seeded alike."""
+    R, recs = dumps
+    for rec in recs:
+        s = rec[key]["sampled"]
+        assert s["temperature"] == TEMPERATURE and s["equal_on_every_process"]
+        assert s["tokens"] == recs[0][key]["sampled"]["tokens"]
+        assert s["differs_from_greedy"]
+
+
+def _splits(cfg, R: int) -> dict:
+    return {name: dim % R == 0 for name, dim in (("heads", cfg.num_heads), ("d_ff", cfg.d_ff),
+                                                  ("vocab", cfg.vocab_size))}
+
+
+@pytest.mark.parametrize("key", [c[0] for c in CELLS])
+def test_pod_hop_carries_the_reductions_and_the_gathered_logits(dumps, key):
+    """Per call over ``T`` tokens a row: one ``[B, T, d]`` f32 all-reduce
+    for the embedding where the vocab splits, and one for each layer's
+    attention (heads split) and MLP (``d_ff`` split); one all-gather of the
+    ``[B, 1, V / R]`` logits where the vocab splits."""
+    R, recs = dumps
+    _, arch, vocab = next(c for c in CELLS if c[0] == key)
+    cfg = _smoke(arch, vocab)
+    split = _splits(cfg, R)
+    tokens = B * S + (NEW - 1) * B
+    per_token = cfg.num_layers * (split["heads"] + split["d_ff"]) + split["vocab"]
+    want = {"all-reduce": per_token * tokens * cfg.d_model * 4}
+    if split["vocab"]:
+        want["all-gather"] = NEW * B * (cfg.vocab_size // R) * 4
+    for rec in recs:
+        assert rec[key]["hop_kinds"] == want
+
+
+def _ref_shard_shapes(ref, pairs, shape, spec, R):
+    """The reference's shard shape: the dims its ``logical_sharding`` puts
+    on ``model`` (``model`` = R) divided by R; ``data`` dims stay whole, as
+    serving keeps no FSDP."""
+    mesh_key = {2: "data4_model2", 4: "data2_model4"}[R]
+    resolved = ref["resolved"][f"{mesh_key}:False:False"][pairs[(shape, spec)]]
+    return [n // R if a == "model" or (isinstance(a, list) and "model" in a) else n
+            for n, a in zip(shape, resolved)]
+
+
+def _full(arch):
+    """Full width at depth 2: every layer's leaves have the same shapes."""
+    return get_config(arch).scaled(num_layers=2)
+
+
+@pytest.fixture(scope="module")
+def full_meta():
+    """Per (arch, R, rank): every leaf of ``init(..., device="meta")`` placed
+    by the tensor table at full width, and the whole tree's."""
+    out = {}
+    for arch in ARCHS:
+        api = registry.build(_full(arch))
+        out[(arch, "whole")] = api.init(0, device="meta")
+        for R in PROCESSES:
+            for r in range(R):
+                ctx = _fake_ctx(R, r)
+                out[(arch, R, r)] = api.init(0, device="meta",
+                                             place=tensor_place(api.param_specs, ctx))
+    return out
+
+
+@pytest.fixture(scope="module")
+def resolver(full_meta, tmp_path_factory):
+    """The reference's resolution of every leaf of the cells' trees (smoke,
+    the 512-vocab variants, full width) on ``data x model`` meshes, started
+    in its subprocess here and read by :func:`ref_shapes`, so that it runs
+    beside the reference's greedy runs."""
+    pairs = {}
+
+    def add(cfg_params, specs):
+        for (_, spec), (_, t) in zip(leaves_with_paths(specs), leaves_with_paths(cfg_params)):
+            pairs.setdefault((tuple(t.shape), spec), len(pairs))
+
+    for _, arch, vocab in CELLS:
+        api = registry.build(_smoke(arch, vocab))
+        add(api.init(0, device="meta"), api.param_specs)
+    for arch in ARCHS:
+        add(full_meta[(arch, "whole")], registry.build(_full(arch)).param_specs)
+    tmp = tmp_path_factory.mktemp("tensor_sharding")
+    src, dst = tmp / "in.json", tmp / "out.json"
+    src.write_text(json.dumps({"configs": [],
+                               "pairs": [[list(s), list(n)] for s, n in pairs]}))
+    proc = subprocess.Popen([sys.executable, os.path.join(HERE, "_torch_sharding_ref_run.py"),
+                             str(src), str(dst)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    yield proc, dst, pairs
+    proc.kill()
+
+
+@pytest.fixture(scope="module")
+def ref_shapes(resolver):
+    proc, dst, pairs = resolver
+    out, _ = proc.communicate(timeout=300)
+    assert "PASS torch_sharding_ref" in out, out
+    return json.loads(dst.read_text()), pairs
+
+
+@pytest.mark.parametrize("key", [c[0] for c in CELLS])
+def test_each_process_holds_the_reference_shard_shapes(dumps, ref_shapes, key):
+    R, recs = dumps
+    ref, pairs = ref_shapes
+    _, arch, vocab = next(c for c in CELLS if c[0] == key)
+    api = registry.build(_smoke(arch, vocab))
+    whole = api.init(0, device="meta")
+    for rec in recs:
+        got = rec[key]["leaf_shapes"]
+        assert len(got) == len(leaves(whole))
+        for (path, spec), (_, t) in zip(leaves_with_paths(api.param_specs),
+                                        leaves_with_paths(whole)):
+            want = _ref_shard_shapes(ref, pairs, tuple(t.shape), spec, R)
+            assert got["/".join(map(str, path))] == want, (path, spec)
+
+
+@pytest.mark.parametrize("R", PROCESSES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_size_shard_shapes_on_meta(full_meta, ref_shapes, arch, R):
+    """At full width (DeepSeek-67B: 16 q and 2 kv heads a process over 4;
+    Qwen1.5-32B: 10 and 10; Qwen2.5-3B's 2 kv heads whole over 4; MiniCPM-2B's
+    odd vocab whole), on ``meta``: every process's leaf the reference's shard
+    shape."""
+    ref, pairs = ref_shapes
+    api = registry.build(_full(arch))
+    whole = full_meta[(arch, "whole")]
+    for r in range(R):
+        placed = full_meta[(arch, R, r)]
+        for (path, spec), (_, t), (_, p) in zip(leaves_with_paths(api.param_specs),
+                                                leaves_with_paths(whole),
+                                                leaves_with_paths(placed)):
+            assert list(p.shape) == _ref_shard_shapes(ref, pairs, tuple(t.shape), spec, R), \
+                (path, spec)
+    if arch == "deepseek-67b" and R == 4:
+        wq = full_meta[(arch, R, 0)]["seg0"][0]["attn"]
+        assert wq["wq"].shape == (8192, 16, 128) and wq["wk"].shape == (8192, 2, 128)
+    if arch == "qwen1.5-32b" and R == 4:
+        a = full_meta[(arch, R, 0)]["seg0"][0]["attn"]
+        assert a["wq"].shape[1] == a["wk"].shape[1] == 10 and a["bk"].shape == (10, 128)
+
+
+def _fake_ctx(R: int, r: int) -> MeshContext:
+    """Process ``r``'s tensor context over ``R`` processes a pod each, for
+    what needs no collective (placement, counting, the refusals)."""
+    return MeshContext(Mesh(R, UNITS, num_processes=R, process_index=r), rules=tensor_rules())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placed_init_equals_the_whole_init_sliced(arch):
+    """``init`` with ``tensor_place`` draws the whole tree from the seed and
+    keeps each process's slices: exactly ``tensor_slices`` of the whole
+    init, which ``convert.tensor_params`` also gives."""
+    api = registry.build(_smoke(arch, 512))
+    whole = api.init(0, device="cpu")
+    for R in PROCESSES:
+        for r in range(R):
+            ctx = _fake_ctx(R, r)
+            placed = api.init(0, device="cpu", place=tensor_place(api.param_specs, ctx))
+            cut = tensor_slices(whole, api.param_specs, ctx)
+            converted = convert.tensor_params(whole, api.cfg, ctx)
+            for a, b, c in zip(leaves(placed), leaves(cut), leaves(converted)):
+                assert torch.equal(a, b) and torch.equal(a, c)
+                assert a.untyped_storage().size() == a.numel() * a.element_size()
+
+
+def test_kv_heads_a_process_reads():
+    cfg = get_config("qwen2.5-3b")  # 16 heads, 2 kv heads
+    with mesh_context(_fake_ctx(4, 1)):
+        assert L.kv_heads_read(cfg) == [0] and L.local_kv_heads(cfg) == 1
+    with mesh_context(_fake_ctx(4, 3)):
+        assert L.kv_heads_read(cfg) == [1]
+    with mesh_context(_fake_ctx(2, 1)):  # kv heads split: the process holds its own
+        assert L.kv_heads_read(cfg) is None and L.local_kv_heads(cfg) == 1
+    odd = cfg.scaled(num_heads=12, num_kv_heads=3)  # 3 q heads a process, groups of 4
+    with mesh_context(_fake_ctx(4, 1)):
+        assert L.kv_heads_read(odd) == [0, 1, 1]
+    whole = get_smoke_config("qwen1.5-32b")  # 5 heads: nothing split
+    with mesh_context(_fake_ctx(4, 0)):
+        assert L.kv_heads_read(whole) is None and L.local_kv_heads(whole) == 5
+    assert L.kv_heads_read(cfg) is None and L.local_kv_heads(cfg) == 2
+
+
+@pytest.mark.parametrize("arch,R,kv", [("deepseek-67b", 4, 2), ("qwen1.5-32b", 4, 10),
+                                       ("qwen2.5-3b", 4, 1), ("deepseek-67b", 2, 4)])
+def test_cache_holds_the_process_kv_heads(arch, R, kv):
+    """``init_cache`` allocates the kv heads the process attends with;
+    ``cache_specs`` stays the reference's (``kv_seq`` over ``model``)."""
+    api = registry.build(get_config(arch))
+    with mesh_context(_fake_ctx(R, 0)):
+        cache = api.init_cache(8, 2064, device="meta")
+    assert cache["seg0"]["k"].shape == (get_config(arch).num_layers, 8, 2064, kv, 128)
+    assert api.cache_spec_fn()["seg0"]["k"] == (None, "batch", "kv_seq", None, None)
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_other_families_refuse_the_tensor_table(arch):
+    api = registry.build(get_smoke_config(arch))
+    engine = ServeEngine(api, batch_size=2, capacity=8, device="cpu")
+    from repro_torch.serve import Request
+
+    reqs = [Request(prompt=np.zeros(4, np.int32), max_new_tokens=2) for _ in range(2)]
+    with mesh_context(_fake_ctx(2, 0)):
+        with pytest.raises(NotImplementedError, match=r"item 9\(c\)"):
+            engine.generate(None, reqs)
+    with pytest.raises(NotImplementedError, match=r"item 9\(c\)"):
+        convert.tensor_params({}, api.cfg, _fake_ctx(2, 0))
+
+
+def test_continuous_engine_and_one_process_meshes_refuse():
+    api = registry.build(get_smoke_config("deepseek-67b"))
+    with mesh_context(_fake_ctx(2, 0)):
+        with pytest.raises(NotImplementedError, match=r"item 9\(b\)"):
+            ContinuousEngine(api, batch_size=2, capacity=8, device="cpu")
+    for mesh in (make_mesh(8, 2), make_mesh(8)):
+        with pytest.raises(ValueError, match="tensor table"):
+            MeshContext(mesh, rules=tensor_rules())
+        with pytest.raises(ValueError, match="tensor table"):
+            make_context(mesh=mesh, rules=tensor_rules())
+    assert not MeshContext(make_mesh(8, 2)).tensor
+    assert not MeshContext(make_mesh(8, 2), rules=unit_rules(True)).tensor
+    assert _fake_ctx(2, 0).tensor
+    assert {k for k, v in tensor_rules().table.items() if v} == \
+        {"heads", "kv_heads", "d_ff", "vocab"}

@@ -4,7 +4,8 @@
     python3 tools/torch_cluster_probe.py gloo-cuda
     python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
                                                [--out DIR]
-    python3 tools/torch_cluster_probe.py serve [--runs olmoe,mamba2,olmoe_continuous] [--out DIR]
+    python3 tools/torch_cluster_probe.py serve [--runs olmoe,mamba2,olmoe_continuous,
+                                                       tensor_f32,tensor] [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -57,6 +58,21 @@ JSON a rank and run: prefill and decode ms, tokens/s (and for (c) TTFT and
 the moved rows), the pod hop's bytes beside the derived count, the peak
 memory, and for Mamba2 the dry run's count of the same cell on ``4x2``
 (arguments plus peak live, counted on ``meta`` beside the workers).
+
+``serve --runs tensor_f32,tensor`` runs the ``tensor_serve`` scenario
+(tensor-parallel serving under ``distributed.sharding.tensor_rules``: every
+rank the whole batch over its slices of the heads, ``d_ff`` and vocab, the
+layers all-reducing and all-gathering over NCCL) in two clusters of the
+same 4 ranks: (a) ``tensor_f32``, DeepSeek-67B at full width and 16 of its
+95 layers, f32 with TF32 off, ``attn_impl="flash"``, 4 x 256 + 8 new,
+held to rank 0's one-process engine on the whole tree (logits within
+``rtol = atol = 2e-4``, greedy tokens equal, rank 0's placed params equal
+to the whole tree's slices); (b) ``tensor``, DeepSeek-67B at all 95 layers
+and Qwen1.5-32B at all 64 in bf16, 8 x 2,048 + 16 new, twice, with one
+more decode step profiled.  A line of JSON a rank and cell: prefill ms and
+tokens/s, decode ms a step, the pod hop's bytes against the count from the
+shapes, params and cache counted on ``meta`` beside the peak, the flash
+launches, the profiled step's all-reduce device time.
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -358,6 +374,22 @@ SERVE_RUNS = {
                          "--serve-dtype", "bfloat16", "--serve-param-dtype", "bfloat16",
                          "--serve-ref", "none"],
 }
+#: Tensor-parallel serving (the ``tensor_serve`` scenario, the tensor table):
+#: every rank the whole batch over its slices of the heads, d_ff and vocab.
+TENSOR_RUNS = {
+    # (a) DeepSeek-67B at full width, 16 of its 95 layers (as deep as rank 0
+    # holds the whole tree in f32 beside its own quarter: ~51 + ~13 GB), f32
+    # params and compute, TF32 off, attn_impl="flash", held to rank 0's
+    # one-process engine on the whole tree within rtol = atol = 2e-4
+    "tensor_f32": ["--tp-cells", "deepseek-67b:16:4x256x8", "--tp-ref", "whole",
+                   "--tp-dtype", "float32", "--tp-param-dtype", "float32"],
+    # (b) DeepSeek-67B at all 95 layers and Qwen1.5-32B at all 64, bf16 params and
+    # compute, 8 x 2,048 + 16 new, the run twice (the first warms the kernels),
+    # one more decode step profiled (the all-reduce's device time)
+    "tensor": ["--tp-cells", "deepseek-67b:0:8x2048x16,qwen1.5-32b:0:8x2048x16",
+               "--tp-ref", "none", "--tp-dtype", "bfloat16",
+               "--tp-param-dtype", "bfloat16", "--tp-repeat", "2", "--tp-profile"],
+}
 
 
 def serve(out: Path, runs: list[str]) -> int:
@@ -373,6 +405,7 @@ def serve(out: Path, runs: list[str]) -> int:
 
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.launch import dryrun
@@ -380,7 +413,7 @@ def serve(out: Path, runs: list[str]) -> int:
 
     backend, procs, units = "nccl", 4, 2
     smi = _smi()
-    build.build_all((md.LIBRARY, sk.LIBRARY))
+    build.build_all((md.LIBRARY, sk.LIBRARY, fa.LIBRARY))
     counted = {}
 
     def count():  # rank 0's program on meta, beside the workers
@@ -391,20 +424,25 @@ def serve(out: Path, runs: list[str]) -> int:
     if "mamba2" in runs:
         counter.start()
     for name in runs:
-        flags = SERVE_RUNS[name]
         tag = f"[serve {name} {backend}:{procs}x{units}]"
         dump = out / f"serve_{name}_{backend}_{procs}x{units}"
         t0 = time.perf_counter()
-        outs = run_local_cluster(
-            [str(DRIVER), "serve", "--serve-full", "--dump", str(dump)] + flags,
-            num_processes=procs, local_units=units, timeout_s=900, echo=False,
-            backend=backend, device="cuda",
-        )
+        if name in TENSOR_RUNS:
+            argv = [str(DRIVER), "tensor_serve", "--tp-full", "--dump", str(dump)]
+            argv += TENSOR_RUNS[name]
+        else:
+            argv = [str(DRIVER), "serve", "--serve-full", "--dump", str(dump)] + SERVE_RUNS[name]
+        outs = run_local_cluster(argv, num_processes=procs, local_units=units, timeout_s=900,
+                                 echo=False, backend=backend, device="cuda")
         wall = time.perf_counter() - t0
         for pid, log in enumerate(outs):
             for line in log.splitlines():
-                if line.startswith(("PASS", "[serve]")):
+                if line.startswith(("PASS", "[serve]", "[tensor-serve]")):
                     print(f"{tag} proc {pid}: {line}")
+        if name in TENSOR_RUNS:
+            _tensor_lines(tag, dump, procs, smi)
+            print(f"{tag} passed in {wall:.1f} s (launcher wall)")
+            continue
         recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["serve"]
                 for p in range(procs)]
         if name == "mamba2":
@@ -467,6 +505,50 @@ def serve(out: Path, runs: list[str]) -> int:
     return 0
 
 
+def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
+    """A line of JSON a rank and cell of a tensor-parallel run: prefill ms
+    and tokens/s (the whole batch, which every rank serves), decode ms a
+    step, the pod hop's bytes by kind beside the count from the shapes, the
+    params and cache counted on ``meta`` beside the peak, the flash launches,
+    the tokens equal on every rank, against rank 0's one-process engine
+    where there is one, and the profiled decode step's collectives."""
+    recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["tensor_serve"]
+            for p in range(procs)]
+    for pid, rec in enumerate(recs):
+        for arch, r in rec["archs"].items():
+            B, S, new = r["shape"]
+            line = {"rank": pid, "arch": arch, "layers": r["layers"], "dtype": r["dtype"],
+                    "param_dtype": r["param_dtype"], "attn_impl": r["attn_impl"],
+                    "rows": r["rows"], "batch": B, "prompt": S, "new": new,
+                    "q_heads_a_rank": r["leaf_shapes"]["seg0/0/attn/wq"][1],
+                    "kv_heads_a_rank": r["leaf_shapes"]["seg0/0/attn/wk"][1],
+                    "prefill_ms": [p[0] * 1e3 for p in r["prefill_s"]],
+                    "prefill_tok_s": [B * S / p[0] for p in r["prefill_s"]],
+                    "decode_ms_a_step": [1e3 * sum(d) / max(len(d), 1) for d in r["decode_s"]],
+                    "decode_tok_s": [B * len(d) / sum(d) if d else None for d in r["decode_s"]],
+                    "pod_hop_bytes": r["hop_bytes"], "pod_hop_kinds": r["hop_kinds"],
+                    "pod_hop_derived": r["want_hop"],
+                    "param_bytes_counted": r["param_bytes_counted"],
+                    "cache_bytes_counted": r["cache_bytes_counted"], "peak": r["peak"],
+                    "launches": r["launches"],
+                    "tokens_equal_on_every_rank": r["tokens_equal_on_every_process"],
+                    "tokens_repeat_equal": r["tokens_repeat_equal"], "seconds": r["seconds"],
+                    "nvidia_smi": smi}
+            if "logit_abs" in r:
+                line.update(logits_close=r["logits_close"], logit_abs_max=max(r["logit_abs"]),
+                            tokens_equal_one_process=r["tokens_equal"])
+            if "one_process" in r:
+                one = r["one_process"]
+                line.update(params_equal_slices=r["params_equal_slices"],
+                            one_process_prefill_ms=one["prefill_s"][0] * 1e3,
+                            one_process_decode_ms_a_step=1e3 * sum(one["decode_s"])
+                            / max(len(one["decode_s"]), 1),
+                            one_process_peak=one["peak"])
+            if "decode_profile" in r:
+                line["decode_profile"] = r["decode_profile"]
+            print(f"{tag} rank {pid}: {json.dumps(line)}")
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("gloo-cuda", "layouts", "train", "serve"))
@@ -476,7 +558,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
     ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b"), default="train100m")
     ap.add_argument("--runs", default=",".join(SERVE_RUNS),
-                    help="serve: which of " + ", ".join(SERVE_RUNS) + ", comma-separated")
+                    help="serve: which of " + ", ".join(list(SERVE_RUNS) + list(TENSOR_RUNS))
+                         + ", comma-separated (default the first three)")
     ap.add_argument("--profile", action="store_true",
                     help="train: one step a rank counted and one profiled (see above)")
     args = ap.parse_args(argv)
