@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    ``partition_pack`` (3 bins, with padding ids) and ``hash_partition``
    (P=8) at S=8 shards x one shard's lineitem rows; ``moe_dispatch`` at
    OLMoE's decode shape (S=8, T=64, E=64, C=4) and prefill shape (S=8,
-   T=16,384, C=320), on the router's int64 expert ids, all bit for bit
+   T=16,384, C=320) and under the tensor table (a process's units: phase
+   9c's decode S=4, T=8, C=4 and 256-token group S=4, T=2,048, C=40), on
+   the router's int64 expert ids, all bit for bit
    and bound by bytes over 3.35 TB/s, the three packs and ``moe_dispatch``
    also with one call's wall (host clock over 1,000 calls) beside its
    device time (profiler) and the bound's share of that;
@@ -29,8 +31,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    (B=4, S=1,500: a partial last q and key tile), one non-causal ``Sq !=
    Sk`` case, a ragged f32 causal case (B=1, H=4, KH=1, S=1,500) and a
    padded head dim (D=48, f32, S=192), phase 9b's prefill on a process's
-   heads (B=4, H=32, KH=4, S=256, D=128, causal, f32) and the four-card
-   probe's bf16 ones (B=8, S=2,048, D=128: H=16 and KH=2, H=KH=10), within
+   heads (B=4, H=32, KH=4, S=256, D=128, causal, f32), phase 9c's (B=8,
+   H=KH=8, S=256, D=128, f32) and the four-card probe's bf16 ones (B=8,
+   S=2,048, D=128: H=16 and KH=2, H=KH=10, H=KH=4), within
    the reference's tolerances
    (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
    limit and beside
@@ -307,8 +310,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    before every prompt) through the static and the continuous engine must
    give identical greedy tokens; a mixed workload (``make_mixed_workload``
    with the reference launcher's prompt lengths: 128/256, the VLM's 256
-   alone; 2 requests a slot, 1-16 new, queued up front; not for Qwen1.5-32B
-   and DeepSeek-67B) must complete with
+   alone; 2 requests a slot, 1-16 new, queued up front; since PR 34 for
+   DeepSeek-V2-Lite alone, for the script's time) must complete with
    ``alloc.check()`` holding and in fewer slot-steps than static batching.
    DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
    (the units must divide a decode step's tokens): the continuous engine,
@@ -335,7 +338,26 @@ Phases, in order; any failure raises and the process exits non-zero:
    the tokens equal on both processes, the all-reduce and all-gather bytes
    equal to the count from the shapes, and ``flash_attention`` launched 4
    times a prefill a process (D = 128; their sum is the JSON line's
-   ``flash_attention[tensor]`` row);
+   ``flash_attention[tensor]`` row).  The same tree then serves 8 mixed
+   requests (128 and 256 tokens, 1-8 new, 2 a step) through the continuous
+   engine on 4 slots (every slot's cache rows of the process's kv heads on
+   every process, no row moved), against process 0's one-process continuous
+   engine: tokens, admission and finish steps, stats and spans equal,
+   logits within ``2e-4``, no slot leak, the static prompts' greedy tokens
+   the static engine's; ``generate_bucketed``'s slot-steps printed beside
+   the continuous engine's;
+9c. (at once with 9b) OLMoE-1B-7B tensor-parallel with its experts split:
+   the same scenario over 2 processes of 4 units (the reference's
+   ``serve_continuous_ep`` layout), full width, 2 of 16 layers, f32 (TF32
+   off), 8 q and 8 kv heads, 32 of 64 experts and half the vocab a
+   process: the static engine on 8 x 256 + 8, then 16 mixed requests (128
+   and 256 tokens, 1-8 new, 2 a step) through the continuous engine on 8
+   slots, expert-parallel over the 8 units under its tuned two-level
+   multiplexer with the ``moe_dispatch`` kernel pack, with 9b's gates and
+   the drops equal to the one-process engine's; ``flash_attention`` once a
+   layer a prefill and group, ``moe_dispatch`` once a layer an
+   expert-parallel call (the JSON line's ``flash_attention[tensor-moe]``
+   and ``moe_dispatch[tensor]`` rows);
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
@@ -463,6 +485,10 @@ SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
 # (``tools/torch_cluster_probe.py serve --runs tensor``), so here they run
 # cut to 24 and 20 layers (48 and 40 until the tensor-parallel phase 9b came,
 # cut for the script's time), and without the mixed workload (TF_UNMIXED).
+# Since phase 9c came the dense configs skip the mixed workload too, for the
+# script's time: only the expert-parallel DeepSeek-V2-Lite runs it (the
+# continuous engine's slot-steps against static batching stay gated there and
+# in phase 5; phase 9b serves DeepSeek-67B's mixed requests continuously).
 TF_CONFIGS = {
     "minicpm-2b": (None, "float32"),
     "qwen2.5-3b": (None, "float32"),
@@ -471,7 +497,7 @@ TF_CONFIGS = {
     "qwen1.5-32b": (24, "bfloat16"),
     "deepseek-67b": (20, "bfloat16"),
 }
-TF_UNMIXED = ("qwen1.5-32b", "deepseek-67b")
+TF_UNMIXED = ("minicpm-2b", "qwen2.5-3b", "qwen2-vl-2b", "qwen1.5-32b", "deepseek-67b")
 # the uniform workload: requests, prompt tokens, new tokens, batch; a VLM adds
 # min(VLM_PATCHES, prompt // 2) patch rows.  The expert-parallel model runs at
 # batch 8: its 8 units must divide a decode step's tokens, or the MoE layer
@@ -492,13 +518,34 @@ TF_CHECK_TOL = 1e-3
 # a process, D = 128), arch:layers:BxSxNEW; process 0's one-process engine on
 # the whole tree first, the logits held within the reference's
 # decode_sharded_equiv tolerance (TP_TOL in tests/_torch_multiproc_driver.py).
+# Since PR 34 the same tree also serves a few mixed requests through the
+# continuous engine (slots x requests x new, prompt lengths, arrivals a step),
+# held to process 0's one-process continuous engine.
 TP_PROCS, TP_UNITS = 2, 2
 TP_CELL = "deepseek-67b:4:4x256x8"
+TP_MIXED = ("4x8x8", "128,256", "2")
 TP_TIMEOUT_S = 300
+# Phase 9c: OLMoE-1B-7B tensor-parallel with its experts split over the 2
+# processes (4 units each: the reference's serve_continuous_ep layout, 8
+# units), full width cut to 2 of its 16 layers (phase 5b's and 6c's cut), f32
+# with TF32 off, attn_impl="flash" (8 q and 8 kv heads a process, D = 128),
+# expert-parallel under the continuous engine's tuned two-level multiplexer
+# with the moe_dispatch kernel pack: the static engine on 8 x 256 + 8, then
+# phase 5b's continuous cell (8 slots, 16 mixed requests of 128 and 256
+# tokens, 1-8 new, 2 arriving a step), each against process 0's one-process
+# engine on the whole tree over the same 8 units.
+TPM_PROCS, TPM_UNITS = 2, 4
+TPM_CELL = "olmoe-1b-7b:2:8x256x8"
+TPM_MIXED = ("8x16x8", "128,256", "2")
 # the bf16 attention shapes a process runs in the four-card probe's full-depth
 # prefills (8 x 2,048): DeepSeek-67B's 16 q and 2 kv heads, Qwen1.5-32B's 10
-# and 10, D = 128
-TP_PROBE_FLASH = ((8, 16, 2, 2048, 128), (8, 10, 10, 2048, 128))
+# and 10, OLMoE-1B-7B's 4 and 4, D = 128
+TP_PROBE_FLASH = ((8, 16, 2, 2048, 128), (8, 10, 10, 2048, 128), (8, 4, 4, 2048, 128))
+# moe_dispatch under the tensor table, (process's units, tokens a unit, C):
+# phase 9c's decode step (8 slots over 8 units) and 256-token prefill group,
+# OLMoE's capacity factor of 1.25 (the four-card probe's shapes are the gpu
+# cases of tests/test_torch_moe.py)
+TP_MOE = (("decode", 4, 1, 4), ("prefill", 4, 256, 40))
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
@@ -841,25 +888,31 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     # C = 320.  Both with capacity factor 1.25, so some rows drop.
     gen = torch.Generator(device="cuda").manual_seed(seed)
     E, k = 64, 8
-    moe_rows = []
-    for phase, tokens, C in (("decode", 8, 4), ("prefill", 2048, 320)):
-        ids = _topk_expert_ids(S, tokens, E, k, gen)
+
+    def moe_row(phase, units, tokens, C):
+        ids = _topk_expert_ids(units, tokens, E, k, gen)
         T_m = tokens * k
         dropped = int((md.moe_dispatch(ids, E, C)[0] == E * C).sum())
         row = _kernel_row(
             "moe_dispatch", "src/repro/kernels/moe_dispatch.py:68",
             "src/repro_torch/kernels/csrc/moe_dispatch.cu",
-            f"{phase} S={S} T={T_m} E={E} C={C} int64 ids", S * T_m * 12 + S * E * 4,
-            lambda ids=ids, C=C: md.moe_dispatch(ids, E, C),
-            lambda ids=ids, C=C: ref.moe_dispatch_ref(ids, E, C),
-            note=f", {dropped} of {S * T_m} rows to the drop bin",
+            f"{phase} S={units} T={T_m} E={E} C={C} int64 ids", units * T_m * 12 + units * E * 4,
+            lambda: md.moe_dispatch(ids, E, C), lambda: ref.moe_dispatch_ref(ids, E, C),
+            note=f", {dropped} of {units * T_m} rows to the drop bin",
         )
         row["wall_ms"], row["device_ms"] = _wall_and_device_ms(
-            lambda ids=ids, C=C: md.moe_dispatch(ids, E, C), "dispatch_kernel")
+            lambda: md.moe_dispatch(ids, E, C), "dispatch_kernel")
         print(f"[kernels] moe_dispatch: {phase} one call "
               f"{row['wall_ms']:.4f} ms of wall (1000 calls, host clock), "
               f"{row['device_ms']:.4f} ms of device time (profiler)")
-        moe_rows.append(row)
+        return row
+
+    moe_rows = [moe_row(phase, S, tokens, C) for phase, tokens, C in (("decode", 8, 4),
+                                                                      ("prefill", 2048, 320))]
+    # under the tensor table: a process packs its own units' ids
+    tensor_moe = [moe_row(f"tensor {phase}", *shape) for phase, *shape in TP_MOE]
+    for row in tensor_moe:
+        row["launch_key"] = "moe_dispatch[tensor]"
     # train100m's attention: the training shape in f32 (the row) and bf16,
     # and the reference test's non-causal Sq != Sk case
     B, S_t = TRAIN_SHAPE[:2]
@@ -883,6 +936,11 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     tensor = _flash_row(tp_b, 64 // TP_PROCS, 8 // TP_PROCS, tp_s, tp_s, 128, True, "float32",
                         seed, smi)
     tensor["launch_key"] = "flash_attention[tensor]"
+    # phase 9c's OLMoE prefill on a process's 8 q and 8 kv heads (f32)
+    tpm_b, tpm_s = (int(v) for v in TPM_CELL.split(":")[2].split("x")[:2])
+    tensor_olmoe = _flash_row(tpm_b, 16 // TPM_PROCS, 16 // TPM_PROCS, tpm_s, tpm_s, 128, True,
+                              "float32", seed, smi)
+    tensor_olmoe["launch_key"] = "flash_attention[tensor-moe]"
     for b, h, kh, s_, d in TP_PROBE_FLASH:
         _flash_row(b, h, kh, s_, s_, d, True, "bfloat16", seed, smi)
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
@@ -900,7 +958,8 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
     # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
-    return rows + moe_rows + [flash[0], flash[1], encoder, serving, tensor, ssd[0]]
+    return (rows + moe_rows + tensor_moe
+            + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, ssd[0]])
 
 
 def _close(got, want, rtol) -> bool:
@@ -3495,82 +3554,149 @@ def phase_transformers(seed: int, smi: str) -> dict:
     return total
 
 
-def phase_tensor_serve(smi: str) -> dict:
-    """Tensor-parallel serving over ``TP_PROCS`` worker processes on this
-    card (Gloo): the ``tensor_serve`` scenario of
-    ``tests/_torch_multiproc_driver.py`` at ``TP_CELL``, which asserts every
-    gate in the workers; checked and printed again here from their dumps.
-    Returns the workers' ``flash_attention`` launches over the tensor runs
-    (the main path) under ``flash_attention[tensor]``."""
+def _tensor_cluster(procs: int, units: int, cell: str, mixed: tuple) -> tuple[list, float, float]:
+    """The ``tensor_serve`` scenario of ``tests/_torch_multiproc_driver.py``
+    over ``procs`` worker processes of ``units`` units on this card (Gloo):
+    ``cell`` through the static engine, then ``mixed`` (slots x requests x
+    new, prompt lengths, arrivals a step) through the continuous one, each
+    against process 0's one-process engines on the whole tree; every gate
+    asserted in the workers.  Returns each process's record, the launch's
+    wall clock at its start and its seconds."""
     import shutil
 
     from repro_torch.launch.cluster import run_local_cluster
 
     dump = tempfile.mkdtemp(prefix="chip_smoke_tensor_")
     t0, launched_at = time.perf_counter(), time.time()
+    shape, prompts, rate = mixed
     try:
         outs = run_local_cluster(
             [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "tensor_serve", "--tp-full",
-             "--tp-cells", TP_CELL, "--tp-ref", "whole", "--tp-dtype", "float32",
-             "--tp-param-dtype", "float32", "--dump", dump],
-            num_processes=TP_PROCS, local_units=TP_UNITS, timeout_s=TP_TIMEOUT_S, echo=False,
+             "--tp-cells", cell, "--tp-ref", "whole", "--tp-dtype", "float32",
+             "--tp-param-dtype", "float32", "--tp-mixed", shape, "--serve-prompts", prompts,
+             "--serve-rate", rate, "--dump", dump],
+            num_processes=procs, local_units=units, timeout_s=TP_TIMEOUT_S, echo=False,
             backend="gloo", device="cuda",
         )
         recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["tensor_serve"]
-                for p in range(TP_PROCS)]
+                for p in range(procs)]
     finally:
         shutil.rmtree(dump, ignore_errors=True)
-    wall = time.perf_counter() - t0
     for pid, out in enumerate(outs):
         if "PASS tensor_serve" not in out:
             raise AssertionError(f"tensor-serve process {pid}: no PASS\n{out[-4000:]}")
-    launched = 0
+    for pid, rec in enumerate(recs):
+        rec["launched_at"] = launched_at
+    return recs, launched_at, time.perf_counter() - t0
+
+
+def _tensor_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
+    """Check and print one tensor-parallel cluster's dumps: the static run
+    and the continuous one against process 0's one-process engines, each
+    process's pod hop against the count from the shapes, its kernels'
+    launches against what its runs imply.  Returns the launches over the
+    tensor runs (the main path) by kernel."""
+    launched = {"flash_attention": 0, "moe_dispatch": 0}
     for arch, r0 in recs[0]["archs"].items():
         B, S, new = r0["shape"]
-        one = r0["one_process"]
+        one, c0 = r0["one_process"], r0["continuous"]
+        oc = c0["one_process"]
         if not (r0["rows"] == "tensor" and r0["logits_close"] and r0["tokens_equal"]
-                and r0["params_equal_slices"]):
-            raise AssertionError(f"tensor-serve {arch}: against the one-process engine "
+                and r0["params_equal_slices"] and c0["rows"] == "tensor" and oc["logits_close"]
+                and oc["tokens_equal"] and oc["steps_equal"] and oc["stats_equal"]
+                and oc["spans_equal"] and oc["drops_equal"] and c0["leak_free"]
+                and c0["uniform_equal_static"]):
+            raise AssertionError(f"{tag} {arch}: against the one-process engines "
                                  f"{ {k: v for k, v in r0.items() if k != 'leaf_shapes'} }")
-        print(f"[tensor-serve] {arch} full width, {r0['layers']} layers, f32 (TF32 off), "
+        ls = r0["leaf_shapes"]
+        experts = (f", {ls['seg0/0/ffn/w_gate'][0]} of {ls['seg0/0/ffn/router'][1]} experts"
+                   if "seg0/0/ffn/router" in ls else "")
+        print(f"{tag} {arch} full width, {r0['layers']} layers, f32 (TF32 off), "
               f"attn_impl={r0['attn_impl']}: {B} x {S}-token prompts + {new} new over "
-              f"{TP_PROCS} processes on this card over Gloo ({r0['rows']}: heads, d_ff and "
-              f"vocab split, {r0['leaf_shapes']['seg0/0/attn/wq'][1]} q and "
-              f"{r0['leaf_shapes']['seg0/0/attn/wk'][1]} kv heads a process); greedy tokens "
-              f"equal to process 0's one-process engine on the whole tree; logits within "
-              f"max |err| {max(r0['logit_abs']):.3g} (allclose rtol = atol = {r0['tol']}) over "
-              f"{len(r0['logit_abs'])} calls; process 0's params equal the whole tree's "
-              f"slices ({smi})")
-        print(f"[tensor-serve] {arch} one process (whole tree): prefill "
+              f"{procs} processes on this card over Gloo ({r0['rows']}: "
+              f"{ls['seg0/0/attn/wq'][1]} q and {ls['seg0/0/attn/wk'][1]} kv heads{experts} a "
+              f"process); greedy tokens equal to process 0's one-process engine on the whole "
+              f"tree; logits within max |err| {max(r0['logit_abs']):.3g} (allclose rtol = atol = "
+              f"{r0['tol']}) over {len(r0['logit_abs'])} calls; MoE paths {r0['paths']}; process "
+              f"0's params equal the whole tree's slices ({smi})")
+        print(f"{tag} {arch} one process (whole tree): prefill "
               f"{one['prefill_s'][0] * 1e3:.1f} ms, decode {sum(one['decode_s']) * 1e3:.1f} ms "
               f"over {len(one['decode_s'])} steps, peak {one['peak']} B, launches "
               f"{one['launches']}")
+        slots, n_req, cnew = c0["shape"]
+        print(f"{tag} {arch} continuous: {slots} slots, {n_req} mixed requests (prompts "
+              f"{c0['prompts']}, 1-{cnew} new, {c0['rate']} a step) in {c0['groups']} prefill "
+              f"groups and {c0['stats']['decode_steps']} decode steps: tokens, admission and "
+              f"finish steps, stats, spans and drops ({sum(oc.get('drops') or [])} rows over "
+              f"{len(oc.get('drops') or [])} expert-parallel calls) equal to process 0's "
+              f"one-process continuous engine; first-token logits of each prefill group within "
+              f"max |err| {max(oc['prefill_logit_abs']):.3g}, every call's served rows "
+              f"{max(oc['logit_abs']):.3g} (allclose {r0['tol']}), every row's (padding and dead "
+              f"slots too) {max(oc['all_rows_logit_abs']):.3g}; no slot leak, no row moved; "
+              f"slot_steps {c0['stats']['slot_steps']} against generate_bucketed's "
+              f"{c0['bucketed']['slot_steps']}; the static prompts' greedy tokens equal the "
+              f"static engine's; MoE paths {c0['paths']}; multiplexer {c0['mux']}; one process: "
+              f"{r0['one_process_continuous']['record']}")
         for pid, rec in enumerate(recs):
             r = rec["archs"][arch]
-            h = r["want_hop"]
+            c = r["continuous"]
+            h, hc = r["want_hop"], c["want_hop"]
             n = len(r["decode_s"][-1])
-            print(f"[tensor-serve] {arch} process {pid}: prefill {r['prefill_s'][-1][0] * 1e3:.1f}"
-                  f" ms, decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over {n} steps "
-                  f"({1e3 * sum(r['decode_s'][-1]) / max(n, 1):.2f} ms a step); pod hop "
-                  f"{r['hop_kinds']} = derived {h['all-reduce']} B all-reduce ({h['reduces_a_call']}"
-                  f" [B, T, d] f32 a call) + {h['all-gather']} B all-gather ([B, V / R] f32 logits "
-                  f"a call); params {r['param_bytes_counted']} B and cache "
-                  f"{r['cache_bytes_counted']} B counted on meta, peak {r['peak']} B; "
-                  f"flash_attention {r['launches']['flash_attention']} launches "
-                  f"({r['layers']} a prefill) ({smi})")
-            if (r["hop_bytes"] != h["total"] or not r["tokens_equal_on_every_process"]
-                    or r["launches"]["flash_attention"] != r["layers"]):
-                raise AssertionError(f"tensor-serve {arch} process {pid}: "
+            steps = len(c["decode_s"])
+            print(f"{tag} {arch} process {pid}: static prefill {r['prefill_s'][-1][0] * 1e3:.1f}"
+                  f" ms, {1e3 * sum(r['decode_s'][-1]) / max(n, 1):.2f} ms a decode step; pod hop "
+                  f"{r['hop_kinds']} = derived {h['all-reduce']} B all-reduce + "
+                  f"{h['all-gather']} B all-gather + {h['trips']} B expert trips; continuous: "
+                  f"prefill groups {[round(p * 1e3, 1) for p in c['prefill_s']]} ms, "
+                  f"{1e3 * sum(c['decode_s']) / max(steps, 1):.2f} ms a decode step, record "
+                  f"{c['record']}, pod hop {c['hop_bytes']} B = derived {hc['total']} B "
+                  f"({c['hop_kinds']}); params {r['param_bytes_counted']} B and cache "
+                  f"{c['cache_bytes_counted']} B counted on meta, peak {c['peak']} B; launches "
+                  f"static {r['launches']}, continuous {c['launches']} ({smi})")
+            if (r["hop_bytes"] != h["total"] or c["hop_bytes"] != hc["total"]
+                    or not r["tokens_equal_on_every_process"]
+                    or not all(c["equal_on_every_process"].values())
+                    or r["launches"]["flash_attention"] != r["layers"]
+                    or c["launches"]["flash_attention"] != r["layers"] * c["groups"]
+                    or any(c["launches"][k] != v for k, v in c["want_launches"].items())):
+                raise AssertionError(f"{tag} {arch} process {pid}: "
                                      f"{ {k: v for k, v in r.items() if k != 'leaf_shapes'} }")
-            launched += r["launches"]["flash_attention"]
+            for k in launched:
+                launched[k] += r["launches"][k] + c["launches"][k]
     for pid, rec in enumerate(recs):
-        parts = {"start-up": rec["started_at"] - launched_at,
+        parts = {"start-up": rec["started_at"] - rec["launched_at"],
                  **{a: r["seconds"] for a, r in rec["archs"].items()}}
-        print(f"[tensor-serve] process {pid}'s seconds: "
+        print(f"{tag} process {pid}'s seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
-    print(f"[tensor-serve] phase 9b in {wall:.1f} s (launcher wall); flash_attention launches "
-          f"over the tensor runs: {launched}")
-    return {"flash_attention[tensor]": launched}
+    return launched
+
+
+def phase_tensor_serve(smi: str) -> dict:
+    """Tensor-parallel serving on this card over worker processes (Gloo),
+    the two clusters at once: phase 9b, DeepSeek-67B at ``TP_CELL`` over
+    ``TP_PROCS`` processes, and phase 9c, OLMoE-1B-7B at ``TPM_CELL`` over
+    ``TPM_PROCS`` (its experts split), each through both engines against
+    process 0's one-process engines (``_tensor_cluster``).  Returns the
+    workers' launches over the tensor runs (the main path):
+    ``flash_attention[tensor]`` (9b), ``flash_attention[tensor-moe]`` and
+    ``moe_dispatch[tensor]`` (9c)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        dense = pool.submit(_tensor_cluster, TP_PROCS, TP_UNITS, TP_CELL, TP_MIXED)
+        moe = pool.submit(_tensor_cluster, TPM_PROCS, TPM_UNITS, TPM_CELL, TPM_MIXED)
+        (b_recs, _, b_wall), (c_recs, _, c_wall) = dense.result(), moe.result()
+    b = _tensor_lines("[tensor-serve]", b_recs, TP_PROCS, smi)
+    c = _tensor_lines("[tensor-moe]", c_recs, TPM_PROCS, smi)
+    if c["moe_dispatch"] <= 0:
+        raise AssertionError("[tensor-moe] moe_dispatch never launched under the tensor table")
+    print(f"[tensor-serve] phases 9b and 9c in {time.perf_counter() - t0:.1f} s at once "
+          f"(launcher walls {b_wall:.1f} and {c_wall:.1f} s); launches over the tensor runs: "
+          f"9b {b}, 9c {c}")
+    return {"flash_attention[tensor]": b["flash_attention"],
+            "flash_attention[tensor-moe]": c["flash_attention"],
+            "moe_dispatch[tensor]": c["moe_dispatch"]}
 
 
 def _whisper_check(cfg, params, seed: int) -> None:
@@ -3867,8 +3993,9 @@ def main() -> int:
     # 9. the six transformer configs (the dense, VLM and MLA serving main path)
     f_launches = phase_transformers(args.seed, smi)
 
-    # 9b. tensor-parallel serving across two processes (the dense serving main
-    # path with its heads, d_ff and vocab split)
+    # 9b-9c. tensor-parallel serving across two processes (the dense and MoE
+    # serving main paths with their heads, d_ff, vocab and experts split),
+    # through the static and continuous engines
     g_launches = phase_tensor_serve(smi)
 
     # 10. Whisper (the encoder-decoder serving and training main path)

@@ -18,8 +18,8 @@ checks the names against the tensor's rank, and the port places from the
 rules in two places: the train state's experts (:func:`repro_torch.train.
 step.state_shardings`) and, under :func:`tensor_rules`, a served model's
 matrices (:func:`tensor_place`: each process keeps its slices of the heads,
-``d_ff`` and vocab dims, and the layers reduce or gather over the processes
-where the reference's GSPMD would).  The context wraps the
+``d_ff``, vocab and experts dims, and the layers reduce or gather over the
+processes where the reference's GSPMD would).  The context wraps the
 :class:`~repro_torch.core.exchange.Mesh` (``num_pods x n`` units,
 pod-major, possibly spanning processes); its rules default to
 :func:`unit_rules`, and ``axis_sizes`` lets a context resolve against
@@ -120,10 +120,17 @@ def tensor_rules() -> AxisRules:
     reference's :func:`default_rules` put on ``model`` and that a dense
     layer's matrices carry (``heads``, ``kv_heads``, ``d_ff``, ``vocab``)
     over the pod axis, which spans the processes one pod each and stands
-    for the reference's ``model``.  ``batch``, ``fsdp``, ``seq`` and the
-    rest stay whole (serving keeps no FSDP), and so does every dim that the
-    process count does not divide (no ``allow_uneven``)."""
-    return AxisRules({name: POD_AXIS if name in TENSOR_AXES else None for name in LOGICAL_AXES})
+    for the reference's ``model``; and ``experts`` over the joint unit
+    axis ``(pod, q)``, as :func:`unit_rules` puts it, where the
+    expert-parallel layer consumes the expert weights (the reference's
+    ``default_rules`` put it on the same ``model`` axis as the heads), so a
+    process holds its units' ``E / R`` contiguous experts.  ``batch``,
+    ``fsdp``, ``seq`` and the rest stay whole (serving keeps no FSDP), and
+    so does every dim that its axes do not divide (no ``allow_uneven``): a
+    count of experts that the units do not divide stays whole."""
+    table = {name: POD_AXIS if name in TENSOR_AXES else None for name in LOGICAL_AXES}
+    table["experts"] = (POD_AXIS, SHUFFLE_AXIS)
+    return AxisRules(table)
 
 
 def unit_rules(multi_pod: bool) -> AxisRules:
@@ -167,19 +174,17 @@ class MeshContext:
         m = self.mesh
         if self.tensor and not (m.num_processes > 1 and m.pods_per_process == 1):
             raise ValueError(
-                f"the tensor table splits heads, d_ff and vocab over the processes, a pod "
-                f"each; a mesh of {m.num_pods} pod(s) over {m.num_processes} process(es) has "
-                "no such axis (launch under `python -m repro_torch.launch.cluster` and make "
-                "the mesh with one pod a process)")
+                f"the tensor table splits heads, d_ff, vocab and experts over the processes, "
+                f"a pod each; a mesh of {m.num_pods} pod(s) over {m.num_processes} process(es) "
+                "has no such axis (launch under `python -m repro_torch.launch.cluster` and "
+                "make the mesh with one pod a process)")
 
     @property
     def tensor(self) -> bool:
         """Do the rules split a layer's matrices over the pod axis (the
-        tensor table)?"""
-        def axes(a):
-            return (a,) if isinstance(a, str) else tuple(a or ())
-
-        return any(POD_AXIS in axes(self.rules.table.get(n)) for n in TENSOR_AXES)
+        tensor table)?  Only the names of :data:`TENSOR_AXES` count:
+        ``experts`` lies on the pod axis under :func:`unit_rules` too."""
+        return any(POD_AXIS in _axes(self.rules.table.get(n)) for n in TENSOR_AXES)
 
     @property
     def exchange_axis(self) -> str:
@@ -216,6 +221,10 @@ def mesh_context(ctx: MeshContext | None) -> Iterator[MeshContext | None]:
         yield ctx
     finally:
         _CTX.reset(token)
+
+
+def _axes(a: Axes) -> tuple[str, ...]:
+    return (a,) if isinstance(a, str) else tuple(a or ())
 
 
 def _divisible(dim: int, sizes: Mapping[str, int], axes: tuple[str, ...],
@@ -307,13 +316,15 @@ def tensor_context() -> MeshContext | None:
 
 
 def tensor_split(dim: int, name: str, ctx: MeshContext | None = None) -> int:
-    """Into how many parts the tensor table cuts a dim of ``dim`` entries
-    named ``name``: the process count where it resolves onto the pod axis,
-    1 otherwise (no tensor table, or a count that does not divide ``dim``)."""
+    """Into how many parts across the processes the tensor table cuts a dim
+    of ``dim`` entries named ``name``: the process count where it resolves
+    onto the pod axis (alone, or with the in-process axis as ``experts``
+    does), 1 otherwise (no tensor table, or a count that its axes do not
+    divide)."""
     ctx = ctx or tensor_context()
     if ctx is None or not ctx.tensor:
         return 1
-    if logical_sharding((dim,), name, ctx=ctx) != (POD_AXIS,):
+    if POD_AXIS not in _axes(logical_sharding((dim,), name, ctx=ctx)[0]):
         return 1
     return ctx.mesh.num_processes
 
@@ -321,12 +332,13 @@ def tensor_split(dim: int, name: str, ctx: MeshContext | None = None) -> int:
 def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext) -> torch.Tensor:
     """This process's slice of a whole leaf ``t`` with logical axes
     ``spec``: along each dim that resolves onto the pod axis, the ``i``-th
-    of ``R`` equal runs for process ``i``, in storage of its own (so the
-    whole leaf can be freed)."""
+    of ``R`` equal runs for process ``i`` (under ``(pod, q)``, one pod a
+    process, its units' runs are that one run), in storage of its own (so
+    the whole leaf can be freed)."""
     R, i = ctx.mesh.num_processes, ctx.mesh.process_index
     cut = False
     for d, axes in enumerate(logical_sharding(tuple(t.shape), *spec, ctx=ctx)):
-        if axes == POD_AXIS:
+        if POD_AXIS in _axes(axes):
             n = t.shape[d] // R
             t, cut = t.narrow(d, i * n, n), True
     return t.clone() if cut else t

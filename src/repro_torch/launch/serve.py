@@ -24,16 +24,23 @@ Whisper (``whisper-medium``) gets ``prompt_len`` random frame rows a
 request, and one prompt length.
 
 Tensor-parallel (``--tensor``) across the processes of a launch: every
-process serves the whole batch over its slices of the heads, ``d_ff`` and
-vocab (:func:`~repro_torch.distributed.sharding.tensor_rules`, one pod a
-process; the dense and VLM families through the static engine), drawn from
-the seed as each layer is drawn:
+process serves the whole batch over its slices of the heads, ``d_ff``,
+vocab and experts (:func:`~repro_torch.distributed.sharding.tensor_rules`,
+one pod a process; the dense, VLM and MoE families with GQA, through either
+engine), drawn from the seed as each layer is drawn:
 
   PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
       --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
       --arch deepseek-67b --tensor --batch 8 --requests 8 --prompt-len 2048
 
-(``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)
+  PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
+      --local-units 2 --backend nccl -- -m repro_torch.launch.serve \
+      --arch olmoe-1b-7b --tensor --continuous --batch 32 --requests 64 \
+      --prompt-len 2048 --arrival-rate 4
+
+(``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)  An
+expert-parallel model's units are the launch's processes times its
+``--local-units``.
 
 The flags are the reference's (``repro.launch.serve``), plus ``--units``,
 ``--pods`` and ``--tensor``: the simulated mesh takes the place of the
@@ -129,7 +136,7 @@ def main(argv=None, device: str = "cuda"):
                    help="pods the units split into (two-level dispatch when > 1)")
     p.add_argument("--tensor", action="store_true",
                    help="tensor-parallel over the processes of a launch "
-                        "(repro_torch.launch.cluster): heads, d_ff and vocab split")
+                        "(repro_torch.launch.cluster): heads, d_ff, vocab and experts split")
     p.add_argument("--trace-dir", default=None,
                    help="write a Perfetto-loadable trace JSON per process "
                         "(admission/prefill/decode-step spans; continuous "

@@ -690,20 +690,22 @@ def specs_mlp(cfg: ModelConfig) -> Specs:
     }
 
 
-def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form).
-    Under the tensor table the up projections are column-parallel and the
-    down projection row-parallel: one all-reduce, before ``b_out``."""
+def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor,
+              d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU, or a GELU MLP with biases (``jax.nn.gelu``'s tanh form), of
+    width ``d_ff`` (default ``cfg.d_ff``; :func:`init_mlp`'s).  Under the
+    tensor table the up projections are column-parallel and the down
+    projection row-parallel: one all-reduce, before ``b_out``."""
     dt = x.dtype
+    f = d_ff or cfg.d_ff
     if cfg.act == "gelu":
         h = x @ params["w_in"].to(dt) + params["b_in"].to(dt)
         h = torch.nn.functional.gelu(h, approximate="tanh")
-        y = _row_parallel(h @ params["w_out"].to(dt), "d_ff", cfg.d_ff)
+        y = _row_parallel(h @ params["w_out"].to(dt), "d_ff", f)
         return y + params["b_out"].to(dt)
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
-    return _row_parallel((torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt),
-                         "d_ff", cfg.d_ff)
+    return _row_parallel((torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt), "d_ff", f)
 
 
 # ----------------------------------------------------------------------------

@@ -24,9 +24,18 @@ Two execution paths (``cfg.moe_impl``):
   the pod hop's backward carries the gradient.
 
 An expert leaf is either whole (``E`` rows) or already this process's slice
-(``local_units * E_loc`` rows, the sharded train state of
-:func:`repro_torch.train.step.state_shardings`).  :func:`record_drops`
-collects each expert-parallel call's per-unit drop counts.
+(``local_units * E_loc`` rows: the sharded train state of
+:func:`repro_torch.train.step.state_shardings`, or a served model's experts
+under the tensor table, :func:`~repro_torch.distributed.sharding.tensor_rules`).
+Under the tensor table every process holds all ``T`` tokens
+(``moe_tokens="global"``): the expert-parallel path runs its units' bodies
+on its own experts and gathers every unit's output, and where that path
+declines (``T`` or ``E`` not a multiple of the units) the dense path is the
+reference's ``moe_dense`` under ``experts -> model``: each process computes
+its experts for every token and one all-reduce sums them.  No path runs on
+experts a process does not hold.  :func:`record_drops` collects each
+expert-parallel call's per-unit drop counts, :func:`record_paths` the path
+each call took.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from ..core import exchange
 from ..core.autotune import ep_capacity
 from ..core.exchange import Mesh
 from ..core.multiplexer import current_multiplexer
-from ..distributed.sharding import current_mesh_context
+from ..distributed.sharding import current_mesh_context, tensor_all_reduce, tensor_context
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -103,16 +112,35 @@ def _expert_ffn(w_gate, w_up, w_down, x):
 # ----------------------------------------------------------------------------
 
 def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Evaluate all experts for all tokens, combine by router weight."""
+    """Evaluate all experts for all tokens, combine by router weight.
+
+    With this process's slice of the experts under the tensor table (``E /
+    R`` expert rows, process ``i`` holding run ``i``), the reference's
+    ``moe_dense`` under ``experts -> model``: the process's experts for
+    every token, weighted by their columns of the full ``[T, E]`` router
+    weights, then one all-reduce over the processes.  Expert leaves of any
+    other size raise."""
     T, _ = x.shape
     dt = x.dtype
+    E, held = cfg.num_experts, params["w_gate"].shape[0]
     w, idx = route(params, cfg, x)
-    full_w = torch.zeros((T, cfg.num_experts), dtype=torch.float32, device=x.device)
+    full_w = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     full_w.scatter_add_(1, idx, w)
+    ctx = None
+    if held != E:
+        ctx = tensor_context()
+        if ctx is None or held * ctx.mesh.num_processes != E:
+            raise ValueError(
+                f"dense MoE on expert leaves of {held} rows: neither all {E} experts nor a "
+                "process's slice under the tensor table")
+        lo = ctx.mesh.process_index * held
+        full_w = full_w[:, lo:lo + held]
+    _record_path("dense" if ctx is None else "dense-tensor")
     g = torch.einsum("td,edf->tef", x, params["w_gate"].to(dt))
     u = torch.einsum("td,edf->tef", x, params["w_up"].to(dt))
     y = torch.einsum("tef,efd->ted", F.silu(g) * u, params["w_down"].to(dt))
-    return torch.einsum("ted,te->td", y, full_w.to(dt))
+    y = torch.einsum("ted,te->td", y, full_w.to(dt))
+    return y if ctx is None else tensor_all_reduce(y, ctx)
 
 
 # ----------------------------------------------------------------------------
@@ -120,6 +148,26 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 _DROPS: list | None = None
+_PATHS: list | None = None
+
+
+@contextlib.contextmanager
+def record_paths() -> Iterator[list]:
+    """Inside the with-block every MoE call appends the path it took, in
+    call order: ``"ep"`` (expert-parallel), ``"dense"`` (every expert on
+    this process) or ``"dense-tensor"`` (this process's experts under the
+    tensor table, then an all-reduce)."""
+    global _PATHS
+    prev, _PATHS = _PATHS, []
+    try:
+        yield _PATHS
+    finally:
+        _PATHS = prev
+
+
+def _record_path(path: str) -> None:
+    if _PATHS is not None:
+        _PATHS.append(path)
 
 
 @contextlib.contextmanager
@@ -277,7 +325,9 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     alike), on this process's tokens under ``"local"`` (the dense path is
     token by token).  Across processes under ``"local"`` with sharded expert
     leaves (the train state) they raise instead: this process holds only its
-    own experts, so it cannot take the dense path.
+    own experts, so it cannot take the dense path.  Under ``"global"`` with
+    the process's experts (the tensor table) the fallback is the dense
+    path's tensor-parallel form, every process on its own experts.
     """
     ctx = current_mesh_context()
     if ctx is None:
@@ -308,6 +358,7 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                 f"and {cfg.num_experts} experts must both split over the {N} units"
             )
         return moe_dense(params, cfg, x)
+    _record_path("ep")
     U = mesh.local_units
     mine = (x.reshape(U, T // U, d) if local
             else x.reshape(N, T // N, d)[mesh.unit_offset:mesh.unit_offset + U])
@@ -319,7 +370,9 @@ def moe_ep(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The FFN slot of a MoE transformer layer: routed experts, plus the
-    shared experts' MLP on every token after either path."""
+    shared experts' MLP on every token after either path (its width
+    ``moe_d_ff x num_shared_experts`` splits as ``d_ff`` does under the
+    tensor table)."""
     B, S, d = x.shape
     tokens = x.reshape(B * S, d)
     if cfg.moe_impl == "ep_shardmap":
@@ -328,7 +381,8 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         y = moe_dense(params, cfg, tokens)
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
-        y = y + L.mlp_block(params["shared"], cfg, x)
+        f = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+        y = y + L.mlp_block(params["shared"], cfg, x, d_ff=f)
     return y
 
 
@@ -340,4 +394,5 @@ __all__ = [
     "moe_ep",
     "moe_ffn",
     "record_drops",
+    "record_paths",
 ]

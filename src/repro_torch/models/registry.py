@@ -81,15 +81,14 @@ def build(cfg: ModelConfig) -> ModelApi:
 def require_tensor_parallel(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that the tensor table
     (:func:`~repro_torch.distributed.sharding.tensor_rules`) does not serve
-    yet: every family but the dense and VLM transformers with GQA."""
-    if cfg.family in ("dense", "vlm") and cfg.attn_kind != "mla":
+    yet: every family but the dense, VLM and MoE transformers with GQA."""
+    if cfg.family in ("dense", "vlm", "moe") and cfg.attn_kind != "mla":
         return
-    what = ("MLA attention" if cfg.attn_kind == "mla" and cfg.family != "moe"
-            else f"the {cfg.family!r} family")
+    what = "MLA attention" if cfg.attn_kind == "mla" else f"the {cfg.family!r} family"
     raise NotImplementedError(
         f"tensor-parallel serving of {what} ({cfg.name}) is not ported yet: the tensor "
-        "table serves the dense and VLM transformers with GQA (ROADMAP queue A, item "
-        "9(c): tensor parallelism for MLA, MoE, SSM, hybrid and encoder-decoder)")
+        "table serves the dense, VLM and MoE transformers with GQA (ROADMAP queue A, item "
+        "9(c): tensor parallelism for MLA, SSM, hybrid and encoder-decoder)")
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -21,10 +21,11 @@ prefill's cache then holds ``P + S`` positions and decode continues after
 them; the loss reads the text positions only.
 
 Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`,
-serving the dense and VLM families) the params are a process's slices
-(``init(..., place=tensor_place(specs(cfg), ctx))`` or
+serving the dense, VLM and MoE families with GQA) the params are a
+process's slices (``init(..., place=tensor_place(specs(cfg), ctx))`` or
 :func:`~repro_torch.models.convert.tensor_params`) and the same code runs on
-the process's heads: :mod:`.layers` adds the collectives.
+the process's heads and experts: :mod:`.layers` and :mod:`.moe` add the
+collectives.
 """
 
 from __future__ import annotations

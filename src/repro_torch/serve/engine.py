@@ -38,9 +38,12 @@ prefilled cache row whose slot another process owns is sent there
 (:func:`route_rows`).  A batch that ``R`` does not divide runs whole on
 every process.  Params stay whole on every process, except under the
 tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`),
-where the static engine runs the whole batch on every process over each
-process's slices of the model (``stats["rows"] == "tensor"``) and the
-continuous engine raises.
+where both engines run the whole batch on every process over each
+process's slices of the model (``stats["rows"] == "tensor"``): the
+continuous engine holds every slot's cache rows of the process's kv heads
+and writes each prefill group in place (no row moves); the logits come
+gathered to the full vocab, so generators seeded alike sample the same
+tokens and the slot map, admission and eviction run alike on every process.
 
 Side inputs (``extra_inputs``: a VLM's ``patches [B, P, d]``, an
 encoder-decoder's ``frames [B, S_f, d]``) join every prefill batch.  Static
@@ -436,8 +439,11 @@ class ContinuousEngine:
     == "split"``) each process holds the cache rows of its ``batch_size / R``
     slots, prefills its rows of each group and decodes its slots;
     ``stats["moved_rows"]`` counts the prefilled rows sent to the process
-    that owns their slot.  The multiplexer is tuned from the model alone (no
-    timing), so every process builds the same one.
+    that owns their slot.  Under the tensor table (``"tensor"``) every
+    process holds every slot over its slices of the model and moves no row.
+    The multiplexer is tuned from the model alone (no timing), so every
+    process builds the same one (two-level where the mesh has pods: under
+    the tensor table its units are ``pods x q``).
     """
 
     def __init__(self, api: registry.ModelApi, batch_size: int, capacity: int,
@@ -447,9 +453,7 @@ class ContinuousEngine:
         self.tracer = tracer
         ctx = current_mesh_context()
         if ctx is not None and ctx.tensor:
-            raise NotImplementedError(
-                "the continuous engine under the tensor table is not ported yet: serve "
-                "through ServeEngine (ROADMAP queue A, item 9(b))")
+            registry.require_tensor_parallel(api.cfg)
         if api.decode_step_slots is None:
             raise NotImplementedError(
                 f"continuous batching needs a per-position KV cache; family "
@@ -631,10 +635,12 @@ class ContinuousEngine:
         and decodes its slots, the MoE layer under ``moe_tokens="local"``;
         every call's sampled tokens are gathered, so the slot map, admission
         and eviction run alike on every process, and every process fills
-        every ``Request``.  Otherwise every process runs the whole engine.
-        ``stats["rows"]`` says which.  Every process makes every prefill and
-        decode call: the MoE layer's pod hops and the gathers are
-        collectives.
+        every ``Request``.  Otherwise every process runs the whole engine:
+        under the tensor table (``params`` then the process's slices) on
+        the full-vocab logits each call gathers.  ``stats["rows"]`` says
+        which.  Every process makes every prefill and decode call, dead
+        slots' included: the MoE layer's pod hops, the tensor table's
+        reductions and the gathers are collectives.
         """
         side = _side_rows(extra_inputs)
         for r in requests:
@@ -646,6 +652,8 @@ class ContinuousEngine:
                 )
         B = self.batch_size
         self._layout = mode, mesh, ctx = _batch_rows(B)
+        if mode == "tensor":
+            registry.require_tensor_parallel(self.cfg)
         self.stats["rows"] = mode
         if mesh is not None and extra_inputs:
             extra_inputs = local_rows({k: torch.as_tensor(v) for k, v in extra_inputs.items()},

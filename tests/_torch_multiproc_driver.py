@@ -57,7 +57,8 @@ ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           serve_uniform="", serve_temperature="",
                           tp_cells="deepseek-67b", tp_full=False, tp_dtype="float32",
                           tp_param_dtype="float32", tp_ref="whole", tp_repeat=1,
-                          tp_temperature=0.0, tp_profile=False)
+                          tp_temperature=0.0, tp_profile=False, tp_capacity_factor=0.0,
+                          tp_mixed=())
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1254,8 +1255,9 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
     """One static batch through ``ServeEngine`` under ``ctx`` and ``mux``
     (at ``temperature``, seed 0):
     tokens, each call's logits (this process's rows), the drops of every
-    expert-parallel call (this process's units), the stats, the pod hop's
-    bytes, the kernels' launches, the walls and the peak."""
+    expert-parallel call (this process's units), the path of every MoE
+    call, the stats, the pod hop's bytes, the kernels' launches, the walls
+    and the peak."""
     import dataclasses
 
     from repro_torch.core.multiplexer import use_multiplexer
@@ -1272,11 +1274,12 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
     exchange.reset_pod_hop()
     k0 = _serve_launches()
     _reset_peak()
-    with mesh_context(ctx), use_multiplexer(mux), moe.record_drops() as drops:
+    with mesh_context(ctx), use_multiplexer(mux), moe.record_drops() as drops, \
+            moe.record_paths() as paths:
         _, wall = _synced(lambda: engine.generate(params, reqs, side))
     return {"tokens": [r.out_tokens for r in reqs],
             "logits": rec.prefill.logits + rec.decode_step.logits,
-            "drops": [d.cpu() for d in drops], "stats": dict(engine.stats),
+            "drops": [d.cpu() for d in drops], "paths": list(paths), "stats": dict(engine.stats),
             "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
             "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
             "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step.seconds,
@@ -1294,21 +1297,32 @@ def _expert_trips(cfg, params, mesh, impl: str = "round_robin"):
     own share too) all ``N`` units' buffers, ``2 * U * E * C * d *
     itemsize``; 0 for a call the ``N`` units do not divide (``tokens * R``
     tokens in all), which takes the dense path."""
-    from repro_torch.core.autotune import ep_capacity
     from repro_torch.tree import leaves_with_paths
 
     moe_layers = sum(1 for p, _ in leaves_with_paths(params) if p[-1] == "router")
     U, N, R = mesh.local_units, mesh.num_units, mesh.num_processes
-    E = cfg.num_experts
-    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
 
     def trips(tokens: int) -> int:
-        if cfg.moe_impl != "ep_shardmap" or (tokens * R) % N or E % N:
+        if cfg.moe_impl != "ep_shardmap" or (tokens * R) % N or cfg.num_experts % N:
             return 0  # the dense path: no hop
-        C = ep_capacity(tokens // U, cfg.top_k, E, cfg.capacity_factor)
-        return 2 * U * (N if impl == "xla" else N - U) * (E // N) * C * cfg.d_model * item
+        return _ep_trip_bytes(cfg, mesh, tokens // U, impl)
 
     return moe_layers, trips
+
+
+def _ep_trip_bytes(cfg, mesh, tokens_a_unit: int, impl: str) -> int:
+    """One expert-parallel MoE call's dispatch and combine trips over the
+    pod hop, a process: its ``U`` units' capacity buffers for the other
+    processes' ``N - U`` units (all ``N`` under the ``"xla"`` transport,
+    one ``all_to_all_single`` whose buffer holds the process's own share
+    too), ``2 U (N - U) (E / N) C d`` items, ``C = ep_capacity(tokens a
+    unit, k, E, capacity_factor)``."""
+    from repro_torch.core.autotune import ep_capacity
+
+    U, N, E = mesh.local_units, mesh.num_units, cfg.num_experts
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    C = ep_capacity(tokens_a_unit, cfg.top_k, E, cfg.capacity_factor)
+    return 2 * U * (N if impl == "xla" else N - U) * (E // N) * C * cfg.d_model * item
 
 
 def _serve_hop_bytes(cfg, params, rows: int, S: int, steps: int, mesh) -> dict:
@@ -1597,10 +1611,11 @@ def _continuous_run(api, params, work: tuple, B: int, ctx, temperature: float = 
     """One mixed workload through ``ContinuousEngine`` under ``ctx`` (the
     engine tunes its own multiplexer): tokens, admission and finish steps,
     each call's logits (this process's rows), the drops of every
-    expert-parallel call, the stats, the spans, the slots of each prefill
-    group (whole runs), the bytes of the cache it built, the pod hop's
-    bytes, the kernels' launches, the walls, ``engine_record`` and the
-    peak."""
+    expert-parallel call, the path of every MoE call, the stats, the spans,
+    the slots of each prefill group (whole runs), each decode step's live
+    slots, the bytes of the cache it
+    built, whether every slot came back free, the pod hop's bytes, the
+    kernels' launches, the walls, ``engine_record`` and the peak."""
     import dataclasses
 
     from repro_torch.distributed.sharding import mesh_context
@@ -1633,18 +1648,28 @@ def _continuous_run(api, params, work: tuple, B: int, ctx, temperature: float = 
         scatter(cache, pref, s, rows)
 
     engine._scatter_prefill = recorded
+    live = []  # each decode step's live slots
+    decode = rec.decode_step_slots
+
+    def decode_live(*args):
+        live.append(sorted(engine.alloc.live))
+        return decode(*args)
+
+    engine.api = dataclasses.replace(rec, decode_step_slots=decode_live)
     exchange.reset_pod_hop()
     k0 = _serve_launches()
     _reset_peak()
-    with mesh_context(ctx), moe.record_drops() as drops:
+    with mesh_context(ctx), moe.record_drops() as drops, moe.record_paths() as paths:
         _, wall = _synced(lambda: engine.serve(params, reqs, extra))
+    engine.alloc.check()
     return {"tokens": [r.out_tokens for r in reqs],
             "admitted": [r.admitted_step for r in reqs],
             "finished": [r.finished_step for r in reqs],
             "done": all(r.done for r in reqs),
+            "leak_free": engine.alloc.num_free == B and not engine.alloc.live,
             "logits": rec.prefill.logits + rec.decode_step_slots.logits,
-            "drops": [d.cpu() for d in drops], "stats": dict(engine.stats),
-            "spans": _spans(tracer), "slots": slots, "cache_bytes": built[0],
+            "drops": [d.cpu() for d in drops], "paths": list(paths), "stats": dict(engine.stats),
+            "spans": _spans(tracer), "slots": slots, "live": live, "cache_bytes": built[0],
             "mux": None if engine.mux is None else engine.mux.describe(),
             "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
             "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
@@ -1887,18 +1912,20 @@ def scenario_serve():
     print("PASS serve")
 
 
-def _tp_cells() -> list[tuple[str, str, int, tuple, int]]:
-    """``--tp-cells``: ``arch[:layers[:BxSxNEW[:vocab]]]`` items,
+def _tp_cells() -> list[tuple[str, str, int, tuple, int, str]]:
+    """``--tp-cells``: ``arch[:layers[:BxSxNEW[:vocab[:moe]]]]`` items,
     comma-separated (layers 0: the config's; the shape by default 4 x 16 +
-    4 new; vocab 0: the config's), as ``(key, arch, layers, shape, vocab)``
-    with the key ``arch`` or ``arch:v<vocab>``."""
+    4 new; vocab 0: the config's; moe ``dense`` or ``ep`` for an MoE
+    config's ``moe_impl="dense"`` or ``"ep_shardmap"``, empty: the
+    config's), as ``(key, arch, layers, shape, vocab, moe)`` with the key
+    ``arch``, then ``:v<vocab>`` and ``:<moe>`` where given."""
     out = []
     for item in filter(None, ARGS.tp_cells.split(",")):
-        arch, layers, shape, vocab = (item.split(":")
-                                      + ["0", "4x16x4", "0"][item.count(":"):])[:4]
-        key = arch if vocab == "0" else f"{arch}:v{vocab}"
+        arch, layers, shape, vocab, moe = (item.split(":")
+                                           + ["0", "4x16x4", "0", ""][item.count(":"):])[:5]
+        key = ":".join([arch] + [f"v{vocab}"] * (vocab != "0") + [moe] * bool(moe))
         out.append((key, arch, int(layers), tuple(int(v) for v in shape.split("x")),
-                    int(vocab)))
+                    int(vocab), moe))
     return out
 
 
@@ -1907,11 +1934,12 @@ def _tp_cells() -> list[tuple[str, str, int, tuple, int]]:
 TP_TOL = 2e-4
 
 
-def _tp_cfg(arch: str, layers: int, vocab: int = 0):
+def _tp_cfg(arch: str, layers: int, vocab: int = 0, moe: str = ""):
     """The served config: smoke or full (``--tp-full``), cut to ``layers``
     (and to a ``vocab`` of another size), ``--tp-dtype`` compute over
     ``--tp-param-dtype`` params, ``attn_impl="flash"`` (the prefill's
-    kernel)."""
+    kernel); an MoE config at ``moe_impl`` ``moe`` and, where
+    ``--tp-capacity-factor`` is given, that capacity factor."""
     from repro_torch.configs import get_config, get_smoke_config
 
     base = (get_config if ARGS.tp_full else get_smoke_config)(arch)
@@ -1920,29 +1948,95 @@ def _tp_cfg(arch: str, layers: int, vocab: int = 0):
         over["num_layers"] = layers
     if vocab:
         over["vocab_size"] = vocab
+    if moe:
+        over["moe_impl"] = {"dense": "dense", "ep": "ep_shardmap"}[moe]
+    if base.num_experts and ARGS.tp_capacity_factor:
+        over["capacity_factor"] = ARGS.tp_capacity_factor
     return base.scaled(**over)
 
 
-def _tp_hop_bytes(cfg, B: int, S: int, side: int, steps: int, ctx) -> dict:
-    """What one tensor-parallel static run puts on the pod hop, a process,
-    from the shapes: a call over ``T`` tokens a row (the prefill's ``side +
-    S``, a decode step's 1) all-reduces ``[B, T, d]`` in the compute dtype
-    once for the embedding (the vocab split), once for each layer's
-    attention output (the heads split) and once for its MLP (``d_ff``
-    split), and all-gathers its ``[B, 1, V / R]`` logits (the vocab split)."""
+def _tp_moe_layers(cfg) -> int:
+    return cfg.num_layers - cfg.first_dense_layers if cfg.num_experts else 0
+
+
+def _tp_moe_path(cfg, tokens: int, ctx) -> str:
+    """The path an MoE call over ``tokens`` tokens takes under the tensor
+    table, in ``moe.record_paths``' names: expert-parallel where the units
+    divide the tokens and the experts, else the dense path on the process's
+    experts (``"dense-tensor"``) or, where they stay whole, on all."""
+    from repro_torch.distributed.sharding import tensor_split
+
+    N = ctx.mesh.num_units
+    if cfg.moe_impl == "ep_shardmap" and tokens % N == 0 and cfg.num_experts % N == 0:
+        return "ep"
+    return "dense-tensor" if tensor_split(cfg.num_experts, "experts", ctx) > 1 else "dense"
+
+
+def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> dict:
+    """What one model call over ``rows`` rows of ``length`` positions (the
+    first ``side`` a VLM's patch rows, which skip the embedding) puts on the
+    pod hop under the tensor table, a process, from the shapes, in the
+    compute dtype: ``[rows, length - side, d]`` all-reduced once for the
+    embedding (the vocab split); ``[rows, length, d]`` once for each layer's
+    attention output (the heads split), each dense layer's MLP (``d_ff``
+    split), each MoE layer's shared MLP (its width split) and each MoE
+    layer's dense path on the process's experts; each expert-parallel MoE
+    call's trips under the transport ``impl`` (:func:`_ep_trip_bytes`) and
+    the all-gather of its units' ``T / R`` outputs; and the ``[rows, V /
+    R]`` logits all-gathered (the vocab split).  ``reduces``: the call's
+    all-reduces."""
     from repro_torch.distributed.sharding import tensor_split
 
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    R = tensor_split(cfg.vocab_size, "vocab", ctx)
-    layers = cfg.num_layers * ((tensor_split(cfg.num_heads, "heads", ctx) > 1)
-                               + (tensor_split(cfg.d_ff, "d_ff", ctx) > 1))
-    reduces = layers + (R > 1)
-    tokens = B * (side + S) + steps * B  # the embedding's rows (the patches skip it)
-    embed_rows = B * S + steps * B
-    reduce_bytes = (layers * tokens + (R > 1) * embed_rows) * cfg.d_model * item
-    gather_bytes = (1 + steps) * B * (cfg.vocab_size // R) * item if R > 1 else 0
-    return {"all-reduce": reduce_bytes, "all-gather": gather_bytes,
-            "reduces_a_call": reduces, "total": reduce_bytes + gather_bytes}
+    R, N = ctx.mesh.num_processes, ctx.mesh.num_units
+    d, T = cfg.d_model, rows * length
+
+    def split(dim: int, name: str) -> int:
+        return int(bool(dim) and tensor_split(dim, name, ctx) > 1)
+
+    moe_layers = _tp_moe_layers(cfg)
+    reduces = (cfg.num_layers * split(cfg.num_heads, "heads")
+               + (cfg.num_layers - moe_layers) * split(cfg.d_ff, "d_ff"))
+    trips = moe_gather = 0
+    if moe_layers:
+        reduces += moe_layers * split((cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts,
+                                      "d_ff")
+        path = _tp_moe_path(cfg, T, ctx)
+        if path == "dense-tensor":
+            reduces += moe_layers
+        elif path == "ep":
+            trips = moe_layers * _ep_trip_bytes(cfg, ctx.mesh, T // N, impl)
+            moe_gather = moe_layers * (T // R) * d * item
+    vocab = split(cfg.vocab_size, "vocab")
+    return {"all-reduce": (reduces * T + vocab * rows * (length - side)) * d * item,
+            "all-gather": moe_gather + vocab * rows * (cfg.vocab_size // R) * item,
+            "trips": trips, "reduces": reduces + vocab}
+
+
+def _tp_hop_bytes(cfg, calls: list, ctx, impl: str) -> dict:
+    """:func:`_tp_call_bytes` summed over ``calls`` (``(rows, length,
+    side)`` each, the first a prefill), with their ``total`` and the first
+    call's all-reduces (``reduces_a_call``)."""
+    out = {"all-reduce": 0, "all-gather": 0, "trips": 0}
+    for call in calls:
+        got = _tp_call_bytes(cfg, *call, ctx, impl)
+        for k in out:
+            out[k] += got[k]
+    out["reduces_a_call"] = _tp_call_bytes(cfg, *calls[0], ctx, impl)["reduces"]
+    out["total"] = out["all-reduce"] + out["all-gather"] + out["trips"]
+    return out
+
+
+def _tp_paths(cfg, calls: list, ctx) -> list:
+    """Every MoE call's path over ``calls``, in call order."""
+    return [_tp_moe_path(cfg, rows * length, ctx) for rows, length, _ in calls
+            for _ in range(_tp_moe_layers(cfg))]
+
+
+def _tp_hop_bad(run: dict, want: dict) -> bool:
+    return ({k: run["hop_kinds"].get(k, 0) for k in ("all-reduce", "all-gather")}
+            != {k: want[k] for k in ("all-reduce", "all-gather")}
+            or run["hop_bytes"] != want["total"])
 
 
 def _tp_decode_profile(api, params, cache, tokens, pos: int, ctx) -> dict:
@@ -1973,40 +2067,85 @@ def _tp_decode_profile(api, params, cache, tokens, pos: int, ctx) -> dict:
 
 def _tp_reference(key: str):
     """``--tp-ref DIR``: the reference's params (numpy, the JAX package's
-    tree) and its one-device greedy run (the prompts, each call's logits,
-    the tokens) from ``DIR/<key>.pkl`` (``:`` in the key as ``_``)."""
+    tree) and its one-device greedy runs (the prompts, each call's logits,
+    the tokens; with ``continuous``, its continuous engine's requests,
+    capacity, logits and tokens) from ``DIR/<key>.pkl`` (``:`` in the key
+    as ``_``)."""
     import pickle
 
     with open(os.path.join(ARGS.tp_ref, key.replace(":", "_") + ".pkl"), "rb") as f:
         return pickle.load(f)
 
 
-def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) -> dict:
+def _tp_ref_workload(cont: dict) -> tuple:
+    """The reference's continuous workload as the port's requests."""
+    from repro_torch.serve import Request
+
+    reqs = [Request(prompt=np.asarray(p, np.int32), max_new_tokens=int(m), arrival_step=int(a))
+            for p, m, a in cont["requests"]]
+    return reqs, None, int(cont["capacity"])
+
+
+def _logits_close(got: list, want: list, rows: list | None = None) -> tuple[list, bool]:
+    """Each call's max |error| and whether every call is ``allclose`` at
+    rtol = atol = ``TP_TOL``; with ``rows``, over each call's listed rows
+    only."""
+    want = [torch.as_tensor(np.asarray(w)).float() for w in want]
+    got = [g.float() for g in got]
+    if rows is not None:
+        got, want = ([t[r] for t, r in zip(ts, rows)] for ts in (got, want))
+    err = [float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(got, want)]
+    close = len(got) == len(want) and all(
+        torch.allclose(a, b, rtol=TP_TOL, atol=TP_TOL) for a, b in zip(got, want))
+    return err, close
+
+
+def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: str,
+             ctx) -> dict:
     """One cell of ``tensor_serve``: the params (from the seed through
     ``tensor_place``, or the reference's cut by ``convert.tensor_params``),
-    the one-process reference, the tensor-parallel static run, its checks."""
+    the one-process references (the static engine and, with ``--tp-mixed``,
+    the continuous one), the tensor-parallel static run, its checks, then
+    the continuous engine (:func:`_tp_continuous`)."""
     import torch.distributed as dist
 
-    from repro_torch.distributed.sharding import mesh_context, tensor_place, tensor_slice
+    from repro_torch.distributed.sharding import (
+        MeshContext,
+        mesh_context,
+        tensor_place,
+        tensor_slice,
+    )
     from repro_torch.models import convert, registry
     from repro_torch.serve.engine import grow_cache
     from repro_torch.tree import leaves, leaves_with_paths
 
     rank, R = INFO.process_id, INFO.num_processes
     B, S, new = shape
-    cfg = _tp_cfg(arch, layers, vocab)
+    cfg = _tp_cfg(arch, layers, vocab, moe)
     api = registry.build(cfg)
     place = tensor_place(api.param_specs, ctx)
     rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
-           "param_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl, "tol": TP_TOL}
+           "param_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl, "tol": TP_TOL,
+           "moe_impl": cfg.moe_impl if cfg.num_experts else None,
+           "capacity_factor": cfg.capacity_factor}
     meta = api.init(0, device="meta", place=place)
     rec["param_bytes_counted"] = sum(t.numel() * t.element_size() for t in leaves(meta))
-    ref = whole = None
+    # every unit of the same mesh in this process: the one-process engines' context
+    one_ctx = MeshContext(exchange.Mesh(ctx.mesh.num_pods, ctx.mesh.n))
+    ref = whole = work = None
+    cont_refs: dict = {}
     if ARGS.tp_ref not in ("whole", "none"):
-        ref = _tp_reference(key)
+        ref = _tp_reference(key.removesuffix(f":{moe}") if moe else key)
         prompts, extra = ref["prompts"], ref.get("extra")
-        params = convert.tensor_params(convert.from_reference(ref["params"], device=DEV), cfg,
-                                       ctx)
+        converted = convert.from_reference(ref["params"], device=DEV)
+        params = convert.tensor_params(converted, cfg, ctx)
+        if ARGS.tp_mixed:
+            cont_refs["reference"] = ref["continuous"]
+            work = _tp_ref_workload(ref["continuous"])
+            if rank == 0:  # and the port's one-process engine on the whole tree
+                cont_refs["one_process"] = _continuous_run(api, converted, work,
+                                                           ARGS.tp_mixed[0], one_ctx)
+        del converted
     else:
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
@@ -2014,13 +2153,21 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
         if cfg.family == "vlm":
             side = min(1024, S // 2)
             extra = {"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
+        if ARGS.tp_mixed:
+            work = _continuous_workload(cfg, *ARGS.tp_mixed)
         if ARGS.tp_ref == "whole" and rank == 0:
             _reset_peak()
             whole = api.init(0, device=DEV)
             ref = _serve_run(api, whole, (prompts, extra, _tp_capacity(S, extra, new)), B,
-                             new, None, None)
+                             new, one_ctx, None)
             rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s",
-                                                      "wall_s", "peak", "launches")}
+                                                      "wall_s", "peak", "launches", "paths")}
+            if work is not None:
+                one = cont_refs["one_process"] = _continuous_run(api, whole, work,
+                                                                 ARGS.tp_mixed[0], one_ctx)
+                rec["one_process_continuous"] = {
+                    k: one[k] for k in ("stats", "prefill_s", "decode_s", "wall_s", "peak",
+                                        "launches", "record", "paths", "mux")}
         params = api.init(0, device=DEV, place=place)
     if whole is not None:  # the placed draw is the whole draw's slices
         rec["params_equal_slices"] = all(  # a slice at a time: the whole tree is large
@@ -2037,16 +2184,16 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
     side = 0 if not extra else int(extra["patches"].shape[1])
     cap = _tp_capacity(S, extra, new)
     with mesh_context(ctx):
-        rec["cache_bytes_counted"] = sum(
-            t.numel() * t.element_size()
-            for t in leaves(api.init_cache(B, cap, device="meta")))
+        rec["cache_bytes_counted"] = _cache_bytes(api, B, cap)
     sync_processes()
     runs = [_serve_run(api, params, (prompts, extra, cap), B, new, ctx, None)
             for _ in range(ARGS.tp_repeat)]
     run = runs[-1]
     if run["stats"]["rows"] != "tensor":
         raise AssertionError(f"tensor_serve {key}: ran {run['stats']['rows']}")
-    want_hop = _tp_hop_bytes(cfg, B, S, side, run["stats"]["decode_steps"], ctx)
+    calls = [(B, S + side, side)] + [(B, 1, 0)] * run["stats"]["decode_steps"]
+    want_hop = _tp_hop_bytes(cfg, calls, ctx, cfg.exchange_impl)
+    want_paths = _tp_paths(cfg, calls, ctx)
     on = DEV == "cuda" and cfg.attn_impl == "flash"
     want_flash = cfg.num_layers if on else 0
     rec.update(rows=run["stats"]["rows"], tokens=run["tokens"], stats=run["stats"],
@@ -2054,12 +2201,13 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
                launches=run["launches"], prefill_s=[r["prefill_s"] for r in runs],
                decode_s=[r["decode_s"] for r in runs], wall_s=[r["wall_s"] for r in runs],
                peak=run["peak"], tokens_repeat_equal=all(r["tokens"] == run["tokens"]
-                                                        for r in runs))
+                                                        for r in runs),
+               paths={p: run["paths"].count(p) for p in sorted(set(run["paths"]))})
     bad = []
-    if {k: run["hop_kinds"].get(k, 0) for k in ("all-reduce", "all-gather")} != \
-            {k: want_hop[k] for k in ("all-reduce", "all-gather")} or \
-            run["hop_bytes"] != want_hop["total"]:
+    if _tp_hop_bad(run, want_hop):
         bad.append(f"pod hop {run['hop_kinds']} against {want_hop}")
+    if any(r["paths"] != want_paths for r in runs):
+        bad.append(f"MoE paths {rec['paths']} against {want_paths}")
     if any(r["launches"]["flash_attention"] != want_flash for r in runs):
         bad.append(f"flash_attention launched {[r['launches']['flash_attention'] for r in runs]}"
                    f" times a run, {want_flash} a prefill")
@@ -2069,20 +2217,14 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
     if not rec["tokens_equal_on_every_process"]:
         bad.append("the processes' tokens differ")
     if ref is not None:
-        want_logits = [torch.as_tensor(np.asarray(w)) for w in ref["logits"]]
-        want_tokens = ref["tokens"]
-        got = run["logits"]
-        rec["logit_abs"] = [float((a.float() - b.float()).abs().max())
-                            for a, b in zip(got, want_logits)]
-        rec["logits_close"] = len(got) == len(want_logits) and all(
-            torch.allclose(a.float(), b.float(), rtol=TP_TOL, atol=TP_TOL)
-            for a, b in zip(got, want_logits))
-        rec["tokens_equal"] = run["tokens"] == want_tokens
+        rec["logit_abs"], rec["logits_close"] = _logits_close(run["logits"], ref["logits"])
+        rec["tokens_equal"] = run["tokens"] == ref["tokens"]
+        if cfg.num_experts and "drops" in ref:  # the one-process engine over the same units
+            rec["drops"] = [int(d.sum()) for d in ref["drops"]]
         if not (rec["logits_close"] and rec["tokens_equal"]):
             bad.append(f"against the one-device run: logits {rec['logit_abs']} "
                        f"(tolerance {TP_TOL}), tokens equal {rec['tokens_equal']}")
-    if bad:
-        raise AssertionError(f"tensor_serve {key}: {bad}")
+    _raise_on_any(f"tensor_serve {key}", bad, {k: rec.get(k) for k in ("logit_abs", "paths")})
     if ARGS.tp_temperature:
         temp = ARGS.tp_temperature
         sampled = _serve_run(api, params, (prompts, extra, cap), B, new, ctx, None,
@@ -2094,6 +2236,9 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
         if not rec["sampled"]["equal_on_every_process"]:
             raise AssertionError(f"tensor_serve {key}: sampled tokens differ between "
                                  "processes")
+    if work is not None:
+        rec["continuous"] = _tp_continuous(key, cfg, api, params, work, cont_refs, ctx,
+                                           (prompts, extra, cap, new, run["tokens"]))
     if ARGS.tp_profile and DEV == "cuda":
         with mesh_context(ctx):
             batch = {"tokens": torch.from_numpy(prompts),
@@ -2109,6 +2254,144 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, ctx) ->
     return rec
 
 
+def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
+                   static: tuple) -> dict:
+    """``--tp-mixed``'s workload through the continuous engine under the
+    tensor table: every slot's cache rows on every process, each prefill
+    group written in place, the same slot map, spans and tuned multiplexer
+    on every process, the pod hop and the MoE paths as the schedule implies;
+    held to each of ``refs`` that this process has: ``"reference"`` (the
+    reference's continuous run from ``--tp-ref DIR``: logits, tokens, decode
+    and slot steps) and ``"one_process"`` (process 0's one-process engine
+    over the same units on the whole tree: also the admission and finish
+    steps, the stats, the spans and the drops).  Then the static
+    cell's prompts through the continuous engine (greedy tokens the static
+    engine's, gated in f32) and the mixed workload through
+    ``generate_bucketed`` (its slot-steps, beside the continuous engine's:
+    with requests arriving over time either may take fewer)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.serve import Request, ServeEngine, generate_bucketed
+
+    rank, R = INFO.process_id, INFO.num_processes
+    B = ARGS.tp_mixed[0]
+    reqs, extra, cap = work
+    side = 0 if not extra else int(extra["patches"].shape[1])
+    sched = _continuous_schedule(api, B, work)
+    mux = _continuous_mux(cfg, B, ctx.mesh)
+    with mesh_context(ctx):
+        cache_counted = _cache_bytes(api, B, cap)
+    sync_processes()
+    run = _continuous_run(api, params, work, B, ctx)
+    calls = [(B, g["ctx_len"], side) for g in sched["groups"]]
+    calls += [(B, 1, 0)] * sched["decode_steps"]
+    want_hop = _tp_hop_bytes(cfg, calls, ctx, mux["impl"] if mux else cfg.exchange_impl)
+    want_paths = _tp_paths(cfg, calls, ctx)
+    on = DEV == "cuda"
+    want_launches = {
+        "flash_attention": (cfg.num_layers * len(sched["groups"])
+                            if on and cfg.attn_impl == "flash" else 0),
+        "moe_dispatch": (want_paths.count("ep")
+                         if on and mux is not None and mux["pack_impl"] == "cuda" else 0)}
+    out = {"shape": [B, len(reqs), ARGS.tp_mixed[2]], "prompts": ARGS.serve_prompts,
+           "rate": ARGS.serve_rate, "capacity": cap, "groups": len(sched["groups"]),
+           "group_lengths": [g["plen"] for g in sched["groups"]],
+           "rows": run["stats"]["rows"], "tokens": run["tokens"], "stats": run["stats"],
+           "hop_bytes": run["hop_bytes"], "hop_kinds": run["hop_kinds"], "want_hop": want_hop,
+           "launches": run["launches"], "want_launches": want_launches,
+           "paths": {p: run["paths"].count(p) for p in sorted(set(run["paths"]))},
+           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"], "wall_s": run["wall_s"],
+           "record": run["record"], "peak": run["peak"], "cache_bytes": run["cache_bytes"],
+           "cache_bytes_counted": cache_counted, "mux": run["mux"], "leak_free": run["leak_free"]}
+    fails = [k for k, bad in (
+        ("rows", run["stats"]["rows"] != "tensor"),
+        ("moved rows", run["stats"]["moved_rows"] != 0),
+        ("done", not run["done"]), ("slot leak", not run["leak_free"]),
+        ("cache", run["cache_bytes"] != cache_counted),
+        ("pod hop", _tp_hop_bad(run, want_hop)),
+        ("MoE paths", sorted(run["paths"]) != sorted(want_paths)),  # groups and steps mix
+        ("launches", {k: run["launches"][k] for k in want_launches} != want_launches),
+        ("spans", run["spans"] != sched["spans"]),
+        ("multiplexer", run["mux"] != mux),
+    ) if bad]
+    every = [None] * R
+    dist.all_gather_object(every, (run["tokens"], run["spans"], run["mux"],
+                                   [d.tolist() for d in run["drops"]]))
+    out["equal_on_every_process"] = {k: all(e[i] == every[0][i] for e in every)
+                                     for i, k in enumerate(("tokens", "spans", "mux"))}
+    fails += [f"{k} differ between processes"
+              for k, same in out["equal_on_every_process"].items() if not same]
+    # the rows a call serves: each group's admitted rows, each decode step's
+    # live slots (padding rows and dead slots compute garbage nobody reads)
+    live = [list(range(len(g["slots"]))) for g in sched["groups"]] + run["live"]
+    for name, ref in refs.items():
+        got = out[name] = {}
+        got["logit_abs"], got["logits_close"] = _logits_close(run["logits"], ref["logits"], live)
+        got["prefill_logit_abs"] = got["logit_abs"][:len(sched["groups"])]
+        got["all_rows_logit_abs"], got["all_rows_close"] = _logits_close(run["logits"],
+                                                                         ref["logits"])
+        got["tokens_equal"] = run["tokens"] == ref["tokens"]
+        if name == "one_process":
+            got["steps_equal"] = (run["admitted"], run["finished"]) == (ref["admitted"],
+                                                                        ref["finished"])
+            got["stats_equal"] = all(run["stats"][k] == ref["stats"][k] for k in _COUNTERS)
+            got["spans_equal"] = run["spans"] == ref["spans"]
+            drops = [sum((e[3][c] for e in every), []) for c in range(len(run["drops"]))]
+            got["drops_equal"] = drops == [d.tolist() for d in ref["drops"]]
+            got["drops"] = [sum(d) for d in drops]
+            got["one_process_drops"] = [int(d.sum()) for d in ref["drops"]]
+        else:
+            got["stats_equal"] = all(run["stats"][k] == ref["stats"][k]
+                                     for k in ("decode_steps", "slot_steps"))
+        # the served rows are the gate; every row and the drops are recorded
+        # (the callers gate them where they hold)
+        fails += [f"{name} {k}" for k, v in got.items()
+                  if v is False and k not in ("all_rows_close", "drops_equal")]
+    if ARGS.tp_temperature:
+        sampled = _continuous_run(api, params, work, B, ctx, temperature=ARGS.tp_temperature)
+        dist.all_gather_object(every, (sampled["tokens"], sampled["spans"]))
+        out["sampled"] = {"temperature": ARGS.tp_temperature, "tokens": sampled["tokens"],
+                          "equal_on_every_process": all(e == every[0] for e in every),
+                          "differs_from_greedy": sampled["tokens"] != run["tokens"],
+                          "leak_free": sampled["leak_free"]}
+        fails += ["sampled tokens differ between processes"] * (
+            not out["sampled"]["equal_on_every_process"])
+    # the static engine's guarantee: the same prompts, the same greedy tokens
+    prompts, s_extra, s_cap, new, s_tokens = static
+    if prompts.shape[0] == B:
+        uniform = _continuous_run(api, params, ([Request(prompt=p.copy(), max_new_tokens=new)
+                                                 for p in prompts], s_extra, s_cap), B, ctx)
+        out["uniform_equal_static"] = uniform["tokens"] == s_tokens
+        out["uniform_paths"] = {p: uniform["paths"].count(p) for p in set(uniform["paths"])}
+        if cfg.dtype == "float32" and not out["uniform_equal_static"]:
+            fails.append("continuous greedy tokens differ from the static engine's")
+    engine = ServeEngine(api, batch_size=B, capacity=cap, device=DEV)
+    with mesh_context(ctx):
+        _, wall = _synced(lambda: generate_bucketed(engine, params, _fresh(reqs), extra))
+    out["bucketed"] = {"slot_steps": engine.stats["slot_steps"],
+                       "decode_steps": engine.stats["decode_steps"], "wall_s": wall,
+                       "rows": engine.stats["rows"]}
+    _raise_on_any(f"tensor_serve {key} continuous", fails, {
+        k: out.get(k) for k in ("hop_kinds", "want_hop", "paths", "reference", "one_process")})
+    return out
+
+
+def _raise_on_any(tag: str, fails: list, detail: dict) -> None:
+    """Every process's failures gathered, and every process raising if any
+    failed: a gate only one process checks (its reference) must not leave
+    the others waiting in the next collective."""
+    import torch.distributed as dist
+
+    every = [None] * INFO.num_processes
+    dist.all_gather_object(every, fails)
+    if any(every):
+        if fails:
+            print(f"[tensor-serve] FAIL {tag} process {INFO.process_id}: {fails}: {detail}",
+                  flush=True)
+        raise AssertionError(f"{tag}: failures by process {every}")
+
+
 def _tp_capacity(S: int, extra, new: int) -> int:
     side = 0 if not extra else int(extra["patches"].shape[1])
     return S + new + 1 + side
@@ -2116,21 +2399,26 @@ def _tp_capacity(S: int, extra, new: int) -> int:
 
 def scenario_tensor_serve():
     """Tensor-parallel serving across the processes (``tensor_rules``): the
-    static engine runs the whole batch on every process over each process's
-    slices of the heads, ``d_ff`` and vocab dims, the layers all-reducing
-    and all-gathering over the pod hop.  ``--tp-ref DIR``: the reference's
-    params and one-device greedy run from ``DIR/<arch>.pkl`` (the CPU test
+    static engine, and with ``--tp-mixed SLOTSxREQxNEW`` the continuous one,
+    run the whole batch on every process over each process's slices of the
+    heads, ``d_ff``, vocab and experts dims, the layers all-reducing and
+    all-gathering over the pod hop (an MoE layer expert-parallel over the
+    ``R x U`` units where they divide its tokens, else dense on the
+    process's experts and an all-reduce).  ``--tp-ref DIR``: the reference's
+    params and one-device greedy runs from ``DIR/<arch>.pkl`` (the CPU test
     writes them with the JAX package), the params cut by
     ``convert.tensor_params``; ``--tp-ref whole``: process 0 first runs the
-    one-process engine on the whole tree from the seed, and the placed
-    params must equal its slices.  Every config runs ``attn_impl="flash"``.
-    Gates: ``stats["rows"] == "tensor"``, logits within ``TP_TOL``
-    (``allclose``, rtol = atol) of the reference call for call, greedy tokens equal, tokens equal on every process, the
-    pod hop's all-reduce and all-gather bytes equal to the count from the
-    shapes, ``flash_attention`` once a layer a prefill on the card under
-    ``attn_impl="flash"``.  ``--tp-temperature T``: a sampled run's tokens
-    equal on every process.  ``--tp-profile``: one decode step profiled (the
-    collectives' device time)."""
+    one-process engines on the whole tree from the seed over the same
+    units, and the placed params must equal its slices.  Every config runs
+    ``attn_impl="flash"``.  Gates: ``stats["rows"] == "tensor"``, logits
+    within ``TP_TOL`` (``allclose``, rtol = atol) of the reference call for
+    call, greedy tokens equal, tokens equal on every process, the pod hop's
+    all-reduce and all-gather bytes and its total equal to the count from
+    the shapes, each MoE call's path, ``flash_attention`` once a layer a
+    prefill on the card under ``attn_impl="flash"``; the continuous
+    engine's gates in :func:`_tp_continuous`.  ``--tp-temperature T``: a
+    sampled run's tokens equal on every process.  ``--tp-profile``: one
+    decode step profiled (the collectives' device time)."""
     from repro_torch.distributed.sharding import tensor_rules
     from repro_torch.launch.mesh import make_context
 
@@ -2139,15 +2427,24 @@ def scenario_tensor_serve():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     out = {"started_at": time.time(), "archs": {}}
-    for key, arch, layers, shape, vocab in _tp_cells():
+    for key, arch, layers, shape, vocab, moe in _tp_cells():
         t0 = time.perf_counter()
-        r = out["archs"][key] = _tp_arch(key, arch, layers, shape, vocab, ctx)
+        r = out["archs"][key] = _tp_arch(key, arch, layers, shape, vocab, moe, ctx)
         r["seconds"] = time.perf_counter() - t0
         print(f"[tensor-serve] {key}: {r['layers']} layers {r['dtype']}, {r['shape']}, rows "
               f"{r['rows']}, prefill {[round(s * 1e3, 1) for s in r['prefill_s'][-1]]} ms, "
               f"decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over {len(r['decode_s'][-1])} "
-              f"steps, pod hop {r['hop_kinds']}, peak {r['peak']}, "
+              f"steps, pod hop {r['hop_kinds']}, MoE paths {r['paths']}, peak {r['peak']}, "
               f"logits {max(r.get('logit_abs') or [0.0]):.3g}")
+        if "continuous" in r:
+            c = r["continuous"]
+            print(f"[tensor-serve] {key} continuous: {c['shape']} (slots x requests x new), "
+                  f"{c['groups']} prefill groups, {c['stats']['decode_steps']} decode steps, "
+                  f"slot_steps {c['stats']['slot_steps']} (generate_bucketed "
+                  f"{c['bucketed']['slot_steps']}), pod hop {c['hop_kinds']}, MoE paths "
+                  f"{c['paths']}, logits "
+                  f"{ {n: max(c[n]['logit_abs']) for n in ('reference', 'one_process') if n in c} }"
+                  f", record {c['record']}")
     RESULTS["tensor_serve"] = out
     print("PASS tensor_serve")
 
@@ -2201,7 +2498,8 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--serve-temperature", default="",
                     help="serve: arch:T, a continuous cell's workload sampled at T")
     ap.add_argument("--tp-cells", default="deepseek-67b",
-                    help="tensor_serve: arch[:layers[:BxSxNEW]] items, comma-separated")
+                    help="tensor_serve: arch[:layers[:BxSxNEW[:vocab[:moe]]]] items, "
+                         "comma-separated")
     ap.add_argument("--tp-full", action="store_true", help="tensor_serve at full width")
     ap.add_argument("--tp-dtype", default="float32")
     ap.add_argument("--tp-param-dtype", default="float32")
@@ -2212,10 +2510,16 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--tp-temperature", type=float, default=0.0)
     ap.add_argument("--tp-profile", action="store_true",
                     help="tensor_serve: one decode step a cell under torch.profiler")
+    ap.add_argument("--tp-capacity-factor", type=float, default=0.0,
+                    help="tensor_serve: an MoE config's capacity factor (0: the config's)")
+    ap.add_argument("--tp-mixed", default="",
+                    help="tensor_serve: SLOTSxREQxNEW, a mixed workload (--serve-prompts, "
+                         "--serve-rate) through the continuous engine after each cell")
     args = ap.parse_args(argv)
     for k in ("cells", "full", "dtype", "param_dtype", "ref", "repeat", "temperature",
-              "profile"):
+              "profile", "capacity_factor"):
         setattr(ARGS, f"tp_{k}", getattr(args, f"tp_{k}"))
+    ARGS.tp_mixed = tuple(int(v) for v in args.tp_mixed.split("x")) if args.tp_mixed else ()
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop
     ARGS.dp_archs, ARGS.dp_full = args.dp_archs.split(","), args.dp_full
     ARGS.dp_shape = tuple(int(v) for v in args.dp_shape.split("x"))

@@ -274,10 +274,13 @@ def test_cuda_bf16_flash_attention_matches_plain_version(cuda_device, B, H, KH, 
 @pytest.mark.parametrize("B,H,KH,S,D,dtype", [
     # a process's heads in tensor-parallel serving (the four-card probe's
     # prefills at 8 x 2,048: DeepSeek-67B's 16 q and 2 kv heads, Qwen1.5-32B's
-    # 10 and 10), and chip_smoke.py phase 9b's (32 and 4 over 2 processes, f32)
+    # 10 and 10, OLMoE-1B-7B's 4 and 4), and chip_smoke.py phase 9b's (32 and
+    # 4 over 2 processes, f32) and 9c's (OLMoE's 8 and 8, f32)
     (8, 16, 2, 2048, 128, torch.bfloat16),
     (8, 10, 10, 2048, 128, torch.bfloat16),
+    (8, 4, 4, 2048, 128, torch.bfloat16),
     (4, 32, 4, 256, 128, torch.float32),
+    (8, 8, 8, 256, 128, torch.float32),
 ])
 def test_cuda_tensor_parallel_prefill_shapes_match_plain_version(cuda_device, B, H, KH, S, D,
                                                                  dtype):

@@ -203,6 +203,29 @@ def test_cuda_moe_dispatch_matches_plain_version(cuda_device, S, T, E, C, dtype)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("units,tokens", [(4, 1), (4, 256), (2, 4), (2, 8192)])
+def test_cuda_moe_dispatch_at_the_tensor_tables_shapes(cuda_device, units, tokens):
+    """OLMoE's dispatch under the tensor table: a process packs its own
+    units' router ids (``[units, tokens * 8]``, 64 experts, capacity factor
+    1.25): chip_smoke.py phase 9c's decode step and 256-token group (4
+    units a process, 8 slots), the four-card probe's (2 units a rank, 32
+    slots: a decode step, a 2,048-token group)."""
+    from repro_torch.core.autotune import ep_capacity
+
+    E, k = 64, 8
+    C = ep_capacity(tokens, k, E, 1.25)
+    gen = torch.Generator(device=cuda_device).manual_seed(units * tokens)
+    scores = torch.rand((units, tokens, E), generator=gen, device=cuda_device)
+    dest = torch.topk(scores, k, dim=-1).indices.reshape(units, tokens * k).contiguous()
+    md.reset_launch_counts()
+    got = md.moe_dispatch(dest, E, C)
+    want = kref.moe_dispatch_ref(dest, E, C)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert md.LAUNCHES["moe_dispatch"] == 1
+
+
+@pytest.mark.gpu
 def test_cuda_moe_dispatch_is_deterministic_across_launches(cuda_device):
     """The look-back's ordering: the prefill shape and one long shard give
     identical outputs over 20 launches (the scratch left clean each time)."""

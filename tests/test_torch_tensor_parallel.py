@@ -28,10 +28,13 @@ Each process's leaf shapes equal the reference's shard shapes: the full
 shape divided along every dim that the reference's ``logical_sharding``
 puts on ``model`` on a ``data x model`` mesh with ``model`` = 2 and 4 (ONE
 subprocess on 8 fake devices, ``tests/_torch_sharding_ref_run.py``); at
-smoke size from the workers' own params, at full width on ``meta``.  In
-process: the placed init equals the whole init's slices, the cache holds
-the process's kv heads, the kv heads a process reads, and the refusals
-(the other families, the continuous engine, a mesh inside one process).
+smoke size from the workers' own params, at full width on ``meta``; and
+OLMoE's, its ``E / R`` experts beside its heads and vocab (the workers
+that serve it run in ``tests/test_torch_tensor_continuous.py``), at smoke
+size and at full width on ``meta``.  In process: the placed init equals
+the whole init's slices, the cache holds the process's kv heads, the kv
+heads a process reads, and the refusals (MLA under either engine, the SSM,
+hybrid and encoder-decoder families, a mesh inside one process).
 """
 
 import json
@@ -72,7 +75,10 @@ TOL = 2e-4
 PROCESSES = (2, 4)
 UNITS = 2
 TEMPERATURE = 0.8
-REFUSED = ["olmoe-1b-7b", "deepseek-v2-lite-16b", "mamba2-1.3b", "zamba2-7b", "whisper-medium"]
+REFUSED = ["deepseek-v2-lite-16b", "mamba2-1.3b", "zamba2-7b", "whisper-medium"]
+#: served under the tensor table by ``tests/test_torch_tensor_continuous.py``;
+#: its placement is held to the reference here
+MOE_ARCHS = ["olmoe-1b-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -276,7 +282,7 @@ def full_meta():
     """Per (arch, R, rank): every leaf of ``init(..., device="meta")`` placed
     by the tensor table at full width, and the whole tree's."""
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         api = registry.build(_full(arch))
         out[(arch, "whole")] = api.init(0, device="meta")
         for R in PROCESSES:
@@ -299,10 +305,10 @@ def resolver(full_meta, tmp_path_factory):
         for (_, spec), (_, t) in zip(leaves_with_paths(specs), leaves_with_paths(cfg_params)):
             pairs.setdefault((tuple(t.shape), spec), len(pairs))
 
-    for _, arch, vocab in CELLS:
+    for arch, vocab in [c[1:] for c in CELLS] + [(a, v) for a in MOE_ARCHS for v in (0, 512)]:
         api = registry.build(_smoke(arch, vocab))
         add(api.init(0, device="meta"), api.param_specs)
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         add(full_meta[(arch, "whole")], registry.build(_full(arch)).param_specs)
     tmp = tmp_path_factory.mktemp("tensor_sharding")
     src, dst = tmp / "in.json", tmp / "out.json"
@@ -340,12 +346,13 @@ def test_each_process_holds_the_reference_shard_shapes(dumps, ref_shapes, key):
 
 
 @pytest.mark.parametrize("R", PROCESSES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_full_size_shard_shapes_on_meta(full_meta, ref_shapes, arch, R):
     """At full width (DeepSeek-67B: 16 q and 2 kv heads a process over 4;
     Qwen1.5-32B: 10 and 10; Qwen2.5-3B's 2 kv heads whole over 4; MiniCPM-2B's
-    odd vocab whole), on ``meta``: every process's leaf the reference's shard
-    shape."""
+    odd vocab whole; OLMoE: 4 q and 4 kv heads and 16 of its 64 experts over
+    4, the router whole), on ``meta``: every process's leaf the reference's
+    shard shape."""
     ref, pairs = ref_shapes
     api = registry.build(_full(arch))
     whole = full_meta[(arch, "whole")]
@@ -362,6 +369,35 @@ def test_full_size_shard_shapes_on_meta(full_meta, ref_shapes, arch, R):
     if arch == "qwen1.5-32b" and R == 4:
         a = full_meta[(arch, R, 0)]["seg0"][0]["attn"]
         assert a["wq"].shape[1] == a["wk"].shape[1] == 10 and a["bk"].shape == (10, 128)
+    if arch == "olmoe-1b-7b" and R == 4:
+        layer = full_meta[(arch, R, 3)]["seg0"][0]
+        assert layer["attn"]["wq"].shape == layer["attn"]["wk"].shape == (2048, 4, 128)
+        assert layer["ffn"]["w_gate"].shape == (16, 2048, 1024)
+        assert layer["ffn"]["router"].shape == (2048, 64)
+
+
+@pytest.mark.parametrize("R", PROCESSES)
+@pytest.mark.parametrize("vocab", [0, 512])
+def test_expert_leaves_hold_the_reference_shard_shapes(ref_shapes, vocab, R):
+    """OLMoE's smoke config placed for each process of ``R`` (2 units a
+    process): every leaf the reference's shard shape on ``data x model``
+    with ``model`` = R, so its 8 experts lie ``8 / R`` a process, in
+    contiguous runs (process ``r`` holds experts ``r * 8 / R ..``), and
+    the vocab splits only at 512."""
+    ref, pairs = ref_shapes
+    api = registry.build(_smoke("olmoe-1b-7b", vocab))
+    whole = api.init(0, device="cpu")
+    for r in range(R):
+        placed = api.init(0, device="cpu", place=tensor_place(api.param_specs, _fake_ctx(R, r)))
+        for (path, spec), (_, t), (_, p) in zip(leaves_with_paths(api.param_specs),
+                                                leaves_with_paths(whole),
+                                                leaves_with_paths(placed)):
+            assert list(p.shape) == _ref_shard_shapes(ref, pairs, tuple(t.shape), spec, R), \
+                (path, spec)
+        n = 8 // R
+        ffn, ffn_whole = placed["seg0"][1]["ffn"], whole["seg0"][1]["ffn"]
+        assert torch.equal(ffn["w_down"], ffn_whole["w_down"][r * n:(r + 1) * n])
+        assert torch.equal(ffn["router"], ffn_whole["router"])
 
 
 def _fake_ctx(R: int, r: int) -> MeshContext:
@@ -370,7 +406,7 @@ def _fake_ctx(R: int, r: int) -> MeshContext:
     return MeshContext(Mesh(R, UNITS, num_processes=R, process_index=r), rules=tensor_rules())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_placed_init_equals_the_whole_init_sliced(arch):
     """``init`` with ``tensor_place`` draws the whole tree from the seed and
     keeps each process's slices: exactly ``tensor_slices`` of the whole
@@ -406,7 +442,8 @@ def test_kv_heads_a_process_reads():
 
 
 @pytest.mark.parametrize("arch,R,kv", [("deepseek-67b", 4, 2), ("qwen1.5-32b", 4, 10),
-                                       ("qwen2.5-3b", 4, 1), ("deepseek-67b", 2, 4)])
+                                       ("qwen2.5-3b", 4, 1), ("deepseek-67b", 2, 4),
+                                       ("olmoe-1b-7b", 4, 4)])
 def test_cache_holds_the_process_kv_heads(arch, R, kv):
     """``init_cache`` allocates the kv heads the process attends with;
     ``cache_specs`` stays the reference's (``kv_seq`` over ``model``)."""
@@ -432,10 +469,17 @@ def test_other_families_refuse_the_tensor_table(arch):
 
 
 def test_continuous_engine_and_one_process_meshes_refuse():
-    api = registry.build(get_smoke_config("deepseek-67b"))
+    """The continuous engine serves the tensor table's families (its runs:
+    ``tests/test_torch_tensor_continuous.py``) and refuses MLA, as the
+    static engine does; a mesh inside one process has no tensor table."""
+    for arch in ("deepseek-67b", "olmoe-1b-7b"):
+        with mesh_context(_fake_ctx(2, 0)):
+            ContinuousEngine(registry.build(get_smoke_config(arch)), batch_size=2, capacity=8,
+                             device="cpu")
+    mla = registry.build(get_smoke_config("deepseek-v2-lite-16b"))
     with mesh_context(_fake_ctx(2, 0)):
-        with pytest.raises(NotImplementedError, match=r"item 9\(b\)"):
-            ContinuousEngine(api, batch_size=2, capacity=8, device="cpu")
+        with pytest.raises(NotImplementedError, match=r"MLA attention.*item 9\(c\)"):
+            ContinuousEngine(mla, batch_size=2, capacity=8, device="cpu")
     for mesh in (make_mesh(8, 2), make_mesh(8)):
         with pytest.raises(ValueError, match="tensor table"):
             MeshContext(mesh, rules=tensor_rules())
@@ -445,4 +489,42 @@ def test_continuous_engine_and_one_process_meshes_refuse():
     assert not MeshContext(make_mesh(8, 2), rules=unit_rules(True)).tensor
     assert _fake_ctx(2, 0).tensor
     assert {k for k, v in tensor_rules().table.items() if v} == \
-        {"heads", "kv_heads", "d_ff", "vocab"}
+        {"heads", "kv_heads", "d_ff", "vocab", "experts"}
+    assert tensor_rules().table["experts"] == ("pod", "q") == unit_rules(True).table["experts"]
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+def test_moe_layer_slices_sum_to_the_whole_layer(monkeypatch, shared):
+    """OLMoE's MoE layer under the tensor table on each process's slices
+    (the dense path: each process's experts for every token, weighted by
+    their router columns), with and without a shared-experts MLP, whose
+    width (48) splits over 4 where ``d_ff`` (here 50) does not: every
+    process all-reduces once for the routed experts and once for the shared
+    MLP, and the processes' partial sums add up to the whole layer's output
+    (the all-reduce stood in for by the sum over the processes here)."""
+    from repro_torch.models import moe as M
+
+    calls = []
+
+    def partial(y, ctx):
+        calls.append(tuple(y.shape))
+        return y
+
+    monkeypatch.setattr(M, "tensor_all_reduce", partial)
+    monkeypatch.setattr(L, "tensor_all_reduce", partial)
+    cfg = get_smoke_config("olmoe-1b-7b").scaled(num_shared_experts=shared, d_ff=50)
+    p = M.init_moe_layer(L.make_generator(0, "cpu"), cfg)
+    x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want = M.moe_ffn(p, cfg, x)
+    R = 4
+    got = torch.zeros_like(want)
+    for r in range(R):
+        ctx = _fake_ctx(R, r)
+        mine = tensor_slices(p, M.specs_moe_layer(cfg), ctx)
+        assert mine["w_gate"].shape[0] == cfg.num_experts // R
+        with mesh_context(ctx), M.record_paths() as paths:
+            got += M.moe_ffn(mine, cfg, x)
+        assert paths == ["dense-tensor"]
+    per_process = [(10, cfg.d_model)] + [(2, 5, cfg.d_model)] * shared
+    assert calls == per_process * R
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

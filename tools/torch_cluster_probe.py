@@ -74,6 +74,23 @@ tokens/s, decode ms a step, the pod hop's bytes against the count from the
 shapes, params and cache counted on ``meta`` beside the peak, the flash
 launches, the profiled step's all-reduce device time.
 
+``serve --runs tensor_continuous_f32,tensor_continuous,tensor_continuous_67b``
+runs the same scenario with ``--tp-mixed``: each cell's static run, then
+a mixed workload through the continuous engine under the tensor table
+(every rank every slot's cache rows of its kv heads), the static prompts
+through it, and the mixed requests through ``generate_bucketed``: (c)
+``tensor_continuous_f32``, OLMoE-1B-7B at all 16 layers in f32 with its
+experts split (16 a rank), 16 slots, 32 mixed requests of 128 and 256
+tokens, against rank 0's one-process engines on the whole tree; (d)
+``tensor_continuous``, the same model in bf16 on the ``olmoe_continuous``
+run's workload (32 slots, 64 requests of 1,024 and 2,048 tokens, 4 a
+step); (e) ``tensor_continuous_67b``, DeepSeek-67B at all 95 layers in
+bf16, 16 slots, 32 requests of 1,024 and 2,048 tokens, 2 a step.  A line
+of JSON a rank: TTFT, new tokens/s, each prefill group's ms by prompt
+length, ms a decode step, slot-steps beside ``generate_bucketed``'s, the
+pod hop against the schedule's count, the peak beside the counts on
+``meta``.
+
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
 ``tests/_torch_multiproc_driver.py`` in each layout (``backend:PxU``, P
@@ -389,6 +406,30 @@ TENSOR_RUNS = {
     "tensor": ["--tp-cells", "deepseek-67b:0:8x2048x16,qwen1.5-32b:0:8x2048x16",
                "--tp-ref", "none", "--tp-dtype", "bfloat16",
                "--tp-param-dtype", "bfloat16", "--tp-repeat", "2", "--tp-profile"],
+    # (c) the continuous engine's f32 gate: OLMoE-1B-7B at all 16 layers with
+    # its experts split (16 of 64 a rank), f32 with TF32 off, rank 0's
+    # one-process engines on the whole 27.7 GB tree beside its quarter: the
+    # static engine on 16 x 256 + 8, then 16 slots and 32 mixed requests
+    # (128 and 256 tokens, 1-8 new, 2 a step), logits within 2e-4, tokens equal
+    "tensor_continuous_f32": ["--tp-cells", "olmoe-1b-7b:0:16x256x8", "--tp-ref", "whole",
+                              "--tp-dtype", "float32", "--tp-param-dtype", "float32",
+                              "--tp-mixed", "16x32x8", "--serve-prompts", "128,256",
+                              "--serve-rate", "2"],
+    # (d) OLMoE-1B-7B at all 16 layers in bf16 under the tensor table (4 q and
+    # 4 kv heads and 16 experts a rank) on the split-rows engine's workload
+    # (the "olmoe_continuous" run): 32 slots, 64 mixed requests of 1,024 and
+    # 2,048 tokens, 1-16 new, 4 a step; the static engine on 32 x 2,048 + 16
+    "tensor_continuous": ["--tp-cells", "olmoe-1b-7b:0:32x2048x16", "--tp-ref", "none",
+                          "--tp-dtype", "bfloat16", "--tp-param-dtype", "bfloat16",
+                          "--tp-mixed", "32x64x16", "--serve-prompts", "1024,2048",
+                          "--serve-rate", "4"],
+    # (e) DeepSeek-67B at all 95 layers in bf16 through the continuous engine:
+    # 16 slots, 32 mixed requests of 1,024 and 2,048 tokens, 1-16 new, 2 a
+    # step; the static engine on 16 x 2,048 + 16
+    "tensor_continuous_67b": ["--tp-cells", "deepseek-67b:0:16x2048x16", "--tp-ref", "none",
+                              "--tp-dtype", "bfloat16", "--tp-param-dtype", "bfloat16",
+                              "--tp-mixed", "16x32x16", "--serve-prompts", "1024,2048",
+                              "--serve-rate", "2"],
 }
 
 
@@ -432,8 +473,16 @@ def serve(out: Path, runs: list[str]) -> int:
             argv += TENSOR_RUNS[name]
         else:
             argv = [str(DRIVER), "serve", "--serve-full", "--dump", str(dump)] + SERVE_RUNS[name]
-        outs = run_local_cluster(argv, num_processes=procs, local_units=units, timeout_s=900,
-                                 echo=False, backend=backend, device="cuda")
+        try:
+            outs = run_local_cluster(argv, num_processes=procs, local_units=units,
+                                     timeout_s=900, echo=False, backend=backend, device="cuda")
+        except RuntimeError as e:  # every worker's log, whole, where the caller can read it
+            dump.mkdir(parents=True, exist_ok=True)
+            (dump / "failure.log").write_text(str(e))
+            for line in str(e).splitlines():
+                if "FAIL" in line or "Error:" in line and "c10" not in line:
+                    print(f"{tag} {line[:2000]}")
+            raise
         wall = time.perf_counter() - t0
         for pid, log in enumerate(outs):
             for line in log.splitlines():
@@ -547,6 +596,47 @@ def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
             if "decode_profile" in r:
                 line["decode_profile"] = r["decode_profile"]
             print(f"{tag} rank {pid}: {json.dumps(line)}")
+            if "continuous" in r:
+                print(f"{tag} rank {pid}: {json.dumps(_continuous_line(pid, arch, r, smi))}")
+
+
+def _continuous_line(pid: int, arch: str, r: dict, smi: str) -> dict:
+    """A tensor-parallel continuous run's line: TTFT, new tokens/s, each
+    prefill group's ms by prompt length, ms a decode step, slot-steps beside
+    ``generate_bucketed``'s, the pod hop against the schedule's count, the
+    peak beside the params and cache counted on ``meta``, the tokens equal
+    on every rank, and where rank 0 ran them, against its one-process
+    engine."""
+    c = r["continuous"]
+    slots, n_req, new = c["shape"]
+    by_len: dict = {}
+    for plen, s in zip(c["group_lengths"], c["prefill_s"]):
+        by_len.setdefault(plen, []).append(s * 1e3)
+    n = len(c["decode_s"])
+    line = {"rank": pid, "arch": arch, "engine": "continuous", "layers": r["layers"],
+            "dtype": r["dtype"], "rows": c["rows"], "slots": slots, "requests": n_req,
+            "prompts": c["prompts"], "max_new": new, "rate": c["rate"],
+            "ttft_mean_s": c["record"].get("ttft_mean_s"),
+            "ttft_p99_s": c["record"].get("ttft_p99_s"), "new_tok_s": c["record"]["tok_s"],
+            "record": c["record"], "prefill_groups": c["groups"],
+            "prefill_ms_by_len": {k: [min(v), sum(v) / len(v), max(v)] for k, v in by_len.items()},
+            "decode_steps": n, "decode_ms_a_step": 1e3 * sum(c["decode_s"]) / max(n, 1),
+            "slot_steps": c["stats"]["slot_steps"], "bucketed": c["bucketed"],
+            "uniform_equal_static": c.get("uniform_equal_static"), "paths": c["paths"],
+            "pod_hop_bytes": c["hop_bytes"], "pod_hop_kinds": c["hop_kinds"],
+            "pod_hop_derived": c["want_hop"], "param_bytes_counted": r["param_bytes_counted"],
+            "cache_bytes_counted": c["cache_bytes_counted"], "peak": c["peak"],
+            "launches": c["launches"], "mux": c["mux"],
+            "equal_on_every_rank": c["equal_on_every_process"], "nvidia_smi": smi}
+    if "one_process" in c:
+        one = c["one_process"]
+        line.update(logits_close=one["logits_close"], logit_abs_max=max(one["logit_abs"]),
+                    prefill_logit_abs_max=max(one["prefill_logit_abs"]),
+                    tokens_equal_one_process=one["tokens_equal"],
+                    stats_spans_steps_drops_equal=[one[k] for k in (
+                        "stats_equal", "spans_equal", "steps_equal", "drops_equal")],
+                    drops=sum(one["drops"]), one_process=r["one_process_continuous"])
+    return line
 
 
 def main(argv: list[str]) -> int:
