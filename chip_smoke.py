@@ -33,7 +33,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    padded head dim (D=48, f32, S=192), phase 9b's prefill on a process's
    heads (B=4, H=32, KH=4, S=256, D=128, causal, f32), phase 9c's (B=8,
    H=KH=8, S=256, D=128, f32) and the four-card probe's bf16 ones (B=8,
-   S=2,048, D=128: H=16 and KH=2, H=KH=10, H=KH=4), within
+   S=2,048, D=128: H=16 and KH=2, H=KH=10, H=KH=4), Zamba2-7B's rank
+   shapes at D=112 (phase 9d's f32 B=2, H=KH=16, S=512; the probe's bf16
+   B=8, H=KH=8, S=2,048) and a rank's at its long_500k cell (B=1, H=KH=8,
+   S=524,288, bf16, held in blocks of 256 query rows), within
    the reference's tolerances
    (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
    limit and beside
@@ -46,8 +49,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    and at batch 1 over a 32,768-token and a 524,288-token prompt (bf16:
    x of 2**31 elements; one timed plain call), at Zamba2-7B's (B=4, H=112,
    N=64), chained from a nonzero initial state and with two groups, against
-   its plain version, bound by the larger of bytes and f32 flops, with one
-   call profiled for the device time of each of its three kernels;
+   its plain version, bound by the larger of bytes and flops at the inputs'
+   type's peak (bf16; f32 as 3xTF32, one f32 FMA pass printed beside it),
+   with one call profiled for the device time of each of its three kernels;
 4. queries — TPC-H at ``--sf`` through the port's planner and executor:
    Q1, Q6, Q17, Q3 on 8 shards, Q3 and Q18 on 2 pods x 4, and Q3 again
    with an explicit ``impl="round_robin", num_chunks=2``.  Every answer is
@@ -308,11 +312,13 @@ Phases, in order; any failure raises and the process exits non-zero:
    time, each freed before the next loads.  A uniform workload (8 requests
    x 256 prompt tokens x 16 new at batch 4; Qwen2-VL with 128 patch rows
    before every prompt) through the static and the continuous engine must
-   give identical greedy tokens; a mixed workload (``make_mixed_workload``
-   with the reference launcher's prompt lengths: 128/256, the VLM's 256
-   alone; 2 requests a slot, 1-16 new, queued up front; since PR 34 for
-   DeepSeek-V2-Lite alone, for the script's time) must complete with
-   ``alloc.check()`` holding and in fewer slot-steps than static batching.
+   give identical greedy tokens; DeepSeek-V2-Lite alone (the MLA and
+   expert-parallel slot path) also runs a mixed workload
+   (``make_mixed_workload`` with the reference launcher's prompt lengths
+   128/256; 1 request a slot, 1-16 new, queued up front), which must
+   complete with ``alloc.check()`` holding and in fewer slot-steps than
+   static batching (``generate_bucketed``).  The other configs run no mixed
+   workload, for the script's time: phases 9b-9c serve mixed requests.
    DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
    (the units must divide a decode step's tokens): the continuous engine,
    under its tuned multiplexer, must launch ``moe_dispatch`` once per MoE
@@ -358,6 +364,19 @@ Phases, in order; any failure raises and the process exits non-zero:
    layer a prefill and group, ``moe_dispatch`` once a layer an
    expert-parallel call (the JSON line's ``flash_attention[tensor-moe]``
    and ``moe_dispatch[tensor]`` rows);
+9d. (at once with 9b and 9c) the SSM and hybrid families tensor-parallel:
+   the same scenario over 2 processes of 2 units, f32 (TF32 off),
+   ``attn_impl="flash"``, through the static engine (the continuous engine
+   refuses both families, as the reference's), with the prefill's SSM
+   states gated too (``--tp-states``): Mamba2-1.3B at full width and depth
+   (32 of 64 SSM heads a process: its ``z``, ``x`` and ``dt`` columns, every
+   ``B``/``C`` column, its conv channels and ``out_proj`` rows), 4 x 512 + 8
+   new; then Zamba2-7B at full width, 13 of 81 layers (phase 8's cut; 56 of
+   112 SSM heads, 16 q and 16 kv heads at D = 112, half of ``d_ff`` and the
+   vocab a process), 2 x 512 + 8 new; each against process 0's one-process
+   engine with 9b's gates; ``ssd_scan`` once a Mamba2 layer a prefill and
+   ``flash_attention`` once a shared-block call (the JSON line's
+   ``ssd_scan[tensor]`` and ``flash_attention[tensor-ssm]`` rows);
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
@@ -484,11 +503,10 @@ SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
 # four-card probe serves them whole, tensor-parallel
 # (``tools/torch_cluster_probe.py serve --runs tensor``), so here they run
 # cut to 24 and 20 layers (48 and 40 until the tensor-parallel phase 9b came,
-# cut for the script's time), and without the mixed workload (TF_UNMIXED).
-# Since phase 9c came the dense configs skip the mixed workload too, for the
-# script's time: only the expert-parallel DeepSeek-V2-Lite runs it (the
-# continuous engine's slot-steps against static batching stay gated there and
-# in phase 5; phase 9b serves DeepSeek-67B's mixed requests continuously).
+# cut for the script's time).  Only DeepSeek-V2-Lite runs a mixed workload
+# (TF_MIXED_ARCHS), the one on-card run of the MLA + expert-parallel slot path
+# at unequal positions; the dense configs stopped with phase 9c, for the
+# script's time (phases 9b-9c serve mixed requests continuously).
 TF_CONFIGS = {
     "minicpm-2b": (None, "float32"),
     "qwen2.5-3b": (None, "float32"),
@@ -497,7 +515,6 @@ TF_CONFIGS = {
     "qwen1.5-32b": (24, "bfloat16"),
     "deepseek-67b": (20, "bfloat16"),
 }
-TF_UNMIXED = ("minicpm-2b", "qwen2.5-3b", "qwen2-vl-2b", "qwen1.5-32b", "deepseek-67b")
 # the uniform workload: requests, prompt tokens, new tokens, batch; a VLM adds
 # min(VLM_PATCHES, prompt // 2) patch rows.  The expert-parallel model runs at
 # batch 8: its 8 units must divide a decode step's tokens, or the MoE layer
@@ -505,9 +522,10 @@ TF_UNMIXED = ("minicpm-2b", "qwen2.5-3b", "qwen2-vl-2b", "qwen1.5-32b", "deepsee
 TF_SERVE = (8, 256, 16, 4)
 TF_EP_UNITS = 8
 # the mixed workload: requests per batch slot, arrivals a decode step (0: all
-# queued up front, as the reference launcher's default); 2 a slot, not 4, to
-# keep the whole script well inside its time limit
-TF_MIXED = (2, 0.0)
+# queued up front, as the reference launcher's default); 1 a slot (2 until
+# phase 9d came, 4 before that), for the script's time
+TF_MIXED = (1, 0.0)
+TF_MIXED_ARCHS = ("deepseek-v2-lite-16b",)
 # the f32 check at batch 1: full prompt, split point (then one decode step a
 # token to the full prompt), and the limit of the largest magnitude
 TF_CHECK = (256, 192)
@@ -546,6 +564,28 @@ TP_PROBE_FLASH = ((8, 16, 2, 2048, 128), (8, 10, 10, 2048, 128), (8, 4, 4, 2048,
 # OLMoE's capacity factor of 1.25 (the four-card probe's shapes are the gpu
 # cases of tests/test_torch_moe.py)
 TP_MOE = (("decode", 4, 1, 4), ("prefill", 4, 256, 40))
+# Phase 9d: the SSM and hybrid families tensor-parallel over 2 worker
+# processes on this card (Gloo) of 2 units: Mamba2-1.3B at full width and
+# depth (48 layers, 32 of its 64 SSM heads a process), then Zamba2-7B at full
+# width cut to 13 layers (phase 8's cut: 2 groups of 6 with the shared block,
+# a tail of 1; 56 of 112 SSM heads, 16 q and 16 kv heads at D = 112 a
+# process), f32 with TF32 off, attn_impl="flash"; each against process 0's
+# one-process engine on the whole tree (logits, tokens, the prefill's SSM
+# states).  TPS_SSD and TPS_FLASH are the shapes a process's prefill gives the
+# kernels there (B, L, H, P, N and B, H, KH, S, D), held in phase 3.
+TPS_PROCS, TPS_UNITS = 2, 2
+TPS_CELLS = "mamba2-1.3b:0:4x512x8,zamba2-7b:13:2x512x8"
+TPS_SSD = ((4, 512, 32, 64, 128), (2, 512, 56, 64, 64))
+TPS_FLASH = (2, 16, 16, 512, 112)
+# the bf16 shapes a rank runs in the four-card probe's 8 x 2,048 prefills
+# (tools/torch_cluster_probe.py serve --runs tensor_ssm): ssd_scan on
+# Mamba2-1.3B's 16 and Zamba2-7B's 28 SSM heads a rank, and Zamba2's shared
+# attention on 8 q and 8 kv heads at D = 112
+TP_PROBE_SSD = ((8, 2048, 16, 64, 128), (8, 2048, 28, 64, 64))
+TP_PROBE_SSM_FLASH = (8, 8, 8, 2048, 112)
+# and a rank's shared-block prefill at Zamba2-7B's long_500k cell over four
+# cards (--runs tensor_long_500k): B, H, KH, S, D
+TP_PROBE_LONG_FLASH = (1, 8, 8, 524_288, 112)
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
@@ -746,12 +786,74 @@ def _flash_row(B, H, KH, Sq, Sk, D, causal, dtype, seed, smi: str) -> dict:
     )
 
 
+def _flash_long_row(B, H, KH, S, D, seed, smi: str, q_block: int = 256) -> None:
+    """The attention kernel at a long causal bf16 prompt (a rank's shared
+    block at Zamba2-7B's long_500k cell), held block by block against its
+    plain version: each ``q_block`` of query rows is
+    ``ref.flash_attention_ref``'s arithmetic on those rows and the keys they
+    see (the whole ``[S, S]`` logits never exist), within the reference's
+    bf16 tolerance (2e-2); timed beside SDPA (never used by the port) and
+    bound as ``_flash_row`` bounds it.  Printed only: the JSON line's rows
+    are the main path's launch keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, KH, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, KH, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    t0 = time.perf_counter()
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    scale, G, tol, err = 1.0 / math.sqrt(D), H // KH, 2e-2, 0.0
+    t0 = time.perf_counter()
+    for s0 in range(0, S, q_block):
+        e = s0 + q_block
+        qg = q[:, :, s0:e].reshape(B, KH, G, q_block, D)
+        logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k[:, :, :e]).float() * scale
+        mask = torch.arange(s0, e, device="cuda")[:, None] >= torch.arange(e, device="cuda")
+        w = torch.softmax(logits.masked_fill_(~mask, float("-inf")), dim=-1).to(v.dtype)
+        del logits
+        want = torch.einsum("bkgqs,bksd->bkgqd", w, v[:, :, :e]).reshape(B, H, q_block, D)
+        g = got[:, :, s0:e].float()
+        err = max(err, float((g - want.float()).abs().max()))
+        if not torch.allclose(g, want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention bf16 {(B, H, KH, S, D)}: query rows "
+                                 f"{s0}-{e - 1} disagree with the plain version (max |err| "
+                                 f"{err})")
+        del w, want
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=2, warmup=1)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True),
+                          iters=2, warmup=1)
+    flops, nbytes = fa.attention_work(q, k, True)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    print(
+        f"[kernels] flash_attention: B={B} H={H} KH={KH} Sq=Sk={S} D={D} causal bfloat16, every "
+        f"query row within {tol} of the plain version in blocks of {q_block} (max |err| "
+        f"{err:.3g}; first call {first_s:.2f} s, check {check_s:.1f} s); kernel {ms:.4f} ms, "
+        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops} flop, "
+        f"{nbytes} B), {100 * bound_ms / ms:.2f}% of bound ({smi})"
+    )
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+
 def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False, plain_iters=3) -> dict:
     """The chunk-scan kernel against its plain version (y within 2e-4 in
     f32 and 2e-2 in bf16, the f32 state within 2e-4), timed beside the plain
     version (``plain_iters`` calls after one warm-up); bound by the larger of
-    bytes and f32 flops.  The inputs follow the model's distributions: dt
-    log-uniform in [1e-3, 1e-1], A uniform in [-16, -1]."""
+    bytes and flops at the inputs' type's peak (bf16; f32 as three tf32
+    products, as ``_flash_row`` counts it, with one f32 FMA pass printed
+    beside it).  The inputs follow the model's distributions: dt log-uniform
+    in [1e-3, 1e-1], A uniform in [-16, -1]."""
     import torch
 
     from repro_torch.kernels import ref
@@ -785,22 +887,29 @@ def _ssd_row(B, L, H, P, N, Q, G, dtype, seed, initial_state=False, plain_iters=
                         warmup=1)
     flops, nbytes = sk.scan_work(x, dt, A, Bm, Q, s0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    ops_ms = (3 * flops / PEAK_FLOPS["tf32"] if dtype == "float32"
+              else flops / PEAK_FLOPS[dtype]) * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     label = (f"B={B} L={L} H={H} P={P} N={N} Q={Q} G={G} {dtype}"
              + (" from an initial state" if initial_state else ""))
+    extra = {}
+    fma = ""
+    if dtype == "float32":
+        extra["bound_f32_fma_ms"] = max(bytes_ms, flops / PEAK_FLOPS["float32"] * 1e3)
+        fma = (f"; f32 FMA bound {extra['bound_f32_fma_ms']:.4f} ms, "
+               f"{100 * extra['bound_f32_fma_ms'] / ms:.2f}% of it")
     print(
         f"[kernels] ssd_scan: {label}: y within {tol} (max |err| {err:.3g}), state within "
         f"2e-4 ({err_s:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({flops} flop, {nbytes} B), "
-        f"{100 * bound_ms / ms:.2f}% of bound"
+        f"{bound_ms:.4f} ms by {bound_by}{' (3xTF32)' if dtype == 'float32' else ''} "
+        f"({flops} flop, {nbytes} B), {100 * bound_ms / ms:.2f}% of bound{fma}"
     )
     _profile_call(f"ssd_scan {label}", lambda: sk.ssd_scan(x, dt, A, Bm, Cm, Q, s0),
                   kernel=("ssd_", "ssd_scan"), top=3)  # its three kernels apart
     return dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:135", match=True, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **extra,
     )
 
 
@@ -943,6 +1052,14 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     tensor_olmoe["launch_key"] = "flash_attention[tensor-moe]"
     for b, h, kh, s_, d in TP_PROBE_FLASH:
         _flash_row(b, h, kh, s_, s_, d, True, "bfloat16", seed, smi)
+    # phase 9d's Zamba2 prefill on a process's heads at D = 112 (f32; the
+    # wrapper pads to 128), and the four-card probe's bf16 rank shape
+    b, h, kh, s_, d = TPS_FLASH
+    tensor_ssm = _flash_row(b, h, kh, s_, s_, d, True, "float32", seed, smi)
+    tensor_ssm["launch_key"] = "flash_attention[tensor-ssm]"
+    b, h, kh, s_, d = TP_PROBE_SSM_FLASH
+    _flash_row(b, h, kh, s_, s_, d, True, "bfloat16", seed, smi)
+    _flash_long_row(*TP_PROBE_LONG_FLASH, seed, smi)
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
     # prefill_32k prompt at batch 1 (64 blocks, the state carried over 128
     # chunks) and its long_500k prompt (x of 2**31 elements, 2,048 chunks);
@@ -956,10 +1073,17 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
            _ssd_row(4, 2048, 112, 64, 64, 256, 1, "bfloat16", seed),
            _ssd_row(2, 1024, 64, 64, 128, 256, 1, "float32", seed, initial_state=True),
            _ssd_row(2, 1024, 64, 64, 128, 256, 2, "float32", seed)]
+    # under the tensor table: phase 9d's f32 prefills on a process's heads
+    # (Mamba2-1.3B's is the row), the four-card probe's bf16 rank shapes
+    tensor_ssd = [_ssd_row(*shape, 256, 1, "float32", seed) for shape in TPS_SSD]
+    tensor_ssd[0]["launch_key"] = "ssd_scan[tensor]"
+    for shape in TP_PROBE_SSD:
+        _ssd_row(*shape, 256, 1, "bfloat16", seed)
     # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
     return (rows + moe_rows + tensor_moe
-            + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, ssd[0]])
+            + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, tensor_ssm, ssd[0],
+               tensor_ssd[0]])
 
 
 def _close(got, want, rtol) -> bool:
@@ -2199,12 +2323,12 @@ class _Timed:
     def __init__(self, fn):
         self.fn, self.seconds, self.calls, self.tokens, self.ends = fn, 0.0, 0, 0, []
 
-    def __call__(self, params, batch, *rest):
+    def __call__(self, params, batch, *rest, **kw):
         import torch
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = self.fn(params, batch, *rest)
+        out = self.fn(params, batch, *rest, **kw)
         torch.cuda.synchronize()
         self.ends.append(time.perf_counter())
         self.seconds += self.ends[-1] - t0
@@ -3071,8 +3195,8 @@ def _ssm_serve(api, params, rng, arch: str, tag: str, n: int, plen: int, new: in
 
     prefill = api.prefill
     if keep is not None:
-        def prefill(params, batch_):
-            logits, keep["cache"] = api.prefill(params, batch_)
+        def prefill(params, batch_, **kw):
+            logits, keep["cache"] = api.prefill(params, batch_, **kw)
             return logits, keep["cache"]
 
     cfg, L = api.cfg, api.cfg.num_layers  # every layer of both models is a Mamba2 layer
@@ -3386,8 +3510,9 @@ def _tf_check(api32, params, seed: int, arch: str, extra: dict) -> None:
 
 
 def _tf_model(arch: str, seed: int, smi: str) -> dict:
-    """One transformer config at full width through both engines (uniform
-    and mixed workloads), the expert-parallel model over ``TF_EP_UNITS``
+    """One transformer config at full width through both engines (a uniform
+    workload; a mixed one for ``TF_MIXED_ARCHS``), the expert-parallel model
+    over ``TF_EP_UNITS``
     simulated units, then the f32 check.  Returns every kernel's launches
     over its continuous runs (the main path)."""
     import dataclasses
@@ -3456,7 +3581,7 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
             main_path[k] += v
         return ce, t_api
 
-    def static(reqs, tag, bucketed):
+    def static(reqs, tag, bucketed=False):
         t_api = _timed_api(api)
         _reset_counts()
         se = ServeEngine(t_api, batch_size=B, capacity=cap)
@@ -3474,7 +3599,7 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
     with scope:
         # -- uniform: static vs continuous, identical greedy tokens ----------
         reqs_s = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
-        se, s_api = static(reqs_s, "uniform", bucketed=False)
+        se, s_api = static(reqs_s, "uniform")
         _serving_line(f"{arch} uniform static", s_api, reqs_s, se.stats)
         reqs_c = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts]
         ce, c_api = continuous(reqs_c, "uniform")
@@ -3506,9 +3631,8 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
                   f"pack vs plain pack over {TF_EP_UNITS} units; all finite")
             del k_logits, p_logits, batch
 
-        # -- mixed: the reference launcher's prompt lengths (not for the
-        # configs the four-card probe serves whole) --------------------------
-        if arch not in TF_UNMIXED:
+        # -- mixed: the reference launcher's prompt lengths ------------------
+        if arch in TF_MIXED_ARCHS:
             lens = [plen] if side else [plen // 2, plen]
             per_slot, rate = TF_MIXED
             mixed = make_mixed_workload(cfg.vocab_size, per_slot * B, lens, new, rng,
@@ -3554,27 +3678,30 @@ def phase_transformers(seed: int, smi: str) -> dict:
     return total
 
 
-def _tensor_cluster(procs: int, units: int, cell: str, mixed: tuple) -> tuple[list, float, float]:
+def _tensor_cluster(procs: int, units: int, cell: str, mixed: tuple | None,
+                    extra: tuple = ()) -> tuple[list, float, float]:
     """The ``tensor_serve`` scenario of ``tests/_torch_multiproc_driver.py``
     over ``procs`` worker processes of ``units`` units on this card (Gloo):
     ``cell`` through the static engine, then ``mixed`` (slots x requests x
-    new, prompt lengths, arrivals a step) through the continuous one, each
-    against process 0's one-process engines on the whole tree; every gate
-    asserted in the workers.  Returns each process's record, the launch's
-    wall clock at its start and its seconds."""
+    new, prompt lengths, arrivals a step; ``None``: none) through the
+    continuous one, each against process 0's one-process engines on the
+    whole tree, with the driver's ``extra`` arguments; every gate asserted in
+    the workers.  Returns each process's record, the launch's wall clock at
+    its start and its seconds."""
     import shutil
 
     from repro_torch.launch.cluster import run_local_cluster
 
     dump = tempfile.mkdtemp(prefix="chip_smoke_tensor_")
     t0, launched_at = time.perf_counter(), time.time()
-    shape, prompts, rate = mixed
+    if mixed is not None:
+        shape, prompts, rate = mixed
+        extra = ("--tp-mixed", shape, "--serve-prompts", prompts, "--serve-rate", rate) + extra
     try:
         outs = run_local_cluster(
             [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "tensor_serve", "--tp-full",
              "--tp-cells", cell, "--tp-ref", "whole", "--tp-dtype", "float32",
-             "--tp-param-dtype", "float32", "--tp-mixed", shape, "--serve-prompts", prompts,
-             "--serve-rate", rate, "--dump", dump],
+             "--tp-param-dtype", "float32", *extra, "--dump", dump],
             num_processes=procs, local_units=units, timeout_s=TP_TIMEOUT_S, echo=False,
             backend="gloo", device="cuda",
         )
@@ -3671,32 +3798,93 @@ def _tensor_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
     return launched
 
 
+def _tensor_ssm_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
+    """Check and print phase 9d's dumps: each cell against process 0's
+    one-process engine (logits, greedy tokens, the placed params the whole
+    tree's slices) and every process's prefill SSM states against its heads
+    of the one-process run's; each process's pod hop against the count from
+    the shapes, its peak beside its params and cache counted on ``meta``, its
+    launches (the workers gate ``ssd_scan`` once a Mamba2 layer and
+    ``flash_attention`` once a shared-block call a prefill).  Returns the
+    launches over the tensor runs (the main path) by kernel."""
+    launched = {"ssd_scan": 0, "flash_attention": 0}
+    for arch, r0 in recs[0]["archs"].items():
+        B, S, new = r0["shape"]
+        one = r0["one_process"]
+        if not (r0["rows"] == "tensor" and r0["logits_close"] and r0["tokens_equal"]
+                and r0["params_equal_slices"]):
+            raise AssertionError(f"{tag} {arch}: against the one-process engine "
+                                 f"{ {k: v for k, v in r0.items() if k != 'leaf_shapes'} }")
+        ls = r0["leaf_shapes"]
+        block = "layers/0/mamba" if "layers/0/mamba/A_log" in ls else "groups/0/0/mamba"
+        attn = (f", {ls['shared/attn/wq'][1]} q and {ls['shared/attn/wk'][1]} kv heads at D = "
+                f"{ls['shared/attn/wq'][2]}" if "shared/attn/wq" in ls else "")
+        print(f"{tag} {arch} full width, {r0['layers']} layers, f32 (TF32 off), "
+              f"attn_impl={r0['attn_impl']}: {B} x {S}-token prompts + {new} new over {procs} "
+              f"processes on this card over Gloo ({r0['rows']}: {ls[block + '/A_log'][0]} SSM "
+              f"heads, in_proj {ls[block + '/in_proj']}{attn} a process); greedy tokens equal to "
+              f"process 0's one-process engine on the whole tree; logits within max |err| "
+              f"{max(r0['logit_abs']):.3g} (allclose rtol = atol = {r0['tol']}) over "
+              f"{len(r0['logit_abs'])} calls; process 0's params equal the whole tree's slices "
+              f"({smi})")
+        print(f"{tag} {arch} one process (whole tree): prefill {one['prefill_s'][0] * 1e3:.1f} "
+              f"ms, decode {sum(one['decode_s']) * 1e3:.1f} ms over {len(one['decode_s'])} steps, "
+              f"peak {one['peak']} B, launches {one['launches']}")
+        for pid, rec in enumerate(recs):
+            r = rec["archs"][arch]
+            if not (r["states_close"] and r["tokens_equal_on_every_process"]):
+                raise AssertionError(f"{tag} {arch} process {pid}: states {r['state_abs']}, "
+                                     f"tokens equal {r['tokens_equal_on_every_process']}")
+            h = r["want_hop"]
+            print(f"{tag} {arch} process {pid}: prefill {r['prefill_s'][-1][0] * 1e3:.1f} ms, "
+                  f"decode {sum(r['decode_s'][-1]) * 1e3:.1f} ms over "
+                  f"{len(r['decode_s'][-1])} steps; prefill SSM states within {r['state_abs']} of "
+                  f"its heads of the one-process run's (allclose {r['tol']}); pod hop "
+                  f"{r['hop_kinds']} = {r['hop_bytes']} B, the shapes' count {h['total']} B "
+                  f"({h['reduces_a_call']} all-reduces a prefill); peak {r['peak']} B (params "
+                  f"{r['param_bytes_counted']} + cache {r['cache_bytes_counted']} B counted on "
+                  f"meta); launches {r['launches']}")
+            for k in launched:
+                launched[k] += r["launches"][k]
+    return launched
+
+
 def phase_tensor_serve(smi: str) -> dict:
     """Tensor-parallel serving on this card over worker processes (Gloo),
-    the two clusters at once: phase 9b, DeepSeek-67B at ``TP_CELL`` over
+    the three clusters at once: phase 9b, DeepSeek-67B at ``TP_CELL`` over
     ``TP_PROCS`` processes, and phase 9c, OLMoE-1B-7B at ``TPM_CELL`` over
     ``TPM_PROCS`` (its experts split), each through both engines against
-    process 0's one-process engines (``_tensor_cluster``).  Returns the
-    workers' launches over the tensor runs (the main path):
-    ``flash_attention[tensor]`` (9b), ``flash_attention[tensor-moe]`` and
-    ``moe_dispatch[tensor]`` (9c)."""
+    process 0's one-process engines (``_tensor_cluster``); phase 9d,
+    Mamba2-1.3B and Zamba2-7B at ``TPS_CELLS`` over ``TPS_PROCS`` (their SSM
+    heads split) through the static engine.  Returns the workers' launches
+    over the tensor runs (the main path): ``flash_attention[tensor]`` (9b),
+    ``flash_attention[tensor-moe]`` and ``moe_dispatch[tensor]`` (9c),
+    ``ssd_scan[tensor]`` and ``flash_attention[tensor-ssm]`` (9d)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         dense = pool.submit(_tensor_cluster, TP_PROCS, TP_UNITS, TP_CELL, TP_MIXED)
         moe = pool.submit(_tensor_cluster, TPM_PROCS, TPM_UNITS, TPM_CELL, TPM_MIXED)
+        ssm = pool.submit(_tensor_cluster, TPS_PROCS, TPS_UNITS, TPS_CELLS, None,
+                          ("--tp-states",))
         (b_recs, _, b_wall), (c_recs, _, c_wall) = dense.result(), moe.result()
+        d_recs, _, d_wall = ssm.result()
     b = _tensor_lines("[tensor-serve]", b_recs, TP_PROCS, smi)
     c = _tensor_lines("[tensor-moe]", c_recs, TPM_PROCS, smi)
+    d = _tensor_ssm_lines("[tensor-ssm]", d_recs, TPS_PROCS, smi)
     if c["moe_dispatch"] <= 0:
         raise AssertionError("[tensor-moe] moe_dispatch never launched under the tensor table")
-    print(f"[tensor-serve] phases 9b and 9c in {time.perf_counter() - t0:.1f} s at once "
-          f"(launcher walls {b_wall:.1f} and {c_wall:.1f} s); launches over the tensor runs: "
-          f"9b {b}, 9c {c}")
+    if d["ssd_scan"] <= 0 or d["flash_attention"] <= 0:
+        raise AssertionError(f"[tensor-ssm] a kernel never launched under the tensor table: {d}")
+    print(f"[tensor-serve] phases 9b, 9c and 9d in {time.perf_counter() - t0:.1f} s at once "
+          f"(launcher walls {b_wall:.1f}, {c_wall:.1f} and {d_wall:.1f} s); launches over the "
+          f"tensor runs: 9b {b}, 9c {c}, 9d {d}")
     return {"flash_attention[tensor]": b["flash_attention"],
             "flash_attention[tensor-moe]": c["flash_attention"],
-            "moe_dispatch[tensor]": c["moe_dispatch"]}
+            "moe_dispatch[tensor]": c["moe_dispatch"],
+            "ssd_scan[tensor]": d["ssd_scan"],
+            "flash_attention[tensor-ssm]": d["flash_attention"]}
 
 
 def _whisper_check(cfg, params, seed: int) -> None:
@@ -3993,9 +4181,10 @@ def main() -> int:
     # 9. the six transformer configs (the dense, VLM and MLA serving main path)
     f_launches = phase_transformers(args.seed, smi)
 
-    # 9b-9c. tensor-parallel serving across two processes (the dense and MoE
-    # serving main paths with their heads, d_ff, vocab and experts split),
-    # through the static and continuous engines
+    # 9b-9d. tensor-parallel serving across two processes (the dense and MoE
+    # serving main paths with their heads, d_ff, vocab and experts split,
+    # through the static and continuous engines; the SSM and hybrid ones with
+    # their SSM heads split, through the static engine)
     g_launches = phase_tensor_serve(smi)
 
     # 10. Whisper (the encoder-decoder serving and training main path)

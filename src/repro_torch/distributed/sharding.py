@@ -18,8 +18,8 @@ checks the names against the tensor's rank, and the port places from the
 rules in two places: the train state's experts (:func:`repro_torch.train.
 step.state_shardings`) and, under :func:`tensor_rules`, a served model's
 matrices (:func:`tensor_place`: each process keeps its slices of the heads,
-``d_ff``, vocab and experts dims, and the layers reduce or gather over the
-processes where the reference's GSPMD would).  The context wraps the
+``d_ff``, vocab, experts and SSM heads dims, and the layers reduce or
+gather over the processes where the reference's GSPMD would).  The context wraps the
 :class:`~repro_torch.core.exchange.Mesh` (``num_pods x n`` units,
 pod-major, possibly spanning processes); its rules default to
 :func:`unit_rules`, and ``axis_sizes`` lets a context resolve against
@@ -112,15 +112,19 @@ def default_rules(multi_pod: bool) -> AxisRules:
 
 
 #: The logical names :func:`tensor_rules` splits over the processes.
-TENSOR_AXES = ("heads", "kv_heads", "d_ff", "vocab")
+TENSOR_AXES = ("heads", "kv_heads", "d_ff", "vocab", "ssm_heads", "conv_dim")
+#: The Mamba block's names, which the tensor table cuts by the model's
+#: head-aligned sections (``ModelApi.tensor_index``), not in equal runs.
+SSM_AXES = ("ssm_heads", "conv_dim")
 
 
 def tensor_rules() -> AxisRules:
     """The port's tensor-parallel serving table: the names that the
     reference's :func:`default_rules` put on ``model`` and that a dense
-    layer's matrices carry (``heads``, ``kv_heads``, ``d_ff``, ``vocab``)
-    over the pod axis, which spans the processes one pod each and stands
-    for the reference's ``model``; and ``experts`` over the joint unit
+    layer's or a Mamba block's matrices carry (``heads``, ``kv_heads``,
+    ``d_ff``, ``vocab``, ``ssm_heads``, ``conv_dim``) over the pod axis,
+    which spans the processes one pod each and stands for the reference's
+    ``model``; and ``experts`` over the joint unit
     axis ``(pod, q)``, as :func:`unit_rules` puts it, where the
     expert-parallel layer consumes the expert weights (the reference's
     ``default_rules`` put it on the same ``model`` axis as the heads), so a
@@ -174,7 +178,8 @@ class MeshContext:
         m = self.mesh
         if self.tensor and not (m.num_processes > 1 and m.pods_per_process == 1):
             raise ValueError(
-                f"the tensor table splits heads, d_ff, vocab and experts over the processes, "
+                f"the tensor table splits heads, d_ff, vocab, experts and SSM heads over the "
+                f"processes, "
                 f"a pod each; a mesh of {m.num_pods} pod(s) over {m.num_processes} process(es) "
                 "has no such axis (launch under `python -m repro_torch.launch.cluster` and "
                 "make the mesh with one pod a process)")
@@ -182,8 +187,9 @@ class MeshContext:
     @property
     def tensor(self) -> bool:
         """Do the rules split a layer's matrices over the pod axis (the
-        tensor table)?  Only the names of :data:`TENSOR_AXES` count:
-        ``experts`` lies on the pod axis under :func:`unit_rules` too."""
+        tensor table)?  Only the names of :data:`TENSOR_AXES` count (a
+        dense layer's and a Mamba block's): ``experts`` lies on the pod
+        axis under :func:`unit_rules` too."""
         return any(POD_AXIS in _axes(self.rules.table.get(n)) for n in TENSOR_AXES)
 
     @property
@@ -329,35 +335,49 @@ def tensor_split(dim: int, name: str, ctx: MeshContext | None = None) -> int:
     return ctx.mesh.num_processes
 
 
-def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext) -> torch.Tensor:
+def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext, index=None) -> torch.Tensor:
     """This process's slice of a whole leaf ``t`` with logical axes
     ``spec``: along each dim that resolves onto the pod axis, the ``i``-th
     of ``R`` equal runs for process ``i`` (under ``(pod, q)``, one pod a
-    process, its units' runs are that one run), in storage of its own (so
-    the whole leaf can be freed)."""
+    process, its units' runs are that one run); along a Mamba block's dim
+    (:data:`SSM_AXES`) the indices ``index(width, ctx)`` that the model
+    hands in (its head-aligned sections, e.g.
+    ``functools.partial(mamba2.tensor_index, cfg)``; ``None`` keeps the dim
+    whole).  In storage of its own, so the whole leaf can be freed."""
     R, i = ctx.mesh.num_processes, ctx.mesh.process_index
     cut = False
-    for d, axes in enumerate(logical_sharding(tuple(t.shape), *spec, ctx=ctx)):
+    for d, name in enumerate(spec):
+        if name not in SSM_AXES:
+            continue
+        if index is None:
+            raise ValueError(f"cutting a Mamba leaf ({name!r}) needs the model's index function")
+        idx = index(t.shape[d], ctx)
+        if idx is not None:
+            t = t.index_select(d, idx.to(t.device))
+    plain = tuple(None if name in SSM_AXES else name for name in spec)
+    for d, axes in enumerate(logical_sharding(tuple(t.shape), *plain, ctx=ctx)):
         if POD_AXIS in _axes(axes):
             n = t.shape[d] // R
             t, cut = t.narrow(d, i * n, n), True
     return t.clone() if cut else t
 
 
-def tensor_slices(tree, spec_tree, ctx: MeshContext):
-    """:func:`tensor_slice` of every leaf of ``tree`` by its spec."""
-    return tree_map(lambda t, spec: tensor_slice(t, spec, ctx), tree, spec_tree)
+def tensor_slices(tree, spec_tree, ctx: MeshContext, index=None):
+    """:func:`tensor_slice` of every leaf of ``tree`` by its spec (``index``:
+    the model's cut of a Mamba block, ``ModelApi.tensor_index``)."""
+    return tree_map(lambda t, spec: tensor_slice(t, spec, ctx, index), tree, spec_tree)
 
 
-def tensor_place(spec_tree, ctx: MeshContext):
+def tensor_place(spec_tree, ctx: MeshContext, index=None):
     """The ``place(path, sub) -> sub`` hook of a model's ``init`` that keeps
     this process's slices of each layer (and of the embedding) as it is
-    drawn, so no process ever holds the whole tree."""
+    drawn, so no process ever holds the whole tree (``index``: the model's
+    cut of a Mamba block, ``ModelApi.tensor_index``)."""
     def place(path, sub):
         specs = spec_tree
         for key in path:
             specs = specs[key]
-        return tensor_slices(sub, specs, ctx)
+        return tensor_slices(sub, specs, ctx, index)
 
     return place
 
@@ -417,6 +437,7 @@ __all__ = [
     "default_rules",
     "unit_rules",
     "TENSOR_AXES",
+    "SSM_AXES",
     "tensor_rules",
     "MeshContext",
     "current_mesh_context",

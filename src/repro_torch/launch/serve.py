@@ -25,9 +25,11 @@ request, and one prompt length.
 
 Tensor-parallel (``--tensor``) across the processes of a launch: every
 process serves the whole batch over its slices of the heads, ``d_ff``,
-vocab and experts (:func:`~repro_torch.distributed.sharding.tensor_rules`,
-one pod a process; the dense, VLM and MoE families with GQA, through either
-engine), drawn from the seed as each layer is drawn:
+vocab, experts and SSM heads
+(:func:`~repro_torch.distributed.sharding.tensor_rules`, one pod a process;
+the dense, VLM and MoE families with GQA through either engine, the SSM
+and hybrid families through the static one), drawn from the seed as each
+layer is drawn:
 
   PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
       --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
@@ -37,6 +39,10 @@ engine), drawn from the seed as each layer is drawn:
       --local-units 2 --backend nccl -- -m repro_torch.launch.serve \
       --arch olmoe-1b-7b --tensor --continuous --batch 32 --requests 64 \
       --prompt-len 2048 --arrival-rate 4
+
+  PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
+      --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
+      --arch zamba2-7b --tensor --batch 8 --requests 8 --prompt-len 2048
 
 (``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)  An
 expert-parallel model's units are the launch's processes times its
@@ -136,7 +142,8 @@ def main(argv=None, device: str = "cuda"):
                    help="pods the units split into (two-level dispatch when > 1)")
     p.add_argument("--tensor", action="store_true",
                    help="tensor-parallel over the processes of a launch "
-                        "(repro_torch.launch.cluster): heads, d_ff, vocab and experts split")
+                        "(repro_torch.launch.cluster): heads, d_ff, vocab, experts and SSM "
+                        "heads split")
     p.add_argument("--trace-dir", default=None,
                    help="write a Perfetto-loadable trace JSON per process "
                         "(admission/prefill/decode-step spans; continuous "
@@ -150,7 +157,8 @@ def main(argv=None, device: str = "cuda"):
         device = info.device or device
         ctx = make_context(mesh=make_pod_mesh(), rules=tensor_rules())
         R.require_tensor_parallel(cfg)
-        params = api.init(args.seed, device=device, place=tensor_place(api.param_specs, ctx))
+        params = api.init(args.seed, device=device, place=tensor_place(api.param_specs, ctx,
+                                                                  api.tensor_index))
     else:
         params = api.init(args.seed, device=device)
     capacity = args.prompt_len + args.max_new + 1

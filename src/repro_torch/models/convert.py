@@ -57,7 +57,8 @@ def from_reference(params: Mapping[str, Any], device="cuda") -> dict:
 def tensor_params(params: dict, cfg, ctx=None) -> dict:
     """This process's slices of whole port params (:func:`from_reference`'s
     output) under the tensor table of ``ctx`` (default the active
-    context), cut as ``init``'s ``tensor_place`` cuts them as it draws."""
+    context), cut as ``init``'s ``tensor_place`` cuts them as it draws (a
+    Mamba block by its head-aligned sections)."""
     from ..distributed.sharding import current_mesh_context, tensor_slices
     from .registry import build, require_tensor_parallel
 
@@ -65,7 +66,8 @@ def tensor_params(params: dict, cfg, ctx=None) -> dict:
     if ctx is None or not ctx.tensor:
         raise ValueError("tensor_params needs a mesh context with the tensor table")
     require_tensor_parallel(cfg)
-    return tensor_slices(params, build(cfg).param_specs, ctx)
+    api = build(cfg)
+    return tensor_slices(params, api.param_specs, ctx, api.tensor_index)
 
 
 __all__ = ["from_reference", "tensor_params"]

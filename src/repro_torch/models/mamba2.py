@@ -18,7 +18,23 @@ input/output projections (G groups broadcast over H heads).
 Layers are a list of per-layer dicts (the reference stacks them and scans);
 the cache keeps the reference's stacked layout, ``{"ssm": [L, B, H, P, N]
 f32, "conv": [L, B, K-1, ch]}``, and :func:`decode_step` writes layer ``l``'s
-slice in place.  The reference's param and cache specs have no counterpart.
+slice in place.  :func:`specs` and :func:`cache_specs` are the reference's
+logical axes letter for letter.
+
+Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`)
+a block splits by SSM heads where the process count ``R`` divides ``H``
+(:func:`tensor_heads`; elsewhere it stays whole on every process).  The
+reference's ``conv_dim`` cut of ``in_proj`` runs over the concatenated
+``[z | x | B | C | dt]`` columns in equal runs, which a process that computes
+locally cannot use, so the port cuts by sections (:func:`tensor_index`):
+each process holds its ``H / R`` heads' columns of ``z``, ``x`` and ``dt``,
+every ``B``/``C`` column, the conv channels of its ``x`` and of ``B``/``C``,
+its heads' ``dt_bias``, ``A_log`` and ``D``, and its ``d_inner / R`` rows of
+``out_proj``; ``gate_norm``'s scale stays whole.  The block scans its heads
+against the one ``B``/``C`` group (the cut takes ``G = 1``, as every config
+has), normalises over the whole ``d_inner`` with one all-reduce of the f32
+sum of squares, and all-reduces ``out_proj``'s partial sums: two
+all-reduces a layer.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import tensor_context, tensor_split
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -39,6 +56,62 @@ def dims(cfg: ModelConfig):
     nheads = d_inner // cfg.ssm_head_dim
     conv_ch = d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
     return d_inner, nheads, conv_ch
+
+
+# ----------------------------------------------------------------------------
+# The tensor table's head-aligned cut.
+# ----------------------------------------------------------------------------
+
+def tensor_heads(cfg: ModelConfig, ctx=None) -> tuple[int, int]:
+    """``(R, r)``: into how many runs of SSM heads the tensor table cuts a
+    Mamba block, and which run this process holds; ``(1, 0)`` off the
+    table or where the processes do not divide the heads (the whole block
+    then stays whole on every process).  The cut takes one ``B``/``C``
+    group: with more, raises ``NotImplementedError``."""
+    ctx = ctx or tensor_context()
+    R = tensor_split(dims(cfg)[1], "ssm_heads", ctx)
+    if R == 1:
+        return 1, 0
+    if cfg.ssm_ngroups != 1:
+        raise NotImplementedError(
+            f"the tensor table's head cut of {cfg.name} takes one B/C group, not "
+            f"{cfg.ssm_ngroups}")
+    return R, ctx.mesh.process_index
+
+
+def local_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """:func:`dims` of this process's slice: ``(d_inner / R, H / R, d_inner /
+    R + 2 G N)``, the whole dims where the block stays whole."""
+    d_inner, H, conv_ch = dims(cfg)
+    R, _ = tensor_heads(cfg)
+    return d_inner // R, H // R, conv_ch - d_inner + d_inner // R
+
+
+def tensor_index(cfg: ModelConfig, width: int, ctx) -> torch.Tensor | None:
+    """This process's indices along a Mamba dim of ``width`` entries named
+    ``conv_dim`` or ``ssm_heads``, in order, by the section the width names:
+    ``in_proj``'s columns (its heads' ``z``, ``x``, every ``B``/``C``, its
+    heads' ``dt``), the conv's channels (its ``x``, every ``B``/``C``),
+    ``out_proj``'s rows and ``gate_norm``'s ``d_inner`` (its ``x``), or the
+    heads; ``None`` where the block stays whole."""
+    R, r = tensor_heads(cfg, ctx)
+    if R == 1:
+        return None
+    d_inner, H, conv_ch = dims(cfg)
+    GN2 = conv_ch - d_inner
+    dl, Hl = d_inner // R, H // R
+    mine = torch.arange(r * dl, (r + 1) * dl)
+    bc = torch.arange(GN2)
+    heads = torch.arange(r * Hl, (r + 1) * Hl)
+    sections = {
+        2 * d_inner + GN2 + H: [mine, d_inner + mine, 2 * d_inner + bc, 2 * d_inner + GN2 + heads],
+        conv_ch: [mine, d_inner + bc],
+        d_inner: [mine],
+        H: [heads],
+    }
+    if width not in sections:
+        raise ValueError(f"no Mamba section of width {width} in {cfg.name}")
+    return torch.cat(sections[width])
 
 
 # ----------------------------------------------------------------------------
@@ -151,9 +224,29 @@ def ssd_step(
 # ----------------------------------------------------------------------------
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    d_inner, H, _ = dims(cfg)
-    G, N = cfg.ssm_ngroups, cfg.ssm_state
-    return torch.split(zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
+    """``(z, xBC, dt)`` of a projection, at this process's widths."""
+    d_inner, H, conv_ch = local_dims(cfg)
+    return torch.split(zxbcdt, [d_inner, conv_ch, H], dim=-1)
+
+
+def _gate_norm(params: Any, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """``gate_norm`` over ``y [..., d_inner / R]``: :func:`layers.rmsnorm`
+    where the block is whole; under the head cut the f32 sum of squares is
+    all-reduced over the processes and divided by the whole ``d_inner``,
+    and the process scales by its columns of the whole scale."""
+    R, r = tensor_heads(cfg)
+    if R == 1:
+        return L.rmsnorm(params, y, cfg.norm_eps)
+    dt, dl = y.dtype, y.shape[-1]
+    h = y.float()
+    ss = L._row_parallel(h.square().sum(-1, keepdim=True), "ssm_heads", dims(cfg)[1])
+    h = h * torch.rsqrt(ss / (dl * R) + cfg.norm_eps)
+    return (h * params["scale"].narrow(0, r * dl, dl).float()).to(dt)
+
+
+def _out_proj(params: Any, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """``out_proj``, row-parallel under the head cut: one all-reduce."""
+    return L._row_parallel(y @ params["out_proj"].to(y.dtype), "ssm_heads", dims(cfg)[1])
 
 
 def _causal_conv(w: torch.Tensor, b: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
@@ -175,14 +268,16 @@ def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=No
                 return_state: bool = False):
     """Full-sequence Mamba2 block (train/prefill): ``x [B, Lq, d_model]``;
     with ``return_state``, also ``{"ssm": final state, "conv": the last K-1
-    pre-conv inputs}``.
+    pre-conv inputs}``.  Under the head cut, on this process's heads (and
+    its slices of ``params``), with the two all-reduces of the module
+    docstring.
 
     Each ``[B, Lq, *]`` buffer is dropped as soon as its last use is done
     (the projection once the gate, ``dt``, the conv state and the conv's
     padded input are taken from it; the conv's output once the skip term is
     taken from it), which bounds a long prefill's peak (Mamba2-1.3B's
     524,288-token prompt); the values are the same, bit for bit."""
-    d_inner, H, _ = dims(cfg)
+    d_inner, H, _ = local_dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
     dtype = x.dtype
     B_, Lq, _ = x.shape
@@ -211,8 +306,8 @@ def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=No
     y = y + skip
     del skip
     y = y.reshape(B_, Lq, d_inner)
-    y = L.rmsnorm(params["gate_norm"], y * gate, cfg.norm_eps)
-    out = y @ params["out_proj"].to(dtype)
+    y = _gate_norm(params["gate_norm"], cfg, y * gate)
+    out = _out_proj(params, cfg, y)
     if return_state:
         return out, {"ssm": final, "conv": conv_state}
     return out
@@ -220,8 +315,9 @@ def mamba_block(params: Any, cfg: ModelConfig, x: torch.Tensor, initial_state=No
 
 def mamba_block_step(params: Any, cfg: ModelConfig, x: torch.Tensor, state: Any):
     """Single-token step: ``x [B, 1, d_model]``, state ``{"ssm", "conv"}`` ->
-    ``(out [B, 1, d_model], new state)``."""
-    d_inner, H, _ = dims(cfg)
+    ``(out [B, 1, d_model], new state)``; under the head cut on this
+    process's heads, as :func:`mamba_block`."""
+    d_inner, H, _ = local_dims(cfg)
     G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_head_dim
     dtype = x.dtype
     B_ = x.shape[0]
@@ -241,8 +337,8 @@ def mamba_block_step(params: Any, cfg: ModelConfig, x: torch.Tensor, state: Any)
                           Cm.reshape(B_, G, N), state["ssm"])
     y = y + params["D"].to(dtype)[None, :, None] * xs.reshape(B_, H, P)
     y = y.reshape(B_, d_inner)
-    y = L.rmsnorm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y @ params["out_proj"].to(dtype))[:, None, :]
+    y = _gate_norm(params["gate_norm"], cfg, y * F.silu(z))
+    out = _out_proj(params, cfg, y)[:, None, :]
     return out, {"ssm": new_ssm, "conv": new_conv}
 
 
@@ -259,14 +355,18 @@ def specs_layer(cfg: ModelConfig) -> Any:
     return {"norm": L.specs_rmsnorm(), "mamba": specs_mamba_block(cfg)}
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
+def init(seed: int, cfg: ModelConfig, device="cuda", place=None) -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only."""
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only.  The
+    embedding and each layer go through ``place(path, sub) -> sub`` as they
+    are drawn (paths ``("embedding",)`` and ``("layers", l)``), as in
+    :func:`repro_torch.models.transformer.init`."""
+    keep = place or (lambda path, sub: sub)
     gen = L.make_generator(seed, device)
     return {
-        "embedding": L.init_embedding(gen, cfg),
-        "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "embedding": keep(("embedding",), L.init_embedding(gen, cfg)),
+        "layers": [keep(("layers", l), init_layer(gen, cfg)) for l in range(cfg.num_layers)],
         "final_norm": L.init_rmsnorm(cfg.d_model, L.pdtype(cfg), gen.device),
     }
 
@@ -318,8 +418,9 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def mamba_state(cfg: ModelConfig, n: int, batch_size: int, dtype, device) -> dict:
-    """Zero ``{"ssm": [n, B, H, P, N] f32, "conv": [n, B, K-1, ch]}``."""
-    _, H, conv_ch = dims(cfg)
+    """Zero ``{"ssm": [n, B, H, P, N] f32, "conv": [n, B, K-1, ch]}``, of
+    this process's heads and conv channels under the head cut."""
+    _, H, conv_ch = local_dims(cfg)
     return {
         "ssm": torch.zeros((n, batch_size, H, cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=torch.float32, device=device),
@@ -355,9 +456,10 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
     return L.unembed(params["embedding"], cfg, x)[:, 0], cache
 
 
-def prefill(params, cfg: ModelConfig, batch):
+def prefill(params, cfg: ModelConfig, batch, capacity: int | None = None):
     """Run the prompts through the chunked scan, keeping every layer's final
-    state: ``(last-token logits [B, vocab], cache)``."""
+    state: ``(last-token logits [B, vocab], cache)``.  The state has no
+    positions, so the engine's ``capacity`` leaves it as it is."""
     x = L.embed(params["embedding"], cfg, batch["tokens"])
     states = []
     for p in params["layers"]:
@@ -371,6 +473,9 @@ def prefill(params, cfg: ModelConfig, batch):
 
 __all__ = [
     "dims",
+    "tensor_heads",
+    "local_dims",
+    "tensor_index",
     "init_mamba_block",
     "specs_mamba_block",
     "ssd_chunked",

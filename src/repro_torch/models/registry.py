@@ -21,6 +21,7 @@ give the dry run (:mod:`repro_torch.launch.dryrun`) its arguments: trees of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -41,7 +42,10 @@ class ModelApi:
     init: Callable[..., Any]
     forward: Callable[[Any, dict], torch.Tensor]  # -> hidden states [B, S, d]
     train_loss: Callable[[Any, dict], torch.Tensor]
-    prefill: Callable[[Any, dict], tuple[torch.Tensor, Any]]
+    # (params, batch, capacity=None) -> (logits, cache); the hybrid family
+    # writes its KV cache at capacity positions at once (see zamba2.prefill),
+    # the others return it at the prompt's length for grow_cache
+    prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode_step: Callable[[Any, torch.Tensor, Any, int], tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]  # (batch_size, capacity, device="cuda") -> cache
     param_specs: Any  # tree of logical-axis tuples (matches init)
@@ -50,6 +54,10 @@ class ModelApi:
     # positions [B]) -> (logits, cache); None for the SSM, hybrid and
     # encoder-decoder families.
     decode_step_slots: Callable[[Any, torch.Tensor, Any, torch.Tensor], tuple[torch.Tensor, Any]] | None = None
+    # The tensor table's cut of a Mamba block, (width, ctx) -> indices or
+    # None, for sharding.tensor_place / tensor_slices (mamba2.tensor_index);
+    # None for the families without one.
+    tensor_index: Callable[[int, Any], torch.Tensor | None] | None = None
 
 
 def build(cfg: ModelConfig) -> ModelApi:
@@ -62,12 +70,14 @@ def build(cfg: ModelConfig) -> ModelApi:
     else:  # dense / moe / vlm share the transformer stack
         from . import transformer as m
     slots = getattr(m, "decode_step_slots", None)
+    index = getattr(m, "tensor_index", None)
     return ModelApi(
         cfg=cfg,
         init=lambda seed, device="cuda", **kw: m.init(seed, cfg, device=device, **kw),
         forward=lambda params, batch: m.forward(params, cfg, batch),
         train_loss=lambda params, batch: m.train_loss(params, cfg, batch),
-        prefill=lambda params, batch: m.prefill(params, cfg, batch),
+        prefill=lambda params, batch, capacity=None: m.prefill(params, cfg, batch,
+                                                               capacity=capacity),
         decode_step=lambda params, tokens, cache, pos: m.decode_step(params, cfg, tokens, cache, pos),
         init_cache=lambda bs, cap, device="cuda": m.init_cache(cfg, bs, cap, device=device),
         param_specs=m.specs(cfg),
@@ -75,20 +85,23 @@ def build(cfg: ModelConfig) -> ModelApi:
         decode_step_slots=None if slots is None else (
             lambda params, tokens, cache, positions: slots(params, cfg, tokens, cache, positions)
         ),
+        tensor_index=None if index is None else functools.partial(index, cfg),
     )
 
 
 def require_tensor_parallel(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that the tensor table
     (:func:`~repro_torch.distributed.sharding.tensor_rules`) does not serve
-    yet: every family but the dense, VLM and MoE transformers with GQA."""
-    if cfg.family in ("dense", "vlm", "moe") and cfg.attn_kind != "mla":
+    yet: MLA attention and the encoder-decoder family.  The dense, VLM and
+    MoE transformers with GQA, the SSM and the hybrid families serve."""
+    if cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid") and cfg.attn_kind != "mla":
         return
     what = "MLA attention" if cfg.attn_kind == "mla" else f"the {cfg.family!r} family"
     raise NotImplementedError(
         f"tensor-parallel serving of {what} ({cfg.name}) is not ported yet: the tensor "
-        "table serves the dense, VLM and MoE transformers with GQA (ROADMAP queue A, item "
-        "9(c): tensor parallelism for MLA, SSM, hybrid and encoder-decoder)")
+        "table serves the dense, VLM and MoE transformers with GQA, the SSM and the hybrid "
+        "families (ROADMAP queue A, item 9(c)(ii): tensor parallelism for MLA and "
+        "encoder-decoder)")
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -302,10 +302,11 @@ def decode_step_slots(params, cfg: ModelConfig, tokens, cache, positions):
     return _decode_layers(params, cfg, x, cache, attend), cache
 
 
-def prefill(params, cfg: ModelConfig, batch):
+def prefill(params, cfg: ModelConfig, batch, capacity: int | None = None):
     """Process whole prompts: ``batch["tokens"] [B, S]`` (after
     ``batch["patches"] [B, P, d]`` for a VLM) -> ``(last-token logits [B,
-    vocab], cache)`` with a cache of exactly ``P + S`` positions.  GQA
+    vocab], cache)`` with a cache of exactly ``P + S`` positions, whatever
+    the engine's ``capacity`` (``serve.engine.grow_cache`` pads it).  GQA
     attends through :func:`layers.prefill_attention` (the kernel under
     ``attn_impl="flash"``)."""
     x, pos = _embed_inputs(params, cfg, batch)

@@ -225,10 +225,12 @@ def cache_specs(cfg: ModelConfig) -> Any:
     return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}
 
 
-def prefill(params, cfg: ModelConfig, batch):
+def prefill(params, cfg: ModelConfig, batch, capacity: int | None = None):
     """Encode ``batch["frames"]`` and run the decoder over the prompt
     ``batch["tokens"] [B, S]`` -> ``(last-token logits [B, vocab], cache)``:
-    the self KV of ``S`` positions and the cross KV of the frames' length.
+    the self KV of ``S`` positions, whatever the engine's ``capacity``
+    (``serve.engine.grow_cache`` pads it), and the cross KV of the frames'
+    length.
     The decoder's self-attention is plain :func:`~.layers.sdpa`, as the
     reference's."""
     memory = encode(params, cfg, batch["frames"])

@@ -16,6 +16,11 @@ Params: ``groups`` is a list of ``ng`` lists of ``gs`` per-layer dicts,
 layout: ``groups`` ``{"ssm": [ng, gs, B, H, P, N], "conv": [ng, gs, B, K-1,
 ch]}``, ``attn`` ``{"k", "v": [ng, B, S, kh, hd]}`` and ``tail``; decode
 writes it in place.
+
+Under the tensor table each Mamba2 layer splits by SSM heads
+(:mod:`.mamba2`) and the shared block by attention heads, ``d_ff`` and
+vocab as a transformer layer does (:mod:`.layers`); the cache holds the
+process's SSM heads, conv channels and kv heads.
 """
 
 from __future__ import annotations
@@ -36,25 +41,31 @@ def layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.num_layers // g, g, cfg.num_layers % g
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
+def init(seed: int, cfg: ModelConfig, device="cuda", place=None) -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
-    distributions; on ``"meta"``, shapes only."""
+    distributions; on ``"meta"``, shapes only.  The embedding, each Mamba2
+    layer and the shared block go through ``place(path, sub) -> sub`` as
+    they are drawn (paths ``("embedding",)``, ``("groups", g, l)``,
+    ``("shared",)``, ``("tail", l)``), as in
+    :func:`repro_torch.models.transformer.init`."""
+    keep = place or (lambda path, sub: sub)
     ng, gs, tail = layout(cfg)
     gen = L.make_generator(seed, device)
     dt = L.pdtype(cfg)
     p = {
-        "embedding": L.init_embedding(gen, cfg),
-        "groups": [[MB.init_layer(gen, cfg) for _ in range(gs)] for _ in range(ng)],
-        "shared": {
+        "embedding": keep(("embedding",), L.init_embedding(gen, cfg)),
+        "groups": [[keep(("groups", g, l), MB.init_layer(gen, cfg)) for l in range(gs)]
+                   for g in range(ng)],
+        "shared": keep(("shared",), {
             "ln1": L.init_rmsnorm(cfg.d_model, dt, gen.device),
             "attn": L.init_attention(gen, cfg),
             "ln2": L.init_rmsnorm(cfg.d_model, dt, gen.device),
             "mlp": L.init_mlp(gen, cfg),
-        },
+        }),
         "final_norm": L.init_rmsnorm(cfg.d_model, dt, gen.device),
     }
     if tail:
-        p["tail"] = [MB.init_layer(gen, cfg) for _ in range(tail)]
+        p["tail"] = [keep(("tail", l), MB.init_layer(gen, cfg)) for l in range(tail)]
     return p
 
 
@@ -119,10 +130,11 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
                device="cuda") -> Any:
     """Hybrid cache: O(1) Mamba2 states and one KV cache per shared-block
-    invocation."""
+    invocation; under the tensor table of the process's SSM heads, conv
+    channels and kv heads (:func:`layers.local_kv_heads`)."""
     dtype = dtype or L.cdtype(cfg)
     ng, gs, tail = layout(cfg)
-    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kh, hd = L.local_kv_heads(cfg), cfg.resolved_head_dim
     groups = MB.mamba_state(cfg, ng * gs, batch_size, dtype, device)
     kv = (ng, batch_size, capacity, kh, hd)
     cache = {
@@ -178,16 +190,28 @@ def _stack_states(states: list[dict]) -> dict:
     return {k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
 
 
-def prefill(params, cfg: ModelConfig, batch):
-    """Process whole prompts: ``(last-token logits [B, vocab], cache)`` with
-    a KV cache of exactly ``S`` positions.  The shared block's attention is
-    :func:`~repro_torch.models.layers.sdpa`, as in the reference (head_dim
-    112 is outside the flash kernel's sizes)."""
+def prefill(params, cfg: ModelConfig, batch, capacity: int | None = None):
+    """Process whole prompts ``[B, S]``: ``(last-token logits [B, vocab],
+    cache)`` with a KV cache of ``capacity`` positions (default ``S``), each
+    group's k/v written into it as the group is done, so the cache is
+    allocated once (the positions past ``S`` zero: the reference's stacked
+    cache grown by the engine, bit for bit).  The shared block attends
+    through :func:`~repro_torch.models.layers.prefill_attention`: the kernel
+    under ``attn_impl="flash"`` (head_dim 112 padded to 128), ``sdpa``
+    otherwise, where the reference's prefill runs ``sdpa`` whatever
+    ``attn_impl`` says."""
     x = L.embed(params["embedding"], cfg, batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    capacity = capacity or S
+    if capacity < S:
+        raise ValueError(f"a KV cache of {capacity} positions cannot hold a {S}-token prompt")
     cos, sin = _rope(cfg, x)
     shared = params["shared"]
-    group_states, ks, vs = [], [], []
-    for group in params["groups"]:
+    ng, _, _ = layout(cfg)
+    kv = {name: torch.zeros((ng, B, capacity, L.local_kv_heads(cfg), cfg.resolved_head_dim),
+                            dtype=x.dtype, device=x.device) for name in ("k", "v")}
+    group_states = []
+    for gi, group in enumerate(params["groups"]):
         states = []
         for p in group:
             x, st = MB.layer_prefill(p, cfg, x)
@@ -195,13 +219,16 @@ def prefill(params, cfg: ModelConfig, batch):
         group_states.append(_stack_states(states))
         h = L.rmsnorm(shared["ln1"], x, cfg.norm_eps)
         q, k, v = L.attention_qkv(shared["attn"], cfg, h)
+        del h
         q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-        x = x + L.attention_out(shared["attn"], cfg, L.sdpa(q, k, v, causal=True))
+        kv["k"][gi, :, :S] = k
+        kv["v"][gi, :, :S] = v
+        a = L.prefill_attention(cfg, q, k, v)
+        del q, k, v
+        x = x + L.attention_out(shared["attn"], cfg, a)
+        del a
         x = _mlp_residual(shared, cfg, x)
-        ks.append(k)
-        vs.append(v)
-    cache = {"groups": _stack_states(group_states),
-             "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    cache = {"groups": _stack_states(group_states), "attn": kv}
     tail_states = []
     for p in params.get("tail", []):
         x, st = MB.layer_prefill(p, cfg, x)
@@ -213,5 +240,8 @@ def prefill(params, cfg: ModelConfig, batch):
     return logits[:, 0], cache
 
 
+# the tensor table's cut of the Mamba2 layers (``ModelApi.tensor_index``)
+tensor_index = MB.tensor_index
+
 __all__ = ["layout", "init", "specs", "forward", "train_loss", "init_cache", "cache_specs",
-           "decode_step", "prefill"]
+           "decode_step", "prefill", "tensor_index"]

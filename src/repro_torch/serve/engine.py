@@ -20,10 +20,11 @@ transport.  The static engine has no multiplexer: the plain pack and
 transport do not change what is delivered.
 
 The static engine serves every family: a KV cache grows to ``capacity``
-positions after prefill, an SSM state is O(1) and stays as it is
+positions after prefill (the hybrid family's prefill writes it at that
+capacity at once), an SSM state is O(1) and stays as it is
 (:func:`grow_cache`).  The continuous engine needs a per-position KV cache
 (``decode_step_slots``) and raises for the SSM, hybrid and encoder-decoder
-families.
+families, as the reference's does, with or without the tensor table.
 
 Across processes (a mesh context whose mesh spans ``R`` processes, every
 process running the same calls) both engines split their batch as the
@@ -39,8 +40,9 @@ prefilled cache row whose slot another process owns is sent there
 every process.  Params stay whole on every process, except under the
 tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`),
 where both engines run the whole batch on every process over each
-process's slices of the model (``stats["rows"] == "tensor"``): the
-continuous engine holds every slot's cache rows of the process's kv heads
+process's slices of the model (``stats["rows"] == "tensor"``; the static
+engine for the SSM and hybrid families too, each process on its SSM heads):
+the continuous engine holds every slot's cache rows of the process's kv heads
 and writes each prefill group in place (no row moves); the logits come
 gathered to the full vocab, so generators seeded alike sample the same
 tokens and the slot map, admission and eviction run alike on every process.
@@ -264,7 +266,7 @@ class ServeEngine:
         rows = batch["tokens"].shape[0]
 
         with mesh_context(ctx):
-            logits, cache = self.api.prefill(params, batch)
+            logits, cache = self.api.prefill(params, batch, capacity=self.capacity)
         self.stats["prefill_tokens"] += int(prompts.size)
         # decode continues after the WHOLE prefill context (a VLM's patch
         # rows + the prompt; an encoder-decoder's frames), in a capacity-long

@@ -58,7 +58,7 @@ ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           tp_cells="deepseek-67b", tp_full=False, tp_dtype="float32",
                           tp_param_dtype="float32", tp_ref="whole", tp_repeat=1,
                           tp_temperature=0.0, tp_profile=False, tp_capacity_factor=0.0,
-                          tp_mixed=())
+                          tp_mixed=(), tp_states=False, tp_split=0)
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1230,16 +1230,29 @@ def _serve_inputs(cfg, B: int, S: int, new: int):
 
 class _Recorded:
     """A model-API call with each call's logits kept on the host and its
-    wall, the card drained on both sides."""
+    wall, the card drained on both sides; with ``states``, also each call's
+    SSM states (the cache's ``ssm`` leaves by path) on the host."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, states: bool = False):
         self.fn, self.logits, self.seconds = fn, [], []
+        self.states = [] if states else None
 
-    def __call__(self, *args):
-        out, wall = _synced(lambda: self.fn(*args))
+    def __call__(self, *args, **kw):
+        out, wall = _synced(lambda: self.fn(*args, **kw))
         self.seconds.append(wall)
         self.logits.append(out[0].float().cpu())
+        if self.states is not None:
+            self.states.append(_ssm_states(out[1]))
         return out
+
+
+def _ssm_states(cache) -> dict:
+    """A copy of a cache's ``ssm`` leaves on the host, by their path joined
+    with ``/``."""
+    from repro_torch.tree import leaves_with_paths
+
+    return {"/".join(map(str, p)): t.to("cpu", copy=True) for p, t in leaves_with_paths(cache)
+            if p[-1] == "ssm"}  # a copy: decode writes the cache in place
 
 
 def _serve_launches() -> dict:
@@ -1251,13 +1264,13 @@ def _serve_launches() -> dict:
 
 
 def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
-               temperature: float = 0.0) -> dict:
+               temperature: float = 0.0, states: bool = False) -> dict:
     """One static batch through ``ServeEngine`` under ``ctx`` and ``mux``
     (at ``temperature``, seed 0):
     tokens, each call's logits (this process's rows), the drops of every
     expert-parallel call (this process's units), the path of every MoE
     call, the stats, the pod hop's bytes, the kernels' launches, the walls
-    and the peak."""
+    and the peak; with ``states``, the prefill's SSM states."""
     import dataclasses
 
     from repro_torch.core.multiplexer import use_multiplexer
@@ -1266,7 +1279,7 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
     from repro_torch.serve import Request, ServeEngine
 
     prompts, extra, cap = inputs
-    rec = dataclasses.replace(api, prefill=_Recorded(api.prefill),
+    rec = dataclasses.replace(api, prefill=_Recorded(api.prefill, states),
                               decode_step=_Recorded(api.decode_step))
     reqs = [Request(prompt=p.copy(), max_new_tokens=new) for p in prompts[:B]]
     engine = ServeEngine(rec, batch_size=B, capacity=cap, temperature=temperature, device=DEV)
@@ -1283,7 +1296,8 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
             "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
             "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
             "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step.seconds,
-            "wall_s": wall, "peak": _peak()}
+            "wall_s": wall, "peak": _peak(),
+            **({"states": rec.prefill.states[0]} if states else {})}
 
 
 def _expert_trips(cfg, params, mesh, impl: str = "round_robin"):
@@ -1913,12 +1927,13 @@ def scenario_serve():
 
 
 def _tp_cells() -> list[tuple[str, str, int, tuple, int, str]]:
-    """``--tp-cells``: ``arch[:layers[:BxSxNEW[:vocab[:moe]]]]`` items,
+    """``--tp-cells``: ``arch[:layers[:BxSxNEW[:vocab[:impl]]]]`` items,
     comma-separated (layers 0: the config's; the shape by default 4 x 16 +
-    4 new; vocab 0: the config's; moe ``dense`` or ``ep`` for an MoE
-    config's ``moe_impl="dense"`` or ``"ep_shardmap"``, empty: the
-    config's), as ``(key, arch, layers, shape, vocab, moe)`` with the key
-    ``arch``, then ``:v<vocab>`` and ``:<moe>`` where given."""
+    4 new; vocab 0: the config's; impl ``dense`` or ``ep`` for an MoE
+    config's ``moe_impl="dense"`` or ``"ep_shardmap"``, ``sdpa`` for
+    ``attn_impl="sdpa"``, empty: the config's MoE and ``"flash"``), as
+    ``(key, arch, layers, shape, vocab, impl)`` with the key ``arch``, then
+    ``:v<vocab>`` and ``:<impl>`` where given."""
     out = []
     for item in filter(None, ARGS.tp_cells.split(",")):
         arch, layers, shape, vocab, moe = (item.split(":")
@@ -1938,17 +1953,19 @@ def _tp_cfg(arch: str, layers: int, vocab: int = 0, moe: str = ""):
     """The served config: smoke or full (``--tp-full``), cut to ``layers``
     (and to a ``vocab`` of another size), ``--tp-dtype`` compute over
     ``--tp-param-dtype`` params, ``attn_impl="flash"`` (the prefill's
-    kernel); an MoE config at ``moe_impl`` ``moe`` and, where
-    ``--tp-capacity-factor`` is given, that capacity factor."""
+    kernel) unless ``moe`` is ``sdpa``; an MoE config at ``moe_impl``
+    ``moe`` and, where ``--tp-capacity-factor`` is given, that capacity
+    factor."""
     from repro_torch.configs import get_config, get_smoke_config
 
     base = (get_config if ARGS.tp_full else get_smoke_config)(arch)
-    over = dict(dtype=ARGS.tp_dtype, param_dtype=ARGS.tp_param_dtype, attn_impl="flash")
+    over = dict(dtype=ARGS.tp_dtype, param_dtype=ARGS.tp_param_dtype,
+                attn_impl="sdpa" if moe == "sdpa" else "flash")
     if layers:
         over["num_layers"] = layers
     if vocab:
         over["vocab_size"] = vocab
-    if moe:
+    if moe in ("dense", "ep"):
         over["moe_impl"] = {"dense": "dense", "ep": "ep_shardmap"}[moe]
     if base.num_experts and ARGS.tp_capacity_factor:
         over["capacity_factor"] = ARGS.tp_capacity_factor
@@ -1957,6 +1974,22 @@ def _tp_cfg(arch: str, layers: int, vocab: int = 0, moe: str = ""):
 
 def _tp_moe_layers(cfg) -> int:
     return cfg.num_layers - cfg.first_dense_layers if cfg.num_experts else 0
+
+
+def _tp_blocks(cfg) -> int:
+    """The attention + MLP blocks a call runs: every layer of a
+    transformer, none of an SSM, the shared block once a group of a
+    hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def _tp_ssm_layers(cfg) -> int:
+    """The Mamba2 layers a call runs (every layer of an SSM or a hybrid)."""
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
 
 
 def _tp_moe_path(cfg, tokens: int, ctx) -> str:
@@ -1977,10 +2010,12 @@ def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> di
     first ``side`` a VLM's patch rows, which skip the embedding) puts on the
     pod hop under the tensor table, a process, from the shapes, in the
     compute dtype: ``[rows, length - side, d]`` all-reduced once for the
-    embedding (the vocab split); ``[rows, length, d]`` once for each layer's
-    attention output (the heads split), each dense layer's MLP (``d_ff``
-    split), each MoE layer's shared MLP (its width split) and each MoE
-    layer's dense path on the process's experts; each expert-parallel MoE
+    embedding (the vocab split); ``[rows, length, d]`` once for each
+    attention block's output (the heads split), each dense MLP (``d_ff``
+    split), each MoE layer's shared MLP (its width split), each MoE
+    layer's dense path on the process's experts and each Mamba2 layer's
+    ``out_proj`` (the SSM heads split), with the Mamba2 layer's ``gate_norm``
+    sum of squares, ``[rows, length, 1]`` in f32; each expert-parallel MoE
     call's trips under the transport ``impl`` (:func:`_ep_trip_bytes`) and
     the all-gather of its units' ``T / R`` outputs; and the ``[rows, V /
     R]`` logits all-gathered (the vocab split).  ``reduces``: the call's
@@ -1994,9 +2029,13 @@ def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> di
     def split(dim: int, name: str) -> int:
         return int(bool(dim) and tensor_split(dim, name, ctx) > 1)
 
+    from repro_torch.models import mamba2
+
     moe_layers = _tp_moe_layers(cfg)
-    reduces = (cfg.num_layers * split(cfg.num_heads, "heads")
-               + (cfg.num_layers - moe_layers) * split(cfg.d_ff, "d_ff"))
+    blocks = _tp_blocks(cfg)
+    ssm = _tp_ssm_layers(cfg) * (mamba2.tensor_heads(cfg, ctx)[0] > 1)
+    reduces = (blocks * split(cfg.num_heads, "heads")
+               + (blocks - moe_layers) * split(cfg.d_ff, "d_ff") + ssm)
     trips = moe_gather = 0
     if moe_layers:
         reduces += moe_layers * split((cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts,
@@ -2008,9 +2047,10 @@ def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> di
             trips = moe_layers * _ep_trip_bytes(cfg, ctx.mesh, T // N, impl)
             moe_gather = moe_layers * (T // R) * d * item
     vocab = split(cfg.vocab_size, "vocab")
-    return {"all-reduce": (reduces * T + vocab * rows * (length - side)) * d * item,
+    return {"all-reduce": (reduces * T + vocab * rows * (length - side)) * d * item
+            + ssm * T * 4,
             "all-gather": moe_gather + vocab * rows * (cfg.vocab_size // R) * item,
-            "trips": trips, "reduces": reduces + vocab}
+            "trips": trips, "reduces": reduces + ssm + vocab}
 
 
 def _tp_hop_bytes(cfg, calls: list, ctx, impl: str) -> dict:
@@ -2123,7 +2163,8 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     B, S, new = shape
     cfg = _tp_cfg(arch, layers, vocab, moe)
     api = registry.build(cfg)
-    place = tensor_place(api.param_specs, ctx)
+    place = tensor_place(api.param_specs, ctx, api.tensor_index)
+    states = ARGS.tp_states and cfg.family in ("ssm", "hybrid")
     rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl, "tol": TP_TOL,
            "moe_impl": cfg.moe_impl if cfg.num_experts else None,
@@ -2159,7 +2200,7 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
             _reset_peak()
             whole = api.init(0, device=DEV)
             ref = _serve_run(api, whole, (prompts, extra, _tp_capacity(S, extra, new)), B,
-                             new, one_ctx, None)
+                             new, one_ctx, None, states=states)
             rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s",
                                                       "wall_s", "peak", "launches", "paths")}
             if work is not None:
@@ -2171,7 +2212,7 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
         params = api.init(0, device=DEV, place=place)
     if whole is not None:  # the placed draw is the whole draw's slices
         rec["params_equal_slices"] = all(  # a slice at a time: the whole tree is large
-            torch.equal(a, tensor_slice(b, spec, ctx)) for a, b, spec in zip(
+            torch.equal(a, tensor_slice(b, spec, ctx, api.tensor_index)) for a, b, spec in zip(
                 leaves(params), leaves(whole), leaves(api.param_specs)))
         if not rec["params_equal_slices"]:
             raise AssertionError(f"tensor_serve {key}: the placed params are not the whole "
@@ -2186,7 +2227,7 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     with mesh_context(ctx):
         rec["cache_bytes_counted"] = _cache_bytes(api, B, cap)
     sync_processes()
-    runs = [_serve_run(api, params, (prompts, extra, cap), B, new, ctx, None)
+    runs = [_serve_run(api, params, (prompts, extra, cap), B, new, ctx, None, states=states)
             for _ in range(ARGS.tp_repeat)]
     run = runs[-1]
     if run["stats"]["rows"] != "tensor":
@@ -2195,7 +2236,8 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     want_hop = _tp_hop_bytes(cfg, calls, ctx, cfg.exchange_impl)
     want_paths = _tp_paths(cfg, calls, ctx)
     on = DEV == "cuda" and cfg.attn_impl == "flash"
-    want_flash = cfg.num_layers if on else 0
+    want_flash = _tp_blocks(cfg) if on else 0
+    want_ssd = _tp_ssm_layers(cfg) if DEV == "cuda" else 0
     rec.update(rows=run["stats"]["rows"], tokens=run["tokens"], stats=run["stats"],
                hop_bytes=run["hop_bytes"], hop_kinds=run["hop_kinds"], want_hop=want_hop,
                launches=run["launches"], prefill_s=[r["prefill_s"] for r in runs],
@@ -2211,6 +2253,19 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     if any(r["launches"]["flash_attention"] != want_flash for r in runs):
         bad.append(f"flash_attention launched {[r['launches']['flash_attention'] for r in runs]}"
                    f" times a run, {want_flash} a prefill")
+    if any(r["launches"]["ssd_scan"] != want_ssd for r in runs):
+        bad.append(f"ssd_scan launched {[r['launches']['ssd_scan'] for r in runs]} times a run, "
+                   f"{want_ssd} a prefill")
+    if states:
+        whole_states = ref.get("states") if ref is not None else None
+        if ARGS.tp_ref == "whole":  # process 0's one-process run, to every process
+            box = [whole_states]
+            dist.broadcast_object_list(box, src=0)
+            whole_states = box[0]
+        rec["state_abs"], rec["states_close"] = _states_close(run["states"], whole_states, ctx)
+        if not rec["states_close"]:
+            bad.append(f"prefill states {rec['state_abs']} against the one-device run's "
+                       f"(tolerance {TP_TOL})")
     every = [None] * R
     dist.all_gather_object(every, run["tokens"])
     rec["tokens_equal_on_every_process"] = all(t == run["tokens"] for t in every)
@@ -2236,6 +2291,9 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
         if not rec["sampled"]["equal_on_every_process"]:
             raise AssertionError(f"tensor_serve {key}: sampled tokens differ between "
                                  "processes")
+    if ARGS.tp_split:
+        rec["split"] = _tp_split_check(api, params, prompts, ARGS.tp_split, ctx,
+                                       run["logits"][0])
     if work is not None:
         rec["continuous"] = _tp_continuous(key, cfg, api, params, work, cont_refs, ctx,
                                            (prompts, extra, cap, new, run["tokens"]))
@@ -2252,6 +2310,53 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     if DEV == "cuda":
         torch.cuda.empty_cache()
     return rec
+
+
+def _states_close(got: dict, whole: dict, ctx) -> tuple[dict, bool]:
+    """Each SSM state leaf's max |error| against this process's heads of the
+    one-device run's leaf (heads on dim -3: ``[..., B, H, P, N]``), and
+    whether every leaf is ``allclose`` at rtol = atol = ``TP_TOL``."""
+    err, close = {}, set(got) == set(whole)
+    for name, t in got.items():
+        want = torch.as_tensor(np.asarray(whole[name])).float()
+        Hl = t.shape[-3]
+        want = want.narrow(-3, ctx.mesh.process_index * Hl if Hl < want.shape[-3] else 0, Hl)
+        err[name] = float((t.float() - want).abs().max())
+        close = close and torch.allclose(t.float(), want, rtol=TP_TOL, atol=TP_TOL)
+    return err, close
+
+
+def _tp_split_check(api, params, prompts: np.ndarray, n: int, ctx, full: torch.Tensor) -> dict:
+    """``--tp-split N``: the prompts' first ``S - N`` tokens prefilled into a
+    cache of ``S`` positions, then their last ``N`` fed one
+    ``decode_step`` at a time (the last at position ``S - 1``, a long cell's
+    decode step): the final logits' max |error| against the whole prefill's
+    last-token logits ``full`` (recorded, no gate), the walls, the peak, and
+    the last step's wall and peak alone."""
+    from repro_torch.distributed.sharding import mesh_context
+
+    B, S = prompts.shape
+    toks = torch.from_numpy(prompts).to(DEV)
+    _reset_peak()
+    with mesh_context(ctx), torch.no_grad():
+        (_, cache), pre = _synced(lambda: api.prefill(params, {"tokens": toks[:, :S - n]},
+                                                      capacity=S))
+        steps = []
+        for i in range(S - n, S):
+            if i == S - 1:
+                peak = _peak()
+                _reset_peak()
+            (logits, cache), wall = _synced(
+                lambda i=i: api.decode_step(params, toks[:, i:i + 1], cache, i))
+            steps.append(wall)
+    out = {"prefill_tokens": S - n, "steps": n, "prefill_s": pre,
+           "decode_ms_a_step": 1e3 * sum(steps) / n, "last_step_ms": 1e3 * steps[-1],
+           "peak": peak, "last_step_peak": _peak(),
+           "logit_abs_max": float((logits.float().cpu() - full).abs().max())}
+    del cache, logits
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
@@ -2512,12 +2617,18 @@ def main(argv: list[str]) -> None:
                     help="tensor_serve: one decode step a cell under torch.profiler")
     ap.add_argument("--tp-capacity-factor", type=float, default=0.0,
                     help="tensor_serve: an MoE config's capacity factor (0: the config's)")
+    ap.add_argument("--tp-states", action="store_true",
+                    help="tensor_serve: each SSM or hybrid cell's prefill states against the "
+                         "one-device run's, each process its heads")
+    ap.add_argument("--tp-split", type=int, default=0,
+                    help="tensor_serve: N, each cell's prefill of S - N tokens plus N decode "
+                         "steps against the whole prefill's last-token logits (recorded)")
     ap.add_argument("--tp-mixed", default="",
                     help="tensor_serve: SLOTSxREQxNEW, a mixed workload (--serve-prompts, "
                          "--serve-rate) through the continuous engine after each cell")
     args = ap.parse_args(argv)
     for k in ("cells", "full", "dtype", "param_dtype", "ref", "repeat", "temperature",
-              "profile", "capacity_factor"):
+              "profile", "capacity_factor", "states", "split"):
         setattr(ARGS, f"tp_{k}", getattr(args, f"tp_{k}"))
     ARGS.tp_mixed = tuple(int(v) for v in args.tp_mixed.split("x")) if args.tp_mixed else ()
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop

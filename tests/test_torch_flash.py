@@ -274,13 +274,17 @@ def test_cuda_bf16_flash_attention_matches_plain_version(cuda_device, B, H, KH, 
 @pytest.mark.parametrize("B,H,KH,S,D,dtype", [
     # a process's heads in tensor-parallel serving (the four-card probe's
     # prefills at 8 x 2,048: DeepSeek-67B's 16 q and 2 kv heads, Qwen1.5-32B's
-    # 10 and 10, OLMoE-1B-7B's 4 and 4), and chip_smoke.py phase 9b's (32 and
-    # 4 over 2 processes, f32) and 9c's (OLMoE's 8 and 8, f32)
+    # 10 and 10, OLMoE-1B-7B's 4 and 4, Zamba2-7B's shared block's 8 and 8 at
+    # D = 112, which the wrapper pads to 128), and chip_smoke.py phase 9b's (32
+    # and 4 over 2 processes, f32), 9c's (OLMoE's 8 and 8, f32) and 9d's
+    # (Zamba2-7B's 16 and 16 at D = 112, f32)
     (8, 16, 2, 2048, 128, torch.bfloat16),
     (8, 10, 10, 2048, 128, torch.bfloat16),
     (8, 4, 4, 2048, 128, torch.bfloat16),
+    (8, 8, 8, 2048, 112, torch.bfloat16),
     (4, 32, 4, 256, 128, torch.float32),
     (8, 8, 8, 256, 128, torch.float32),
+    (2, 16, 16, 512, 112, torch.float32),
 ])
 def test_cuda_tensor_parallel_prefill_shapes_match_plain_version(cuda_device, B, H, KH, S, D,
                                                                  dtype):
@@ -291,7 +295,9 @@ def test_cuda_tensor_parallel_prefill_shapes_match_plain_version(cuda_device, B,
     got = fa.flash_attention(q, k, v, causal=True)
     want = kref.flash_attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == 1 and fa.LAUNCHES["flash_attention[ragged]"] == 0
+    # full tiles: the wrapper counts a padded head dim under "[ragged]" too
+    padded = int(fa.kernel_head_dim(D) != D)
+    assert fa.LAUNCHES["flash_attention"] == 1 and fa.LAUNCHES["flash_attention[ragged]"] == padded
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 

@@ -198,3 +198,53 @@ def test_the_full_configs_build_and_refuse_continuous_batching(arch):
         8, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state)
     with pytest.raises(NotImplementedError, match="decode_step_slots"):
         ContinuousEngine(registry.build(get_smoke_config(arch)), 2, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# On the card: the scan on a tensor-parallel process's heads.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,P,N,dtype", [
+    # a rank's heads in the four-card probe's 8 x 2,048 prefills (Mamba2-1.3B's
+    # 16 of 64, Zamba2-7B's 28 of 112), and chip_smoke.py phase 9d's (32 and 56
+    # over 2 processes, f32)
+    (8, 2048, 16, 64, 128, torch.bfloat16),
+    (8, 2048, 28, 64, 64, torch.bfloat16),
+    (4, 512, 32, 64, 128, torch.float32),
+    (2, 512, 56, 64, 64, torch.float32),
+])
+def test_cuda_ssd_scan_on_a_process_heads_matches_plain_version(cuda_device, B, L, H, P, N,
+                                                                dtype):
+    """``x``, ``dt``, ``B`` and ``C`` cut from one projection ``[B, L, 2 H P
+    + 2 N + H]`` as the head-aligned block cuts them (views, not contiguous),
+    through ``mamba2.ssd_chunked``: one launch, within the plain scan's
+    tolerance."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models import mamba2 as MB
+
+    gen = torch.Generator(device=cuda_device).manual_seed(H * L + N)
+    proj = torch.randn((B, L, 2 * H * P + 2 * N + H), generator=gen, device=cuda_device)
+    proj = proj.to(dtype)
+    _, xs, Bm, Cm, dt_raw = torch.split(proj, [H * P, H * P, N, N, H], dim=-1)
+    x = xs.reshape(B, L, H, P)
+    Bm, Cm = Bm.reshape(B, L, 1, N), Cm.reshape(B, L, 1, N)
+    assert not (x.is_contiguous() or Bm.is_contiguous() or dt_raw.is_contiguous())
+    dt = torch.nn.functional.softplus(dt_raw.float() - 4.0)
+    A = -torch.rand((H,), generator=gen, device=cuda_device) * 15 - 1
+    sk.reset_launch_counts()
+    y, s = MB.ssd_chunked(x, dt, A, Bm, Cm, 256)
+    want_y, want_s = kref.ssd_scan_ref(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == 1
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, want_s, rtol=2e-4, atol=2e-4)

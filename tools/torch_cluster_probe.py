@@ -5,7 +5,8 @@
     python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
                                                [--out DIR]
     python3 tools/torch_cluster_probe.py serve [--runs olmoe,mamba2,olmoe_continuous,
-                                                       tensor_f32,tensor] [--out DIR]
+                                                       tensor_f32,tensor,tensor_ssm_f32,
+                                                       tensor_ssm,tensor_long_500k] [--out DIR]
     python3 tools/torch_cluster_probe.py layouts [--layouts gloo:2x4,nccl:2x4,nccl:4x2]
                                                  [--sf 1] [--morsel-rows 1048576] [--out DIR]
 
@@ -90,6 +91,25 @@ of JSON a rank: TTFT, new tokens/s, each prefill group's ms by prompt
 length, ms a decode step, slot-steps beside ``generate_bucketed``'s, the
 pod hop against the schedule's count, the peak beside the counts on
 ``meta``.
+
+``serve --runs tensor_ssm_f32,tensor_ssm,tensor_long_500k`` runs the SSM and
+hybrid families under the tensor table (each rank its SSM heads' slices of
+every Mamba2 block, Zamba2's shared block split as a dense layer, the
+static engine): (a) ``tensor_ssm_f32``, Mamba2-1.3B at all 48 layers on 8 x
+2,048 + 8 and Zamba2-7B at all 81 (``attn_impl="flash"``) on 4 x 1,024 + 8,
+f32 with TF32 off, each against rank 0's one-process engine on the whole
+tree (27.0 GB for Zamba2) within ``2e-4``, tokens equal; (b)
+``tensor_ssm``, bf16 over f32 params: Mamba2-1.3B's ``prefill_32k`` at its
+batch of 32 (the ``mamba2`` run's row split, beside it) and Zamba2-7B on 8
+x 2,048 + 16, twice; (c) ``tensor_long_500k``, two clusters: Mamba2-1.3B's
+``long_500k`` in f32 (one 524,288-token prompt + 8 new) against rank 0's
+one-process run of it, last-token logits and every rank's heads of the
+prefill states within ``2e-4``; then Zamba2-7B's in bf16 over f32 params,
+no one-process reference (no card holds it): tokens equal on every rank,
+and the whole prefill's last-token logits beside a 524,032-token prefill
+plus 256 decode steps, the last at position 524,287 (recorded).  A line of
+JSON a rank and cell as for the other tensor runs, with the SSM heads a
+rank and, for (c), the split check's numbers.
 
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
@@ -430,6 +450,29 @@ TENSOR_RUNS = {
                               "--tp-dtype", "bfloat16", "--tp-param-dtype", "bfloat16",
                               "--tp-mixed", "16x32x16", "--serve-prompts", "1024,2048",
                               "--serve-rate", "2"],
+    # (f) the SSM and hybrid families' f32 gate: Mamba2-1.3B at all 48 layers
+    # (16 of 64 SSM heads a rank) and Zamba2-7B at all 81 (28 of 112, 8 q and 8
+    # kv heads at D = 112), f32 with TF32 off, rank 0's one-process engine on
+    # the whole tree first (Zamba2's 27.0 GB beside its 6.75 GB quarter)
+    "tensor_ssm_f32": ["--tp-cells", "mamba2-1.3b:0:8x2048x8,zamba2-7b:0:4x1024x8",
+                       "--tp-ref", "whole", "--tp-dtype", "float32",
+                       "--tp-param-dtype", "float32"],
+    # (g) bf16 over f32 params (the dry run's policy): Mamba2-1.3B's
+    # prefill_32k at its batch of 32 (the "mamba2" run's cell under the row
+    # split) and Zamba2-7B at all 81 layers on 8 x 2,048 + 16, twice
+    "tensor_ssm": ["--tp-cells", "mamba2-1.3b:0:32x32768x4,zamba2-7b:0:8x2048x16",
+                   "--tp-ref", "none", "--tp-dtype", "bfloat16", "--tp-param-dtype", "float32",
+                   "--tp-repeat", "2"],
+    # (h) the long_500k cell, two clusters: Mamba2-1.3B in f32 against rank
+    # 0's one-process run (logits and each rank's heads of the prefill states);
+    # Zamba2-7B in bf16 over f32 params (no card holds it whole: 125.1 GB
+    # counted), the whole prefill against 524,032 tokens + 256 decode steps
+    "tensor_long_500k": [
+        ["--tp-cells", "mamba2-1.3b:0:1x524288x8", "--tp-ref", "whole", "--tp-states",
+         "--tp-dtype", "float32", "--tp-param-dtype", "float32"],
+        ["--tp-cells", "zamba2-7b:0:1x524288x8", "--tp-ref", "none", "--tp-split", "256",
+         "--tp-dtype", "bfloat16", "--tp-param-dtype", "float32"],
+    ],
 }
 
 
@@ -468,28 +511,36 @@ def serve(out: Path, runs: list[str]) -> int:
         tag = f"[serve {name} {backend}:{procs}x{units}]"
         dump = out / f"serve_{name}_{backend}_{procs}x{units}"
         t0 = time.perf_counter()
-        if name in TENSOR_RUNS:
-            argv = [str(DRIVER), "tensor_serve", "--tp-full", "--dump", str(dump)]
-            argv += TENSOR_RUNS[name]
+        if name in TENSOR_RUNS:  # one cluster, or several in turn, each its dump
+            runs_of = TENSOR_RUNS[name]
+            clusters = [runs_of] if isinstance(runs_of[0], str) else runs_of
+            dumps = [dump if len(clusters) == 1 else dump / str(i) for i in range(len(clusters))]
+            argvs = [[str(DRIVER), "tensor_serve", "--tp-full", "--dump", str(d)] + a
+                     for d, a in zip(dumps, clusters)]
         else:
-            argv = [str(DRIVER), "serve", "--serve-full", "--dump", str(dump)] + SERVE_RUNS[name]
-        try:
-            outs = run_local_cluster(argv, num_processes=procs, local_units=units,
-                                     timeout_s=900, echo=False, backend=backend, device="cuda")
-        except RuntimeError as e:  # every worker's log, whole, where the caller can read it
-            dump.mkdir(parents=True, exist_ok=True)
-            (dump / "failure.log").write_text(str(e))
-            for line in str(e).splitlines():
-                if "FAIL" in line or "Error:" in line and "c10" not in line:
-                    print(f"{tag} {line[:2000]}")
-            raise
+            dumps = [dump]
+            argvs = [[str(DRIVER), "serve", "--serve-full", "--dump", str(dump)]
+                     + SERVE_RUNS[name]]
+        for argv, d in zip(argvs, dumps):
+            try:
+                outs = run_local_cluster(argv, num_processes=procs, local_units=units,
+                                         timeout_s=900, echo=False, backend=backend,
+                                         device="cuda")
+            except RuntimeError as e:  # every worker's log, whole, where the caller can read it
+                d.mkdir(parents=True, exist_ok=True)
+                (d / "failure.log").write_text(str(e))
+                for line in str(e).splitlines():
+                    if "FAIL" in line or "Error:" in line and "c10" not in line:
+                        print(f"{tag} {line[:2000]}")
+                raise
+            for pid, log in enumerate(outs):
+                for line in log.splitlines():
+                    if line.startswith(("PASS", "[serve]", "[tensor-serve]")):
+                        print(f"{tag} proc {pid}: {line}")
+            if name in TENSOR_RUNS:
+                _tensor_lines(tag, d, procs, smi)
         wall = time.perf_counter() - t0
-        for pid, log in enumerate(outs):
-            for line in log.splitlines():
-                if line.startswith(("PASS", "[serve]", "[tensor-serve]")):
-                    print(f"{tag} proc {pid}: {line}")
         if name in TENSOR_RUNS:
-            _tensor_lines(tag, dump, procs, smi)
             print(f"{tag} passed in {wall:.1f} s (launcher wall)")
             continue
         recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["serve"]
@@ -566,11 +617,16 @@ def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
     for pid, rec in enumerate(recs):
         for arch, r in rec["archs"].items():
             B, S, new = r["shape"]
+            ls = r["leaf_shapes"]
+            attn = next((k[:-2] for k in ("seg0/0/attn/wq", "shared/attn/wq") if k in ls), None)
+            ssm = next((k for k in ("layers/0/mamba/A_log", "groups/0/0/mamba/A_log")
+                        if k in ls), None)
             line = {"rank": pid, "arch": arch, "layers": r["layers"], "dtype": r["dtype"],
                     "param_dtype": r["param_dtype"], "attn_impl": r["attn_impl"],
                     "rows": r["rows"], "batch": B, "prompt": S, "new": new,
-                    "q_heads_a_rank": r["leaf_shapes"]["seg0/0/attn/wq"][1],
-                    "kv_heads_a_rank": r["leaf_shapes"]["seg0/0/attn/wk"][1],
+                    "q_heads_a_rank": ls[attn + "wq"][1] if attn else None,
+                    "kv_heads_a_rank": ls[attn + "wk"][1] if attn else None,
+                    "ssm_heads_a_rank": ls[ssm][0] if ssm else None,
                     "prefill_ms": [p[0] * 1e3 for p in r["prefill_s"]],
                     "prefill_tok_s": [B * S / p[0] for p in r["prefill_s"]],
                     "decode_ms_a_step": [1e3 * sum(d) / max(len(d), 1) for d in r["decode_s"]],
@@ -595,6 +651,10 @@ def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
                             one_process_peak=one["peak"])
             if "decode_profile" in r:
                 line["decode_profile"] = r["decode_profile"]
+            if "state_abs" in r:
+                line.update(states_close=r["states_close"], state_abs=r["state_abs"])
+            if "split" in r:
+                line["split"] = r["split"]
             print(f"{tag} rank {pid}: {json.dumps(line)}")
             if "continuous" in r:
                 print(f"{tag} rank {pid}: {json.dumps(_continuous_line(pid, arch, r, smi))}")
