@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    (P=8) at S=8 shards x one shard's lineitem rows; ``moe_dispatch`` at
    OLMoE's decode shape (S=8, T=64, E=64, C=4) and prefill shape (S=8,
    T=16,384, C=320) and under the tensor table (a process's units: phase
-   9c's decode S=4, T=8, C=4 and 256-token group S=4, T=2,048, C=40), on
-   the router's int64 expert ids, all bit for bit
+   9c's decode S=4, T=8, C=4 and 256-token group S=4, T=2,048, C=40;
+   phase 9e's DeepSeek-V2-Lite at top-6, S=4, T=6, C=4 and S=4, T=1,536,
+   C=30), on the router's int64 expert ids, all bit for bit
    and bound by bytes over 3.35 TB/s, the three packs and ``moe_dispatch``
    also with one call's wall (host clock over 1,000 calls) beside its
    device time (profiler) and the bound's share of that;
@@ -35,8 +36,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    H=KH=8, S=256, D=128, f32) and the four-card probe's bf16 ones (B=8,
    S=2,048, D=128: H=16 and KH=2, H=KH=10, H=KH=4), Zamba2-7B's rank
    shapes at D=112 (phase 9d's f32 B=2, H=KH=16, S=512; the probe's bf16
-   B=8, H=KH=8, S=2,048) and a rank's at its long_500k cell (B=1, H=KH=8,
-   S=524,288, bf16, held in blocks of 256 query rows), within
+   B=8, H=KH=8, S=2,048), a rank's at its long_500k cell (B=1, H=KH=8,
+   S=524,288, bf16, held in blocks of 256 query rows) and phase 9e's
+   Whisper encoder on a process's heads (B=2, H=KH=8, S=1,500, D=64,
+   non-causal, f32), within
    the reference's tolerances
    (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
    limit and beside
@@ -312,13 +315,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    time, each freed before the next loads.  A uniform workload (8 requests
    x 256 prompt tokens x 16 new at batch 4; Qwen2-VL with 128 patch rows
    before every prompt) through the static and the continuous engine must
-   give identical greedy tokens; DeepSeek-V2-Lite alone (the MLA and
-   expert-parallel slot path) also runs a mixed workload
-   (``make_mixed_workload`` with the reference launcher's prompt lengths
-   128/256; 1 request a slot, 1-16 new, queued up front), which must
-   complete with ``alloc.check()`` holding and in fewer slot-steps than
-   static batching (``generate_bucketed``).  The other configs run no mixed
-   workload, for the script's time: phases 9b-9c serve mixed requests.
+   give identical greedy tokens.  No config runs a mixed workload here, for
+   the script's time: phases 9b, 9c and 9e serve mixed requests (9e the MLA
+   and expert-parallel slot path at unequal positions).
    DeepSeek-V2-Lite runs expert-parallel over 8 simulated units at batch 8
    (the units must divide a decode step's tokens): the continuous engine,
    under its tuned multiplexer, must launch ``moe_dispatch`` once per MoE
@@ -377,6 +376,23 @@ Phases, in order; any failure raises and the process exits non-zero:
    engine with 9b's gates; ``ssd_scan`` once a Mamba2 layer a prefill and
    ``flash_attention`` once a shared-block call (the JSON line's
    ``ssd_scan[tensor]`` and ``flash_attention[tensor-ssm]`` rows);
+9e. (at once with 9b-9d) MLA and the encoder-decoder tensor-parallel: the
+   same scenario over 2 processes of 4 units, f32 (TF32 off), each cell
+   against process 0's one-process engine on the whole tree with 9b's
+   gates: DeepSeek-V2-Lite-16B at full width, 3 of 27 layers (the dense
+   first layer and 2 MoE layers), 8 of 16 MLA heads (``wq``, ``wk_b``,
+   ``wv_b``, ``wo``; ``wkv_a`` and the compressed cache whole) and 32 of 64
+   experts a process, expert-parallel, 8 x 256 + 8 through the static
+   engine, then 8 mixed requests (128 and 256 tokens, 1-8 new, 2 a step) on
+   8 slots through the continuous engine under its tuned two-level
+   multiplexer with the ``moe_dispatch`` kernel pack; Whisper-medium at full
+   width and depth, ``attn_impl="flash"``, 8 q and 8 kv heads a process, 2
+   requests of 1,500 frame rows and an 8-token prompt + 8 new through the
+   static engine, ``flash_attention`` once an encoder layer a prefill, the
+   continuous engine refusing the family; the JSON line's
+   ``moe_dispatch[tensor-mla]`` and ``flash_attention[tensor-encdec]`` rows.
+   The card's used bytes over 9b-9e, every process's together, are printed
+   beside its size;
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
@@ -393,7 +409,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    f32 at batch 1, calling the model directly: 1,500 frames, a prefill of
    1,436 tokens and 64 decode steps over the unpadded cross cache against
    ``decode_train`` at the last position, the logits within 1e-3 of the
-   largest magnitude.  Training: 5 AdamW steps at 8 x 2,048 (and 2,048
+   largest magnitude.  Training: 4 AdamW steps at 8 x 2,048 (and 2,048
    frames), ``remat="block"``, through the calls ``launch/train.py``
    makes: losses finite, the mean of the last 3 below the first, 96
    ``flash_attention`` launches a step (48 non-causal: each encoder layer's
@@ -503,10 +519,10 @@ SSD_BACKWARD_SPAN = "ssd_scan.backward (plain)"
 # four-card probe serves them whole, tensor-parallel
 # (``tools/torch_cluster_probe.py serve --runs tensor``), so here they run
 # cut to 24 and 20 layers (48 and 40 until the tensor-parallel phase 9b came,
-# cut for the script's time).  Only DeepSeek-V2-Lite runs a mixed workload
-# (TF_MIXED_ARCHS), the one on-card run of the MLA + expert-parallel slot path
-# at unequal positions; the dense configs stopped with phase 9c, for the
-# script's time (phases 9b-9c serve mixed requests continuously).
+# cut for the script's time).  No config runs a mixed workload here since
+# phase 9e (the dense configs stopped with phase 9c, DeepSeek-V2-Lite with
+# 9e, for the script's time): phases 9b, 9c and 9e serve mixed requests
+# continuously, 9e the MLA + expert-parallel slot path at unequal positions.
 TF_CONFIGS = {
     "minicpm-2b": (None, "float32"),
     "qwen2.5-3b": (None, "float32"),
@@ -521,11 +537,6 @@ TF_CONFIGS = {
 # takes the dense path (as the reference's does).
 TF_SERVE = (8, 256, 16, 4)
 TF_EP_UNITS = 8
-# the mixed workload: requests per batch slot, arrivals a decode step (0: all
-# queued up front, as the reference launcher's default); 1 a slot (2 until
-# phase 9d came, 4 before that), for the script's time
-TF_MIXED = (1, 0.0)
-TF_MIXED_ARCHS = ("deepseek-v2-lite-16b",)
 # the f32 check at batch 1: full prompt, split point (then one decode step a
 # token to the full prompt), and the limit of the largest magnitude
 TF_CHECK = (256, 192)
@@ -586,16 +597,39 @@ TP_PROBE_SSM_FLASH = (8, 8, 8, 2048, 112)
 # and a rank's shared-block prefill at Zamba2-7B's long_500k cell over four
 # cards (--runs tensor_long_500k): B, H, KH, S, D
 TP_PROBE_LONG_FLASH = (1, 8, 8, 524_288, 112)
+# Phase 9e: MLA and the encoder-decoder under the tensor table, over 2 worker
+# processes on this card (Gloo) of 4 units (so that the 8 units divide a
+# decode step's 8 tokens), f32 with TF32 off, each cell against process 0's
+# one-process engine on the whole tree: DeepSeek-V2-Lite-16B at full width,
+# 3 of 27 layers (the dense first layer and 2 MoE layers, phase 9c's cut of an
+# MoE model; 6.68 GB of f32 params whole, counted on meta), 8 of 16 MLA heads
+# and 32 of 64 experts a process, expert-parallel (the continuous engine under
+# its tuned two-level multiplexer with the moe_dispatch kernel pack): 8 x 256
+# + 8 through the static engine, then 8 slots and 8 mixed requests (128 and
+# 256 tokens, 1-8 new, 2 a step) through the continuous one; Whisper-medium at
+# full width and depth (24 + 24 layers, 3.25 GB of f32 params whole),
+# attn_impl="flash", 8 q and 8 kv heads a process, 2 requests of 1,500 frame
+# rows and an 8-token prompt + 8 new through the static engine (the
+# continuous engine must refuse it, as the reference's).  TPE_FLASH is the
+# encoder's kernel shape a process runs there (B, H, KH, S, D), held in phase
+# 3, and TPE_MOE the dispatch shapes (a process's units, tokens a unit, C at
+# the config's capacity factor of 1.25, top-6).
+TPE_PROCS, TPE_UNITS = 2, 4
+TPE_CELLS = "deepseek-v2-lite-16b:3:8x256x8:0:ep,whisper-medium:0:2x8x8"
+TPE_MIXED = ("8x8x8", "128,256", "2")
+TPE_FRAMES = 1500
+TPE_FLASH = (2, 8, 8, TPE_FRAMES, 64)
+TPE_MOE = (("decode", 4, 1, 4), ("prefill", 4, 256, 30))
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
 # steps; the CLI's steps, seq, batch.  Serving runs Whisper's own 1,500-frame
 # window, which the flash kernel takes with a partial last tile.  Training
-# takes 5 steps to keep the whole script near 1,100 s with phase 7's long_500k
-# cell.
+# takes 4 steps (5 until phase 9e came, 10 until phase 7's long_500k cell) to
+# keep the whole script near 1,080 s.
 WHISPER_SERVE = (8, 1500, 32, 4)
 WHISPER_CHECK = (1500, 1436)
-WHISPER_TRAIN = (8, 2048, 5)
+WHISPER_TRAIN = (8, 2048, 4)
 WHISPER_TRAIN_CLI = (2, 512, 2)
 # Ported kernels no main path calls (the reference calls hash_partition
 # only from its tests): checked and timed, never required to launch.
@@ -998,7 +1032,7 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     E, k = 64, 8
 
-    def moe_row(phase, units, tokens, C):
+    def moe_row(phase, units, tokens, C, k=k):
         ids = _topk_expert_ids(units, tokens, E, k, gen)
         T_m = tokens * k
         dropped = int((md.moe_dispatch(ids, E, C)[0] == E * C).sum())
@@ -1022,6 +1056,10 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     tensor_moe = [moe_row(f"tensor {phase}", *shape) for phase, *shape in TP_MOE]
     for row in tensor_moe:
         row["launch_key"] = "moe_dispatch[tensor]"
+    # phase 9e's DeepSeek-V2-Lite: 64 experts, top-6, a process's 4 units
+    tensor_mla = [moe_row(f"tensor-mla {phase}", *shape, k=6) for phase, *shape in TPE_MOE]
+    for row in tensor_mla:
+        row["launch_key"] = "moe_dispatch[tensor-mla]"
     # train100m's attention: the training shape in f32 (the row) and bf16,
     # and the reference test's non-causal Sq != Sk case
     B, S_t = TRAIN_SHAPE[:2]
@@ -1059,6 +1097,11 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     tensor_ssm["launch_key"] = "flash_attention[tensor-ssm]"
     b, h, kh, s_, d = TP_PROBE_SSM_FLASH
     _flash_row(b, h, kh, s_, s_, d, True, "bfloat16", seed, smi)
+    # phase 9e's Whisper encoder on a process's 8 heads: 1,500 frames (a
+    # partial last tile), non-causal, f32
+    b, h, kh, s_, d = TPE_FLASH
+    tensor_encdec = _flash_row(b, h, kh, s_, s_, d, False, "float32", seed, smi)
+    tensor_encdec["launch_key"] = "flash_attention[tensor-encdec]"
     _flash_long_row(*TP_PROBE_LONG_FLASH, seed, smi)
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
     # prefill_32k prompt at batch 1 (64 blocks, the state carried over 128
@@ -1081,9 +1124,9 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
         _ssd_row(*shape, 256, 1, "bfloat16", seed)
     # the bf16 causal launches: train100m's bf16 run and Whisper's decoder
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
-    return (rows + moe_rows + tensor_moe
-            + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, tensor_ssm, ssd[0],
-               tensor_ssd[0]])
+    return (rows + moe_rows + tensor_moe + tensor_mla
+            + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, tensor_ssm,
+               tensor_encdec, ssd[0], tensor_ssd[0]])
 
 
 def _close(got, want, rtol) -> bool:
@@ -3511,9 +3554,8 @@ def _tf_check(api32, params, seed: int, arch: str, extra: dict) -> None:
 
 def _tf_model(arch: str, seed: int, smi: str) -> dict:
     """One transformer config at full width through both engines (a uniform
-    workload; a mixed one for ``TF_MIXED_ARCHS``), the expert-parallel model
-    over ``TF_EP_UNITS``
-    simulated units, then the f32 check.  Returns every kernel's launches
+    workload), the expert-parallel model over ``TF_EP_UNITS`` simulated
+    units, then the f32 check.  Returns every kernel's launches
     over its continuous runs (the main path)."""
     import dataclasses
     import gc
@@ -3528,8 +3570,7 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.registry import VLM_PATCHES
     from repro_torch.models.transformer import segments_for
-    from repro_torch.serve import (ContinuousEngine, Request, ServeEngine, generate_bucketed,
-                                   make_mixed_workload)
+    from repro_torch.serve import ContinuousEngine, Request, ServeEngine
     from repro_torch.tree import leaves
 
     t_model = time.perf_counter()
@@ -3581,15 +3622,12 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
             main_path[k] += v
         return ce, t_api
 
-    def static(reqs, tag, bucketed=False):
+    def static(reqs, tag):
         t_api = _timed_api(api)
         _reset_counts()
         se = ServeEngine(t_api, batch_size=B, capacity=cap)
-        if bucketed:
-            generate_bucketed(se, params, reqs, extra_inputs=extra)
-        else:
-            for i in range(0, len(reqs), B):
-                se.generate(params, reqs[i : i + B], extra_inputs=extra)
+        for i in range(0, len(reqs), B):
+            se.generate(params, reqs[i : i + B], extra_inputs=extra)
         if _counts()["moe_dispatch"] != 0:
             raise AssertionError(f"{arch} {tag}: the static engine launched moe_dispatch")
         return se, t_api
@@ -3631,27 +3669,6 @@ def _tf_model(arch: str, seed: int, smi: str) -> dict:
                   f"pack vs plain pack over {TF_EP_UNITS} units; all finite")
             del k_logits, p_logits, batch
 
-        # -- mixed: the reference launcher's prompt lengths ------------------
-        if arch in TF_MIXED_ARCHS:
-            lens = [plen] if side else [plen // 2, plen]
-            per_slot, rate = TF_MIXED
-            mixed = make_mixed_workload(cfg.vocab_size, per_slot * B, lens, new, rng,
-                                        arrival_rate=rate)
-            mixed_s = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens)
-                       for r in mixed]
-            ce2, m_api = continuous(mixed, "mixed")
-            ce2.alloc.check()
-            if not all(r.done and 1 <= len(r.out_tokens) <= r.max_new_tokens for r in mixed):
-                raise AssertionError(f"{arch} mixed: a request did not complete")
-            _serving_line(f"{arch} mixed continuous", m_api, mixed, ce2.stats)
-            st, sm_api = static(mixed_s, "mixed", bucketed=True)
-            _serving_line(f"{arch} mixed static", sm_api, mixed_s, st.stats)
-            c, s_ = ce2.stats["slot_steps"], st.stats["slot_steps"]
-            if c >= s_:
-                raise AssertionError(f"{arch} mixed: continuous {c} slot-steps, static {s_}")
-            print(f"[tf] {arch} mixed ({len(mixed)} requests, prompts {lens}, 1-{new} new, "
-                  f"arrival rate {rate}): alloc.check() holds; slot_steps continuous={c} "
-                  f"static={s_} ({s_ / c:.2f}x fewer)")
     peak = torch.cuda.max_memory_allocated()
 
     # -- f32: prefill against prefill + decode (the exact MoE path) ----------
@@ -3717,85 +3734,125 @@ def _tensor_cluster(procs: int, units: int, cell: str, mixed: tuple | None,
     return recs, launched_at, time.perf_counter() - t0
 
 
+def _heads_line(ls: dict) -> str:
+    """What a process holds of a cell's attention, from its leaf shapes."""
+    if "seg0/0/attn/wk_b" in ls:  # MLA
+        return (f"{ls['seg0/0/attn/wq'][1]} MLA heads of wq, wk_b, wv_b and wo, wkv_a "
+                f"{ls['seg0/0/attn/wkv_a']} and the compressed cache whole")
+    if "encoder/0/attn/wq" in ls:  # the encoder-decoder
+        return (f"{ls['encoder/0/attn/wq'][1]} q and {ls['encoder/0/attn/wk'][1]} kv heads in "
+                "each of its three attentions")
+    return f"{ls['seg0/0/attn/wq'][1]} q and {ls['seg0/0/attn/wk'][1]} kv heads"
+
+
 def _tensor_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
     """Check and print one tensor-parallel cluster's dumps: the static run
-    and the continuous one against process 0's one-process engines, each
-    process's pod hop against the count from the shapes, its kernels'
-    launches against what its runs imply.  Returns the launches over the
-    tensor runs (the main path) by kernel."""
-    launched = {"flash_attention": 0, "moe_dispatch": 0}
+    and the continuous one against process 0's one-process engines (a
+    family the continuous engine refuses: its refusal under the tensor
+    table), each process's pod hop against the count from the shapes, its
+    kernels' launches against what its runs imply; the continuous run must
+    leave no slot leak and take fewer slot-steps than ``generate_bucketed``.
+    Returns the launches over the tensor runs (the main path) by kernel and
+    cell."""
+    launched = {}
     for arch, r0 in recs[0]["archs"].items():
         B, S, new = r0["shape"]
-        one, c0 = r0["one_process"], r0["continuous"]
-        oc = c0["one_process"]
+        one, c0 = r0["one_process"], r0.get("continuous")
+        oc = c0["one_process"] if c0 is not None else None
         if not (r0["rows"] == "tensor" and r0["logits_close"] and r0["tokens_equal"]
-                and r0["params_equal_slices"] and c0["rows"] == "tensor" and oc["logits_close"]
-                and oc["tokens_equal"] and oc["steps_equal"] and oc["stats_equal"]
-                and oc["spans_equal"] and oc["drops_equal"] and c0["leak_free"]
-                and c0["uniform_equal_static"]):
+                and r0["params_equal_slices"]
+                and (c0 is not None or "continuous_refused" in r0)
+                and (c0 is None or (
+                    c0["rows"] == "tensor" and oc["logits_close"] and oc["tokens_equal"]
+                    and oc["steps_equal"] and oc["stats_equal"] and oc["spans_equal"]
+                    and oc["drops_equal"] and c0["leak_free"] and c0["uniform_equal_static"]
+                    and c0["stats"]["slot_steps"] < c0["bucketed"]["slot_steps"]))):
             raise AssertionError(f"{tag} {arch}: against the one-process engines "
                                  f"{ {k: v for k, v in r0.items() if k != 'leaf_shapes'} }")
         ls = r0["leaf_shapes"]
-        experts = (f", {ls['seg0/0/ffn/w_gate'][0]} of {ls['seg0/0/ffn/router'][1]} experts"
-                   if "seg0/0/ffn/router" in ls else "")
+        experts = next((f", {ls[k][0]} of {ls[k.replace('w_gate', 'router')][1]} experts"
+                        for k in ("seg0/0/ffn/w_gate", "seg1/0/ffn/w_gate")
+                        if k.replace("w_gate", "router") in ls), "")
         print(f"{tag} {arch} full width, {r0['layers']} layers, f32 (TF32 off), "
               f"attn_impl={r0['attn_impl']}: {B} x {S}-token prompts + {new} new over "
-              f"{procs} processes on this card over Gloo ({r0['rows']}: "
-              f"{ls['seg0/0/attn/wq'][1]} q and {ls['seg0/0/attn/wk'][1]} kv heads{experts} a "
-              f"process); greedy tokens equal to process 0's one-process engine on the whole "
-              f"tree; logits within max |err| {max(r0['logit_abs']):.3g} (allclose rtol = atol = "
-              f"{r0['tol']}) over {len(r0['logit_abs'])} calls; MoE paths {r0['paths']}; process "
-              f"0's params equal the whole tree's slices ({smi})")
+              f"{procs} processes on this card over Gloo ({r0['rows']}: {_heads_line(ls)}"
+              f"{experts} a process); greedy tokens equal to process 0's one-process engine on "
+              f"the whole tree; logits within max |err| {max(r0['logit_abs']):.3g} (allclose "
+              f"rtol = atol = {r0['tol']}) over {len(r0['logit_abs'])} calls; MoE paths "
+              f"{r0['paths']}; process 0's params equal the whole tree's slices ({smi})")
         print(f"{tag} {arch} one process (whole tree): prefill "
               f"{one['prefill_s'][0] * 1e3:.1f} ms, decode {sum(one['decode_s']) * 1e3:.1f} ms "
               f"over {len(one['decode_s'])} steps, peak {one['peak']} B, launches "
               f"{one['launches']}")
-        slots, n_req, cnew = c0["shape"]
-        print(f"{tag} {arch} continuous: {slots} slots, {n_req} mixed requests (prompts "
-              f"{c0['prompts']}, 1-{cnew} new, {c0['rate']} a step) in {c0['groups']} prefill "
-              f"groups and {c0['stats']['decode_steps']} decode steps: tokens, admission and "
-              f"finish steps, stats, spans and drops ({sum(oc.get('drops') or [])} rows over "
-              f"{len(oc.get('drops') or [])} expert-parallel calls) equal to process 0's "
-              f"one-process continuous engine; first-token logits of each prefill group within "
-              f"max |err| {max(oc['prefill_logit_abs']):.3g}, every call's served rows "
-              f"{max(oc['logit_abs']):.3g} (allclose {r0['tol']}), every row's (padding and dead "
-              f"slots too) {max(oc['all_rows_logit_abs']):.3g}; no slot leak, no row moved; "
-              f"slot_steps {c0['stats']['slot_steps']} against generate_bucketed's "
-              f"{c0['bucketed']['slot_steps']}; the static prompts' greedy tokens equal the "
-              f"static engine's; MoE paths {c0['paths']}; multiplexer {c0['mux']}; one process: "
-              f"{r0['one_process_continuous']['record']}")
+        if c0 is None:
+            print(f"{tag} {arch} continuous: refused under the tensor table, as the "
+                  f"reference's engine refuses the family: {r0['continuous_refused']}")
+        else:
+            slots, n_req, cnew = c0["shape"]
+            print(f"{tag} {arch} continuous: {slots} slots, {n_req} mixed requests (prompts "
+                  f"{c0['prompts']}, 1-{cnew} new, {c0['rate']} a step) in {c0['groups']} "
+                  f"prefill groups and {c0['stats']['decode_steps']} decode steps: tokens, "
+                  f"admission and finish steps, stats, spans and drops "
+                  f"({sum(oc.get('drops') or [])} rows over {len(oc.get('drops') or [])} "
+                  f"expert-parallel calls) equal to process 0's one-process continuous engine; "
+                  f"first-token logits of each prefill group within max |err| "
+                  f"{max(oc['prefill_logit_abs']):.3g}, every call's served rows "
+                  f"{max(oc['logit_abs']):.3g} (allclose {r0['tol']}), every row's (padding and "
+                  f"dead slots too) {max(oc['all_rows_logit_abs']):.3g}; no slot leak, no row "
+                  f"moved; slot_steps {c0['stats']['slot_steps']} against generate_bucketed's "
+                  f"{c0['bucketed']['slot_steps']}; the static prompts' greedy tokens equal the "
+                  f"static engine's; MoE paths {c0['paths']}; multiplexer {c0['mux']}; one "
+                  f"process: {r0['one_process_continuous']['record']}")
+        got = launched.setdefault(arch, {"flash_attention": 0, "moe_dispatch": 0})
         for pid, rec in enumerate(recs):
             r = rec["archs"][arch]
-            c = r["continuous"]
-            h, hc = r["want_hop"], c["want_hop"]
+            c = r.get("continuous")
+            h = r["want_hop"]
             n = len(r["decode_s"][-1])
-            steps = len(c["decode_s"])
-            print(f"{tag} {arch} process {pid}: static prefill {r['prefill_s'][-1][0] * 1e3:.1f}"
-                  f" ms, {1e3 * sum(r['decode_s'][-1]) / max(n, 1):.2f} ms a decode step; pod hop "
-                  f"{r['hop_kinds']} = derived {h['all-reduce']} B all-reduce + "
-                  f"{h['all-gather']} B all-gather + {h['trips']} B expert trips; continuous: "
-                  f"prefill groups {[round(p * 1e3, 1) for p in c['prefill_s']]} ms, "
-                  f"{1e3 * sum(c['decode_s']) / max(steps, 1):.2f} ms a decode step, record "
-                  f"{c['record']}, pod hop {c['hop_bytes']} B = derived {hc['total']} B "
-                  f"({c['hop_kinds']}); params {r['param_bytes_counted']} B and cache "
-                  f"{c['cache_bytes_counted']} B counted on meta, peak {c['peak']} B; launches "
-                  f"static {r['launches']}, continuous {c['launches']} ({smi})")
-            if (r["hop_bytes"] != h["total"] or c["hop_bytes"] != hc["total"]
-                    or not r["tokens_equal_on_every_process"]
-                    or not all(c["equal_on_every_process"].values())
-                    or r["launches"]["flash_attention"] != r["layers"]
-                    or c["launches"]["flash_attention"] != r["layers"] * c["groups"]
-                    or any(c["launches"][k] != v for k, v in c["want_launches"].items())):
+            line = (f"{tag} {arch} process {pid}: static prefill "
+                    f"{r['prefill_s'][-1][0] * 1e3:.1f} ms, "
+                    f"{1e3 * sum(r['decode_s'][-1]) / max(n, 1):.2f} ms a decode step; pod hop "
+                    f"{r['hop_kinds']} = derived {h['all-reduce']} B all-reduce + "
+                    f"{h['all-gather']} B all-gather + {h['trips']} B expert trips; params "
+                    f"{r['param_bytes_counted']} B and cache {r['cache_bytes_counted']} B "
+                    f"counted on meta, peak {r['peak']} B")
+            bad = (r["hop_bytes"] != h["total"] or not r["tokens_equal_on_every_process"]
+                   or r["launches"]["flash_attention"] != r["want_flash"])
+            if c is not None:
+                hc = c["want_hop"]
+                steps = len(c["decode_s"])
+                line += (f"; continuous: prefill groups "
+                         f"{[round(p * 1e3, 1) for p in c['prefill_s']]} ms, "
+                         f"{1e3 * sum(c['decode_s']) / max(steps, 1):.2f} ms a decode step, "
+                         f"record {c['record']}, pod hop {c['hop_bytes']} B = derived "
+                         f"{hc['total']} B ({c['hop_kinds']}); cache {c['cache_bytes_counted']} B "
+                         f"counted on meta, peak {c['peak']} B")
+                bad = bad or (c["hop_bytes"] != hc["total"]
+                              or not all(c["equal_on_every_process"].values())
+                              or any(c["launches"][k] != v
+                                     for k, v in c["want_launches"].items()))
+            print(f"{line}; launches static {r['launches']}"
+                  + (f", continuous {c['launches']}" if c is not None else "") + f" ({smi})")
+            if bad:
                 raise AssertionError(f"{tag} {arch} process {pid}: "
                                      f"{ {k: v for k, v in r.items() if k != 'leaf_shapes'} }")
-            for k in launched:
-                launched[k] += r["launches"][k] + c["launches"][k]
+            for k in got:
+                got[k] += r["launches"][k] + (c["launches"][k] if c is not None else 0)
     for pid, rec in enumerate(recs):
         parts = {"start-up": rec["started_at"] - rec["launched_at"],
                  **{a: r["seconds"] for a, r in rec["archs"].items()}}
         print(f"{tag} process {pid}'s seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return launched
+
+
+def _summed(by_cell: dict) -> dict:
+    """Launches by kernel, summed over a cluster's cells."""
+    out: dict = {}
+    for launched in by_cell.values():
+        for k, v in launched.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def _tensor_ssm_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
@@ -3849,42 +3906,90 @@ def _tensor_ssm_lines(tag: str, recs: list, procs: int, smi: str) -> dict:
     return launched
 
 
+class _DeviceMemory:
+    """The card's used bytes over a span, every process's together: the
+    driver's free-memory count (``torch.cuda.mem_get_info``), polled from a
+    thread of this process until :meth:`stop`."""
+
+    def __init__(self, every_s: float = 0.25):
+        import threading
+
+        import torch
+
+        self.free, self.total = torch.cuda.mem_get_info()
+        self.most = self.total - self.free
+        self._stop = threading.Event()
+        self._every = every_s
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        import torch
+
+        while not self._stop.wait(self._every):
+            free, total = torch.cuda.mem_get_info()
+            self.most = max(self.most, total - free)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        return self.most
+
+
 def phase_tensor_serve(smi: str) -> dict:
     """Tensor-parallel serving on this card over worker processes (Gloo),
-    the three clusters at once: phase 9b, DeepSeek-67B at ``TP_CELL`` over
+    the four clusters at once: phase 9b, DeepSeek-67B at ``TP_CELL`` over
     ``TP_PROCS`` processes, and phase 9c, OLMoE-1B-7B at ``TPM_CELL`` over
     ``TPM_PROCS`` (its experts split), each through both engines against
     process 0's one-process engines (``_tensor_cluster``); phase 9d,
     Mamba2-1.3B and Zamba2-7B at ``TPS_CELLS`` over ``TPS_PROCS`` (their SSM
-    heads split) through the static engine.  Returns the workers' launches
-    over the tensor runs (the main path): ``flash_attention[tensor]`` (9b),
+    heads split) through the static engine; phase 9e, DeepSeek-V2-Lite-16B
+    (MLA, both engines) and Whisper-medium (the static engine; the
+    continuous one must refuse it) at ``TPE_CELLS`` over ``TPE_PROCS``.  The
+    card's used bytes over the phase, every process's together, are printed
+    beside the card's size.  Returns the workers' launches over the tensor
+    runs (the main path): ``flash_attention[tensor]`` (9b),
     ``flash_attention[tensor-moe]`` and ``moe_dispatch[tensor]`` (9c),
-    ``ssd_scan[tensor]`` and ``flash_attention[tensor-ssm]`` (9d)."""
+    ``ssd_scan[tensor]`` and ``flash_attention[tensor-ssm]`` (9d),
+    ``moe_dispatch[tensor-mla]`` and ``flash_attention[tensor-encdec]``
+    (9e)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    memory = _DeviceMemory()
+    with ThreadPoolExecutor(4) as pool:
         dense = pool.submit(_tensor_cluster, TP_PROCS, TP_UNITS, TP_CELL, TP_MIXED)
         moe = pool.submit(_tensor_cluster, TPM_PROCS, TPM_UNITS, TPM_CELL, TPM_MIXED)
         ssm = pool.submit(_tensor_cluster, TPS_PROCS, TPS_UNITS, TPS_CELLS, None,
                           ("--tp-states",))
+        mla = pool.submit(_tensor_cluster, TPE_PROCS, TPE_UNITS, TPE_CELLS, TPE_MIXED,
+                          ("--tp-frames", str(TPE_FRAMES)))
         (b_recs, _, b_wall), (c_recs, _, c_wall) = dense.result(), moe.result()
-        d_recs, _, d_wall = ssm.result()
-    b = _tensor_lines("[tensor-serve]", b_recs, TP_PROCS, smi)
-    c = _tensor_lines("[tensor-moe]", c_recs, TPM_PROCS, smi)
+        (d_recs, _, d_wall), (e_recs, _, e_wall) = ssm.result(), mla.result()
+    used = memory.stop()
+    b = _summed(_tensor_lines("[tensor-serve]", b_recs, TP_PROCS, smi))
+    c = _summed(_tensor_lines("[tensor-moe]", c_recs, TPM_PROCS, smi))
     d = _tensor_ssm_lines("[tensor-ssm]", d_recs, TPS_PROCS, smi)
+    e = _tensor_lines("[tensor-mla]", e_recs, TPE_PROCS, smi)
+    mla_key, encdec_key = (cell.split(":")[0] for cell in TPE_CELLS.split(","))
+    e_mla, e_encdec = e[next(k for k in e if k.startswith(mla_key))], e[encdec_key]
     if c["moe_dispatch"] <= 0:
         raise AssertionError("[tensor-moe] moe_dispatch never launched under the tensor table")
     if d["ssd_scan"] <= 0 or d["flash_attention"] <= 0:
         raise AssertionError(f"[tensor-ssm] a kernel never launched under the tensor table: {d}")
-    print(f"[tensor-serve] phases 9b, 9c and 9d in {time.perf_counter() - t0:.1f} s at once "
-          f"(launcher walls {b_wall:.1f}, {c_wall:.1f} and {d_wall:.1f} s); launches over the "
-          f"tensor runs: 9b {b}, 9c {c}, 9d {d}")
+    if e_mla["moe_dispatch"] <= 0 or e_encdec["flash_attention"] <= 0:
+        raise AssertionError(f"[tensor-mla] a kernel never launched under the tensor table: {e}")
+    print(f"[tensor-serve] phases 9b, 9c, 9d and 9e in {time.perf_counter() - t0:.1f} s at once "
+          f"(launcher walls {b_wall:.1f}, {c_wall:.1f}, {d_wall:.1f} and {e_wall:.1f} s); the "
+          f"card's used bytes at most {used} B of {memory.total} B over the phase, every "
+          f"process's together; launches over the tensor runs: 9b {b}, 9c {c}, 9d {d}, 9e {e}")
     return {"flash_attention[tensor]": b["flash_attention"],
             "flash_attention[tensor-moe]": c["flash_attention"],
             "moe_dispatch[tensor]": c["moe_dispatch"],
             "ssd_scan[tensor]": d["ssd_scan"],
-            "flash_attention[tensor-ssm]": d["flash_attention"]}
+            "flash_attention[tensor-ssm]": d["flash_attention"],
+            "moe_dispatch[tensor-mla]": e_mla["moe_dispatch"],
+            "flash_attention[tensor-encdec]": e_encdec["flash_attention"]}
 
 
 def _whisper_check(cfg, params, seed: int) -> None:
@@ -4012,7 +4117,7 @@ def _whisper_serving(cfg, params, seed: int, smi: str) -> dict:
 def phase_whisper(seed: int, smi: str) -> dict:
     """Whisper-medium at full width and depth (24 + 24 layers, random
     weights from ``seed``, f32 master params, bf16 compute, flash
-    attention): static serving, the f32 decode check, 5 train steps with
+    attention): static serving, the f32 decode check, 4 train steps with
     96 ``flash_attention`` launches each (48 non-causal), one step against
     chunked attention, one profiled step and the training CLI.  Returns
     every kernel's launches over serving and training (the main path), the
@@ -4181,10 +4286,10 @@ def main() -> int:
     # 9. the six transformer configs (the dense, VLM and MLA serving main path)
     f_launches = phase_transformers(args.seed, smi)
 
-    # 9b-9d. tensor-parallel serving across two processes (the dense and MoE
-    # serving main paths with their heads, d_ff, vocab and experts split,
-    # through the static and continuous engines; the SSM and hybrid ones with
-    # their SSM heads split, through the static engine)
+    # 9b-9e. tensor-parallel serving across two processes (the dense, MoE and
+    # MLA serving main paths with their heads, d_ff, vocab and experts split,
+    # through the static and continuous engines; the SSM, hybrid and
+    # encoder-decoder ones through the static engine)
     g_launches = phase_tensor_serve(smi)
 
     # 10. Whisper (the encoder-decoder serving and training main path)

@@ -165,6 +165,18 @@ def sync_processes() -> None:
         dist.barrier()
 
 
+def leave_cluster() -> None:
+    """Wait for every process, then leave the ``torch.distributed`` group (a
+    no-op in one process).  A worker that exits while another still talks
+    to it can abort in the group's teardown; the launched entry points call
+    this last."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -295,6 +307,7 @@ __all__ = [
     "run_local_cluster",
     "local_unit_count",
     "sync_processes",
+    "leave_cluster",
     "main",
 ]
 

@@ -27,9 +27,9 @@ Tensor-parallel (``--tensor``) across the processes of a launch: every
 process serves the whole batch over its slices of the heads, ``d_ff``,
 vocab, experts and SSM heads
 (:func:`~repro_torch.distributed.sharding.tensor_rules`, one pod a process;
-the dense, VLM and MoE families with GQA through either engine, the SSM
-and hybrid families through the static one), drawn from the seed as each
-layer is drawn:
+the transformer families, GQA or MLA, through either engine, the SSM,
+hybrid and encoder-decoder families through the static one), drawn from
+the seed as each layer is drawn:
 
   PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
       --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
@@ -44,7 +44,16 @@ layer is drawn:
       --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
       --arch zamba2-7b --tensor --batch 8 --requests 8 --prompt-len 2048
 
-(``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)  An
+  PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
+      --local-units 2 --backend nccl -- -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --tensor --continuous --batch 8 --requests 16
+
+  PYTHONPATH=src python -m repro_torch.launch.cluster --processes 4 \
+      --local-units 1 --backend nccl -- -m repro_torch.launch.serve \
+      --arch whisper-medium --tensor --batch 4 --requests 8 --prompt-len 1500
+
+(``--backend gloo --device cpu`` and ``--smoke`` on the CPU.)  Each process
+leaves the process group when it is done (``launch.cluster.leave_cluster``).  An
 expert-parallel model's units are the launch's processes times its
 ``--local-units``.
 
@@ -81,7 +90,7 @@ from ..serve import (
     generate_bucketed,
     make_mixed_workload,
 )
-from .cluster import init_cluster
+from .cluster import init_cluster, leave_cluster
 from .mesh import make_context, make_pod_mesh
 
 
@@ -156,7 +165,6 @@ def main(argv=None, device: str = "cuda"):
         info = init_cluster()  # a no-op outside a launch: the context then raises
         device = info.device or device
         ctx = make_context(mesh=make_pod_mesh(), rules=tensor_rules())
-        R.require_tensor_parallel(cfg)
         params = api.init(args.seed, device=device, place=tensor_place(api.param_specs, ctx,
                                                                   api.tensor_index))
     else:
@@ -175,57 +183,66 @@ def main(argv=None, device: str = "cuda"):
         scope = contextlib.nullcontext()
 
     with scope:
-        if args.continuous:
-            reqs = make_mixed_workload(
-                cfg.vocab_size, args.requests, _prompt_lens(cfg, args), args.max_new, rng,
-                arrival_rate=args.arrival_rate,
-            )
-            clone = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
-                             eos_id=r.eos_id) for r in reqs]
-            tracer = Tracer() if args.trace_dir else None
-            cont = ContinuousEngine(api, batch_size=args.batch, capacity=capacity,
-                                    temperature=args.temperature, seed=args.seed,
-                                    tracer=tracer, device=device)
-            t0 = time.perf_counter()
-            cont.serve(params, reqs, extra_inputs=extra)
-            _summarize("continuous", reqs, cont.stats, time.perf_counter() - t0)
-            if tracer is not None:
-                print("trace:", write_trace_dir(tracer, args.trace_dir, basename="serve"))
+        _serve(args, cfg, api, params, capacity, rng, extra, device)
+    if args.tensor:
+        leave_cluster()
 
-            static = ServeEngine(api, batch_size=args.batch, capacity=capacity,
-                                 temperature=args.temperature, seed=args.seed,
-                                 device=device)
-            t0 = time.perf_counter()
-            generate_bucketed(static, params, clone, extra_inputs=extra)
-            _summarize("static    ", clone, static.stats, time.perf_counter() - t0)
 
-            c, s = cont.stats["slot_steps"], static.stats["slot_steps"]
-            print(f"slot_steps: continuous={c} static={s} "
-                  f"({s / max(c, 1):.2f}x fewer slot-seconds)")
-            if c >= s:
-                raise SystemExit(
-                    f"continuous batching did not beat static on this workload "
-                    f"({c} vs {s} slot-steps); mixed-length workloads with more "
-                    f"requests than --batch are where refill pays"
-                )
-            return
-
-        reqs = [
-            Request(
-                prompt=rng.integers(0, cfg.vocab_size, args.prompt_len, dtype=np.int32),
-                max_new_tokens=args.max_new,
-            )
-            for _ in range(args.requests)
-        ]
-        engine = ServeEngine(api, batch_size=args.batch, capacity=capacity,
-                             temperature=args.temperature, seed=args.seed, device=device)
+def _serve(args, cfg, api, params, capacity: int, rng, extra, device) -> None:
+    """The requests through the engines (``--continuous``: the continuous
+    engine, then the static one on the same workload), under the caller's
+    mesh context."""
+    if args.continuous:
+        reqs = make_mixed_workload(
+            cfg.vocab_size, args.requests, _prompt_lens(cfg, args), args.max_new, rng,
+            arrival_rate=args.arrival_rate,
+        )
+        clone = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
+                         eos_id=r.eos_id) for r in reqs]
+        tracer = Tracer() if args.trace_dir else None
+        cont = ContinuousEngine(api, batch_size=args.batch, capacity=capacity,
+                                temperature=args.temperature, seed=args.seed,
+                                tracer=tracer, device=device)
         t0 = time.perf_counter()
-        for i in range(0, len(reqs), args.batch):
-            batch = reqs[i : i + args.batch]
-            engine.generate(params, batch, extra_inputs=extra)
-            print(f"batch {i // args.batch}: "
-                  + "; ".join(str(r.out_tokens[:8]) for r in batch))
-        _summarize("static", reqs, engine.stats, time.perf_counter() - t0)
+        cont.serve(params, reqs, extra_inputs=extra)
+        _summarize("continuous", reqs, cont.stats, time.perf_counter() - t0)
+        if tracer is not None:
+            print("trace:", write_trace_dir(tracer, args.trace_dir, basename="serve"))
+
+        static = ServeEngine(api, batch_size=args.batch, capacity=capacity,
+                             temperature=args.temperature, seed=args.seed,
+                             device=device)
+        t0 = time.perf_counter()
+        generate_bucketed(static, params, clone, extra_inputs=extra)
+        _summarize("static    ", clone, static.stats, time.perf_counter() - t0)
+
+        c, s = cont.stats["slot_steps"], static.stats["slot_steps"]
+        print(f"slot_steps: continuous={c} static={s} "
+              f"({s / max(c, 1):.2f}x fewer slot-seconds)")
+        if c >= s:
+            raise SystemExit(
+                f"continuous batching did not beat static on this workload "
+                f"({c} vs {s} slot-steps); mixed-length workloads with more "
+                f"requests than --batch are where refill pays"
+            )
+        return
+
+    reqs = [
+        Request(
+            prompt=rng.integers(0, cfg.vocab_size, args.prompt_len, dtype=np.int32),
+            max_new_tokens=args.max_new,
+        )
+        for _ in range(args.requests)
+    ]
+    engine = ServeEngine(api, batch_size=args.batch, capacity=capacity,
+                         temperature=args.temperature, seed=args.seed, device=device)
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), args.batch):
+        batch = reqs[i : i + args.batch]
+        engine.generate(params, batch, extra_inputs=extra)
+        print(f"batch {i // args.batch}: "
+              + "; ".join(str(r.out_tokens[:8]) for r in batch))
+    _summarize("static", reqs, engine.stats, time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

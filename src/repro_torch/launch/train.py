@@ -11,7 +11,8 @@ regenerates exactly the batches that would have followed).
       --steps 100 --seq-len 512 --ckpt-dir ckpt --ckpt-every 20
 
 The flags are the reference's.  It runs on the card; :func:`main` takes
-``device="cpu"`` from Python.
+``device="cpu"`` from Python.  Called under a tensor-table context it
+refuses, as the train step does (ROADMAP queue A, item 9(d)).
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..configs.base import ShapeSpec
 from ..data import Prefetcher, make_batch_iterator
+from ..distributed.sharding import current_mesh_context
 from ..models import registry as R
 from ..train import AdamWConfig, TrainState, make_train_step
+from ..train.step import refuse_tensor_table
 
 
 def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
@@ -46,6 +49,7 @@ def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     args = p.parse_args(argv)
+    refuse_tensor_table(current_mesh_context())  # before any state is built
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.scaled(num_microbatches=args.microbatches)

@@ -60,12 +60,11 @@ def tensor_params(params: dict, cfg, ctx=None) -> dict:
     context), cut as ``init``'s ``tensor_place`` cuts them as it draws (a
     Mamba block by its head-aligned sections)."""
     from ..distributed.sharding import current_mesh_context, tensor_slices
-    from .registry import build, require_tensor_parallel
+    from .registry import build
 
     ctx = ctx or current_mesh_context()
     if ctx is None or not ctx.tensor:
         raise ValueError("tensor_params needs a mesh context with the tensor table")
-    require_tensor_parallel(cfg)
     api = build(cfg)
     return tensor_slices(params, api.param_specs, ctx, api.tensor_index)
 

@@ -31,7 +31,8 @@ each process holds its slices of the heads, ``d_ff`` and vocab dims that
 the process count divides: q/k/v (and their biases) are column-parallel and
 each process attends with its own heads (with the kv heads they read, where
 the kv heads stay whole); :func:`attention_out` and the MLP's down
-projection are row-parallel, each followed by one all-reduce; :func:`embed`
+projection are row-parallel, each followed by one all-reduce (so is MLA's
+``wo``, once a call after every query block, :func:`_mla_attend`); :func:`embed`
 looks up the process's vocab rows and all-reduces, and :func:`unembed`
 all-gathers its logits to the full vocab.  A dim that stays whole needs no
 collective.
@@ -573,7 +574,9 @@ def _mla_attend_block(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rop
     ``scores = (q_nope @ wk_b^T) . c + q_rope . k_rope``, so the cache stays
     ``[B, S, r]``.  The logits in f32, masked with ``-1e30``, scaled by
     ``1 / sqrt(qk_nope + qk_rope)``; the values read ``c`` and expand
-    through ``wv_b`` after the softmax."""
+    through ``wv_b`` after the softmax: ``[B, S, H, dv]``, before ``wo``
+    (:func:`_mla_attend`).  Every product here is per head, so under the
+    tensor table it runs on the process's heads with no collective."""
     dt = q_nope.dtype
     scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     q_abs = torch.einsum("bshn,rhn->bshr", q_nope, params["wk_b"].to(dt))
@@ -593,9 +596,7 @@ def _mla_attend_block(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rop
     logits = torch.where(bmask, logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(dt)
     o_c = torch.einsum("bhst,btr->bshr", w, c)  # attend over the compressed values
-    o = torch.einsum("bshr,rhv->bshv", o_c, params["wv_b"].to(dt))
-    B, S, H, dv = o.shape
-    return o.reshape(B, S, H * dv) @ params["wo"].to(dt).reshape(H * dv, -1)
+    return torch.einsum("bshr,rhv->bshv", o_c, params["wv_b"].to(dt))
 
 
 def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rope, *,
@@ -603,22 +604,28 @@ def _mla_attend(params: Params, cfg: ModelConfig, q_nope, q_rope, c, k_rope, *,
     """Query-block-chunked MLA attention, as the reference chunks it: one
     block unless ``cfg.attn_impl`` asks for chunks or (``"auto"``) the
     queries pass ``max(attn_q_block, 1024)``; each block of
-    ``attn_q_block`` queries under ``torch.utils.checkpoint``."""
+    ``attn_q_block`` queries under ``torch.utils.checkpoint``.  Then the
+    output projection ``wo`` over every block at once, row-parallel under
+    the tensor table (the process's heads' partial sum and one all-reduce a
+    call, not one a block)."""
     Sq = q_nope.shape[1]
     bq = cfg.attn_q_block
     if (cfg.attn_impl == "sdpa" or Sq % bq != 0 or Sq == bq
             or (cfg.attn_impl == "auto" and Sq <= max(bq, 1024))):
-        return _mla_attend_block(params, cfg, q_nope, q_rope, c, k_rope, causal=causal,
-                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
-    outs = [
-        checkpoint(
-            lambda qn, qr, i=i: _mla_attend_block(
-                params, cfg, qn, qr, c, k_rope, causal=causal, q_offset=i + q_offset,
-                kv_valid_len=kv_valid_len),
-            q_nope[:, i : i + bq], q_rope[:, i : i + bq], use_reentrant=False)
-        for i in range(0, Sq, bq)
-    ]
-    return torch.cat(outs, dim=1)
+        o = _mla_attend_block(params, cfg, q_nope, q_rope, c, k_rope, causal=causal,
+                              q_offset=q_offset, kv_valid_len=kv_valid_len)
+    else:
+        o = torch.cat([
+            checkpoint(
+                lambda qn, qr, i=i: _mla_attend_block(
+                    params, cfg, qn, qr, c, k_rope, causal=causal, q_offset=i + q_offset,
+                    kv_valid_len=kv_valid_len),
+                q_nope[:, i : i + bq], q_rope[:, i : i + bq], use_reentrant=False)
+            for i in range(0, Sq, bq)
+        ], dim=1)
+    B, S, H, dv = o.shape
+    y = o.reshape(B, S, H * dv) @ params["wo"].to(o.dtype).reshape(H * dv, -1)
+    return _row_parallel(y, "heads", cfg.num_heads)
 
 
 def mla_block(params: Params, cfg: ModelConfig, x: torch.Tensor, cos, sin, *,

@@ -35,7 +35,8 @@ reference's ``moe_dense`` under ``experts -> model``: each process computes
 its experts for every token and one all-reduce sums them.  No path runs on
 experts a process does not hold.  :func:`record_drops` collects each
 expert-parallel call's per-unit drop counts, :func:`record_paths` the path
-each call took.
+each call took, :func:`record_routes` each call's top-k sets and how near
+each token is to another route.
 """
 
 from __future__ import annotations
@@ -149,6 +150,7 @@ def moe_dense(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 _DROPS: list | None = None
 _PATHS: list | None = None
+_ROUTES: list | None = None
 
 
 @contextlib.contextmanager
@@ -168,6 +170,32 @@ def record_paths() -> Iterator[list]:
 def _record_path(path: str) -> None:
     if _PATHS is not None:
         _PATHS.append(path)
+
+
+@contextlib.contextmanager
+def record_routes() -> Iterator[list]:
+    """Inside the with-block every MoE layer call appends its tokens'
+    routes, in call order, on the host: ``(ids, margin)``, ``ids [T, k]``
+    the top-k experts of each token in ascending order (int16, so two runs'
+    sets compare row by row) and ``margin [T]`` the gap between its k-th and
+    its (k+1)-th router logit (f32), which says how near a token is to
+    another route.  It costs one more router product a call; outside the
+    block, nothing."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def _record_route(params, cfg: ModelConfig, tokens: torch.Tensor) -> None:
+    logits = tokens.float() @ params["router"]
+    top = torch.topk(logits, min(cfg.top_k + 1, cfg.num_experts), dim=-1, sorted=True)
+    ids = top.indices[:, :cfg.top_k].sort(dim=-1).values.to(torch.int16)
+    margin = (top.values[:, cfg.top_k - 1] - top.values[:, cfg.top_k]
+              if cfg.top_k < cfg.num_experts else torch.full_like(top.values[:, 0], float("inf")))
+    _ROUTES.append((ids.cpu(), margin.cpu()))
 
 
 @contextlib.contextmanager
@@ -375,6 +403,8 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     tensor table)."""
     B, S, d = x.shape
     tokens = x.reshape(B * S, d)
+    if _ROUTES is not None:
+        _record_route(params, cfg, tokens)
     if cfg.moe_impl == "ep_shardmap":
         y = moe_ep(params, cfg, tokens)
     else:  # "dense" and "gspmd"
@@ -395,4 +425,5 @@ __all__ = [
     "moe_ffn",
     "record_drops",
     "record_paths",
+    "record_routes",
 ]

@@ -89,21 +89,6 @@ def build(cfg: ModelConfig) -> ModelApi:
     )
 
 
-def require_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that the tensor table
-    (:func:`~repro_torch.distributed.sharding.tensor_rules`) does not serve
-    yet: MLA attention and the encoder-decoder family.  The dense, VLM and
-    MoE transformers with GQA, the SSM and the hybrid families serve."""
-    if cfg.family in ("dense", "vlm", "moe", "ssm", "hybrid") and cfg.attn_kind != "mla":
-        return
-    what = "MLA attention" if cfg.attn_kind == "mla" else f"the {cfg.family!r} family"
-    raise NotImplementedError(
-        f"tensor-parallel serving of {what} ({cfg.name}) is not ported yet: the tensor "
-        "table serves the dense, VLM and MoE transformers with GQA, the SSM and the hybrid "
-        "families (ROADMAP queue A, item 9(c)(ii): tensor parallelism for MLA and "
-        "encoder-decoder)")
-
-
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """The model's parameters, counted on ``init(..., device="meta")`` (no
     memory).  With ``active_only`` an MoE layer's ``ffn`` matrices count
@@ -185,5 +170,5 @@ def param_shape_specs(cfg: ModelConfig) -> tuple[Any, Any]:
     return api.init(0, device="meta"), api.param_specs
 
 
-__all__ = ["ModelApi", "VLM_PATCHES", "build", "require_tensor_parallel", "param_count",
+__all__ = ["ModelApi", "VLM_PATCHES", "build", "param_count",
            "input_specs", "cache_shape_specs", "param_shape_specs"]

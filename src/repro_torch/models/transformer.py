@@ -20,12 +20,15 @@ A VLM batch's ``patches [B, P, d]`` are prepended to the token embeddings:
 prefill's cache then holds ``P + S`` positions and decode continues after
 them; the loss reads the text positions only.
 
-Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`,
-serving the dense, VLM and MoE families with GQA) the params are a
-process's slices (``init(..., place=tensor_place(specs(cfg), ctx))`` or
-:func:`~repro_torch.models.convert.tensor_params`) and the same code runs on
-the process's heads and experts: :mod:`.layers` and :mod:`.moe` add the
-collectives.
+Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`)
+the params are a process's slices (``init(..., place=tensor_place(specs(cfg),
+ctx))`` or :func:`~repro_torch.models.convert.tensor_params`) and the same
+code runs on the process's heads and experts: :mod:`.layers` and :mod:`.moe`
+add the collectives.  Under MLA a process holds its heads of ``wq``,
+``wk_b``, ``wv_b`` and ``wo`` (the reference's ``specs_mla``) and the whole
+of ``wkv_a``, ``kv_norm`` and the compressed ``c``/``kr`` cache, which carry
+no head dim: the absorbed products run on its heads, and ``wo`` all-reduces
+once a layer.
 """
 
 from __future__ import annotations

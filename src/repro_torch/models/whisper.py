@@ -23,6 +23,14 @@ full.  With ``cfg.remat`` other than ``"none"`` each layer of
 :func:`encode` and :func:`decode_train` runs under
 ``torch.utils.checkpoint``.  There is no per-slot decode: the reference has
 none, so the continuous engine refuses this family.
+
+Under the tensor table (:func:`~repro_torch.distributed.sharding.tensor_rules`)
+every leaf takes the dense specs: the encoder's self-attention, the
+decoder's self- and cross-attention and both GELU MLPs split like a dense
+layer (q/k/v column-parallel, ``wo`` and ``w_out`` row-parallel, ``b_out``
+added after the all-reduce), the cross K/V are the process's kv heads, and
+so are the cache's (:func:`init_cache`); the encoder's attention kernel runs
+on the process's heads.
 """
 
 from __future__ import annotations
@@ -98,17 +106,25 @@ def _dec_layer_specs(cfg: ModelConfig) -> Any:
     }
 
 
-def init(seed: int, cfg: ModelConfig, device="cuda") -> Any:
+def init(seed: int, cfg: ModelConfig, device="cuda", place=None) -> Any:
     """Random params from ``seed`` on ``device``, with the reference's
     distributions (its numbers come only through
-    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only."""
+    :mod:`repro_torch.models.convert`); on ``"meta"``, shapes only.  The
+    embedding and each layer go through ``place(path, sub) -> sub`` as they
+    are drawn (paths ``("embedding",)``, ``("encoder", l)`` and
+    ``("decoder", l)``), as :func:`~.transformer.init`'s do: a
+    tensor-parallel process keeps its slices
+    (:func:`~repro_torch.distributed.sharding.tensor_place`)."""
+    keep = place or (lambda path, sub: sub)
     gen = L.make_generator(seed, device)
     dt = L.pdtype(cfg)
     return {
-        "embedding": L.init_embedding(gen, cfg),
-        "encoder": [_enc_layer_init(gen, cfg) for _ in range(cfg.encoder_layers)],
+        "embedding": keep(("embedding",), L.init_embedding(gen, cfg)),
+        "encoder": [keep(("encoder", l), _enc_layer_init(gen, cfg))
+                    for l in range(cfg.encoder_layers)],
         "enc_norm": L.init_layernorm(cfg.d_model, dt, gen.device),
-        "decoder": [_dec_layer_init(gen, cfg) for _ in range(cfg.num_layers)],
+        "decoder": [keep(("decoder", l), _dec_layer_init(gen, cfg))
+                    for l in range(cfg.num_layers)],
         "dec_norm": L.init_layernorm(cfg.d_model, dt, gen.device),
     }
 
@@ -158,10 +174,17 @@ def _cross_attend(p, cfg: ModelConfig, h, mem_k, mem_v) -> torch.Tensor:
 
 
 def _memory_kv(p, cfg: ModelConfig, memory):
+    """The cross-attention keys and values of the encoder's ``memory``;
+    under the tensor table of the kv heads this process's query heads read
+    (:func:`~.layers.kv_heads_read`), as :func:`~.layers.attention_qkv`
+    cuts them."""
     k, v = L._project(memory, p["wk"]), L._project(memory, p["wv"])
     if cfg.qkv_bias:
         k = k + p["bk"].to(memory.dtype)
         v = v + p["bv"].to(memory.dtype)
+    read = L.kv_heads_read(cfg)
+    if read is not None:
+        k, v = k[:, :, read], v[:, :, read]
     return k, v
 
 
@@ -213,13 +236,18 @@ CACHE_KEYS = ("self_k", "self_v", "cross_k", "cross_v")
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, dtype=None,
                device="cuda") -> Any:
     """Self-attention KV per decoder layer and the cross KV (filled at
-    prefill), each ``[L, B, capacity, KH, Dh]``."""
+    prefill), each ``[L, B, capacity, KH, Dh]``; under the tensor table
+    ``KH`` is the kv heads this process attends with
+    (:func:`~.layers.local_kv_heads`), as in :func:`~.transformer.init_cache`."""
     dtype = dtype or L.cdtype(cfg)
-    shape = (cfg.num_layers, batch_size, capacity, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (cfg.num_layers, batch_size, capacity, L.local_kv_heads(cfg),
+             cfg.resolved_head_dim)
     return {name: torch.zeros(shape, dtype=dtype, device=device) for name in CACHE_KEYS}
 
 
 def cache_specs(cfg: ModelConfig) -> Any:
+    """The reference's letter for letter; the tensor table places the
+    cache by its kv heads instead (:func:`init_cache`)."""
     del cfg
     kv = (None, "batch", "kv_seq", None, None)
     return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}

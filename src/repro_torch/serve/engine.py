@@ -255,8 +255,6 @@ class ServeEngine:
             prompts[i] = r.prompt
 
         mode, mesh, ctx = _batch_rows(B)
-        if mode == "tensor":
-            registry.require_tensor_parallel(self.cfg)
         self.stats["rows"] = mode
         batch = {"tokens": torch.from_numpy(prompts),
                  **{k: torch.as_tensor(v) for k, v in (extra_inputs or {}).items()}}
@@ -310,22 +308,33 @@ class ServeEngine:
 def grow_cache(api: registry.ModelApi, cache: Any, batch_size: int, capacity: int) -> Any:
     """Pad prefill-sized cache leaves with zeros to the shape of
     ``api.init_cache(batch_size, capacity)``'s, as the reference does: a
-    leaf whose shape already matches (an SSM state, a conv window) is kept
-    as it is, a KV leaf grows along its positions.  The template is built on
-    the ``meta`` device, so it allocates nothing."""
+    leaf whose shape already matches (an SSM state, a conv window, a cache
+    prefilled at its capacity) is kept as it is, a KV leaf grows along its
+    positions (the dim its ``cache_spec_fn()`` names ``"kv_seq"``) and only
+    there.  Any other mismatch raises: a leaf of other heads, rows or width
+    than the template's is a layout fault, which zero padding would hide.
+    The template is built on the ``meta`` device, so it allocates nothing."""
     template = api.init_cache(batch_size, capacity, device="meta")
 
-    def grow(leaf, ref):
+    def grow(path, leaf, ref, spec):
         if leaf.shape == ref.shape:
             return leaf
-        if any(have > want for have, want in zip(leaf.shape, ref.shape)):
-            raise ValueError(f"a cache leaf {tuple(leaf.shape)} exceeds the capacity-"
+        where = "/".join(map(str, path))
+        seq = spec.index("kv_seq") if "kv_seq" in spec else None
+        others = [d for d in range(ref.ndim) if d != seq]
+        if (seq is None or leaf.ndim != ref.ndim
+                or any(leaf.shape[d] != ref.shape[d] for d in others)):
+            raise ValueError(f"cache leaf {where} {tuple(leaf.shape)} differs from the "
+                             f"capacity-{capacity} shape {tuple(ref.shape)} outside its "
+                             "positions")
+        if leaf.shape[seq] > ref.shape[seq]:
+            raise ValueError(f"cache leaf {where} {tuple(leaf.shape)} exceeds the capacity-"
                              f"{capacity} shape {tuple(ref.shape)}")
         grown = leaf.new_zeros(ref.shape)
-        grown[tuple(slice(0, n) for n in leaf.shape)] = leaf
+        grown.narrow(seq, 0, leaf.shape[seq]).copy_(leaf)
         return grown
 
-    return tree_map(grow, cache, template)
+    return tree_map(grow, cache, template, api.cache_spec_fn(), with_path=True)
 
 
 def generate_bucketed(engine: ServeEngine, params, requests: list[Request],
@@ -453,9 +462,6 @@ class ContinuousEngine:
         #: Optional :class:`repro_torch.obs.trace.Tracer` — admission rounds,
         #: prefill groups and decode steps become spans on it.
         self.tracer = tracer
-        ctx = current_mesh_context()
-        if ctx is not None and ctx.tensor:
-            registry.require_tensor_parallel(api.cfg)
         if api.decode_step_slots is None:
             raise NotImplementedError(
                 f"continuous batching needs a per-position KV cache; family "
@@ -654,8 +660,6 @@ class ContinuousEngine:
                 )
         B = self.batch_size
         self._layout = mode, mesh, ctx = _batch_rows(B)
-        if mode == "tensor":
-            registry.require_tensor_parallel(self.cfg)
         self.stats["rows"] = mode
         if mesh is not None and extra_inputs:
             extra_inputs = local_rows({k: torch.as_tensor(v) for k, v in extra_inputs.items()},

@@ -220,6 +220,18 @@ def _sharded(api: registry.ModelApi, params: Any, ctx: MeshContext | None) -> li
     return mask if any(mask) else None
 
 
+def refuse_tensor_table(ctx: MeshContext | None) -> None:
+    """Raise ``NotImplementedError`` under the tensor table: the step's sync
+    would average the processes' different slices of a split leaf, the
+    layers' all-reduce has no backward, and the gathered logits carry no
+    graph.  Training there is ROADMAP queue A item 9(d)."""
+    if ctx is not None and ctx.tensor:
+        raise NotImplementedError(
+            "training under the tensor table is not ported yet: the gradient sync, the "
+            "collectives' backward and the gathered logits' graph are missing (ROADMAP "
+            "queue A, item 9(d): training under the tensor table and the FSDP rules)")
+
+
 def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Tensor, Any]]:
     """Builds ``grad_fn(params, batch) -> (loss, grads)``, the gradient half
     of the train step under the active mesh context (see the module
@@ -232,6 +244,7 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
     accumulated in f32.  With remat the live activation set is one
     microbatch x one layer.  On a mesh over processes the MoE family's
     expert leaves may be this process's shards (their gradients too).
+    Under the tensor table it raises (:func:`refuse_tensor_table`).
     """
     cfg = api.cfg
     num_mb = max(cfg.num_microbatches, 1)
@@ -273,6 +286,7 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
 
     def grad_fn(params, batch):
         ctx = current_mesh_context()
+        refuse_tensor_table(ctx)
         mesh = ctx.mesh if ctx is not None else None
         spans = mesh is not None and mesh.num_processes > 1
         moe = spans and cfg.family == "moe"
@@ -331,4 +345,5 @@ def make_train_step(
 
 
 __all__ = ["Shard", "TrainState", "train_state_specs", "state_shardings", "make_train_step",
-           "make_grad_fn", "local_rows", "process_sum", "process_mean", "unit_mean"]
+           "make_grad_fn", "refuse_tensor_table", "local_rows", "process_sum", "process_mean",
+           "unit_mean"]

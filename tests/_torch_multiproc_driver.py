@@ -58,7 +58,8 @@ ARGS = argparse.Namespace(sf=0.01, morsel_rows=4096, time_hop=False,
                           tp_cells="deepseek-67b", tp_full=False, tp_dtype="float32",
                           tp_param_dtype="float32", tp_ref="whole", tp_repeat=1,
                           tp_temperature=0.0, tp_profile=False, tp_capacity_factor=0.0,
-                          tp_mixed=(), tp_states=False, tp_split=0)
+                          tp_mixed=(), tp_states=False, tp_split=0, tp_frames=0,
+                          tp_routes=False)
 RESULTS: dict = {}
 PACKS = ("hash_partition_pack", "partition_pack", "moe_dispatch")
 
@@ -1228,6 +1229,37 @@ def _serve_inputs(cfg, B: int, S: int, new: int):
     return prompts, extra, S + new + 1 + side
 
 
+def _routes_scope():
+    """``--tp-routes``: every MoE call's routes recorded (``moe.record_routes``);
+    else nothing (the block's list is ``None``)."""
+    import contextlib
+
+    from repro_torch.models import moe
+
+    return moe.record_routes() if ARGS.tp_routes else contextlib.nullcontext()
+
+
+def _route_flips(got: list, want: list) -> dict:
+    """``--tp-routes``: each MoE call's top-k sets of a run against the
+    one-process run's, call for call (the same calls in the same order):
+    the tokens routed, the tokens whose set differs (a flipped route) and
+    where, the one-process run's router margin (its k-th minus its
+    (k+1)-th logit) at each flipped token, its smallest margin over every
+    token, and how many tokens sit within 1e-4 and 1e-5 of another route."""
+    flips, margins, tokens = [], [], 0
+    low = {"1e-4": 0, "1e-5": 0}
+    for call, ((ids, _), (want_ids, margin)) in enumerate(zip(got, want)):
+        tokens += int(margin.numel())
+        margins.append(float(margin.min()))
+        low["1e-4"] += int((margin < 1e-4).sum())
+        low["1e-5"] += int((margin < 1e-5).sum())
+        for t in (ids != want_ids).any(dim=-1).nonzero()[:, 0].tolist():
+            flips.append({"call": call, "token": t, "margin": float(margin[t])})
+    return {"calls": len(want), "calls_equal": len(got) == len(want), "tokens": tokens,
+            "flipped": len(flips), "flips": flips[:32],
+            "min_margin": min(margins) if margins else None, "tokens_within": low}
+
+
 class _Recorded:
     """A model-API call with each call's logits kept on the host and its
     wall, the card drained on both sides; with ``states``, also each call's
@@ -1288,9 +1320,9 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
     k0 = _serve_launches()
     _reset_peak()
     with mesh_context(ctx), use_multiplexer(mux), moe.record_drops() as drops, \
-            moe.record_paths() as paths:
+            moe.record_paths() as paths, _routes_scope() as routes:
         _, wall = _synced(lambda: engine.generate(params, reqs, side))
-    return {"tokens": [r.out_tokens for r in reqs],
+    return {"tokens": [r.out_tokens for r in reqs], "routes": routes,
             "logits": rec.prefill.logits + rec.decode_step.logits,
             "drops": [d.cpu() for d in drops], "paths": list(paths), "stats": dict(engine.stats),
             "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
@@ -1673,10 +1705,11 @@ def _continuous_run(api, params, work: tuple, B: int, ctx, temperature: float = 
     exchange.reset_pod_hop()
     k0 = _serve_launches()
     _reset_peak()
-    with mesh_context(ctx), moe.record_drops() as drops, moe.record_paths() as paths:
+    with mesh_context(ctx), moe.record_drops() as drops, moe.record_paths() as paths, \
+            _routes_scope() as routes:
         _, wall = _synced(lambda: engine.serve(params, reqs, extra))
     engine.alloc.check()
-    return {"tokens": [r.out_tokens for r in reqs],
+    return {"tokens": [r.out_tokens for r in reqs], "routes": routes,
             "admitted": [r.admitted_step for r in reqs],
             "finished": [r.finished_step for r in reqs],
             "done": all(r.done for r in reqs),
@@ -1867,7 +1900,8 @@ def scenario_serve():
     if DEV == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    out = {"started_at": started_at, "archs": {}, "continuous": {}}
+    out = {"started_at": started_at, "archs": {}, "continuous": {},
+           "threads": torch.get_num_threads()}
     cells = _serve_cells()
     for arch, layers, shape in cells:
         t0 = time.perf_counter()
@@ -1979,12 +2013,32 @@ def _tp_moe_layers(cfg) -> int:
 def _tp_blocks(cfg) -> int:
     """The attention + MLP blocks a call runs: every layer of a
     transformer, none of an SSM, the shared block once a group of a
-    hybrid."""
+    hybrid (an encoder-decoder's: :func:`_tp_call_bytes`)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
     return cfg.num_layers
+
+
+def _tp_flash(cfg) -> int:
+    """``flash_attention`` launches a prefill under ``attn_impl="flash"``:
+    one a GQA attention block; one an encoder layer of an encoder-decoder
+    (its decoder's prefill runs ``sdpa``, as the reference's); none under
+    MLA (plain products, as in the reference)."""
+    if cfg.attn_impl != "flash" or cfg.attn_kind == "mla":
+        return 0
+    return cfg.encoder_layers if cfg.family == "encdec" else _tp_blocks(cfg)
+
+
+def _tp_side(extra) -> int:
+    """The rows a VLM's patches put before every prompt (0 without them)."""
+    return int(extra["patches"].shape[1]) if extra and "patches" in extra else 0
+
+
+def _tp_frames(extra) -> int:
+    """An encoder-decoder's frame rows a request (0 without them)."""
+    return int(extra["frames"].shape[1]) if extra and "frames" in extra else 0
 
 
 def _tp_ssm_layers(cfg) -> int:
@@ -2005,21 +2059,25 @@ def _tp_moe_path(cfg, tokens: int, ctx) -> str:
     return "dense-tensor" if tensor_split(cfg.num_experts, "experts", ctx) > 1 else "dense"
 
 
-def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> dict:
+def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str,
+                   frames: int = 0) -> dict:
     """What one model call over ``rows`` rows of ``length`` positions (the
     first ``side`` a VLM's patch rows, which skip the embedding) puts on the
     pod hop under the tensor table, a process, from the shapes, in the
     compute dtype: ``[rows, length - side, d]`` all-reduced once for the
     embedding (the vocab split); ``[rows, length, d]`` once for each
-    attention block's output (the heads split), each dense MLP (``d_ff``
-    split), each MoE layer's shared MLP (its width split), each MoE
-    layer's dense path on the process's experts and each Mamba2 layer's
-    ``out_proj`` (the SSM heads split), with the Mamba2 layer's ``gate_norm``
-    sum of squares, ``[rows, length, 1]`` in f32; each expert-parallel MoE
-    call's trips under the transport ``impl`` (:func:`_ep_trip_bytes`) and
-    the all-gather of its units' ``T / R`` outputs; and the ``[rows, V /
-    R]`` logits all-gathered (the vocab split).  ``reduces``: the call's
-    all-reduces."""
+    attention block's output (the heads split; MLA's ``wo`` too), each dense
+    MLP (``d_ff`` split), each MoE layer's shared MLP (its width split),
+    each MoE layer's dense path on the process's experts and each Mamba2
+    layer's ``out_proj`` (the SSM heads split), with the Mamba2 layer's
+    ``gate_norm`` sum of squares, ``[rows, length, 1]`` in f32; each
+    expert-parallel MoE call's trips under the transport ``impl``
+    (:func:`_ep_trip_bytes`) and the all-gather of its units' ``T / R``
+    outputs; and the ``[rows, V / R]`` logits all-gathered (the vocab
+    split).  An encoder-decoder's decoder layer reduces its self- and its
+    cross-attention and its MLP over ``[rows, length, d]``, and a prefill's
+    encoder (``frames`` rows a request) each encoder layer's attention and
+    MLP over ``[rows, frames, d]``.  ``reduces``: the call's all-reduces."""
     from repro_torch.distributed.sharding import tensor_split
 
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
@@ -2034,8 +2092,11 @@ def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> di
     moe_layers = _tp_moe_layers(cfg)
     blocks = _tp_blocks(cfg)
     ssm = _tp_ssm_layers(cfg) * (mamba2.tensor_heads(cfg, ctx)[0] > 1)
-    reduces = (blocks * split(cfg.num_heads, "heads")
+    attn = 2 if cfg.family == "encdec" else 1  # self- and cross-attention
+    reduces = (blocks * attn * split(cfg.num_heads, "heads")
                + (blocks - moe_layers) * split(cfg.d_ff, "d_ff") + ssm)
+    enc = (cfg.encoder_layers * (split(cfg.num_heads, "heads") + split(cfg.d_ff, "d_ff"))
+           if frames else 0)
     trips = moe_gather = 0
     if moe_layers:
         reduces += moe_layers * split((cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts,
@@ -2047,29 +2108,31 @@ def _tp_call_bytes(cfg, rows: int, length: int, side: int, ctx, impl: str) -> di
             trips = moe_layers * _ep_trip_bytes(cfg, ctx.mesh, T // N, impl)
             moe_gather = moe_layers * (T // R) * d * item
     vocab = split(cfg.vocab_size, "vocab")
-    return {"all-reduce": (reduces * T + vocab * rows * (length - side)) * d * item
-            + ssm * T * 4,
+    return {"all-reduce": (reduces * T + enc * rows * frames + vocab * rows * (length - side))
+            * d * item + ssm * T * 4,
             "all-gather": moe_gather + vocab * rows * (cfg.vocab_size // R) * item,
-            "trips": trips, "reduces": reduces + ssm + vocab}
+            "trips": trips, "reduces": reduces + enc + ssm + vocab}
 
 
 def _tp_hop_bytes(cfg, calls: list, ctx, impl: str) -> dict:
     """:func:`_tp_call_bytes` summed over ``calls`` (``(rows, length,
-    side)`` each, the first a prefill), with their ``total`` and the first
-    call's all-reduces (``reduces_a_call``)."""
+    side)`` each, and an encoder-decoder prefill's frame rows a request
+    fourth; the first a prefill), with their ``total`` and the first call's
+    all-reduces (``reduces_a_call``)."""
     out = {"all-reduce": 0, "all-gather": 0, "trips": 0}
     for call in calls:
-        got = _tp_call_bytes(cfg, *call, ctx, impl)
+        got = _tp_call_bytes(cfg, *call[:3], ctx, impl, *call[3:])
         for k in out:
             out[k] += got[k]
-    out["reduces_a_call"] = _tp_call_bytes(cfg, *calls[0], ctx, impl)["reduces"]
+    out["reduces_a_call"] = _tp_call_bytes(cfg, *calls[0][:3], ctx, impl,
+                                           *calls[0][3:])["reduces"]
     out["total"] = out["all-reduce"] + out["all-gather"] + out["trips"]
     return out
 
 
 def _tp_paths(cfg, calls: list, ctx) -> list:
     """Every MoE call's path over ``calls``, in call order."""
-    return [_tp_moe_path(cfg, rows * length, ctx) for rows, length, _ in calls
+    return [_tp_moe_path(cfg, rows * length, ctx) for rows, length, *_ in calls
             for _ in range(_tp_moe_layers(cfg))]
 
 
@@ -2146,7 +2209,10 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     ``tensor_place``, or the reference's cut by ``convert.tensor_params``),
     the one-process references (the static engine and, with ``--tp-mixed``,
     the continuous one), the tensor-parallel static run, its checks, then
-    the continuous engine (:func:`_tp_continuous`)."""
+    the continuous engine (:func:`_tp_continuous`).  A family
+    without ``decode_step_slots`` (the encoder-decoder, the SSMs) runs no
+    continuous workload: the continuous engine must refuse it under the
+    tensor table, as the reference's refuses it."""
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import (
@@ -2164,6 +2230,9 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     cfg = _tp_cfg(arch, layers, vocab, moe)
     api = registry.build(cfg)
     place = tensor_place(api.param_specs, ctx, api.tensor_index)
+    mixed, refused = ARGS.tp_mixed, None
+    if mixed and api.decode_step_slots is None:
+        mixed, refused = (), _tp_refuses_continuous(api, ctx)
     states = ARGS.tp_states and cfg.family in ("ssm", "hybrid")
     rec = {"layers": cfg.num_layers, "shape": list(shape), "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "attn_impl": cfg.attn_impl, "tol": TP_TOL,
@@ -2180,12 +2249,12 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
         prompts, extra = ref["prompts"], ref.get("extra")
         converted = convert.from_reference(ref["params"], device=DEV)
         params = convert.tensor_params(converted, cfg, ctx)
-        if ARGS.tp_mixed:
+        if mixed:
             cont_refs["reference"] = ref["continuous"]
             work = _tp_ref_workload(ref["continuous"])
             if rank == 0:  # and the port's one-process engine on the whole tree
                 cont_refs["one_process"] = _continuous_run(api, converted, work,
-                                                           ARGS.tp_mixed[0], one_ctx)
+                                                           mixed[0], one_ctx)
         del converted
     else:
         rng = np.random.default_rng(0)
@@ -2194,8 +2263,11 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
         if cfg.family == "vlm":
             side = min(1024, S // 2)
             extra = {"patches": rng.standard_normal((B, side, cfg.d_model)).astype(np.float32)}
-        if ARGS.tp_mixed:
-            work = _continuous_workload(cfg, *ARGS.tp_mixed)
+        elif cfg.family == "encdec":  # the frames as the serving launcher draws them
+            frames = ARGS.tp_frames or S
+            extra = {"frames": rng.standard_normal((B, frames, cfg.d_model)).astype(np.float32)}
+        if mixed:
+            work = _continuous_workload(cfg, *mixed)
         if ARGS.tp_ref == "whole" and rank == 0:
             _reset_peak()
             whole = api.init(0, device=DEV)
@@ -2204,8 +2276,8 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
             rec["one_process"] = {k: ref[k] for k in ("stats", "prefill_s", "decode_s",
                                                       "wall_s", "peak", "launches", "paths")}
             if work is not None:
-                one = cont_refs["one_process"] = _continuous_run(api, whole, work,
-                                                                 ARGS.tp_mixed[0], one_ctx)
+                one = cont_refs["one_process"] = _continuous_run(api, whole, work, mixed[0],
+                                                                 one_ctx)
                 rec["one_process_continuous"] = {
                     k: one[k] for k in ("stats", "prefill_s", "decode_s", "wall_s", "peak",
                                         "launches", "record", "paths", "mux")}
@@ -2222,7 +2294,9 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
             torch.cuda.empty_cache()
     rec["leaf_shapes"] = {"/".join(map(str, p)): list(t.shape)
                           for p, t in leaves_with_paths(params)}
-    side = 0 if not extra else int(extra["patches"].shape[1])
+    if refused is not None:
+        rec["continuous_refused"] = refused
+    side = _tp_side(extra)
     cap = _tp_capacity(S, extra, new)
     with mesh_context(ctx):
         rec["cache_bytes_counted"] = _cache_bytes(api, B, cap)
@@ -2232,14 +2306,14 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     run = runs[-1]
     if run["stats"]["rows"] != "tensor":
         raise AssertionError(f"tensor_serve {key}: ran {run['stats']['rows']}")
-    calls = [(B, S + side, side)] + [(B, 1, 0)] * run["stats"]["decode_steps"]
+    calls = [(B, S + side, side, _tp_frames(extra))] + [(B, 1, 0)] * run["stats"]["decode_steps"]
     want_hop = _tp_hop_bytes(cfg, calls, ctx, cfg.exchange_impl)
     want_paths = _tp_paths(cfg, calls, ctx)
-    on = DEV == "cuda" and cfg.attn_impl == "flash"
-    want_flash = _tp_blocks(cfg) if on else 0
+    want_flash = _tp_flash(cfg) if DEV == "cuda" else 0
     want_ssd = _tp_ssm_layers(cfg) if DEV == "cuda" else 0
     rec.update(rows=run["stats"]["rows"], tokens=run["tokens"], stats=run["stats"],
                hop_bytes=run["hop_bytes"], hop_kinds=run["hop_kinds"], want_hop=want_hop,
+               want_flash=want_flash,
                launches=run["launches"], prefill_s=[r["prefill_s"] for r in runs],
                decode_s=[r["decode_s"] for r in runs], wall_s=[r["wall_s"] for r in runs],
                peak=run["peak"], tokens_repeat_equal=all(r["tokens"] == run["tokens"]
@@ -2274,12 +2348,15 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
     if ref is not None:
         rec["logit_abs"], rec["logits_close"] = _logits_close(run["logits"], ref["logits"])
         rec["tokens_equal"] = run["tokens"] == ref["tokens"]
+        if ref.get("routes") is not None:
+            rec["routes"] = _route_flips(run["routes"], ref["routes"])
         if cfg.num_experts and "drops" in ref:  # the one-process engine over the same units
             rec["drops"] = [int(d.sum()) for d in ref["drops"]]
         if not (rec["logits_close"] and rec["tokens_equal"]):
             bad.append(f"against the one-device run: logits {rec['logit_abs']} "
                        f"(tolerance {TP_TOL}), tokens equal {rec['tokens_equal']}")
-    _raise_on_any(f"tensor_serve {key}", bad, {k: rec.get(k) for k in ("logit_abs", "paths")})
+    _raise_on_any(f"tensor_serve {key}", bad,
+                  {k: rec.get(k) for k in ("logit_abs", "paths", "routes")})
     if ARGS.tp_temperature:
         temp = ARGS.tp_temperature
         sampled = _serve_run(api, params, (prompts, extra, cap), B, new, ctx, None,
@@ -2359,6 +2436,22 @@ def _tp_split_check(api, params, prompts: np.ndarray, n: int, ctx, full: torch.T
     return out
 
 
+def _tp_refuses_continuous(api, ctx) -> str:
+    """The continuous engine's refusal of a family without
+    ``decode_step_slots`` under the tensor table (its message); raises if
+    it does not refuse."""
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.serve import ContinuousEngine
+
+    try:
+        with mesh_context(ctx):
+            ContinuousEngine(api, batch_size=2, capacity=8, device=DEV)
+    except NotImplementedError as e:
+        return str(e)
+    raise AssertionError(f"tensor_serve {api.cfg.name}: the continuous engine did not refuse "
+                         f"the {api.cfg.family!r} family")
+
+
 def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
                    static: tuple) -> dict:
     """``--tp-mixed``'s workload through the continuous engine under the
@@ -2382,7 +2475,7 @@ def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
     rank, R = INFO.process_id, INFO.num_processes
     B = ARGS.tp_mixed[0]
     reqs, extra, cap = work
-    side = 0 if not extra else int(extra["patches"].shape[1])
+    side = _tp_side(extra)
     sched = _continuous_schedule(api, B, work)
     mux = _continuous_mux(cfg, B, ctx.mesh)
     with mesh_context(ctx):
@@ -2395,8 +2488,7 @@ def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
     want_paths = _tp_paths(cfg, calls, ctx)
     on = DEV == "cuda"
     want_launches = {
-        "flash_attention": (cfg.num_layers * len(sched["groups"])
-                            if on and cfg.attn_impl == "flash" else 0),
+        "flash_attention": _tp_flash(cfg) * len(sched["groups"]) if on else 0,
         "moe_dispatch": (want_paths.count("ep")
                          if on and mux is not None and mux["pack_impl"] == "cuda" else 0)}
     out = {"shape": [B, len(reqs), ARGS.tp_mixed[2]], "prompts": ARGS.serve_prompts,
@@ -2437,6 +2529,8 @@ def _tp_continuous(key: str, cfg, api, params, work: tuple, refs: dict, ctx,
         got["all_rows_logit_abs"], got["all_rows_close"] = _logits_close(run["logits"],
                                                                          ref["logits"])
         got["tokens_equal"] = run["tokens"] == ref["tokens"]
+        if ref.get("routes") is not None:
+            got["routes"] = _route_flips(run["routes"], ref["routes"])
         if name == "one_process":
             got["steps_equal"] = (run["admitted"], run["finished"]) == (ref["admitted"],
                                                                         ref["finished"])
@@ -2498,8 +2592,10 @@ def _raise_on_any(tag: str, fails: list, detail: dict) -> None:
 
 
 def _tp_capacity(S: int, extra, new: int) -> int:
-    side = 0 if not extra else int(extra["patches"].shape[1])
-    return S + new + 1 + side
+    """The static engine's capacity: after the prompt (and a VLM's patch
+    rows) or an encoder-decoder's frames, where its decode starts, ``new``
+    positions and one more."""
+    return max(S, _tp_frames(extra)) + new + 1 + _tp_side(extra)
 
 
 def scenario_tensor_serve():
@@ -2626,9 +2722,15 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--tp-mixed", default="",
                     help="tensor_serve: SLOTSxREQxNEW, a mixed workload (--serve-prompts, "
                          "--serve-rate) through the continuous engine after each cell")
+    ap.add_argument("--tp-frames", type=int, default=0,
+                    help="tensor_serve: an encoder-decoder cell's frame rows a request (0: "
+                         "its prompt length)")
+    ap.add_argument("--tp-routes", action="store_true",
+                    help="tensor_serve: every MoE call's routes against process 0's "
+                         "one-process run's (the flipped routes and their router margins)")
     args = ap.parse_args(argv)
     for k in ("cells", "full", "dtype", "param_dtype", "ref", "repeat", "temperature",
-              "profile", "capacity_factor", "states", "split"):
+              "profile", "capacity_factor", "states", "split", "frames", "routes"):
         setattr(ARGS, f"tp_{k}", getattr(args, f"tp_{k}"))
     ARGS.tp_mixed = tuple(int(v) for v in args.tp_mixed.split("x")) if args.tp_mixed else ()
     ARGS.sf, ARGS.morsel_rows, ARGS.time_hop = args.sf, args.morsel_rows, args.time_hop

@@ -16,9 +16,13 @@ count (2 and 4 processes of 2 units over Gloo, run at once) runs the
 ``--tp-mixed`` on the reference's params cut into each process's slices
 (``attn_impl="flash"``, the kernel's plain version on the CPU): OLMoE with
 ``moe_impl="dense"`` and ``"ep_shardmap"`` at ``capacity_factor=8.0`` (as
-the reference's test), DeepSeek-67B and Qwen2.5-3B (whose 2 kv heads stay
-whole over 4).  Under the tensor table every process holds all 4 slots'
-cache rows of its kv heads and its ``E / R`` experts.  Over 2 x 2 units a
+the reference's test), DeepSeek-67B, Qwen2.5-3B (whose 2 kv heads stay
+whole over 4) and DeepSeek-V2-Lite under ``"ep_shardmap"`` (MLA through
+``mla_decode_slots`` on the process's heads over the whole compressed
+cache; a dense first layer, then MoE layers with a shared expert, top-2
+of 8 with ``router_norm_topk``; the reference runs it dense, exact).  Under
+the tensor table every process holds all 4 slots' cache rows of its kv
+heads (MLA: the whole compressed rows) and its ``E / R`` experts.  Over 2 x 2 units a
 decode step's 4 tokens split over the 4 units (expert-parallel); over 4 x
 2 they do not, so every decode step takes the new dense path on the
 process's experts (one all-reduce), while the prefill's 64 tokens take the
@@ -65,7 +69,8 @@ CELLS = [("olmoe-1b-7b:dense", "olmoe-1b-7b", 0, "dense"),
          ("olmoe-1b-7b:v512:dense", "olmoe-1b-7b", 512, "dense"),
          ("olmoe-1b-7b:v512:ep", "olmoe-1b-7b", 512, "ep"),
          ("deepseek-67b", "deepseek-67b", 0, ""),
-         ("qwen2.5-3b", "qwen2.5-3b", 0, "")]
+         ("qwen2.5-3b", "qwen2.5-3b", 0, ""),
+         ("deepseek-v2-lite-16b:ep", "deepseek-v2-lite-16b", 0, "ep")]
 KEYS = [c[0] for c in CELLS]
 B, S, NEW = 4, 16, 4
 SLOTS, REQUESTS, MAX_NEW, PROMPTS, RATE = 4, 8, 6, (8, 16), 2.0
@@ -97,13 +102,14 @@ def _smoke(arch, vocab=0, moe=""):
 
 def _stacked(params: dict) -> dict:
     """Port params in the reference's layout (numpy): each ``seg<i>`` list
-    of layers stacked on a leading dim."""
+    of layers stacked on a leading dim (DeepSeek-V2-Lite's one dense first
+    layer too)."""
     from repro_torch.tree import tree_map
 
     def np_leaf(*ts):
-        return np.stack([t.numpy() for t in ts]) if len(ts) > 1 else ts[0].numpy()
+        return np.stack([t.numpy() for t in ts])
 
-    return {k: tree_map(np_leaf, *v) if k.startswith("seg") else tree_map(np_leaf, v)
+    return {k: tree_map(np_leaf, *v) if isinstance(v, list) else tree_map(lambda t: t.numpy(), v)
             for k, v in params.items()}
 
 
@@ -278,16 +284,18 @@ def test_continuous_greedy_tokens_equal_static_on_the_same_mesh(dumps, key):
         assert c["leak_free"] and c["stats"]["finished"] == REQUESTS
 
 
-@pytest.mark.parametrize("key", [k for k in KEYS if k.startswith("olmoe")])
+@pytest.mark.parametrize("key", [k for k in KEYS if not k.startswith(("deepseek-67b", "qwen"))])
 def test_each_moe_call_takes_the_path_its_tokens_and_units_give(dumps, key):
     """``moe_impl="dense"``: every call on the process's experts, then an
     all-reduce.  ``"ep_shardmap"`` over ``N = 2 R`` units: the static
     prefill's 64 tokens expert-parallel; a decode step's 4 tokens
     expert-parallel over 4 units (2 processes), dense on the process's
-    experts over 8 (4 processes).  Both paths in one run over 4."""
+    experts over 8 (4 processes).  Both paths in one run over 4.  Each MoE
+    layer's call: DeepSeek-V2-Lite's 2 after its dense first layer."""
     R, recs = dumps
-    cfg = _smoke("olmoe-1b-7b", 0, _cell(key)[3])
-    L = cfg.num_layers
+    _, arch, _, moe = _cell(key)
+    cfg = _smoke(arch, 0, moe)
+    L = cfg.num_layers - cfg.first_dense_layers
     for rec in recs:
         r = rec[key]
         if cfg.moe_impl == "dense":
@@ -306,29 +314,32 @@ def test_each_moe_call_takes_the_path_its_tokens_and_units_give(dumps, key):
 def _hop(cfg, R: int, calls: list, impl: str) -> dict:
     """The pod hop of ``calls`` (``(rows, tokens a row)``) for the smoke
     configs here, written out for them: every layer's attention output
-    all-reduced where the heads split; DeepSeek's and Qwen's MLP where
-    ``d_ff`` splits; OLMoE's MoE layer all-reduced on its dense path, or on
-    its expert-parallel one the units' outputs all-gathered and the
-    capacity buffers' trips; the embedding all-reduced and the logits
-    gathered where the vocab splits."""
+    (MLA's ``wo`` too) all-reduced where the heads split; a dense layer's
+    MLP (DeepSeek's, Qwen's, DeepSeek-V2-Lite's first) where ``d_ff``
+    splits; an MoE layer all-reduced on its dense path, or on its
+    expert-parallel one the units' outputs all-gathered and the capacity
+    buffers' trips, and its shared MLP (DeepSeek-V2-Lite's width 48)
+    all-reduced where its width splits; the embedding all-reduced and the
+    logits gathered where the vocab splits."""
     from repro_torch.core.autotune import ep_capacity
 
     d, V, Lyr = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    moe = Lyr - cfg.first_dense_layers if cfg.num_experts else 0
+    shared = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
     N, U = R * UNITS, UNITS
     out = {"all-reduce": 0, "all-gather": 0, "total": 0}
     for rows, t in calls:
         T = rows * t
-        per = Lyr * (cfg.num_heads % R == 0)
-        if cfg.num_experts:
+        per = Lyr * (cfg.num_heads % R == 0) + (Lyr - moe) * (cfg.d_ff % R == 0)
+        if moe:
+            per += moe * bool(shared and shared % R == 0)
             if cfg.moe_impl == "ep_shardmap" and T % N == 0:
                 C = ep_capacity(T // N, cfg.top_k, cfg.num_experts, cfg.capacity_factor)
-                out["all-gather"] += Lyr * T // R * d * 4
-                out["total"] += Lyr * 2 * U * (N if impl == "xla" else N - U) * \
+                out["all-gather"] += moe * T // R * d * 4
+                out["total"] += moe * 2 * U * (N if impl == "xla" else N - U) * \
                     (cfg.num_experts // N) * C * d * 4
             else:
-                per += Lyr
-        else:
-            per += Lyr * (cfg.d_ff % R == 0)
+                per += moe
         out["all-reduce"] += per * T * d * 4
         if V % R == 0:
             out["all-reduce"] += T * d * 4

@@ -20,9 +20,15 @@ all-gather bytes equal to a count from the shapes.  The cells: DeepSeek-67B
 the one its 2 query heads map to), Qwen1.5-32B (5 heads, which neither
 count divides: attention runs whole, the MLP split), Qwen2.5-3B (q/k/v
 biases, kv heads whole over 4) and MiniCPM-2B (a tied table, muP scales);
-their smoke vocabs are odd and stay whole, so DeepSeek-67B and MiniCPM-2B
-also run at a vocab of 512, split (the masked lookup, the gathered logits;
-the tied table both).
+DeepSeek-V2-Lite (MLA: each process its heads of ``wq``, ``wk_b``,
+``wv_b`` and ``wo``, the compressed cache whole; MoE on the process's
+experts, the shared experts' MLP and the dense first layer split as
+``d_ff``) and Whisper-medium (the encoder-decoder: encoder self-attention,
+decoder self- and cross-attention and both GELU MLPs split like a dense
+layer, 24 frame rows a request, more than the prompt's 16 tokens, drawn with
+numpy from the seed after the prompts, as the serving launcher draws them); their smoke vocabs are odd and stay whole, so
+DeepSeek-67B, MiniCPM-2B and Whisper-medium also run at a vocab of 512,
+split (the masked lookup, the gathered logits; the tied table both).
 
 Each process's leaf shapes equal the reference's shard shapes: the full
 shape divided along every dim that the reference's ``logical_sharding``
@@ -32,9 +38,11 @@ smoke size from the workers' own params, at full width on ``meta``; and
 OLMoE's, its ``E / R`` experts beside its heads and vocab (the workers
 that serve it run in ``tests/test_torch_tensor_continuous.py``), at smoke
 size and at full width on ``meta``.  In process: the placed init equals
-the whole init's slices, the cache holds the process's kv heads, the kv
-heads a process reads, and the refusals (MLA under either engine, the
-encoder-decoder family, a mesh inside one process).
+the whole init's slices, the cache holds the process's kv heads (MLA's
+compressed cache whole), the kv heads a process reads (Whisper's cross K/V
+too), ``grow_cache`` growing only along the positions, and the refusals
+(the continuous engine for the encoder-decoder and SSM families, training
+under the tensor table, a mesh inside one process).
 """
 
 import json
@@ -66,18 +74,21 @@ from repro_torch.tree import leaves, leaves_with_paths
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DRIVER = os.path.join(HERE, "_torch_multiproc_driver.py")
-ARCHS = ["deepseek-67b", "qwen1.5-32b", "qwen2.5-3b", "minicpm-2b"]
-#: (key, arch, vocab): the smoke configs, and two at a vocab both counts split
+ARCHS = ["deepseek-67b", "qwen1.5-32b", "qwen2.5-3b", "minicpm-2b", "deepseek-v2-lite-16b",
+         "whisper-medium"]
+#: (key, arch, vocab): the smoke configs, and three at a vocab both counts split
 CELLS = [(a, a, 0) for a in ARCHS] + [(f"{a}:v512", a, 512) for a in ("deepseek-67b",
-                                                                    "minicpm-2b")]
+                                                                    "minicpm-2b",
+                                                                    "whisper-medium")]
 B, S, NEW = 4, 16, 4
+#: an encoder-decoder's frame rows a request: more than the prompt's tokens,
+#: as on the card (1,500 frames, 8 tokens), so decode starts at the frames'
+#: length and the capacity covers them
+FRAMES = 24
 TOL = 2e-4
 PROCESSES = (2, 4)
 UNITS = 2
 TEMPERATURE = 0.8
-#: still refused by the tensor table (the SSM and hybrid families serve since
-#: item 9(c)(i): ``tests/test_torch_tensor_ssm.py``)
-REFUSED = ["deepseek-v2-lite-16b", "whisper-medium"]
 #: served under the tensor table by ``tests/test_torch_tensor_continuous.py``;
 #: its placement is held to the reference here
 MOE_ARCHS = ["olmoe-1b-7b"]
@@ -113,9 +124,8 @@ def reference(resolver, tmp_path_factory):
         cfg = ref_smoke(arch)
         api = ref_registry.build(cfg.scaled(vocab_size=vocab) if vocab else cfg)
         params = _stacked(registry.build(_smoke(arch, vocab)).init(0, device="cpu"))
-        prompts = np.random.default_rng(0).integers(0, api.cfg.vocab_size, (B, S),
-                                                    dtype=np.int32)
-        engine = RefServeEngine(api, batch_size=B, capacity=S + NEW + 1)
+        prompts, extra = _inputs(api.cfg)
+        engine = RefServeEngine(api, batch_size=B, capacity=_capacity(api.cfg))
         logits = []
 
         def recorded(fn):
@@ -127,23 +137,41 @@ def reference(resolver, tmp_path_factory):
 
         engine._prefill, engine._decode = recorded(engine._prefill), recorded(engine._decode)
         reqs = [RefRequest(prompt=p.copy(), max_new_tokens=NEW) for p in prompts]
-        engine.generate(jax.tree.map(jax.numpy.asarray, params), reqs)
+        engine.generate(jax.tree.map(jax.numpy.asarray, params), reqs, extra)
         with open(out / (key.replace(":", "_") + ".pkl"), "wb") as f:
-            pickle.dump({"params": params, "prompts": prompts, "logits": logits,
-                         "tokens": [r.out_tokens for r in reqs]}, f)
+            pickle.dump({"params": params, "prompts": prompts, "extra": extra,
+                         "logits": logits, "tokens": [r.out_tokens for r in reqs]}, f)
     return out
 
 
+def _inputs(cfg):
+    """The prompts ``[B, S]`` and, for an encoder-decoder, its frames ``[B,
+    FRAMES, d]``, drawn with numpy from seed 0 (the frames after the prompts,
+    as the driver and the serving launcher draw them)."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    if cfg.family != "encdec":
+        return prompts, None
+    return prompts, {"frames": rng.standard_normal((B, FRAMES, cfg.d_model)).astype(np.float32)}
+
+
+def _capacity(cfg) -> int:
+    """The static engine's capacity, the driver's: ``NEW`` positions and one
+    more after the prompt, or after an encoder-decoder's frames, where its
+    decode starts."""
+    return (FRAMES if cfg.family == "encdec" else S) + NEW + 1
+
+
 def _stacked(params: dict) -> dict:
-    """Port params in the reference's layout (numpy): each ``seg<i>`` list
-    of layers stacked on a leading dim, the inverse of
-    ``convert.from_reference``."""
+    """Port params in the reference's layout (numpy): each list of layers
+    (``seg<i>``, Whisper's ``encoder`` and ``decoder``) stacked on a leading
+    dim, a list of one layer too, the inverse of ``convert.from_reference``."""
     from repro_torch.tree import tree_map
 
     def np_leaf(*ts):
-        return np.stack([t.numpy() for t in ts]) if len(ts) > 1 else ts[0].numpy()
+        return np.stack([t.numpy() for t in ts])
 
-    return {k: tree_map(np_leaf, *v) if k.startswith("seg") else tree_map(np_leaf, v)
+    return {k: tree_map(np_leaf, *v) if isinstance(v, list) else tree_map(lambda t: t.numpy(), v)
             for k, v in params.items()}
 
 
@@ -168,14 +196,17 @@ def _cluster(R: int, reference, tmp) -> list:
 
 CLI = ["--arch", "deepseek-67b", "--smoke", "--requests", "4", "--batch", "2",
        "--prompt-len", "8", "--max-new", "4"]
+#: the launcher's other families: MLA + MoE, and the encoder-decoder (its
+#: frames from ``launch.serve._extra_inputs``)
+LAUNCHED = ("deepseek-v2-lite-16b", "whisper-medium")
 
 
-def _launcher() -> list:
+def _launcher(cli=CLI) -> list:
     """``launch.serve --tensor`` under ``launch.cluster``, 2 processes of one
     unit: each process's printed lines."""
     src = os.path.join(HERE, "..", "src")
     return run_local_cluster(
-        ["-m", "repro_torch.launch.serve", "--tensor"] + CLI, num_processes=2, local_units=1,
+        ["-m", "repro_torch.launch.serve", "--tensor"] + cli, num_processes=2, local_units=1,
         timeout_s=300, echo=False, backend="gloo", device="cpu",
         env={"OMP_NUM_THREADS": "1",
              "PYTHONPATH": os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")]))},
@@ -188,10 +219,12 @@ def clusters(reference, tmp_path_factory):
     collective over Gloo waits on localhost, so they overlap well."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(PROCESSES) + 1) as pool:
+    with ThreadPoolExecutor(len(PROCESSES) + 1 + len(LAUNCHED)) as pool:
         runs = {R: pool.submit(_cluster, R, reference, tmp_path_factory.mktemp(f"tensor{R}"))
                 for R in PROCESSES}
         runs["launcher"] = pool.submit(_launcher)
+        for arch in LAUNCHED:
+            runs[arch] = pool.submit(_launcher, ["--arch", arch] + CLI[2:])
         return {R: run.result() for R, run in runs.items()}
 
 
@@ -207,6 +240,20 @@ def test_launcher_serves_tensor_parallel_as_one_process(clusters, capsys):
         assert [ln for ln in out.splitlines() if ln.startswith("batch")] == want, out
     with pytest.raises(ValueError, match="tensor table"):  # no launch: no processes to split over
         serve.main(["--tensor"] + CLI, device="cpu")
+
+
+@pytest.mark.parametrize("arch", LAUNCHED)
+def test_launcher_serves_mla_and_whisper_tensor_parallel(clusters, capsys, arch):
+    """``launch.serve --tensor --arch deepseek-v2-lite-16b`` and ``--arch
+    whisper-medium`` (the frames drawn first from the run's generator) over 2
+    processes print the one-process launcher's batches."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch] + CLI[2:], device="cpu")
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("batch")]
+    assert len(want) == 2
+    for out in clusters[arch]:
+        assert [ln for ln in out.splitlines() if ln.startswith("batch")] == want, out
 
 
 @pytest.fixture(scope="module", params=PROCESSES, ids=lambda r: f"{r}proc")
@@ -241,23 +288,36 @@ def test_sampled_tokens_equal_on_every_process(dumps, key):
 
 
 def _splits(cfg, R: int) -> dict:
+    shared = (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
     return {name: dim % R == 0 for name, dim in (("heads", cfg.num_heads), ("d_ff", cfg.d_ff),
-                                                  ("vocab", cfg.vocab_size))}
+                                                  ("vocab", cfg.vocab_size),
+                                                  ("shared", shared or 1))}
 
 
 @pytest.mark.parametrize("key", [c[0] for c in CELLS])
 def test_pod_hop_carries_the_reductions_and_the_gathered_logits(dumps, key):
     """Per call over ``T`` tokens a row: one ``[B, T, d]`` f32 all-reduce
     for the embedding where the vocab splits, and one for each layer's
-    attention (heads split) and MLP (``d_ff`` split); one all-gather of the
-    ``[B, 1, V / R]`` logits where the vocab splits."""
+    attention (heads split; MLA's ``wo``) and MLP (``d_ff`` split); an MoE
+    layer (DeepSeek-V2-Lite's 2 after its dense first layer, ``moe_impl=
+    "dense"``) one for its experts (8, split over 2 and 4) and one for its
+    shared MLP (width 48, split); Whisper's decoder layers one each for
+    self-attention, cross-attention and the MLP, and the prefill's encoder
+    layers one each for attention and the MLP over the ``[B, S, d]``
+    frames; one all-gather of the ``[B, 1, V / R]`` logits where the vocab
+    splits."""
     R, recs = dumps
     _, arch, vocab = next(c for c in CELLS if c[0] == key)
     cfg = _smoke(arch, vocab)
     split = _splits(cfg, R)
     tokens = B * S + (NEW - 1) * B
-    per_token = cfg.num_layers * (split["heads"] + split["d_ff"]) + split["vocab"]
-    want = {"all-reduce": per_token * tokens * cfg.d_model * 4}
+    moe = cfg.num_layers - cfg.first_dense_layers if cfg.num_experts else 0
+    attn = 2 if cfg.family == "encdec" else 1
+    per_token = (cfg.num_layers * attn * split["heads"]
+                 + (cfg.num_layers - moe) * split["d_ff"]
+                 + moe * (1 + split["shared"]) + split["vocab"])
+    frames = cfg.encoder_layers * (split["heads"] + split["d_ff"]) * B * FRAMES
+    want = {"all-reduce": (per_token * tokens + frames) * cfg.d_model * 4}
     if split["vocab"]:
         want["all-gather"] = NEW * B * (cfg.vocab_size // R) * 4
     for rec in recs:
@@ -275,8 +335,11 @@ def _ref_shard_shapes(ref, pairs, shape, spec, R):
 
 
 def _full(arch):
-    """Full width at depth 2: every layer's leaves have the same shapes."""
-    return get_config(arch).scaled(num_layers=2)
+    """Full width at depth 2 (Whisper's encoder too): every layer's leaves
+    have the same shapes; DeepSeek-V2-Lite's are its dense first layer and
+    one MoE layer."""
+    cfg = get_config(arch)
+    return cfg.scaled(num_layers=2, **({"encoder_layers": 2} if cfg.encoder_layers else {}))
 
 
 @pytest.fixture(scope="module")
@@ -376,6 +439,23 @@ def test_full_size_shard_shapes_on_meta(full_meta, ref_shapes, arch, R):
         assert layer["attn"]["wq"].shape == layer["attn"]["wk"].shape == (2048, 4, 128)
         assert layer["ffn"]["w_gate"].shape == (16, 2048, 1024)
         assert layer["ffn"]["router"].shape == (2048, 64)
+    if arch == "deepseek-v2-lite-16b" and R == 4:  # MLA: heads split, the compressed path whole
+        dense, moe = full_meta[(arch, R, 1)]["seg0"][0], full_meta[(arch, R, 1)]["seg1"][0]
+        a = dense["attn"]
+        assert a["wq"].shape == (2048, 4, 192) and a["wkv_a"].shape == (2048, 576)
+        assert a["wk_b"].shape == (512, 4, 128) and a["wv_b"].shape == (512, 4, 128)
+        assert a["wo"].shape == (4, 128, 2048) and a["kv_norm"]["scale"].shape == (512,)
+        assert dense["ffn"]["w_down"].shape == (2736, 2048)  # d_ff 10,944
+        assert moe["ffn"]["w_gate"].shape == (16, 2048, 1408)
+        assert moe["ffn"]["shared"]["w_up"].shape == (2048, 704)  # 2 x 1,408 over 4
+    if arch == "whisper-medium" and R == 4:  # 16 heads: 4 q and 4 kv a process
+        tree = full_meta[(arch, R, 2)]
+        for attn in (tree["encoder"][0]["attn"], tree["decoder"][1]["cross_attn"]):
+            assert attn["wk"].shape == (1024, 4, 64) and attn["bv"].shape == (4, 64)
+            assert attn["wo"].shape == (4, 64, 1024)
+        assert tree["decoder"][0]["mlp"]["w_in"].shape == (1024, 1024)
+        assert tree["decoder"][0]["mlp"]["b_out"].shape == (1024,)
+        assert tree["embedding"]["table"].shape == (51865, 1024)  # an odd vocab stays whole
 
 
 @pytest.mark.parametrize("R", PROCESSES)
@@ -456,32 +536,106 @@ def test_cache_holds_the_process_kv_heads(arch, R, kv):
     assert api.cache_spec_fn()["seg0"]["k"] == (None, "batch", "kv_seq", None, None)
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_refuse_the_tensor_table(arch):
-    api = registry.build(get_smoke_config(arch))
-    engine = ServeEngine(api, batch_size=2, capacity=8, device="cpu")
-    from repro_torch.serve import Request
+@pytest.mark.parametrize("R", PROCESSES)
+def test_mla_and_whisper_caches_under_the_tensor_table(R):
+    """MLA's compressed ``c``/``kr`` cache carries no head dim and stays
+    whole on every process (ROADMAP §C, a deliberate difference: the
+    reference's ``cache_specs`` put ``kv_seq`` on ``model``); Whisper's four
+    caches hold the process's ``16 / R`` kv heads."""
+    mla = registry.build(get_config("deepseek-v2-lite-16b"))
+    whisper = registry.build(get_config("whisper-medium"))
+    with mesh_context(_fake_ctx(R, R - 1)):
+        c = mla.init_cache(8, 2064, device="meta")
+        w = whisper.init_cache(2, 1541, device="meta")
+    assert c["seg1"]["c"].shape == (26, 8, 2064, 512) and c["seg1"]["kr"].shape == (26, 8, 2064, 64)
+    assert mla.cache_spec_fn()["seg1"]["c"] == (None, "batch", "kv_seq", None)
+    for name in ("self_k", "self_v", "cross_k", "cross_v"):
+        assert w[name].shape == (24, 2, 1541, 16 // R, 64)
+        assert whisper.cache_spec_fn()[name] == (None, "batch", "kv_seq", None, None)
+    assert whisper.init_cache(2, 1541, device="meta")["cross_k"].shape[3] == 16
 
-    reqs = [Request(prompt=np.zeros(4, np.int32), max_new_tokens=2) for _ in range(2)]
+
+def test_whisper_cross_kv_reads_the_process_kv_heads():
+    """Over 4 processes, 4 query heads and 2 kv heads: the kv heads stay
+    whole and each process's cross K/V are the one kv head its query head
+    reads (``kv_heads_read``), as its self-attention's are."""
+    from repro_torch.models import whisper
+
+    cfg = _smoke("whisper-medium").scaled(num_kv_heads=2)
+    api = registry.build(cfg)
+    p = api.init(0, device="cpu")["decoder"][0]["cross_attn"]
+    memory = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    k, v = whisper._memory_kv(p, cfg, memory)
+    for r in range(4):
+        ctx = _fake_ctx(4, r)
+        mine = tensor_slices(p, api.param_specs["decoder"][0]["cross_attn"], ctx)
+        assert mine["wq"].shape[1] == 1 and mine["wk"].shape[1] == 2
+        with mesh_context(ctx):
+            got_k, got_v = whisper._memory_kv(mine, cfg, memory)
+        assert torch.equal(got_k, k[:, :, [r // 2]]) and torch.equal(got_v, v[:, :, [r // 2]])
+
+
+def test_grow_cache_grows_only_the_positions():
+    """A prefill cache grows to the engine's capacity along its ``kv_seq``
+    dim alone: a leaf of other kv heads (a 4-head cache where the template
+    holds 2, say) raises instead of growing with heads of zeros."""
+    from repro_torch.serve import grow_cache
+
+    api = registry.build(_smoke("whisper-medium"))
+    cache = api.init_cache(2, 6, device="cpu")
+    for name, leaf in cache.items():
+        leaf.normal_(generator=torch.Generator().manual_seed(len(name)))
+    grown = grow_cache(api, cache, 2, 9)
+    for name, leaf in grown.items():
+        assert leaf.shape == (2, 2, 9, 4, 16)
+        assert torch.equal(leaf[:, :, :6], cache[name]) and not leaf[:, :, 6:].any()
+    with mesh_context(_fake_ctx(2, 0)):  # the template holds 2 of the 4 kv heads
+        with pytest.raises(ValueError, match="outside its positions"):
+            grow_cache(api, cache, 2, 9)
+    with pytest.raises(ValueError, match="outside its positions"):  # rows
+        grow_cache(api, {k: v[:, :1] for k, v in cache.items()}, 2, 9)
+    with pytest.raises(ValueError, match="exceeds"):
+        grow_cache(api, cache, 2, 5)
+
+
+def test_training_refuses_the_tensor_table():
+    """ROADMAP §C.1: the train step under the tensor table would average the
+    processes' different slices and has no backward through the collectives,
+    so both ``make_grad_fn``'s gradient and the training launcher refuse it,
+    naming queue A item 9(d); off the table the same step runs."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.step import make_grad_fn
+
+    api = registry.build(_smoke("qwen2.5-3b").scaled(num_layers=1))
+    params = api.init(0, device="cpu")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    grad_fn = make_grad_fn(api)
+    loss, _ = grad_fn(params, batch)
+    assert torch.isfinite(loss)
     with mesh_context(_fake_ctx(2, 0)):
-        with pytest.raises(NotImplementedError, match=r"item 9\(c\)\(ii\)"):
-            engine.generate(None, reqs)
-    with pytest.raises(NotImplementedError, match=r"item 9\(c\)\(ii\)"):
-        convert.tensor_params({}, api.cfg, _fake_ctx(2, 0))
+        with pytest.raises(NotImplementedError, match=r"item 9\(d\)"):
+            grad_fn(params, batch)
+        with pytest.raises(NotImplementedError, match=r"item 9\(d\)"):
+            train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "1"], device="cpu")
 
 
 def test_continuous_engine_and_one_process_meshes_refuse():
-    """The continuous engine serves the tensor table's families (its runs:
-    ``tests/test_torch_tensor_continuous.py``) and refuses MLA, as the
-    static engine does; a mesh inside one process has no tensor table."""
-    for arch in ("deepseek-67b", "olmoe-1b-7b"):
+    """The continuous engine serves the tensor table's transformer families,
+    MLA included (its runs: ``tests/test_torch_tensor_continuous.py``), and
+    refuses the encoder-decoder and SSM families through their missing
+    ``decode_step_slots``, with the reference's message, as it does off the
+    table; a mesh inside one process has no tensor table."""
+    for arch in ("deepseek-67b", "olmoe-1b-7b", "deepseek-v2-lite-16b"):
         with mesh_context(_fake_ctx(2, 0)):
             ContinuousEngine(registry.build(get_smoke_config(arch)), batch_size=2, capacity=8,
                              device="cpu")
-    mla = registry.build(get_smoke_config("deepseek-v2-lite-16b"))
-    with mesh_context(_fake_ctx(2, 0)):
-        with pytest.raises(NotImplementedError, match=r"MLA attention.*item 9\(c\)"):
-            ContinuousEngine(mla, batch_size=2, capacity=8, device="cpu")
+    for arch in ("whisper-medium", "mamba2-1.3b"):
+        api = registry.build(get_smoke_config(arch))
+        with mesh_context(_fake_ctx(2, 0)):
+            with pytest.raises(NotImplementedError, match=f"family '{api.cfg.family}' does not "
+                                                          "provide decode_step_slots"):
+                ContinuousEngine(api, batch_size=2, capacity=8, device="cpu")
     for mesh in (make_mesh(8, 2), make_mesh(8)):
         with pytest.raises(ValueError, match="tensor table"):
             MeshContext(mesh, rules=tensor_rules())
@@ -530,3 +684,27 @@ def test_moe_layer_slices_sum_to_the_whole_layer(monkeypatch, shared):
     per_process = [(10, cfg.d_model)] + [(2, 5, cfg.d_model)] * shared
     assert calls == per_process * R
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_record_routes_gives_each_call_its_top_k_sets_and_margins():
+    """``moe.record_routes`` (the four-card probe's ``--tp-routes``): each MoE
+    layer call's top-k sets, ascending, the router's own (``moe.route``),
+    and the gap between each token's k-th and (k+1)-th router logit; nothing
+    is recorded outside the block."""
+    from repro_torch.models import moe as M
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    p = M.init_moe_layer(L.make_generator(0, "cpu"), cfg)
+    x = torch.randn((2, 5, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    with M.record_routes() as routes:
+        M.moe_ffn(p, cfg, x)
+        M.moe_ffn(p, cfg, x[:, :2])
+    M.moe_ffn(p, cfg, x)
+    assert [r[0].shape for r in routes] == [(10, cfg.top_k), (4, cfg.top_k)]
+    ids, margin = routes[0]
+    tokens = x.reshape(10, cfg.d_model)
+    _, idx = M.route(p, cfg, tokens)
+    assert ids.dtype == torch.int16 and torch.equal(ids.long(), idx.sort(dim=-1).values)
+    top = (tokens.float() @ p["router"]).topk(cfg.top_k + 1).values
+    torch.testing.assert_close(margin, top[:, cfg.top_k - 1] - top[:, cfg.top_k])
+    assert (margin >= 0).all()

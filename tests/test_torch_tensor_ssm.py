@@ -602,12 +602,11 @@ def test_zamba2_prefill_writes_its_cache_once_at_capacity(impl):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_continuous_engine_still_refuses_the_ssm_and_hybrid_families(arch):
-    """Under the tensor table the SSM and hybrid families pass
-    ``require_tensor_parallel`` but have no ``decode_step_slots``, as in
-    the reference: the continuous engine refuses them with the reference's
+    """Under the tensor table the SSM and hybrid families serve through
+    the static engine but have no ``decode_step_slots``, as in the
+    reference: the continuous engine refuses them with the reference's
     message."""
     api = registry.build(get_smoke_config(arch))
-    registry.require_tensor_parallel(api.cfg)
     with mesh_context(_fake_ctx(2, 0)):
         with pytest.raises(NotImplementedError, match=f"family '{api.cfg.family}' does not "
                                                       "provide decode_step_slots"):

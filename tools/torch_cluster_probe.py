@@ -111,6 +111,22 @@ plus 256 decode steps, the last at position 524,287 (recorded).  A line of
 JSON a rank and cell as for the other tensor runs, with the SSM heads a
 rank and, for (c), the split check's numbers.
 
+``serve --runs tensor_mla,tensor_encdec`` runs MLA and the encoder-decoder
+under the tensor table: (j) ``tensor_mla``, two clusters: DeepSeek-V2-Lite-16B
+at all 27 layers in bf16 (4 of 16 MLA heads of ``wq``, ``wk_b``, ``wv_b``
+and ``wo``, the compressed cache whole, 16 of 64 experts a rank,
+expert-parallel) on 8 x 2,048 + 16 and on ``tensor_continuous``'s mixed
+workload through the continuous engine; then 12 layers in f32 against rank
+0's one-process engines, both engines, each MoE call's routes against the
+one-process run's; (k) ``tensor_encdec``, Whisper-medium at full depth (4 of
+16 heads a rank): f32 against rank 0's one-process engine on 4 x 1,500
+frames and prompt tokens + 32 new, then bf16 over f32 params on phase 10's
+workload (the batch of 4 twice).  ``--runs tensor_long_500k_f32`` (i) runs
+(h)'s Zamba2-7B split check in f32 at 13 of 81 layers.  With
+``--tp-routes`` (``tensor_continuous_f32``, the f32 half of
+``tensor_mla``) a rank's line carries every MoE call's flipped routes
+against rank 0's one-process run and the router margins at them.
+
 ``layouts`` prints the cards' names, power limits and ``nvidia-smi topo
 -m``, builds the kernels, then runs every scenario of
 ``tests/_torch_multiproc_driver.py`` in each layout (``backend:PxU``, P
@@ -431,10 +447,12 @@ TENSOR_RUNS = {
     # one-process engines on the whole 27.7 GB tree beside its quarter: the
     # static engine on 16 x 256 + 8, then 16 slots and 32 mixed requests
     # (128 and 256 tokens, 1-8 new, 2 a step), logits within 2e-4, tokens equal
+    # (since PR 36 with every MoE call's routes against rank 0's one-process
+    # runs: the flipped routes and the router margins at them, ROADMAP §C.3)
     "tensor_continuous_f32": ["--tp-cells", "olmoe-1b-7b:0:16x256x8", "--tp-ref", "whole",
                               "--tp-dtype", "float32", "--tp-param-dtype", "float32",
                               "--tp-mixed", "16x32x8", "--serve-prompts", "128,256",
-                              "--serve-rate", "2"],
+                              "--serve-rate", "2", "--tp-routes"],
     # (d) OLMoE-1B-7B at all 16 layers in bf16 under the tensor table (4 q and
     # 4 kv heads and 16 experts a rank) on the split-rows engine's workload
     # (the "olmoe_continuous" run): 32 slots, 64 mixed requests of 1,024 and
@@ -472,6 +490,41 @@ TENSOR_RUNS = {
          "--tp-dtype", "float32", "--tp-param-dtype", "float32"],
         ["--tp-cells", "zamba2-7b:0:1x524288x8", "--tp-ref", "none", "--tp-split", "256",
          "--tp-dtype", "bfloat16", "--tp-param-dtype", "float32"],
+    ],
+    # (i) Zamba2-7B's long_500k split check in f32 at 13 of 81 layers (two
+    # shared-block calls, ~7.5 GB of KV cache a rank), to tell bf16 rounding
+    # from a fault in (h)'s bf16 gap (ROADMAP §C.4)
+    "tensor_long_500k_f32": ["--tp-cells", "zamba2-7b:13:1x524288x8", "--tp-ref", "none",
+                             "--tp-split", "256", "--tp-dtype", "float32",
+                             "--tp-param-dtype", "float32"],
+    # (j) MLA under the tensor table, two clusters: DeepSeek-V2-Lite-16B at all
+    # 27 layers in bf16 (4 of 16 MLA heads, 16 of 64 experts a rank,
+    # expert-parallel over the 8 units), 8 x 2,048 + 16 through the static
+    # engine and the tensor_continuous run's workload (32 slots, 64 requests of
+    # 1,024 and 2,048 tokens, 1-16 new, 4 a step) through the continuous one;
+    # then 12 of 27 layers in f32 with TF32 off against rank 0's one-process
+    # engines on the whole ~27.9 GB tree beside its quarter (16 x 256 + 8,
+    # then 16 slots and 32 mixed requests of 128 and 256 tokens), every MoE
+    # call's routes held to the one-process run's
+    "tensor_mla": [
+        ["--tp-cells", "deepseek-v2-lite-16b:0:8x2048x16:0:ep", "--tp-ref", "none",
+         "--tp-dtype", "bfloat16", "--tp-param-dtype", "bfloat16", "--tp-mixed", "32x64x16",
+         "--serve-prompts", "1024,2048", "--serve-rate", "4"],
+        ["--tp-cells", "deepseek-v2-lite-16b:12:16x256x8:0:ep", "--tp-ref", "whole",
+         "--tp-dtype", "float32", "--tp-param-dtype", "float32", "--tp-mixed", "16x32x8",
+         "--serve-prompts", "128,256", "--serve-rate", "2", "--tp-routes"],
+    ],
+    # (k) the encoder-decoder under the tensor table, two clusters:
+    # Whisper-medium at full depth (24 + 24 layers, 4 q and 4 kv heads a rank)
+    # in f32 with TF32 off against rank 0's one-process engine, 4 requests of
+    # 1,500 frames and 1,500 prompt tokens + 32 new, attn_impl="flash"; then
+    # bf16 over f32 params on phase 10's workload (8 x 1,500 + 32 at batch 4:
+    # the batch of 4 twice)
+    "tensor_encdec": [
+        ["--tp-cells", "whisper-medium:0:4x1500x32", "--tp-ref", "whole",
+         "--tp-dtype", "float32", "--tp-param-dtype", "float32"],
+        ["--tp-cells", "whisper-medium:0:4x1500x32", "--tp-ref", "none",
+         "--tp-dtype", "bfloat16", "--tp-param-dtype", "float32", "--tp-repeat", "2"],
     ],
 }
 
@@ -618,14 +671,15 @@ def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
         for arch, r in rec["archs"].items():
             B, S, new = r["shape"]
             ls = r["leaf_shapes"]
-            attn = next((k[:-2] for k in ("seg0/0/attn/wq", "shared/attn/wq") if k in ls), None)
+            attn = next((k[:-2] for k in ("seg0/0/attn/wq", "shared/attn/wq", "encoder/0/attn/wq")
+                         if k in ls), None)
             ssm = next((k for k in ("layers/0/mamba/A_log", "groups/0/0/mamba/A_log")
                         if k in ls), None)
             line = {"rank": pid, "arch": arch, "layers": r["layers"], "dtype": r["dtype"],
                     "param_dtype": r["param_dtype"], "attn_impl": r["attn_impl"],
                     "rows": r["rows"], "batch": B, "prompt": S, "new": new,
                     "q_heads_a_rank": ls[attn + "wq"][1] if attn else None,
-                    "kv_heads_a_rank": ls[attn + "wk"][1] if attn else None,
+                    "kv_heads_a_rank": ls[attn + "wk"][1] if attn and attn + "wk" in ls else None,
                     "ssm_heads_a_rank": ls[ssm][0] if ssm else None,
                     "prefill_ms": [p[0] * 1e3 for p in r["prefill_s"]],
                     "prefill_tok_s": [B * S / p[0] for p in r["prefill_s"]],
@@ -655,6 +709,9 @@ def _tensor_lines(tag: str, dump: Path, procs: int, smi: str) -> None:
                 line.update(states_close=r["states_close"], state_abs=r["state_abs"])
             if "split" in r:
                 line["split"] = r["split"]
+            for k in ("routes", "continuous_refused", "want_flash"):
+                if k in r:
+                    line[k] = r[k]
             print(f"{tag} rank {pid}: {json.dumps(line)}")
             if "continuous" in r:
                 print(f"{tag} rank {pid}: {json.dumps(_continuous_line(pid, arch, r, smi))}")
@@ -696,6 +753,8 @@ def _continuous_line(pid: int, arch: str, r: dict, smi: str) -> dict:
                     stats_spans_steps_drops_equal=[one[k] for k in (
                         "stats_equal", "spans_equal", "steps_equal", "drops_equal")],
                     drops=sum(one["drops"]), one_process=r["one_process_continuous"])
+        if "routes" in one:
+            line["routes"] = one["routes"]
     return line
 
 
