@@ -37,9 +37,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    S=2,048, D=128: H=16 and KH=2, H=KH=10, H=KH=4), Zamba2-7B's rank
    shapes at D=112 (phase 9d's f32 B=2, H=KH=16, S=512; the probe's bf16
    B=8, H=KH=8, S=2,048), a rank's at its long_500k cell (B=1, H=KH=8,
-   S=524,288, bf16, held in blocks of 256 query rows) and phase 9e's
+   S=524,288, bf16, held in blocks of 256 query rows), phase 9e's
    Whisper encoder on a process's heads (B=2, H=KH=8, S=1,500, D=64,
-   non-causal, f32), within
+   non-causal, f32) and phase 9f's Qwen2.5-3B training on a grid process's
+   heads (B=4, H=8, KH=1, S=256, D=128, causal, f32), within
    the reference's tolerances
    (2e-5 f32, 2e-2 bf16), each printed beside the card's name and power
    limit and beside
@@ -332,7 +333,7 @@ Phases, in order; any failure raises and the process exits non-zero:
 9b. tensor-parallel serving — the ``tensor_serve`` scenario of
    ``tests/_torch_multiproc_driver.py`` in 2 worker processes on this card
    (Gloo) under the tensor table (``distributed.sharding.tensor_rules``):
-   DeepSeek-67B at full width, 4 of its 95 layers, f32 params and compute
+   DeepSeek-67B at full width, 2 of its 95 layers, f32 params and compute
    (TF32 off), ``attn_impl="flash"``, 4 x 256-token prompts + 8 new through
    the static engine, every process the whole batch over its slices (32 q
    and 4 kv heads, half of ``d_ff`` and of the vocab), drawn from the seed
@@ -341,7 +342,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    slices, every call's logits within ``rtol = atol = 2e-4`` (the
    reference's ``decode_sharded_equiv`` tolerance), the greedy tokens equal,
    the tokens equal on both processes, the all-reduce and all-gather bytes
-   equal to the count from the shapes, and ``flash_attention`` launched 4
+   equal to the count from the shapes, and ``flash_attention`` launched 2
    times a prefill a process (D = 128; their sum is the JSON line's
    ``flash_attention[tensor]`` row).  The same tree then serves 8 mixed
    requests (128 and 256 tokens, 1-8 new, 2 a step) through the continuous
@@ -393,6 +394,21 @@ Phases, in order; any failure raises and the process exits non-zero:
    ``moe_dispatch[tensor-mla]`` and ``flash_attention[tensor-encdec]`` rows.
    The card's used bytes over 9b-9e, every process's together, are printed
    beside its size;
+9f. (after 9b-9e) dense training on a ``data x model`` grid: the
+   ``grid_train`` scenario of ``tests/_torch_multiproc_driver.py`` in 4
+   worker processes on this card (Gloo) as a 2 x 2 grid under the
+   reference's ``default_rules(False)``: Qwen2.5-3B at full width, 4 of 36
+   layers, f32 (TF32 off), flash attention, remat ``"block"``, 8 x 256
+   tokens (each data column its 4 rows), each process drawing its pieces
+   (heads, ``d_ff`` and vocab split over its model row, every ``fsdp`` dim
+   over its data column); 2 AdamW steps against rank 0's one-process steps
+   on the whole batch (loss rtol 1e-5, grad norm 1e-4, every gradient piece
+   1e-4 of its leaf's max, params 1e-5), the replicated leaves bit-identical
+   within their groups, each group's all-reduce, all-gather and
+   reduce-scatter bytes equal to the count from the shapes; step walls,
+   each rank's state and peak and the card's used bytes printed;
+   ``flash_attention`` twice a layer a pass (the JSON line's
+   ``flash_attention[tensor-train]`` row);
 10. Whisper — Whisper-medium at full width and depth (24 encoder + 24
    decoder layers, d_model 1,024, 16 heads, vocab 51,865; random weights
    from ``--seed``, f32 master params, bf16 compute, ``attn_impl="flash"``).
@@ -542,18 +558,25 @@ TF_EP_UNITS = 8
 TF_CHECK = (256, 192)
 TF_CHECK_TOL = 1e-3
 # Phase 9b: tensor-parallel serving (the tensor table) over 2 worker processes
-# on this card (Gloo): DeepSeek-67B at full width cut to 4 of its 95 layers,
+# on this card (Gloo): DeepSeek-67B at full width cut to 2 of its 95 layers,
 # f32 params and compute with TF32 off, attn_impl="flash" (32 q and 4 kv heads
 # a process, D = 128), arch:layers:BxSxNEW; process 0's one-process engine on
 # the whole tree first, the logits held within the reference's
 # decode_sharded_equiv tolerance (TP_TOL in tests/_torch_multiproc_driver.py).
 # Since PR 34 the same tree also serves a few mixed requests through the
 # continuous engine (slots x requests x new, prompt lengths, arrivals a step),
-# held to process 0's one-process continuous engine.
+# held to process 0's one-process continuous engine.  Two layers, not four:
+# the eight processes of 9b-9e share the card, and at four
+# layers process 0's whole tree beside its half (18 + 9 GB) took the card to
+# 75-80 of its 85 GB and, in one run, past it.
 TP_PROCS, TP_UNITS = 2, 2
-TP_CELL = "deepseek-67b:4:4x256x8"
+TP_CELL = "deepseek-67b:2:4x256x8"
 TP_MIXED = ("4x8x8", "128,256", "2")
 TP_TIMEOUT_S = 300
+# the workers of the clusters that share the card at once (9b-9e): the caching
+# allocator grows its segments in place rather than keeping a reserved but
+# unused block a size apart in each of eight processes
+SHARED_CARD_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 # Phase 9c: OLMoE-1B-7B tensor-parallel with its experts split over the 2
 # processes (4 units each: the reference's serve_continuous_ep layout, 8
 # units), full width cut to 2 of its 16 layers (phase 5b's and 6c's cut), f32
@@ -620,6 +643,23 @@ TPE_MIXED = ("8x8x8", "128,256", "2")
 TPE_FRAMES = 1500
 TPE_FLASH = (2, 8, 8, TPE_FRAMES, 64)
 TPE_MOE = (("decode", 4, 1, 4), ("prefill", 4, 256, 30))
+# Phase 9f: dense training on a data x model grid of 4 worker processes on
+# this card (Gloo), the reference's default_rules(False) (heads, d_ff and
+# vocab over the model row, every fsdp dim and the batch over the data
+# column): Qwen2.5-3B at full width (d_model 2,048, 16 q and 2 kv heads of
+# 128, d_ff 11,008, vocab 151,936), cut to TT_LAYERS of its 36 layers (the
+# phase's time: every FSDP gather and its reduce-scatter are staged through
+# host memory under Gloo, and rank 0 holds the whole one-process state beside
+# its piece), f32 (TF32 off), flash attention, remat "block", one global
+# batch of TT_SHAPE (each data column its half), 2 AdamW steps, held to rank
+# 0's one-process step on the same seed and batch.  TT_FLASH is the kernel
+# shape a process runs there (B, H, KH, S, D: its column's rows, its row's 8
+# q heads and 1 kv head), held in phase 3.
+TT_GRID = (2, 2)
+TT_LAYERS = 4
+TT_SHAPE = (8, 256)
+TT_FLASH = (TT_SHAPE[0] // TT_GRID[0], 16 // TT_GRID[1], 2 // TT_GRID[1], TT_SHAPE[1], 128)
+TT_TIMEOUT_S = 300
 # Whisper-medium (phase 10): requests, prompt tokens (and as many frame rows),
 # new tokens, batch; the f32 check's frames and full length, and its split
 # point (then one decode step a token); training batch, seq (and frames),
@@ -1103,6 +1143,11 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     tensor_encdec = _flash_row(b, h, kh, s_, s_, d, False, "float32", seed, smi)
     tensor_encdec["launch_key"] = "flash_attention[tensor-encdec]"
     _flash_long_row(*TP_PROBE_LONG_FLASH, seed, smi)
+    # phase 9f's Qwen2.5-3B training on a grid process's heads (its data
+    # column's rows, its model row's 8 q heads and 1 kv head), f32
+    b, h, kh, s_, d = TT_FLASH
+    tensor_train = _flash_row(b, h, kh, s_, s_, d, True, "float32", seed, smi)
+    tensor_train["launch_key"] = "flash_attention[tensor-train]"
     # the SSM prefills: Mamba2-1.3B at batch 8 (bf16 is the row), its
     # prefill_32k prompt at batch 1 (64 blocks, the state carried over 128
     # chunks) and its long_500k prompt (x of 2**31 elements, 2,048 chunks);
@@ -1126,7 +1171,7 @@ def phase_kernels(sf: float, seed: int, smi: str) -> list[dict]:
     flash[1]["launch_key"] = "flash_attention[bfloat16]"
     return (rows + moe_rows + tensor_moe + tensor_mla
             + [flash[0], flash[1], encoder, serving, tensor, tensor_olmoe, tensor_ssm,
-               tensor_encdec, ssd[0], tensor_ssd[0]])
+               tensor_encdec, tensor_train, ssd[0], tensor_ssd[0]])
 
 
 def _close(got, want, rtol) -> bool:
@@ -3720,7 +3765,7 @@ def _tensor_cluster(procs: int, units: int, cell: str, mixed: tuple | None,
              "--tp-cells", cell, "--tp-ref", "whole", "--tp-dtype", "float32",
              "--tp-param-dtype", "float32", *extra, "--dump", dump],
             num_processes=procs, local_units=units, timeout_s=TP_TIMEOUT_S, echo=False,
-            backend="gloo", device="cuda",
+            backend="gloo", device="cuda", env=SHARED_CARD_ENV,
         )
         recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["tensor_serve"]
                 for p in range(procs)]
@@ -3990,6 +4035,93 @@ def phase_tensor_serve(smi: str) -> dict:
             "flash_attention[tensor-ssm]": d["flash_attention"],
             "moe_dispatch[tensor-mla]": e_mla["moe_dispatch"],
             "flash_attention[tensor-encdec]": e_encdec["flash_attention"]}
+
+
+def phase_tensor_train(smi: str) -> dict:
+    """Dense training on a ``TT_GRID`` (data x model) grid of worker
+    processes on this card (Gloo), after phases 9b-9e have freed it: the
+    ``grid_train`` scenario of ``tests/_torch_multiproc_driver.py`` at
+    Qwen2.5-3B's full width, ``TT_LAYERS`` layers, f32, flash attention,
+    ``TT_SHAPE`` tokens, 2 steps, each process drawing its pieces of the
+    state already cut.  Rank 0 first takes the one-process steps on the
+    whole batch; the workers assert every gate (the loss within rtol 1e-5
+    and the grad norm within 1e-4 of it on each step, every gradient piece
+    within 1e-4 of its leaf's max, the params after each step within 1e-5,
+    rank 0's broadcast a leaf at a time; the replicated leaves bit-identical
+    within their groups; each group's bytes by kind equal to the count from
+    the shapes; ``flash_attention`` once a layer a forward pass and again in
+    the remat recompute).  Printed here from their dumps: the step walls,
+    each rank's state bytes beside the whole state's and its peak, the
+    groups' bytes.  Returns the workers' ``flash_attention`` launches over
+    the grid's gradient and steps (the main path), as
+    ``flash_attention[tensor-train]``."""
+    import shutil
+
+    from repro_torch.launch.cluster import run_local_cluster
+
+    D, M = TT_GRID
+    B, S = TT_SHAPE
+    procs = D * M
+    dump = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    t0 = time.perf_counter()
+    memory = _DeviceMemory()
+    try:
+        outs = run_local_cluster(
+            [str(ROOT / "tests" / "_torch_multiproc_driver.py"), "grid_train", "--grid-full",
+             "--grid-cells", f"qwen2.5-3b:{TT_LAYERS}", "--grid-layouts", f"{D}x{M}",
+             "--grid-shape", f"{B}x{S}", "--grid-ref", "rank0", "--grid-steps", "2",
+             "--dump", dump],
+            num_processes=procs, local_units=1, timeout_s=TT_TIMEOUT_S, echo=False,
+            backend="gloo", device="cuda",
+        )
+        recs = [json.loads(Path(dump, f"p{p}.json").read_text())["results"]["grid_train"]
+                ["qwen2.5-3b"] for p in range(procs)]
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    used = memory.stop()
+    wall = time.perf_counter() - t0
+    for pid, out in enumerate(outs):
+        if "PASS grid_train" not in out:
+            raise AssertionError(f"tensor-train process {pid}: no PASS\n{out[-4000:]}")
+    tag = f"{D}x{M}"
+    r0, c = recs[0]["layouts"][tag], recs[0]["config"]
+    print(f"[tensor-train] Qwen2.5-3B full width (d_model {c['d_model']}, {c['heads']} q and "
+          f"{c['kv_heads']} kv heads, d_ff {c['d_ff']}, vocab {c['vocab']}), {c['layers']} of 36 "
+          f"layers, {c['dtype']}, remat {c['remat']}, flash; global batch {B} x {S} on a {D} x "
+          f"{M} data x model grid of {procs} processes on this card over Gloo ({smi})")
+    print(f"[tensor-train] rank 0's one-process step on the whole batch: gradient "
+          f"{recs[0]['one_process_grad_s'] * 1e3:.1f} ms (first call), steps "
+          + ", ".join(f"{w * 1e3:.1f}" for w in recs[0]["one_process_step_s"])
+          + f" ms, peak {recs[0]['one_process_peak']} B; the whole f32 state (params, grads, m, "
+          f"v) {recs[0]['whole_state_bytes']} B")
+    print(f"[tensor-train] against it: loss rel {r0['loss_rel']:.3g} (1e-5), worst gradient "
+          f"piece {r0['grad_rel']:.3g} of its leaf's max (1e-4), steps' loss rel "
+          + ", ".join(f"{v:.3g}" for v in r0["step_loss_rel"]) + " (1e-5), grad norm rel "
+          + ", ".join(f"{v:.3g}" for v in r0["step_norm_rel"]) + " (1e-4), params within "
+          + ", ".join(f"{v:.3g}" for v in r0["params_abs"]) + " (1e-5); losses "
+          + ", ".join(f"{m['loss']:.6f}" for m in r0["metrics"]) + " (one process "
+          + ", ".join(f"{m['loss']:.6f}" for m in recs[0]["one_process"]) + ")")
+    launched = 0
+    for pid, rec in enumerate(recs):
+        r = rec["layouts"][tag]
+        rank_rel = (f"worst gradient piece {r['grad_rel']:.3g}, params within "
+                    + ", ".join(f"{v:.3g}" for v in r["params_abs"]))
+        print(f"[tensor-train] process {pid} at (data, model) {tuple(r['coords'])}: state "
+              f"{r['state_bytes']} B (params, m, v; the whole f32 state with grads "
+              f"{rec['whole_state_bytes']} B); create {r['create_s'] * 1e3:.1f} ms; gradient "
+              f"{r['grad_s'] * 1e3:.1f} ms (first call); steps "
+              + ", ".join(f"{w * 1e3:.1f}" for w in r["step_s"])
+              + f" ms; peak {r['peak']} B; {rank_rel}; replicated leaves identical "
+              f"{r['identical']}; bytes a step by group and kind {r['step_hop'][0]} (the shapes' "
+              f"count {r['hop_want']}); flash_attention {r['grad_launches']} + {r['launches']} "
+              f"({smi})")
+        launched += r["grad_launches"] + sum(r["launches"])
+    if launched <= 0:
+        raise AssertionError("[tensor-train] flash_attention never launched on the grid")
+    print(f"[tensor-train] phase 9f in {wall:.1f} s; the card's used bytes at most {used} B of "
+          f"{memory.total} B, every process's together; flash_attention launches over the "
+          f"grid's gradient and steps: {launched}")
+    return {"flash_attention[tensor-train]": launched}
 
 
 def _whisper_check(cfg, params, seed: int) -> None:
@@ -4292,11 +4424,16 @@ def main() -> int:
     # encoder-decoder ones through the static engine)
     g_launches = phase_tensor_serve(smi)
 
+    # 9f. dense training on a data x model grid of processes (the training
+    # main path under the reference's default_rules: heads, d_ff and vocab
+    # over the model row, FSDP and the batch over the data column)
+    h_launches = phase_tensor_train(smi)
+
     # 10. Whisper (the encoder-decoder serving and training main path)
     w_launches = phase_whisper(args.seed, smi)
     paths = (q_launches, o_launches, c_launches, d_launches, e_launches, s_launches,
              b_launches, t_launches, p_launches, x_launches, m_launches, r_launches, f_launches,
-             g_launches, w_launches)
+             g_launches, h_launches, w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in {k for p in paths for k in p}}
     for k in kernels:
         k["launches"] = launches[k.pop("launch_key", k["name"])]

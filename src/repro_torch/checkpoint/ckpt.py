@@ -11,13 +11,16 @@ restore (port of ``repro.checkpoint.ckpt``).
   whole one; ``None`` for a whole leaf).  On a mesh that spans processes
   every process writes its own shards of the leaves it holds in part (the
   train state's expert leaves, :func:`repro_torch.train.step.
-  state_shardings`) and process 0 writes each replicated leaf once.
+  state_shardings`) and process 0 writes each replicated leaf once; on a
+  ``data x model`` grid a leaf may be split along two dims, and each piece
+  is written once, by the process that ``owned`` names
+  (:func:`repro_torch.train.step.state_owners`).
   Process 0 alone clears ``step_<n>.tmp``, merges the processes' parts of
   the manifest and renames, each step after a barrier.
 * **elastic restore** — :func:`restore_checkpoint` assembles each leaf, or
   only the rows the restoring process holds, from whichever shards cover
   them, so a state saved over 2 processes restores whole into 1, or over
-  4.  The port's earlier one-file-a-leaf checkpoints still restore.
+  4, and one saved on a ``(4, 2)`` grid onto ``(2, 4)``.  The port's earlier one-file-a-leaf checkpoints still restore.
 * **retention** — :class:`CheckpointManager` keeps the newest ``keep``
   checkpoints; directories without a manifest are skipped by
   :func:`latest_step`.
@@ -72,19 +75,26 @@ def _barrier(mesh) -> None:
         dist.barrier(group=mesh.group)
 
 
-def _split(leaf: torch.Tensor, held) -> bool:
-    """Does this process hold only its shard of ``leaf``?"""
-    return held is not None and leaf.shape[held.dim] != held.size
+def _cut(leaf: torch.Tensor, held) -> list:
+    """The one-dim shards of ``held`` along which this process holds only
+    part of ``leaf`` (empty: it holds the leaf whole)."""
+    if held is None:
+        return []
+    return [h for h in held.dims() if leaf.shape[h.dim] != h.size]
 
 
 def save_checkpoint(directory: str, step: int, tree: Any, shardings: Any = None,
-                    mesh=None) -> str:
+                    mesh=None, owned: Any = None) -> str:
     """Write ``tree`` as checkpoint ``step``; returns the final path.
 
     ``shardings`` (a tree like ``tree`` of
     :class:`~repro_torch.train.step.Shard` or ``None`` leaves) says which
-    rows of each leaf this process holds; on a ``mesh`` that spans
-    processes every process calls this with its own shards."""
+    rows of each leaf this process holds, along one dim or several; on a
+    ``mesh`` that spans processes every process calls this with its own
+    shards (on a grid, ``mesh`` spans every process of it).  ``owned`` (a
+    tree like ``tree`` of bools) says which pieces this process writes;
+    without it a split leaf is written by every process, a whole one by
+    process 0."""
     rank = mesh.process_index if _spans(mesh) else 0
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -98,20 +108,22 @@ def save_checkpoint(directory: str, step: int, tree: Any, shardings: Any = None,
 
     pairs = list(leaves_with_paths(tree))
     held_leaves = leaves(shardings) if shardings is not None else [None] * len(pairs)
+    writes = leaves(owned) if owned is not None else [None] * len(pairs)
     part: dict[str, Any] = {}
-    for (path, leaf), held in zip(pairs, held_leaves):
-        split = _split(leaf, held)
-        if not split and rank != 0:
-            continue  # a whole leaf: process 0 writes it
+    for (path, leaf), held, mine in zip(pairs, held_leaves, writes):
+        cut = _cut(leaf, held)
+        if not (mine if mine is not None else cut or rank == 0):
+            continue  # another process writes this piece
         name = _name(path)
         safe = re.sub(r"[^A-Za-z0-9_.-]", "_", name)
-        fn = f"{safe}.shard{rank if split else 0}.npy"
+        fn = f"{safe}.shard{rank if cut else 0}.npy"
         np.save(os.path.join(tmp, fn), _to_numpy(leaf))
         shape, index = list(leaf.shape), None
-        if split:
-            shape[held.dim] = held.size
+        if cut:
             index = [None] * leaf.ndim
-            index[held.dim] = [held.start, held.stop]
+            for h in cut:
+                shape[h.dim] = h.size
+                index[h.dim] = [h.start, h.stop]
         part[name] = {"file_prefix": safe, "shape": shape,
                       "dtype": str(leaf.dtype).removeprefix("torch."),
                       "shards": [{"file": fn, "index": index}]}
@@ -147,33 +159,38 @@ def save_checkpoint(directory: str, step: int, tree: Any, shardings: Any = None,
 
 
 def _assemble(entry: dict, ckpt_dir: str, want=None) -> np.ndarray:
-    """A leaf from its shard files: whole, or only rows ``[want.start,
-    want.stop)`` of dim ``want.dim``, reading just the shards that cover
-    them."""
+    """A leaf from its shard files: whole, or only the rows ``want`` (a
+    :class:`~repro_torch.train.step.Shard`, along one dim or several)
+    names, reading just the shards that cover them."""
     shape = list(entry["shape"])
+    wants = want.dims() if want is not None else ()
     if "shards" not in entry:  # the port's earlier layout: one whole file
         a = np.load(os.path.join(ckpt_dir, entry["file"]))
         if list(a.shape) != shape:
             raise ValueError(f"checkpoint leaf file {entry['file']!r}: shape {list(a.shape)}, "
                              f"manifest {shape}")
-        if want is not None:
-            a = np.take(a, range(want.start, want.stop), axis=want.dim)
+        for w in wants:
+            a = np.take(a, range(w.start, w.stop), axis=w.dim)
         return a
-    if want is not None:
-        shape[want.dim] = want.stop - want.start
+    for w in wants:
+        shape[w.dim] = w.stop - w.start
     out, filled = None, 0
     for sh in entry["shards"]:
-        data = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
         index = sh["index"] or [None] * len(shape)
         src = [slice(None)] * len(shape)
         dst = [slice(None) if s is None else slice(s[0], s[1]) for s in index]
-        if want is not None:
-            a, b = index[want.dim] or (0, entry["shape"][want.dim])
-            lo, hi = max(a, want.start), min(b, want.stop)
+        covers = True
+        for w in wants:
+            a, b = index[w.dim] or (0, entry["shape"][w.dim])
+            lo, hi = max(a, w.start), min(b, w.stop)
             if lo >= hi:
-                continue
-            src[want.dim] = slice(lo - a, hi - a)
-            dst[want.dim] = slice(lo - want.start, hi - want.start)
+                covers = False
+                break
+            src[w.dim] = slice(lo - a, hi - a)
+            dst[w.dim] = slice(lo - w.start, hi - w.start)
+        if not covers:
+            continue
+        data = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
         if out is None:
             out = np.empty(shape, dtype=data.dtype)
         block = data[tuple(src)]
@@ -207,7 +224,8 @@ def restore_checkpoint(directory: str, step: int | None, target: Any, device=Non
         if name not in manifest["leaves"]:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         entry = manifest["leaves"][name]
-        a = _assemble(entry, ckpt_dir, held if _split(leaf, held) else None)
+        cut = _cut(leaf, held)
+        a = _assemble(entry, ckpt_dir, cut[0]._replace(also=tuple(cut[1:])) if cut else None)
         t = _from_numpy(np.array(a, order="C"), entry["dtype"])
         if t.shape != leaf.shape:
             raise ValueError(f"checkpoint leaf {name!r}: {list(t.shape)} read, the target "
@@ -232,17 +250,18 @@ def latest_step(directory: str) -> int | None:
 
 @dataclasses.dataclass
 class CheckpointManager:
-    """Periodic save + retention + resume for the training loop; ``mesh``
-    and ``shardings`` as in :func:`save_checkpoint`."""
+    """Periodic save + retention + resume for the training loop; ``mesh``,
+    ``shardings`` and ``owned`` as in :func:`save_checkpoint`."""
 
     directory: str
     every: int = 100
     keep: int = 3
 
-    def maybe_save(self, step: int, tree: Any, shardings: Any = None, mesh=None) -> str | None:
+    def maybe_save(self, step: int, tree: Any, shardings: Any = None, mesh=None,
+                   owned: Any = None) -> str | None:
         if self.every <= 0 or step % self.every != 0:
             return None
-        path = save_checkpoint(self.directory, step, tree, shardings, mesh)
+        path = save_checkpoint(self.directory, step, tree, shardings, mesh, owned)
         if not _spans(mesh) or mesh.process_index == 0:
             self._gc()
         _barrier(mesh)

@@ -79,6 +79,11 @@ class Mesh:
     ``[unit_offset, unit_offset + local_units)``, and tensors on this mesh
     have ``local_units`` rows in their leading dim.  ``shape`` and
     ``size()`` stay global.
+
+    ``label`` names what the processes of ``group`` stand for, as the pod
+    hop's bytes are kept by it (:data:`POD_HOP_GROUPS`): ``"pod"``, or on a
+    ``data x model`` grid of processes ``"model"`` (a row, the tensor
+    table's processes) and ``"data"`` (a column, the FSDP processes).
     """
 
     num_pods: int
@@ -86,6 +91,7 @@ class Mesh:
     num_processes: int = 1
     process_index: int = 0
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    label: str = dataclasses.field(default=POD_AXIS, compare=False, repr=False)
 
     @property
     def num_units(self) -> int:
@@ -413,25 +419,37 @@ def flat_psum_tree(tree: Any, mesh: Mesh, axis_names: tuple[str, ...]) -> Any:
 #: :func:`reset_pod_hop`: ``messages`` (each collective's buffer, each sent
 #: message) and their ``bytes``.
 POD_HOP = {"messages": 0, "bytes": 0}
-#: The same bytes by kind, in the reference's names: ``all-reduce``
+#: The same bytes by the group's :attr:`Mesh.label` and kind, ``{label:
+#: {kind: bytes}}``.  The kinds are the reference's names: ``all-reduce``
 #: (:func:`_all_reduce`), ``all-gather`` (:func:`_all_gather`), ``all-to-all``
-#: (:func:`_all_to_all`) and ``collective-permute`` (the sends of
-#: :func:`_p2p`).  Each is also reported to an active op counter
-#: (:mod:`repro_torch.obs.cost`), and each runs inside a
-#: ``torch.profiler.record_function("exchange.<kind>")`` span.
-POD_HOP_KINDS: dict[str, int] = {}
+#: (:func:`_all_to_all`), ``collective-permute`` (the sends of :func:`_p2p`)
+#: and ``reduce-scatter`` (:func:`_reduce_scatter`, the FSDP gradient's).
+#: Each is also reported to an active op counter (:mod:`repro_torch.obs.cost`),
+#: and each runs inside a ``torch.profiler.record_function("exchange.<kind>")``
+#: span.
+POD_HOP_GROUPS: dict[str, dict[str, int]] = {}
+
+
+def pod_hop_kinds() -> dict[str, int]:
+    """:data:`POD_HOP_GROUPS`' bytes by kind, over every group."""
+    out: dict[str, int] = {}
+    for by_kind in POD_HOP_GROUPS.values():
+        for kind, nbytes in by_kind.items():
+            out[kind] = out.get(kind, 0) + nbytes
+    return out
 
 
 def reset_pod_hop() -> None:
     POD_HOP.update(messages=0, bytes=0)
-    POD_HOP_KINDS.clear()
+    POD_HOP_GROUPS.clear()
 
 
-def _hop(t: torch.Tensor, kind: str) -> torch.Tensor:
+def _hop(t: torch.Tensor, kind: str, label: str = POD_AXIS) -> torch.Tensor:
     nbytes = t.numel() * t.element_size()
     POD_HOP["messages"] += 1
     POD_HOP["bytes"] += nbytes
-    POD_HOP_KINDS[kind] = POD_HOP_KINDS.get(kind, 0) + nbytes
+    by_kind = POD_HOP_GROUPS.setdefault(label, {})
+    by_kind[kind] = by_kind.get(kind, 0) + nbytes
     cost.collective(kind, nbytes)
     return t
 
@@ -471,7 +489,7 @@ def _peer(mesh: Mesh, process: int) -> int:
 def _all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     with record_function("exchange.all-reduce"):
         w = _host(t) if _staged(mesh, t) else t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(_hop(w, "all-reduce"), op=op, group=mesh.group)
+        dist.all_reduce(_hop(w, "all-reduce", mesh.label), op=op, group=mesh.group)
         return w.to(t.device)
 
 
@@ -479,8 +497,21 @@ def _all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``[R, *t.shape]``: every process's ``t``, in process order."""
     with record_function("exchange.all-gather"):
         out = _wire_empty(mesh, t, mesh.num_processes)
-        dist.all_gather(list(out), _hop(_wire(mesh, t), "all-gather"), group=mesh.group)
+        dist.all_gather(list(out), _hop(_wire(mesh, t), "all-gather", mesh.label),
+                        group=mesh.group)
         return _unwire(out, t, (mesh.num_processes,))
+
+
+def _reduce_scatter(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t [R * m, ...]`` summed over the processes (in its own dtype),
+    this process's ``m`` leading rows of the sum: one ``reduce_scatter``."""
+    with record_function("exchange.reduce-scatter"):
+        R = mesh.num_processes
+        w = _host(t) if _staged(mesh, t) else t.contiguous()
+        out = torch.empty((t.shape[0] // R,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=w.device, pin_memory=_staged(mesh, t))
+        dist.reduce_scatter_tensor(out, _hop(w, "reduce-scatter", mesh.label), group=mesh.group)
+        return out.to(t.device)
 
 
 def _all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -1038,7 +1069,8 @@ __all__ = [
     "gather_units",
     "unit_sum",
     "POD_HOP",
-    "POD_HOP_KINDS",
+    "POD_HOP_GROUPS",
+    "pod_hop_kinds",
     "reset_pod_hop",
     "fibonacci_hash",
     "pack_by_destination",

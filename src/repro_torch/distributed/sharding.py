@@ -30,6 +30,16 @@ and experts out over the units.  The batch follows the reference's
 holds its contiguous rows (:func:`local_rows`, where :func:`split_rows`
 holds; the trainer and the static serving engine), and :func:`gather_rows`
 puts them back together on every process.
+
+**Training on a ``data x model`` grid of processes** (the reference's
+``(data, model)`` mesh under :func:`default_rules`): the context's ``mesh``
+is this process's model row, whose processes are the tensor table's pods as
+in serving, and ``data`` its data column.  Heads, ``d_ff`` and vocab split
+over the row; every ``fsdp`` dim, and the batch, over the column.  The
+collectives carry their backward (:func:`tensor_all_reduce`,
+:func:`tensor_entry`, :func:`tensor_all_gather`, :func:`fsdp_gather`), so
+the model trains through them; ``launch.mesh.make_grid_context`` builds the
+groups.
 """
 
 from __future__ import annotations
@@ -160,14 +170,30 @@ class MeshContext:
     that spans processes: ``"global"`` (serving) has every process hold all
     ``T`` tokens and gather every unit's output; ``"local"`` (training, set
     by the train step) has each process feed its own rows and get back only
-    theirs."""
+    theirs.
+
+    ``data``: on a ``data x model`` grid of processes, this process's data
+    column (a one-unit-a-pod :class:`Mesh` over the ``D`` processes that
+    hold the same model slices, label ``"data"``), and ``mesh`` its model
+    row (``M`` processes a pod each, label ``"model"``); the rules then
+    name the reference's axes (:func:`default_rules`, ``axis_sizes``
+    ``{"data": D, "model": M}``).  ``None`` off a grid."""
 
     mesh: Mesh
     rules: AxisRules | None = None
     axis_sizes: Mapping[str, int] | None = None
     moe_tokens: Literal["global", "local"] = "global"
+    data: Mesh | None = None
 
     def __post_init__(self):
+        if self.data is not None and (
+                dict(self.axis_sizes or {}) != {"data": self.data.num_processes,
+                                                "model": self.mesh.num_processes}
+                or self.data.num_processes < 2):
+            raise ValueError(
+                f"a grid context names the axes ('data', 'model') with the column's and the row's "
+                f"process counts, got axis_sizes {self.axis_sizes} for a column of "
+                f"{self.data.num_processes} and a row of {self.mesh.num_processes}")
         if self.rules is None:
             object.__setattr__(self, "rules", unit_rules(self.mesh.num_pods > 1))
         if self.axis_sizes is None:
@@ -185,12 +211,18 @@ class MeshContext:
                 "make the mesh with one pod a process)")
 
     @property
+    def model_axis(self) -> str:
+        """The axis the processes of ``mesh`` span as the tensor table's
+        pods: ``"model"`` on a grid, the pod axis otherwise."""
+        return "model" if self.data is not None else POD_AXIS
+
+    @property
     def tensor(self) -> bool:
-        """Do the rules split a layer's matrices over the pod axis (the
-        tensor table)?  Only the names of :data:`TENSOR_AXES` count (a
-        dense layer's and a Mamba block's): ``experts`` lies on the pod
-        axis under :func:`unit_rules` too."""
-        return any(POD_AXIS in _axes(self.rules.table.get(n)) for n in TENSOR_AXES)
+        """Do the rules split a layer's matrices over the model axis (the
+        tensor table, or a grid's rows)?  Only the names of
+        :data:`TENSOR_AXES` count (a dense layer's and a Mamba block's):
+        ``experts`` lies on the pod axis under :func:`unit_rules` too."""
+        return any(self.model_axis in _axes(self.rules.table.get(n)) for n in TENSOR_AXES)
 
     @property
     def exchange_axis(self) -> str:
@@ -330,7 +362,7 @@ def tensor_split(dim: int, name: str, ctx: MeshContext | None = None) -> int:
     ctx = ctx or tensor_context()
     if ctx is None or not ctx.tensor:
         return 1
-    if POD_AXIS not in _axes(logical_sharding((dim,), name, ctx=ctx)[0]):
+    if ctx.model_axis not in _axes(logical_sharding((dim,), name, ctx=ctx)[0]):
         return 1
     return ctx.mesh.num_processes
 
@@ -343,7 +375,9 @@ def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext, index=None) -> 
     (:data:`SSM_AXES`) the indices ``index(width, ctx)`` that the model
     hands in (its head-aligned sections, e.g.
     ``functools.partial(mamba2.tensor_index, cfg)``; ``None`` keeps the dim
-    whole).  In storage of its own, so the whole leaf can be freed."""
+    whole).  On a grid only the model axis's dims are cut (the ``fsdp`` dim
+    is the train state's, ``train.step.state_shardings``).  In storage of
+    its own, so the whole leaf can be freed."""
     R, i = ctx.mesh.num_processes, ctx.mesh.process_index
     cut = False
     for d, name in enumerate(spec):
@@ -356,7 +390,7 @@ def tensor_slice(t: torch.Tensor, spec: tuple, ctx: MeshContext, index=None) -> 
             t = t.index_select(d, idx.to(t.device))
     plain = tuple(None if name in SSM_AXES else name for name in spec)
     for d, axes in enumerate(logical_sharding(tuple(t.shape), *plain, ctx=ctx)):
-        if POD_AXIS in _axes(axes):
+        if ctx.model_axis in _axes(axes):
             n = t.shape[d] // R
             t, cut = t.narrow(d, i * n, n), True
     return t.clone() if cut else t
@@ -382,17 +416,139 @@ def tensor_place(spec_tree, ctx: MeshContext, index=None):
     return place
 
 
+class _AllReduceExit(torch.autograd.Function):
+    """The row-parallel exit: the sum over the processes in the forward,
+    the gradient as it is in the backward (every process's output is the
+    same sum, so its gradient is every process's own)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return exchange._all_reduce(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceShared(torch.autograd.Function):
+    """A sum over the processes that each process then uses only for its
+    own slice (a norm's sum of squares over split heads): the sum in the
+    forward, and the gradient summed in the backward too, since each
+    process's slice gives only its part of the sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return exchange._all_reduce(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange._all_reduce(ctx.mesh, g), None
+
+
+class _GradSumEntry(torch.autograd.Function):
+    """The column-parallel entry: the input as it is in the forward, its
+    gradient summed over the processes in the backward (each process's
+    slice of the product gives only its part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange._all_reduce(ctx.mesh, g), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The gathered logits: every process's columns in the forward; in the
+    backward this process's columns of the gradient, not summed (every
+    process computes the same loss from the whole logits, so the incoming
+    gradient is the same everywhere)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.cols = (mesh.process_index * x.shape[-1], x.shape[-1])
+        return torch.cat(exchange._all_gather(mesh, x).unbind(0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, *ctx.cols), None
+
+
 def tensor_all_reduce(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     """The sum of every process's ``x`` (a row-parallel product's partial
-    sums), on every process: one all-reduce over the pod hop."""
-    return exchange._all_reduce(ctx.mesh, x)
+    sums), on every process: one all-reduce over the pod hop; the gradient
+    passes through as it is.  That backward holds only where what follows
+    is replicated over the processes; a sum that each process goes on to
+    use for its own slice takes :func:`tensor_shared_sum`."""
+    return _AllReduceExit.apply(x, ctx.mesh)
+
+
+def tensor_shared_sum(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of every process's ``x`` on every process, as
+    :func:`tensor_all_reduce`, where each process then uses it only for its
+    own slice: the backward sums the gradient over the processes too (one
+    all-reduce each way)."""
+    return _AllReduceShared.apply(x, ctx.mesh)
+
+
+def tensor_entry(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """``x`` as it is, where a replicated tensor enters the process's slice
+    of a split computation; its gradient is summed over the processes in
+    the backward (one all-reduce).  The forward moves no byte."""
+    return _GradSumEntry.apply(x, ctx.mesh)
 
 
 def tensor_all_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     """Every process's ``x [..., n]`` joined along the last dim in process
     order (``[..., R * n]``), on every process: one all-gather over the pod
-    hop."""
-    return torch.cat(exchange._all_gather(ctx.mesh, x).unbind(0), dim=-1)
+    hop; in the backward this process's ``n`` columns of the gradient."""
+    return _GatherColumns.apply(x, ctx.mesh)
+
+
+# ----------------------------------------------------------------------------
+# FSDP: a grid's leaves split over its data column.
+# ----------------------------------------------------------------------------
+
+class _FSDPGather(torch.autograd.Function):
+    """A leaf held split along ``dim`` over the data column: gathered whole
+    in the forward; its gradient reduce-scattered back to this process's
+    block in the backward, which also sums the column's gradients (the
+    data-parallel sum; the train step divides by the column's size)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return torch.cat(exchange._all_gather(mesh, t).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        block = exchange._reduce_scatter(ctx.mesh, g.movedim(ctx.dim, 0).contiguous())
+        return block.movedim(0, ctx.dim), None, None
+
+
+def fsdp_gather(tree, spec_tree, shape_tree, ctx: MeshContext | None = None):
+    """``tree`` (one layer's params, say) with every leaf that the grid
+    holds split over its data column gathered whole, as an autograd rule
+    whose backward reduce-scatters; the tree as it is off a grid.  Which dim
+    a leaf is split along comes from its logical axes in ``spec_tree`` and
+    its whole shape in ``shape_tree`` (strict resolution: a dim the column
+    does not divide stays whole).  The gathered copies live as long as the
+    caller's graph keeps them: under remat, one layer's."""
+    ctx = ctx or current_mesh_context()
+    if ctx is None or ctx.data is None:
+        return tree
+
+    def one(t, spec, whole):
+        resolved = logical_sharding(tuple(whole.shape), *spec, ctx=ctx, strict=True)
+        dim = next((d for d, axes in enumerate(resolved) if "data" in _axes(axes)), None)
+        if dim is None:
+            return t
+        return _FSDPGather.apply(t, dim, ctx.data)
+
+    return tree_map(one, tree, spec_tree, shape_tree)
 
 
 # ----------------------------------------------------------------------------
@@ -452,7 +608,10 @@ __all__ = [
     "tensor_slices",
     "tensor_place",
     "tensor_all_reduce",
+    "tensor_shared_sum",
+    "tensor_entry",
     "tensor_all_gather",
+    "fsdp_gather",
     "split_rows",
     "local_rows",
     "gather_rows",

@@ -14,12 +14,18 @@ holds the ``data x model`` units of the reference's squarest split, and
 The unit count is the live process count times the units each process
 holds (:func:`repro_torch.launch.cluster.local_unit_count`); one pod a
 process by default, so the in-pod axis never leaves a process.
+
+:func:`make_grid_context` lays the live processes out as the reference's
+``data x model`` training mesh: a ``torch.distributed`` group for each model
+row and one for each data column.
 """
 
 from __future__ import annotations
 
+import torch.distributed as dist
+
 from ..core.exchange import POD_AXIS, SHUFFLE_AXIS, Mesh, live_processes, make_mesh
-from ..distributed.sharding import AxisRules, MeshContext
+from ..distributed.sharding import AxisRules, MeshContext, default_rules, tensor_rules
 from .cluster import local_unit_count
 
 #: The reference's in-pod axis names; each maps onto the port's ``q``.
@@ -143,7 +149,45 @@ def make_context(
     return MeshContext(mesh, rules=rules)
 
 
+def make_grid_context(data: int, model: int) -> MeshContext:
+    """The live ``data * model`` processes as the reference's ``(data,
+    model)`` mesh under its ``default_rules(False)``: process ``rank`` sits
+    at row ``rank // model``, column ``rank % model``.  Every process makes
+    every row's and every column's group, in the same order (``new_group``
+    hangs otherwise); its context's ``mesh`` is its model row (the tensor
+    table's pods, label ``"model"``) and ``data`` its data column (label
+    ``"data"``).  ``data = 1`` gives the tensor table over the processes,
+    exactly; ``model = 1`` the data-parallel mesh, one pod a process."""
+    procs, rank, _ = live_processes()
+    if data < 1 or model < 1 or data * model != procs:
+        raise ValueError(f"a {data} x {model} grid needs {data * model} processes, the launch "
+                         f"has {procs} (launch under `python -m repro_torch.launch.cluster "
+                         f"--processes {data * model}`)")
+    units = local_unit_count()
+    if data == 1:
+        return MeshContext(make_mesh(procs * units, procs), rules=tensor_rules())
+    if model == 1:
+        return MeshContext(make_mesh(procs * units, procs))
+    d, m = divmod(rank, model)
+    rows = [dist.new_group(list(range(i * model, (i + 1) * model))) for i in range(data)]
+    cols = [dist.new_group(list(range(j, procs, model))) for j in range(model)]
+    return MeshContext(Mesh(model, units, model, m, rows[d], "model"),
+                       rules=default_rules(False), axis_sizes={"data": data, "model": model},
+                       data=Mesh(data, 1, data, d, cols[m], "data"))
+
+
+def parse_grid(text: str) -> tuple[int, int]:
+    """``"DxM"`` -> ``(D, M)``."""
+    try:
+        data, model = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"a grid is DxM (data x model processes), got {text!r}") from None
+    return data, model
+
+
 __all__ = [
+    "make_grid_context",
+    "parse_grid",
     "make_production_mesh",
     "make_test_mesh",
     "make_pod_mesh",

@@ -23,7 +23,7 @@ allocated):
   them; PyTorch eager fuses nothing, so the port counts them.  Collectives'
   own buffers (``c10d`` ops) are not bytes but ``collective_bytes``.
 * **collective_bytes** -- by kind, the bytes this process hands the process
-  fabric (``core/exchange.py``'s ``POD_HOP_KINDS`` over the window), where
+  fabric (``core/exchange.py``'s ``pod_hop_kinds()`` over the window), where
   the reference counts each collective's result shape.  Unit exchanges
   inside one process are index permutations on one device: bytes, not
   collectives.

@@ -11,8 +11,22 @@ regenerates exactly the batches that would have followed).
       --steps 100 --seq-len 512 --ckpt-dir ckpt --ckpt-every 20
 
 The flags are the reference's.  It runs on the card; :func:`main` takes
-``device="cpu"`` from Python.  Called under a tensor-table context it
-refuses, as the train step does (ROADMAP queue A, item 9(d)).
+``device="cpu"`` from Python.
+
+``--grid DxM`` (the port's switch; the reference trains on whatever mesh
+its context holds) trains across the ``D * M`` processes of a launch as the
+reference's ``data x model`` mesh under its ``default_rules``
+(:func:`~repro_torch.launch.mesh.make_grid_context`): heads, ``d_ff`` and
+vocab split over each model row, every ``fsdp`` dim and the batch over each
+data column.  Each process draws its pieces of the state already cut, each
+data column takes its rows of every global batch, and checkpoints are saved
+and resumed by pieces::
+
+  python -m repro_torch.launch.cluster --processes 4 --local-units 1 -- \
+      -m repro_torch.launch.train --arch qwen2.5-3b --smoke --grid 2x2
+
+Only the dense family trains there; the others refuse, as the train step
+does (ROADMAP queue A, item 9(d)(ii)).
 """
 
 from __future__ import annotations
@@ -25,11 +39,14 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..configs.base import ShapeSpec
+from ..core.exchange import live_processes
 from ..data import Prefetcher, make_batch_iterator
-from ..distributed.sharding import current_mesh_context
+from ..distributed.sharding import current_mesh_context, local_rows, mesh_context
 from ..models import registry as R
 from ..train import AdamWConfig, TrainState, make_train_step
-from ..train.step import refuse_tensor_table
+from ..train.step import grid_world, refuse_tensor_table, state_owners, state_shardings
+from .cluster import init_cluster, leave_cluster
+from .mesh import make_grid_context, parse_grid
 
 
 def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
@@ -48,11 +65,25 @@ def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
     p.add_argument("--ckpt-every", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--grid", default="",
+                   help="DxM: train over the launch's D * M processes as a data x model mesh")
     args = p.parse_args(argv)
-    refuse_tensor_table(current_mesh_context())  # before any state is built
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.scaled(num_microbatches=args.microbatches)
+    joined = args.grid and live_processes()[0] == 1
+    if joined:  # join the launch (a no-op outside one: the grid then raises)
+        device = init_cluster().device or device
+    ctx = make_grid_context(*parse_grid(args.grid)) if args.grid else current_mesh_context()
+    refuse_tensor_table(ctx, cfg)  # before any state is built
+    with mesh_context(ctx):
+        out = _train(args, cfg, ctx, device)
+    if joined:
+        leave_cluster()
+    return out
+
+
+def _train(args, cfg, ctx, device) -> tuple[TrainState, dict]:
     api = R.build(cfg)
     shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
 
@@ -62,12 +93,19 @@ def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
     )
     step_fn = make_train_step(api, opt)
 
-    state = TrainState.create(api, args.seed, device=device)
+    shardings = state_shardings(api, ctx)
+    state = TrainState.create(api, args.seed, device=device, shardings=shardings)
+    # the rows of a global batch this process takes: its data column's on a
+    # grid, its own under data parallelism, all of them under the tensor table
+    rows = (ctx.data if ctx.data is not None else None if ctx.tensor else ctx.mesh) \
+        if ctx is not None else None
+    ckpt_mesh = (grid_world(ctx) if ctx.tensor else ctx.mesh) if ctx is not None else None
+    owned = state_owners(api, ctx)
     start = 0
     mgr = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every or 0)
-        restored = mgr.restore_latest(state)
+        restored = mgr.restore_latest(state, shardings=shardings)
         if restored is not None:
             start, state = restored
             print(f"resumed from checkpoint at step {start}")
@@ -80,10 +118,12 @@ def main(argv=None, device: str = "cuda") -> tuple[TrainState, dict]:
     last: dict = {}
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(state.step.device) for k, v in next(it).items()}
+        if rows is not None:
+            batch = local_rows(batch, rows)
         state, metrics = step_fn(state, batch)
         tokens_done += args.batch * args.seq_len
         if mgr and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            mgr.maybe_save(step + 1, state)
+            mgr.maybe_save(step + 1, state, shardings, ckpt_mesh, owned)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             last = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0

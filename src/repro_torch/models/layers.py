@@ -35,7 +35,12 @@ projection are row-parallel, each followed by one all-reduce (so is MLA's
 ``wo``, once a call after every query block, :func:`_mla_attend`); :func:`embed`
 looks up the process's vocab rows and all-reduces, and :func:`unembed`
 all-gathers its logits to the full vocab.  A dim that stays whole needs no
-collective.
+collective.  Each collective carries its backward, so training runs through
+them: a row-parallel exit passes its gradient through, and where a
+replicated activation enters a split projection (:func:`_column_entry`:
+q/k/v, the MLP's up projections, the logits) its gradient is summed over
+the processes, as is that of the whole kv leaves a process reads only in
+part (:func:`attention_qkv`).  The forward is the same either way.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from ..distributed.sharding import (
     tensor_all_gather,
     tensor_all_reduce,
     tensor_context,
+    tensor_entry,
     tensor_split,
 )
 from ..kernels import ops
@@ -435,14 +441,25 @@ def local_kv_heads(cfg: ModelConfig) -> int:
 def attention_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
     """Project to q/k/v (+ bias) in the compute dtype; under the tensor
     table the process's heads, and of whole kv heads those it reads
-    (:func:`kv_heads_read`)."""
+    (:func:`kv_heads_read`).
+
+    Whole kv heads are projected on every process, but each process's
+    attention reads only some of them, so its gradient of ``wk``, ``wv``,
+    ``bk`` and ``bv`` covers only its query heads' share: those four leaves
+    enter through :func:`tensor_entry`, which sums their gradient over the
+    processes (kv heads that split need no sum: each process's are its
+    own)."""
+    x = _column_entry(x, "heads", cfg.num_heads)
+    read = kv_heads_read(cfg)
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    if read is not None:
+        params = {**params, **{n: tensor_entry(params[n], tensor_context()) for n in names}}
     q, k, v = _project(x, params["wq"]), _project(x, params["wk"]), _project(x, params["wv"])
     if cfg.qkv_bias:
         dt = x.dtype
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    read = kv_heads_read(cfg)
     if read is not None:
         k, v = k[:, :, read], v[:, :, read]
     return q, k, v
@@ -454,6 +471,17 @@ def attention_out(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Te
     B, S, H, Dh = x.shape
     y = x.reshape(B, S, H * Dh) @ params["wo"].to(x.dtype).reshape(H * Dh, -1)
     return _row_parallel(y, "heads", cfg.num_heads)
+
+
+def _column_entry(x: torch.Tensor, name: str, dim: int) -> torch.Tensor:
+    """``x``, replicated on every process, entering a product split along a
+    dim of ``dim`` entries named ``name``: where the tensor table splits
+    it, :func:`tensor_entry` (the gradient summed over the processes in the
+    backward); as it is otherwise."""
+    ctx = tensor_context()
+    if ctx is None or tensor_split(dim, name, ctx) == 1:
+        return x
+    return tensor_entry(x, ctx)
 
 
 def _row_parallel(y: torch.Tensor, name: str, dim: int) -> torch.Tensor:
@@ -705,6 +733,7 @@ def mlp_block(params: Params, cfg: ModelConfig, x: torch.Tensor,
     projection row-parallel: one all-reduce, before ``b_out``."""
     dt = x.dtype
     f = d_ff or cfg.d_ff
+    x = _column_entry(x, "d_ff", f)
     if cfg.act == "gelu":
         h = x @ params["w_in"].to(dt) + params["b_in"].to(dt)
         h = torch.nn.functional.gelu(h, approximate="tanh")
@@ -765,7 +794,7 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits ``x @ unembed``, or ``x @ table.T`` with tied embeddings;
     under the tensor table with the vocab split, the process's columns
     all-gathered to the full vocab on every process."""
-    x = x * scale_as(x, cfg.logits_scale)
+    x = _column_entry(x * scale_as(x, cfg.logits_scale), "vocab", cfg.vocab_size)
     if cfg.tie_embeddings:
         logits = x @ params["table"].to(x.dtype).T
     else:

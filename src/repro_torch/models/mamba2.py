@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import tensor_context, tensor_split
+from ..distributed.sharding import tensor_context, tensor_shared_sum, tensor_split
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -232,14 +232,16 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
 def _gate_norm(params: Any, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
     """``gate_norm`` over ``y [..., d_inner / R]``: :func:`layers.rmsnorm`
     where the block is whole; under the head cut the f32 sum of squares is
-    all-reduced over the processes and divided by the whole ``d_inner``,
-    and the process scales by its columns of the whole scale."""
+    all-reduced over the processes (:func:`tensor_shared_sum`: each process
+    normalises only its heads with it, so its gradient is summed too) and
+    divided by the whole ``d_inner``, and the process scales by its columns
+    of the whole scale."""
     R, r = tensor_heads(cfg)
     if R == 1:
         return L.rmsnorm(params, y, cfg.norm_eps)
     dt, dl = y.dtype, y.shape[-1]
     h = y.float()
-    ss = L._row_parallel(h.square().sum(-1, keepdim=True), "ssm_heads", dims(cfg)[1])
+    ss = tensor_shared_sum(h.square().sum(-1, keepdim=True), tensor_context())
     h = h * torch.rsqrt(ss / (dl * R) + cfg.norm_eps)
     return (h * params["scale"].narrow(0, r * dl, dl).float()).to(dt)
 

@@ -89,6 +89,14 @@ def build(cfg: ModelConfig) -> ModelApi:
     )
 
 
+@functools.lru_cache(maxsize=16)
+def whole_params(cfg: ModelConfig) -> Any:
+    """Every param leaf drawn on ``meta``, in ``init``'s structure: the
+    whole shapes, which a train state's shardings and a grid's FSDP gather
+    resolve against."""
+    return build(cfg).init(0, device="meta")
+
+
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """The model's parameters, counted on ``init(..., device="meta")`` (no
     memory).  With ``active_only`` an MoE layer's ``ffn`` matrices count

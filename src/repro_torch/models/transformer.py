@@ -29,6 +29,13 @@ add the collectives.  Under MLA a process holds its heads of ``wq``,
 of ``wkv_a``, ``kv_norm`` and the compressed ``c``/``kr`` cache, which carry
 no head dim: the absorbed products run on its heads, and ``wo`` all-reduces
 once a layer.
+
+On a ``data x model`` grid of processes (training) a process holds its
+model row's slices of each leaf, further split along the leaf's ``fsdp`` dim
+over its data column: each layer gathers its leaves whole over the column
+as it runs (:func:`~repro_torch.distributed.sharding.fsdp_gather`, inside
+the remat region, so the recompute gathers again and no step holds the
+whole model gathered), and so do the embedding's lookup and the logits.
 """
 
 from __future__ import annotations
@@ -42,9 +49,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.multiplexer import current_multiplexer, use_multiplexer
-from ..distributed.sharding import current_mesh_context, mesh_context
+from ..distributed.sharding import current_mesh_context, fsdp_gather, mesh_context
 from . import layers as L
 from . import moe as M
+from . import registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +174,27 @@ def _ffn_block(p, cfg: ModelConfig, kind: str, x: torch.Tensor) -> torch.Tensor:
     return x + L.scale_as(x, cfg.residual_scale) * f
 
 
-def _layer_fwd(p, cfg: ModelConfig, kind: str, x, cos, sin):
+def _gathered(p, cfg: ModelConfig, seg: int | None, key: str | None = None):
+    """``p`` (a layer of segment ``seg``, or with ``None`` the embedding;
+    with ``key``, only that leaf of it, in a dict of one) with its FSDP
+    leaves gathered whole over a grid's data column; as it is off a grid."""
+    if key is not None:
+        p = {key: p[key]}
+    ctx = current_mesh_context()
+    if ctx is None or ctx.data is None:
+        return p
+    whole = registry.whole_params(cfg)
+    if seg is None:
+        specs, shapes = L.specs_embedding(cfg), whole["embedding"]
+    else:
+        specs, shapes = _specs_layer(cfg, segments_for(cfg)[seg].kind), whole[f"seg{seg}"][0]
+    if key is not None:
+        specs, shapes = {key: specs[key]}, {key: shapes[key]}
+    return fsdp_gather(p, specs, shapes, ctx)
+
+
+def _layer_fwd(p, cfg: ModelConfig, seg: int, kind: str, x, cos, sin):
+    p = _gathered(p, cfg, seg)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attn_kind == "mla":
         a = L.mla_block(p["attn"], cfg, h, cos, sin, causal=True)
@@ -205,7 +233,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 def _run_segments(params, cfg: ModelConfig, x, cos, sin):
     for i, seg in enumerate(segments_for(cfg)):
         body = _maybe_remat(
-            lambda h, p, kind=seg.kind: _layer_fwd(p, cfg, kind, h, cos, sin), cfg
+            lambda h, p, i=i, kind=seg.kind: _layer_fwd(p, cfg, i, kind, h, cos, sin), cfg
         )
         for p in params[f"seg{i}"]:
             x = body(x, p)
@@ -216,7 +244,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.
     """Token embedding, after the VLM patch prefix when the batch has one,
     and positions (given, or ``0 .. P+S-1`` for every row, the same for the
     three M-RoPE streams)."""
-    x = L.embed(params["embedding"], cfg, batch["tokens"])
+    x = L.embed(_gathered(params["embedding"], cfg, None, "table"), cfg, batch["tokens"])
     if "patches" in batch:  # Qwen2-VL's stub frontend: precomputed embeddings
         x = torch.cat([batch["patches"].to(device=x.device, dtype=x.dtype), x], dim=1)
     return x, L.positions_for(cfg, batch)
@@ -252,7 +280,8 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     patch prefix is not scored."""
     h = forward(params, cfg, batch)
     h = h[:, h.shape[1] - batch["tokens"].shape[1]:]
-    logits = L.unembed(params["embedding"], cfg, h)
+    key = "table" if cfg.tie_embeddings else "unembed"
+    logits = L.unembed(_gathered(params["embedding"], cfg, None, key), cfg, h)
     return L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
 
 

@@ -60,8 +60,8 @@ def region(name: str):
 
 def collective(kind: str, nbytes: int) -> None:
     """``nbytes`` handed to the process fabric by one collective of
-    ``kind`` (``all-reduce``, ``all-gather``, ``all-to-all``,
-    ``collective-permute``)."""
+    ``kind`` (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+    ``all-to-all``, ``collective-permute``)."""
     c = active()
     if c is not None:
         c.collective(kind, nbytes)

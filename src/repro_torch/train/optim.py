@@ -65,18 +65,22 @@ def adamw_init(params: Any) -> Any:
     }
 
 
-def _global_norm(tree: Any, sharded: list[bool] | None = None,
+def _global_norm(tree: Any, sharded: list[bool | None] | None = None,
                  process_sum: Callable[[torch.Tensor], torch.Tensor] | None = None
                  ) -> torch.Tensor:
-    """The gradient's global norm.  Where ``sharded`` marks a leaf as this
-    process's shard of it, the squares of every process's shards are added
-    through one scalar ``process_sum`` (an all-reduce over the processes),
-    so every process gets the same norm."""
+    """The gradient's global norm.  Where ``sharded`` marks a leaf ``True``,
+    this process holds its piece of it, and the squares of every process's
+    pieces are added through one scalar ``process_sum`` (an all-reduce over
+    the processes), so every process gets the same norm; ``False``, the
+    leaf is whole on every process and added here once; ``None``, another
+    process adds this piece (a copy of it on a ``data x model`` grid, whose
+    pieces may lie over two axes) and it is skipped."""
     squares = [g.float().square().sum() for g in leaves(tree)]
     if sharded is None:
         return torch.sqrt(sum(squares))
-    whole = sum(q for q, s in zip(squares, sharded) if not s)
-    shards = process_sum(sum(q for q, s in zip(squares, sharded) if s))
+    zero = torch.zeros((), dtype=torch.float32, device=squares[0].device)
+    whole = sum((q for q, s in zip(squares, sharded) if s is False), zero)
+    shards = process_sum(sum((q for q, s in zip(squares, sharded) if s), zero))
     return torch.sqrt(whole + shards)
 
 
@@ -91,7 +95,7 @@ def _decays(path: tuple, p: torch.Tensor) -> bool:
 
 def adamw_update(
     cfg: AdamWConfig, grads: Any, opt_state: Any, params: Any,
-    sharded: list[bool] | None = None,
+    sharded: list[bool | None] | None = None,
     process_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[Any, Any, dict]:
     """One AdamW step; returns ``(new_params, new_opt_state, metrics)``.

@@ -54,6 +54,32 @@ replicated params stay bit-identical.  ``"hierarchical"`` with the MoE
 family across processes raises: the per-unit passes cannot run the
 expert-parallel layer unit by unit (ROADMAP §C).  The reference's gradient
 pinning ``_pin`` places gradients for ``jit``; it has no counterpart.
+
+**The tensor table and the ``data x model`` grid** (the dense family; the
+others refuse, :func:`refuse_tensor_table`).  Under the tensor table every
+process of the model row sees the whole batch and holds its slices of the
+heads, ``d_ff`` and vocab dims; the layers' collectives carry the backward
+(:mod:`repro_torch.models.layers`), so each leaf's gradient is complete
+where it is held and nothing is synced.  On a grid (the reference's
+``default_rules(False)``: those names over the model row, every ``fsdp``
+dim and the batch over the data column) each data column takes its rows of
+the global batch, and the sync is:
+
+* a leaf split over the data column: its gradient was reduce-scattered
+  over the column in the backward (the FSDP gather's rule), so it is
+  divided by ``D``;
+* a leaf whole over the column: the mean over the column
+  (:func:`process_mean` on the column, not over every process);
+* over the model row nothing: a split leaf's gradient is the process's
+  own, a replicated one the same on every process of the row.
+
+The clipping norm counts each piece of each leaf once over the grid: the
+process with index 0 along every axis a leaf is replicated over adds its
+squares, and one scalar all-reduce over every process sums them
+(:func:`grid_pieces`).  A leaf split over both axes is held as a
+:class:`Shard` of two dims (``also``), and the checkpoint saves and
+assembles along both; each piece is written once, by that same process
+(:func:`state_owners`).
 """
 
 from __future__ import annotations
@@ -65,10 +91,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..core import exchange
-from ..core.exchange import POD_AXIS, Mesh
+from ..core.exchange import POD_AXIS, Mesh, live_processes
 from ..core.multiplexer import make_multiplexer
 from ..distributed.sharding import (
     MeshContext,
+    _axes,
     _slices,
     build_shardings,
     current_mesh_context,
@@ -83,20 +110,32 @@ from .optim import AdamWConfig, adamw_init, adamw_update
 
 class Shard(NamedTuple):
     """The part of a leaf one process holds: rows ``[start, stop)`` of its
-    dim ``dim``, whose whole size is ``size``."""
+    dim ``dim``, whose whole size is ``size``; ``also``, the same for each
+    further dim it is split along (a leaf split over both axes of a ``data
+    x model`` grid), in dim order."""
 
     dim: int
     start: int
     stop: int
     size: int
+    also: tuple = ()
+
+    def dims(self) -> tuple["Shard", ...]:
+        """Every split dim as a one-dim :class:`Shard`, in dim order."""
+        return (self._replace(also=()),) + tuple(self.also)
 
 
 def _keep(t: torch.Tensor, held: Shard | None) -> torch.Tensor:
     """``t``'s held rows as a tensor of their own (the rest freed), or ``t``
-    when it is whole on this process or already the slice."""
-    if held is None or t.shape[held.dim] != held.size:
+    when it is whole on this process or already the slice; along every dim
+    ``held`` names, each cut where ``t`` is still whole along it."""
+    if held is None:
         return t
-    return t.narrow(held.dim, held.start, held.stop - held.start).clone()
+    cut = t
+    for h in held.dims():
+        if cut.shape[h.dim] == h.size:
+            cut = cut.narrow(h.dim, h.start, h.stop - h.start)
+    return t if cut is t else cut.clone()
 
 
 @dataclasses.dataclass
@@ -139,7 +178,7 @@ def process_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     all-reduce over the pod axis of a one-unit-a-pod view of ``mesh``, so
     each process puts the tensor's bytes on the pod hop once."""
     R = mesh.num_processes
-    view = Mesh(R, 1, R, mesh.process_index, mesh.group)
+    view = Mesh(R, 1, R, mesh.process_index, mesh.group, mesh.label)
     return exchange.psum(t[None], view, POD_AXIS)[0]
 
 
@@ -169,7 +208,7 @@ def train_state_specs(api: registry.ModelApi) -> TrainState:
 @functools.lru_cache(maxsize=16)
 def _state_shapes(cfg) -> TrainState:
     """A state of ``meta`` tensors: every leaf's whole shape."""
-    return TrainState.from_params(registry.build(cfg).init(0, device="meta"))
+    return TrainState.from_params(registry.whole_params(cfg))
 
 
 def _held(shape: tuple, spec: tuple, mesh: Mesh) -> Shard | None:
@@ -195,17 +234,92 @@ def _held(shape: tuple, spec: tuple, mesh: Mesh) -> Shard | None:
     return None
 
 
+def _grid_held(shape: tuple, spec: tuple, ctx: MeshContext) -> Shard | None:
+    """The part of a leaf of ``shape``, resolved to ``spec``, that this
+    process of a grid holds: along each dim on a grid axis, its run of that
+    axis's equal runs; ``None`` when no dim is split."""
+    coords = {"model": (ctx.mesh.num_processes, ctx.mesh.process_index),
+              "data": (ctx.data.num_processes, ctx.data.process_index)}
+    parts = []
+    for dim, axes in enumerate(spec):
+        on = [a for a in _axes(axes) if a in coords]
+        if len(on) > 1:
+            raise ValueError(f"spec {spec}: dim {dim} on two grid axes {on}")
+        if on:
+            n, i = coords[on[0]]
+            rows = shape[dim] // n
+            parts.append(Shard(dim, i * rows, (i + 1) * rows, shape[dim]))
+    return parts[0]._replace(also=tuple(parts[1:])) if parts else None
+
+
 def state_shardings(api: registry.ModelApi, ctx: MeshContext | None = None) -> TrainState | None:
     """For every leaf of the train state, the :class:`Shard` this process
     holds, or ``None`` where it holds the whole leaf (the resolved specs of
     :func:`train_state_specs` under the context's rules, strict).  ``None``
-    off-mesh and on a mesh inside one process, which holds everything."""
+    off-mesh and on a mesh inside one process, which holds everything.  On
+    a ``data x model`` grid a leaf may be split along a dim over each
+    axis."""
     ctx = ctx or current_mesh_context()
-    if ctx is None or ctx.mesh.num_processes == 1:
+    if ctx is None or (ctx.data is None and ctx.mesh.num_processes == 1):
         return None
     shapes = _state_shapes(api.cfg)
     resolved = build_shardings(train_state_specs(api), shapes, ctx)
+    if ctx.data is not None:
+        return tree_map(lambda spec, shp: _grid_held(tuple(shp.shape), spec, ctx), resolved,
+                        shapes)
     return tree_map(lambda spec, shp: _held(tuple(shp.shape), spec, ctx.mesh), resolved, shapes)
+
+
+def _splits(spec: tuple, ctx: MeshContext) -> tuple[bool, bool]:
+    """Whether a leaf resolved to ``spec`` is split over the data column
+    and over the model row."""
+    on = {a for axes in spec for a in _axes(axes)}
+    return "data" in on, ctx.model_axis in on
+
+
+def _owns(split_data: bool, split_model: bool, ctx: MeshContext) -> bool:
+    """Does this process stand for its piece of a leaf: index 0 along every
+    axis the leaf is replicated over?"""
+    d = ctx.data.process_index if ctx.data is not None else 0
+    return (split_data or d == 0) and (split_model or ctx.mesh.process_index == 0)
+
+
+def grid_pieces(api: registry.ModelApi, ctx: MeshContext) -> list[tuple[bool, bool, bool]]:
+    """For every param leaf under the tensor table or a grid: whether it is
+    split over the data column, over the model row, and whether this
+    process stands for its piece (:func:`_owns`: it adds the piece's squares
+    to the clipping norm)."""
+    shapes = _state_shapes(api.cfg).params
+    out = []
+    for spec in leaves(build_shardings(api.param_specs, shapes, ctx)):
+        over_data, over_model = _splits(spec, ctx)
+        out.append((over_data, over_model, _owns(over_data, over_model, ctx)))
+    return out
+
+
+def state_owners(api: registry.ModelApi, ctx: MeshContext | None = None) -> TrainState | None:
+    """For every leaf of the train state under the tensor table or a grid,
+    whether this process writes its piece to a checkpoint (each piece once,
+    by the process that stands for it, :func:`_owns`); ``None`` elsewhere,
+    where a checkpoint writes split leaves on every process and whole ones
+    on process 0."""
+    ctx = ctx or current_mesh_context()
+    if ctx is None or not ctx.tensor:
+        return None
+    shapes = _state_shapes(api.cfg)
+    resolved = build_shardings(train_state_specs(api), shapes, ctx)
+    return tree_map(lambda spec: _owns(*_splits(spec, ctx), ctx), resolved)
+
+
+def grid_world(ctx: MeshContext) -> Mesh:
+    """Every process of the context (a grid's ``D x M``, the tensor
+    table's row) as a one-unit-a-pod :class:`Mesh` labelled ``"grid"``:
+    the clipping norm's scalar all-reduce runs over it."""
+    if ctx.data is None:
+        m = ctx.mesh
+        return Mesh(m.num_processes, 1, m.num_processes, m.process_index, m.group, "grid")
+    P, rank, group = live_processes()
+    return Mesh(P, 1, P, rank, group, "grid")
 
 
 def _sharded(api: registry.ModelApi, params: Any, ctx: MeshContext | None) -> list[bool] | None:
@@ -220,16 +334,22 @@ def _sharded(api: registry.ModelApi, params: Any, ctx: MeshContext | None) -> li
     return mask if any(mask) else None
 
 
-def refuse_tensor_table(ctx: MeshContext | None) -> None:
-    """Raise ``NotImplementedError`` under the tensor table: the step's sync
-    would average the processes' different slices of a split leaf, the
-    layers' all-reduce has no backward, and the gathered logits carry no
-    graph.  Training there is ROADMAP queue A item 9(d)."""
-    if ctx is not None and ctx.tensor:
+#: The families that train under the tensor table and on a grid.
+GRID_FAMILIES = ("dense",)
+
+
+def refuse_tensor_table(ctx: MeshContext | None, cfg) -> None:
+    """Raise ``NotImplementedError`` for a family other than the dense one
+    under the tensor table or on a grid: MoE's experts, MLA's whole
+    compressed path, the SSM and hybrid blocks, the VLM's patches and the
+    encoder-decoder have no gradient sync there yet (ROADMAP queue A item
+    9(d)(ii))."""
+    if ctx is not None and ctx.tensor and cfg.family not in GRID_FAMILIES:
         raise NotImplementedError(
-            "training under the tensor table is not ported yet: the gradient sync, the "
-            "collectives' backward and the gathered logits' graph are missing (ROADMAP "
-            "queue A, item 9(d): training under the tensor table and the FSDP rules)")
+            f"training the {cfg.family!r} family under the tensor table or on a data x model "
+            "grid is not ported yet; only the dense family trains there (ROADMAP queue A, "
+            "item 9(d)(ii): the other families' training under the tensor table and the "
+            "FSDP rules)")
 
 
 def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Tensor, Any]]:
@@ -244,7 +364,9 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
     accumulated in f32.  With remat the live activation set is one
     microbatch x one layer.  On a mesh over processes the MoE family's
     expert leaves may be this process's shards (their gradients too).
-    Under the tensor table it raises (:func:`refuse_tensor_table`).
+    Under the tensor table and on a grid each leaf is this process's piece
+    (the module docstring's sync); a family other than the dense one raises
+    there (:func:`refuse_tensor_table`).
     """
     cfg = api.cfg
     num_mb = max(cfg.num_microbatches, 1)
@@ -284,9 +406,30 @@ def make_grad_fn(api: registry.ModelApi) -> Callable[[Any, Any], tuple[torch.Ten
         mean = unit_mean(stacked, mesh)
         return mean["loss"], mean["grads"]
 
+    def grid_sync(params, batch, ctx):
+        loss, grads = rows_loss_and_grads(params, batch)
+        if ctx.data is None:  # the tensor table: every held gradient is whole already
+            return loss, grads
+        # A leaf split over the data column was reduce-scattered over it in the
+        # backward (its FSDP gather's rule): divide.  The rest: the column's mean.
+        flat = leaves(grads)
+        over_data = [p[0] for p in grid_pieces(api, ctx)]
+        mean = process_mean({"loss": loss, "grads": [g for g, s in zip(flat, over_data) if not s]},
+                            ctx.data)
+        rest = iter(mean["grads"])
+        D = ctx.data.num_processes
+        return mean["loss"], unflatten(grads, [g.float() / D if s else next(rest)
+                                               for g, s in zip(flat, over_data)])
+
     def grad_fn(params, batch):
         ctx = current_mesh_context()
-        refuse_tensor_table(ctx)
+        refuse_tensor_table(ctx, cfg)
+        if ctx is not None and ctx.tensor:
+            if cfg.grad_sync == "hierarchical":
+                raise NotImplementedError(
+                    'grad_sync="hierarchical" under the tensor table or on a grid: the sync '
+                    'there is the grid\'s (module docstring); use grad_sync="auto"')
+            return grid_sync(params, batch, ctx)
         mesh = ctx.mesh if ctx is not None else None
         spans = mesh is not None and mesh.num_processes > 1
         moe = spans and cfg.family == "moe"
@@ -333,17 +476,21 @@ def make_train_step(
     def step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, grads = grad_fn(state.params, batch)
         ctx = current_mesh_context()
-        sharded = _sharded(api, state.params, ctx)
+        if ctx is not None and ctx.tensor:  # each piece once over the grid: one scalar sum
+            sharded = [True if owns else None for _, _, owns in grid_pieces(api, ctx)]
+            mesh = grid_world(ctx)
+        else:
+            sharded = _sharded(api, state.params, ctx)
+            mesh = ctx.mesh if ctx is not None else None
         new_params, new_opt, metrics = adamw_update(
             opt_cfg, grads, state.opt, state.params, sharded=sharded,
-            process_sum=None if sharded is None else
-            functools.partial(process_sum, mesh=ctx.mesh))
+            process_sum=None if sharded is None else functools.partial(process_sum, mesh=mesh))
         metrics["loss"] = loss
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return step
 
 
-__all__ = ["Shard", "TrainState", "train_state_specs", "state_shardings", "make_train_step",
-           "make_grad_fn", "refuse_tensor_table", "local_rows", "process_sum", "process_mean",
-           "unit_mean"]
+__all__ = ["Shard", "TrainState", "train_state_specs", "state_shardings", "state_owners",
+           "grid_pieces", "grid_world", "make_train_step", "make_grad_fn", "refuse_tensor_table",
+           "GRID_FAMILIES", "local_rows", "process_sum", "process_mean", "unit_mean"]

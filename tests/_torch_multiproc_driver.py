@@ -20,6 +20,7 @@ for each Q3 and Q17 edge.
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -604,7 +605,7 @@ def _profiled_step(step, state, rows, tag: str) -> dict:
     out.update(flops=r["flops"], bytes=r["bytes"], collective_bytes=r["collective_bytes"],
                peak_live_bytes=r["peak_live_bytes"], kernels=r["kernels"],
                pod_hop_bytes=exchange.POD_HOP["bytes"],
-               pod_hop_kinds=dict(exchange.POD_HOP_KINDS), max_memory_allocated=_peak())
+               pod_hop_kinds=exchange.pod_hop_kinds(), max_memory_allocated=_peak())
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEV == "cuda" else [])
     with profile(activities=activities) as prof:
         (new, _), out["step_s"] = _synced(lambda: step(state, rows))
@@ -1325,7 +1326,7 @@ def _serve_run(api, params, inputs: tuple, B: int, new: int, ctx, mux,
     return {"tokens": [r.out_tokens for r in reqs], "routes": routes,
             "logits": rec.prefill.logits + rec.decode_step.logits,
             "drops": [d.cpu() for d in drops], "paths": list(paths), "stats": dict(engine.stats),
-            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
+            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": exchange.pod_hop_kinds(),
             "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
             "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step.seconds,
             "wall_s": wall, "peak": _peak(),
@@ -1718,7 +1719,7 @@ def _continuous_run(api, params, work: tuple, B: int, ctx, temperature: float = 
             "drops": [d.cpu() for d in drops], "paths": list(paths), "stats": dict(engine.stats),
             "spans": _spans(tracer), "slots": slots, "live": live, "cache_bytes": built[0],
             "mux": None if engine.mux is None else engine.mux.describe(),
-            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": dict(exchange.POD_HOP_KINDS),
+            "hop_bytes": exchange.POD_HOP["bytes"], "hop_kinds": exchange.pod_hop_kinds(),
             "launches": {k: v - k0[k] for k, v in _serve_launches().items()},
             "prefill_s": rec.prefill.seconds, "decode_s": rec.decode_step_slots.seconds,
             "wall_s": wall, "record": engine_record(reqs, engine.stats, wall), "peak": _peak()}
@@ -2281,6 +2282,8 @@ def _tp_arch(key: str, arch: str, layers: int, shape: tuple, vocab: int, moe: st
                 rec["one_process_continuous"] = {
                     k: one[k] for k in ("stats", "prefill_s", "decode_s", "wall_s", "peak",
                                         "launches", "record", "paths", "mux")}
+            if DEV == "cuda":  # the one-process runs' freed blocks, before the placed draw
+                torch.cuda.empty_cache()
         params = api.init(0, device=DEV, place=place)
     if whole is not None:  # the placed draw is the whole draw's slices
         rec["params_equal_slices"] = all(  # a slice at a time: the whole tree is large
@@ -2650,13 +2653,374 @@ def scenario_tensor_serve():
     print("PASS tensor_serve")
 
 
+def _grid_cells() -> list[tuple[str, str, int, int, str]]:
+    """``--grid-cells``: ``(key, arch, layers, vocab, remat)`` from items
+    ``arch[:layers[:vocab[:remat]]]`` (0 or empty: the config's)."""
+    out = []
+    for item in filter(None, ARGS.grid_cells.split(",")):
+        arch, *rest = item.split(":")
+        layers = int(rest[0]) if rest and rest[0] else 0
+        vocab = int(rest[1]) if len(rest) > 1 and rest[1] else 0
+        remat = rest[2] if len(rest) > 2 else ""
+        out.append((f"{arch}:v{vocab}" if vocab else arch, arch, layers, vocab, remat))
+    return out
+
+
+def _grid_cfg(arch: str, layers: int, vocab: int, remat: str):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_config if ARGS.grid_full else get_smoke_config)(arch)
+    kw = {"attn_impl": "flash", "dtype": ARGS.grid_dtype}
+    if remat:
+        kw["remat"] = remat
+    if layers:
+        kw["num_layers"] = layers
+    if vocab:
+        kw["vocab_size"] = vocab
+    return cfg.scaled(**kw)
+
+
+def _piece_numel(whole: int, held) -> int:
+    """A leaf's elements on this process: ``whole`` cut along ``held``."""
+    for h in held.dims() if held is not None else ():
+        whole = whole // h.size * (h.stop - h.start)
+    return whole
+
+
+def _grid_hop_bytes(api, ctx, tokens: int) -> dict:
+    """The bytes one train step (its gradient and its clipping norm) hands
+    each group, by kind, from the shapes (``tokens``: this process's rows
+    times the sequence).  The model row: the exits' all-reduces (the masked
+    lookup where the vocab splits; a layer's attention and MLP where heads
+    and ``d_ff`` split; under remat the attention's again in the recompute,
+    which stops after the layer's last saved tensor, before the MLP's exit:
+    ``torch.utils.checkpoint``'s early stop), the entries' gradient
+    all-reduces (a layer's attention and MLP input and the logits' input
+    where those split; the whole kv leaves a process reads in part) and the
+    gathered logits.  The data column: each FSDP leaf's gather (a layer's
+    again in a recompute; the tied table once for the lookup and once for
+    the logits) and each gather's gradient reduce-scattered, then the mean
+    of the leaves whole over it and of the loss.  The grid: the norm's one
+    f32 scalar."""
+    from repro_torch.distributed.sharding import mesh_context, tensor_split
+    from repro_torch.models import layers as L
+    from repro_torch.train.step import _state_shapes, grid_pieces, state_shardings
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = api.cfg
+    act = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    par = torch.empty((), dtype=getattr(torch, cfg.param_dtype)).element_size()
+    passes = 1 if cfg.remat == "none" else 2
+    heads, ff, vocab = (tensor_split(n, name, ctx) > 1 for n, name in (
+        (cfg.num_heads, "heads"), (cfg.d_ff, "d_ff"), (cfg.vocab_size, "vocab")))
+    with mesh_context(ctx):
+        read = L.kv_heads_read(cfg)
+    shapes = _state_shapes(cfg).params
+    held = leaves(state_shardings(api, ctx).params)
+    reduces = vocab + cfg.num_layers * (2 * (heads + ff) + (passes - 1) * heads) + vocab
+    kv_grads = 0
+    gathered = scattered = whole = 0
+    for (path, leaf), h, (over_data, _, _) in zip(leaves_with_paths(shapes), held,
+                                                  grid_pieces(api, ctx)):
+        n = _piece_numel(leaf.numel(), h)
+        if read is not None and path[-2:-1] == ("attn",) and path[-1] in ("wk", "wv", "bk",
+                                                                          "bv"):
+            kv_grads += leaf.numel() * par  # the gathered leaf's gradient, summed over the row
+        if not over_data:
+            whole += 4 * n
+            continue
+        uses = passes if str(path[0]).startswith("seg") else \
+            (2 if path[-1] == "table" and cfg.tie_embeddings else 1)
+        grads = 1 if str(path[0]).startswith("seg") else uses
+        gathered += uses * n * par
+        scattered += grads * n * ctx.data.num_processes * par
+    model = {"all-reduce": reduces * tokens * cfg.d_model * act + kv_grads}
+    if vocab:
+        model["all-gather"] = tokens * (cfg.vocab_size // ctx.mesh.num_processes) * act
+    return {"model": model,
+            "data": {"all-gather": gathered, "reduce-scatter": scattered,
+                     "all-reduce": whole + 4},
+            "grid": {"all-reduce": 4}}
+
+
+def _from_rank0(t, shape, dtype) -> torch.Tensor:
+    """A whole tensor on every process: ``t`` itself where every process
+    ran the one-process step (``--grid-ref all``), else rank 0's, broadcast
+    (through host memory under Gloo)."""
+    import torch.distributed as dist
+
+    if ARGS.grid_ref == "all":
+        return t
+    host = dist.get_backend() == "gloo"
+    if INFO.process_id == 0:
+        buf = t.detach().cpu() if host else t.detach().contiguous()
+    else:
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if host else DEV)
+    dist.broadcast(buf, src=0)
+    return buf.to(DEV)
+
+
+def _against_whole(got, want, held_tree, shapes, lead: float = 0.0) -> tuple[float, float]:
+    """``(max over leaves of max |a - b| / max |b|, max |a - b|)`` between
+    this process's pieces ``got`` and the same pieces of the whole tree
+    ``want`` (``None`` away from rank 0 under ``--grid-ref rank0``: then
+    broadcast a leaf at a time)."""
+    from repro_torch.train.step import _keep
+    from repro_torch.tree import leaves
+
+    worst_rel, worst_abs = lead, 0.0
+    wants = leaves(want) if want is not None else [None] * len(leaves(got))
+    for a, w, h, shp in zip(leaves(got), wants, leaves(held_tree), leaves(shapes)):
+        w = _from_rank0(w, tuple(shp.shape), shp.dtype)
+        top = max(float(w.float().abs().max()), 1e-30)
+        diff = float((a.float() - _keep(w, h).float()).abs().max())
+        worst_rel, worst_abs = max(worst_rel, diff / top), max(worst_abs, diff)
+    return worst_rel, worst_abs
+
+
+def _replicated_identical(tree, ctx, api) -> dict:
+    """Are the leaves whole over the model row bit-identical on the row's
+    processes, and those whole over the data column on the column's?"""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.train.step import grid_pieces
+    from repro_torch.tree import leaves
+
+    pieces = grid_pieces(api, ctx)
+    out = {}
+    for label, mesh, col in (("model", ctx.mesh, 1), ("data", ctx.data, 0)):
+        h = hashlib.sha256()
+        for t, p in zip(leaves(tree), pieces):
+            if not p[col]:
+                h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+                         .numpy().tobytes())
+        got = [None] * mesh.num_processes
+        dist.all_gather_object(got, h.hexdigest(), group=mesh.group)
+        out[label] = len(set(got)) == 1
+    return out
+
+
+def _grid_elastic(api, ctx_a, state_a, ctx_b, device) -> dict:
+    """The state saved on grid ``a`` (each piece once, by its owner) and
+    restored onto grid ``b``'s pieces, beside the whole state restored on
+    every process: both grids' pieces equal its slices, bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.step import (TrainState, _keep, _state_shapes, grid_world,
+                                        state_owners, state_shardings)
+    from repro_torch.tree import leaves
+
+    d = ARGS.grid_ckpt
+    save_checkpoint(d, 1, state_a, state_shardings(api, ctx_a), grid_world(ctx_a),
+                    state_owners(api, ctx_a))
+    held_b = state_shardings(api, ctx_b)
+    target = TrainState.create(api, 1, device=device, shardings=held_b)
+    got_b = restore_checkpoint(d, 1, target, shardings=held_b)
+    whole = restore_checkpoint(d, 1, _state_shapes(api.cfg), device=device)
+    same = {}
+    for tag, tree, held in (("a", state_a, state_shardings(api, ctx_a)), ("b", got_b, held_b)):
+        same[tag] = all(torch.equal(t, _keep(w, h)) and t.shape == _keep(w, h).shape
+                        for t, w, h in zip(leaves(tree), leaves(whole), leaves(held)))
+    same["b_shapes"] = [list(t.shape) for t in leaves(got_b.params)] == \
+        [list(t.shape) for t in leaves(target.params)]
+    return same
+
+
+def _grid_launcher(arch: str, layout: str) -> dict:
+    """``launch.train.main(["--grid", layout, ...])`` inside this launch:
+    a step with a checkpoint, then a run to 2 steps resuming from it,
+    against 2 steps uninterrupted: the last metrics equal."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.launch import train as train_cli
+
+    d = os.path.join(ARGS.grid_ckpt, "cli")
+    argv = ["--arch", arch, "--smoke", "--grid", layout, "--seq-len", "16", "--batch", "8",
+            "--log-every", "1"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(argv + ["--steps", "1", "--ckpt-dir", d, "--ckpt-every", "1"], device=DEV)
+        st, resumed = train_cli.main(argv + ["--steps", "2", "--ckpt-dir", d, "--ckpt-every",
+                                             "1"], device=DEV)
+        _, straight = train_cli.main(argv + ["--steps", "2"], device=DEV)
+    sync_processes()
+    if INFO.process_id == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"resumed": "resumed from checkpoint at step 1" in out.getvalue(),
+            "step": int(st.step), "equal": resumed == straight, "metrics": resumed}
+
+
+# grid_train's gate on each gradient piece, relative to its leaf's max: the
+# 1e-4 that ``scenario_dp_train`` and ``scenario_moe_train`` hold leaves to
+# (the CPU tests hold the pieces to 1e-5 themselves).
+GRID_GRAD_TOL = 1e-4
+
+
+def scenario_grid_train():
+    """Dense training on ``data x model`` grids of the launch's processes
+    (``--grid-layouts``, each built by ``launch.mesh.make_grid_context`` over
+    the same processes): for each ``--grid-cells`` cell, the state drawn
+    already cut (``state_shardings``), each data column's rows of one global
+    batch (``--grid-shape``, numpy from seed 0), the gradient and
+    ``--grid-steps`` AdamW steps.  Against the one-process step on the whole
+    batch (``--grid-ref``: every process runs it, or rank 0 and broadcasts
+    it a leaf at a time, or none): the loss (rel 1e-5), every gradient piece
+    (``GRID_GRAD_TOL`` of its leaf's max), each step's loss and
+    grad norm (1e-5, 1e-4)
+    and params (1e-5); the replicated leaves bit-identical within their
+    groups; each group's bytes by kind to the shapes' count
+    (:func:`_grid_hop_bytes`).  With ``--grid-ckpt DIR`` the state saved on
+    the first layout restores onto the second bit for bit, and the
+    launcher's ``--grid`` run resumes from its checkpoint.  Each process
+    records its leaf shapes, losses, norms, walls and peak."""
+    from repro_torch.distributed.sharding import local_rows, mesh_context
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_grid_context, parse_grid
+    from repro_torch.models import registry
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import _state_shapes, make_grad_fn, state_shardings
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    B, S = ARGS.grid_shape
+    opt = AdamWConfig()
+    steps = ARGS.grid_steps
+    layouts = [parse_grid(t) for t in ARGS.grid_layouts.split(",")]
+    ctxs = [make_grid_context(D, M) for D, M in layouts]
+    out = RESULTS.setdefault("grid_train", {})
+    for key, arch, layers, vocab, remat in _grid_cells():
+        cfg = _grid_cfg(arch, layers, vocab, remat)
+        api = registry.build(cfg)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(DEV),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(DEV)}
+        rec = {"config": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                          "remat": cfg.remat},
+               "whole_state_bytes": 4 * 4 * sum(t.numel() for t in
+                                                leaves(_state_shapes(cfg).params)),
+               "layouts": {}}
+        ref = None
+        if ARGS.grid_ref == "all" or (ARGS.grid_ref == "rank0" and INFO.process_id == 0):
+            _reset_peak()
+            whole = TrainState.create(api, 0, device=DEV)
+            (ref_loss, ref_grads), rec["one_process_grad_s"] = _synced(
+                lambda: make_grad_fn(api)(whole.params, batch))
+            one_step, s1, ref = make_train_step(api, opt), whole, {"params": [], "metrics": []}
+            for _ in range(steps):
+                (s1, m), wall = _synced(lambda: one_step(s1, batch))
+                ref["params"].append(s1.params)
+                ref["metrics"].append({k: float(v) for k, v in m.items()})
+                rec.setdefault("one_process_step_s", []).append(wall)
+            ref.update(loss=float(ref_loss), grads=ref_grads)
+            rec["one_process"] = ref["metrics"]
+            rec["one_process_peak"] = _peak()
+            del whole, s1
+        sync_processes()
+        state_a = None
+        for (D, M), ctx in zip(layouts, ctxs):
+            tag = f"{D}x{M}"
+            r = {"coords": [ctx.data.process_index, ctx.mesh.process_index]}
+            held = state_shardings(api, ctx)
+            _reset_peak()
+            with mesh_context(ctx):
+                (state, r["create_s"]) = _synced(
+                    lambda: TrainState.create(api, 0, device=DEV, shardings=held))
+                rows = local_rows(batch, ctx.data)
+                r["shapes"] = {"/".join(map(str, path)): list(t.shape)
+                               for path, t in leaves_with_paths(state.params)}
+                r["state_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state))
+                grad_fn, step = make_grad_fn(api), make_train_step(api, opt)
+                exchange.reset_pod_hop()
+                k0 = fa.LAUNCHES["flash_attention"]
+                (loss, grads), r["grad_s"] = _synced(lambda: grad_fn(state.params, rows))
+                r["grad_launches"] = fa.LAUNCHES["flash_attention"] - k0
+                r["grad_hop"] = {k: dict(v) for k, v in exchange.POD_HOP_GROUPS.items()}
+                r["loss"] = float(loss)
+                s, metrics, walls, hops, launched = state, [], [], [], []
+                for i in range(steps):
+                    exchange.reset_pod_hop()
+                    k0 = fa.LAUNCHES["flash_attention"]
+                    (s, m), wall = _synced(lambda: step(s, rows))
+                    launched.append(fa.LAUNCHES["flash_attention"] - k0)
+                    hops.append({k: dict(v) for k, v in exchange.POD_HOP_GROUPS.items()})
+                    walls.append(wall)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if ref is not None or ARGS.grid_ref == "rank0":
+                        r.setdefault("params_rel", []), r.setdefault("params_abs", [])
+                        rel, ab = _against_whole(s.params, ref["params"][i] if ref else None,
+                                                 held.params, _state_shapes(cfg).params)
+                        r["params_rel"].append(rel), r["params_abs"].append(ab)
+                r.update(step_s=walls, step_hop=hops, launches=launched, metrics=metrics,
+                         peak=_peak())
+                r["hop_want"] = _grid_hop_bytes(api, ctx, rows["tokens"].numel())
+                r["identical"] = _replicated_identical(s.params, ctx, api)
+                if ref is not None or ARGS.grid_ref == "rank0":
+                    r["grad_rel"] = _against_whole(grads, ref["grads"] if ref else None,
+                                                   held.params, _state_shapes(cfg).params)[0]
+            fails = []
+            if hops[0] != r["hop_want"] or r["grad_hop"] != {
+                    k: v for k, v in r["hop_want"].items() if k != "grid"}:
+                fails.append(f"the groups carried {hops[0]} (gradient {r['grad_hop']}), the "
+                             f"shapes' count {r['hop_want']}")
+            if not all(r["identical"].values()):
+                fails.append(f"replicated leaves differ within their group: {r['identical']}")
+            per_pass = cfg.num_layers * (1 if cfg.remat == "none" else 2) if DEV == "cuda" else 0
+            if any(n != per_pass for n in launched + [r["grad_launches"]]):
+                fails.append(f"flash_attention launched {[r['grad_launches']] + launched} a "
+                             f"call, {per_pass} implied")
+            if ARGS.grid_ref == "all" or (ARGS.grid_ref == "rank0" and INFO.process_id == 0):
+                r["loss_rel"] = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+                r["step_loss_rel"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                      for a, b in zip(metrics, ref["metrics"])]
+                r["step_norm_rel"] = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                      for a, b in zip(metrics, ref["metrics"])]
+                if (r["loss_rel"] > 1e-5 or r["grad_rel"] > GRID_GRAD_TOL
+                        or max(r["step_loss_rel"]) > 1e-5 or max(r["step_norm_rel"]) > 1e-4
+                        or max(r["params_abs"]) > 1e-5):
+                    fails.append("against the one-process step: " + json.dumps(
+                        {k: r[k] for k in ("loss_rel", "grad_rel", "step_loss_rel",
+                                           "step_norm_rel", "params_abs")}))
+            elif ARGS.grid_ref == "rank0" and (r["grad_rel"] > GRID_GRAD_TOL
+                                               or max(r["params_abs"]) > 1e-5):
+                fails.append(f"against rank 0's one-process step: gradient {r['grad_rel']}, "
+                             f"params {r['params_abs']}")
+            if not all(math.isfinite(m["loss"]) for m in metrics):
+                fails.append(f"non-finite losses {metrics}")
+            if fails:
+                raise AssertionError(f"grid_train {key} on {tag}, process {INFO.process_id}: "
+                                     + "; ".join(fails))
+            print(f"[grid] {key} {tag} process {INFO.process_id} at {r['coords']}: steps "
+                  + " ".join(f"{w * 1e3:.1f}" for w in walls) + f" ms; loss "
+                  + " ".join(f"{m['loss']:.6f}" for m in metrics) + f"; state {r['state_bytes']} "
+                  f"B of {rec['whole_state_bytes']}; peak {r['peak']}; hop {hops[0]}")
+            if ARGS.grid_ckpt and state_a is None and len(ctxs) > 1:
+                r["elastic"] = _grid_elastic(api, ctx, s, ctxs[1], DEV)
+                if not all(r["elastic"].values()):
+                    raise AssertionError(f"grid_train {key}: the state saved on {tag} restored "
+                                         f"onto {layouts[1]}: {r['elastic']}")
+                state_a = s
+            rec["layouts"][tag] = r
+            del state, s, grads
+        out[key] = rec
+    if ARGS.grid_ckpt:
+        arch = _grid_cells()[0][1]
+        out["launcher"] = _grid_launcher(arch, ARGS.grid_layouts.split(",")[0])
+        if not (out["launcher"]["resumed"] and out["launcher"]["equal"]):
+            raise AssertionError(f"grid_train: the launcher's resumed run {out['launcher']}")
+    print("PASS grid_train")
+
+
 SCENARIOS = {
     name.removeprefix("scenario_"): fn
     for name, fn in list(globals().items())
     if name.startswith("scenario_")
 }
 #: Run only when named: not part of "all".
-ON_REQUEST = ("dp_train", "moe_train", "serve", "tensor_serve")
+ON_REQUEST = ("dp_train", "moe_train", "serve", "tensor_serve", "grid_train")
 
 
 def main(argv: list[str]) -> None:
@@ -2728,7 +3092,24 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--tp-routes", action="store_true",
                     help="tensor_serve: every MoE call's routes against process 0's "
                          "one-process run's (the flipped routes and their router margins)")
+    ap.add_argument("--grid-cells", default="qwen2.5-3b",
+                    help="grid_train: arch[:layers[:vocab[:remat]]] items, comma-separated")
+    ap.add_argument("--grid-layouts", default="2x1",
+                    help="grid_train: DxM grids of the launch's processes, comma-separated")
+    ap.add_argument("--grid-shape", default="8x16", help="grid_train's global batch, BxS")
+    ap.add_argument("--grid-steps", type=int, default=2)
+    ap.add_argument("--grid-full", action="store_true", help="grid_train at full width")
+    ap.add_argument("--grid-dtype", default="float32")
+    ap.add_argument("--grid-ref", choices=("all", "rank0", "none"), default="all",
+                    help="grid_train: the one-process step on every process, on rank 0 "
+                         "(broadcast a leaf at a time), or none")
+    ap.add_argument("--grid-ckpt", default="",
+                    help="grid_train: a directory for the elastic restore and the launcher's "
+                         "resumed run")
     args = ap.parse_args(argv)
+    for k in ("cells", "layouts", "steps", "full", "dtype", "ref", "ckpt"):
+        setattr(ARGS, f"grid_{k}", getattr(args, f"grid_{k}"))
+    ARGS.grid_shape = tuple(int(v) for v in args.grid_shape.split("x"))
     for k in ("cells", "full", "dtype", "param_dtype", "ref", "repeat", "temperature",
               "profile", "capacity_factor", "states", "split", "frames", "routes"):
         setattr(ARGS, f"tp_{k}", getattr(args, f"tp_{k}"))

@@ -242,7 +242,7 @@ def test_all_reduce_bytes_under_a_fake_group_equal_the_pod_hop():
         exchange.reset_pod_hop()
         r = analyze(process_mean, tree, mesh)
         hop = dict(exchange.POD_HOP)
-        kinds = dict(exchange.POD_HOP_KINDS)
+        kinds = exchange.pod_hop_kinds()
     want = 4 * (15 + 7 + 4)  # process_mean sums in f32
     assert r["collective_bytes"] == {"all-reduce": want} == kinds
     assert hop == {"messages": 3, "bytes": want}

@@ -42,7 +42,8 @@ the whole init's slices, the cache holds the process's kv heads (MLA's
 compressed cache whole), the kv heads a process reads (Whisper's cross K/V
 too), ``grow_cache`` growing only along the positions, and the refusals
 (the continuous engine for the encoder-decoder and SSM families, training
-under the tensor table, a mesh inside one process).
+the families other than the dense one under the tensor table, a mesh
+inside one process).
 """
 
 import json
@@ -598,26 +599,49 @@ def test_grow_cache_grows_only_the_positions():
         grow_cache(api, cache, 2, 5)
 
 
-def test_training_refuses_the_tensor_table():
-    """ROADMAP §C.1: the train step under the tensor table would average the
-    processes' different slices and has no backward through the collectives,
-    so both ``make_grad_fn``'s gradient and the training launcher refuse it,
-    naming queue A item 9(d); off the table the same step runs."""
+def test_training_refuses_the_tensor_table(monkeypatch):
+    """Queue A item 9(d)(i): under the tensor table and on a ``data x model``
+    grid the dense family trains (its runs against the reference:
+    ``tests/test_torch_train_grid.py``; here a process's gradient on its
+    pieces, the collectives stood in by its own part, is finite and shaped
+    like its pieces), while the families of item 9(d)(ii), Mamba2, OLMoE,
+    DeepSeek-V2-Lite, Qwen2-VL and Whisper, make ``make_grad_fn``'s gradient
+    and the training launcher raise, naming the item; off the table the same
+    step runs."""
+    from repro_torch.core import exchange
+    from repro_torch.distributed.sharding import default_rules
     from repro_torch.launch import train as train_cli
-    from repro_torch.train.step import make_grad_fn
+    from repro_torch.train.step import TrainState, make_grad_fn, state_shardings
 
+    monkeypatch.setattr(exchange, "_all_reduce", lambda mesh, t, op=None: t.clone())
+    monkeypatch.setattr(exchange, "_all_gather",
+                        lambda mesh, t: torch.stack([t] * mesh.num_processes))
+    monkeypatch.setattr(exchange, "_reduce_scatter",
+                        lambda mesh, t: t.chunk(mesh.num_processes)[mesh.process_index])
     api = registry.build(_smoke("qwen2.5-3b").scaled(num_layers=1))
-    params = api.init(0, device="cpu")
     tokens = torch.zeros((2, 8), dtype=torch.int32)
     batch = {"tokens": tokens, "labels": tokens}
     grad_fn = make_grad_fn(api)
-    loss, _ = grad_fn(params, batch)
+    loss, _ = grad_fn(api.init(0, device="cpu"), batch)
     assert torch.isfinite(loss)
-    with mesh_context(_fake_ctx(2, 0)):
-        with pytest.raises(NotImplementedError, match=r"item 9\(d\)"):
-            grad_fn(params, batch)
-        with pytest.raises(NotImplementedError, match=r"item 9\(d\)"):
-            train_cli.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "1"], device="cpu")
+    grid = MeshContext(Mesh(2, UNITS, 2, 1), rules=default_rules(False),
+                       axis_sizes={"data": 2, "model": 2}, data=Mesh(2, 1, 2, 1))
+    for ctx in (_fake_ctx(2, 0), grid):
+        mine = TrainState.create(api, 0, device="cpu", shardings=state_shardings(api, ctx)).params
+        with mesh_context(ctx):
+            loss, grads = grad_fn(mine, batch)
+        assert torch.isfinite(loss)
+        assert [g.shape for g in leaves(grads)] == [t.shape for t in leaves(mine)]
+    for arch in ("mamba2-1.3b", "olmoe-1b-7b", "deepseek-v2-lite-16b", "qwen2-vl-2b",
+                 "whisper-medium"):
+        other = make_grad_fn(registry.build(get_smoke_config(arch)))
+        for ctx in (_fake_ctx(2, 0), grid):
+            with mesh_context(ctx):
+                with pytest.raises(NotImplementedError, match=r"item 9\(d\)\(ii\)"):
+                    other(None, batch)
+        with mesh_context(_fake_ctx(2, 0)):
+            with pytest.raises(NotImplementedError, match=r"item 9\(d\)\(ii\)"):
+                train_cli.main(["--arch", arch, "--smoke", "--steps", "1"], device="cpu")
 
 
 def test_continuous_engine_and_one_process_meshes_refuse():

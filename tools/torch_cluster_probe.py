@@ -2,7 +2,8 @@
 """The port's process fabric on the card, beyond what ``chip_smoke.py`` runs.
 
     python3 tools/torch_cluster_probe.py gloo-cuda
-    python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b] [--profile]
+    python3 tools/torch_cluster_probe.py train [--arch train100m|olmoe-1b-7b|qwen2.5-3b]
+                                               [--profile]
                                                [--out DIR]
     python3 tools/torch_cluster_probe.py serve [--runs olmoe,mamba2,olmoe_continuous,
                                                        tensor_f32,tensor,tensor_ssm_f32,
@@ -40,6 +41,21 @@ the pod hop's and the dry run's count on ``meta`` of the same config,
 batch and 4 x 2 layout), the trace's overlap fraction, idle share and busy
 share, MFU of the four cards against the bf16 peak, and the peak of live
 bytes beside the allocator's.  The traces go to a temporary directory.
+
+``train --arch qwen2.5-3b`` runs the ``grid_train`` scenario (dense
+training on a ``data x model`` grid under the reference's
+``default_rules(False)``: heads, ``d_ff`` and vocab over each model row,
+every ``fsdp`` dim and the batch over each data column) over 4 NCCL ranks
+as a 2 x 2 grid, a card a rank, in two clusters: first Qwen2.5-3B at full width
+cut to ``GRID_CHECK_LAYERS`` layers in f32 at 8 x 512 tokens, 2 steps held
+to rank 0's one-process step (loss rtol 1e-5, grad norm 1e-4, every
+gradient piece 1e-4 of its leaf's max, params 1e-5), as ``chip_smoke.py``
+phase 9f holds it; then all 36 layers with bf16 compute over f32 params at
+8 x 2,048, 3 steps: losses finite, the replicated leaves bit-identical
+within their groups, every group's bytes by kind equal to the count from
+the shapes.  Each rank's step walls, state bytes (beside the whole f32
+state's: params, gradients, ``m`` and ``v``), peak and bytes by group are
+printed beside the cards' names and power limits.
 
 ``serve`` runs the ``serve`` scenario (the serving engines with their
 batch split over the processes, ``serve/engine.py``) over 4 NCCL ranks of 2
@@ -298,6 +314,67 @@ def _chip_smoke():
     return chip_smoke
 
 
+#: the grid probe's f32 check: rank 0 holds the whole state beside its piece
+GRID_CHECK_LAYERS = 8
+#: the grid probe's data x model layout over its 4 ranks
+GRID = "2x2"
+
+
+def train_grid(out: Path, smi: str) -> int:
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.cluster import run_local_cluster
+    from repro_torch.launch.mesh import parse_grid
+
+    D, M = parse_grid(GRID)
+    procs = D * M
+    build.build_all((fa.LIBRARY,))
+    tag = f"[train-grid nccl:{GRID}]"
+    runs = {"check": ["--grid-cells", f"qwen2.5-3b:{GRID_CHECK_LAYERS}", "--grid-shape", "8x512",
+                      "--grid-ref", "rank0", "--grid-steps", "2"],
+            "deep": ["--grid-cells", "qwen2.5-3b", "--grid-shape", "8x2048", "--grid-ref",
+                     "none", "--grid-steps", "3", "--grid-dtype", "bfloat16"]}
+    for part, extra in runs.items():
+        dump = out / f"grid_{part}_{GRID}"
+        t0 = time.perf_counter()
+        outs = run_local_cluster(
+            [str(DRIVER), "grid_train", "--grid-full", "--grid-layouts", GRID, *extra,
+             "--dump", str(dump)],
+            num_processes=procs, local_units=1, timeout_s=900, echo=False, backend="nccl",
+            device="cuda",
+        )
+        wall = time.perf_counter() - t0
+        for pid, log in enumerate(outs):
+            if "PASS grid_train" not in log:
+                raise AssertionError(f"{tag} {part} rank {pid}: no PASS\n{log[-4000:]}")
+        recs = [json.loads((dump / f"p{p}.json").read_text())["results"]["grid_train"]
+                ["qwen2.5-3b"] for p in range(procs)]
+        c = recs[0]["config"]
+        print(f"{tag} {part}: Qwen2.5-3B full width, {c['layers']} layers, {c['dtype']} over "
+              f"f32 params, remat {c['remat']}, flash; the whole f32 state (params, grads, m, v) "
+              f"{recs[0]['whole_state_bytes']} B ({smi})")
+        if part == "check":
+            r0 = recs[0]["layouts"][GRID]
+            print(f"{tag} check against rank 0's one-process step (steps "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in recs[0]["one_process_step_s"])
+                  + f" ms, peak {recs[0]['one_process_peak']} B): loss rel {r0['loss_rel']:.3g}, "
+                  f"worst gradient piece {r0['grad_rel']:.3g}, steps' grad norm rel "
+                  + ", ".join(f"{v:.3g}" for v in r0["step_norm_rel"]) + ", params within "
+                  + ", ".join(f"{v:.3g}" for v in r0["params_abs"]))
+        for pid, rec in enumerate(recs):
+            r = rec["layouts"][GRID]
+            print(f"{tag} {part} rank {pid} at (data, model) {tuple(r['coords'])}: state "
+                  f"{r['state_bytes']} B; steps " + ", ".join(f"{w * 1e3:.1f}" for w in r["step_s"])
+                  + " ms; losses " + ", ".join(f"{m['loss']:.5f}" for m in r["metrics"])
+                  + f"; peak {r['peak']} B; replicated identical {r['identical']}; bytes a step "
+                  f"{r['step_hop'][0]} (the shapes' count {r['hop_want']}); flash_attention "
+                  f"{r['launches']} a step")
+        print(f"{tag} {part} passed in {wall:.1f} s (launcher wall)")
+    return 0
+
+
 def train(out: Path, arch: str, profile: bool = False) -> int:
     import tempfile
     import time
@@ -308,6 +385,8 @@ def train(out: Path, arch: str, profile: bool = False) -> int:
 
     backend, procs, units = "nccl", 4, 2
     smi = _smi()
+    if arch == "qwen2.5-3b":
+        return train_grid(out, smi)
     traces = tempfile.mkdtemp(prefix="probe_traces_") if profile else None
     if arch == "olmoe-1b-7b":
         return train_moe(out, backend, procs, units, traces, smi)
@@ -765,7 +844,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--morsel-rows", type=int, default=1 << 20)
     ap.add_argument("--out", type=Path, default=ROOT / "artifacts" / "cluster_probe")
-    ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b"), default="train100m")
+    ap.add_argument("--arch", choices=("train100m", "olmoe-1b-7b", "qwen2.5-3b"),
+                    default="train100m")
     ap.add_argument("--runs", default=",".join(SERVE_RUNS),
                     help="serve: which of " + ", ".join(list(SERVE_RUNS) + list(TENSOR_RUNS))
                          + ", comma-separated (default the first three)")
